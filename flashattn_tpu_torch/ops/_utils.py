@@ -1,0 +1,42 @@
+"""Shared helpers for the kernel tier (counterpart of flashattn_tpu/ops/_utils.py)."""
+
+from __future__ import annotations
+
+import torch
+
+# Big-but-finite mask value used by the plain (reference) versions, as in
+# the JAX package: -inf would give NaN in exp(-inf - (-inf)).
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+# The kernels run the online softmax in base 2: log2(e) is folded into the
+# score scale, and lse is converted back to natural log with ln(2).
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when the first tensor lies on a CUDA device: the op then launches
+    its kernel (or raises).  A CPU tensor takes the plain PyTorch version.
+    Mixed devices raise."""
+    devices = {t.device.type for t in tensors if t is not None}
+    if len(devices) > 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(devices)}")
+    return devices == {"cuda"}
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """The CUDA kernels are forward-only: their backward kernels belong to
+    the training slice of the port."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the CUDA kernels are forward-only; backward kernels come with "
+            "the training slice (ROADMAP A2)")

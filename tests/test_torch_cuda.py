@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
+elsewhere.  The shapes are small and ragged on purpose (rows not a multiple
+of the 64-row tile, pages smaller than the 64-key tile, every head dim and
+row-tile size), complementing the serving-shape checks of chip_smoke.py.
+The file imports no jax, so on a machine without it run:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Tolerance: f32 1e-4 abs, bf16 2e-2 abs on unit-variance inputs.
+"""
+
+import pytest
+import torch
+
+from flashattn_tpu_torch.ops import flash_attention as fa
+from flashattn_tpu_torch.ops import layernorm as ln
+from flashattn_tpu_torch.ops import paged_attention as pa
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(g, *shape, dtype, dev):
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1024), (37, 100), (5, 3, 2049)])
+def test_layernorm_kernel(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = _randn(g, *shape, dtype=dtype, dev=dev) * 2 + 0.5
+    gam = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    bet = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    before = ln._kernel.launches
+    y, mean, rstd = ln.layernorm_fwd(x, gam, bet)
+    assert ln._kernel.launches == before + 1
+    assert y.dtype == dtype and mean.shape == (x.numel() // shape[-1], 1)
+    assert _err(y, ln.layernorm_reference(x, gam, bet)) <= TOL[dtype]
+    xf = x.float().reshape(-1, shape[-1])
+    assert _err(mean[:, 0], xf.mean(-1)) <= 1e-4
+    assert _err(rstd[:, 0], torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5)) \
+        <= 1e-3
+
+
+# (b, h, h_kv, n_q, n_kv, d, causal, lengths, window)
+FLASH_CASES = {
+    "ragged_causal_d64": (2, 4, 4, 100, 100, 64, True, None, None),
+    "cross_noncausal_d32": (2, 2, 1, 37, 150, 32, False, None, None),
+    "varlen_gqa_d128": (3, 8, 2, 130, 130, 128, True, [130, 65, 0], None),
+    "varlen_window_d64": (2, 4, 4, 200, 200, 64, True, [200, 77], 33),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel(dev, dtype, case):
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
+    k = _randn(g, b, h_kv, n_kv, d, dtype=dtype, dev=dev)
+    v = _randn(g, b, h_kv, n_kv, d, dtype=dtype, dev=dev)
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    before = fa._kernel.launches
+    o, lse = fa._flash_fwd_entry(q, k, v, causal, None, "auto", window, lens)
+    assert fa._kernel.launches == before + 1
+    o_ref, lse_ref = fa._reference_fwd_with_lse(q, k, v, causal, d ** -0.5,
+                                                lens, window)
+    assert _err(o, o_ref) <= TOL[dtype]
+    fin = lse_ref.isfinite()
+    assert torch.equal(lse.isfinite(), fin)
+    assert _err(lse[fin], lse_ref[fin]) <= TOL[dtype]
+
+
+# (b, hq, hkv, d, chunk, page, pps, window): rows = group*chunk picks the
+# 4-, 16- and 64-row tiles
+PAGED_CASES = {
+    "decode_page4_d32": (3, 4, 4, 32, 1, 4, 9, None),
+    "gqa4_chunk3_page8_d64": (2, 8, 2, 64, 3, 8, 6, None),
+    "chunk40_page16_d128": (2, 2, 2, 128, 40, 16, 5, None),
+    "chunk5_window_page8_d128": (2, 4, 2, 128, 5, 8, 6, 11),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_kernel(dev, dtype, case):
+    b, hq, hkv, d, chunk, page, pps, window = PAGED_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_pages = b * pps + 1
+    kp = _randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+    vp = _randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    shape = (b, chunk, hq, d) if chunk > 1 else (b, hq, d)
+    q = _randn(g, *shape, dtype=dtype, dev=dev)
+    # full table, a mid-page length, and one past the table's capacity
+    # (a chunked-prefill wave's padding): the walk stops at the table
+    lens = torch.tensor([pps * page, chunk + page + 3][:b], device=dev)
+    if b > 2:
+        lens = torch.cat([lens, torch.tensor([pps * page + 5], device=dev)])
+    before = pa._kernel.launches
+    out = pa.paged_attention(q, kp, vp, lens, table, window=window)
+    assert pa._kernel.launches == before + 1
+    ref = pa.paged_attention_reference(q, kp, vp, lens, table, window=window)
+    assert _err(out, ref) <= TOL[dtype]
+
+
+def test_kernels_refuse_grad_and_bad_head_dim(dev):
+    q = torch.randn(1, 2, 8, 128, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q, q, q, True)
+    x = torch.randn(1, 2, 8, 48, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x, True)

@@ -1,0 +1,163 @@
+"""The port's DecoderLM against the JAX DecoderLM on the same weights.
+
+A JAX model is built from a key, its parameters are copied into the port
+through ``convert.load_jax_params``, and both run the dense forward and the
+paged serving methods (prefill -> extend -> decode) on the same tokens.
+Logits and the pools' valid positions must agree in float32 to atol 1e-4.
+Padding positions are not compared: duplicate-index scatter order is
+unspecified in both frameworks.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flashattn_tpu as ft
+import flashattn_tpu_torch as pt
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+# name -> (DecoderLM args, kwargs): head_dim 128 exercises the JAX pipelined
+# paged walk; head_dim 8 with GQA and a sliding window the page-slot grid
+CONFIGS = {
+    "d128": ((64, 256, 2, 256), dict(n_layer=2)),
+    "d8_gqa_window": ((64, 32, 4, 256), dict(n_layer=2, n_kv_head=2,
+                                              window=5)),
+}
+
+
+def _pair(name):
+    args, kw = CONFIGS[name]
+    jm = ft.DecoderLM(*args, p_dropout=0.0, key=jax.random.PRNGKey(0),
+                      **kw).eval()
+    tm = pt.DecoderLM(*args, p_dropout=0.0, **kw).eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    return jm, tm
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def models(request):
+    return _pair(request.param)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+
+
+def test_forward_parity(models):
+    jm, tm = models
+    toks = np.random.default_rng(0).integers(0, 64, (2, 19)).astype(np.int32)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(toks))
+    _close(got, jm(jnp.asarray(toks)))
+
+
+def test_plain_layernorm_forward_parity():
+    """use_fused_layernorm=False: LayerNorm1d (``weights``/``bias``) in every
+    norm slot, weights still transfer by name."""
+    kw = dict(p_dropout=0.0, n_layer=1, use_fused_layernorm=False)
+    jm = ft.DecoderLM(64, 32, 4, 64, key=jax.random.PRNGKey(2), **kw).eval()
+    tm = pt.DecoderLM(64, 32, 4, 64, **kw).eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    toks = np.random.default_rng(3).integers(0, 64, (2, 9)).astype(np.int32)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(toks))
+    _close(got, jm(jnp.asarray(toks)))
+
+
+def test_dropout_modes():
+    """Identity at eval, with p=0 or without a generator; inverted dropout on
+    CPU in training mode."""
+    x = torch.ones(64, 64)
+    drop = pt.Dropout(0.25)
+    g = torch.Generator().manual_seed(0)
+    assert drop.eval()(x, g) is x
+    assert drop.train()(x) is x
+    y = drop(x, g)
+    kept = y != 0
+    assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    assert 0.65 < kept.float().mean() < 0.85
+
+
+def _valid_slots(table, lengths, page):
+    """(page ids, offsets) of every position < length of every row."""
+    pages, offs = [], []
+    for b, n in enumerate(lengths):
+        p = np.arange(n)
+        pages.append(table[b, p // page])
+        offs.append(p % page)
+    return np.concatenate(pages), np.concatenate(offs)
+
+
+def _close_pools(t_pools, j_pools, table, lengths, page):
+    pg, off = _valid_slots(table, lengths, page)
+    for tp, jp in zip(t_pools, j_pools):
+        for name in ("k", "v"):
+            _close(tp[name][:, pg, off], np.asarray(jp[name])[:, pg, off])
+
+
+def test_paged_prefill_extend_decode_parity(models):
+    """Prefill padded prompts, extend by a 3-token chunk, decode one token:
+    logits at live positions and the pools' live entries match."""
+    jm, tm = models
+    page, pps = 8, 4
+    total = 2 * pps + 1                       # + a trash page
+    table = np.asarray([[0, 2, 4, 6], [1, 3, 5, 8]], np.int32)
+    rng = np.random.default_rng(1)
+    lens = np.asarray([13, 6], np.int32)
+    prompt = rng.integers(0, 64, (2, 16)).astype(np.int32)
+    chunk = rng.integers(0, 64, (2, 3)).astype(np.int32)
+    nxt = rng.integers(0, 64, (2, 1)).astype(np.int32)
+
+    j_pools = jm.init_page_pools(total, page)
+    t_pools = tm.init_page_pools(total, page)
+    tt = torch.from_numpy
+    with torch.inference_mode():
+        j_lg, j_pools = jm.forward_prefill_paged(
+            jnp.asarray(prompt), j_pools, jnp.asarray(table), jnp.asarray(lens))
+        t_lg, t_pools = tm.forward_prefill_paged(
+            tt(prompt), t_pools, tt(table), tt(lens))
+        for b, n in enumerate(lens):
+            _close(t_lg[b, :n], j_lg[b, :n])
+        _close_pools(t_pools, j_pools, table, lens, page)
+
+        j_lg, j_pools = jm.forward_extend_paged(
+            jnp.asarray(chunk), j_pools, jnp.asarray(table), jnp.asarray(lens))
+        t_lg, t_pools = tm.forward_extend_paged(
+            tt(chunk), t_pools, tt(table), tt(lens))
+        _close(t_lg, j_lg)
+        lens = lens + 3
+        _close_pools(t_pools, j_pools, table, lens, page)
+
+        j_lg, j_pools = jm.forward_decode_paged(
+            jnp.asarray(nxt), j_pools, jnp.asarray(table), jnp.asarray(lens))
+        t_lg, t_pools = tm.forward_decode_paged(
+            tt(nxt), t_pools, tt(table), tt(lens))
+        _close(t_lg, j_lg)
+        _close_pools(t_pools, j_pools, table, lens + 1, page)
+
+
+def test_load_jax_params_checks_names_and_shapes():
+    jm, tm = _pair("d8_gqa_window")
+    params = {n: np.asarray(a) for n, a in jm.named_parameters()}
+    bad = dict(params)
+    bad.pop("ln.gamma")
+    with pytest.raises(KeyError):
+        pt.load_jax_params(tm, bad)
+    with pytest.raises(KeyError):
+        pt.load_jax_params(tm, {**params, "ln.extra": params["ln.beta"]})
+    with pytest.raises(ValueError):
+        pt.load_jax_params(tm, {**params, "ln.gamma": np.zeros(3, np.float32)})
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        pt.DecoderLM(64, 32, 4, 64, attn_impl="fused_softmax")
+    with pytest.raises(NotImplementedError):
+        pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope")
+    with pytest.raises(NotImplementedError):
+        pt.DecoderLM(64, 32, 4, 64).init_page_pools(3, 4, torch.int8)
