@@ -8,10 +8,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. device: requires CUDA (there is no CPU path); TF32 off; prints the card's
    name and power limit as nvidia-smi reports them.
 2. build: compiles ``flashattn_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
-3. kernels: every kernel of the serving path against its plain PyTorch
-   version at the serving shapes, bf16 and f32 (tolerance: f32 1e-4 abs,
-   bf16 2e-2 abs on unit-variance inputs, compared in f32), with kernel and
-   plain times (CUDA events, median of 15 runs).
+3. kernels: every kernel of the serving and training paths against its
+   plain PyTorch version, bf16 and f32, at the paths' shapes (serving:
+   B4 H8 N2048 prefill, LN 8192 x 1024, paged decode; training: LN
+   16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
+   B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
+   16384 x 2048 at p 0.1) plus ragged variants.  Tolerance: f32 1e-4,
+   bf16 2e-2, abs on unit-variance inputs for outputs and scaled by
+   max(1, max |ref|) for gradients, which are sums over rows (bf16 rounds
+   each output once, at 2^-8 of its magnitude); dropout bit-exact (the
+   kernel and its plain version compute the same Philox bits).  Each line
+   gives the kernel's and the plain version's time (CUDA events, median of
+   15), the library call's time where PyTorch has one (a yardstick only,
+   never called by the port) and the bound: the larger of the bytes the
+   function must move over 3.35 TB/s and its useful operations over the
+   peak for the type (989 TF bf16 tensor, 67 TF f32).
 4. serve: the north-star serving model (E1024, 8 heads of 128, 4 layers,
    vocab 1000, middle 256) in bf16 with seeded random weights, driven
    through ContinuousBatchingEngine.submit()/step(): five greedy requests,
@@ -21,6 +32,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. consistency: the same model in f32; engine logits along two ~600-token
    trajectories (one batched, one chunked prefill) against one dense
    DecoderLM.forward, to 1e-3 abs.
+6. train: the training configuration of kernel_bench/bench_train_mfu.py
+   (E2048, M8192, 4 layers, 16 heads of 128, vocab 16384, batch 8 x 2048)
+   with p_dropout 0.1, bf16 compute over f32 masters, through
+   make_train_step(Adam(1e-4), make_mixed_precision_loss(lm_loss),
+   grad_clip=1.0): 2 warm-up and 5 timed steps on one batch.  Every loss
+   finite, the last below the first, and each training kernel launched in
+   every step (counts zeroed before each step).
+7. train consistency: E1024 H8 M4096 L2 V16384, B2 x 1024, f32: one
+   lm_loss backward on the card against the same on a CPU copy (the plain
+   versions), with p 0 and with p 0.1 from the same generator seed (the
+   same Philox masks): loss to 1e-5 relative, each gradient to 1e-4 in
+   relative L2 norm — the token embedding's too, whose backward
+   (index_put_ with accumulate) sums in no fixed order on the card — except
+   the key-projection bias, whose exact gradient is 0 (softmax ignores a
+   shift shared by every key): there both devices' rounding noise must stay
+   under 1e-4 of the global gradient norm.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -31,6 +58,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +68,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HBM_BYTES_S = 3.35e12                                  # H100 SXM
+PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FP32
 # the north-star serving model (kernel_bench/bench_serving.py:112-115)
 MODEL = dict(n_vocab=1000, n_embd=1024, n_head=8, n_positions=4096,
              n_layer=4, p_dropout=0.0, attn_impl="flash")
@@ -47,6 +77,16 @@ ENGINE = dict(max_batch=4, page_size=128, pages_per_seq=32,
               prefill_chunk=2048, steps_per_dispatch=8)
 PROMPTS = (2048, 1536, 1024, 517, 3000)
 NEW_TOKENS = 32
+# the training configuration of kernel_bench/bench_train_mfu.py:59, with
+# DecoderLM's default dropout so that the dropout kernel is on the path
+TRAIN = dict(n_vocab=16384, n_embd=2048, n_head=16, n_positions=2048,
+             n_layer=4, middle_dim=8192, p_dropout=0.1, attn_impl="flash")
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+CONSIST = dict(n_vocab=16384, n_embd=1024, n_head=8, n_positions=1024,
+               n_layer=2, middle_dim=4096, attn_impl="flash")
+TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
+                 "dropout")
 
 
 def log(msg: str) -> None:
@@ -72,6 +112,14 @@ def time_ms(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def bound_ms(bytes_: float, flops: float, dtype: str):
+    """(least time in ms, what bounds it) for moving ``bytes_`` and doing
+    ``flops`` useful operations of ``dtype`` on the H100 SXM."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 class Phases:
     """Kernel-vs-plain checks: one printed line per phase, and the main-shape
     numbers per kernel for the ``kernels`` line."""
@@ -80,66 +128,175 @@ class Phases:
         self.main = {}
 
     def check(self, kernel: str, label: str, dtype, run_kernel, run_plain,
-              main: bool = False, compare=None):
+              cost, main: bool = False, compare=None, library=None):
+        """``cost`` = (bytes, useful flops); ``compare`` returns (abs err,
+        gated err); ``library`` is the PyTorch yardstick call, or None."""
         import torch
 
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
-        err = (compare or _max_err)(got, want)
+        err, gated = (compare or _max_err)(got, want)
+        del got, want
         ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
+        lib_ms = None if library is None else time_ms(library)
         name = str(dtype).replace("torch.", "")
-        ok = err <= TOL[name]
-        log(f"[kernel] {kernel:14s} {label:34s} {name:8s} max_abs_err={err:.3e}"
-            f" ms={ms:.4f} plain_ms={plain_ms:.4f} {'ok' if ok else 'FAIL'}")
+        b_ms, b_by = bound_ms(*cost, name)
+        ok = gated <= TOL[name]
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
+            f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{kernel} {label} {name}: max |err| {err} "
+            raise AssertionError(f"{kernel} {label} {name}: error {gated} "
                                  f"over tolerance {TOL[name]}")
         if main:
-            self.main[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            self.main[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=lib_ms)
 
 
-def _max_err(got, want) -> float:
+def _abs_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def _lse_err(got, want) -> float:
+def _max_err(got, want):
+    err = _abs_err(got, want)
+    return err, err
+
+
+def _lse_err(got, want):
     """max |err| over (o, lse); -inf lse entries must coincide."""
     (o, lse), (o_ref, lse_ref) = got, want
     fin = lse_ref.isfinite()
     if not bool((lse.isfinite() == fin).all()):
-        return math.inf
-    return max(_max_err(o, o_ref), _max_err(lse[fin], lse_ref[fin]))
+        return math.inf, math.inf
+    err = max(_abs_err(o, o_ref), _abs_err(lse[fin], lse_ref[fin]))
+    return err, err
 
 
-def kernel_phases(torch, dev) -> Phases:
+def _grad_err(got, want):
+    """Over a tuple of gradients: (max abs err, max of abs err over
+    max(1, max |ref|)) — gradients are sums over rows."""
+    errs = [(_abs_err(g, w), max(1.0, float(w.float().abs().max())))
+            for g, w in zip(got, want)]
+    return max(e for e, _ in errs), max(e / s for e, s in errs)
+
+
+def _scaled_err(got, want):
+    """One tensor gated like a gradient: over 33.5 M LayerNorm outputs the
+    largest |y| reaches [8, 16), where one bf16 ulp is 0.0625."""
+    return _grad_err((got,), (want,))
+
+
+def _bit_err(got, want):
+    """0 when bit-identical, else the max abs difference (gated as inf)."""
+    import torch
+
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    if torch.equal(got.view(bits), want.view(bits)):
+        return 0.0, 0.0
+    return _abs_err(got, want), math.inf
+
+
+def _live_pairs(n_q, n_kv, causal, window, lens, b):
+    """(row, key) pairs that the attention mask leaves live, per head."""
+    import numpy as np
+
+    rows = np.arange(n_q)
+    total = 0
+    for bi in range(b):
+        kv = n_kv if lens is None else min(n_kv, max(int(lens[bi]), 0))
+        hi = np.minimum(kv, rows + 1) if causal else np.full(n_q, kv)
+        lo = np.maximum(0, rows - window + 1) if window else 0
+        total += int(np.maximum(hi - lo, 0).sum())
+    return total
+
+
+def _flash_cost(q, k, causal, window, lens, backward=False):
+    """(bytes, useful flops): fwd reads q, k, v and writes o, lse (2 dots);
+    bwd reads q, k, v, do, lse, di and writes dq, dk, dv (5 dots)."""
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    isz = q.element_size()
+    pairs = h * _live_pairs(n_q, n_kv, causal, window,
+                            None if lens is None else lens.tolist(), b)
+    q_elems, kv_elems = b * h * n_q * d, b * h_kv * n_kv * d
+    if backward:
+        return (3 * q_elems + 4 * kv_elems) * isz + 8 * b * h * n_q, \
+            10 * d * pairs
+    return (2 * q_elems + 2 * kv_elems) * isz + 4 * b * h * n_q, 4 * d * pairs
+
+
+def _sdpa(torch, q, k, v, causal, window, lens):
+    """The library yardstick for flash: (fn, args) with fn(*args) the
+    F.scaled_dot_product_attention call of the same function (GQA heads
+    repeated; masks other than plain causal as a boolean mask)."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    k, v = fa.repeat_kv(k, v, q.shape[1])
+    mask = None
+    if window is not None or lens is not None:
+        mask = fa._keep_mask(q.shape[2], k.shape[2], causal, window, lens,
+                             q.device)
+
+    def fn(q_, k_, v_):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=mask, is_causal=causal and mask is None)
+
+    return fn, (q, k, v)
+
+
+def _sdpa_bwd(torch, q, k, v, do, causal, window, lens):
+    """Yardstick for flash_bwd: the backward alone of the SDPA call."""
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    fwd, args = _sdpa(torch, qg, kg, vg, causal, window, lens)
+    out = fwd(*args)
+    return lambda: torch.autograd.grad(out, args, do, retain_graph=True)
+
+
+def _ln_bwd_library(torch, x, dy, gam, bet):
+    xg, gg, bg = (t.detach().requires_grad_() for t in (x, gam, bet))
+    y = torch.nn.functional.layer_norm(xg, (x.shape[-1],), gg, bg)
+    return lambda: torch.autograd.grad(y, (xg, gg, bg), dy, retain_graph=True)
+
+
+def _ln_cost(n, h, isz, backward=False):
+    if backward:   # read x, dy, gamma, mean, rstd; write dx, dgamma, dbeta
+        return 3 * n * h * isz + 3 * h * isz + 8 * n, 0
+    return 2 * n * h * isz + 2 * h * isz + 8 * n, 0
+
+
+def serving_kernel_phases(torch, dev, ph: Phases, randn):
     from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.ops import layernorm as ln
     from flashattn_tpu_torch.ops import paged_attention as pa
 
-    ph = Phases()
-    g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
-
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
+        isz = torch.tensor([], dtype=dtype).element_size()
         # fused LayerNorm at the serving rows x width
         x = randn(8192, 1024, dtype=dtype)
         gam, bet = randn(1024, dtype=dtype), randn(1024, dtype=dtype)
         ph.check("layernorm_fwd", "rows 8192 h 1024", dtype,
                  lambda: ln.layernorm_fwd(x, gam, bet)[0],
-                 lambda: ln.layernorm_reference(x, gam, bet), main=main)
+                 lambda: ln.layernorm_reference(x, gam, bet),
+                 _ln_cost(8192, 1024, isz), main=main,
+                 library=lambda: torch.nn.functional.layer_norm(
+                     x, (1024,), gam, bet))
 
         # flash: batched varlen prefill B4 H8 N2048 D128
         lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
         q, k, v = (randn(4, 8, 2048, 128, dtype=dtype) for _ in range(3))
         scale = 128 ** -0.5
+        lib, args = _sdpa(torch, q, k, v, True, None, lens)
         ph.check("flash_fwd", "B4 H8 N2048 D128 causal varlen", dtype,
                  lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=scale,
                                       kv_lengths=lens),
                  lambda: fa._reference_fwd_with_lse(q, k, v, True, scale, lens),
-                 main=main, compare=_lse_err)
+                 _flash_cost(q, k, True, None, lens), main=main,
+                 compare=_lse_err, library=lambda: lib(*args))
 
         # paged decode: B4, 8 kv heads, d128, page 128, histories <= 2048
         n_pages, pps = 4 * 16 + 1, 16
@@ -150,7 +307,7 @@ def kernel_phases(torch, dev) -> Phases:
         ph.check("paged_attention", "decode B4 Hkv8 d128 page128", dtype,
                  lambda: pa.paged_attention(qd, kp, vp, lens, table),
                  lambda: pa.paged_attention_reference(qd, kp, vp, lens, table),
-                 main=main)
+                 _paged_cost(qd, 1, 8, 8, lens), main=main)
 
     bf = torch.bfloat16
     # flash variants at the prefill shape
@@ -168,11 +325,13 @@ def kernel_phases(torch, dev) -> Phases:
     ]
     for label, (a, b_, c), kw in variants:
         sc = a.shape[-1] ** -0.5
+        win, ln_ = kw.get("window"), kw.get("kv_lengths")
+        lib, args = _sdpa(torch, a, b_, c, True, win, ln_)
         ph.check("flash_fwd", label, bf,
                  lambda: fa.flash_fwd(a, b_, c, causal=True, sm_scale=sc, **kw),
-                 lambda: fa._reference_fwd_with_lse(
-                     a, b_, c, True, sc, kw.get("kv_lengths"), kw.get("window")),
-                 compare=_lse_err)
+                 lambda: fa._reference_fwd_with_lse(a, b_, c, True, sc, ln_, win),
+                 _flash_cost(a, b_, True, win, ln_), compare=_lse_err,
+                 library=lambda: lib(*args))
 
     # paged: chunk 64, GQA group 4, and the 2048-token chunked-prefill wave
     n_pages, pps = 4 * 16 + 1, 16
@@ -181,23 +340,146 @@ def kernel_phases(torch, dev) -> Phases:
     table = table.reshape(4, pps).int()
     # (lengths count the chunk, so a 2048-token wave from base 0 has 2048)
     wave = torch.full((4,), 2048, device=dev)
-    for label, q_, ln_ in [
-            ("chunk 64", randn(4, 64, 8, 128, dtype=bf), lens),
-            ("decode GQA group 4", randn(4, 32, 128, dtype=bf), lens),
-            ("extend wave chunk 2048", randn(4, 2048, 8, 128, dtype=bf), wave)]:
+    for label, q_, ln_, chunk, hq in [
+            ("chunk 64", randn(4, 64, 8, 128, dtype=bf), lens, 64, 8),
+            ("decode GQA group 4", randn(4, 32, 128, dtype=bf), lens, 1, 32),
+            ("extend wave chunk 2048", randn(4, 2048, 8, 128, dtype=bf), wave,
+             2048, 8)]:
         ph.check("paged_attention", label, bf,
                  lambda: pa.paged_attention(q_, kp, vp, ln_, table),
-                 lambda: pa.paged_attention_reference(q_, kp, vp, ln_, table))
+                 lambda: pa.paged_attention_reference(q_, kp, vp, ln_, table),
+                 _paged_cost(q_, chunk, hq, 8, ln_))
+
+
+def _paged_cost(q, chunk, hq, h_kv, lens):
+    """(bytes, flops) of paged attention: q and out, the K/V of every live
+    token once; row j of a chunk sees length - chunk + j + 1 keys."""
+    isz, d = q.element_size(), q.shape[-1]
+    lens = [int(n) for n in lens.tolist()]
+    pairs = sum(chunk * n - chunk * (chunk - 1) // 2 for n in lens) * hq
+    return 2 * q.numel() * isz + 2 * sum(lens) * h_kv * d * isz, 4 * d * pairs
+
+
+def training_kernel_phases(torch, dev, ph: Phases, randn):
+    from flashattn_tpu_torch.ops import dropout as dr
+    from flashattn_tpu_torch.ops import flash_attention as fa
+    from flashattn_tpu_torch.ops import layernorm as ln
+
+    n, h = TRAIN_BATCH * TRAIN_SEQ, TRAIN["n_embd"]
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        isz = torch.tensor([], dtype=dtype).element_size()
+        x = randn(n, h, dtype=dtype) * 2 + 0.5
+        dy = randn(n, h, dtype=dtype)
+        gam, bet = randn(h, dtype=dtype), randn(h, dtype=dtype)
+        ph.check("layernorm_fwd", f"train rows {n} h {h}", dtype,
+                 lambda: ln.layernorm_fwd(x, gam, bet)[0],
+                 lambda: ln.layernorm_reference(x, gam, bet),
+                 _ln_cost(n, h, isz), compare=_scaled_err,
+                 library=lambda: torch.nn.functional.layer_norm(
+                     x, (h,), gam, bet))
+        _, mean, rstd = ln.layernorm_fwd(x, gam, bet)
+        ph.check("layernorm_bwd", f"train rows {n} h {h}", dtype,
+                 lambda: ln.layernorm_bwd(x, dy, mean, rstd, gam),
+                 lambda: ln.layernorm_bwd_reference(x, dy, mean, rstd, gam),
+                 _ln_cost(n, h, isz, backward=True), main=main,
+                 compare=_grad_err,
+                 library=_ln_bwd_library(torch, x, dy, gam, bet))
+        del x, dy, mean, rstd
+
+        xd = randn(n, h, dtype=dtype)
+        seed = 0x9E3779B97F4A7C15
+        ph.check("dropout", f"train {n} x {h} p 0.1", dtype,
+                 lambda: dr.dropout(xd, 0.1, seed, 1 / 0.9),
+                 lambda: dr.dropout_reference(xd, 0.1, seed, 1 / 0.9),
+                 (2 * xd.numel() * isz, 0), main=main, compare=_bit_err,
+                 library=lambda: torch.nn.functional.dropout(xd, 0.1, True))
+        keep = float((dr.dropout(xd, 0.1, seed, 1 / 0.9) != 0).float().mean())
+        log(f"[kernel] dropout keep fraction {keep:.5f} (want 0.9 +- 0.005)")
+        if abs(keep - 0.9) > 0.005:
+            raise AssertionError(f"dropout keeps {keep}, not 0.9")
+        del xd
+
+        # flash at the training head shape, B4 (see the module docstring)
+        q, k, v, do = (randn(4, 16, 2048, 128, dtype=dtype) for _ in range(4))
+        _flash_bwd_check(torch, ph, fa, "B4 H16 N2048 D128 dense causal",
+                         dtype, q, k, v, do, True, None, None, main=main)
+        lib, args = _sdpa(torch, q, k, v, True, None, None)
+        ph.check("flash_fwd", "train B4 H16 N2048 D128 causal", dtype,
+                 lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
+                 lambda: fa._reference_fwd_with_lse(q, k, v, True, 128**-0.5),
+                 _flash_cost(q, k, True, None, None), compare=_lse_err,
+                 library=lambda: lib(*args))
+        del q, k, v, do, lib, args
+
+    bf = torch.bfloat16
+    lens0 = torch.tensor([2048, 0, 1024, 517], device=dev)
+    for label, shapes, causal, window, lens in [
+            ("GQA 16q/4kv causal", ((4, 16, 2048, 128), (4, 4, 2048, 128)),
+             True, None, None),
+            ("window 256", ((4, 16, 2048, 128),) * 2, True, 256, None),
+            ("varlen with a len-0 row", ((4, 16, 2048, 128),) * 2, True, None,
+             lens0),
+            ("D32 causal", ((4, 16, 2048, 32),) * 2, True, None, None),
+            ("D64 causal", ((4, 16, 2048, 64),) * 2, True, None, None),
+            ("cross non-causal n_q 1000 n_kv 2048",
+             ((4, 16, 1000, 128), (4, 16, 2048, 128)), False, None, None)]:
+        q, do = (randn(*shapes[0], dtype=bf) for _ in range(2))
+        k, v = (randn(*shapes[1], dtype=bf) for _ in range(2))
+        _flash_bwd_check(torch, ph, fa, label, bf, q, k, v, do, causal,
+                         window, lens)
+
+    # two-level panel schedule's function (TPU row 7): the forward at 16K
+    q, k, v = (randn(1, 2, 16384, 128, dtype=bf) for _ in range(3))
+    lib, args = _sdpa(torch, q, k, v, True, None, None)
+    ph.check("flash_fwd", "B1 H2 N16384 D128 causal", bf,
+             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
+             lambda: fa._reference_fwd_with_lse(q, k, v, True, 128**-0.5),
+             _flash_cost(q, k, True, None, None), compare=_lse_err,
+             library=lambda: lib(*args))
+
+
+def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
+                     lens, main=False):
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc,
+                          kv_lengths=lens, window=window)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    ph.check("flash_bwd", label, dtype,
+             lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
+                                  sm_scale=sc, kv_lengths=lens, window=window),
+             lambda: fa._reference_bwd(q, k, v, lse, di, do, causal, sc, lens,
+                                       window),
+             _flash_cost(q, k, causal, window, lens, backward=True),
+             main=main, compare=_grad_err,
+             library=_sdpa_bwd(torch, q, k, v, do, causal, window, lens))
+
+
+def kernel_phases(torch, dev) -> Phases:
+    ph = Phases()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    serving_kernel_phases(torch, dev, ph, randn)
+    training_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
     return ph
 
 
 def kernel_counters():
+    from flashattn_tpu_torch.ops import dropout as dr
     from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.ops import layernorm as ln
     from flashattn_tpu_torch.ops import paged_attention as pa
 
-    return {"layernorm_fwd": ln._kernel, "flash_fwd": fa._kernel,
-            "paged_attention": pa._kernel}
+    return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
+            "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel,
+            "paged_attention": pa._kernel, "dropout": dr._kernel}
+
+
+SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention")
 
 
 def serve_phase(torch, model, dev) -> dict:
@@ -218,7 +500,8 @@ def serve_phase(torch, model, dev) -> dict:
 
     eng = ContinuousBatchingEngine(model, dtype=torch.bfloat16, **ENGINE)
     reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
-    counters = kernel_counters()
+    counters = {n: k for n, k in kernel_counters().items()
+                if n in SERVE_KERNELS}
     for kern in counters.values():
         kern.launches = 0
     prompt_tok = decode_tok = 0
@@ -293,15 +576,202 @@ def consistency_phase(torch, model, dev) -> float:
     return err
 
 
+def train_flops(cfg, batch, seq) -> float:
+    """Model FLOP per train step, the formula of
+    kernel_bench/bench_train_mfu.py:70-73: 6 x matmul weights x tokens, plus
+    the causal attention's 7 score-shaped products."""
+    e, m, l, h, v = (cfg[k] for k in ("n_embd", "middle_dim", "n_layer",
+                                       "n_head", "n_vocab"))
+    w = l * (4 * e * e + 2 * e * m) + e * v
+    return 6 * w * batch * seq + l * batch * h * (seq * seq / 2) * (e // h) * 2 * 7
+
+
+def train_phase(torch, dev, power: str) -> dict:
+    """The training step at full width: losses finite and falling, every
+    training kernel launched in every step."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+
+    model = pt.DecoderLM(**TRAIN, generator=torch.Generator().manual_seed(SEED),
+                         device=dev).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.Adam(lr=1e-4)
+    state = opt.init(model)
+    step = pt.make_train_step(opt, pt.make_mixed_precision_loss(pt.lm_loss),
+                              grad_clip=1.0)
+    tok = np.random.default_rng(SEED).integers(
+        0, TRAIN["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
+    tokens = torch.from_numpy(tok).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    counters = {n: k for n, k in kernel_counters().items() if n in TRAIN_KERNELS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        for kern in counters.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, tokens, targets, mask, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append({n: k.launches for n, k in counters.items()})
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[WARMUP_STEPS:]) * 1e3
+    flops = train_flops(TRAIN, TRAIN_BATCH, TRAIN_SEQ)
+    tflops = flops / (ms * 1e-3) / 1e12
+    launches = {n: sum(s[n] for s in per_step) for n in counters}
+    log(f"[train] {power} bf16-mixed E2048 M8192 L4 H16x128 V16384 B8 S2048 "
+        f"p0.1, {n_params / 1e6:.1f} M params: losses "
+        f"{[round(x, 4) for x in losses]}")
+    log(f"[train] step ms {[round(t * 1e3, 1) for t in times]}; median of "
+        f"{TIMED_STEPS} timed: {ms:.1f} ms, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3):.1f} tokens/s, "
+        f"{flops / 1e12:.2f} model TFLOP/step -> {tflops:.2f} TFLOP/s "
+        f"({100 * tflops * 1e12 / PEAK_FLOP_S['bfloat16']:.2f}% of 989 TF); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"[train] launches in each of the {len(per_step)} steps: "
+        + ("same in every step: " + str(per_step[0])
+           if all(c == per_step[0] for c in per_step) else str(per_step)))
+    profile_step(torch, lambda: step(model, state, tokens, targets, mask, gen))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    for i, counts in enumerate(per_step):
+        for name, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{name} not launched in train step {i}")
+    return dict(ms=ms, launches=launches)
+
+
+def profile_step(torch, run) -> None:
+    """One more train step under torch.profiler: the device busy share (the
+    union of kernel intervals over the step's wall time) and the device time
+    by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    ours = [kv for kv in by_name.items() if re.search(
+        r"\(anonymous namespace\)::(flash_|layernorm_|dropout_kernel|paged_kernel)",
+        kv[0])]
+    rest = sorted((kv for kv in by_name.items() if kv not in ours),
+                  key=lambda kv: -kv[1][1])
+    groups = {"matmul (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma"),
+              "elementwise": ("elementwise",), "reduce": ("reduce",)}
+    sums = {g: 0.0 for g in (*groups, "other PyTorch")}
+    for name, (_, t) in rest:
+        hit = [g for g, keys in groups.items() if any(k in name for k in keys)]
+        sums[hit[0] if hit else "other PyTorch"] += t
+    log(f"[profile] train step wall {wall_ms:.1f} ms (under the profiler), "
+        f"device busy {busy / 1e3:.1f} ms = "
+        f"{100 * busy / 1e3 / wall_ms:.1f}% of wall; {len(spans)} device "
+        f"events")
+    for name, (n, t) in sorted(ours, key=lambda kv: -kv[1][1]) + rest[:6]:
+        short = name.split("(anonymous namespace)::")[-1]
+        log(f"[profile]   {t / 1e3:9.3f} ms  {100 * t / max(busy, 1e-9):5.1f}%"
+            f"  x{n:<5d} {short[:100]}")
+    log("[profile] by group: " + ", ".join(
+        f"{g} {t / 1e3:.1f} ms" for g, t in sums.items()))
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / max(b.double().norm(), 1e-30))
+
+
+def train_consistency_phase(torch, dev) -> None:
+    """One lm_loss backward on the card vs a CPU copy (the plain versions);
+    f32 with TF32 off."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+
+    tok = np.random.default_rng(SEED + 2).integers(0, CONSIST["n_vocab"],
+                                                   (2, 1024))
+    for p in (0.0, 0.1):
+        card = pt.DecoderLM(**CONSIST, p_dropout=p, device=dev,
+                            generator=torch.Generator().manual_seed(SEED)).train()
+        host = copy.deepcopy(card).to("cpu")
+        out = []
+        for m in (card, host):
+            d = next(m.parameters()).device
+            tokens = torch.from_numpy(tok).to(d)
+            gen = torch.Generator().manual_seed(SEED + 3) if p else None
+            loss = pt.lm_loss(m, tokens, torch.roll(tokens, -1, dims=1),
+                              None, gen)
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            out.append((loss.detach().cpu(), {n: g.cpu() for n, g in
+                                              zip(names, grads)}))
+        (l_card, g_card), (l_host, g_host) = out
+        loss_err = abs(float(l_card) - float(l_host)) / abs(float(l_host))
+        # the key-projection bias has an exactly zero gradient (softmax is
+        # blind to a shift shared by every key): both devices return
+        # rounding noise there, held to 1e-4 of the global norm instead
+        zero = [n for n in g_host if n.endswith("k_projection.bias")]
+        total = math.sqrt(sum(float(g.double().square().sum())
+                              for g in g_host.values()))
+        noise = max(float(g[n].norm()) for g in (g_card, g_host) for n in zero)
+        grad_err = {n: _rel(g_card[n], g_host[n]) for n in g_host
+                    if n not in zero}
+        worst = max(grad_err, key=grad_err.get)
+        log(f"[train-consistency] f32 E1024 L2 B2 S1024 p{p}: loss card "
+            f"{float(l_card):.6f} cpu {float(l_host):.6f} (rel {loss_err:.2e}); "
+            f"max grad rel-norm err {grad_err[worst]:.2e} ({worst}); "
+            f"token_embeddings {grad_err['token_embeddings.weights']:.2e}; "
+            f"k-bias noise {noise:.2e} of global norm {total:.3e}")
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"card loss differs from CPU by {loss_err}")
+        if not grad_err[worst] <= 1e-4:
+            raise AssertionError(f"{worst} gradient differs by {grad_err[worst]}")
+        if not noise <= 1e-4 * total:
+            raise AssertionError(f"key-bias gradient {noise} is not ~0")
+        del card, host, out
+
+
 SOURCES = {
     "layernorm_fwd": ("flashattn_tpu_torch/csrc/layernorm.cu",
                       ["flashattn_tpu/ops/layernorm.py:47"]),
+    "layernorm_bwd": ("flashattn_tpu_torch/csrc/layernorm.cu",
+                      ["flashattn_tpu/ops/layernorm.py:96"]),
     "flash_fwd": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
                   ["flashattn_tpu/ops/flash_attention.py:627",
-                   "flashattn_tpu/ops/flash_attention.py:79"]),
+                   "flashattn_tpu/ops/flash_attention.py:79",
+                   "flashattn_tpu/ops/flash_attention.py:551",
+                   "flashattn_tpu/ops/flash_attention.py:327",
+                   "flashattn_tpu/ops/flash_attention.py:753"]),
+    "flash_bwd": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+                  ["flashattn_tpu/ops/flash_attention.py:874",
+                   "flashattn_tpu/ops/flash_attention.py:999",
+                   "flashattn_tpu/ops/flash_attention.py:1086",
+                   "flashattn_tpu/ops/flash_attention.py:1320",
+                   "flashattn_tpu/ops/flash_attention.py:1416"]),
     "paged_attention": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:119",
                          "flashattn_tpu/ops/paged_attention.py:34"]),
+    "dropout": ("flashattn_tpu_torch/csrc/dropout.cu",
+                ["flashattn_tpu/ops/dropout.py:77"]),
 }
 
 
@@ -326,7 +796,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(f"[device] {smi.stdout.strip().splitlines()[0]}")
+    power = smi.stdout.strip().splitlines()[0]
+    log(f"[device] {power}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -337,6 +808,7 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log(f"[build] {lib.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
+    t_start = time.perf_counter()
 
     phases = kernel_phases(torch, dev)
 
@@ -344,13 +816,21 @@ def main() -> int:
                       device=dev).eval()
     serve = serve_phase(torch, copy.deepcopy(model).to(torch.bfloat16), dev)
     consistency_phase(torch, model, dev)
+    del model
+    torch.cuda.empty_cache()
+    train = train_phase(torch, dev, power)
+    torch.cuda.empty_cache()
+    train_consistency_phase(torch, dev)
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():
+        launches = (train["launches"].get(name, 0)
+                    + serve["launches"].get(name, 0))
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=tpu[0], counterparts=tpu,
-                            launches=serve["launches"][name],
-                            **phases.main[name]))
+                            launches=launches, **phases.main[name]))
+    log(f"[done] phases after the build took "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,24 @@
 """flashattn_tpu_torch: the PyTorch/CUDA port of :mod:`flashattn_tpu` for
 NVIDIA Hopper (H100).
 
-The layout follows the JAX package, module for module.  This slice ports the
-serving path: the paged continuous-batching engine
-(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods, and the
-three kernels that path runs, each a hand-written CUDA C++ kernel for
-``sm_90a`` under ``csrc/`` with a plain PyTorch version beside it:
+The layout follows the JAX package, module for module.  Two paths are
+ported: serving, the paged continuous-batching engine
+(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods; and
+training, :func:`make_train_step` over :func:`lm_loss` (optionally in bf16
+over f32 masters, :func:`make_mixed_precision_loss`) with the optimizers of
+:mod:`.optim`.  Every kernel those paths run is a hand-written CUDA C++
+kernel for ``sm_90a`` under ``csrc/`` with a plain PyTorch version beside
+it:
 
-* fused LayerNorm forward           (:mod:`.ops.layernorm`)
-* varlen flash-attention forward    (:mod:`.ops.flash_attention`)
-* paged attention (decode / extend) (:mod:`.ops.paged_attention`)
+* fused LayerNorm forward and backward          (:mod:`.ops.layernorm`)
+* flash attention forward and backward (dK/dV, dQ) (:mod:`.ops.flash_attention`)
+* paged attention (decode / extend)             (:mod:`.ops.paged_attention`)
+* fused dropout (Philox4x32-10)                 (:mod:`.ops.dropout`)
 
 On CUDA tensors the ops launch their kernels (built with nvcc at first use,
-see :mod:`.ops._build`); on CPU tensors they run the plain versions.  The
-package imports torch and never jax.
+see :mod:`.ops._build`); on CPU tensors they run the plain versions.
+:class:`DecoderLM` builds on the CUDA device unless the caller names
+another.  The package imports torch and never jax.
 """
 
 from .nn import functional as F
@@ -24,6 +29,7 @@ from .ops.flash_attention import (
     flash_attention_varlen,
     flash_attention_with_lse,
 )
+from .ops.dropout import fused_dropout
 from .ops.layernorm import layernorm, layernorm_reference
 from .ops.paged_attention import paged_attention, paged_attention_reference
 from .models.transformer import (
@@ -32,7 +38,22 @@ from .models.transformer import (
     MultiHeadAttention,
     TransformerLayer,
 )
+from .optim import (
+    SGD,
+    Adam,
+    AdamW,
+    clip_by_global_norm,
+    global_norm,
+    warmup_cosine,
+)
 from .serving.engine import ContinuousBatchingEngine
+from .training import (
+    lm_loss,
+    make_eval_step,
+    make_mixed_precision_loss,
+    make_train_scan,
+    make_train_step,
+)
 from .convert import load_jax_params
 
 __version__ = "0.1.0"
@@ -48,6 +69,7 @@ __all__ = [
     "flash_attention_reference",
     "flash_attention_varlen",
     "flash_attention_with_lse",
+    "fused_dropout",
     "layernorm",
     "layernorm_reference",
     "paged_attention",
@@ -56,6 +78,17 @@ __all__ = [
     "FeedForward",
     "MultiHeadAttention",
     "TransformerLayer",
+    "SGD",
+    "Adam",
+    "AdamW",
+    "clip_by_global_norm",
+    "global_norm",
+    "warmup_cosine",
     "ContinuousBatchingEngine",
+    "lm_loss",
+    "make_eval_step",
+    "make_mixed_precision_loss",
+    "make_train_scan",
+    "make_train_step",
     "load_jax_params",
 ]

@@ -62,6 +62,18 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// The key interval [lo, hi) that query row R of a dense (non-paged)
+// attention sees: keys below kv_len (n_kv, or the row's length when
+// smaller), at or before R when causal (top-left aligned), and after
+// R - window when window > 0.  The flash forward and both backward kernels
+// take their masks from here, so they agree by construction on causal,
+// window, varlen, cross attention (n_q != n_kv) and rows with no live key.
+__device__ __forceinline__ void dense_bounds(int R, int kv_len, int causal,
+                                             int window, int& lo, int& hi) {
+  hi = causal ? min(kv_len, R + 1) : kv_len;
+  lo = window > 0 ? max(0, R - window + 1) : 0;
+}
+
 template <int CG> __device__ __forceinline__ float row_max(float v) {
 #pragma unroll
   for (int off = CG / 2; off > 0; off >>= 1)

@@ -38,9 +38,7 @@ struct DenseSrc {
   __device__ T* o_row(int r) const { return o + size_t(r) * D; }
   __device__ float* lse_row(int r) const { return lse + r; }
   __device__ void bounds(int r, int& lo, int& hi) const {
-    const int R = row0 + r;
-    hi = causal ? min(kv_len, R + 1) : kv_len;
-    lo = window > 0 ? max(0, R - window + 1) : 0;
+    fa::dense_bounds(row0 + r, kv_len, causal, window, lo, hi);
   }
 };
 

@@ -11,11 +11,13 @@ while still returning them, so callers read like the JAX code.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from ..nn import functional as F
 from ..nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
@@ -25,6 +27,32 @@ from ..ops.flash_attention import (
     flash_attention_varlen,
 )
 from ..ops.paged_attention import paged_attention
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of the weight matmuls (2-D products with no batch dim, the ops
+    ``x @ W`` lowers to) and recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: Optional[str]):
+    """Map a policy name onto a ``torch.utils.checkpoint`` context factory
+    (None = plain checkpointing).  ``"nothing"`` saves only each layer's
+    input and recomputes the layer in the backward; ``"dots"`` also saves
+    the weight matmuls' outputs, as JAX's
+    ``dots_with_no_batch_dims_saveable`` does."""
+    if name in (None, "nothing", "none"):
+        return None
+    if name == "dots":
+        return functools.partial(checkpoint.create_selective_checkpoint_contexts,
+                                 _dots_saveable)
+    raise ValueError(f"unknown remat policy {name!r} (want nothing|dots)")
+
+
+_remat_policy = remat_policy   # DecoderLM's argument of the same name shadows it
 
 
 def _scatter_kv(pool: dict, k: torch.Tensor, v: torch.Tensor,
@@ -181,9 +209,9 @@ class FeedForward(nn.Module):
         self.linear_out = Linear(middle_dim, n_embd, bias, **kw)
         self.dropout = Dropout(p_dropout)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
         x = F.GELU(self.linear_in(x))
-        return self.dropout(self.linear_out(x), generator)
+        return self.dropout(self.linear_out(x), seed)
 
 
 class TransformerLayer(nn.Module):
@@ -206,9 +234,11 @@ class TransformerLayer(nn.Module):
         self.ln_1 = norm(n_embd, ln_eps, dtype=dtype, device=device)
         self.ln_2 = norm(n_embd, ln_eps, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
+        """``seed`` keys the layer's one dropout site, the FFN output (the
+        attention applies none, as in the JAX layer)."""
         x = x + self.attention(self.ln_1(x))
-        return x + self.ff(self.ln_2(x))
+        return x + self.ff(self.ln_2(x), seed)
 
     def _paged(self, method: str, x, pool, page_table, lengths):
         attn, pool = getattr(self.attention, method)(
@@ -232,7 +262,11 @@ class DecoderLM(nn.Module):
     embeddings -> dropout -> n_layer TransformerLayers -> final LN -> lm_head.
 
     Weights are drawn from ``generator`` (a ``torch.Generator``; one seeded
-    with 0 when omitted)."""
+    with 0 when omitted) and placed on ``device``, the CUDA device unless the
+    caller names another (``device="cpu"`` runs the plain versions of the
+    kernels).  ``remat=True`` checkpoints each layer
+    (``torch.utils.checkpoint``, non-reentrant) under ``remat_policy``
+    ("nothing" or "dots", see :func:`remat_policy`)."""
 
     def __init__(self, n_vocab: int, n_embd: int, n_head: int,
                  n_positions: int, p_dropout: float = 0.1,
@@ -242,6 +276,7 @@ class DecoderLM(nn.Module):
                  pos_encoding: str = "learned", window: Optional[int] = None,
                  n_experts: Optional[int] = None,
                  use_fused_layernorm: bool = True,
+                 remat: bool = False, remat_policy: str = "nothing",
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
@@ -254,7 +289,11 @@ class DecoderLM(nn.Module):
                 "mixture-of-experts layers are not ported yet (ROADMAP A6)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        device = torch.device("cuda" if device is None else device)
         kw = dict(generator=generator, dtype=dtype, device=device)
+        self.remat = remat
+        self.remat_policy = remat_policy
+        self._remat_context = _remat_policy(remat_policy)
         self.n_embd = n_embd
         self.n_vocab = n_vocab
         self.n_positions = n_positions
@@ -279,12 +318,30 @@ class DecoderLM(nn.Module):
         pos = pos.clamp(max=self.n_positions - 1)
         return self.token_embeddings(idx) + self.position_embeddings(pos)
 
-    def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        """(B, S) int token ids -> (B, S, n_vocab) logits."""
+    def forward(self, idx: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, S) int token ids -> (B, S, n_vocab) logits.
+
+        With a ``generator``, one integer seed per dropout site (the
+        embedding dropout, then each layer's FFN dropout) is drawn from it
+        up front, in that order — the counterpart of the JAX model's key
+        split.  Drawing them before the layers run is what lets a
+        checkpointed layer recompute the same masks."""
+        seeds = [None] * (len(self.layers) + 1)
+        if generator is not None:
+            seeds = [s & (2**64 - 1) for s in torch.randint(
+                -2**63, 2**63 - 1, (len(seeds),), generator=generator,
+                device=generator.device).tolist()]
         pos = torch.arange(idx.shape[1], device=idx.device)[None, :]
-        x = self.dropout(self._embed(idx, pos))
-        for layer in self.layers:
-            x = layer(x)
+        x = self.dropout(self._embed(idx, pos), seeds[0])
+        run = lambda layer, x, seed: layer(x, seed)
+        if self.remat and torch.is_grad_enabled():
+            ctx = {} if self._remat_context is None else dict(
+                context_fn=self._remat_context)
+            run = functools.partial(checkpoint.checkpoint, use_reentrant=False,
+                                    **ctx)
+        for layer, seed in zip(self.layers, seeds[1:]):
+            x = run(layer, x, seed)
         return self.lm_head(self.ln(x))
 
     # -- paged decoding (serving: continuous batching over page pools) ------

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.layernorm import layernorm
+from . import functional as F
 
 
 def _randn(shape, generator, dtype, device):
@@ -46,26 +47,19 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout, the identity at eval or without a generator.
-
-    Dropout with ``p > 0`` in training mode runs only on CPU tensors here: its
-    fused CUDA kernel belongs to the training slice (ROADMAP A2)."""
+    """Inverted dropout keyed by an integer seed (the JAX module takes a PRNG
+    key); the identity at eval, with p = 0 or without a seed.  On CUDA
+    tensors it runs the fused dropout kernel."""
 
     def __init__(self, p_dropout: float = 0.1):
         super().__init__()
         self.p_dropout = float(p_dropout)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.p_dropout == 0.0 or not self.training or generator is None:
+                seed: Optional[int] = None) -> torch.Tensor:
+        if self.p_dropout == 0.0 or not self.training or seed is None:
             return x
-        if x.is_cuda:
-            raise NotImplementedError(
-                "training-mode dropout on CUDA needs the fused dropout "
-                "kernel of the training slice (ROADMAP A2)")
-        keep = torch.rand(x.shape, generator=generator) >= self.p_dropout
-        return torch.where(keep, x / (1.0 - self.p_dropout),
-                           torch.zeros_like(x))
+        return F.dropout(x, self.p_dropout, seed=seed, scale=True)
 
 
 class Linear(nn.Module):
@@ -117,7 +111,8 @@ class LayerNorm1d(nn.Module):
 
 
 class FusedLayerNorm(nn.Module):
-    """LayerNorm backed by the fused kernel (``ops.layernorm.layernorm``)."""
+    """LayerNorm backed by the fused kernels (``ops.layernorm.layernorm``),
+    forward and backward."""
 
     def __init__(self, n_embd: int, eps: float = 1e-5, *, dtype=torch.float32,
                  device=None):

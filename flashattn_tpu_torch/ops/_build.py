@@ -30,6 +30,7 @@ LIB_NAME = "libflashattn_tpu_torch.so"
 
 # ctypes argument types: every pointer (and the stream) is a void pointer
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+I64, U64, U32 = ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_uint
 
 
 def _sources() -> list[Path]:

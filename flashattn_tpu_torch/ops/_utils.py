@@ -33,10 +33,10 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:
-    """The CUDA kernels are forward-only: their backward kernels belong to
-    the training slice of the port."""
+    """For inference-only kernels (paged attention, which has no backward
+    in the JAX package either): refuse inputs that require grad rather than
+    return an output that silently stops the gradient."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the CUDA kernels are forward-only; backward kernels come with "
-            "the training slice (ROADMAP A2)")
+            "this kernel is inference-only: it has no backward")

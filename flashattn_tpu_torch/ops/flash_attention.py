@@ -1,18 +1,28 @@
-"""Flash-attention forward (counterpart of flashattn_tpu/ops/flash_attention.py).
+"""Flash attention, forward and backward (counterpart of
+flashattn_tpu/ops/flash_attention.py).
 
-On CUDA tensors every entry point launches the hand-written kernel
-``csrc/flash_fwd.cu``, which replaces the TPU forward kernels
+On CUDA tensors every entry point launches the hand-written kernels:
+``csrc/flash_fwd.cu`` forward, which replaces the TPU forward kernels
 ``_fwd_subrow_varlen_kernel`` (batched varlen prefill) and ``_fwd_kernel``
 (causal / window / kv_lengths / GQA / cross-attention) and also covers the
-dense causal function of ``_fwd_subrow_kernel`` and ``_fwd_loop_kernel``.
-There is no length threshold and no fallback: a CUDA tensor always runs
-the kernel or raises.  On CPU tensors the plain PyTorch version
-(:func:`_reference_fwd_with_lse`) runs.
+dense causal function of ``_fwd_subrow_kernel``, ``_fwd_loop_kernel`` and
+``_fwd_twolevel_kernel``; and ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ
+kernel that replace the backward kernels of the grid (``_bwd_dkv_kernel``,
+``_bwd_dq_kernel``), subrow (``_bwd_subrow_kernel``) and loop
+(``_bwd_dq_loop_kernel``, ``_bwd_dkv_loop_kernel``) schedules.  There is no
+length threshold and no fallback: a CUDA tensor always runs the kernels or
+raises.  On CPU tensors the plain PyTorch versions run
+(:func:`_reference_fwd_with_lse`, :func:`_reference_bwd`).
+
+The three entry points share one ``autograd.Function`` (:class:`_Flash`):
+its forward saves (q, k, v, o, lse) and its backward computes
+di = rowsum(o * do) in plain torch, as the JAX package does, then the three
+gradients.  kv_lengths gets no gradient.
 
 The TPU-only knobs (``block_q``, ``block_k``, ``vmem_limit`` and the
 schedule names in ``impl``) are not carried over: ``impl`` is ``"auto"``
-(the kernel on CUDA) or ``"reference"`` (the plain version anywhere).
-Forward-only on CUDA: the backward kernels belong to the training slice.
+(the kernels on CUDA) or ``"reference"`` (the plain forward anywhere,
+differentiated by autograd).
 """
 
 from __future__ import annotations
@@ -23,10 +33,12 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._utils import DEFAULT_MASK_VALUE, LOG2E, check_no_grad, on_cuda
+from ._utils import DEFAULT_MASK_VALUE, LOG2E, on_cuda
 
 _kernel = _build.Kernel("fa_flash_fwd", [_build.P] * 6 + [_build.I] * 8 + [
     _build.F, _build.I])
+_bwd_kernel = _build.Kernel("fa_flash_bwd", [_build.P] * 10 + [_build.I] * 8
+                            + [_build.F, _build.I])
 
 HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
@@ -62,6 +74,23 @@ def _check_window(causal, window):
             raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _keep_mask(n_q, n_kv, causal, window, kv_lengths, device):
+    """Boolean (b or 1, 1, n_q, n_kv) mask of the live (row, key) pairs, or
+    None when every pair is live."""
+    cols = torch.arange(n_kv, device=device)
+    rows = torch.arange(n_q, device=device)
+    keep = None
+    if causal:
+        keep = cols[None, :] <= rows[:, None]
+        if window is not None:
+            keep = keep & (cols[None, :] > rows[:, None] - window)
+    if kv_lengths is not None:
+        valid = cols[None, None, None, :] < kv_lengths.to(
+            device)[:, None, None, None]
+        keep = valid if keep is None else (keep & valid)
+    return keep
+
+
 def _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths=None,
                             window=None):
     """Plain PyTorch forward returning (o, lse (b, h, n_q, 1) f32).  Scores
@@ -69,20 +98,10 @@ def _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths=None,
     product, as in the JAX oracle."""
     k, v = repeat_kv(k, v, q.shape[1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    nq, nk = s.shape[-2:]
-    cols = torch.arange(nk, device=q.device)
-    rows = torch.arange(nq, device=q.device)
-    keep = None
-    if causal:
-        keep = cols[None, :] <= rows[:, None]
-        if window is not None:
-            keep = keep & (cols[None, :] > rows[:, None] - window)
+    keep = _keep_mask(q.shape[2], k.shape[2], causal, window, kv_lengths,
+                      q.device)
+    if keep is not None:
         s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
-    if kv_lengths is not None:
-        valid = cols[None, None, None, :] < kv_lengths.to(
-            q.device)[:, None, None, None]
-        s = s.masked_fill(~valid, DEFAULT_MASK_VALUE)
-        keep = valid if keep is None else (keep & valid)
     m = s.amax(-1, keepdim=True)
     e = torch.exp(s - m)
     if keep is not None and kv_lengths is not None:
@@ -97,9 +116,34 @@ def _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths=None,
     return o.to(q.dtype), lse
 
 
-def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
-    """Kernel launch: (o, lse (b, h, n_q, 1) f32) for CUDA tensors."""
-    check_no_grad(q, k, v)
+def _reference_bwd(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
+                   window=None):
+    """Plain version of :func:`flash_bwd`: (dq, dk, dv) by the explicit
+    formulas, in f32 — p = exp(s - lse) on live pairs (0 elsewhere),
+    dv = p^T do, ds = p (do v^T - di) scale, dq = ds k, dk = ds^T q, with
+    dk/dv summed over each GQA group."""
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    kr, vr = repeat_kv(k, v, h)
+    qf, kf, vf, dof = (t.float() for t in (q, kr, vr, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(s - lse)
+    keep = _keep_mask(n_q, n_kv, causal, window, kv_lengths, q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - di) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    if h != h_kv:
+        dk = dk.reshape(b, h_kv, h // h_kv, n_kv, d).sum(2)
+        dv = dv.reshape(b, h_kv, h // h_kv, n_kv, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_args(q, k, v):
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -110,14 +154,25 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
                          f"not match q {tuple(q.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k and v must share a dtype")
+
+
+def _lengths(kv_lengths, b, device):
+    if kv_lengths is None:
+        return None
+    lens = kv_lengths.to(device=device, dtype=torch.int32).contiguous()
+    if lens.shape != (b,):
+        raise ValueError(f"kv_lengths must be ({b},), got {tuple(lens.shape)}")
+    return lens
+
+
+def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
+    """Kernel launch: (o, lse (b, h, n_q, 1) f32) for CUDA tensors."""
+    _check_kernel_args(q, k, v)
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
     code = _build.dtype_code(q)
-    q, k, v = (_build.aligned(t) for t in (q, k, v))
-    lens = None
-    if kv_lengths is not None:
-        lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
-        if lens.shape != (b,):
-            raise ValueError(f"kv_lengths must be ({b},), got "
-                             f"{tuple(lens.shape)}")
+    q, k, v = (_build.aligned(t.detach()) for t in (q, k, v))
+    lens = _lengths(kv_lengths, b, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q, 1), device=q.device, dtype=torch.float32)
     _kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -127,6 +182,74 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
     return o, lse
 
 
+def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
+              window=None):
+    """Kernel launch: (dq, dk, dv) for CUDA tensors, dk/dv at the kv heads.
+    ``lse`` is the forward's (b, h, n_q, 1) natural-log lse and
+    ``di = rowsum(o * do)`` (b, h, n_q, 1) f32.  One count covers its two
+    launches (dK/dV, then dQ)."""
+    _check_kernel_args(q, k, v)
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    if do.shape != q.shape or lse.shape != (b, h, n_q, 1) \
+            or di.shape != lse.shape:
+        raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and "
+                         f"di {tuple(di.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    code = _build.dtype_code(q)
+    q, k, v, do = (_build.aligned(t.detach().to(q.dtype))
+                   for t in (q, k, v, do))
+    lse, di = (t.detach().float().contiguous() for t in (lse, di))
+    lens = _lengths(kv_lengths, b, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), di.data_ptr(),
+                None if lens is None else lens.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, h_kv, n_q, n_kv, d, int(causal), int(window or 0),
+                float(sm_scale), code)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """(o, lse) = flash attention; the backward launches ``flash_bwd`` on
+    CUDA.  No gradient flows through lse: a nonzero one raises (the JAX
+    package's ``flash_attention_with_lse`` is forward-only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, causal, scale, window):
+        if on_cuda(q, k, v):
+            o, lse = flash_fwd(q, k, v, causal=causal, sm_scale=scale,
+                               kv_lengths=kv_lengths, window=window)
+        else:
+            o, lse = _reference_fwd_with_lse(q, k, v, causal, scale,
+                                             kv_lengths, window)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
+        ctx.attrs = (causal, scale, window)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        if dlse is not None and bool((dlse != 0).any()):
+            raise NotImplementedError(
+                "flash attention has no gradient through lse; use the lse "
+                "only where it is not differentiated")
+        if do is None:
+            return (None,) * 7
+        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        causal, scale, window = ctx.attrs
+        di = (o.float() * do.float()).sum(-1, keepdim=True)
+        if on_cuda(q, k, v):
+            dq, dk, dv = flash_bwd(q, k, v, lse, di, do, causal=causal,
+                                   sm_scale=scale, kv_lengths=kv_lengths,
+                                   window=window)
+        else:
+            dq, dk, dv = _reference_bwd(q, k, v, lse, di, do, causal, scale,
+                                        kv_lengths, window)
+        return dq, dk, dv, None, None, None, None
+
+
 def _flash_fwd_entry(q, k, v, causal, sm_scale, impl="auto", window=None,
                      kv_lengths=None):
     _check_heads(q, k, v)
@@ -134,9 +257,8 @@ def _flash_fwd_entry(q, k, v, causal, sm_scale, impl="auto", window=None,
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if impl == "auto" and on_cuda(q, k, v):
-        return flash_fwd(q, k, v, causal=causal, sm_scale=scale,
-                         kv_lengths=kv_lengths, window=window)
+    if impl == "auto":
+        return _Flash.apply(q, k, v, kv_lengths, causal, scale, window)
     return _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths, window)
 
 
@@ -168,7 +290,8 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
                              sm_scale: Optional[float] = None, *,
                              impl: str = "auto", window: Optional[int] = None):
     """Forward returning ``(o, lse)``, lse (b, h, n_q, 1) f32 in natural log
-    (-inf for a row with no live key)."""
+    (-inf for a row with no live key).  Differentiable through o; a nonzero
+    gradient arriving at lse raises ``NotImplementedError``."""
     return _flash_fwd_entry(q, k, v, causal, sm_scale, impl, window)
 
 

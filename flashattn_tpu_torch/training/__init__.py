@@ -1,0 +1,7 @@
+from .trainer import (  # noqa: F401
+    lm_loss,
+    make_eval_step,
+    make_mixed_precision_loss,
+    make_train_scan,
+    make_train_step,
+)

@@ -1,0 +1,178 @@
+"""Training step and losses (counterpart of flashattn_tpu/training/trainer.py).
+
+``make_train_step(opt, loss_fn, grad_clip, accum_steps)`` returns
+``step(model, opt_state, tokens, targets, loss_mask, generator) -> (model,
+opt_state, loss)``: forward, autograd backward, optional global-norm
+clipping and the optimizer update, which changes the model's parameters in
+place (see :mod:`..optim`).  PyTorch runs eagerly, so there is no ``jit``
+and no ``donate``; a JAX ``key`` becomes a ``torch.Generator`` from which
+the model draws its dropout seeds.  The loss comes back as a 0-dim device
+tensor, so a step does not wait for the device.
+
+``make_moe_loss``, ``make_distill_loss`` and ``ShardedTrainer`` are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..nn import functional as F
+from ..optim import clip_by_global_norm
+
+Tensor = torch.Tensor
+
+
+def lm_loss(model: nn.Module, tokens: Tensor, targets: Tensor,
+            loss_mask: Optional[Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> Tensor:
+    """Masked next-token cross entropy.
+
+    tokens:    (B, S) int input ids
+    targets:   (B, S) int labels, already shifted
+    loss_mask: (B, S) 1.0 where the position counts (None: every position)
+    The loss is computed in f32 whatever the compute dtype."""
+    logits = model(tokens, generator=generator).float()
+    n_vocab = logits.shape[-1]
+    losses = F.softmax_loss(logits.reshape(-1, n_vocab),
+                            targets.reshape(-1)).reshape(targets.shape)
+    if loss_mask is None:
+        return losses.mean()
+    total = (losses * loss_mask).sum()
+    return total / torch.clamp(loss_mask.sum(), min=1.0)
+
+
+class _Bound(nn.Module):
+    """``loss_fn`` bound to ``model``, so that ``functional_call`` can swap
+    the model's parameters for the duration of one loss evaluation."""
+
+    def __init__(self, model: nn.Module, loss_fn: Callable[..., Tensor]):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *args):
+        return self.loss_fn(self.model, *args)
+
+
+def make_mixed_precision_loss(loss_fn: Callable[..., Tensor] = lm_loss,
+                              compute_dtype=torch.bfloat16
+                              ) -> Callable[..., Tensor]:
+    """bf16 compute over f32 master weights.
+
+    Wraps any ``loss_fn(model, ...)``: each floating parameter is cast to
+    ``compute_dtype`` inside the differentiated function
+    (``torch.func.functional_call``), so every matmul and kernel runs in
+    bf16 while autograd differentiates through the cast and delivers f32
+    gradients for the f32 masters.  Not ``torch.autocast``, which picks its
+    own ops to keep in f32 and so computes something else."""
+
+    def wrapped(model, tokens, targets, loss_mask=None, generator=None):
+        bound = _Bound(model, loss_fn)
+        cast = {"model." + n: (p.to(compute_dtype) if p.is_floating_point()
+                               else p)
+                for n, p in model.named_parameters()}
+        return torch.func.functional_call(
+            bound, cast, (tokens, targets, loss_mask, generator))
+
+    return wrapped
+
+
+def _value_and_grad(loss_fn, model, tokens, targets, loss_mask, generator
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    names, params = zip(*model.named_parameters())
+    loss = loss_fn(model, tokens, targets, loss_mask, generator)
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), dict(zip(names, grads))
+
+
+def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
+                    grad_clip: Optional[float] = None,
+                    accum_steps: int = 1) -> Callable:
+    """Returns step(model, opt_state, tokens, targets, loss_mask=None,
+    generator=None) -> (model, opt_state, loss).
+
+    ``grad_clip`` applies global-norm clipping.  ``accum_steps > 1`` splits
+    the batch's leading dim into that many microbatches, runs them one after
+    another (one microbatch of activations alive at a time) and applies ONE
+    update with their gradients weighted by each microbatch's loss-mask
+    token count, which reproduces the full-batch masked mean."""
+
+    def grads_of(model, tokens, targets, loss_mask, generator):
+        if accum_steps == 1:
+            return _value_and_grad(loss_fn, model, tokens, targets,
+                                   loss_mask, generator)
+        if tokens.shape[0] % accum_steps:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"accum_steps {accum_steps}")
+        split = lambda t: None if t is None else t.chunk(accum_steps)
+        loss_sum, grad_sum, w_sum = 0.0, None, 0.0
+        for tok, tgt, msk in zip(split(tokens), split(targets),
+                                 split(loss_mask) or [None] * accum_steps):
+            loss, grads = _value_and_grad(loss_fn, model, tok, tgt, msk,
+                                          generator)
+            w = msk.sum().float() if msk is not None else 1.0
+            loss_sum = loss_sum + w * loss
+            grad_sum = ({n: w * g.float() for n, g in grads.items()}
+                        if grad_sum is None else
+                        {n: grad_sum[n] + w * g.float()
+                         for n, g in grads.items()})
+            w_sum = w_sum + w
+        scale = 1.0 / torch.clamp(torch.as_tensor(w_sum, dtype=torch.float32,
+                                                  device=tokens.device),
+                                  min=1e-9)
+        params = dict(model.named_parameters())
+        return loss_sum * scale, {n: (g * scale).to(params[n].dtype)
+                                  for n, g in grad_sum.items()}
+
+    def step(model, opt_state, tokens, targets, loss_mask=None,
+             generator=None):
+        loss, grads = grads_of(model, tokens, targets, loss_mask, generator)
+        if grad_clip is not None:
+            grads = clip_by_global_norm(grads, grad_clip)
+        model, opt_state = opt.step(model, grads, opt_state)
+        return model, opt_state, loss
+
+    return step
+
+
+def make_train_scan(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
+                    grad_clip: Optional[float] = None) -> Callable:
+    """Returns scan(model, opt_state, tokens, targets, loss_mask, generator)
+    where tokens/targets/loss_mask carry a leading (n_steps,) axis: one
+    train step per slice, in order, and the (n_steps,) losses.  (The JAX
+    package runs these steps in one ``lax.scan`` dispatch; here it is a
+    Python loop.)"""
+    step = make_train_step(opt, loss_fn, grad_clip)
+
+    def scan(model, opt_state, tokens, targets, loss_mask=None,
+             generator=None):
+        losses = []
+        for i in range(targets.shape[0]):
+            model, opt_state, loss = step(
+                model, opt_state, tokens[i], targets[i],
+                None if loss_mask is None else loss_mask[i], generator)
+            losses.append(loss)
+        return model, opt_state, torch.stack(losses)
+
+    return scan
+
+
+def make_eval_step(loss_fn: Callable[..., Tensor] = lm_loss) -> Callable:
+    """Returns eval(model, tokens, targets, loss_mask) -> loss: the model in
+    eval mode (no dropout) under ``torch.no_grad()``, its mode restored
+    after."""
+
+    def evaluate(model, tokens, targets, loss_mask=None):
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                return loss_fn(model, tokens, targets, loss_mask, None)
+        finally:
+            model.train(was_training)
+
+    return evaluate

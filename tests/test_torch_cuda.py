@@ -3,17 +3,20 @@
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 elsewhere.  The shapes are small and ragged on purpose (rows not a multiple
 of the 64-row tile, pages smaller than the 64-key tile, every head dim and
-row-tile size), complementing the serving-shape checks of chip_smoke.py.
-The file imports no jax, so on a machine without it run:
+row-tile size), complementing the serving- and training-shape checks of
+chip_smoke.py.  The file imports no jax, so on a machine without it run:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 
-Tolerance: f32 1e-4 abs, bf16 2e-2 abs on unit-variance inputs.
+Tolerance: f32 1e-4 abs, bf16 2e-2 abs on unit-variance inputs; gradients
+(sums over rows) against max(1, max |ref|) times those.  Dropout is
+bit-exact: the kernel and its plain version compute the same Philox bits.
 """
 
 import pytest
 import torch
 
+from flashattn_tpu_torch.ops import dropout as dr
 from flashattn_tpu_torch.ops import flash_attention as fa
 from flashattn_tpu_torch.ops import layernorm as ln
 from flashattn_tpu_torch.ops import paged_attention as pa
@@ -38,6 +41,11 @@ def _randn(g, *shape, dtype, dev):
 
 def _err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def _rel_err(a, b):
+    """max |a - b| over max(1, max |b|): the scale of a sum over rows."""
+    return _err(a, b) / max(1.0, float(b.float().abs().max()))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -122,9 +130,130 @@ def test_paged_kernel(dev, dtype, case):
 
 
 def test_kernels_refuse_grad_and_bad_head_dim(dev):
-    q = torch.randn(1, 2, 8, 128, device=dev, requires_grad=True)
+    """Paged attention is inference-only and refuses inputs that require
+    grad; flash refuses a head dim it has no kernel for."""
+    q = torch.randn(2, 4, 64, device=dev, requires_grad=True)
+    pages = torch.randn(4, 3, 8, 64, device=dev)
+    table = torch.arange(2, device=dev, dtype=torch.int32).reshape(2, 1)
     with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, q, q, True)
+        pa.paged_attention(q, pages, pages, torch.tensor([5, 8], device=dev),
+                           table)
     x = torch.randn(1, 2, 8, 48, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention(x, x, x, True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 32), (37, 100), (130, 200),
+                                   (3, 67, 1000)])
+def test_layernorm_bwd_kernel(dev, dtype, shape):
+    """Rows not a multiple of the 64-row block; h of 200 and 1000."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = _randn(g, *shape, dtype=dtype, dev=dev) * 2 + 0.5
+    dy = _randn(g, *shape, dtype=dtype, dev=dev)
+    gam = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    bet = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    _, mean, rstd = ln.layernorm_fwd(x, gam, bet)
+    before = ln._bwd_kernel.launches
+    got = ln.layernorm_bwd(x, dy, mean, rstd, gam)
+    assert ln._bwd_kernel.launches == before + 1
+    want = ln.layernorm_bwd_reference(x, dy, mean, rstd, gam)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _rel_err(a, b) <= TOL[dtype]
+
+
+def test_layernorm_autograd_launches_both_kernels(dev):
+    x = torch.randn(70, 96, device=dev, requires_grad=True)
+    gam = torch.randn(96, device=dev, requires_grad=True)
+    bet = torch.randn(96, device=dev, requires_grad=True)
+    fwd, bwd = ln._kernel.launches, ln._bwd_kernel.launches
+    ln.layernorm(x, gam, bet).square().sum().backward()
+    assert (ln._kernel.launches, ln._bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    xc, gc, bc = (t.detach().cpu().requires_grad_() for t in (x, gam, bet))
+    ln.layernorm(xc, gc, bc).square().sum().backward()
+    for t, c in ((x, xc), (gam, gc), (bet, bc)):
+        assert _rel_err(t.grad.cpu(), c.grad) <= 1e-4
+
+
+# (b, h, h_kv, n_q, n_kv, d, causal, lengths, window)
+FLASH_BWD_CASES = {
+    "ragged_causal_d64": (2, 4, 4, 100, 100, 64, True, None, None),
+    "cross_noncausal_d32": (2, 2, 1, 37, 150, 32, False, None, None),
+    "cross_causal_nq_gt_nkv_d32": (1, 2, 2, 150, 70, 32, True, None, None),
+    "varlen_gqa_len0_d128": (3, 8, 2, 130, 130, 128, True, [130, 65, 0], None),
+    "varlen_window_d64": (2, 4, 4, 200, 200, 64, True, [200, 77], 33),
+    "window_gqa_d128": (1, 4, 1, 192, 192, 128, True, None, 50),
+}
+
+
+def _flash_inputs(case, dtype, dev):
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = FLASH_BWD_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, do = (_randn(g, b, h, n_q, d, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(g, b, h_kv, n_kv, d, dtype=dtype, dev=dev) for _ in range(2))
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    return q, k, v, do, lens, causal, window
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+def test_flash_bwd_kernel(dev, dtype, case):
+    q, k, v, do, lens, causal, window = _flash_inputs(case, dtype, dev)
+    scale = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=scale,
+                          kv_lengths=lens, window=window)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    before = fa._bwd_kernel.launches
+    got = fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=scale,
+                       kv_lengths=lens, window=window)
+    assert fa._bwd_kernel.launches == before + 1
+    want = fa._reference_bwd(q, k, v, lse, di, do, causal, scale, lens, window)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= TOL[dtype]
+    if lens is not None:
+        for bi, n in enumerate(lens.tolist()):
+            assert (got[1][bi, :, n:] == 0).all() and (got[2][bi, :, n:] == 0).all()
+            if n == 0:
+                assert (got[0][bi] == 0).all()
+
+
+def test_flash_autograd_launches_fwd_and_bwd(dev):
+    q, k, v, do, lens, causal, window = _flash_inputs(
+        "varlen_gqa_len0_d128", torch.float32, dev)
+    ts = [t.requires_grad_() for t in (q, k, v)]
+    fwd, bwd = fa._kernel.launches, fa._bwd_kernel.launches
+    out = fa.flash_attention_varlen(*ts, lens, causal)
+    got = torch.autograd.grad(out, ts, do)
+    assert (fa._kernel.launches, fa._bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in ts]
+    want = torch.autograd.grad(fa.flash_attention_varlen(*cpu, lens.cpu(),
+                                                         causal), cpu, do.cpu())
+    for a, b in zip(got, want):
+        assert _rel_err(a.cpu(), b) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 3, 4097, 100003])
+def test_dropout_kernel_bit_exact(dev, dtype, n):
+    """Odd element counts (a partial last Philox block); the kernel and its
+    plain version agree bit for bit, forward and backward."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(g, n, dtype=dtype, dev=dev)
+    seed = 2**64 - 12345
+    before = dr._kernel.launches
+    got = dr.dropout(x, 0.1, seed, 1 / 0.9)
+    assert dr._kernel.launches == before + 1
+    want = dr.dropout_reference(x, 0.1, seed, 1 / 0.9)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+    keep = dr.keep_mask(n, 0.1, seed, dev)
+    assert not got[~keep].any()
+    xg = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(dr.fused_dropout(xg, 0.1, seed), xg,
+                                torch.ones_like(x))
+    assert torch.equal(gx != 0, keep)
+    if n > 1000:
+        assert abs(float(keep.float().mean()) - 0.9) < 0.01

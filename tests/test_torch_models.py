@@ -34,7 +34,7 @@ def _pair(name):
     args, kw = CONFIGS[name]
     jm = ft.DecoderLM(*args, p_dropout=0.0, key=jax.random.PRNGKey(0),
                       **kw).eval()
-    tm = pt.DecoderLM(*args, p_dropout=0.0, **kw).eval()
+    tm = pt.DecoderLM(*args, p_dropout=0.0, device="cpu", **kw).eval()
     pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
     return jm, tm
 
@@ -61,7 +61,7 @@ def test_plain_layernorm_forward_parity():
     norm slot, weights still transfer by name."""
     kw = dict(p_dropout=0.0, n_layer=1, use_fused_layernorm=False)
     jm = ft.DecoderLM(64, 32, 4, 64, key=jax.random.PRNGKey(2), **kw).eval()
-    tm = pt.DecoderLM(64, 32, 4, 64, **kw).eval()
+    tm = pt.DecoderLM(64, 32, 4, 64, device="cpu", **kw).eval()
     pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
     toks = np.random.default_rng(3).integers(0, 64, (2, 9)).astype(np.int32)
     with torch.inference_mode():
@@ -70,14 +70,14 @@ def test_plain_layernorm_forward_parity():
 
 
 def test_dropout_modes():
-    """Identity at eval, with p=0 or without a generator; inverted dropout on
+    """Identity at eval, with p=0 or without a seed; inverted dropout on
     CPU in training mode."""
     x = torch.ones(64, 64)
     drop = pt.Dropout(0.25)
-    g = torch.Generator().manual_seed(0)
-    assert drop.eval()(x, g) is x
+    assert drop.eval()(x, 0) is x
     assert drop.train()(x) is x
-    y = drop(x, g)
+    assert pt.Dropout(0.0)(x, 0) is x
+    y = drop(x, 0)
     kept = y != 0
     assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
     assert 0.65 < kept.float().mean() < 0.85
@@ -156,8 +156,9 @@ def test_load_jax_params_checks_names_and_shapes():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64, attn_impl="fused_softmax")
+        pt.DecoderLM(64, 32, 4, 64, attn_impl="fused_softmax", device="cpu")
     with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope")
+        pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope", device="cpu")
     with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64).init_page_pools(3, 4, torch.int8)
+        pt.DecoderLM(64, 32, 4, 64, device="cpu").init_page_pools(
+            3, 4, torch.int8)

@@ -27,7 +27,7 @@ def models():
     jm = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2, n_kv_head=2,
                       key=jax.random.PRNGKey(0)).eval()
     tm = pt.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                      n_kv_head=2).eval()
+                      n_kv_head=2, device="cpu").eval()
     pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
     return jm, tm
 
@@ -78,7 +78,7 @@ def test_sliding_window_engine_matches_jax_engine():
     jm = ft.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2, window=6,
                       key=jax.random.PRNGKey(1)).eval()
     tm = pt.DecoderLM(64, 32, 4, 256, p_dropout=0.0, n_layer=2,
-                      window=6).eval()
+                      window=6, device="cpu").eval()
     pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
     rng = np.random.default_rng(3)
     prompts = [list(rng.integers(1, 64, size=n)) for n in (14, 5)]
