@@ -48,6 +48,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the key-projection bias, whose exact gradient is 0 (softmax ignores a
    shift shared by every key): there both devices' rounding noise must stay
    under 1e-4 of the global gradient norm.
+8. quantization kernels: the weight-only matmul (int8 and fp8 payloads,
+   bf16 and f32 x) at the quantized serving model's Linear shapes (decode
+   M 4, prefill M 4 x 8192, K and N in {1024, 256}, the lm head's N 1000;
+   yardstick x @ W on the pre-dequantized bf16 / f32 weight), quantized
+   paged attention (int8 and fp8 pools: decode B4 Hkv8 d128 at histories
+   <= 8192, chunk 64, GQA group 4, window 256), flash attention over an
+   int8 / fp8 KV cache (B4 H8 N2048 D128 causal, fp8 there transcoded to
+   int8 as at the TPU subrow envelope; GQA 8q/2kv, cross non-causal
+   1000 x 2048, ragged N 1000; yardstick SDPA on the dequantized cache) and
+   stochastic-rounding int8 quantization (32768 x 1024 bf16, bit-exact;
+   the mean of 8 seeds on a constant tensor within 2%).  Tolerances as in
+   phase 3; the matmul, a sum over K, gated like a gradient.
+9. serve_quant: the north-star quantized serving configuration of
+   kernel_bench/bench_serving.py:105-141 at full width and depth
+   (E1024, 8 heads of 128, 4 layers, vocab 1000, n_positions 16384;
+   engine max_batch 4, page 128, 66 pages a sequence, prefill_chunk 8192,
+   8 steps a dispatch), three variants in turn: bf16 weights + bf16 pool,
+   int8 weights + int8 pool, int8 weights + fp8 pool.  One warm-up request,
+   then four greedy requests of 8192-token prompts and 64 new tokens each
+   (one batched varlen prefill).  Every request finishes, no page leaks,
+   and the quantized variants launch wo_matmul, paged_attention, flash_fwd
+   and layernorm_fwd (the bf16 variant no wo_matmul).
+10. quant_consistency: the f32 model with int8 weights over an int8 and
+   then an fp8 pool; engine logits along a 500-token (batched prefill) and
+   a 600-token (chunked prefill, chunk 512) trajectory against one dense
+   forward of the same quantized model, to the JAX tests' bounds
+   (tests/test_serving.py:181-185): max |diff| / max |dense| < 0.08 and
+   argmax agreement >= 0.8.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -69,7 +97,8 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_S = 3.35e12                                  # H100 SXM
-PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor / FP32
+PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12,   # dense tensor / FP32
+               "int8": 1979e12}                         # dense int8 tensor
 # the north-star serving model (kernel_bench/bench_serving.py:112-115)
 MODEL = dict(n_vocab=1000, n_embd=1024, n_head=8, n_positions=4096,
              n_layer=4, p_dropout=0.0, attn_impl="flash")
@@ -85,6 +114,13 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 CONSIST = dict(n_vocab=16384, n_embd=1024, n_head=8, n_positions=1024,
                n_layer=2, middle_dim=4096, attn_impl="flash")
+# the north-star quantized serving configuration
+# (kernel_bench/bench_serving.py:112-127)
+QUANT_MODEL = dict(MODEL, n_positions=16384)
+QUANT_ENGINE = dict(max_batch=4, page_size=128, pages_per_seq=66,
+                    steps_per_dispatch=8, prefill_chunk=8192)
+QUANT_PROMPT, QUANT_NEW_TOKENS = 8192, 64
+QUANT_KERNELS = ("wo_matmul", "paged_attention", "flash_fwd", "layernorm_fwd")
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
                  "dropout")
 
@@ -114,8 +150,13 @@ def time_ms(fn, reps: int = 15) -> float:
 
 def bound_ms(bytes_: float, flops: float, dtype: str):
     """(least time in ms, what bounds it) for moving ``bytes_`` and doing
-    ``flops`` useful operations of ``dtype`` on the H100 SXM."""
-    t_bytes, t_ops = bytes_ / HBM_BYTES_S, flops / PEAK_FLOP_S[dtype]
+    ``flops`` useful operations of ``dtype`` on the H100 SXM; ``flops`` may
+    instead map operand types to their operation counts, each at its own
+    peak."""
+    if not isinstance(flops, dict):
+        flops = {dtype: flops}
+    t_bytes = bytes_ / HBM_BYTES_S
+    t_ops = sum(n / PEAK_FLOP_S[t] for t, n in flops.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -187,6 +228,13 @@ def _scaled_err(got, want):
     """One tensor gated like a gradient: over 33.5 M LayerNorm outputs the
     largest |y| reaches [8, 16), where one bf16 ulp is 0.0625."""
     return _grad_err((got,), (want,))
+
+
+def _rel_err(got, want):
+    """(max abs err, max abs err over max |ref|): attention outputs over long
+    random histories are averages of size ~0.02, well under an abs gate."""
+    err = _abs_err(got, want)
+    return err, err / max(float(want.float().abs().max()), 1e-30)
 
 
 def _bit_err(got, want):
@@ -351,13 +399,15 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
                  _paged_cost(q_, chunk, hq, 8, ln_))
 
 
-def _paged_cost(q, chunk, hq, h_kv, lens):
+def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False):
     """(bytes, flops) of paged attention: q and out, the K/V of every live
-    token once; row j of a chunk sees length - chunk + j + 1 keys."""
+    token once (a quantized pool: 1-byte payloads and a 4-byte scale per
+    token); row j of a chunk sees length - chunk + j + 1 keys."""
     isz, d = q.element_size(), q.shape[-1]
     lens = [int(n) for n in lens.tolist()]
     pairs = sum(chunk * n - chunk * (chunk - 1) // 2 for n in lens) * hq
-    return 2 * q.numel() * isz + 2 * sum(lens) * h_kv * d * isz, 4 * d * pairs
+    token = d + 4 if quantized else d * isz
+    return 2 * q.numel() * isz + 2 * sum(lens) * h_kv * token, 4 * d * pairs
 
 
 def training_kernel_phases(torch, dev, ph: Phases, randn):
@@ -455,6 +505,188 @@ def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
              library=_sdpa_bwd(torch, q, k, v, do, causal, window, lens))
 
 
+def _quant_bits_err(got, want):
+    """0 when payloads and scales are bit-identical, else inf."""
+    import torch
+
+    same = (torch.equal(got.values, want.values)
+            and torch.equal(got.scales, want.scales))
+    if same:
+        return 0.0, 0.0
+    return _abs_err(got.values, want.values), math.inf
+
+
+def _wo_cost(m, k, n, isz):
+    """x read, the 1-byte payload and f32 scales read, y written; 2MNK."""
+    return m * k * isz + k * n + 4 * n + m * n * isz, 2 * m * n * k
+
+
+def _kv8_cost(q, k_values, causal):
+    """q read and o, lse written in q's dtype; 1-byte K/V payloads and their
+    f32 scales read once; 2 dots per live (row, key) pair.  With int8
+    payloads q is quantized to int8, so QK^T is an int8 product at the int8
+    peak and only PV runs at q's type; with fp8 payloads both run at q's."""
+    import torch
+
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k_values.shape[1], k_values.shape[2]
+    pairs = h * _live_pairs(n_q, n_kv, causal, None, None, b)
+    kv_tokens = b * h_kv * n_kv
+    q_type = str(q.dtype).replace("torch.", "")
+    dot = 2 * d * pairs
+    ops = ({"int8": dot, q_type: dot} if k_values.dtype == torch.int8
+           else {q_type: 2 * dot})
+    return (2 * q.numel() * q.element_size() + 4 * b * h * n_q
+            + 2 * kv_tokens * (d + 4)), ops
+
+
+def quant_kernel_phases(torch, dev, ph: Phases, randn):
+    """The four quantization kernels (quantized paged attention, the
+    weight-only matmul, flash over a quantized KV cache, stochastic
+    quantization) against their plain versions at the quantized serving
+    shapes."""
+    from flashattn_tpu_torch.ops import paged_attention as pa
+    from flashattn_tpu_torch.ops import quant as qt
+
+    payloads = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+    def quantize(t, payload, axis=-1):
+        return (qt.quantize_int8 if payload == torch.int8
+                else qt.quantize_fp8)(t, axis=axis)
+
+    # weight-only matmul at the Linear shapes of the serving model
+    shapes = [(4, 1024, 1024), (32768, 1024, 1024), (32768, 1024, 256),
+              (32768, 256, 1024), (32768, 1024, 1000)]
+    for pname, payload in payloads.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            isz = torch.tensor([], dtype=dtype).element_size()
+            for m, k, n in shapes:
+                x = randn(m, k, dtype=dtype)
+                w = quantize(randn(k, n, dtype=torch.float32), payload, axis=0)
+                w_full = w.dequantize(dtype)
+                main = (pname == "int8" and dtype == torch.bfloat16
+                        and (m, k, n) == (32768, 1024, 1024))
+                ph.check("wo_matmul", f"({m}, {k}) x ({k}, {n}) {pname}", dtype,
+                         lambda: qt.wo_matmul(x, w),
+                         lambda: qt.int8_weight_only_matmul_reference(x, w),
+                         _wo_cost(m, k, n, isz), main=main,
+                         compare=_scaled_err, library=lambda: x @ w_full)
+                del x, w, w_full
+
+    # quantized paged attention: B4, 8 kv heads, d128, page 128, <= 8192
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    pps = 64
+    n_pages = 4 * pps + 1
+    table = torch.randperm(n_pages, generator=g, device=dev)[:4 * pps]
+    table = table.reshape(4, pps).int()
+    lens = torch.tensor([8192, 6144, 4096, 2053], device=dev)
+    bf = torch.bfloat16
+    # the bf16 pool at the same histories, for comparison
+    kp, vp = (randn(8, n_pages, 128, 128, dtype=bf) for _ in range(2))
+    qd = randn(4, 8, 128, dtype=bf)
+    # bf16 outputs are gated relative to max |ref|, f32 ones at 1e-4 abs
+    ph.check("paged_attention", "decode B4 Hkv8 d128 <= 8192", bf,
+             lambda: pa.paged_attention(qd, kp, vp, lens, table),
+             lambda: pa.paged_attention_reference(qd, kp, vp, lens, table),
+             _paged_cost(qd, 1, 8, 8, lens), compare=_rel_err)
+    del kp, vp
+    for pname, payload in payloads.items():
+        kq, vq = (quantize(randn(8, n_pages, 128, 128, dtype=torch.float32),
+                           payload) for _ in range(2))
+        kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+        for label, q_shape, chunk, hq, win in [
+                ("decode B4 Hkv8 d128 <= 8192", (4, 8, 128), 1, 8, None),
+                ("chunk 64", (4, 64, 8, 128), 64, 8, None),
+                ("decode GQA group 4", (4, 32, 128), 1, 32, None),
+                ("decode window 256", (4, 8, 128), 1, 8, 256)]:
+            q32 = randn(*q_shape, dtype=torch.float32)
+            for dtype in (bf, torch.float32):
+                q_ = q32.to(dtype)
+                ph.check(f"paged_attention_{pname}", label, dtype,
+                         lambda: pa.paged_attention(q_, kq.values, vq.values,
+                                                    lens, table, window=win,
+                                                    **kw),
+                         lambda: pa.paged_attention_reference(
+                             q_, kq.values, vq.values, lens, table, window=win,
+                             **kw),
+                         _paged_cost(q_, chunk, hq, 8, lens, quantized=True),
+                         main=dtype == bf and chunk == 1 and hq == 8
+                         and win is None,
+                         compare=_rel_err if dtype == bf else None)
+        del kq, vq, kw
+
+    # flash attention over a quantized KV cache
+    def kv8_check(label, dtype, q, k, v, causal, main=False, transcoded=False):
+        """``transcoded``: fp8 K/V at the TPU subrow envelope, which the
+        public function transcodes to int8 first; the plain version is then
+        given the transcoded K/V."""
+        sc = q.shape[-1] ** -0.5
+        lib, args = _sdpa(torch, q, k.dequantize(q.dtype), v.dequantize(q.dtype),
+                          causal, None, None)
+        k_ref, v_ref = k, v
+        if transcoded:
+            k_ref, v_ref = (qt.requantize_fp8_to_int8(t) for t in (k, v))
+            label += " (fp8 transcoded)"
+        ph.check("kv8_flash", label, dtype,
+                 lambda: qt.flash_attention_kv_int8(q, k, v, causal, sc),
+                 lambda: qt.flash_attention_kv_int8_reference(q, k_ref, v_ref,
+                                                              causal, sc),
+                 _kv8_cost(q, k_ref.values, causal), main=main,
+                 compare=_lse_err, library=lambda: lib(*args))
+
+    def kv(b, h, n, payload):
+        return (quantize(randn(b, h, n, 128, dtype=torch.float32), payload)
+                for _ in range(2))
+
+    for pname, payload in payloads.items():
+        fp8 = pname == "fp8"    # N2048 causal D128 is in the subrow envelope
+        k, v = kv(4, 8, 2048, payload)
+        for dtype in (bf, torch.float32):
+            q = randn(4, 8, 2048, 128, dtype=dtype)
+            kv8_check(f"B4 H8 N2048 D128 causal {pname}", dtype, q, k, v, True,
+                      main=not fp8 and dtype == bf, transcoded=fp8)
+        k2, v2 = kv(4, 2, 2048, payload)
+        kv8_check(f"GQA 8q/2kv N2048 causal {pname}", bf,
+                  randn(4, 8, 2048, 128, dtype=bf), k2, v2, True,
+                  transcoded=fp8)
+        kv8_check(f"cross non-causal 1000 x 2048 {pname}", bf,
+                  randn(4, 8, 1000, 128, dtype=bf), k, v, False)
+        k3, v3 = kv(4, 8, 1000, payload)
+        kv8_check(f"ragged N1000 causal {pname}", bf,
+                  randn(4, 8, 1000, 128, dtype=bf), k3, v3, True)
+        del k, v, k2, v2, k3, v3
+
+    # stochastic-rounding int8 quantization
+    xs = randn(32768, 1024, dtype=bf)
+    seed = 0x5DEECE66D
+    ph.check("stochastic_quant", "(32768, 1024)", bf,
+             lambda: qt.stochastic_quant(xs, seed),
+             lambda: qt.quantize_int8_stochastic_reference(xs, seed),
+             (xs.numel() * 2 + xs.numel() + 4 * 32768, 0), main=True,
+             compare=_quant_bits_err)
+    const = torch.full((8, 256), 0.37, device=dev)
+    mean = statistics.mean(float(qt.stochastic_quant(const, i).dequantize().mean())
+                           for i in range(8))
+    log(f"[kernel] stochastic_quant mean of 8 seeds on 0.37: {mean:.6f} "
+        f"(want within 2%)")
+    if abs(mean - 0.37) > 0.02 * 0.37:
+        raise AssertionError(f"stochastic rounding is biased: {mean}")
+    # on the constant x / s is exactly 127, so that mean holds for any bits;
+    # here one 1.0 per row makes s = 1/127 and 0.3 / s = 38.1: floor and
+    # round-to-nearest both give 38/127, 0.26% low, while the 8-seed mean of
+    # 16320 unbiased draws has a standard error of 0.006%
+    frac = torch.full((8, 256), 0.3, device=dev)
+    frac[:, 0] = 1.0
+    fmean = statistics.mean(
+        float(qt.stochastic_quant(frac, i).dequantize()[:, 1:].mean())
+        for i in range(8))
+    log(f"[kernel] stochastic_quant mean of 8 seeds on 0.3 beside a 1.0: "
+        f"{fmean:.6f} (want within 0.1%)")
+    if abs(fmean - 0.3) > 1e-3 * 0.3:
+        raise AssertionError(f"stochastic rounding is biased: {fmean}")
+    del xs
+
+
 def kernel_phases(torch, dev) -> Phases:
     ph = Phases()
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -465,6 +697,8 @@ def kernel_phases(torch, dev) -> Phases:
     serving_kernel_phases(torch, dev, ph, randn)
     training_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
+    quant_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
     return ph
 
 
@@ -473,10 +707,13 @@ def kernel_counters():
     from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.ops import layernorm as ln
     from flashattn_tpu_torch.ops import paged_attention as pa
+    from flashattn_tpu_torch.ops import quant as qt
 
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
             "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel,
-            "paged_attention": pa._kernel, "dropout": dr._kernel}
+            "paged_attention": pa._kernel, "dropout": dr._kernel,
+            "wo_matmul": qt._wo_kernel, "kv8_flash": qt._kv8_kernel,
+            "stochastic_quant": qt._sq_kernel}
 
 
 SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention")
@@ -576,6 +813,146 @@ def consistency_phase(torch, model, dev) -> float:
     return err
 
 
+def _pool_bytes(pools) -> int:
+    return sum(t.numel() * t.element_size() for pool in pools
+               for t in pool.values())
+
+
+def serve_quant_variant(torch, model, label: str, pool_dtype) -> dict:
+    """One variant of the quantized serving configuration: a warm-up
+    request, then four 8192-token prompts through one batched prefill and
+    64 greedy decode steps each."""
+    import numpy as np
+
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, MODEL["n_vocab"], QUANT_PROMPT).tolist()
+               for _ in range(5)]
+    eng = ContinuousBatchingEngine(model, dtype=pool_dtype, **QUANT_ENGINE)
+    warm = eng.submit(prompts[4], 9)
+    eng.run()
+    assert warm.done and not warm.truncated
+    counters = {n: k for n, k in kernel_counters().items() if n in QUANT_KERNELS}
+    for kern in counters.values():
+        kern.launches = 0
+    reqs = [eng.submit(p, QUANT_NEW_TOKENS) for p in prompts[:4]]
+    first_token = {}
+    prefill_s = decode_s = 0.0
+    prompt_tok = decode_tok = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    while True:
+        queued = {id(r) for r in eng.queue}
+        gen_before = sum(len(r.generated) for r in reqs)
+        t0 = time.perf_counter()
+        progressed = eng.step()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if not progressed:
+            break
+        for r in reqs:
+            if r.generated and r.uid not in first_token:
+                first_token[r.uid] = t1 - t_start
+        admitted = [r for r in reqs if id(r) in queued and r not in eng.queue]
+        if admitted:
+            prefill_s += t1 - t0
+            prompt_tok += sum(len(r.prompt) for r in admitted)
+        else:
+            decode_s += t1 - t0
+            decode_tok += sum(len(r.generated) for r in reqs) - gen_before
+    wall_ms = (time.perf_counter() - t_start) * 1e3
+    launches = {name: kern.launches for name, kern in counters.items()}
+    for r in reqs:
+        assert r.done and not r.truncated, f"request {r.uid} did not finish"
+        assert len(r.generated) == QUANT_NEW_TOKENS, (r.uid, len(r.generated))
+        assert all(0 <= t < MODEL["n_vocab"] for t in r.generated)
+        assert all(math.isfinite(lp) and lp <= 0 for lp in r.token_logprobs)
+    # one more request: its prefill, then one decode dispatch (8 steps)
+    # under the profiler
+    extra = eng.submit(prompts[4][:2048], 17)
+    eng.step()
+    profile_step(torch, eng.step, f"serve_quant {label}: decode dispatch")
+    eng.run()
+    assert extra.done and not extra.truncated
+    assert eng.pool.n_free == eng.pool.total, "pages leaked"
+    out = dict(prompt_tok_s=prompt_tok / prefill_s,
+               ttft_ms=statistics.mean(first_token.values()) * 1e3,
+               decode_tok_s=decode_tok / decode_s, wall_ms=wall_ms,
+               pool_bytes=_pool_bytes(eng.pools), launches=launches)
+    log(f"[serve_quant] {label}: prompt {prompt_tok} tok in "
+        f"{prefill_s * 1e3:.1f} ms ({out['prompt_tok_s']:.1f} tok/s), TTFT "
+        f"{out['ttft_ms']:.1f} ms, decode {decode_tok} tok in "
+        f"{decode_s * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s), wall "
+        f"{wall_ms:.1f} ms, pool {out['pool_bytes'] / 2**20:.1f} MiB, "
+        f"launches {launches}")
+    del eng
+    return out
+
+
+def serve_quant_phase(torch, dev) -> dict:
+    """bf16 weights + bf16 pool, int8 weights + int8 pool, int8 weights +
+    fp8 pool (bench_serving.py's northstar() configurations)."""
+    import flashattn_tpu_torch as pt
+
+    base = pt.DecoderLM(**QUANT_MODEL,
+                        generator=torch.Generator().manual_seed(SEED),
+                        device=dev).eval().to(torch.bfloat16)
+    qmodel = pt.quantize_model_weights(base, torch.int8)
+    variants = {"bf16 weights + bf16 pool": (base, torch.bfloat16),
+                "int8 weights + int8 pool": (qmodel, torch.int8),
+                "int8 weights + fp8 pool": (qmodel, torch.float8_e4m3fn)}
+    results = {}
+    for label, (model, pool_dtype) in variants.items():
+        res = serve_quant_variant(torch, model, label, pool_dtype)
+        quantized = model is qmodel
+        for name, n in res["launches"].items():
+            if name == "wo_matmul" and not quantized:
+                assert n == 0, f"{label}: wo_matmul launched {n} times"
+            elif n <= 0:
+                raise AssertionError(f"{label}: {name} was not launched")
+        results[label] = res
+        torch.cuda.empty_cache()
+    return results
+
+
+def quant_consistency_phase(torch, model, dev) -> None:
+    """The f32 model with int8 weights, over an int8 and then an fp8 pool:
+    engine logits against one dense forward of the same quantized model."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    qmodel = pt.quantize_model_weights(model, torch.int8)
+    for name, dtype in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        rng = np.random.default_rng(SEED + 5)
+        eng = ContinuousBatchingEngine(qmodel, max_batch=1, page_size=128,
+                                       pages_per_seq=8, prefill_chunk=512,
+                                       collect_logits=True, dtype=dtype)
+        reqs = [eng.submit(rng.integers(0, MODEL["n_vocab"], 500).tolist(), 40),
+                eng.submit(rng.integers(0, MODEL["n_vocab"], 600).tolist(), 8)]
+        eng.run()
+        assert eng.pool.n_free == eng.pool.total, "pages leaked"
+        worst_rel, worst_agree = 0.0, 1.0
+        with torch.inference_mode():
+            for r in reqs:
+                traj = r.prompt + r.generated[:-1]
+                dense = qmodel(torch.tensor([traj], device=dev))[0].float().cpu()
+                got = torch.from_numpy(np.stack(r.logits))
+                assert got.shape == dense.shape, (got.shape, dense.shape)
+                rel = float((got - dense).abs().max() / dense.abs().max())
+                agree = float((got.argmax(-1) == dense.argmax(-1)).float().mean())
+                worst_rel, worst_agree = max(worst_rel, rel), min(worst_agree, agree)
+        log(f"[quant_consistency] f32 int8 weights, {name} pool, engine vs "
+            f"dense over {[len(r.prompt) + len(r.generated) - 1 for r in reqs]}"
+            f" positions: max rel err {worst_rel:.3e} (< 0.08), argmax "
+            f"agreement {worst_agree:.4f} (>= 0.8)")
+        if not (worst_rel < 0.08 and worst_agree >= 0.8):
+            raise AssertionError(f"{name} pool: rel {worst_rel}, agreement "
+                                 f"{worst_agree}")
+
+
 def train_flops(cfg, batch, seq) -> float:
     """Model FLOP per train step, the formula of
     kernel_bench/bench_train_mfu.py:70-73: 6 x matmul weights x tokens, plus
@@ -649,10 +1026,10 @@ def train_phase(torch, dev, power: str) -> dict:
     return dict(ms=ms, launches=launches)
 
 
-def profile_step(torch, run) -> None:
-    """One more train step under torch.profiler: the device busy share (the
-    union of kernel intervals over the step's wall time) and the device time
-    by kernel."""
+def profile_step(torch, run, label: str = "train step") -> None:
+    """``run()`` (one more train step, or an engine step) under
+    torch.profiler: the device busy share (the union of kernel intervals
+    over the wall time) and the device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -674,7 +1051,8 @@ def profile_step(torch, run) -> None:
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
-        r"\(anonymous namespace\)::(flash_|layernorm_|dropout_kernel|paged_kernel)",
+        r"\(anonymous namespace\)::(flash_|layernorm_|dropout_kernel|paged_kernel"
+        r"|wo_matmul_kernel|kv8_flash_kernel|stochastic_quant_kernel)",
         kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])
@@ -684,12 +1062,12 @@ def profile_step(torch, run) -> None:
     for name, (_, t) in rest:
         hit = [g for g, keys in groups.items() if any(k in name for k in keys)]
         sums[hit[0] if hit else "other PyTorch"] += t
-    log(f"[profile] train step wall {wall_ms:.1f} ms (under the profiler), "
+    log(f"[profile] {label} wall {wall_ms:.1f} ms (under the profiler), "
         f"device busy {busy / 1e3:.1f} ms = "
         f"{100 * busy / 1e3 / wall_ms:.1f}% of wall; {len(spans)} device "
         f"events")
     for name, (n, t) in sorted(ours, key=lambda kv: -kv[1][1]) + rest[:6]:
-        short = name.split("(anonymous namespace)::")[-1]
+        short = name.split("(anonymous namespace)::", 1)[-1]
         log(f"[profile]   {t / 1e3:9.3f} ms  {100 * t / max(busy, 1e-9):5.1f}%"
             f"  x{n:<5d} {short[:100]}")
     log("[profile] by group: " + ", ".join(
@@ -772,7 +1150,36 @@ SOURCES = {
                          "flashattn_tpu/ops/paged_attention.py:34"]),
     "dropout": ("flashattn_tpu_torch/csrc/dropout.cu",
                 ["flashattn_tpu/ops/dropout.py:77"]),
+    "wo_matmul": ("flashattn_tpu_torch/csrc/wo_matmul.cu",
+                  ["flashattn_tpu/ops/quant.py:145"]),
+    "paged_attention_int8": ("flashattn_tpu_torch/csrc/paged_attention.cu",
+                             ["flashattn_tpu/ops/paged_attention.py:119",
+                              "flashattn_tpu/ops/paged_attention.py:34"]),
+    "paged_attention_fp8": ("flashattn_tpu_torch/csrc/paged_attention.cu",
+                            ["flashattn_tpu/ops/paged_attention.py:119",
+                             "flashattn_tpu/ops/paged_attention.py:34"]),
+    "kv8_flash": ("flashattn_tpu_torch/csrc/kv8_flash.cu",
+                  ["flashattn_tpu/ops/quant.py:216",
+                   "flashattn_tpu/ops/quant.py:312",
+                   "flashattn_tpu/ops/quant.py:516"]),
+    "stochastic_quant": ("flashattn_tpu_torch/csrc/quant.cu",
+                         ["flashattn_tpu/ops/quant.py:84"]),
 }
+# the quantized paged entries: the serve_quant variant whose pool they serve
+QUANT_PAGED = {"paged_attention_int8": "int8 weights + int8 pool",
+               "paged_attention_fp8": "int8 weights + fp8 pool"}
+
+
+def main_path_launches(name, train, serve, serve_quant) -> int:
+    """A kernel's launches over the main-path runs.  The paged kernel's
+    launches over a quantized pool count under that pool's entry, the
+    others under ``paged_attention``."""
+    if name in QUANT_PAGED:
+        return serve_quant[QUANT_PAGED[name]]["launches"]["paged_attention"]
+    runs = [train, serve] + [
+        res for label, res in serve_quant.items()
+        if name != "paged_attention" or label not in QUANT_PAGED.values()]
+    return sum(r["launches"].get(name, 0) for r in runs)
 
 
 def main() -> int:
@@ -816,7 +1223,10 @@ def main() -> int:
                       device=dev).eval()
     serve = serve_phase(torch, copy.deepcopy(model).to(torch.bfloat16), dev)
     consistency_phase(torch, model, dev)
+    quant_consistency_phase(torch, model, dev)
     del model
+    torch.cuda.empty_cache()
+    serve_quant = serve_quant_phase(torch, dev)
     torch.cuda.empty_cache()
     train = train_phase(torch, dev, power)
     torch.cuda.empty_cache()
@@ -824,8 +1234,7 @@ def main() -> int:
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():
-        launches = (train["launches"].get(name, 0)
-                    + serve["launches"].get(name, 0))
+        launches = main_path_launches(name, train, serve, serve_quant)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=tpu[0], counterparts=tpu,
                             launches=launches, **phases.main[name]))

@@ -1,10 +1,13 @@
 """flashattn_tpu_torch: the PyTorch/CUDA port of :mod:`flashattn_tpu` for
 NVIDIA Hopper (H100).
 
-The layout follows the JAX package, module for module.  Two paths are
+The layout follows the JAX package, module for module.  Three paths are
 ported: serving, the paged continuous-batching engine
-(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods; and
-training, :func:`make_train_step` over :func:`lm_loss` (optionally in bf16
+(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods;
+quantized serving, the same engine over a model whose Linears
+:func:`quantize_model_weights` made weight-only int8 / fp8
+(:class:`QuantizedLinear`) and over int8 / fp8 page pools
+(``ContinuousBatchingEngine(..., dtype=torch.int8)``); and training, :func:`make_train_step` over :func:`lm_loss` (optionally in bf16
 over f32 masters, :func:`make_mixed_precision_loss`) with the optimizers of
 :mod:`.optim`.  Every kernel those paths run is a hand-written CUDA C++
 kernel for ``sm_90a`` under ``csrc/`` with a plain PyTorch version beside
@@ -14,6 +17,8 @@ it:
 * flash attention forward and backward (dK/dV, dQ) (:mod:`.ops.flash_attention`)
 * paged attention (decode / extend)             (:mod:`.ops.paged_attention`)
 * fused dropout (Philox4x32-10)                 (:mod:`.ops.dropout`)
+* weight-only int8 / fp8 matmul, flash attention over an int8 / fp8 KV
+  cache, stochastic-rounding int8 quantization  (:mod:`.ops.quant`)
 
 On CUDA tensors the ops launch their kernels (built with nvcc at first use,
 see :mod:`.ops._build`); on CPU tensors they run the plain versions.
@@ -22,7 +27,15 @@ another.  The package imports torch and never jax.
 """
 
 from .nn import functional as F
-from .nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
+from .nn.basic import (
+    Dropout,
+    Embedding,
+    FusedLayerNorm,
+    LayerNorm1d,
+    Linear,
+    QuantizedLinear,
+    quantize_linear,
+)
 from .ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -32,6 +45,18 @@ from .ops.flash_attention import (
 from .ops.dropout import fused_dropout
 from .ops.layernorm import layernorm, layernorm_reference
 from .ops.paged_attention import paged_attention, paged_attention_reference
+from .ops.quant import (
+    FP8_MAX,
+    QuantizedTensor,
+    flash_attention_kv_int8,
+    int8_weight_only_matmul,
+    quantize_fp8,
+    quantize_int8,
+    quantize_int8_stochastic,
+    quantize_kv,
+    quantize_model_weights,
+    requantize_fp8_to_int8,
+)
 from .models.transformer import (
     DecoderLM,
     FeedForward,
@@ -65,6 +90,8 @@ __all__ = [
     "FusedLayerNorm",
     "LayerNorm1d",
     "Linear",
+    "QuantizedLinear",
+    "quantize_linear",
     "flash_attention",
     "flash_attention_reference",
     "flash_attention_varlen",
@@ -74,6 +101,16 @@ __all__ = [
     "layernorm_reference",
     "paged_attention",
     "paged_attention_reference",
+    "FP8_MAX",
+    "QuantizedTensor",
+    "flash_attention_kv_int8",
+    "int8_weight_only_matmul",
+    "quantize_fp8",
+    "quantize_int8",
+    "quantize_int8_stochastic",
+    "quantize_kv",
+    "quantize_model_weights",
+    "requantize_fp8_to_int8",
     "DecoderLM",
     "FeedForward",
     "MultiHeadAttention",

@@ -7,7 +7,10 @@ imports jax::
     load_jax_params(torch_model, params)
 
 Names match one to one (``layers.0.attention.q_projection.weights`` ...)
-because the port keeps the JAX modules' attribute names and layouts.
+because the port keeps the JAX modules' attribute names and layouts.  A
+weight-only quantized model (``quantize_model_weights``) carries its int8
+or float8 payloads (``...q_projection.values``) and f32 ``scales`` across
+exactly: quantize both models the same way first.
 """
 
 from __future__ import annotations
@@ -18,11 +21,28 @@ import numpy as np
 import torch
 
 
+def _to_torch(name: str, src: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """``src`` as a tensor of ``dtype``; quantized payloads bit for bit."""
+    if dtype == torch.int8:
+        if src.dtype != np.int8:
+            raise TypeError(f"{name}: int8 payload expected, got {src.dtype}")
+        return torch.from_numpy(src.copy())
+    if dtype == torch.float8_e4m3fn:
+        if src.dtype.name != "float8_e4m3fn":
+            raise TypeError(f"{name}: float8_e4m3fn payload expected, got "
+                            f"{src.dtype}")
+        return torch.from_numpy(src.view(np.uint8).copy()).view(dtype)
+    return torch.from_numpy(np.array(src, np.float32)).to(dtype)
+
+
 def load_jax_params(model: torch.nn.Module,
                     params: Mapping[str, np.ndarray]) -> torch.nn.Module:
-    """Copy ``params`` into ``model`` in place (cast to each parameter's dtype
-    and device) and return it.  Raises ``KeyError`` on a missing or extra
-    name and ``ValueError`` on a shape mismatch."""
+    """Copy ``params`` into ``model``'s parameters in place (cast to each
+    one's dtype and device; int8 and float8 payloads, which are parameters
+    that do not require grad, copied exactly) and return it.  Raises
+    ``KeyError`` on a missing or extra name, ``ValueError`` on a shape
+    mismatch and ``TypeError`` when a quantized payload meets an array of
+    another type."""
     own = dict(model.named_parameters())
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -35,5 +55,5 @@ def load_jax_params(model: torch.nn.Module,
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} does not "
                                  f"match {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(src, np.float32)).to(p.dtype))
+            p.copy_(_to_torch(name, src, p.dtype))
     return model

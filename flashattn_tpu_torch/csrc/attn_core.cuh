@@ -1,11 +1,13 @@
-// Shared online-softmax attention tile for the flash forward and paged
-// decode kernels.
+// Shared online-softmax attention tile for the flash forward, paged
+// decode and quantized-KV flash kernels.
 //
 // One thread block owns BM query rows and walks the key positions it can
 // see in tiles of BN = 64.  Each row r attends the half-open key interval
-// [lo_r, hi_r); the two callers differ only in how they address keys and
-// compute those intervals (the `Src` policy below), so causal, window,
-// varlen and chunk-causal masks are all one comparison per score.
+// [lo_r, hi_r); the callers differ only in how they load and address keys
+// and compute those intervals (the `Src` policy below), so causal, window,
+// varlen and chunk-causal masks are all one comparison per score, and
+// int8 / fp8 payloads with per-token scales are one multiply as a K or V
+// row is staged.
 //
 // What bounds it on the H100: this is the simple CUDA-core (FMA) version.
 // Q, K and V tiles are staged in shared memory as f32 and every thread
@@ -17,6 +19,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -57,6 +60,28 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(fa.x, fa.y, fb.x, fb.y);
 }
 
+// Payload types of quantized tensors (int8, fp8 e4m3): four values as f32.
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(float(c.x), float(c.y), float(c.z), float(c.w));
+}
+__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
+  return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// Round four f32 values to T and back (the identity for f32).
+template <typename T> __device__ __forceinline__ float4 round4(float4 v) { return v; }
+template <> __device__ __forceinline__ float4 round4<__nv_bfloat16>(float4 v) {
+  return make_float4(__bfloat162float(__float2bfloat16(v.x)),
+                     __bfloat162float(__float2bfloat16(v.y)),
+                     __bfloat162float(__float2bfloat16(v.z)),
+                     __bfloat162float(__float2bfloat16(v.w)));
+}
+
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -87,13 +112,34 @@ template <int CG> __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// Quantize each staged q row to int8 on its own absmax (scale absmax / 127,
+// 1 for a zero row; round half to even) and store the dequantized values,
+// as the TPU quantized-KV kernels quantize q before their int8 scores dot.
+template <int D, int NT>
+__device__ void quantize_rows_int8(float* q_s, int ds, int n_rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n_rows; r += NT / 32) {
+    float* row = q_s + r * ds;
+    float amax = 0.f;
+    for (int c = lane; c < D; c += 32) amax = fmaxf(amax, fabsf(row[c]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = amax == 0.f ? 1.f : amax / 127.f;
+    for (int c = lane; c < D; c += 32)
+      row[c] = fminf(fmaxf(rintf(row[c] / s), -127.f), 127.f) * s;
+  }
+}
+
 // Src is a policy with:
 //   int n_rows;                         valid query rows of this tile
 //   int kv_cap;                         key positions >= kv_cap read as 0
-//   const T* q_row(int r);              r < n_rows
+//   float4 q4(int r, int c, float scale_log2);   q[r][c..c+3] pre-scaled, r < n_rows
 //   void bounds(int r, int& lo, int& hi);   r < n_rows
-//   const T* k_row(int pos); const T* v_row(int pos);   0 <= pos < kv_cap
+//   float4 k4(int pos, int c); float4 v4(int pos, int c);   K/V[pos][c..c+3]
+//     as f32 (dequantized for a quantized source), 0 <= pos < kv_cap
 //   T* o_row(int r);  float* lse_row(int r) (nullptr when not wanted)
+//   static constexpr bool kQuantQ;      quantize the staged q rows to int8
 // scale_log2 = sm_scale * log2(e) is folded into q as it is staged, so the
 // softmax runs in exp2 and lse is converted back to natural log.
 template <typename T, int D, int BM, class Src>
@@ -119,11 +165,12 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
   for (int i = t; i < BM * D / 4; i += NT) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < src.n_rows) {
-      v = load4(src.q_row(r) + c);
-      v.x *= scale_log2; v.y *= scale_log2; v.z *= scale_log2; v.w *= scale_log2;
-    }
+    if (r < src.n_rows) v = src.q4(r, c, scale_log2);
     *reinterpret_cast<float4*>(q_s + r * DS + c) = v;
+  }
+  if constexpr (Src::kQuantQ) {
+    __syncthreads();
+    quantize_rows_int8<D, NT>(q_s, DS, src.n_rows);
   }
 
   // Per-row key intervals for this thread's rows; the block's walk covers
@@ -158,8 +205,8 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
       const int pos = kt + kr;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (pos < src.kv_cap) {
-        kv = load4(src.k_row(pos) + c);
-        vv = load4(src.v_row(pos) + c);
+        kv = src.k4(pos, c);
+        vv = src.v4(pos, c);
       }
       *reinterpret_cast<float4*>(k_s + kr * DS + c) = kv;
       *reinterpret_cast<float4*>(v_s + kr * DS + c) = vv;

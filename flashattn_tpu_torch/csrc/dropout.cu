@@ -9,9 +9,8 @@
 // (launched by _grid_call through _mask_scale and _dropout_p), which draws
 // its bits from the TPU's in-core generator seeded per row block.
 //
-// Random bits: Philox4x32-10 keyed by the whole 64-bit seed (low word,
-// high word).  Element i takes word i % 4 of the block at counter i / 4
-// (64 bits in the first two counter words, the other two 0).  The bits
+// Random bits: Philox4x32-10 keyed by the whole 64-bit seed (philox.cuh).
+// Element i takes word i % 4 of the block at counter i / 4.  The bits
 // depend on the element index alone, not on the launch shape, and
 // ops/dropout.py computes the same bits with integer tensor ops, so the
 // kernel and its plain version give bit-identical masks.
@@ -25,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -32,31 +33,15 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256)
 dropout_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
                unsigned long long seed, uint32_t threshold, float scale) {
-  const uint2 key = make_uint2(uint32_t(seed), uint32_t(seed >> 32));
   const long long blocks4 = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < blocks4;
        j += stride) {
-    const uint4 r = philox4x32_10(
-        make_uint4(uint32_t(j), uint32_t((unsigned long long)j >> 32), 0u, 0u), key);
+    const uint4 r = fa::philox_block(j, seed);
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int l = 0; l < 4; ++l) {

@@ -26,15 +26,18 @@ namespace {
 
 template <typename T, int D>
 struct DenseSrc {
+  static constexpr bool kQuantQ = false;
   const T* q; const T* k; const T* v; T* o; float* lse;
   int n_rows, kv_cap;
   int row0;            // first query row of this tile
   int kv_len;          // keys visible to every row (min of n_kv, length)
   int causal, window;
 
-  __device__ const T* q_row(int r) const { return q + size_t(r) * D; }
-  __device__ const T* k_row(int pos) const { return k + size_t(pos) * D; }
-  __device__ const T* v_row(int pos) const { return v + size_t(pos) * D; }
+  __device__ float4 q4(int r, int c, float scale) const {
+    return fa::scale4(fa::load4(q + size_t(r) * D + c), scale);
+  }
+  __device__ float4 k4(int pos, int c) const { return fa::load4(k + size_t(pos) * D + c); }
+  __device__ float4 v4(int pos, int c) const { return fa::load4(v + size_t(pos) * D + c); }
   __device__ T* o_row(int r) const { return o + size_t(r) * D; }
   __device__ float* lse_row(int r) const { return lse + r; }
   __device__ void bounds(int r, int& lo, int& hi) const {

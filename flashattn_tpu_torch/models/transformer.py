@@ -26,7 +26,9 @@ from ..ops.flash_attention import (
     flash_attention_reference,
     flash_attention_varlen,
 )
+from ..ops._build import PAYLOAD_DTYPES
 from ..ops.paged_attention import paged_attention
+from ..ops.quant import FP8_MAX, absmax_scale
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -55,16 +57,33 @@ def remat_policy(name: Optional[str]):
 _remat_policy = remat_policy   # DecoderLM's argument of the same name shadows it
 
 
+def _quantize_kv(t: torch.Tensor, dtype):
+    """Per-token symmetric quantization of pool writes, in f32 throughout:
+    payload in ``dtype`` (int8 absmax / 127, fp8 e4m3 absmax / 448) and f32
+    scales (..., 1)."""
+    tf = t.float()
+    scale = absmax_scale(tf.abs().amax(-1, keepdim=True),
+                         127.0 if dtype == torch.int8 else FP8_MAX)
+    payload = tf / scale
+    if dtype == torch.int8:
+        payload = torch.round(payload).clamp(-127, 127)
+    return payload.to(dtype), scale
+
+
 def _scatter_kv(pool: dict, k: torch.Tensor, v: torch.Tensor,
                 page_ids: torch.Tensor, offs: torch.Tensor) -> None:
-    """Write k/v (B, n_kv_head, S, hd) at (page_ids, offs) (B, S) in place."""
+    """Write k/v (B, n_kv_head, S, hd) at (page_ids, offs) (B, S) in place;
+    a quantized pool (``"ks"``/``"vs"`` present) takes payloads and
+    per-token scales."""
     flat_pages = page_ids.reshape(-1).long()
     flat_offs = offs.reshape(-1).long()
     kv_heads, hd = k.shape[1], k.shape[3]
-    k_new = k.transpose(0, 1).reshape(kv_heads, -1, hd)   # (nh, B*S, hd)
-    v_new = v.transpose(0, 1).reshape(kv_heads, -1, hd)
-    pool["k"][:, flat_pages, flat_offs] = k_new.to(pool["k"].dtype)
-    pool["v"][:, flat_pages, flat_offs] = v_new.to(pool["v"].dtype)
+    for name, t in (("k", k), ("v", v)):
+        new = t.transpose(0, 1).reshape(kv_heads, -1, hd)   # (nh, B*S, hd)
+        if name + "s" in pool:
+            new, scale = _quantize_kv(new, pool[name].dtype)
+            pool[name + "s"][:, flat_pages, flat_offs] = scale
+        pool[name][:, flat_pages, flat_offs] = new.to(pool[name].dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -141,20 +160,24 @@ class MultiHeadAttention(nn.Module):
 
     def init_page_pool(self, total_pages: int, page_size: int,
                        dtype=torch.float32, device=None) -> dict:
-        """Per-layer paged KV pool (n_kv_head, total_pages, page_size, hd)."""
-        if dtype in (torch.int8, torch.float8_e4m3fn):
-            raise NotImplementedError(
-                "quantized (int8/fp8) page pools are not ported yet "
-                "(ROADMAP A4)")
+        """Per-layer paged KV pool (n_kv_head, total_pages, page_size, hd).
+        An int8 or float8_e4m3fn ``dtype`` builds a quantized pool: payloads
+        plus per-token f32 scales ``"ks"``/``"vs"`` (..., 1), starting at 1."""
         shape = (self.n_kv_head, total_pages, page_size, self.attn_hidden_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+        pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if dtype in PAYLOAD_DTYPES:
+            for name in ("ks", "vs"):
+                pool[name] = torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                                        device=device)
+        return pool
 
     def forward_prefill_paged(self, x, pool: dict, page_table, prompt_lens):
         """Batched prefill: x (B, S, E) padded prompts, prompt_lens (B,) valid
         tokens (0 = idle row, routed to a trash page by the caller's table).
         Writes all S positions' K/V into the pages; attention is causal and
-        varlen-masked.  Returns (out (B, S, E), pool)."""
+        varlen-masked, on the full-precision q/k/v whatever the pool's dtype
+        (the cache holds nothing older).  Returns (out (B, S, E), pool)."""
         bs, seq, _ = x.shape
         page_size = pool["k"].shape[2]
         q, k, v = self.project_to_query_key_value(x)
@@ -186,7 +209,8 @@ class MultiHeadAttention(nn.Module):
         _scatter_kv(pool, k, v, page_ids, write_pos % page_size)
         qc = q.transpose(1, 2)                                    # (B, k, nh, hd)
         out = paged_attention(qc, pool["k"], pool["v"], lengths + kk,
-                              page_table,
+                              page_table, k_scales=pool.get("ks"),
+                              v_scales=pool.get("vs"),
                               sm_scale=1.0 / math.sqrt(self.attn_hidden_dim),
                               window=self.window)
         return self.out_projection(out.reshape(bs, kk, self.n_embd)), pool

@@ -1,5 +1,5 @@
-"""Basic NN modules: Embedding, Dropout, Linear, LayerNorm1d, FusedLayerNorm
-(counterpart of flashattn_tpu/nn/basic.py).
+"""Basic NN modules: Embedding, Dropout, Linear, LayerNorm1d, FusedLayerNorm,
+QuantizedLinear (counterpart of flashattn_tpu/nn/basic.py).
 
 Parameter names match the JAX modules (``weights``, ``bias``, ``gamma``,
 ``beta``) so ``convert.load_jax_params`` maps one onto the other by name.
@@ -16,6 +16,12 @@ import torch
 from torch import nn
 
 from ..ops.layernorm import layernorm
+from ..ops.quant import (
+    QuantizedTensor,
+    int8_weight_only_matmul,
+    quantize_fp8,
+    quantize_int8,
+)
 from . import functional as F
 
 
@@ -124,3 +130,60 @@ class FusedLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layernorm(x, self.gamma, self.beta, eps=self.eps)
+
+
+class QuantizedLinear(nn.Module):
+    """Weight-only quantized Linear: y = x @ dequantize(W) + b with an int8
+    or float8_e4m3fn payload ``values`` (in_size, out_size) and f32
+    per-output-channel ``scales`` (1, out_size); the dequantization happens
+    inside the matmul kernel (:func:`~..ops.quant.int8_weight_only_matmul`),
+    so W never exists at full precision in device memory.  Built from a
+    :class:`Linear` by :func:`quantize_linear`.
+
+    ``values`` and ``scales`` are parameters that take no gradient, so that
+    ``load_jax_params`` and ``state_dict`` see them by name.  Casting the
+    module (``.to(torch.bfloat16)``, ``.half()``) casts the bias only: the
+    payload keeps its type and the scales stay f32."""
+
+    def __init__(self, values: torch.Tensor, scales: torch.Tensor,
+                 bias: Optional[torch.Tensor], in_size: int, out_size: int):
+        super().__init__()
+        self.in_size = in_size
+        self.out_size = out_size
+        self.values = nn.Parameter(values, requires_grad=False)
+        self.scales = nn.Parameter(scales.float(), requires_grad=False)
+        self.bias = None if bias is None else nn.Parameter(bias.detach().clone())
+
+    def _apply(self, fn, recurse=True):
+        # nn.Module casts every floating tensor it holds, fp8 payloads
+        # included; apply ``fn`` to integer views of the payload and the
+        # scales, which it can only move between devices.
+        kept = {"values": self.values.dtype, "scales": self.scales.dtype}
+        raw = {torch.float8_e4m3fn: torch.uint8, torch.float32: torch.int32}
+        for name, dtype in kept.items():
+            p = getattr(self, name)
+            p.data = p.data.view(raw.get(dtype, dtype))
+        try:
+            return super()._apply(fn, recurse)
+        finally:
+            for name, dtype in kept.items():
+                p = getattr(self, name)
+                p.data = p.data.view(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = QuantizedTensor(self.values, self.scales)
+        out = int8_weight_only_matmul(x.reshape(-1, x.shape[-1]), w)
+        out = out.reshape(*x.shape[:-1], self.out_size)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+def quantize_linear(lin: Linear, dtype=torch.int8) -> QuantizedLinear:
+    """Quantize a Linear's weights per output channel (int8 or fp8)."""
+    if dtype not in (torch.int8, torch.float8_e4m3fn):
+        raise TypeError(f"weights quantize to int8 or float8_e4m3fn, not {dtype}")
+    quantize = quantize_int8 if dtype == torch.int8 else quantize_fp8
+    q = quantize(lin.weights.detach(), axis=0)
+    return QuantizedLinear(q.values, q.scales, lin.bias, lin.in_size,
+                           lin.out_size)

@@ -123,7 +123,7 @@ class Kernel:
 
 
 def dtype_code(t: torch.Tensor) -> int:
-    """The C interface's dtype code: 0 float32, 1 bfloat16."""
+    """The C interface's dtype code of an activation: 0 float32, 1 bfloat16."""
     if t.dtype == torch.float32:
         return 0
     if t.dtype == torch.bfloat16:
@@ -131,9 +131,26 @@ def dtype_code(t: torch.Tensor) -> int:
     raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
 
 
+PAYLOAD_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def payload_code(t: torch.Tensor) -> int:
+    """The C interface's code of a quantized payload: 2 int8, 3 float8
+    e4m3."""
+    if t.dtype == torch.int8:
+        return 2
+    if t.dtype == torch.float8_e4m3fn:
+        return 3
+    raise TypeError(f"quantized payloads are int8 or float8_e4m3fn, got "
+                    f"{t.dtype}")
+
+
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous with a 16-byte aligned base, as the kernels' vector loads
-    need."""
+    need.  A tensor off the card raises: its pointer would be a host one."""
+    if not t.is_cuda:
+        raise ValueError(f"kernel arguments must lie on a CUDA device, got "
+                         f"one on {t.device}")
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

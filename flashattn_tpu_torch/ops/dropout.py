@@ -64,13 +64,20 @@ def _threshold(rate: float) -> int:
     return min(int(rate * (1 << 32)), (1 << 32) - 1)
 
 
-def keep_mask(n: int, rate: float, seed: int, device=None) -> torch.Tensor:
-    """The (n,) bool keep mask of a dropout of ``n`` elements."""
+def philox_bits(n: int, seed: int, device=None) -> torch.Tensor:
+    """The (n,) int64 tensor of 32-bit words that element i of a kernel
+    keyed by ``seed`` draws: word i % 4 of the Philox block at counter
+    i // 4 (``csrc/philox.cuh``)."""
     j = torch.arange(cdiv(n, 4), device=device, dtype=torch.int64)
     zero = torch.zeros_like(j)
     bits = philox4x32(torch.stack([j & _M32, j >> 32, zero, zero], -1),
                       (seed & _M32, (seed >> 32) & _M32))
-    return bits.reshape(-1)[:n] >= _threshold(rate)
+    return bits.reshape(-1)[:n]
+
+
+def keep_mask(n: int, rate: float, seed: int, device=None) -> torch.Tensor:
+    """The (n,) bool keep mask of a dropout of ``n`` elements."""
+    return philox_bits(n, seed, device) >= _threshold(rate)
 
 
 def _check(rate: float, seed: int):

@@ -1,0 +1,330 @@
+"""Quantization (counterpart of flashattn_tpu/ops/quant.py): int8 / fp8
+tensors, the weight-only quantized matmul, flash attention over a quantized
+KV cache, stochastic-rounding int8 quantization and the serving-time model
+transform.
+
+Symmetric per-channel scales kept in f32: int8 payloads hold
+round(x / (absmax / 127)), fp8 (e4m3) payloads x / (absmax / 448).  The
+quantizers (:func:`quantize_int8`, :func:`quantize_fp8`, :func:`quantize_kv`,
+:func:`requantize_fp8_to_int8`) are plain torch, as they are plain jnp in
+the JAX package.  Three functions are hand-written CUDA kernels on CUDA
+tensors, each with a plain PyTorch version beside it that the CPU runs:
+
+* :func:`int8_weight_only_matmul` — ``csrc/wo_matmul.cu`` (TPU
+  ``_wo_matmul_kernel``);
+* :func:`flash_attention_kv_int8` — ``csrc/kv8_flash.cu`` (TPU
+  ``_kv8_fwd_kernel``, ``_kv8_loop_kernel`` and ``_kv8_subrow_kernel``);
+* :func:`quantize_int8_stochastic` — ``csrc/quant.cu`` (TPU
+  ``_stochastic_quant_kernel``).
+
+The kernels take every shape: the JAX wrappers' fallbacks for shapes their
+TPU tiling does not divide are not carried over, nor are the TPU tiling
+knobs (``block_m``, ``block_q`` ...).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import _build
+from ._utils import LN2, LOG2E, check_no_grad, on_cuda
+from .dropout import philox_bits
+from .flash_attention import _reference_fwd_with_lse
+
+_wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 5)
+_kv8_kernel = _build.Kernel("fa_kv8_flash", [_build.P] * 7 + [_build.I] * 7
+                            + [_build.F, _build.I, _build.I])
+_sq_kernel = _build.Kernel("fa_stochastic_quant", [_build.P] * 3
+                           + [_build.I, _build.I, _build.U64, _build.I])
+
+HEAD_DIMS = (32, 64, 128)
+FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
+
+
+def absmax_scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
+    """absmax / qmax, or 1 where absmax is 0, in absmax's dtype.  The
+    division is elementwise: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which can differ in the last bit from the
+    true division of the kernels and of the JAX package."""
+    return torch.where(absmax == 0, 1.0, absmax / torch.full_like(absmax, qmax))
+
+
+class QuantizedTensor(NamedTuple):
+    """A quantized payload (int8 or float8_e4m3fn) and broadcastable f32
+    scales: values * scales ~= the original."""
+
+    values: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return self.values.to(dtype) * self.scales.to(dtype)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1) -> QuantizedTensor:
+    """Symmetric int8 quantization (absmax / 127) along ``axis``.  As in the
+    JAX package, the scale is computed in x's dtype and only then cast to
+    f32 (so bf16 weights get a bf16-rounded scale)."""
+    scale = absmax_scale(x.abs().amax(dim=axis, keepdim=True), 127.0).float()
+    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+    return QuantizedTensor(q, scale)
+
+
+def quantize_fp8(x: torch.Tensor, axis: int = -1) -> QuantizedTensor:
+    """Symmetric float8 (e4m3) quantization (absmax / 448) along ``axis``,
+    in f32 throughout."""
+    xf = x.float()
+    scale = absmax_scale(xf.abs().amax(dim=axis, keepdim=True), FP8_MAX)
+    return QuantizedTensor((xf / scale).to(torch.float8_e4m3fn), scale)
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """Per-token int8 quantization of a KV cache: (B, H, N, D) -> payloads
+    with (B, H, N, 1) scales."""
+    return quantize_int8(k, axis=-1), quantize_int8(v, axis=-1)
+
+
+def requantize_fp8_to_int8(t: QuantizedTensor) -> QuantizedTensor:
+    """Transcode an fp8 payload to int8 per row (the scales absorb the
+    int8 step), as the JAX dispatcher does before its int8 route."""
+    vf = t.values.float()
+    s = absmax_scale(vf.abs().amax(dim=-1, keepdim=True), 127.0)
+    q8 = torch.round(vf / s).clamp(-127, 127).to(torch.int8)
+    return QuantizedTensor(q8, t.scales * s)
+
+
+# -- stochastic rounding -------------------------------------------------------
+
+
+def _check_seed(seed: int) -> int:
+    seed = int(seed)
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
+    return seed
+
+
+def _check_2d(x: torch.Tensor):
+    if x.dim() != 2:
+        raise ValueError(f"expected a 2-D (rows, cols) tensor, got "
+                         f"{tuple(x.shape)}")
+
+
+def quantize_int8_stochastic_reference(x: torch.Tensor,
+                                       seed: int = 0) -> QuantizedTensor:
+    """Plain version of :func:`quantize_int8_stochastic`, bit for bit: the
+    same Philox words, from integer tensor ops."""
+    _check_2d(x)
+    seed = _check_seed(seed)
+    xf = x.float()
+    scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True), 127.0)
+    bits = philox_bits(x.numel(), seed, x.device).reshape(x.shape)
+    u = (bits >> 9).float() * (1.0 / (1 << 23))
+    q = torch.floor(xf / scale + u).clamp(-127, 127).to(torch.int8)
+    return QuantizedTensor(q, scale)
+
+
+def stochastic_quant(x: torch.Tensor, seed: int) -> QuantizedTensor:
+    """Kernel launch of :func:`quantize_int8_stochastic` (CUDA tensors)."""
+    _check_2d(x)
+    seed = _check_seed(seed)
+    n, h = x.shape
+    code = _build.dtype_code(x)
+    x = _build.aligned(x.detach())
+    q = torch.empty((n, h), device=x.device, dtype=torch.int8)
+    scales = torch.ones((n, 1), device=x.device, dtype=torch.float32)
+    _sq_kernel(x.data_ptr(), q.data_ptr(), scales.data_ptr(), n, h, seed, code)
+    return QuantizedTensor(q, scales)
+
+
+def quantize_int8_stochastic(x: torch.Tensor, seed: int = 0) -> QuantizedTensor:
+    """Per-row int8 quantization of a 2-D (rows, cols) f32 / bf16 tensor with
+    stochastic rounding: q = clip(floor(x / s + u), -127, 127), s = row
+    absmax / 127, u uniform on [0, 1) from Philox4x32-10 keyed by ``seed``
+    (an int in [0, 2^64)); unbiased: E[q * s] = x."""
+    if on_cuda(x):
+        return stochastic_quant(x, seed)
+    return quantize_int8_stochastic_reference(x, seed)
+
+
+# -- weight-only quantized matmul ----------------------------------------------
+
+
+def _check_wo(x: torch.Tensor, w: QuantizedTensor):
+    if x.dim() != 2 or w.values.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.values.shape)} "
+                         f"must be 2-D")
+    k, n = w.values.shape
+    if x.shape[1] != k:
+        raise ValueError(f"x {tuple(x.shape)} @ w {tuple(w.values.shape)}: "
+                         f"inner dims differ")
+    if tuple(w.scales.shape) != (1, n):
+        raise ValueError(f"weight scales must be per output channel (1, {n}), "
+                         f"got {tuple(w.scales.shape)}")
+
+
+def int8_weight_only_matmul_reference(x: torch.Tensor,
+                                      w: QuantizedTensor) -> torch.Tensor:
+    """Plain version of :func:`int8_weight_only_matmul`: the payload in f32
+    (exact for int8 and fp8, as in x's dtype), the product summed in f32,
+    the per-column scale applied to the sum, one rounding to x's dtype."""
+    _check_wo(x, w)
+    return ((x.float() @ w.values.float()) * w.scales.float()).to(x.dtype)
+
+
+def wo_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """Kernel launch of :func:`int8_weight_only_matmul` (CUDA tensors).
+    Inference-only, as the JAX kernel: inputs that require grad raise."""
+    _check_wo(x, w)
+    check_no_grad(x)
+    code, payload = _build.dtype_code(x), _build.payload_code(w.values)
+    if w.scales.dtype != torch.float32:
+        raise TypeError(f"weight scales must be float32, got {w.scales.dtype}")
+    m, k = x.shape
+    n = w.values.shape[1]
+    x, values, scales = (_build.aligned(t.detach())
+                         for t in (x, w.values, w.scales))
+    y = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    _wo_kernel(x.data_ptr(), values.data_ptr(), scales.data_ptr(), y.data_ptr(),
+               m, n, k, code, payload)
+    return y
+
+
+def int8_weight_only_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
+    """x (M, K) @ dequantize(w) (K, N) with per-output-channel scales (1, N):
+    the weights are dequantized tile by tile inside the kernel and never
+    exist at full precision in device memory.  Payloads int8 or fp8; x f32
+    or bf16; any M, N, K."""
+    if on_cuda(x, w.values, w.scales):
+        return wo_matmul(x, w)
+    return int8_weight_only_matmul_reference(x, w)
+
+
+# -- flash attention over a quantized KV cache ---------------------------------
+
+
+def _check_kv8(q, k: QuantizedTensor, v: QuantizedTensor):
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.values.shape[1], k.values.shape[2]
+    if k.values.shape != (b, h_kv, n_kv, d) or v.values.shape != k.values.shape:
+        raise ValueError(f"k/v payloads {tuple(k.values.shape)}/"
+                         f"{tuple(v.values.shape)} do not match q {tuple(q.shape)}")
+    if k.scales.shape != (b, h_kv, n_kv, 1) or v.scales.shape != k.scales.shape:
+        raise ValueError(f"k/v scales must be {(b, h_kv, n_kv, 1)}, got "
+                         f"{tuple(k.scales.shape)}/{tuple(v.scales.shape)}")
+    if h_kv == 0 or h % h_kv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads "
+                         f"({h_kv})")
+    if k.values.dtype != v.values.dtype or \
+            k.values.dtype not in _build.PAYLOAD_DTYPES:
+        raise TypeError(f"k/v payloads must share int8 or float8_e4m3fn, got "
+                        f"{k.values.dtype}/{v.values.dtype}")
+
+
+def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """sm_scale * log2(e) as a scalar of q's dtype (the JAX prefold)."""
+    return torch.tensor(sm_scale * LOG2E, dtype=q.dtype)
+
+
+def flash_attention_kv_int8_reference(q, k: QuantizedTensor, v: QuantizedTensor,
+                                      causal: bool = False,
+                                      sm_scale: Optional[float] = None):
+    """Plain version of :func:`flash_attention_kv_int8` (no fp8 transcode:
+    the public function does that first): returns (o, lse (B, H, Nq, 1)).
+    q is pre-scaled by sm_scale * log2(e) in its dtype; with int8 payloads
+    each q row is then quantized to int8; the plain flash forward runs in
+    f32 over K/V dequantized in f32, its scores scaled by ln 2 back to
+    natural log."""
+    _check_kv8(q, k, v)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qf = (q * _prescale(q, scale).to(q.device)).float()
+    if k.values.dtype == torch.int8:
+        qf = quantize_int8(qf, axis=-1).dequantize()
+    o, lse = _reference_fwd_with_lse(qf, k.dequantize(), v.dequantize(), causal,
+                                     LN2)
+    return o.to(q.dtype), lse
+
+
+def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
+                  sm_scale: float):
+    """Kernel launch of :func:`flash_attention_kv_int8` (CUDA tensors):
+    (o, lse (B, H, Nq, 1) f32)."""
+    _check_kv8(q, k, v)
+    check_no_grad(q)
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.values.shape[1], k.values.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kv8 flash kernel head_dim must be one of "
+                         f"{HEAD_DIMS}, got {d}")
+    code, payload = _build.dtype_code(q), _build.payload_code(k.values)
+    if k.scales.dtype != torch.float32 or v.scales.dtype != torch.float32:
+        raise TypeError("k/v scales must be float32")
+    q, kv_, vv, ks, vs = (_build.aligned(t.detach()) for t in
+                          (q, k.values, v.values, k.scales, v.scales))
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, n_q, 1), device=q.device, dtype=torch.float32)
+    _kv8_kernel(q.data_ptr(), kv_.data_ptr(), vv.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q,
+                n_kv, d, int(causal), float(_prescale(q, sm_scale)), code,
+                payload)
+    return o, lse
+
+
+def _subrow_envelope(causal, n_q, n_kv, d) -> bool:
+    """The shapes at which the JAX dispatcher takes its subrow schedule and
+    transcodes fp8 payloads to int8 first."""
+    return (causal and n_q == n_kv and d == 128 and 1024 <= n_q <= 8192
+            and n_q % 512 == 0)
+
+
+def flash_attention_kv_int8(q: torch.Tensor, k: QuantizedTensor,
+                            v: QuantizedTensor, causal: bool = False,
+                            sm_scale: Optional[float] = None):
+    """Flash attention with a quantized (int8 or fp8) KV cache.
+
+    q: (B, H, Nq, D) f32 / bf16; k, v: payloads (B, Hkv, Nkv, D) with f32
+    scales (B, Hkv, Nkv, 1), H a multiple of Hkv (query head h reads kv
+    head h // (H / Hkv)).  Returns (o, lse (B, H, Nq, 1) in natural log).
+    Inference-only.  With int8 payloads q is quantized per row to int8
+    after the sm_scale prefold, as the TPU kernels do; fp8 payloads at the
+    TPU subrow envelope (causal, Nq == Nkv, D 128, 1024 <= N <= 8192,
+    N % 512 == 0) are transcoded to int8 first (:func:`requantize_fp8_to_int8`),
+    as the JAX dispatcher does, so every shape gives the JAX numbers."""
+    b, h, n_q, d = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if (k.values.dtype == torch.float8_e4m3fn
+            and _subrow_envelope(causal, n_q, k.values.shape[2], d)):
+        k, v = requantize_fp8_to_int8(k), requantize_fp8_to_int8(v)
+    if on_cuda(q, k.values, v.values, k.scales, v.scales):
+        return kv8_flash_fwd(q, k, v, causal=causal, sm_scale=scale)
+    return flash_attention_kv_int8_reference(q, k, v, causal, scale)
+
+
+# -- serving-time model transform ----------------------------------------------
+
+
+def quantize_model_weights(model: torch.nn.Module, dtype=torch.int8,
+                           min_params: int = 0) -> torch.nn.Module:
+    """A copy of ``model`` with every :class:`~..nn.basic.Linear` whose
+    weight has at least ``min_params`` elements replaced by a weight-only
+    quantized :class:`~..nn.basic.QuantizedLinear` (int8 or fp8 payload,
+    per-output-channel f32 scales).  The original is left as it was, as
+    the JAX transform returns a new tree."""
+    from ..nn.basic import Linear, quantize_linear
+
+    def walk(module: torch.nn.Module) -> None:
+        for name, child in module.named_children():
+            if isinstance(child, Linear) and child.weights.numel() >= min_params:
+                setattr(module, name, quantize_linear(child, dtype))
+            else:
+                walk(child)
+
+    model = copy.deepcopy(model)
+    walk(model)
+    return model

@@ -9,8 +9,9 @@ chip_smoke.py.  The file imports no jax, so on a machine without it run:
     python -m pytest --noconftest tests/test_torch_cuda.py
 
 Tolerance: f32 1e-4 abs, bf16 2e-2 abs on unit-variance inputs; gradients
-(sums over rows) against max(1, max |ref|) times those.  Dropout is
-bit-exact: the kernel and its plain version compute the same Philox bits.
+and matmul outputs (sums over rows) against max(1, max |ref|) times those.
+Dropout and stochastic quantization are bit-exact: the kernel and its plain
+version compute the same Philox bits.
 """
 
 import pytest
@@ -20,11 +21,13 @@ from flashattn_tpu_torch.ops import dropout as dr
 from flashattn_tpu_torch.ops import flash_attention as fa
 from flashattn_tpu_torch.ops import layernorm as ln
 from flashattn_tpu_torch.ops import paged_attention as pa
+from flashattn_tpu_torch.ops import quant as qt
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
+PAYLOADS = [torch.int8, torch.float8_e4m3fn]
 
 
 @pytest.fixture
@@ -257,3 +260,134 @@ def test_dropout_kernel_bit_exact(dev, dtype, n):
     assert torch.equal(gx != 0, keep)
     if n > 1000:
         assert abs(float(keep.float().mean()) - 0.9) < 0.01
+
+
+def _quantize(t, payload, axis=-1):
+    return (qt.quantize_int8 if payload == torch.int8 else qt.quantize_fp8)(
+        t, axis=axis)
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mkn", [(1, 33, 17), (5, 100, 70), (16, 64, 64),
+                                 (17, 7, 130), (130, 256, 1000)])
+def test_wo_matmul_kernel(dev, mkn, dtype, payload):
+    """Every M (the 16- and 64-row tiles and their ragged edges), K not a
+    multiple of the 32-deep step, N not a multiple of 64."""
+    m, k, n = mkn
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(g, m, k, dtype=dtype, dev=dev)
+    w = _quantize(torch.randn(k, n, generator=g, device=dev), payload, axis=0)
+    before = qt._wo_kernel.launches
+    got = qt.int8_weight_only_matmul(x, w)
+    assert qt._wo_kernel.launches == before + 1
+    want = qt.int8_weight_only_matmul_reference(x, w)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_kernel_quantized(dev, case, dtype, payload):
+    b, hq, hkv, d, chunk, page, pps, window = PAGED_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(7)
+    n_pages = b * pps + 1
+    kq, vq = (_quantize(torch.randn(hkv, n_pages, page, d, generator=g,
+                                    device=dev), payload) for _ in range(2))
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    shape = (b, chunk, hq, d) if chunk > 1 else (b, hq, d)
+    q = _randn(g, *shape, dtype=dtype, dev=dev)
+    lens = torch.tensor([pps * page, chunk + page + 3][:b], device=dev)
+    if b > 2:
+        lens = torch.cat([lens, torch.tensor([pps * page + 5], device=dev)])
+    kw = dict(k_scales=kq.scales, v_scales=vq.scales, window=window)
+    before = pa._kernel.launches
+    out = pa.paged_attention(q, kq.values, vq.values, lens, table, **kw)
+    assert pa._kernel.launches == before + 1
+    ref = pa.paged_attention_reference(q, kq.values, vq.values, lens, table,
+                                       **kw)
+    assert out.dtype == dtype and _err(out, ref) <= TOL[dtype]
+
+
+# (b, h, h_kv, n_q, n_kv, d, causal)
+KV8_CASES = {
+    "ragged_causal_d64": (2, 4, 4, 100, 100, 64, True),
+    "cross_noncausal_d32": (2, 2, 1, 37, 150, 32, False),
+    "gqa_causal_d128": (1, 8, 2, 130, 130, 128, True),
+    "subrow_envelope_d128": (1, 2, 1, 1024, 1024, 128, True),
+}
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(KV8_CASES))
+def test_kv8_flash_kernel(dev, case, dtype, payload):
+    """o and lse; at the subrow envelope fp8 payloads are transcoded to int8
+    before the launch, on both sides."""
+    b, h, h_kv, n_q, n_kv, d, causal = KV8_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
+    k, v = (_quantize(torch.randn(b, h_kv, n_kv, d, generator=g, device=dev),
+                      payload) for _ in range(2))
+    before = qt._kv8_kernel.launches
+    o, lse = qt.flash_attention_kv_int8(q, k, v, causal)
+    assert qt._kv8_kernel.launches == before + 1
+    if payload != torch.int8 and qt._subrow_envelope(causal, n_q, n_kv, d):
+        k, v = qt.requantize_fp8_to_int8(k), qt.requantize_fp8_to_int8(v)
+    o_ref, lse_ref = qt.flash_attention_kv_int8_reference(q, k, v, causal)
+    assert o.dtype == dtype and lse.shape == (b, h, n_q, 1)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(lse, lse_ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (654, 64), (7, 1027)])
+def test_stochastic_quant_kernel_bit_exact(dev, dtype, shape):
+    """Rows whose Philox blocks straddle two rows (h not a multiple of 4)
+    and a zero row; payloads and scales bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(g, *shape, dtype=dtype, dev=dev)
+    x[0] = 0
+    seed = 2**64 - 77
+    before = qt._sq_kernel.launches
+    got = qt.quantize_int8_stochastic(x, seed)
+    assert qt._sq_kernel.launches == before + 1
+    want = qt.quantize_int8_stochastic_reference(x, seed)
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.scales, want.scales)
+
+
+def test_quant_kernels_refuse_grad_and_bad_types(dev):
+    x = torch.randn(4, 32, device=dev, requires_grad=True)
+    w = qt.quantize_int8(torch.randn(32, 8, device=dev), axis=0)
+    with pytest.raises(NotImplementedError):
+        qt.int8_weight_only_matmul(x, w)
+    with pytest.raises(TypeError):
+        qt.int8_weight_only_matmul(x.detach().half(), w)
+    with pytest.raises(TypeError):
+        qt.int8_weight_only_matmul(x.detach(), qt.QuantizedTensor(
+            w.values.to(torch.int16), w.scales))
+    with pytest.raises(TypeError):
+        qt.quantize_int8_stochastic(x.detach().half(), 0)
+
+
+def test_quant_kernels_refuse_host_scales(dev):
+    """Pages or K/V on the card with their scales on the host raise before
+    a launch, and the context stays usable."""
+    kq = qt.quantize_int8(torch.randn(2, 4, 8, 32, device=dev), axis=-1)
+    host = qt.QuantizedTensor(kq.values, kq.scales.cpu())
+    q = torch.randn(2, 4, 8, 32, device=dev)
+    before = qt._kv8_kernel.launches
+    with pytest.raises(ValueError):
+        qt.flash_attention_kv_int8(q, host, host, True)
+    assert qt._kv8_kernel.launches == before
+    lens = torch.tensor([8, 5], device=dev)
+    table = torch.tensor([[0], [1]], device=dev)
+    before = pa._kernel.launches
+    with pytest.raises(ValueError):
+        pa.paged_attention(q[:, :, 0], kq.values, kq.values, lens, table,
+                           k_scales=host.scales, v_scales=host.scales)
+    assert pa._kernel.launches == before
+    torch.cuda.synchronize()

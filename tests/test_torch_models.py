@@ -159,6 +159,67 @@ def test_unported_options_raise():
         pt.DecoderLM(64, 32, 4, 64, attn_impl="fused_softmax", device="cpu")
     with pytest.raises(NotImplementedError):
         pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64, device="cpu").init_page_pools(
-            3, 4, torch.int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+def test_quantized_page_pools(dtype):
+    """An int8 / fp8 pool: payloads, and per-token f32 scales starting at 1,
+    in the JAX pool's layout."""
+    tm = pt.DecoderLM(64, 32, 4, 64, n_kv_head=2, device="cpu")
+    pools = tm.init_page_pools(3, 4, dtype)
+    assert len(pools) == 4
+    for pool in pools:
+        assert set(pool) == {"k", "v", "ks", "vs"}
+        assert pool["k"].dtype == dtype and pool["k"].shape == (2, 3, 4, 8)
+        assert pool["ks"].dtype == torch.float32
+        assert pool["ks"].shape == (2, 3, 4, 1) and (pool["vs"] == 1).all()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_quantized_paged_parity(dtype):
+    """int8-weight model (one layer, GQA, window) over an int8 / fp8 pool,
+    prefill -> extend -> decode, against the JAX model: logits at live positions to 1e-4, and
+    the pools' live payloads bit for bit with equal scales."""
+    from flashattn_tpu.ops.quant import quantize_model_weights
+
+    jdt, tdt = ((jnp.int8, torch.int8) if dtype == "int8"
+                else (jnp.float8_e4m3fn, torch.float8_e4m3fn))
+    kw = dict(p_dropout=0.0, n_layer=1, n_kv_head=2, window=5)
+    jm = ft.DecoderLM(64, 32, 4, 256, key=jax.random.PRNGKey(4), **kw).eval()
+    tm = pt.DecoderLM(64, 32, 4, 256, device="cpu", **kw).eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    jm = quantize_model_weights(jm, jnp.int8)
+    tm = pt.quantize_model_weights(tm, torch.int8)
+    page, table = 8, np.asarray([[0, 2, 4, 6], [1, 3, 5, 8]], np.int32)
+    rng = np.random.default_rng(5)
+    lens = np.asarray([13, 6], np.int32)
+    steps = [("forward_prefill_paged", rng.integers(0, 64, (2, 16))),
+             ("forward_extend_paged", rng.integers(0, 64, (2, 3))),
+             ("forward_decode_paged", rng.integers(0, 64, (2, 1)))]
+    j_pools, t_pools = jm.init_page_pools(9, page, jdt), tm.init_page_pools(
+        9, page, tdt)
+    tt = torch.from_numpy
+    for i, (method, toks) in enumerate(steps):
+        toks = toks.astype(np.int32)
+        j_lg, j_pools = getattr(jm, method)(
+            jnp.asarray(toks), j_pools, jnp.asarray(table), jnp.asarray(lens))
+        with torch.inference_mode():
+            t_lg, t_pools = getattr(tm, method)(tt(toks), t_pools, tt(table),
+                                                tt(lens))
+        for b in range(2):
+            n = lens[b] if i == 0 else toks.shape[1]
+            _close(t_lg[b, :n], j_lg[b, :n])
+        lens = lens if i == 0 else lens + toks.shape[1]
+        pg, off = _valid_slots(table, lens, page)
+        for tp, jp in zip(t_pools, j_pools):
+            for name in ("k", "v"):
+                got = tp[name][:, pg, off]
+                want = np.asarray(jp[name])[:, pg, off]
+                if tdt == torch.float8_e4m3fn:
+                    got, want = got.view(torch.uint8), want.view(np.uint8)
+                np.testing.assert_array_equal(got.numpy(), want)
+                # the scales come from K/V that the two frameworks sum in
+                # different orders: equal to f32 rounding (measured 3.8e-7)
+                np.testing.assert_allclose(
+                    tp[name + "s"][:, pg, off].numpy(),
+                    np.asarray(jp[name + "s"])[:, pg, off], rtol=2e-6, atol=0)

@@ -161,13 +161,32 @@ def test_paged_attention_parity(case):
 
 
 def test_paged_attention_rejects_quantized_pools():
+    """A quantized pool is int8 / fp8 pages with f32 (Hkv, n_pages, page, 1)
+    scales for K and V; incoherent pools raise (tests/test_torch_quant.py
+    holds coherent ones against JAX)."""
     t = torch.zeros(1, 2, 32)
+    lens, table = torch.ones(1, dtype=torch.int32), torch.zeros(
+        1, 2, dtype=torch.int32)
     pages = torch.zeros(2, 2, 4, 32)
-    with pytest.raises(NotImplementedError):
-        pt.paged_attention(t, pages, pages, torch.ones(1, dtype=torch.int32),
-                           torch.zeros(1, 2, dtype=torch.int32),
-                           k_scales=torch.ones(2, 2, 4, 1),
-                           v_scales=torch.ones(2, 2, 4, 1))
+    pages8 = pages.to(torch.int8)
+    ones = torch.ones(2, 2, 4, 1)
+    bad = [
+        (TypeError, (pages, pages), dict(k_scales=ones, v_scales=ones)),
+        (TypeError, (pages8, pages8), {}),
+        (TypeError, (pages8, pages8.to(torch.float8_e4m3fn)),
+         dict(k_scales=ones, v_scales=ones)),
+        (TypeError, (pages8, pages8), dict(k_scales=ones.double(),
+                                           v_scales=ones.double())),
+        (ValueError, (pages8, pages8), dict(k_scales=ones)),
+        (ValueError, (pages8, pages8), dict(k_scales=ones[:, :1],
+                                            v_scales=ones[:, :1])),
+    ]
+    for err, (kp, vp), kw in bad:
+        with pytest.raises(err):
+            pt.paged_attention(t, kp, vp, lens, table, **kw)
+    out = pt.paged_attention(t, pages8, pages8, lens, table, k_scales=ones,
+                             v_scales=ones)
+    assert out.shape == t.shape and not out.any()
 
 
 # -- layernorm -----------------------------------------------------------------

@@ -72,6 +72,39 @@ def test_engine_matches_jax_engine(models, case):
         np.testing.assert_allclose(g.token_logprobs, w.token_logprobs, **TOL)
 
 
+@pytest.fixture(scope="module")
+def quantized_models(models):
+    """The int8-weight pair: both packages quantize the same weights (their
+    payloads are bit-identical, tests/test_torch_quant.py)."""
+    from flashattn_tpu.ops.quant import quantize_model_weights
+
+    jm, tm = models
+    return (quantize_model_weights(jm, jax.numpy.int8),
+            pt.quantize_model_weights(tm, torch.int8))
+
+
+@pytest.mark.parametrize("pool", ["int8", "fp8"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_quantized_engine_matches_jax_engine(quantized_models, case, pool):
+    """int8 weights over an int8 / fp8 page pool: identical greedy tokens
+    and logits to 1e-3 (the pools' payloads round from K/V that the two
+    frameworks compute to f32 rounding apart)."""
+    jm, tm = quantized_models
+    lens, max_new, kw = CASES[case]
+    jdt, tdt = ((jax.numpy.int8, torch.int8) if pool == "int8"
+                else (jax.numpy.float8_e4m3fn, torch.float8_e4m3fn))
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, 64, size=n)) for n in lens]
+    want = _serve(JaxEngine, jm, prompts, max_new, collect_logits=True,
+                  dtype=jdt, **kw)
+    got = _serve(pt.ContinuousBatchingEngine, tm, prompts, max_new,
+                 collect_logits=True, dtype=tdt, **kw)
+    for g, w in zip(got, want):
+        assert g.generated == w.generated
+        np.testing.assert_allclose(np.stack(g.logits), np.stack(w.logits),
+                                   atol=1e-3, rtol=0)
+
+
 def test_sliding_window_engine_matches_jax_engine():
     """A windowed model releases pages behind the window mid-request (the
     rolling KV buffer) — logits still match and every page returns."""
