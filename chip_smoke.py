@@ -76,6 +76,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward of the same quantized model, to the JAX tests' bounds
    (tests/test_serving.py:181-185): max |diff| / max |dense| < 0.08 and
    argmax agreement >= 0.8.
+11. fused-softmax kernels: the attention softmax forward and backward at
+   the fused path's shape (8, 16, 2048, 2048) causal without a mask, and
+   ragged variants (T 33, 1000, causal; T 4097 non-causal, so every column
+   is read; a (B,1,1,T) padding mask with a length-0 row; a (1,1,F,T)
+   window mask; F != T), each in bf16 and f32, and the dropout variants at
+   the training FFN's shapes (act-bias GELU and ReLU at 16384 x 8192,
+   res-bias at 16384 x 2048, p 0.1, forward and backward, bf16 and f32).
+   The bf16 softmax is gated per element at one bf16 ulp of the reference
+   (2^-7 |ref| + 1e-6, the backward with slack for the f32 rounding of its
+   row sum), f32 as in phase 3.  Other tolerances as in phase 3; the dropout
+   variants' dropped positions must be exactly those of the plain version's
+   mask, then the values within tolerance (res-bias and ReLU bit for bit,
+   GELU gated like a gradient: tanhf differs from torch.tanh).  The
+   softmax yardsticks are torch.softmax on the pre-masked scores and
+   torch._softmax_backward_data; the dropout variants have none.
+12. train_fused_softmax: phase 6's configuration and step with
+   attn_impl="fused_softmax" (score matmul, the softmax kernels, matmul
+   with V): losses finite and falling; softmax_fwd, softmax_bwd, LayerNorm
+   and dropout launched in every step and flash in none; one profiled step.
+13. fused consistency: phase 7 with attn_impl="fused_softmax" (card vs CPU
+   backward, p 0 and 0.1, the same bounds), and the fused-softmax model's
+   dense f32 logits against the flash model's on the same weights, to 1e-4.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -123,6 +145,12 @@ QUANT_PROMPT, QUANT_NEW_TOKENS = 8192, 64
 QUANT_KERNELS = ("wo_matmul", "paged_attention", "flash_fwd", "layernorm_fwd")
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
                  "dropout")
+# the same training step through attn_impl="fused_softmax": the softmax
+# kernels replace flash, which must not launch
+TRAIN_FUSED = dict(TRAIN, attn_impl="fused_softmax")
+FUSED_KERNELS = ("layernorm_fwd", "layernorm_bwd", "softmax_fwd", "softmax_bwd",
+                 "dropout")
+FUSED_ABSENT = ("flash_fwd", "flash_bwd")
 
 
 def log(msg: str) -> None:
@@ -169,9 +197,10 @@ class Phases:
         self.main = {}
 
     def check(self, kernel: str, label: str, dtype, run_kernel, run_plain,
-              cost, main: bool = False, compare=None, library=None):
+              cost, main: bool = False, compare=None, library=None, tol=None):
         """``cost`` = (bytes, useful flops); ``compare`` returns (abs err,
-        gated err); ``library`` is the PyTorch yardstick call, or None."""
+        gated err), gated at ``tol`` (default ``TOL`` of the dtype);
+        ``library`` is the PyTorch yardstick call, or None."""
         import torch
 
         got, want = run_kernel(), run_plain()
@@ -182,7 +211,8 @@ class Phases:
         lib_ms = None if library is None else time_ms(library)
         name = str(dtype).replace("torch.", "")
         b_ms, b_by = bound_ms(*cost, name)
-        ok = gated <= TOL[name]
+        tol = TOL[name] if tol is None else tol
+        ok = gated <= tol
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
             f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -190,7 +220,7 @@ class Phases:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {label} {name}: error {gated} "
-                                 f"over tolerance {TOL[name]}")
+                                 f"over tolerance {tol}")
         if main:
             self.main[kernel] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                      bound_ms=b_ms, bound_by=b_by,
@@ -399,15 +429,22 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
                  _paged_cost(q_, chunk, hq, 8, ln_))
 
 
-def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False):
-    """(bytes, flops) of paged attention: q and out, the K/V of every live
-    token once (a quantized pool: 1-byte payloads and a 4-byte scale per
-    token); row j of a chunk sees length - chunk + j + 1 keys."""
+def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False, window=None):
+    """(bytes, flops) of paged attention: q and out, the K/V of every token
+    some row sees once (a quantized pool: 1-byte payloads and a 4-byte scale
+    per token); row j of a chunk sees length - chunk + j + 1 keys, at most
+    ``window`` of them, so a sequence's last window + chunk - 1 tokens."""
     isz, d = q.element_size(), q.shape[-1]
     lens = [int(n) for n in lens.tolist()]
-    pairs = sum(chunk * n - chunk * (chunk - 1) // 2 for n in lens) * hq
+    if window is None:
+        pairs = sum(chunk * n - chunk * (chunk - 1) // 2 for n in lens) * hq
+        tokens = sum(lens)
+    else:
+        pairs = sum(min(n - chunk + j + 1, window) for n in lens
+                    for j in range(chunk)) * hq
+        tokens = sum(min(n, window + chunk - 1) for n in lens)
     token = d + 4 if quantized else d * isz
-    return 2 * q.numel() * isz + 2 * sum(lens) * h_kv * token, 4 * d * pairs
+    return 2 * q.numel() * isz + 2 * tokens * h_kv * token, 4 * d * pairs
 
 
 def training_kernel_phases(torch, dev, ph: Phases, randn):
@@ -609,7 +646,8 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                          lambda: pa.paged_attention_reference(
                              q_, kq.values, vq.values, lens, table, window=win,
                              **kw),
-                         _paged_cost(q_, chunk, hq, 8, lens, quantized=True),
+                         _paged_cost(q_, chunk, hq, 8, lens, quantized=True,
+                                     window=win),
                          main=dtype == bf and chunk == 1 and hq == 8
                          and win is None,
                          compare=_rel_err if dtype == bf else None)
@@ -687,6 +725,190 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
     del xs
 
 
+def _softmax_cost(x, mask, causal, backward=False):
+    """(bytes, 0): the forward reads the entries of x that the causal mask
+    leaves live (those past the diagonal are known without reading them)
+    and the mask's own elements once, and writes every output; the backward
+    reads out and dout and writes dinp."""
+    b, h, f, t = x.shape
+    isz = x.element_size()
+    if backward:
+        return 3 * x.numel() * isz, 0
+    live = b * h * (sum(min(i + 1, t) for i in range(f)) if causal else f * t)
+    return ((live + x.numel()) * isz
+            + (0 if mask is None else 4 * mask.numel())), 0
+
+
+BF16_ULP = 2.0 ** -7   # one bf16 ulp relative to a value of [1, 2)
+
+
+def _ulp_err(got, want, slack=None):
+    """Per element, for bf16 results of f32 arithmetic: (max abs err, max of
+    |err| / (2^-7 |ref| + 1e-6 [+ slack])), gated at 1.  Both sides round
+    an f32 value to bf16, so a sound kernel is at most one bf16 ulp off; a
+    softmax output averages 1/T, far under any absolute gate."""
+    d = (got.float() - want.float()).abs()
+    allowed = want.float().abs().mul_(BF16_ULP).add_(1e-6)
+    if slack is not None:
+        allowed += slack
+    return float(d.max()), float((d / allowed).max())
+
+
+def _softmax_bwd_ulp_err(out, dout):
+    """_ulp_err for dinp = out (dout - s), s = sum_row(dout out): the slack
+    |out| 2^-12 (sum_row |dout out| + |dout|) covers the f32 rounding of s
+    and of dout - s, whose difference may cancel to far below either."""
+    o, g = out.float(), dout.float()
+    slack = (o * g).abs().sum(-1, keepdim=True).add(g.abs()).mul_(o.abs())
+    slack *= 2.0 ** -12
+    del o, g
+    return lambda got, want: _ulp_err(got, want, slack)
+
+
+def _softmax_check(torch, ph, randn, label, x, mask, causal, main=False):
+    """softmax_fwd and softmax_bwd on one input; the yardsticks are
+    torch.softmax on the pre-masked scores and its backward.  bf16 is gated
+    per element at one ulp (:func:`_ulp_err`), f32 at ``TOL``."""
+    from flashattn_tpu_torch.ops import softmax as sm
+    from flashattn_tpu_torch.ops._utils import DEFAULT_MASK_VALUE
+
+    dtype = x.dtype
+    bf = dtype == torch.bfloat16
+    pre = x.float() if mask is None else x.float() + mask
+    if causal:
+        f, t = x.shape[-2:]
+        future = torch.ones(f, t, dtype=torch.bool, device=x.device).triu(1)
+        pre = pre.masked_fill(future, DEFAULT_MASK_VALUE)
+    pre = pre.to(dtype)
+    ph.check("softmax_fwd", label, dtype,
+             lambda: sm.softmax_fwd(x, mask, causal),
+             lambda: sm.attn_softmax_reference(x, mask, causal),
+             _softmax_cost(x, mask, causal), main=main,
+             compare=_ulp_err if bf else _max_err, tol=1.0 if bf else None,
+             library=lambda: torch.softmax(pre, -1))
+    del pre
+    out = sm.attn_softmax_reference(x, mask, causal)
+    dout = randn(*x.shape, dtype=dtype)
+    ph.check("softmax_bwd", label, dtype,
+             lambda: sm.softmax_bwd(out, dout),
+             lambda: sm.softmax_bwd_reference(out, dout),
+             _softmax_cost(out, None, False, backward=True), main=main,
+             compare=_softmax_bwd_ulp_err(out, dout) if bf else _scaled_err,
+             tol=1.0 if bf else None,
+             library=lambda: torch._softmax_backward_data(dout, out, -1, dtype))
+
+
+def softmax_kernel_phases(torch, dev, ph: Phases, randn):
+    """The fused-softmax path's kernels at its shape (B8 H16 N2048 causal, no
+    mask), then ragged and masked variants; each in bf16 and f32 (whose
+    kernels are other template instances)."""
+    b, h, n = TRAIN_BATCH, TRAIN["n_head"], TRAIN_SEQ
+    lens = torch.tensor([2048, 0, 1536, 1024, 517, 2048, 1000, 33][:b],
+                        device=dev)
+    cols = torch.arange(n, device=dev)
+    padding = torch.where(cols[None] < lens[:, None], 0.0, -1e9)[:, None, None]
+    window = torch.where(cols[None] > cols[:, None] - 256, 0.0, -1e9)[None, None]
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (label, shape, mask, causal) in enumerate([
+                (f"B{b} H{h} N{n} causal", (b, h, n, n), None, True),
+                (f"T 33 causal, F {n}", (b, h, n, 33), None, True),
+                ("T 1000 causal", (b, h, 1000, 1000), None, True),
+                ("T 4097 non-causal, F 512", (2, h, 512, 4097), None, False),
+                ("(B,1,1,T) padding mask, a length-0 row", (b, h, n, n),
+                 padding, True),
+                ("(1,1,F,T) window 256 mask", (b, h, n, n), window, True),
+                ("F 1000 x T 2048 non-causal", (4, h, 1000, n), None, False)]):
+            x = randn(*shape, dtype=dtype) * 3
+            _softmax_check(torch, ph, randn, label, x, mask, causal,
+                           main=dtype == torch.bfloat16 and i == 0)
+            del x
+            torch.cuda.empty_cache()
+
+
+def _dropped_then(keep, dropped, inner):
+    """A compare: the kernel's output holds exactly ``dropped`` (0 when
+    None) where the plain version's mask drops, then ``inner`` on the
+    values."""
+    import torch
+
+    def compare(got, want):
+        at = got[~keep]
+        if not torch.equal(at, torch.zeros_like(at) if dropped is None
+                           else dropped[~keep]):
+            return math.inf, math.inf
+        return inner(got, want)
+
+    return compare
+
+
+def _bias_bwd_err(keep, exact):
+    """Over (dx, db): dx 0 where the mask drops, then dx bit for bit
+    (``exact``) or gated like a gradient, and db (a column sum over rows)
+    gated like a gradient."""
+    def compare(got, want):
+        (dx, db), (dx_ref, db_ref) = got, want
+        if dx[~keep].any():
+            return math.inf, math.inf
+        e = (_bit_err if exact else _scaled_err)(dx, dx_ref)
+        f = _grad_err((db,), (db_ref,))
+        return max(e[0], f[0]), max(e[1], f[1])
+
+    return compare
+
+
+def dropout_bias_kernel_phases(torch, dev, ph: Phases, randn):
+    """The dropout variants at the training FFN's shapes: act-bias at the
+    hidden width (16384 x 8192), res-bias at the model width
+    (16384 x 2048), p 0.1, forward and backward."""
+    from flashattn_tpu_torch.ops import dropout as dr
+
+    seed, rate, scale = 0x9E3779B97F4A7C15, 0.1, 1 / 0.9
+    n = TRAIN_BATCH * TRAIN_SEQ
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        isz = torch.tensor([], dtype=dtype).element_size()
+        d = TRAIN["middle_dim"]
+        x, g = randn(n, d, dtype=dtype), randn(n, d, dtype=dtype)
+        bias = randn(d, dtype=dtype)
+        keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
+        for act in ("gelu", "relu"):
+            relu = act == "relu"
+            ph.check("dropout_act_bias", f"{act} {n} x {d} p 0.1", dtype,
+                     lambda: dr.dropout_act_bias(x, bias, rate, seed, scale, act),
+                     lambda: dr.dropout_act_bias_reference(x, bias, rate, seed,
+                                                           scale, act),
+                     (2 * n * d * isz + d * isz, 0), main=main and not relu,
+                     compare=_dropped_then(keep, None,
+                                           _bit_err if relu else _scaled_err))
+            ph.check("dropout_act_bias", f"{act} backward {n} x {d} p 0.1",
+                     dtype,
+                     lambda: dr.dropout_act_bias_bwd(g, x, bias, rate, seed,
+                                                     scale, act),
+                     lambda: dr.dropout_act_bias_bwd_reference(
+                         g, x, bias, rate, seed, scale, act),
+                     (3 * n * d * isz + d * isz + 4 * d, 0),
+                     compare=_bias_bwd_err(keep, exact=relu))
+        del x, g, bias, keep
+        torch.cuda.empty_cache()
+
+        d = TRAIN["n_embd"]
+        x, r, g = (randn(n, d, dtype=dtype) for _ in range(3))
+        bias = randn(d, dtype=dtype)
+        keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
+        ph.check("dropout_res_bias", f"{n} x {d} p 0.1", dtype,
+                 lambda: dr.dropout_res_bias(x, bias, r, rate, seed, scale),
+                 lambda: dr.dropout_res_bias_reference(x, bias, r, rate, seed,
+                                                       scale),
+                 (3 * n * d * isz + d * isz, 0), main=main,
+                 compare=_dropped_then(keep, r, _bit_err))
+        ph.check("dropout_res_bias", f"backward {n} x {d} p 0.1", dtype,
+                 lambda: dr.dropout_res_bias_bwd(g, rate, seed, scale),
+                 lambda: dr.dropout_res_bias_bwd_reference(g, rate, seed, scale),
+                 (2 * n * d * isz + 4 * d, 0),
+                 compare=_bias_bwd_err(keep, exact=True))
+        del x, r, g, bias, keep
+
+
 def kernel_phases(torch, dev) -> Phases:
     ph = Phases()
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -699,6 +921,10 @@ def kernel_phases(torch, dev) -> Phases:
     torch.cuda.empty_cache()
     quant_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
+    softmax_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
+    dropout_bias_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
     return ph
 
 
@@ -708,12 +934,15 @@ def kernel_counters():
     from flashattn_tpu_torch.ops import layernorm as ln
     from flashattn_tpu_torch.ops import paged_attention as pa
     from flashattn_tpu_torch.ops import quant as qt
+    from flashattn_tpu_torch.ops import softmax as sm
 
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
             "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel,
             "paged_attention": pa._kernel, "dropout": dr._kernel,
             "wo_matmul": qt._wo_kernel, "kv8_flash": qt._kv8_kernel,
-            "stochastic_quant": qt._sq_kernel}
+            "stochastic_quant": qt._sq_kernel, "softmax_fwd": sm._fwd_kernel,
+            "softmax_bwd": sm._bwd_kernel, "dropout_res_bias": dr._res_kernel,
+            "dropout_act_bias": dr._act_kernel}
 
 
 SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention")
@@ -963,14 +1192,15 @@ def train_flops(cfg, batch, seq) -> float:
     return 6 * w * batch * seq + l * batch * h * (seq * seq / 2) * (e // h) * 2 * 7
 
 
-def train_phase(torch, dev, power: str) -> dict:
+def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
+                kernels=TRAIN_KERNELS, absent=()) -> dict:
     """The training step at full width: losses finite and falling, every
-    training kernel launched in every step."""
+    kernel of ``kernels`` launched in every step and none of ``absent``."""
     import numpy as np
 
     import flashattn_tpu_torch as pt
 
-    model = pt.DecoderLM(**TRAIN, generator=torch.Generator().manual_seed(SEED),
+    model = pt.DecoderLM(**cfg, generator=torch.Generator().manual_seed(SEED),
                          device=dev).train()
     n_params = sum(p.numel() for p in model.parameters())
     opt = pt.Adam(lr=1e-4)
@@ -978,12 +1208,13 @@ def train_phase(torch, dev, power: str) -> dict:
     step = pt.make_train_step(opt, pt.make_mixed_precision_loss(pt.lm_loss),
                               grad_clip=1.0)
     tok = np.random.default_rng(SEED).integers(
-        0, TRAIN["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
+        0, cfg["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
     tokens = torch.from_numpy(tok).to(dev)
     targets = torch.roll(tokens, -1, dims=1)
     mask = torch.ones(tokens.shape, device=dev)
     gen = torch.Generator().manual_seed(SEED)
-    counters = {n: k for n, k in kernel_counters().items() if n in TRAIN_KERNELS}
+    counters = {n: k for n, k in kernel_counters().items()
+                if n in kernels or n in absent}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, per_step = [], [], []
@@ -999,30 +1230,34 @@ def train_phase(torch, dev, power: str) -> dict:
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     ms = statistics.median(times[WARMUP_STEPS:]) * 1e3
-    flops = train_flops(TRAIN, TRAIN_BATCH, TRAIN_SEQ)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tflops = flops / (ms * 1e-3) / 1e12
     launches = {n: sum(s[n] for s in per_step) for n in counters}
-    log(f"[train] {power} bf16-mixed E2048 M8192 L4 H16x128 V16384 B8 S2048 "
-        f"p0.1, {n_params / 1e6:.1f} M params: losses "
-        f"{[round(x, 4) for x in losses]}")
-    log(f"[train] step ms {[round(t * 1e3, 1) for t in times]}; median of "
+    log(f"[{name}] {power} bf16-mixed E2048 M8192 L4 H16x128 V16384 B8 S2048 "
+        f"p0.1 attn_impl={cfg['attn_impl']}, {n_params / 1e6:.1f} M params: "
+        f"losses {[round(x, 4) for x in losses]}")
+    log(f"[{name}] step ms {[round(t * 1e3, 1) for t in times]}; median of "
         f"{TIMED_STEPS} timed: {ms:.1f} ms, "
         f"{TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3):.1f} tokens/s, "
         f"{flops / 1e12:.2f} model TFLOP/step -> {tflops:.2f} TFLOP/s "
         f"({100 * tflops * 1e12 / PEAK_FLOP_S['bfloat16']:.2f}% of 989 TF); "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    log(f"[train] launches in each of the {len(per_step)} steps: "
+    log(f"[{name}] launches in each of the {len(per_step)} steps: "
         + ("same in every step: " + str(per_step[0])
            if all(c == per_step[0] for c in per_step) else str(per_step)))
-    profile_step(torch, lambda: step(model, state, tokens, targets, mask, gen))
+    profile_step(torch, lambda: step(model, state, tokens, targets, mask, gen),
+                 f"{name} step")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite train loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train loss did not fall: {losses}")
     for i, counts in enumerate(per_step):
-        for name, n in counts.items():
-            if n <= 0:
-                raise AssertionError(f"{name} not launched in train step {i}")
+        for kern, n in counts.items():
+            if kern in absent and n != 0:
+                raise AssertionError(f"{kern} launched {n} times in {name} "
+                                     f"step {i}")
+            if kern not in absent and n <= 0:
+                raise AssertionError(f"{kern} not launched in {name} step {i}")
     return dict(ms=ms, launches=launches)
 
 
@@ -1051,9 +1286,9 @@ def profile_step(torch, run, label: str = "train step") -> None:
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
-        r"\(anonymous namespace\)::(flash_|layernorm_|dropout_kernel|paged_kernel"
-        r"|wo_matmul_kernel|kv8_flash_kernel|stochastic_quant_kernel)",
-        kv[0])]
+        r"\(anonymous namespace\)::(flash_|layernorm_|dropout_|softmax_"
+        r"|paged_kernel|wo_matmul_kernel|kv8_flash_kernel"
+        r"|stochastic_quant_kernel)", kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])
     groups = {"matmul (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma"),
@@ -1078,17 +1313,18 @@ def _rel(a, b) -> float:
     return float((a.double() - b.double()).norm() / max(b.double().norm(), 1e-30))
 
 
-def train_consistency_phase(torch, dev) -> None:
+def train_consistency_phase(torch, dev, cfg=CONSIST,
+                            name: str = "train-consistency") -> None:
     """One lm_loss backward on the card vs a CPU copy (the plain versions);
     f32 with TF32 off."""
     import numpy as np
 
     import flashattn_tpu_torch as pt
 
-    tok = np.random.default_rng(SEED + 2).integers(0, CONSIST["n_vocab"],
+    tok = np.random.default_rng(SEED + 2).integers(0, cfg["n_vocab"],
                                                    (2, 1024))
     for p in (0.0, 0.1):
-        card = pt.DecoderLM(**CONSIST, p_dropout=p, device=dev,
+        card = pt.DecoderLM(**cfg, p_dropout=p, device=dev,
                             generator=torch.Generator().manual_seed(SEED)).train()
         host = copy.deepcopy(card).to("cpu")
         out = []
@@ -1114,7 +1350,7 @@ def train_consistency_phase(torch, dev) -> None:
         grad_err = {n: _rel(g_card[n], g_host[n]) for n in g_host
                     if n not in zero}
         worst = max(grad_err, key=grad_err.get)
-        log(f"[train-consistency] f32 E1024 L2 B2 S1024 p{p}: loss card "
+        log(f"[{name}] f32 E1024 L2 B2 S1024 {cfg['attn_impl']} p{p}: loss card "
             f"{float(l_card):.6f} cpu {float(l_host):.6f} (rel {loss_err:.2e}); "
             f"max grad rel-norm err {grad_err[worst]:.2e} ({worst}); "
             f"token_embeddings {grad_err['token_embeddings.weights']:.2e}; "
@@ -1126,6 +1362,30 @@ def train_consistency_phase(torch, dev) -> None:
         if not noise <= 1e-4 * total:
             raise AssertionError(f"key-bias gradient {noise} is not ~0")
         del card, host, out
+
+
+def fused_logits_phase(torch, dev) -> None:
+    """The fused-softmax model's dense f32 logits against the flash model's
+    on the same weights."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+
+    models = [pt.DecoderLM(**dict(CONSIST, attn_impl=impl), p_dropout=0.0,
+                           device=dev,
+                           generator=torch.Generator().manual_seed(SEED)).eval()
+              for impl in ("fused_softmax", "flash")]
+    models[1].load_state_dict(models[0].state_dict())
+    tok = np.random.default_rng(SEED + 6).integers(0, CONSIST["n_vocab"],
+                                                   (2, 1024))
+    with torch.inference_mode():
+        fused, flash = (m(torch.from_numpy(tok).to(dev)) for m in models)
+    err = _abs_err(fused, flash)
+    log(f"[fused-consistency] f32 E1024 L2 B2 S1024 dense logits, "
+        f"fused_softmax vs flash: max_abs_err={err:.3e} (max |logit| "
+        f"{float(flash.abs().max()):.3f})")
+    if not err <= 1e-4:
+        raise AssertionError(f"fused-softmax logits differ from flash by {err}")
 
 
 SOURCES = {
@@ -1164,19 +1424,30 @@ SOURCES = {
                    "flashattn_tpu/ops/quant.py:516"]),
     "stochastic_quant": ("flashattn_tpu_torch/csrc/quant.cu",
                          ["flashattn_tpu/ops/quant.py:84"]),
+    "softmax_fwd": ("flashattn_tpu_torch/csrc/softmax.cu",
+                    ["flashattn_tpu/ops/softmax.py:40",
+                     "flashattn_tpu/ops/softmax.py:105"]),
+    "softmax_bwd": ("flashattn_tpu_torch/csrc/softmax.cu",
+                    ["flashattn_tpu/ops/softmax.py:55"]),
+    "dropout_res_bias": ("flashattn_tpu_torch/csrc/dropout_bias.cu",
+                         ["flashattn_tpu/ops/dropout.py:85",
+                          "flashattn_tpu/ops/dropout.py:105"]),
+    "dropout_act_bias": ("flashattn_tpu_torch/csrc/dropout_bias.cu",
+                         ["flashattn_tpu/ops/dropout.py:93",
+                          "flashattn_tpu/ops/dropout.py:127"]),
 }
 # the quantized paged entries: the serve_quant variant whose pool they serve
 QUANT_PAGED = {"paged_attention_int8": "int8 weights + int8 pool",
                "paged_attention_fp8": "int8 weights + fp8 pool"}
 
 
-def main_path_launches(name, train, serve, serve_quant) -> int:
+def main_path_launches(name, train, train_fused, serve, serve_quant) -> int:
     """A kernel's launches over the main-path runs.  The paged kernel's
     launches over a quantized pool count under that pool's entry, the
     others under ``paged_attention``."""
     if name in QUANT_PAGED:
         return serve_quant[QUANT_PAGED[name]]["launches"]["paged_attention"]
-    runs = [train, serve] + [
+    runs = [train, train_fused, serve] + [
         res for label, res in serve_quant.items()
         if name != "paged_attention" or label not in QUANT_PAGED.values()]
     return sum(r["launches"].get(name, 0) for r in runs)
@@ -1231,10 +1502,19 @@ def main() -> int:
     train = train_phase(torch, dev, power)
     torch.cuda.empty_cache()
     train_consistency_phase(torch, dev)
+    torch.cuda.empty_cache()
+    train_fused = train_phase(torch, dev, power, TRAIN_FUSED,
+                              "train_fused_softmax", FUSED_KERNELS,
+                              FUSED_ABSENT)
+    torch.cuda.empty_cache()
+    train_consistency_phase(torch, dev, dict(CONSIST, attn_impl="fused_softmax"),
+                            "fused-consistency")
+    fused_logits_phase(torch, dev)
 
     kernels = []
     for name, (src, tpu) in SOURCES.items():
-        launches = main_path_launches(name, train, serve, serve_quant)
+        launches = main_path_launches(name, train, train_fused, serve,
+                                      serve_quant)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=tpu[0], counterparts=tpu,
                             launches=launches, **phases.main[name]))

@@ -1,22 +1,30 @@
 """flashattn_tpu_torch: the PyTorch/CUDA port of :mod:`flashattn_tpu` for
 NVIDIA Hopper (H100).
 
-The layout follows the JAX package, module for module.  Three paths are
+The layout follows the JAX package, module for module.  Four paths are
 ported: serving, the paged continuous-batching engine
 (:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods;
 quantized serving, the same engine over a model whose Linears
 :func:`quantize_model_weights` made weight-only int8 / fp8
 (:class:`QuantizedLinear`) and over int8 / fp8 page pools
-(``ContinuousBatchingEngine(..., dtype=torch.int8)``); and training, :func:`make_train_step` over :func:`lm_loss` (optionally in bf16
-over f32 masters, :func:`make_mixed_precision_loss`) with the optimizers of
-:mod:`.optim`.  Every kernel those paths run is a hand-written CUDA C++
-kernel for ``sm_90a`` under ``csrc/`` with a plain PyTorch version beside
-it:
+(``ContinuousBatchingEngine(..., dtype=torch.int8)``); training,
+:func:`make_train_step` over :func:`lm_loss` (optionally in bf16 over f32
+masters, :func:`make_mixed_precision_loss`) with the optimizers of
+:mod:`.optim`; and the same model with ``attn_impl="fused_softmax"``
+(score matmul, :func:`attn_softmax`, matmul with V).  The dropout entry
+points with bias, residual or activation (:func:`fused_dropout_res_bias`,
+:func:`fused_dropout_act_bias`, ``F.dropout_res_bias``,
+``F.dropout_act_bias``) are ported too, though no model calls them.  Every
+kernel is a hand-written CUDA C++ kernel for ``sm_90a`` under ``csrc/``
+with a plain PyTorch version beside it:
 
 * fused LayerNorm forward and backward          (:mod:`.ops.layernorm`)
 * flash attention forward and backward (dK/dV, dQ) (:mod:`.ops.flash_attention`)
 * paged attention (decode / extend)             (:mod:`.ops.paged_attention`)
-* fused dropout (Philox4x32-10)                 (:mod:`.ops.dropout`)
+* fused dropout (Philox4x32-10), and with bias + residual or bias +
+  GELU / ReLU, forward and backward             (:mod:`.ops.dropout`)
+* fused masked / causal attention softmax, forward and backward
+                                                (:mod:`.ops.softmax`)
 * weight-only int8 / fp8 matmul, flash attention over an int8 / fp8 KV
   cache, stochastic-rounding int8 quantization  (:mod:`.ops.quant`)
 
@@ -42,9 +50,14 @@ from .ops.flash_attention import (
     flash_attention_varlen,
     flash_attention_with_lse,
 )
-from .ops.dropout import fused_dropout
+from .ops.dropout import (
+    fused_dropout,
+    fused_dropout_act_bias,
+    fused_dropout_res_bias,
+)
 from .ops.layernorm import layernorm, layernorm_reference
 from .ops.paged_attention import paged_attention, paged_attention_reference
+from .ops.softmax import attn_softmax, attn_softmax_reference
 from .ops.quant import (
     FP8_MAX,
     QuantizedTensor,
@@ -97,10 +110,14 @@ __all__ = [
     "flash_attention_varlen",
     "flash_attention_with_lse",
     "fused_dropout",
+    "fused_dropout_act_bias",
+    "fused_dropout_res_bias",
     "layernorm",
     "layernorm_reference",
     "paged_attention",
     "paged_attention_reference",
+    "attn_softmax",
+    "attn_softmax_reference",
     "FP8_MAX",
     "QuantizedTensor",
     "flash_attention_kv_int8",

@@ -25,10 +25,12 @@ from ..ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
     flash_attention_varlen,
+    repeat_kv,
 )
 from ..ops._build import PAYLOAD_DTYPES
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import FP8_MAX, absmax_scale
+from ..ops.softmax import attn_softmax
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -88,8 +90,9 @@ def _scatter_kv(pool: dict, k: torch.Tensor, v: torch.Tensor,
 
 class MultiHeadAttention(nn.Module):
     """Multi-head (optionally causal) self-attention with GQA and an optional
-    sliding window.  ``attn_impl`` is "flash" (the flash kernel) or
-    "reference" (the plain PyTorch version)."""
+    sliding window.  ``attn_impl`` is "flash" (the flash kernel),
+    "fused_softmax" (score matmul, the fused softmax kernel, matmul with V)
+    or "reference" (the plain PyTorch version)."""
 
     def __init__(self, n_embd: int, n_head: int, causal: bool = False,
                  p_dropout: float = 0.1, bias: bool = True, *,
@@ -102,11 +105,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"n_embd {n_embd} not divisible by n_head {n_head}")
         if window is not None and not causal:
             raise ValueError("window requires causal attention")
-        if attn_impl == "fused_softmax":
-            raise NotImplementedError(
-                "attn_impl='fused_softmax' needs the fused softmax kernel, "
-                "not ported yet (ROADMAP A3)")
-        if attn_impl not in ("flash", "reference"):
+        if attn_impl not in ("flash", "fused_softmax", "reference"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.window = window
         self.n_embd = n_embd
@@ -146,11 +145,39 @@ class MultiHeadAttention(nn.Module):
                                              window=self.window)
             else:
                 out = flash_attention(q, k, v, self.causal, window=self.window)
+        elif self.attn_impl == "fused_softmax":
+            out = self._fused_softmax_attention(q, k, v, kv_lengths)
         else:
             out = flash_attention_reference(q, k, v, self.causal,
                                             kv_lengths=kv_lengths,
                                             window=self.window)
         return out.transpose(1, 2).reshape(bs, seq, self.n_embd)
+
+    def _fused_softmax_attention(self, q, k, v, kv_lengths):
+        """The JAX ``fused_softmax`` branch: scores in q's dtype (product,
+        then division by sqrt(hd)), additive -1e9 masks for ``kv_lengths``
+        and the window (summed when both are set), the fused softmax kernel,
+        then the product with V.  No dropout on the weights, as in JAX.  The
+        divisor is a 0-dim tensor on the scores' device: PyTorch's CUDA
+        division by a Python scalar multiplies by its reciprocal instead."""
+        seq = q.shape[2]
+        k, v = repeat_kv(k, v, q.shape[1])
+        s = torch.matmul(q, k.transpose(-1, -2))
+        s = s / torch.full((), math.sqrt(self.attn_hidden_dim), dtype=s.dtype,
+                           device=s.device)
+        n_kv = k.shape[2]
+        cols = torch.arange(n_kv, device=q.device)
+        mask = None
+        if kv_lengths is not None:
+            valid = cols[None, :] < kv_lengths.to(q.device)[:, None]
+            mask = torch.where(valid, 0.0, -1e9)[:, None, None, :]
+        if self.window is not None:
+            # absolute row positions equal col positions here (self-attn)
+            rows = torch.arange(seq, device=q.device)
+            local = cols[None, :] > rows[:, None] - self.window
+            wmask = torch.where(local, 0.0, -1e9)[None, None, :, :]
+            mask = wmask if mask is None else mask + wmask
+        return torch.matmul(attn_softmax(s, mask, self.causal), v)
 
     def forward(self, x: torch.Tensor, kv_lengths=None) -> torch.Tensor:
         q, k, v = self.project_to_query_key_value(x)

@@ -1,4 +1,5 @@
-"""Fused dropout (counterpart of flashattn_tpu/ops/dropout.py::fused_dropout).
+"""Fused dropout and its bias variants (counterpart of
+flashattn_tpu/ops/dropout.py).
 
 out = keep * x / (1 - rate), where keep = bits >= floor(rate * 2^32) as in
 the TPU kernel's ``_keep``.  On a CUDA tensor the hand-written kernel
@@ -13,13 +14,22 @@ bit-identical on the CPU and on the card — not the TPU's bits, which come
 from its in-core generator.
 
 Backward regenerates the mask from the seed and saves nothing, as the TPU
-path's ``_dropout_p`` does: dropout is its own adjoint.  The variants with
-bias, residual or activation (``fused_dropout_res_bias``,
-``fused_dropout_act_bias``) are not ported yet.
+path's ``_dropout_p`` does: dropout is its own adjoint.
+
+The variants with bias, residual or activation, :func:`fused_dropout_res_bias`
+(``r + dropout(x + b)``) and :func:`fused_dropout_act_bias`
+(``dropout(act(x + b))``, GELU-tanh or ReLU), launch ``csrc/dropout_bias.cu``
+on CUDA tensors (replacing the TPU kernels ``_res_bias_kernel``,
+``_act_bias_kernel``, ``_mask_colsum_kernel`` and ``_act_bias_bwd_kernel``)
+and draw the same keep mask from the same seed as :func:`fused_dropout`.
+Their backwards are kernels too (dx, and db summed over rows in a fixed
+order); they save x and the bias, never the mask.  Any shape works: the
+TPU's ``d % 128 == 0`` eligibility is dropped.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -30,6 +40,17 @@ from ._utils import cdiv, on_cuda
 _kernel = _build.Kernel("fa_dropout", [_build.P, _build.P, _build.I64,
                                        _build.U64, _build.U32, _build.F,
                                        _build.I])
+
+_res_kernel = _build.Kernel("fa_dropout_res_bias", [
+    _build.P] * 6 + [_build.I64, _build.I, _build.U64, _build.U32, _build.F,
+                     _build.I, _build.I])
+_act_kernel = _build.Kernel("fa_dropout_act_bias", [
+    _build.P] * 6 + [_build.I64, _build.I, _build.U64, _build.U32, _build.F,
+                     _build.I, _build.I, _build.I])
+
+_BIAS_ROWS = 64   # rows per block of the bias kernels (their db partials)
+_ACTS = {"gelu": 0, "relu": 1}
+_GELU_C = math.sqrt(2.0 / math.pi)
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -136,3 +157,201 @@ def fused_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
     _check(rate, int(seed))
     factor = 1.0 / (1.0 - rate) if scale else 1.0
     return _Dropout.apply(x, float(rate), int(seed), factor)
+
+
+# -- dropout with bias, residual or activation ---------------------------------
+
+
+def _flat(x: torch.Tensor, bias: torch.Tensor):
+    """x as (n, d) and the bias as (d,)."""
+    d = x.shape[-1]
+    if bias.numel() != d:
+        raise ValueError(f"bias must hold {d} values, got {tuple(bias.shape)}")
+    return x.reshape(-1, d), bias.reshape(d)
+
+
+def _act(u: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return 0.5 * u * (1.0 + torch.tanh(_GELU_C * (u + 0.044715 * (u * u * u))))
+    return torch.clamp_min(u, 0.0)
+
+
+def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
+    """act'(u) by the formula of the TPU backward kernel
+    (flashattn_tpu/ops/dropout.py:136-142)."""
+    if act == "gelu":
+        t = torch.tanh(_GELU_C * (u + 0.044715 * (u * u * u)))
+        return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _GELU_C * (
+            1.0 + 3 * 0.044715 * u * u)
+    return (u > 0.0).float()
+
+
+def _bias_launch(kernel, a, bias, rate, seed, scale, *, x=None, r=None,
+                 act=None, backward=False):
+    """Launch a bias kernel on (n, d) ``a`` (x, or g in the backward);
+    returns out, or (dx, db f32) in the backward."""
+    _check(rate, seed)
+    n, d = a.shape
+    a = _build.aligned(a.detach())
+    out = torch.empty_like(a)
+    part = db = None
+    if backward:
+        part = torch.empty((cdiv(n, _BIAS_ROWS), d), device=a.device,
+                           dtype=torch.float32)
+        db = torch.empty(d, device=a.device, dtype=torch.float32)
+    if bias is not None:
+        bias = _build.aligned(bias.detach().float())
+    if x is not None:
+        x = _build.aligned(x.detach())
+    if r is not None:
+        r = _build.aligned(r.detach().to(a.dtype))
+    ptrs = ([a, x, bias, out, part, db] if kernel is _act_kernel
+            else [a, bias, r, out, part, db])
+    kernel(*[None if t is None else t.data_ptr() for t in ptrs], n, d, seed,
+           _threshold(rate), float(scale),
+           *([] if act is None else [_ACTS[act]]), int(backward),
+           _build.dtype_code(a))
+    return (out, db) if backward else out
+
+
+def dropout_res_bias(x, bias, residual, rate, seed, scale):
+    """Kernel launch: r + keep(x + b) * scale over (n, d) x and residual of
+    one dtype (f32 arithmetic, rounded once)."""
+    return _bias_launch(_res_kernel, x, bias, rate, seed, scale, r=residual)
+
+
+def dropout_res_bias_bwd(g, rate, seed, scale):
+    """Kernel launch: (dx, db) with dx = keep(g) * scale and db its f32
+    column sum; one count covers its two launches (dx and the partials,
+    then their column sum).  dr = g needs no launch."""
+    return _bias_launch(_res_kernel, g, None, rate, seed, scale,
+                        backward=True)
+
+
+def dropout_act_bias(x, bias, rate, seed, scale, act):
+    """Kernel launch: keep(act(x + b)) * scale over (n, d) x."""
+    return _bias_launch(_act_kernel, x, bias, rate, seed, scale, act=act)
+
+
+def dropout_act_bias_bwd(g, x, bias, rate, seed, scale, act):
+    """Kernel launch: (dx, db) with dx = keep(g) * scale * act'(x + b) and db
+    its f32 column sum (two launches, one count)."""
+    return _bias_launch(_act_kernel, g.to(x.dtype), bias, rate, seed, scale,
+                        x=x, act=act, backward=True)
+
+
+def _keep2d(shape, rate, seed, device):
+    return keep_mask(shape[0] * shape[1], rate, seed, device).reshape(shape)
+
+
+def dropout_res_bias_reference(x, bias, residual, rate, seed, scale):
+    """Plain version of :func:`dropout_res_bias`, bit for bit."""
+    _check(rate, seed)
+    keep = _keep2d(x.shape, rate, seed, x.device)
+    u = (x.float() + bias.float()) * torch.tensor(scale, dtype=torch.float32)
+    y = torch.where(keep, u, torch.zeros_like(u))
+    return (residual.float() + y).to(x.dtype)
+
+
+def dropout_res_bias_bwd_reference(g, rate, seed, scale):
+    """Plain version of :func:`dropout_res_bias_bwd`: (dx, db f32)."""
+    _check(rate, seed)
+    keep = _keep2d(g.shape, rate, seed, g.device)
+    dx = g.float() * torch.tensor(scale, dtype=torch.float32)
+    dx = torch.where(keep, dx, torch.zeros_like(dx))
+    return dx.to(g.dtype), dx.sum(0)
+
+
+def dropout_act_bias_reference(x, bias, rate, seed, scale, act):
+    """Plain version of :func:`dropout_act_bias`."""
+    _check(rate, seed)
+    keep = _keep2d(x.shape, rate, seed, x.device)
+    y = _act(x.float() + bias.float(), act) * torch.tensor(
+        scale, dtype=torch.float32)
+    return torch.where(keep, y, torch.zeros_like(y)).to(x.dtype)
+
+
+def dropout_act_bias_bwd_reference(g, x, bias, rate, seed, scale, act):
+    """Plain version of :func:`dropout_act_bias_bwd`: (dx, db f32)."""
+    _check(rate, seed)
+    keep = _keep2d(g.shape, rate, seed, g.device)
+    dy = g.float() * torch.tensor(scale, dtype=torch.float32)
+    dy = torch.where(keep, dy, torch.zeros_like(dy))
+    dx = dy * _act_grad(x.float() + bias.float(), act)
+    return dx.to(x.dtype), dx.sum(0)
+
+
+class _DropoutResBias(torch.autograd.Function):
+    """residual + dropout(x + bias) over (n, d); saves nothing."""
+
+    @staticmethod
+    def forward(ctx, x, bias, residual, rate, seed, scale):
+        ctx.args = (rate, seed, scale)
+        ctx.bias_dtype = bias.dtype
+        fwd = dropout_res_bias if on_cuda(x, bias, residual) else \
+            dropout_res_bias_reference
+        return fwd(x, bias, residual, rate, seed, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd = dropout_res_bias_bwd if on_cuda(g) else \
+            dropout_res_bias_bwd_reference
+        dx, db = bwd(g, *ctx.args)
+        return dx, db.to(ctx.bias_dtype), g, None, None, None
+
+
+class _DropoutActBias(torch.autograd.Function):
+    """dropout(act(x + bias)) over (n, d); saves x and the bias."""
+
+    @staticmethod
+    def forward(ctx, x, bias, rate, seed, scale, act):
+        ctx.args = (rate, seed, scale, act)
+        ctx.save_for_backward(x, bias)
+        fwd = dropout_act_bias if on_cuda(x, bias) else \
+            dropout_act_bias_reference
+        return fwd(x, bias, rate, seed, scale, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, bias = ctx.saved_tensors
+        bwd = dropout_act_bias_bwd if on_cuda(x) else \
+            dropout_act_bias_bwd_reference
+        dx, db = bwd(g, x, bias, *ctx.args)
+        return dx, db.to(bias.dtype), None, None, None, None
+
+
+def fused_dropout_res_bias(x: torch.Tensor, bias: torch.Tensor,
+                           residual: torch.Tensor, rate: float,
+                           seed: Optional[int]) -> torch.Tensor:
+    """``residual + dropout(x + bias)`` in one pass, keyed by ``seed`` (an
+    int in [0, 2^64)); the plain ``residual + x + bias`` when ``rate <= 0``
+    or ``seed`` is None.  x and residual share a shape (any leading dims);
+    the bias holds x.shape[-1] values.  The result takes the promoted dtype
+    of the three."""
+    if rate <= 0.0 or seed is None:
+        return residual + (x + bias)
+    _check(rate, int(seed))
+    dtype = torch.promote_types(torch.promote_types(x.dtype, bias.dtype),
+                                residual.dtype)
+    x2, b = _flat(x.to(dtype), bias)
+    out = _DropoutResBias.apply(x2, b, residual.to(dtype).reshape(x2.shape),
+                                float(rate), int(seed), 1.0 / (1.0 - rate))
+    return out.reshape(x.shape)
+
+
+def fused_dropout_act_bias(x: torch.Tensor, bias: torch.Tensor, rate: float,
+                           seed: Optional[int],
+                           act: str = "gelu") -> torch.Tensor:
+    """``dropout(act(x + bias))`` in one pass, ``act`` "gelu" (tanh
+    approximation) or "relu"; the plain ``act(x + bias)`` when ``rate <= 0``
+    or ``seed`` is None.  The result takes the promoted dtype of x and the
+    bias."""
+    if act not in _ACTS:
+        raise ValueError(f"act must be 'gelu' or 'relu', got {act!r}")
+    if rate <= 0.0 or seed is None:
+        return _act(x + bias, act)
+    _check(rate, int(seed))
+    x2, b = _flat(x.to(torch.promote_types(x.dtype, bias.dtype)), bias)
+    out = _DropoutActBias.apply(x2, b, float(rate), int(seed),
+                                1.0 / (1.0 - rate), act)
+    return out.reshape(x.shape)

@@ -11,7 +11,10 @@ chip_smoke.py.  The file imports no jax, so on a machine without it run:
 Tolerance: f32 1e-4 abs, bf16 2e-2 abs on unit-variance inputs; gradients
 and matmul outputs (sums over rows) against max(1, max |ref|) times those.
 Dropout and stochastic quantization are bit-exact: the kernel and its plain
-version compute the same Philox bits.
+version compute the same Philox bits.  So are the dropout variants with a
+residual or a ReLU (the same f32 arithmetic); with GELU (tanhf on the card,
+torch.tanh in the plain version) they keep the same positions and hold the
+values to the tolerance above.
 """
 
 import pytest
@@ -22,6 +25,7 @@ from flashattn_tpu_torch.ops import flash_attention as fa
 from flashattn_tpu_torch.ops import layernorm as ln
 from flashattn_tpu_torch.ops import paged_attention as pa
 from flashattn_tpu_torch.ops import quant as qt
+from flashattn_tpu_torch.ops import softmax as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -391,3 +395,183 @@ def test_quant_kernels_refuse_host_scales(dev):
                            k_scales=host.scales, v_scales=host.scales)
     assert pa._kernel.launches == before
     torch.cuda.synchronize()
+
+
+# (B, H, F, T, mask broadcast dims (B, H, F) or None, causal): T not a
+# multiple of the vector width, T past 4096, F != T both ways, every mask form
+SOFTMAX_CASES = {
+    "t1_causal": (2, 3, 5, 1, None, True),
+    "t33_b11t": (2, 3, 17, 33, (1, 0, 0), False),
+    "t33_b11t_causal": (2, 3, 17, 33, (1, 0, 0), True),
+    "t1000_11ft_causal": (1, 2, 40, 1000, (0, 0, 1), True),
+    "t4097_bhft": (1, 2, 9, 4097, (1, 1, 1), False),
+    "t4097_causal_f_lt_t": (1, 2, 9, 4097, None, True),
+    "f_gt_t_1h1t_causal": (2, 2, 70, 48, (0, 1, 0), True),
+    "t2048_causal": (1, 2, 64, 2048, None, True),
+    "t256_nomask": (2, 2, 16, 256, None, False),
+}
+
+
+def _within_bf16_ulp(got, want, slack=0.0):
+    """Per element: |got - want| <= 2^-7 |want| + 1e-6 + slack, one bf16
+    ulp of the reference (both round an f32 result once)."""
+    d = (got.float() - want.float()).abs()
+    return bool((d <= want.float().abs() * 2 ** -7 + 1e-6 + slack).all())
+
+
+def _softmax_ok(got, want, dtype):
+    if dtype == torch.bfloat16:
+        return _within_bf16_ulp(got, want)
+    return _err(got, want) <= TOL[dtype]
+
+
+def _softmax_bwd_ok(got, want, out, dout, dtype):
+    """bf16: one ulp, plus |out| 2^-12 (sum_row |dout out| + |dout|) for the
+    f32 rounding of the row sum s and of dout - s, which may cancel."""
+    if dtype != torch.bfloat16:
+        return _rel_err(got, want) <= TOL[dtype]
+    o, g = out.float(), dout.float()
+    slack = (o * g).abs().sum(-1, keepdim=True).add(g.abs()) * o.abs() * 2 ** -12
+    return _within_bf16_ulp(got, want, slack)
+
+
+def _softmax_inputs(case, dtype, dev):
+    b, h, f, t, dims, causal = SOFTMAX_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = _randn(g, b, h, f, t, dtype=dtype, dev=dev) * 3
+    mask = None
+    if dims is not None:
+        shape = tuple(n if k else 1 for n, k in zip((b, h, f), dims)) + (t,)
+        keep = torch.rand(shape, generator=g, device=dev) < 0.85
+        mask = torch.where(keep, 0.0, -1e9)
+        if dims[0] and b > 1:
+            mask[1] = -1e9          # a batch row with every key masked
+    return x, mask, causal
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
+def test_softmax_kernels(dev, dtype, case):
+    x, mask, causal = _softmax_inputs(case, dtype, dev)
+    before = sm._fwd_kernel.launches
+    got = sm.softmax_fwd(x, mask, causal)
+    assert sm._fwd_kernel.launches == before + 1
+    want = sm.attn_softmax_reference(x, mask, causal)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got).all()
+    assert _softmax_ok(got, want, dtype)
+    g = torch.Generator(device=dev).manual_seed(12)
+    dout = _randn(g, *x.shape, dtype=dtype, dev=dev)
+    before = sm._bwd_kernel.launches
+    dinp = sm.softmax_bwd(want, dout)
+    assert sm._bwd_kernel.launches == before + 1
+    ref = sm.softmax_bwd_reference(want, dout)
+    assert dinp.dtype == dtype
+    assert _softmax_bwd_ok(dinp, ref, want, dout, dtype)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_softmax_autograd_launches_both_kernels(dev, impl):
+    """Every call on a CUDA tensor launches the kernels, whatever impl says;
+    the gradients match the CPU's plain versions."""
+    x, mask, causal = _softmax_inputs("t33_b11t_causal", torch.float32, dev)
+    xg = x.clone().requires_grad_()
+    dout = torch.randn_like(x)
+    for _ in range(2):
+        fwd, bwd = sm._fwd_kernel.launches, sm._bwd_kernel.launches
+        out = sm.attn_softmax(xg, mask, causal, impl=impl)
+        (got,) = torch.autograd.grad(out, xg, dout)
+        assert (sm._fwd_kernel.launches, sm._bwd_kernel.launches) == (
+            fwd + 1, bwd + 1)
+    xc = x.cpu().requires_grad_()
+    out_c = sm.attn_softmax(xc, mask.cpu(), causal, impl=impl)
+    (want,) = torch.autograd.grad(out_c, xc, dout.cpu())
+    assert _err(out.detach().cpu(), out_c.detach()) <= 1e-5
+    assert _rel_err(got.cpu(), want) <= 1e-5
+
+
+# (n, d): one row, d not a multiple of 4 or 8, Philox blocks straddling rows,
+# rows past one 64-row block and columns past one 1024-column block
+DROPOUT_BIAS_SHAPES = [(1, 7), (5, 6), (3, 13), (70, 130), (130, 1024),
+                       (65, 2052)]
+
+
+def _bias_inputs(n, d, dtype, dev, seed=13):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, r, gy = (_randn(g, n, d, dtype=dtype, dev=dev) for _ in range(3))
+    bias = _randn(g, d, dtype=torch.bfloat16, dev=dev)
+    return x, bias, r, gy
+
+
+def _bits_equal(a, b):
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", DROPOUT_BIAS_SHAPES)
+def test_dropout_res_bias_kernels(dev, dtype, shape):
+    n, d = shape
+    x, bias, r, gy = _bias_inputs(n, d, dtype, dev)
+    seed, rate, scale = 2**64 - 999, 0.1, 1 / 0.9
+    keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
+    before = dr._res_kernel.launches
+    got = dr.dropout_res_bias(x, bias, r, rate, seed, scale)
+    assert dr._res_kernel.launches == before + 1
+    assert _bits_equal(got, dr.dropout_res_bias_reference(x, bias, r, rate,
+                                                          seed, scale))
+    assert torch.equal(got[~keep], r[~keep])
+    dx, db = dr.dropout_res_bias_bwd(gy, rate, seed, scale)
+    assert dr._res_kernel.launches == before + 2
+    dx_ref, db_ref = dr.dropout_res_bias_bwd_reference(gy, rate, seed, scale)
+    assert _bits_equal(dx, dx_ref)
+    assert torch.equal(dx != 0, keep)
+    assert db.dtype == torch.float32 and _rel_err(db, db_ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", DROPOUT_BIAS_SHAPES)
+def test_dropout_act_bias_kernels(dev, dtype, shape, act):
+    n, d = shape
+    x, bias, _, gy = _bias_inputs(n, d, dtype, dev, seed=14)
+    seed, rate, scale = 12345, 0.1, 1 / 0.9
+    keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
+    before = dr._act_kernel.launches
+    got = dr.dropout_act_bias(x, bias, rate, seed, scale, act)
+    assert dr._act_kernel.launches == before + 1
+    want = dr.dropout_act_bias_reference(x, bias, rate, seed, scale, act)
+    assert not got[~keep].any()
+    if act == "relu":
+        assert _bits_equal(got, want)
+    assert _rel_err(got, want) <= TOL[dtype]
+    dx, db = dr.dropout_act_bias_bwd(gy, x, bias, rate, seed, scale, act)
+    assert dr._act_kernel.launches == before + 2
+    dx_ref, db_ref = dr.dropout_act_bias_bwd_reference(gy, x, bias, rate, seed,
+                                                       scale, act)
+    assert not dx[~keep].any()
+    assert _rel_err(dx, dx_ref) <= TOL[dtype]
+    assert _rel_err(db, db_ref) <= TOL[dtype]
+
+
+def test_dropout_bias_autograd_launches_both_directions(dev):
+    """The public entry points launch a kernel forward and backward on every
+    call; gradients match the CPU's (the plain versions)."""
+    x, bias, r, gy = _bias_inputs(37, 100, torch.float32, dev, seed=15)
+    ts = [t.float().clone().requires_grad_() for t in (x, bias, r)]
+    for _ in range(2):
+        before = (dr._res_kernel.launches, dr._act_kernel.launches)
+        res = dr.fused_dropout_res_bias(*ts, 0.2, 7)
+        act = dr.fused_dropout_act_bias(ts[0], ts[1], 0.2, 7, "gelu")
+        got = torch.autograd.grad((res * gy).sum() + (act * gy).sum(), ts)
+        assert (dr._res_kernel.launches, dr._act_kernel.launches) == (
+            before[0] + 2, before[1] + 2)
+    cs = [t.detach().cpu().requires_grad_() for t in ts]
+    res_c = dr.fused_dropout_res_bias(*cs, 0.2, 7)
+    act_c = dr.fused_dropout_act_bias(cs[0], cs[1], 0.2, 7, "gelu")
+    want = torch.autograd.grad((res_c * gy.cpu()).sum()
+                               + (act_c * gy.cpu()).sum(), cs)
+    assert _err(res.detach().cpu(), res_c.detach()) == 0
+    assert _err(act.detach().cpu(), act_c.detach()) <= 1e-5
+    for a, b in zip(got, want):
+        assert _rel_err(a.cpu(), b) <= 1e-5

@@ -156,9 +156,90 @@ def test_load_jax_params_checks_names_and_shapes():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64, attn_impl="fused_softmax", device="cpu")
-    with pytest.raises(NotImplementedError):
         pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope", device="cpu")
+    with pytest.raises(ValueError):
+        pt.DecoderLM(64, 32, 4, 64, attn_impl="xla", device="cpu")
+
+
+# -- attn_impl="fused_softmax": score matmul, fused softmax, matmul with V --
+
+# name -> (MultiHeadAttention kwargs, kv_lengths or None)
+FUSED_MHA = {
+    "causal_gqa_window": (dict(causal=True, n_kv_head=2, window=4), None),
+    "mha_kv_lengths_with_0": (dict(causal=False), [11, 0, 5]),
+    "causal_kv_lengths": (dict(causal=True, n_kv_head=1), [11, 3, 0]),
+}
+
+
+@pytest.mark.parametrize("case", list(FUSED_MHA))
+def test_fused_softmax_attention_parity(case):
+    """MultiHeadAttention(attn_impl="fused_softmax") against the JAX twin on
+    the same weights; a kv_lengths row of 0 gives JAX's near-uniform
+    weights, not zeros."""
+    kw, lengths = FUSED_MHA[case]
+    jm = ft.MultiHeadAttention(32, 4, p_dropout=0.0, attn_impl="fused_softmax",
+                               key=jax.random.PRNGKey(5), **kw)
+    tm = pt.MultiHeadAttention(32, 4, p_dropout=0.0, attn_impl="fused_softmax",
+                               **kw)
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    x = np.random.default_rng(6).standard_normal((3, 11, 32)).astype(np.float32)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x),
+                 None if lens is None else torch.from_numpy(lens))
+    _close(got, jm(jnp.asarray(x),
+                   kv_lengths=None if lens is None else jnp.asarray(lens)))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_fused_softmax_decoder_parity(name):
+    """DecoderLM(attn_impl="fused_softmax") logits against the JAX model's
+    and against the port's own flash model on the same weights."""
+    args, kw = CONFIGS[name]
+    kw = dict(kw, p_dropout=0.0, attn_impl="fused_softmax")
+    jm = ft.DecoderLM(*args, key=jax.random.PRNGKey(0), **kw).eval()
+    tm = pt.DecoderLM(*args, device="cpu", **kw).eval()
+    params = {n: np.asarray(a) for n, a in jm.named_parameters()}
+    pt.load_jax_params(tm, params)
+    toks = np.random.default_rng(2).integers(0, 64, (2, 19)).astype(np.int32)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(toks))
+    _close(got, jm(jnp.asarray(toks)))
+    flash = pt.DecoderLM(*args, device="cpu", **dict(kw, attn_impl="flash"))
+    pt.load_jax_params(flash, params)
+    with torch.inference_mode():
+        _close(got, flash.eval()(torch.from_numpy(toks)))
+
+
+def test_fused_softmax_train_step_parity():
+    """One make_train_step (Adam, clipping 1.0, f32, p 0) of the
+    fused-softmax model against JAX's: the loss and every parameter to atol
+    1e-5, as tests/test_torch_training.py holds the flash model."""
+    from flashattn_tpu import optim as jopt
+    from flashattn_tpu.training import trainer as jtr
+
+    args, kw = (64, 32, 4, 32), dict(n_layer=2, middle_dim=64, n_kv_head=2,
+                                     p_dropout=0.0, attn_impl="fused_softmax")
+    jm = ft.DecoderLM(*args, key=jax.random.PRNGKey(0), **kw)
+    tm = pt.DecoderLM(*args, device="cpu", **kw)
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    rng = np.random.default_rng(12)
+    tok = rng.integers(0, 64, (4, 16)).astype(np.int32)
+    tgt = np.roll(tok, -1, axis=1)
+    msk = (rng.random((4, 16)) < 0.7).astype(np.float32)
+    j_opt, t_opt = jopt.Adam(lr=1e-3), pt.Adam(lr=1e-3)
+    jm, _, j_loss = jtr.make_train_step(j_opt, grad_clip=1.0, donate=False)(
+        jm, j_opt.init(jm), jnp.asarray(tok), jnp.asarray(tgt),
+        jnp.asarray(msk), None)
+    tm, _, t_loss = pt.make_train_step(t_opt, grad_clip=1.0)(
+        tm, t_opt.init(tm), torch.from_numpy(tok), torch.from_numpy(tgt),
+        torch.from_numpy(msk))
+    np.testing.assert_allclose(np.asarray(t_loss), np.asarray(j_loss),
+                               atol=1e-5, rtol=1e-5)
+    t_params = dict(tm.named_parameters())
+    for name, want in jm.named_parameters():
+        np.testing.assert_allclose(t_params[name].detach().numpy(),
+                                   np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
