@@ -13,13 +13,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B4 H8 N2048 prefill, LN 8192 x 1024, paged decode; training: LN
    16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
    B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
-   16384 x 2048 at p 0.1) plus ragged variants.  Tolerance: f32 1e-4,
-   bf16 2e-2, abs on unit-variance inputs for outputs and scaled by
-   max(1, max |ref|) for gradients, which are sums over rows (bf16 rounds
-   each output once, at 2^-8 of its magnitude); dropout bit-exact (the
-   kernel and its plain version compute the same Philox bits).  Each line
-   gives the kernel's and the plain version's time (CUDA events, median of
-   15), the library call's time where PyTorch has one (a yardstick only,
+   16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward,
+   a tensor-core kernel, at head dims 32 / 64 / 128, n 517 / 1000 / 3000,
+   GQA 8/2, window 256, cross 1000 x 2048, a length-0 row, varlen).
+   Tolerance: f32 1e-4, bf16 2e-2, abs on unit-variance inputs for outputs
+   and scaled by max(1, max |ref|) for gradients, which are sums over rows
+   (bf16 rounds each output once, at 2^-8 of its magnitude); dropout
+   bit-exact (the kernel and its plain version compute the same Philox
+   bits).  Each line gives the kernel's and the plain version's device
+   time (CUDA events, median of 15, each call queued behind a device sleep
+   so that the host's launch work does not count), the library call's
+   time where PyTorch has one (a yardstick only,
    never called by the port) and the bound: the larger of the bytes the
    function must move over 3.35 TB/s and its useful operations over the
    peak for the type (989 TF bf16 tensor, 67 TF f32).
@@ -49,9 +53,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shift shared by every key): there both devices' rounding noise must stay
    under 1e-4 of the global gradient norm.
 8. quantization kernels: the weight-only matmul (int8 and fp8 payloads,
-   bf16 and f32 x) at the quantized serving model's Linear shapes (decode
-   M 4, prefill M 4 x 8192, K and N in {1024, 256}, the lm head's N 1000;
-   yardstick x @ W on the pre-dequantized bf16 / f32 weight), quantized
+   bf16 and f32 x) at the quantized serving model's Linear shapes (K and
+   N in {1024, 256}, the lm head's N 1000; bf16 x at M 1, 4, 16, 17, 100
+   and 4 x 8192, where its GEMV and tensor-core tile branch; f32 x at
+   decode M 4 and prefill 4 x 8192; yardstick x @ W on the pre-dequantized
+   bf16 / f32 weight; calls of M <= 100 timed by CUDA-graph replay, and
+   their eager time, the host's launch work included, logged beside),
+   quantized
    paged attention (int8 and fp8 pools: decode B4 Hkv8 d128 at histories
    <= 8192, chunk 64, GQA group 4, window 256), flash attention over an
    int8 / fp8 KV cache (B4 H8 N2048 D128 causal, fp8 there transcoded to
@@ -106,6 +114,7 @@ Prints one ``{"kernels": [...]}`` line and ends with
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import re
@@ -157,8 +166,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 15) -> float:
-    """Median of ``reps`` CUDA-event timings of fn(), after warm-up."""
+def time_ms(fn, reps: int = 15, host: bool = False) -> float:
+    """Median of ``reps`` CUDA-event timings of fn(), after warm-up.  Each
+    timing queues behind a ~1 ms device sleep, so the host's launch work
+    (the Python wrapper, ctypes) is done before the device reaches the
+    start event and only device time counts, as long as that work is
+    shorter than the sleep; ``host=True`` leaves the sleep out, so the
+    launch work counts too."""
     import torch
 
     for _ in range(3):
@@ -168,12 +182,44 @@ def time_ms(fn, reps: int = 15) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if not host:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@functools.cache
+def _graph_stream():
+    """The one side stream of every graph_ms capture.  cuBLAS keeps a
+    workspace for each stream it has run on, for the life of the process:
+    a fresh stream per timing left 1 GiB held into the train phases."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 15) -> float:
+    """Device time of one fn() call: ``calls`` calls captured in one CUDA
+    graph, the replay timed as :func:`time_ms` times it, divided by
+    ``calls``.  For calls of a few microseconds, where one pair of events
+    would add its own overhead to each timing."""
+    import torch
+
+    side = _graph_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps) / calls
 
 
 def bound_ms(bytes_: float, flops: float, dtype: str):
@@ -197,18 +243,21 @@ class Phases:
         self.main = {}
 
     def check(self, kernel: str, label: str, dtype, run_kernel, run_plain,
-              cost, main: bool = False, compare=None, library=None, tol=None):
+              cost, main: bool = False, compare=None, library=None, tol=None,
+              graph: bool = False):
         """``cost`` = (bytes, useful flops); ``compare`` returns (abs err,
         gated err), gated at ``tol`` (default ``TOL`` of the dtype);
-        ``library`` is the PyTorch yardstick call, or None."""
+        ``library`` is the PyTorch yardstick call, or None.  ``graph``
+        times all three calls by CUDA-graph replay (:func:`graph_ms`)."""
         import torch
 
         got, want = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err, gated = (compare or _max_err)(got, want)
         del got, want
-        ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
-        lib_ms = None if library is None else time_ms(library)
+        timer = graph_ms if graph else time_ms
+        ms, plain_ms = timer(run_kernel), timer(run_plain)
+        lib_ms = None if library is None else timer(library)
         name = str(dtype).replace("torch.", "")
         b_ms, b_by = bound_ms(*cost, name)
         tol = TOL[name] if tol is None else tol
@@ -217,7 +266,7 @@ class Phases:
         log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
             f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{'(graph) ' if graph else ''}{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {label} {name}: error {gated} "
                                  f"over tolerance {tol}")
@@ -388,28 +437,44 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
                  _paged_cost(qd, 1, 8, 8, lens), main=main)
 
     bf = torch.bfloat16
-    # flash variants at the prefill shape
+    # flash variants at the prefill shape: every head dim, ragged lengths
+    # (517, 1000, 3000: neither the 128-row block nor the 128-key tile
+    # divides them), GQA, window, cross attention and a length-0 row
     q, k, v = (randn(4, 8, 2048, 128, dtype=bf) for _ in range(3))
     k2, v2 = (randn(4, 2, 2048, 128, dtype=bf) for _ in range(2))
     lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
     lens0 = torch.tensor([2048, 0, 1024, 517], device=dev)
     q32, k32, v32 = (randn(4, 8, 2048, 32, dtype=bf) for _ in range(3))
+    q64, k64, v64 = (randn(4, 8, 2048, 64, dtype=bf) for _ in range(3))
+    q3k, k3k, v3k = (randn(1, 8, 3000, 128, dtype=bf) for _ in range(3))
     variants = [
         ("GQA 8q/2kv varlen", (q, k2, v2), dict(kv_lengths=lens)),
         ("window 256 varlen", (q, k, v), dict(kv_lengths=lens, window=256)),
         ("D32 varlen", (q32, k32, v32), dict(kv_lengths=lens)),
+        ("D64 varlen", (q64, k64, v64), dict(kv_lengths=lens)),
         ("len=0 row", (q, k, v), dict(kv_lengths=lens0)),
         ("dense causal, no lengths", (q, k, v), {}),
+        ("causal N517", (q[:, :, :517], k[:, :, :517], v[:, :, :517]), {}),
+        ("causal N1000 D64", (q64[:, :, :1000], k64[:, :, :1000],
+                              v64[:, :, :1000]), {}),
+        ("causal N3000", (q3k, k3k, v3k), {}),
+        ("cross non-causal 1000 x 2048", (q[:, :, :1000], k, v),
+         dict(causal=False)),
     ]
     for label, (a, b_, c), kw in variants:
+        a, b_, c = (t.contiguous() for t in (a, b_, c))
         sc = a.shape[-1] ** -0.5
+        kw = dict(kw)
+        causal = kw.pop("causal", True)
         win, ln_ = kw.get("window"), kw.get("kv_lengths")
-        lib, args = _sdpa(torch, a, b_, c, True, win, ln_)
+        lib, args = _sdpa(torch, a, b_, c, causal, win, ln_)
         ph.check("flash_fwd", label, bf,
-                 lambda: fa.flash_fwd(a, b_, c, causal=True, sm_scale=sc, **kw),
-                 lambda: fa._reference_fwd_with_lse(a, b_, c, True, sc, ln_, win),
-                 _flash_cost(a, b_, True, win, ln_), compare=_lse_err,
+                 lambda: fa.flash_fwd(a, b_, c, causal=causal, sm_scale=sc, **kw),
+                 lambda: fa._reference_fwd_with_lse(a, b_, c, causal, sc, ln_,
+                                                    win),
+                 _flash_cost(a, b_, causal, win, ln_), compare=_lse_err,
                  library=lambda: lib(*args))
+    del q, k, v, k2, v2, q32, k32, v32, q64, k64, v64, q3k, k3k, v3k
 
     # paged: chunk 64, GQA group 4, and the 2048-token chunked-prefill wave
     n_pages, pps = 4 * 16 + 1, 16
@@ -477,11 +542,11 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
         xd = randn(n, h, dtype=dtype)
         seed = 0x9E3779B97F4A7C15
         ph.check("dropout", f"train {n} x {h} p 0.1", dtype,
-                 lambda: dr.dropout(xd, 0.1, seed, 1 / 0.9),
-                 lambda: dr.dropout_reference(xd, 0.1, seed, 1 / 0.9),
+                 lambda: dr.dropout(xd, 0.1, seed),
+                 lambda: dr.dropout_reference(xd, 0.1, seed),
                  (2 * xd.numel() * isz, 0), main=main, compare=_bit_err,
                  library=lambda: torch.nn.functional.dropout(xd, 0.1, True))
-        keep = float((dr.dropout(xd, 0.1, seed, 1 / 0.9) != 0).float().mean())
+        keep = float((dr.dropout(xd, 0.1, seed) != 0).float().mean())
         log(f"[kernel] dropout keep fraction {keep:.5f} (want 0.9 +- 0.005)")
         if abs(keep - 0.9) > 0.005:
             raise AssertionError(f"dropout keeps {keep}, not 0.9")
@@ -591,13 +656,19 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
         return (qt.quantize_int8 if payload == torch.int8
                 else qt.quantize_fp8)(t, axis=axis)
 
-    # weight-only matmul at the Linear shapes of the serving model
+    # weight-only matmul at the Linear shapes of the serving model; bf16 x
+    # at every M the kernels branch on (the GEMV at M <= 16, the tensor-core
+    # tile above, ragged 17 and 100, decode 4 and prefill 4 x 8192) and
+    # every (K, N) of the model, the lm head's N 1000 among them
     shapes = [(4, 1024, 1024), (32768, 1024, 1024), (32768, 1024, 256),
               (32768, 256, 1024), (32768, 1024, 1000)]
+    bf16_shapes = [(m, k, n) for m in (1, 4, 16, 17, 100, 32768)
+                   for k, n in ((1024, 1024), (1024, 256), (256, 1024),
+                                (1024, 1000))]
     for pname, payload in payloads.items():
         for dtype in (torch.bfloat16, torch.float32):
             isz = torch.tensor([], dtype=dtype).element_size()
-            for m, k, n in shapes:
+            for m, k, n in (bf16_shapes if dtype == torch.bfloat16 else shapes):
                 x = randn(m, k, dtype=dtype)
                 w = quantize(randn(k, n, dtype=torch.float32), payload, axis=0)
                 w_full = w.dequantize(dtype)
@@ -607,7 +678,13 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                          lambda: qt.wo_matmul(x, w),
                          lambda: qt.int8_weight_only_matmul_reference(x, w),
                          _wo_cost(m, k, n, isz), main=main,
-                         compare=_scaled_err, library=lambda: x @ w_full)
+                         compare=_scaled_err, library=lambda: x @ w_full,
+                         graph=m <= 100)
+                if m <= 100:   # the same call timed eagerly, host launch included
+                    eager = time_ms(lambda: qt.wo_matmul(x, w), host=True)
+                    lib = time_ms(lambda: x @ w_full, host=True)
+                    log(f"[kernel] wo_matmul       ({m}, {k}) x ({k}, {n}) {pname} "
+                        f"{str(dtype)[6:]} eager ms={eager:.4f} library_ms={lib:.4f}")
                 del x, w, w_full
 
     # quantized paged attention: B4, 8 kv heads, d128, page 128, <= 8192
@@ -862,7 +939,7 @@ def dropout_bias_kernel_phases(torch, dev, ph: Phases, randn):
     (16384 x 2048), p 0.1, forward and backward."""
     from flashattn_tpu_torch.ops import dropout as dr
 
-    seed, rate, scale = 0x9E3779B97F4A7C15, 0.1, 1 / 0.9
+    seed, rate, scale = 0x9E3779B97F4A7C15, 0.1, True
     n = TRAIN_BATCH * TRAIN_SEQ
     for dtype in (torch.bfloat16, torch.float32):
         main = dtype == torch.bfloat16
@@ -1217,6 +1294,7 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
                 if n in kernels or n in absent}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()   # model, optimizer state, earlier phases
     losses, times, per_step = [], [], []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         for kern in counters.values():
@@ -1241,7 +1319,8 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
         f"{TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3):.1f} tokens/s, "
         f"{flops / 1e12:.2f} model TFLOP/step -> {tflops:.2f} TFLOP/s "
         f"({100 * tflops * 1e12 / PEAK_FLOP_S['bfloat16']:.2f}% of 989 TF); "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} "
+        f"held before the first step)")
     log(f"[{name}] launches in each of the {len(per_step)} steps: "
         + ("same in every step: " + str(per_step[0])
            if all(c == per_step[0] for c in per_step) else str(per_step)))

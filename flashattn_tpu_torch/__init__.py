@@ -49,6 +49,7 @@ from .ops.flash_attention import (
     flash_attention_reference,
     flash_attention_varlen,
     flash_attention_with_lse,
+    mha_attention,
 )
 from .ops.dropout import (
     fused_dropout,
@@ -57,7 +58,11 @@ from .ops.dropout import (
 )
 from .ops.layernorm import layernorm, layernorm_reference
 from .ops.paged_attention import paged_attention, paged_attention_reference
-from .ops.softmax import attn_softmax, attn_softmax_reference
+from .ops.softmax import (
+    attn_softmax,
+    attn_softmax_pallas,
+    attn_softmax_reference,
+)
 from .ops.quant import (
     FP8_MAX,
     QuantizedTensor,
@@ -109,6 +114,7 @@ __all__ = [
     "flash_attention_reference",
     "flash_attention_varlen",
     "flash_attention_with_lse",
+    "mha_attention",
     "fused_dropout",
     "fused_dropout_act_bias",
     "fused_dropout_res_bias",
@@ -117,6 +123,7 @@ __all__ = [
     "paged_attention",
     "paged_attention_reference",
     "attn_softmax",
+    "attn_softmax_pallas",
     "attn_softmax_reference",
     "FP8_MAX",
     "QuantizedTensor",

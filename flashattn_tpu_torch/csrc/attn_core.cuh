@@ -13,8 +13,10 @@
 // Q, K and V tiles are staged in shared memory as f32 and every thread
 // computes a TR x TC block of scores with float4 shared-memory reads, so a
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
-// There is no tensor-core (mma/wgmma) path, no cp.async/TMA double
-// buffering and no split-K over keys yet: those are later work.
+// It serves the f32 flash forward, paged decode and kv8_flash; none of
+// those has a tensor-core (mma/wgmma) path, cp.async/TMA double buffering
+// or split-K over keys yet.  The bf16 flash forward has its own wgmma
+// kernel (flash_fwd.cu, on hopper.cuh).
 
 #pragma once
 

@@ -1,14 +1,18 @@
 // Fused dropout with bias, residual or activation, forward and backward, over
 // x viewed as (n, d) with a bias of (d,):
 //
-//   res-bias forward:  out = r + keep(x + b) * scale
-//   act-bias forward:  out = keep(act(x + b)) * scale, act = GELU-tanh or ReLU
-//   res-bias backward: dx = keep(g) * scale, db = sum_rows(dx) (dr = g, no launch)
-//   act-bias backward: dx = keep(g) * scale * act'(x + b), db = sum_rows(dx)
+//   res-bias forward:  out = r + keep(x + b) / div
+//   act-bias forward:  out = keep(act(x + b)) / div, act = GELU-tanh or ReLU
+//   res-bias backward: dx = keep(g) / div, db = sum_rows(dx) (dr = g, no launch)
+//   act-bias backward: dx = keep(g) / div * act'(x + b), db = sum_rows(dx)
 //
-// scale = 1 / (1 - rate) rounded to f32, arithmetic in f32 rounded once to
-// the output dtype; the bias comes in and db goes out as f32 (the wrapper
-// casts).  The keep mask is the stream of the plain dropout (dropout.cu):
+// div = 1 - rate, rounded as the TPU kernels' weakly typed 1.0 - rate
+// meets it: to the input dtype T in the res-bias forward, which like
+// _res_bias_kernel rounds x + b to T, the quotient to T and r + it to T;
+// to f32 in the act-bias variant and both backwards, which compute in f32
+// after rounding x + b to T (flashattn_tpu/ops/dropout.py:87-90, :95, :113,
+// :133-135).  The wrapper passes div; the bias comes in and db goes out as
+// f32 (the wrapper casts).  The keep mask is the stream of the plain dropout (dropout.cu):
 // element i of the flattened row-major array takes word i % 4 of the
 // Philox4x32-10 block at counter i / 4, keyed by the 64-bit seed, and keeps
 // when that word >= threshold.  The backward regenerates it; nothing is
@@ -30,8 +34,8 @@
 // registers, and walks the 64 rows.  When d % 4 == 0 the thread's 4
 // elements are exactly one Philox block and one vector load; otherwise they
 // straddle at most two blocks and load one by one.  The res-bias arithmetic
-// uses round-to-nearest intrinsics (no fused multiply-add), so it is bit for
-// bit the plain version's.
+// uses round-to-nearest intrinsics (__fadd_rn, __fdiv_rn: no fused
+// multiply-add, no reciprocal), so it is bit for bit the plain version's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +56,11 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T and back (the identity for f32)
+template <typename T> __device__ __forceinline__ float round_t(float v) { return v; }
+template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 // four consecutive elements at a 4-element-aligned index
 __device__ __forceinline__ void load4(const float* p, float* v) {
@@ -98,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
 dropout_bias_kernel(const T* __restrict__ a, const T* __restrict__ x2,
                     const float* __restrict__ bias, const T* __restrict__ r,
                     T* __restrict__ out, float* __restrict__ part, long long n, int d,
-                    unsigned long long seed, uint32_t threshold, float scale) {
+                    unsigned long long seed, uint32_t threshold, float div) {
   const int c0 = (blockIdx.y * kThreads + threadIdx.x) * 4;
   if (c0 >= d) return;
   const int cols = min(4, d - c0);
@@ -138,13 +147,15 @@ dropout_bias_kernel(const T* __restrict__ a, const T* __restrict__ x2,
     for (int k = 0; k < 4; ++k) {
       const bool keep = bits[k] >= threshold;
       if constexpr (OP == kResFwd) {
-        y[k] = __fadd_rn(rv[k], keep ? __fmul_rn(__fadd_rn(av[k], b[k]), scale) : 0.f);
+        const float u = round_t<T>(__fadd_rn(av[k], b[k]));
+        y[k] = __fadd_rn(rv[k], keep ? round_t<T>(__fdiv_rn(u, div)) : 0.f);
       } else if constexpr (OP == kActFwd) {
-        y[k] = keep ? act_fwd<ACT>(av[k] + b[k]) * scale : 0.f;
+        y[k] = keep ? __fdiv_rn(act_fwd<ACT>(round_t<T>(__fadd_rn(av[k], b[k]))), div) : 0.f;
       } else if constexpr (OP == kResBwd) {
-        y[k] = keep ? av[k] * scale : 0.f;
+        y[k] = keep ? __fdiv_rn(av[k], div) : 0.f;
       } else {
-        y[k] = keep ? av[k] * scale * act_grad<ACT>(xv[k] + b[k]) : 0.f;
+        y[k] = keep ? __fdiv_rn(av[k], div) * act_grad<ACT>(round_t<T>(__fadd_rn(xv[k], b[k])))
+                    : 0.f;
       }
       if constexpr (kBwd) acc[k] += k < cols ? y[k] : 0.f;
     }
@@ -180,7 +191,7 @@ dropout_colsum_kernel(const float* __restrict__ part, float* __restrict__ db, in
 template <typename T, int OP, int ACT>
 cudaError_t launch(const void* a, const void* x2, const void* bias, const void* r, void* out,
                    void* part, void* db, long long n, int d, unsigned long long seed,
-                   uint32_t threshold, float scale, cudaStream_t st) {
+                   uint32_t threshold, float div, cudaStream_t st) {
   const long long parts = (n + kRows - 1) / kRows;
   if (parts > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(unsigned(parts), unsigned((d + 4 * kThreads - 1) / (4 * kThreads)));
@@ -193,10 +204,10 @@ cudaError_t launch(const void* a, const void* x2, const void* bias, const void* 
   if (parts > 0) {
     if (d % 4 == 0)
       dropout_bias_kernel<T, OP, ACT, true><<<grid, kThreads, 0, st>>>(
-          ap, xp, bp, rp, op, pp, n, d, seed, threshold, scale);
+          ap, xp, bp, rp, op, pp, n, d, seed, threshold, div);
     else
       dropout_bias_kernel<T, OP, ACT, false><<<grid, kThreads, 0, st>>>(
-          ap, xp, bp, rp, op, pp, n, d, seed, threshold, scale);
+          ap, xp, bp, rp, op, pp, n, d, seed, threshold, div);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
@@ -210,15 +221,15 @@ cudaError_t launch(const void* a, const void* x2, const void* bias, const void* 
 template <int OP, int ACT>
 int dispatch(const void* a, const void* x2, const void* bias, const void* r, void* out,
              void* part, void* db, long long n, int d, unsigned long long seed,
-             unsigned int threshold, float scale, int dtype, void* stream) {
+             unsigned int threshold, float div, int dtype, void* stream) {
   if (d <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, OP, ACT>(a, x2, bias, r, out, part, db, n, d, seed, threshold,
-                                  scale, st);
+                                  div, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, OP, ACT>(a, x2, bias, r, out, part, db, n, d, seed,
-                                          threshold, scale, st);
+                                          threshold, div, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -231,12 +242,12 @@ int dispatch(const void* a, const void* x2, const void* bias, const void* r, voi
 extern "C" int fa_dropout_res_bias(const void* a, const void* bias, const void* r, void* out,
                                    void* part, void* db, long long n, int d,
                                    unsigned long long seed, unsigned int threshold,
-                                   float scale, int backward, int dtype, void* stream) {
+                                   float div, int backward, int dtype, void* stream) {
   if (backward)
     return dispatch<kResBwd, kGelu>(a, nullptr, bias, r, out, part, db, n, d, seed, threshold,
-                                    scale, dtype, stream);
+                                    div, dtype, stream);
   return dispatch<kResFwd, kGelu>(a, nullptr, bias, r, out, part, db, n, d, seed, threshold,
-                                  scale, dtype, stream);
+                                  div, dtype, stream);
 }
 
 // Forward (backward = 0): a = x, out (n, d).  Backward (backward = 1): a = g,
@@ -245,16 +256,16 @@ extern "C" int fa_dropout_res_bias(const void* a, const void* bias, const void* 
 extern "C" int fa_dropout_act_bias(const void* a, const void* x, const void* bias, void* out,
                                    void* part, void* db, long long n, int d,
                                    unsigned long long seed, unsigned int threshold,
-                                   float scale, int act, int backward, int dtype,
+                                   float div, int act, int backward, int dtype,
                                    void* stream) {
   if (act != kGelu && act != kRelu) return int(cudaErrorInvalidValue);
   if (backward)
     return act == kGelu ? dispatch<kActBwd, kGelu>(a, x, bias, nullptr, out, part, db, n, d,
-                                                   seed, threshold, scale, dtype, stream)
+                                                   seed, threshold, div, dtype, stream)
                         : dispatch<kActBwd, kRelu>(a, x, bias, nullptr, out, part, db, n, d,
-                                                   seed, threshold, scale, dtype, stream);
+                                                   seed, threshold, div, dtype, stream);
   return act == kGelu ? dispatch<kActFwd, kGelu>(a, x, bias, nullptr, out, part, db, n, d,
-                                                 seed, threshold, scale, dtype, stream)
+                                                 seed, threshold, div, dtype, stream)
                       : dispatch<kActFwd, kRelu>(a, x, bias, nullptr, out, part, db, n, d,
-                                                 seed, threshold, scale, dtype, stream);
+                                                 seed, threshold, div, dtype, stream);
 }

@@ -36,19 +36,29 @@ def _uniform(shape, bound, generator, dtype, device):
 
 
 class Embedding(nn.Module):
-    """Token embedding: a gather ``weights[x]``."""
+    """Token embedding: a gather ``weights[x]``, or with
+    ``use_one_hot_matmul=True`` the reference project's formulation
+    ``one_hot(x) @ weights`` (a matmul over the vocabulary)."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float32, device=None):
+                 use_one_hot_matmul: bool = False, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
+        self.use_one_hot_matmul = use_one_hot_matmul
         self.weights = nn.Parameter(_randn((num_embeddings, embedding_dim),
                                            generator, dtype, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(batch, seq) int -> (batch, seq, embedding_dim)."""
+        if self.use_one_hot_matmul:
+            bs, seq = x.shape
+            oh = F.one_hot(x, self.num_embeddings).reshape(
+                bs * seq, self.num_embeddings)
+            out = oh.to(self.weights.dtype) @ self.weights
+            return out.reshape(bs, seq, self.embedding_dim)
         return self.weights[x.long()]
 
 

@@ -6,11 +6,11 @@ an integer seed where the JAX module takes a PRNG key."""
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
+from ..ops._utils import gelu_tanh
 from ..ops.dropout import (
     fused_dropout,
     fused_dropout_act_bias,
@@ -45,9 +45,9 @@ def logsumexp(input: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def GELU(input: torch.Tensor) -> torch.Tensor:
-    """GELU with the tanh approximation."""
-    c = math.sqrt(2.0 / math.pi)
-    return 0.5 * input * (1.0 + torch.tanh(c * (input + 0.044715 * input**3)))
+    """GELU with the tanh approximation; its constants take the input's
+    dtype, as JAX's Python constants do (bf16 literals for bf16 input)."""
+    return gelu_tanh(input)
 
 
 def one_hot(input: torch.Tensor, num_classes: int) -> torch.Tensor:

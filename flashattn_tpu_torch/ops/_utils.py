@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # Big-but-finite mask value used by the plain (reference) versions, as in
@@ -12,6 +14,22 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # score scale, and lse is converted back to natural log with ln(2).
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
+
+
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX's weakly typed Python scalars
+    take the dtype of the array they meet (0.9 is 0.8984375 beside a bf16
+    array).  PyTorch keeps a Python scalar at f32 precision instead, so the
+    port rounds it first; a bf16 tensor times the rounded scalar is then
+    the bf16 product JAX computes."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation, with its constants in x's dtype (JAX's
+    weak typing: sqrt(2/pi) is the bf16 literal 0.796875 for a bf16 x)."""
+    c, k = (in_dtype(v, x.dtype) for v in (math.sqrt(2.0 / math.pi), 0.044715))
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + k * x**3)))
 
 
 def cdiv(a: int, b: int) -> int:

@@ -2,7 +2,9 @@
 flashattn_tpu/ops/dropout.py).
 
 out = keep * x / (1 - rate), where keep = bits >= floor(rate * 2^32) as in
-the TPU kernel's ``_keep``.  On a CUDA tensor the hand-written kernel
+the TPU kernel's ``_keep``.  The kept value is divided (not multiplied by a
+reciprocal) by 1 - rate rounded to the dtype it meets, as JAX's weakly
+typed ``x / (1.0 - rate)`` does: by bf16(0.9) = 0.8984375 for a bf16 x.  On a CUDA tensor the hand-written kernel
 ``csrc/dropout.cu`` runs (replacing the TPU kernel ``_mask_scale_kernel``);
 on a CPU tensor the plain version :func:`dropout_reference`.
 
@@ -29,13 +31,12 @@ TPU's ``d % 128 == 0`` eligibility is dropped.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from . import _build
-from ._utils import cdiv, on_cuda
+from ._utils import cdiv, gelu_tanh, in_dtype, on_cuda
 
 _kernel = _build.Kernel("fa_dropout", [_build.P, _build.P, _build.I64,
                                        _build.U64, _build.U32, _build.F,
@@ -50,7 +51,7 @@ _act_kernel = _build.Kernel("fa_dropout_act_bias", [
 
 _BIAS_ROWS = 64   # rows per block of the bias kernels (their db partials)
 _ACTS = {"gelu": 0, "relu": 1}
-_GELU_C = math.sqrt(2.0 / math.pi)
+_GELU_C = 0.7978845608028654   # sqrt(2 / pi), f32 in the act-bias kernels
 
 _M32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -108,23 +109,37 @@ def _check(rate: float, seed: int):
         raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
 
 
+def _divisor(rate: float, dtype: torch.dtype, scale: bool = True) -> float:
+    """What a kept value is divided by: 1 - rate in ``dtype`` (1 for
+    ``scale=False``)."""
+    return in_dtype(1.0 - rate, dtype) if scale else 1.0
+
+
+def _divide(y: torch.Tensor, div: float) -> torch.Tensor:
+    """f32 ``y / div``, a true division on any device: a Python or host
+    divisor would make PyTorch's CUDA kernel multiply by its reciprocal."""
+    return y / torch.tensor(div, dtype=torch.float32, device=y.device)
+
+
 def dropout(x: torch.Tensor, rate: float, seed: int,
-            scale: float) -> torch.Tensor:
-    """Kernel launch: keep ? x * scale : 0 (f32 arithmetic, x's dtype)."""
+            scale: bool = True) -> torch.Tensor:
+    """Kernel launch: keep ? x / (1 - rate) : 0, 1 - rate rounded to x's
+    dtype (f32 division, rounded once to x's dtype); ``scale=False`` keeps
+    the survivors as they are."""
     _check(rate, seed)
     x = x.detach().contiguous()
     out = torch.empty_like(x)
     _kernel(x.data_ptr(), out.data_ptr(), x.numel(), seed, _threshold(rate),
-            float(scale), _build.dtype_code(x))
+            _divisor(rate, x.dtype, scale), _build.dtype_code(x))
     return out
 
 
 def dropout_reference(x: torch.Tensor, rate: float, seed: int,
-                      scale: float) -> torch.Tensor:
+                      scale: bool = True) -> torch.Tensor:
     """Plain version of :func:`dropout`, bit for bit."""
     _check(rate, seed)
     keep = keep_mask(x.numel(), rate, seed, x.device).reshape(x.shape)
-    y = x.float() * torch.tensor(scale, dtype=torch.float32)
+    y = _divide(x.float(), _divisor(rate, x.dtype, scale))
     return torch.where(keep, y, torch.zeros_like(y)).to(x.dtype)
 
 
@@ -155,8 +170,7 @@ def fused_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
     if rate <= 0.0 or seed is None:
         return x
     _check(rate, int(seed))
-    factor = 1.0 / (1.0 - rate) if scale else 1.0
-    return _Dropout.apply(x, float(rate), int(seed), factor)
+    return _Dropout.apply(x, float(rate), int(seed), bool(scale))
 
 
 # -- dropout with bias, residual or activation ---------------------------------
@@ -171,9 +185,16 @@ def _flat(x: torch.Tensor, bias: torch.Tensor):
 
 
 def _act(u: torch.Tensor, act: str) -> torch.Tensor:
+    """act(u) in u's dtype (GELU's constants too, as in JAX)."""
     if act == "gelu":
-        return 0.5 * u * (1.0 + torch.tanh(_GELU_C * (u + 0.044715 * (u * u * u))))
+        return gelu_tanh(u)
     return torch.clamp_min(u, 0.0)
+
+
+def _biased(x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """f32 of x + b rounded to x's dtype: the TPU kernels add in the input
+    dtype before any upcast (flashattn_tpu/ops/dropout.py:87, :95, :135)."""
+    return (x.float() + bias.float()).to(x.dtype).float()
 
 
 def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
@@ -186,10 +207,11 @@ def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
     return (u > 0.0).float()
 
 
-def _bias_launch(kernel, a, bias, rate, seed, scale, *, x=None, r=None,
+def _bias_launch(kernel, a, bias, rate, seed, div, *, x=None, r=None,
                  act=None, backward=False):
-    """Launch a bias kernel on (n, d) ``a`` (x, or g in the backward);
-    returns out, or (dx, db f32) in the backward."""
+    """Launch a bias kernel on (n, d) ``a`` (x, or g in the backward), kept
+    values divided by ``div``; returns out, or (dx, db f32) in the
+    backward."""
     _check(rate, seed)
     n, d = a.shape
     a = _build.aligned(a.detach())
@@ -208,76 +230,82 @@ def _bias_launch(kernel, a, bias, rate, seed, scale, *, x=None, r=None,
     ptrs = ([a, x, bias, out, part, db] if kernel is _act_kernel
             else [a, bias, r, out, part, db])
     kernel(*[None if t is None else t.data_ptr() for t in ptrs], n, d, seed,
-           _threshold(rate), float(scale),
+           _threshold(rate), float(div),
            *([] if act is None else [_ACTS[act]]), int(backward),
            _build.dtype_code(a))
     return (out, db) if backward else out
 
 
-def dropout_res_bias(x, bias, residual, rate, seed, scale):
-    """Kernel launch: r + keep(x + b) * scale over (n, d) x and residual of
-    one dtype (f32 arithmetic, rounded once)."""
-    return _bias_launch(_res_kernel, x, bias, rate, seed, scale, r=residual)
+def dropout_res_bias(x, bias, residual, rate, seed, scale=True):
+    """Kernel launch: r + keep(x + b) / (1 - rate) over (n, d) x and
+    residual of one dtype T, rounded as JAX rounds: x + b to T, the
+    quotient (by 1 - rate in T) to T, then r + it to T."""
+    return _bias_launch(_res_kernel, x, bias, rate, seed,
+                        _divisor(rate, x.dtype, scale), r=residual)
 
 
-def dropout_res_bias_bwd(g, rate, seed, scale):
-    """Kernel launch: (dx, db) with dx = keep(g) * scale and db its f32
-    column sum; one count covers its two launches (dx and the partials,
-    then their column sum).  dr = g needs no launch."""
-    return _bias_launch(_res_kernel, g, None, rate, seed, scale,
+def dropout_res_bias_bwd(g, rate, seed, scale=True):
+    """Kernel launch: (dx, db) with dx = keep(g) / (1 - rate) in f32 and db
+    its f32 column sum; one count covers its two launches (dx and the
+    partials, then their column sum).  dr = g needs no launch."""
+    return _bias_launch(_res_kernel, g, None, rate, seed,
+                        _divisor(rate, torch.float32, scale), backward=True)
+
+
+def dropout_act_bias(x, bias, rate, seed, scale=True, act="gelu"):
+    """Kernel launch: keep(act(x + b)) / (1 - rate) over (n, d) x, x + b
+    rounded to x's dtype, the rest in f32."""
+    return _bias_launch(_act_kernel, x, bias, rate, seed,
+                        _divisor(rate, torch.float32, scale), act=act)
+
+
+def dropout_act_bias_bwd(g, x, bias, rate, seed, scale=True, act="gelu"):
+    """Kernel launch: (dx, db) with dx = keep(g) / (1 - rate) * act'(x + b)
+    in f32 and db its f32 column sum (two launches, one count)."""
+    return _bias_launch(_act_kernel, g.to(x.dtype), bias, rate, seed,
+                        _divisor(rate, torch.float32, scale), x=x, act=act,
                         backward=True)
-
-
-def dropout_act_bias(x, bias, rate, seed, scale, act):
-    """Kernel launch: keep(act(x + b)) * scale over (n, d) x."""
-    return _bias_launch(_act_kernel, x, bias, rate, seed, scale, act=act)
-
-
-def dropout_act_bias_bwd(g, x, bias, rate, seed, scale, act):
-    """Kernel launch: (dx, db) with dx = keep(g) * scale * act'(x + b) and db
-    its f32 column sum (two launches, one count)."""
-    return _bias_launch(_act_kernel, g.to(x.dtype), bias, rate, seed, scale,
-                        x=x, act=act, backward=True)
 
 
 def _keep2d(shape, rate, seed, device):
     return keep_mask(shape[0] * shape[1], rate, seed, device).reshape(shape)
 
 
-def dropout_res_bias_reference(x, bias, residual, rate, seed, scale):
+def dropout_res_bias_reference(x, bias, residual, rate, seed, scale=True):
     """Plain version of :func:`dropout_res_bias`, bit for bit."""
     _check(rate, seed)
     keep = _keep2d(x.shape, rate, seed, x.device)
-    u = (x.float() + bias.float()) * torch.tensor(scale, dtype=torch.float32)
-    y = torch.where(keep, u, torch.zeros_like(u))
+    y = _divide(_biased(x, bias), _divisor(rate, x.dtype, scale))
+    y = torch.where(keep, y.to(x.dtype).float(), torch.zeros_like(y))
     return (residual.float() + y).to(x.dtype)
 
 
-def dropout_res_bias_bwd_reference(g, rate, seed, scale):
+def dropout_res_bias_bwd_reference(g, rate, seed, scale=True):
     """Plain version of :func:`dropout_res_bias_bwd`: (dx, db f32)."""
     _check(rate, seed)
     keep = _keep2d(g.shape, rate, seed, g.device)
-    dx = g.float() * torch.tensor(scale, dtype=torch.float32)
+    dx = _divide(g.float(), _divisor(rate, torch.float32, scale))
     dx = torch.where(keep, dx, torch.zeros_like(dx))
     return dx.to(g.dtype), dx.sum(0)
 
 
-def dropout_act_bias_reference(x, bias, rate, seed, scale, act):
+def dropout_act_bias_reference(x, bias, rate, seed, scale=True, act="gelu"):
     """Plain version of :func:`dropout_act_bias`."""
     _check(rate, seed)
     keep = _keep2d(x.shape, rate, seed, x.device)
-    y = _act(x.float() + bias.float(), act) * torch.tensor(
-        scale, dtype=torch.float32)
+    y = _divide(_act(_biased(x, bias), act),
+                _divisor(rate, torch.float32, scale))
     return torch.where(keep, y, torch.zeros_like(y)).to(x.dtype)
 
 
-def dropout_act_bias_bwd_reference(g, x, bias, rate, seed, scale, act):
+def dropout_act_bias_bwd_reference(g, x, bias, rate, seed, scale=True,
+                                   act="gelu"):
     """Plain version of :func:`dropout_act_bias_bwd`: (dx, db f32)."""
     _check(rate, seed)
     keep = _keep2d(g.shape, rate, seed, g.device)
-    dy = g.float() * torch.tensor(scale, dtype=torch.float32)
+    dy = _divide(g.float(), _divisor(rate, torch.float32, scale))
     dy = torch.where(keep, dy, torch.zeros_like(dy))
-    dx = dy * _act_grad(x.float() + bias.float(), act)
+    dx = dy * _act_grad(_biased(x, bias), act)
     return dx.to(x.dtype), dx.sum(0)
 
 
@@ -335,7 +363,7 @@ def fused_dropout_res_bias(x: torch.Tensor, bias: torch.Tensor,
                                 residual.dtype)
     x2, b = _flat(x.to(dtype), bias)
     out = _DropoutResBias.apply(x2, b, residual.to(dtype).reshape(x2.shape),
-                                float(rate), int(seed), 1.0 / (1.0 - rate))
+                                float(rate), int(seed), True)
     return out.reshape(x.shape)
 
 
@@ -352,6 +380,5 @@ def fused_dropout_act_bias(x: torch.Tensor, bias: torch.Tensor, rate: float,
         return _act(x + bias, act)
     _check(rate, int(seed))
     x2, b = _flat(x.to(torch.promote_types(x.dtype, bias.dtype)), bias)
-    out = _DropoutActBias.apply(x2, b, float(rate), int(seed),
-                                1.0 / (1.0 - rate), act)
+    out = _DropoutActBias.apply(x2, b, float(rate), int(seed), True, act)
     return out.reshape(x.shape)

@@ -2,7 +2,9 @@
 flashattn_tpu/ops/flash_attention.py).
 
 On CUDA tensors every entry point launches the hand-written kernels:
-``csrc/flash_fwd.cu`` forward, which replaces the TPU forward kernels
+``csrc/flash_fwd.cu`` forward (a wgmma tensor-core kernel for bf16, the
+CUDA-core kernel of ``attn_core.cuh`` for f32), which replaces the TPU
+forward kernels
 ``_fwd_subrow_varlen_kernel`` (batched varlen prefill) and ``_fwd_kernel``
 (causal / window / kv_lengths / GQA / cross-attention) and also covers the
 dense causal function of ``_fwd_subrow_kernel``, ``_fwd_loop_kernel`` and
@@ -293,6 +295,16 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     (-inf for a row with no live key).  Differentiable through o; a nonzero
     gradient arriving at lse raises ``NotImplementedError``."""
     return _flash_fwd_entry(q, k, v, causal, sm_scale, impl, window)
+
+
+def mha_attention(q, k, v, causal: bool = False,
+                  use_flash: bool = True) -> torch.Tensor:
+    """Multi-head attention with the JAX package's dispatch: the flash path
+    (:func:`flash_attention`) or the plain op graph
+    (:func:`flash_attention_reference`)."""
+    if use_flash:
+        return flash_attention(q, k, v, causal)
+    return flash_attention_reference(q, k, v, causal)
 
 
 def flash_attention_reference(q, k, v, causal: bool = False,

@@ -179,8 +179,10 @@ def int8_weight_only_matmul_reference(x: torch.Tensor,
 
 
 def wo_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """Kernel launch of :func:`int8_weight_only_matmul` (CUDA tensors).
-    Inference-only, as the JAX kernel: inputs that require grad raise."""
+    """Kernel launch of :func:`int8_weight_only_matmul` (CUDA tensors):
+    bf16 x runs the tensor-core tile, or at M <= 16 the cluster split-K
+    GEMV; f32 x runs the FMA kernel.  Inference-only, as the JAX kernel:
+    inputs that require grad raise."""
     _check_wo(x, w)
     check_no_grad(x)
     code, payload = _build.dtype_code(x), _build.payload_code(w.values)

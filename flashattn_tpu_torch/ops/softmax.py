@@ -120,6 +120,14 @@ class _AttnSoftmax(torch.autograd.Function):
         return bwd(out, dout), None, None
 
 
+def attn_softmax_pallas(inp: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                        causal: bool = False) -> torch.Tensor:
+    """The kernel route of :func:`attn_softmax`, under the JAX package's
+    name: the hand-written kernels on CUDA tensors (the plain versions on
+    the CPU), differentiable through :class:`_AttnSoftmax`."""
+    return _AttnSoftmax.apply(inp, mask, bool(causal))
+
+
 def attn_softmax(inp: torch.Tensor, mask: Optional[torch.Tensor] = None,
                  causal: bool = False, impl: str = "auto") -> torch.Tensor:
     """Fused masked softmax over the last dim of ``(B, H, F, T)`` scores.
@@ -130,4 +138,4 @@ def attn_softmax(inp: torch.Tensor, mask: Optional[torch.Tensor] = None,
     plain version on the CPU."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown impl {impl!r} (want one of {_IMPLS})")
-    return _AttnSoftmax.apply(inp, mask, bool(causal))
+    return attn_softmax_pallas(inp, mask, causal)

@@ -18,7 +18,8 @@ pages.  The device work is the model's paged methods under
 
 This slice is greedy only.  Sampling (temperature, top-k/p, min-p),
 penalties, speculative decoding, prefix caching and tensor-parallel
-serving raise ``NotImplementedError`` and are later ROADMAP items (A5, A7).
+serving raise ``NotImplementedError`` and are later ROADMAP items (A5a,
+A5b, A7).
 """
 
 from __future__ import annotations
@@ -134,16 +135,28 @@ class ContinuousBatchingEngine:
                  pages_per_seq: int = 16, total_pages: Optional[int] = None,
                  dtype=torch.float32, collect_logits: bool = False,
                  steps_per_dispatch: int = 8, prefill_chunk: int = 512,
-                 mesh=None, draft_model=None, prompt_lookup: int = 0,
+                 mesh=None, head_axis: str = "model", seed: int = 0,
+                 draft_model=None, spec_len: int = 4,
+                 spec_waves_per_dispatch: int = 4, prompt_lookup: int = 0,
+                 lookup_max_ngram: int = 3,
                  enable_prefix_cache: bool = False):
         if mesh is not None:
             _not_ported("tensor-parallel serving (mesh)", "A7")
         if draft_model is not None:
-            _not_ported("draft-model speculative decoding", "A5")
+            _not_ported("draft-model speculative decoding", "A5b")
         if prompt_lookup:
-            _not_ported("prompt-lookup speculative decoding", "A5")
+            _not_ported("prompt-lookup speculative decoding", "A5b")
+        knobs = dict(spec_len=(spec_len, 4),
+                     spec_waves_per_dispatch=(spec_waves_per_dispatch, 4),
+                     lookup_max_ngram=(lookup_max_ngram, 3))
+        for name, (value, default) in knobs.items():
+            if value != default:
+                _not_ported(f"speculative decoding ({name}={value})", "A5b")
         if enable_prefix_cache:
-            _not_ported("the prefix cache", "A5")
+            _not_ported("the prefix cache", "A5b")
+        # head_axis names the mesh axis of tensor-parallel serving (A7); it
+        # is accepted and unused.  seed keys sampling, which is A5a.
+        self.seed = seed
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.max_batch = max_batch
@@ -192,10 +205,10 @@ class ContinuousBatchingEngine:
                ) -> Request:
         if temperature > 0 or top_k or (top_p and top_p < 1.0) or min_p \
                 or seed is not None:
-            _not_ported("sampling (temperature/top-k/top-p/min-p/seed)", "A5")
+            _not_ported("sampling (temperature/top-k/top-p/min-p/seed)", "A5a")
         if (repetition_penalty not in (None, 1.0) or frequency_penalty
                 or presence_penalty):
-            _not_ported("repetition/frequency/presence penalties", "A5")
+            _not_ported("repetition/frequency/presence penalties", "A5a")
         if not prompt:
             raise ValueError("prompt must be non-empty")
         if len(prompt) >= self.capacity:

@@ -73,12 +73,23 @@ def test_layernorm_kernel(dev, dtype, shape):
         <= 1e-3
 
 
-# (b, h, h_kv, n_q, n_kv, d, causal, lengths, window)
+# (b, h, h_kv, n_q, n_kv, d, causal, lengths, window): bf16 runs the
+# tensor-core kernel (128-row blocks, 128-key tiles), f32 the FMA kernel;
+# rows and keys not a multiple of either tile, every head dim
 FLASH_CASES = {
     "ragged_causal_d64": (2, 4, 4, 100, 100, 64, True, None, None),
     "cross_noncausal_d32": (2, 2, 1, 37, 150, 32, False, None, None),
     "varlen_gqa_d128": (3, 8, 2, 130, 130, 128, True, [130, 65, 0], None),
     "varlen_window_d64": (2, 4, 4, 200, 200, 64, True, [200, 77], 33),
+    "causal_n517_d32": (1, 2, 2, 517, 517, 32, True, None, None),
+    "causal_n1000_d64": (1, 2, 2, 1000, 1000, 64, True, None, None),
+    "causal_n3000_d128": (1, 2, 1, 3000, 3000, 128, True, None, None),
+    "gqa8_2_varlen_len0_d128": (2, 8, 2, 600, 600, 128, True, [600, 0], None),
+    "window256_n1000_d64": (1, 2, 2, 1000, 1000, 64, True, None, 256),
+    "window256_varlen_d128": (2, 2, 2, 700, 700, 128, True, [700, 300], 256),
+    "cross_1000x2048_d128": (1, 2, 2, 1000, 2048, 128, False, None, None),
+    "cross_causal_nq_gt_nkv_d32": (1, 2, 2, 300, 130, 32, True, None, None),
+    "varlen_noncausal_d64": (2, 2, 2, 257, 257, 64, False, [129, 257], None),
 }
 
 
@@ -276,8 +287,10 @@ def _quantize(t, payload, axis=-1):
 @pytest.mark.parametrize("mkn", [(1, 33, 17), (5, 100, 70), (16, 64, 64),
                                  (17, 7, 130), (130, 256, 1000)])
 def test_wo_matmul_kernel(dev, mkn, dtype, payload):
-    """Every M (the 16- and 64-row tiles and their ragged edges), K not a
-    multiple of the 32-deep step, N not a multiple of 64."""
+    """Every kernel: f32 x the FMA kernel (16- and 64-row tiles and their
+    ragged edges), bf16 x the GEMV at M <= 16, the tensor-core tile at
+    M > 16 with K % 8 == 0 and the FMA kernel otherwise (K 7); K not a
+    multiple of the tiles' depths, N not a multiple of their widths."""
     m, k, n = mkn
     g = torch.Generator(device=dev).manual_seed(6)
     x = _randn(g, m, k, dtype=dtype, dev=dev)
@@ -288,6 +301,30 @@ def test_wo_matmul_kernel(dev, mkn, dtype, payload):
     want = qt.int8_weight_only_matmul_reference(x, w)
     assert got.dtype == dtype and got.shape == (m, n)
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("kn", [(1024, 1024), (1024, 256), (256, 1024),
+                                (1024, 1000), (1000, 1004), (72, 1001)])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 100, 4 * 8192])
+def test_wo_matmul_bf16_kernels(dev, m, kn, payload):
+    """The quantized serving model's Linear shapes (K, N of 1024 and 256, the
+    lm head's N 1000, whose 1000-byte weight rows are 8-byte aligned only)
+    at the M the GEMV (<= 16) and the tensor-core tile (> 16) branch on,
+    ragged M of both, decode and 4 x 8192-token prefill; N 1004 and 1001
+    take the 4-byte and the byte-wise weight loads."""
+    k, n = kn
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = _randn(g, m, k, dtype=torch.bfloat16, dev=dev)
+    w = _quantize(torch.randn(k, n, generator=g, device=dev), payload, axis=0)
+    before = qt._wo_kernel.launches
+    got = qt.int8_weight_only_matmul(x, w)
+    assert qt._wo_kernel.launches == before + 1
+    want = qt.int8_weight_only_matmul_reference(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert _rel_err(got, want) <= TOL[torch.bfloat16]
+    again = qt.int8_weight_only_matmul(x, w)
+    assert torch.equal(got, again)      # no atomics: the same bits every run
 
 
 @pytest.mark.parametrize("payload", PAYLOADS)

@@ -114,8 +114,12 @@ def test_res_bias_forward_and_backward(lead, d, dtype):
     xt, bt, rt = (t.to(dtype).requires_grad_() for t in _t(x, b, r))
     got = pt.fused_dropout_res_bias(xt, bt, rt, rate, SEED)
     assert got.dtype == dtype and got.shape == x.shape
-    want = rt.float() + torch.where(keep, (xt.float() + bt.float()) * scale,
-                                    torch.zeros(()))
+    # JAX's rounding (tests/test_torch_faults.py): x + b, the quotient by
+    # 1 - rate in the dtype, then r + it, each rounded to the dtype
+    div = torch.tensor(float(torch.tensor(1 - rate, dtype=dtype)))
+    u = (xt.float() + bt.float()).to(dtype).float()
+    y = torch.where(keep, (u / div).to(dtype).float(), torch.zeros(()))
+    want = rt.float() + y
     assert torch.equal(got, want.to(dtype))        # same arithmetic, bit for bit
     gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(4))
     gy = gy.to(dtype)

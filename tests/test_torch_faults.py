@@ -1,0 +1,273 @@
+"""Faults of the port against the JAX package, each held to the JAX twin on
+the CPU with the same numpy-seeded inputs.
+
+* Dropout divides the kept value by ``1.0 - rate`` as JAX does, a weakly
+  typed Python scalar that takes the array's dtype (bf16(0.9) = 0.8984375),
+  never by multiplying with an f32 reciprocal.  The masks cannot match
+  across frameworks, so JAX's formula runs under the port's ``keep_mask``;
+  the results must agree bit for bit.
+* The res-bias forward rounds as the TPU kernel ``_res_bias_kernel`` does:
+  x + b to the input dtype, the quotient to it, then r + it.  The act-bias
+  variant and both backwards compute in f32 after rounding x + b to the
+  input dtype, as their TPU kernels do.
+* GELU's constants take the input's dtype (bf16 literals for bf16 input).
+* Public names of the done slices: ``Embedding(use_one_hot_matmul=)``,
+  ``attn_softmax_pallas``, ``mha_attention`` and the engine keywords.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flashattn_tpu as ft
+import flashattn_tpu_torch as pt
+from flashattn_tpu.nn import functional as jF
+from flashattn_tpu.ops import dropout as jdr
+from flashattn_tpu.ops import flash_attention as jfa
+from flashattn_tpu.ops import softmax as jsm
+from flashattn_tpu_torch.ops import dropout as dr
+
+torch.set_num_threads(1)
+
+SEED = 0x5EED0F00D
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+GELU_C = 0.7978845608028654
+
+
+def _data(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+def _pair(a, name):
+    """The same values as a torch tensor and a jax array of dtype ``name``."""
+    td, jd = DTYPES[name]
+    return torch.from_numpy(a).to(td), jnp.asarray(a).astype(jd)
+
+
+def _bits(t):
+    """Bit patterns of a float32 or bfloat16 tensor / array, as int numpy."""
+    t = t if isinstance(t, torch.Tensor) else torch.from_numpy(
+        np.array(jnp.asarray(t).astype(jnp.float32)))
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.contiguous().view(torch.int32).numpy()
+
+
+def _same_bits(got, want):
+    g, w = _bits(got), _bits(want)
+    assert g.shape == w.shape
+    differ = int((g != w).sum())
+    assert differ == 0, f"{differ} of {g.size} values differ"
+
+
+def _keep(shape, rate):
+    return jnp.asarray(dr.keep_mask(int(np.prod(shape)), rate, SEED)
+                       .reshape(shape).numpy())
+
+
+# -- C1: dropout -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_dropout_divides_like_jax(name, rate):
+    """Forward and backward (dropout is its own adjoint) of fused_dropout
+    against ``jnp.where(keep, x, 0) / (1.0 - rate)``; unscaled dropout keeps
+    the survivors as they are."""
+    x_np = _data((64, 96), 0, 3.0)
+    xt, xj = _pair(x_np, name)
+    keep = _keep(x_np.shape, rate)
+    kept = jnp.where(keep, xj, jnp.zeros_like(xj))
+    _same_bits(pt.fused_dropout(xt, rate, SEED), kept / (1.0 - rate))
+    _same_bits(pt.F.dropout(xt, rate, seed=SEED, scale=False), kept)
+    g_np = _data(x_np.shape, 1, 2.0)
+    gt, gj = _pair(g_np, name)
+    xg = xt.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(pt.fused_dropout(xg, rate, SEED), xg, gt)
+    _same_bits(dx, jnp.where(keep, gj, jnp.zeros_like(gj)) / (1.0 - rate))
+
+
+# -- C2: dropout with bias ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_res_bias_rounds_like_jax(name):
+    """``_res_bias_kernel``'s arithmetic in the input dtype, forward bit for
+    bit; the backward's dx (f32, ``_mask_colsum_kernel``) bit for bit."""
+    rate = 0.1
+    x_np, r_np = _data((48, 80), 3, 2.0), _data((48, 80), 4)
+    b_np = _data((80,), 5)
+    (xt, xj), (rt, rj), (bt, bj) = (_pair(a, name) for a in (x_np, r_np, b_np))
+    keep = _keep(x_np.shape, rate)
+    y = xj + bj
+    y = jnp.where(keep, y, jnp.zeros_like(y)) / (1.0 - rate)
+    _same_bits(pt.fused_dropout_res_bias(xt, bt, rt, rate, SEED), rj + y)
+
+    g_np = _data(x_np.shape, 6)
+    gt, gj = _pair(g_np, name)
+    ts = [t.clone().requires_grad_() for t in (xt, bt, rt)]
+    dx, db, dr_ = torch.autograd.grad(
+        pt.fused_dropout_res_bias(*ts, rate, SEED), ts, gt)
+    want = jnp.where(keep, gj.astype(jnp.float32), 0.0) / (1.0 - rate)
+    _same_bits(dx, want.astype(gj.dtype))
+    _same_bits(dr_, gj)
+    tol = 1e-5 if name == "float32" else 2e-2
+    np.testing.assert_allclose(db.float().numpy(),
+                               np.asarray(want.sum(0), np.float32),
+                               atol=tol * 8, rtol=tol)
+
+
+def _jax_act_bias(xj, bj, keep, rate, act):
+    """The arithmetic of ``_act_bias_kernel`` (flashattn_tpu/ops/dropout.py
+    :93-102)."""
+    u = (xj + bj).astype(jnp.float32)
+    if act == "gelu":
+        y = 0.5 * u * (1.0 + jnp.tanh(GELU_C * (u + 0.044715 * u**3)))
+    else:
+        y = jnp.maximum(u, 0.0)
+    return (jnp.where(keep, y, jnp.zeros_like(y)) / (1.0 - rate)).astype(
+        xj.dtype)
+
+
+def _jax_act_bias_dx(gj, xj, bj, keep, rate, act):
+    """dx of ``_act_bias_bwd_kernel`` (flashattn_tpu/ops/dropout.py:127-144)."""
+    dy = jnp.where(keep, gj.astype(jnp.float32), 0.0) / (1.0 - rate)
+    u = (xj + bj).astype(jnp.float32)
+    if act == "gelu":
+        t = jnp.tanh(GELU_C * (u + 0.044715 * u**3))
+        dact = 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * GELU_C * (
+            1.0 + 3 * 0.044715 * u * u)
+    else:
+        dact = (u > 0.0).astype(jnp.float32)
+    return (dy * dact).astype(gj.dtype)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_act_bias_divides_like_jax(name):
+    """ReLU bit for bit; GELU within two ulps of the output dtype and 1e-5
+    (torch.tanh and XLA's tanh round differently), forward and the
+    backward's dx."""
+    rate = 0.3
+    x_np, b_np, g_np = _data((40, 72), 7, 2.0), _data((72,), 8), _data((40, 72), 9)
+    (xt, xj), (bt, bj), (gt, gj) = (_pair(a, name) for a in (x_np, b_np, g_np))
+    keep = _keep(x_np.shape, rate)
+    ulp = 2.0 ** -23 if name == "float32" else 2.0 ** -7
+    for act in ("relu", "gelu"):
+        ts = [t.clone().requires_grad_() for t in (xt, bt)]
+        got = pt.fused_dropout_act_bias(*ts, rate, SEED, act)
+        dx, _ = torch.autograd.grad(got, ts, gt)
+        want = _jax_act_bias(xj, bj, keep, rate, act)
+        want_dx = _jax_act_bias_dx(gj, xj, bj, keep, rate, act)
+        if act == "relu":
+            _same_bits(got, want)
+            _same_bits(dx, want_dx)
+            continue
+        for a, w in ((got, want), (dx, want_dx)):
+            w = np.asarray(w.astype(jnp.float32))
+            np.testing.assert_allclose(a.detach().float().numpy(), w,
+                                       rtol=2 * ulp, atol=1e-5)
+
+
+# -- C3: GELU constants ------------------------------------------------------------
+
+
+def test_gelu_bf16_matches_jax_bit_for_bit():
+    x_np = _data((4096,), 10, 3.0)
+    for name in DTYPES:
+        xt, xj = _pair(x_np, name)
+        if name == "bfloat16":
+            _same_bits(pt.F.GELU(xt), jF.GELU(xj))
+        else:
+            np.testing.assert_allclose(pt.F.GELU(xt).numpy(), jF.GELU(xj),
+                                       atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("rate, seed", [(0.0, SEED), (0.2, None)])
+def test_act_bias_gelu_without_dropout_bf16_matches_jax(rate, seed):
+    """At rate 0 or without a seed both packages compute GELU(x + b) in the
+    input dtype, constants included."""
+    (xt, xj), (bt, bj) = (_pair(a, "bfloat16")
+                          for a in (_data((24, 40), 11, 2.0), _data((40,), 12)))
+    key = None if seed is None else jax.random.PRNGKey(0)
+    _same_bits(pt.fused_dropout_act_bias(xt, bt, rate, seed, "gelu"),
+               jdr.fused_dropout_act_bias(xj, bj, rate, key, "gelu"))
+
+
+# -- C4: public names --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("one_hot", [True, False])
+def test_embedding_one_hot_matmul_matches_jax(one_hot):
+    jm = ft.Embedding(50, 16, key=jax.random.PRNGKey(3),
+                      use_one_hot_matmul=one_hot)
+    tm = pt.Embedding(50, 16, use_one_hot_matmul=one_hot)
+    assert tm.use_one_hot_matmul is one_hot
+    with torch.no_grad():
+        tm.weights.copy_(torch.from_numpy(np.array(jm.weights)))
+    tok = np.random.default_rng(13).integers(0, 50, (3, 7))
+    got = tm(torch.from_numpy(tok))
+    np.testing.assert_allclose(got.detach().numpy(), jm(jnp.asarray(tok)),
+                               atol=1e-6)
+    got.square().sum().backward()
+    assert tm.weights.grad is not None and tm.weights.grad.shape == (50, 16)
+
+
+@pytest.mark.parametrize("causal, masked", [(True, False), (False, True),
+                                            (True, True)])
+def test_attn_softmax_pallas_matches_jax(causal, masked):
+    x_np = _data((2, 3, 9, 20), 14, 2.0)
+    mask = None
+    if masked:
+        mask = np.where(_data((2, 1, 1, 20), 15) > -0.5, 0.0, -1e9).astype(
+            np.float32)
+    got = pt.attn_softmax_pallas(torch.from_numpy(x_np),
+                                 None if mask is None else torch.from_numpy(mask),
+                                 causal)
+    want = jsm.attn_softmax_pallas(jnp.asarray(x_np),
+                                   None if mask is None else jnp.asarray(mask),
+                                   causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    assert "attn_softmax_pallas" in pt.__all__
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mha_attention_matches_jax(use_flash, causal):
+    q, k, v = (_data((2, 2, 16, 32), 16 + i) for i in range(3))
+    got = pt.mha_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                           use_flash)
+    want = jfa.mha_attention(*(jnp.asarray(a) for a in (q, k, v)), causal,
+                             use_flash)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6)
+    assert "mha_attention" in pt.__all__
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    return pt.DecoderLM(64, 32, 4, 64, p_dropout=0.0, n_layer=1,
+                        device="cpu").eval()
+
+
+def test_engine_accepts_jax_keywords_at_defaults(tiny_model):
+    eng = pt.ContinuousBatchingEngine(
+        tiny_model, max_batch=1, page_size=8, pages_per_seq=2, seed=7,
+        head_axis="model", spec_len=4, spec_waves_per_dispatch=4,
+        lookup_max_ngram=3)
+    assert eng.seed == 7
+    assert pt.ContinuousBatchingEngine(tiny_model, max_batch=1, page_size=8,
+                                       pages_per_seq=2).seed == 0
+    req = eng.submit([1, 2, 3], 2)
+    eng.run()
+    assert req.done and len(req.generated) == 2
+
+
+@pytest.mark.parametrize("knob", [dict(spec_len=2),
+                                  dict(spec_waves_per_dispatch=1),
+                                  dict(lookup_max_ngram=5)])
+def test_engine_speculation_knobs_raise_naming_a5b(tiny_model, knob):
+    with pytest.raises(NotImplementedError, match="A5b"):
+        pt.ContinuousBatchingEngine(tiny_model, max_batch=1, page_size=8,
+                                    pages_per_seq=2, **knob)
