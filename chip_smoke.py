@@ -13,9 +13,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B4 H8 N2048 prefill, LN 8192 x 1024, paged decode; training: LN
    16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
    B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
-   16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward,
-   a tensor-core kernel, at head dims 32 / 64 / 128, n 517 / 1000 / 3000,
-   GQA 8/2, window 256, cross 1000 x 2048, a length-0 row, varlen).
+   16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward
+   and backward, tensor-core kernels, at head dims 32 / 64 / 128, n 517 /
+   1000 / 3000, GQA 8/2 and 16/4, window 256, cross 1000 x 2048, a
+   length-0 row, varlen).
    Tolerance: f32 1e-4, bf16 2e-2, abs on unit-variance inputs for outputs
    and scaled by max(1, max |ref|) for gradients, which are sums over rows
    (bf16 rounds each output once, at 2^-8 of its magnitude); dropout
@@ -64,7 +65,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    <= 8192, chunk 64, GQA group 4, window 256), flash attention over an
    int8 / fp8 KV cache (B4 H8 N2048 D128 causal, fp8 there transcoded to
    int8 as at the TPU subrow envelope; GQA 8q/2kv, cross non-causal
-   1000 x 2048, ragged N 1000; yardstick SDPA on the dequantized cache) and
+   1000 x 2048, ragged N 1000, bf16 q on the tensor-core kernel; yardstick
+   SDPA on the dequantized cache) and
    stochastic-rounding int8 quantization (32768 x 1024 bf16, bit-exact;
    the mean of 8 seeds on a constant tensor within 2%).  Tolerances as in
    phase 3; the matmul, a sum over K, gated like a gradient.
@@ -1366,7 +1368,7 @@ def profile_step(torch, run, label: str = "train step") -> None:
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
         r"\(anonymous namespace\)::(flash_|layernorm_|dropout_|softmax_"
-        r"|paged_kernel|wo_matmul_kernel|kv8_flash_kernel"
+        r"|paged_kernel|wo_matmul_kernel|kv8_flash_"
         r"|stochastic_quant_kernel)", kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])

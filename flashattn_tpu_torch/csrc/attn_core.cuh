@@ -13,10 +13,11 @@
 // Q, K and V tiles are staged in shared memory as f32 and every thread
 // computes a TR x TC block of scores with float4 shared-memory reads, so a
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
-// It serves the f32 flash forward, paged decode and kv8_flash; none of
-// those has a tensor-core (mma/wgmma) path, cp.async/TMA double buffering
-// or split-K over keys yet.  The bf16 flash forward has its own wgmma
-// kernel (flash_fwd.cu, on hopper.cuh).
+// It serves the f32 flash forward, paged decode and kv8_flash with f32 q;
+// none of those has a tensor-core (mma/wgmma) path, cp.async/TMA double
+// buffering or split-K over keys yet.  The bf16 flash forward and
+// kv8_flash with bf16 q have their own wgmma kernels (flash_fwd.cu,
+// kv8_flash.cu, on hopper.cuh).
 
 #pragma once
 
@@ -73,15 +74,6 @@ __device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-// Round four f32 values to T and back (the identity for f32).
-template <typename T> __device__ __forceinline__ float4 round4(float4 v) { return v; }
-template <> __device__ __forceinline__ float4 round4<__nv_bfloat16>(float4 v) {
-  return make_float4(__bfloat162float(__float2bfloat16(v.x)),
-                     __bfloat162float(__float2bfloat16(v.y)),
-                     __bfloat162float(__float2bfloat16(v.z)),
-                     __bfloat162float(__float2bfloat16(v.w)));
 }
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }

@@ -9,34 +9,57 @@
 //     backward of the bf16 training route;
 //   _bwd_dq_loop_kernel + _bwd_dkv_loop_kernel (wrapper _flash_bwd_loop),
 //     the split dense causal backward of the f32 training route.
-// One pair of kernels computes all three functions.
+// One pair of kernels (per dtype) computes all three functions.
 //
 // Math, for query row R and key c in R's live interval [lo, hi)
-// (fa::dense_bounds, the policy of the forward kernel):
-//   p = exp(s * sm_scale - lse_R) with s = q_R . k_c
-//   dv_c += p do_R;   dp = do_R . v_c;   ds = p (dp - di_R) sm_scale
-//   dq_R += ds k_c;   dk_c += ds q_R
-// with di_R = o_R . do_R (computed by the caller).  Outside the interval
-// p = 0, so a row with no live key (lse = -inf) gets dq = 0 and a key that
-// no row sees (past kv_lengths) gets dk = dv = 0, without evaluating
-// exp(s - lse) there.  GQA: query head h reads kv head h / (h_q / h_kv),
+// (fa::dense_bounds, the policy of the forward kernel), in base 2 as the
+// TPU kernels compute it:
+//   p = exp2(s * sm_scale * log2(e) - lse_R * log2(e)) with s = q_R . k_c
+//   dp = do_R . v_c;   ds = p (dp - di_R) sm_scale
+//   dv_c += p do_R;   dq_R += ds k_c;   dk_c += ds q_R
+// with di_R = o_R . do_R (computed by the caller); in bf16 p and ds round
+// to bf16 before the three products, which sum in f32.  Outside the
+// interval p = 0, so a row with no live key (lse = -inf) gets dq = 0 and a
+// key that no row sees (past kv_lengths) gets dk = dv = 0, without
+// evaluating exp2 there.  GQA: query head h reads kv head h / (h_q / h_kv),
 // and dk/dv sum over the group's query heads.
 //
-// What bounds it on the H100: like the forward (attn_core.cuh) this is the
-// simple CUDA-core (FMA) version, bound by FP32 issue and shared-memory
-// reads, not by HBM.  Design: two kernels, as the TPU grid backward splits
-// them, so that no sum crosses blocks and nothing needs atomics:
-//   dK/dV: a block owns 64 keys of one (batch, kv head), keeps their dk and
-//     dv in registers, and walks every query head of its GQA group and
-//     every 64-row query tile that can see one of its keys, computing the
-//     score and dp tiles key-major (s^T = k q^T, dp^T = v do^T);
-//   dQ: a block owns 64 query rows of one (batch, head), keeps their dq in
-//     registers and walks the key tiles its rows can see.
+// Two kernels, as the TPU grid backward splits them, so that no sum crosses
+// blocks: no atomics, no dQ scratch, the same result on every run.
+//   dK/dV, key-major: a block owns a tile of keys of one (batch, kv head),
+//     keeps their dk and dv in registers, and walks every query head of
+//     its GQA group and every query tile that can see one of its keys,
+//     computing the score and dp tiles key-major (s^T = k q^T, dp^T = v do^T);
+//   dQ, query-major: a block owns a tile of query rows of one (batch,
+//     head), keeps their dq in registers and walks the key tiles its rows
+//     can see.
 // The score and dp tiles are computed in both kernels: 7 score-shaped
-// products where the fused TPU subrow kernel issues 5.  All sums in f32;
-// the outputs round once to the input dtype.
+// products where the fused TPU subrow kernel issues 5.
+//
+// bf16 (head dim 32, 64 or 128) runs tensor-core kernels on hopper.cuh.
+// What bounds them on the H100 is the seven products (14 d flops per live
+// pair at 989 TF/s).  A block of two consumer warpgroups owns 128 keys
+// (dK/dV) or 128 query rows (dQ), 64 a warpgroup, resident in shared
+// memory in the swizzled layout of the forward; the other side streams in
+// tiles of 64 rows through a double-buffered cp.async ring (zero fill past
+// the end).  Every product is a wgmma: the score and dp tiles with both
+// operands K-major (as the forward's S); then p and ds, computed on the
+// f32 fragment and rounded to bf16 pairs in place, are exactly the register
+// A operand of dV += P^T dO, dK += dS^T Q and dQ += dS K, whose B (dO, Q or
+// K) is read MN-major from the tile already resident, the transpose bit
+// set: no operand is ever transposed in shared memory.  lse and di are per
+// column in the key-major kernel, staged in shared memory with each query
+// tile.  Only tiles that cut some pair's interval are masked; a warpgroup
+// whose keys no query of a tile sees skips it.  dK, dV and dQ leave staged
+// through shared memory in whole rows.
+//
+// f32 keeps the CUDA-core (FMA) kernels below, bound by FP32 instruction
+// throughput and shared-memory reads: TF32 tensor cores would break the
+// 1e-4 gates of the f32 card-vs-CPU backward.  A block there owns 64 keys
+// or 64 query rows and stages its tiles as f32.
 
 #include "attn_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -332,6 +355,389 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+// -- bf16: the tensor-core kernels ---------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Tc {
+  static constexpr int THREADS = 256;             // two consumer warpgroups
+  static constexpr int SW = D >= 64 ? 128 : 64;   // bytes of a swizzled row
+  static constexpr int CPR = SW / 2;              // bf16 columns a region row holds
+  static constexpr int BIG = 128;                 // keys (dK/dV) or rows (dQ) a block owns
+  static constexpr int TILE = 64;                 // rows of a streamed tile
+  static constexpr int BIG_BYTES = BIG * D * 2, TILE_BYTES = TILE * D * 2;
+  static constexpr size_t SMEM =
+      1024 + 2 * size_t(BIG_BYTES) + 4 * size_t(TILE_BYTES) + 4 * TILE * sizeof(float);
+};
+
+template <int D>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* src, const bf16* base,
+                                          int rows_valid, int rows) {
+  hop::load_tile<D * 2, Tc<D>::SW, Tc<D>::THREADS>(dst, src, base, rows_valid, rows);
+}
+
+// acc (64 x D) += a (64 x 64, bf16 pairs in the accumulator layout of a
+// 64 x 64 wgmma) times the 64-row tile at b read MN-major: a contraction
+// over the tile's rows.
+template <int D>
+__device__ __forceinline__ void rs_tile(float (&acc)[D / 2], const uint32_t (&a)[16],
+                                        uint32_t b) {
+  constexpr int SW = Tc<D>::SW;
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    const uint32_t ak[4] = {a[4 * kc], a[4 * kc + 1], a[4 * kc + 2], a[4 * kc + 3]};
+    hop::wgmma_rs<1>(acc, ak, hop::desc<SW>(b + kc * 16 * SW, Tc<D>::TILE * SW, 8 * SW), 1);
+  }
+}
+
+// d (64 x 64) = the 64 rows at a (a tile of a_rows rows) times the 64 rows
+// at b (a tile of b_rows rows) transposed, both K-major, contracted over D.
+template <int D>
+__device__ __forceinline__ void ss_tile(float (&d)[32], uint32_t a, int a_rows, uint32_t b,
+                                        int b_rows) {
+  constexpr int SW = Tc<D>::SW, CPR = Tc<D>::CPR;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t region = ks * 16 / CPR, off = (ks * 16 % CPR) * 2;
+    hop::wgmma_ss<0>(d, hop::desc<SW>(a + region * a_rows * SW + off, 16, 8 * SW),
+                     hop::desc<SW>(b + region * b_rows * SW + off, 16, 8 * SW), ks > 0);
+  }
+}
+
+// The f32 fragment of a 64-row warpgroup tile (rows rl + 8 hh) to bf16 in
+// shared memory (rows padded by 16 bytes), then rows [0, n) of the block's
+// 128 to dst in whole rows of 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 2], uint8_t* stage,
+                                           int rl, int quad, int n) {
+  constexpr int OS = D * 2 + 16;
+  __syncthreads();   // the stage is free
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (rl + 8 * hh) * OS + 2 * (8 * j + 2 * quad)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * (D / 8); i += Tc<D>::THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8) * 8;
+    *reinterpret_cast<uint4*>(dst + size_t(r) * D + c) =
+        *reinterpret_cast<const uint4*>(stage + r * OS + 2 * c);
+  }
+}
+
+// dK/dV, key-major: a block owns 128 keys of one (batch, kv head), a
+// warpgroup 64 of them, with their K and V rows resident and dK, dV in f32
+// registers.  Query tiles of 64 rows (Q, dO, and lse, di per column) of
+// every head of the GQA group stream through a double-buffered ring.  Per
+// tile S^T = K Q^T and dP^T = V dO^T (both operands K-major), then
+// P^T = exp2(S^T scale_log2 - lse2) and dS^T = P^T (dP^T - di) sm_scale on
+// the fragment, rounded to bf16 pairs in place: the A operand of
+// dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major from the same
+// tiles.
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::THREADS, 1)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        const int* __restrict__ kv_lengths, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int h, int h_kv, int n_q, int n_kv, int causal,
+                        int window, float sm_scale) {
+  using C = Tc<D>;
+  constexpr int SW = C::SW, BT = C::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* v_s = k_s + C::BIG_BYTES;
+  uint8_t* ring = v_s + C::BIG_BYTES;   // Q0, dO0, Q1, dO1
+  float* stats = reinterpret_cast<float*>(ring + 4 * C::TILE_BYTES);   // [buf][lse | di]
+
+  const int bk = blockIdx.x, b = bk / h_kv, hk = bk % h_kv, group = h / h_kv;
+  const int k0 = blockIdx.y * C::BIG;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  const bf16* kp = k + size_t(bk) * n_kv * D;
+  const bf16* vp = v + size_t(bk) * n_kv * D;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // query rows that can see a key of the block: R >= k0 when causal,
+  // R < k0 + 127 + window with a window, none past the valid keys
+  const int r_lo = causal ? k0 : 0;
+  int r_hi = window > 0 ? min(n_q, k0 + C::BIG - 1 + window) : n_q;
+  if (k0 >= kv_len) r_hi = 0;
+  const int q_first = (r_lo / BT) * BT;
+  const int per_head = r_hi > q_first ? (r_hi - q_first + BT - 1) / BT : 0;
+  const int n_tiles = group * per_head;
+
+  auto load = [&](int t, int buf) {
+    const int g = t / per_head, qt = q_first + (t % per_head) * BT;
+    const size_t bh = size_t(b) * h + hk * group + g;
+    uint8_t* qd = ring + buf * 2 * C::TILE_BYTES;
+    load_rows<D>(qd, q + (bh * n_q + qt) * D, q, n_q - qt, BT);
+    load_rows<D>(qd + C::TILE_BYTES, dout + (bh * n_q + qt) * D, dout, n_q - qt, BT);
+    const int i = threadIdx.x;
+    if (i < 2 * BT) {
+      const float* src = (i < BT ? lse : di) + bh * n_q + qt + i % BT;
+      const bool ok = qt + i % BT < n_q;
+      hop::cp_async<4>(hop::smem_u32(stats + buf * 2 * BT + i), ok ? src : lse, ok);
+    }
+  };
+
+  load_rows<D>(k_s, kp + size_t(k0) * D, kp, n_kv - k0, C::BIG);
+  load_rows<D>(v_s, vp + size_t(k0) * D, vp, n_kv - k0, C::BIG);
+  if (n_tiles > 0) load(0, 0);
+  hop::cp_async_commit();
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = wg * 64 + (lt / 32) * 16 + lane / 4;   // local key of hh = 0 (+8: hh = 1)
+  const int kw0 = k0 + wg * 64;                         // the warpgroup's first key
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  const uint32_t k_addr = hop::smem_u32(k_s) + wg * 64 * SW;
+  const uint32_t v_addr = hop::smem_u32(v_s) + wg * 64 * SW;
+  for (int t = 0, buf = 0; t < n_tiles; ++t, buf ^= 1) {
+    hop::cp_async_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();   // tile t has landed everywhere; buffer buf ^ 1 is free
+    if (t + 1 < n_tiles) load(t + 1, buf ^ 1);
+    hop::cp_async_commit();
+
+    const int qt = q_first + (t % per_head) * BT;
+    // the warpgroup's keys see no query of the tile
+    if ((causal && kw0 > qt + BT - 1) || kw0 >= kv_len ||
+        (window > 0 && kw0 + 63 <= qt - window))
+      continue;
+    const uint32_t q_addr = hop::smem_u32(ring + buf * 2 * C::TILE_BYTES);
+    const uint32_t do_addr = q_addr + C::TILE_BYTES;
+    const float* lse_s = stats + buf * 2 * BT;
+    const float* di_s = lse_s + BT;
+
+    float s[32], dp[32];   // S^T and dP^T: 64 keys x 64 queries a warpgroup
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    hop::wg_arrive();
+    ss_tile<D>(s, k_addr, C::BIG, q_addr, BT);
+    ss_tile<D>(dp, v_addr, C::BIG, do_addr, BT);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+
+    // s[4j + 2hh + e] is key k0 + rl + 8hh, query qt + 8j + 2 quad + e
+    const bool full = qt + BT <= n_q && kw0 + 64 <= kv_len &&
+                      (!causal || kw0 + 63 <= qt) && (window <= 0 || kw0 > qt + BT - 1 - window);
+    uint32_t p[16], ds[16];   // bf16 pairs: [2j + hh] = key hh's queries 8j + 2 quad + {0, 1}
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * quad + e, R = qt + c, key = k0 + rl + 8 * hh;
+          bool live = true;
+          if (!full) {
+            int lo, hi;
+            fa::dense_bounds(R, kv_len, causal, window, lo, hi);
+            live = R < n_q && key >= lo && key < hi;
+          }
+          const int i = 4 * j + 2 * hh + e;
+          pv[e] = live ? exp2f(s[i] * scale_log2 - lse_s[c] * LOG2E) : 0.f;
+          dsv[e] = pv[e] * (dp[i] - di_s[c]) * sm_scale;
+        }
+        p[2 * j + hh] = hop::pack_bf16(pv[0], pv[1]);
+        ds[2 * j + hh] = hop::pack_bf16(dsv[0], dsv[1]);
+      }
+
+    hop::fence_regs(dv_acc);
+    hop::fence_regs(dk_acc);
+    hop::wg_arrive();
+    rs_tile<D>(dv_acc, p, do_addr);
+    rs_tile<D>(dk_acc, ds, q_addr);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(dv_acc);
+    hop::fence_regs(dk_acc);
+  }
+  hop::cp_async_wait<0>();
+
+  // the ring is free once every warpgroup is past its last wgmma
+  const int n_keys = max(0, min(C::BIG, n_kv - k0));
+  const size_t off = (size_t(bk) * n_kv + k0) * D;
+  store_rows<D>(dk + off, dk_acc, ring, rl, quad, n_keys);
+  store_rows<D>(dv + off, dv_acc, ring, rl, quad, n_keys);
+}
+
+// dQ, query-major: a block owns 128 query rows of one (batch, head), a
+// warpgroup 64 of them, with their Q and dO rows resident and dQ in f32
+// registers, and walks the key tiles of 64 its rows can see (K and V through
+// a double-buffered ring).  Per tile S = Q K^T and dP = dO V^T (both
+// K-major), P and dS on the fragment, dS rounded to bf16 pairs in place:
+// the A operand of dQ += dS K, K read MN-major from the same tile.
+template <int D>
+__global__ void __launch_bounds__(Tc<D>::THREADS, 1)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ di,
+                       const int* __restrict__ kv_lengths, bf16* __restrict__ dq, int h,
+                       int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale) {
+  using C = Tc<D>;
+  constexpr int BN = C::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* do_s = q_s + C::BIG_BYTES;
+  uint8_t* ring = do_s + C::BIG_BYTES;   // K0, V0, K1, V1
+
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BIG;   // the longest walks first
+  const int n_rows = min(C::BIG, n_q - row0);
+  const bf16* qp = q + size_t(bh) * n_q * D;
+  const bf16* dop = dout + size_t(bh) * n_q * D;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // both bounds of dense_bounds grow with the row (see flash_fwd.cu)
+  int walk_lo, walk_hi, all_lo, all_hi;
+  fa::dense_bounds(row0, kv_len, causal, window, walk_lo, all_hi);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, all_lo, walk_hi);
+  const int start = walk_hi > walk_lo ? (walk_lo / BN) * BN : 0;
+  const int end = walk_hi > walk_lo ? walk_hi : 0;
+
+  load_rows<D>(q_s, qp + size_t(row0) * D, qp, n_rows, C::BIG);
+  load_rows<D>(do_s, dop + size_t(row0) * D, dop, n_rows, C::BIG);
+  if (start < end) {
+    load_rows<D>(ring, kp + size_t(start) * D, kp, n_kv - start, BN);
+    load_rows<D>(ring + C::TILE_BYTES, vp + size_t(start) * D, vp, n_kv - start, BN);
+  }
+  hop::cp_async_commit();
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = wg * 64 + (lt / 32) * 16 + lane / 4;   // local row of hh = 0 (+8: hh = 1)
+  int lo[2], hi[2];
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + rl + 8 * hh;
+    fa::dense_bounds(row, kv_len, causal, window, lo[hh], hi[hh]);
+    const bool ok = row < n_q;
+    lse2[hh] = ok ? lse[size_t(bh) * n_q + row] * LOG2E : 0.f;
+    di_r[hh] = ok ? di[size_t(bh) * n_q + row] : 0.f;
+  }
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  const uint32_t q_addr = hop::smem_u32(q_s) + wg * 64 * C::SW;
+  const uint32_t do_addr = hop::smem_u32(do_s) + wg * 64 * C::SW;
+  int buf = 0;
+  for (int kt = start; kt < end; kt += BN, buf ^= 1) {
+    hop::cp_async_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();   // tile kt has landed everywhere; buffer buf ^ 1 is free
+    if (kt + BN < end) {
+      uint8_t* nk = ring + (buf ^ 1) * 2 * C::TILE_BYTES;
+      load_rows<D>(nk, kp + size_t(kt + BN) * D, kp, n_kv - kt - BN, BN);
+      load_rows<D>(nk + C::TILE_BYTES, vp + size_t(kt + BN) * D, vp, n_kv - kt - BN, BN);
+    }
+    hop::cp_async_commit();
+    const uint32_t k_addr = hop::smem_u32(ring + buf * 2 * C::TILE_BYTES);
+    const uint32_t v_addr = k_addr + C::TILE_BYTES;
+
+    float s[32], dp[32];   // S and dP: 64 rows x 64 keys a warpgroup
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    hop::wg_arrive();
+    ss_tile<D>(s, q_addr, C::BIG, k_addr, BN);
+    ss_tile<D>(dp, do_addr, C::BIG, v_addr, BN);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+
+    // s[4j + 2hh + e] is row rl + 8hh, key kt + 8j + 2 quad + e
+    const bool full = kt >= all_lo && kt + BN <= all_hi;
+    uint32_t ds[16];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = kt + 8 * j + 2 * quad + e, i = 4 * j + 2 * hh + e;
+          const bool live = full || (c >= lo[hh] && c < hi[hh]);
+          const float p = live ? exp2f(s[i] * scale_log2 - lse2[hh]) : 0.f;
+          dsv[e] = p * (dp[i] - di_r[hh]) * sm_scale;
+        }
+        ds[2 * j + hh] = hop::pack_bf16(dsv[0], dsv[1]);
+      }
+
+    hop::fence_regs(dq_acc);
+    hop::wg_arrive();
+    rs_tile<D>(dq_acc, ds, k_addr);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(dq_acc);
+  }
+  hop::cp_async_wait<0>();
+  store_rows<D>(dq + (size_t(bh) * n_q + row0) * D, dq_acc, ring, rl, quad, n_rows);
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* di, const int* lens, void* dq, void* dk,
+                      void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                      int window, float sm_scale, cudaStream_t stream) {
+  using C = Tc<D>;
+  auto dkv_kernel = flash_bwd_dkv_tc_kernel<D>;
+  auto dq_kernel = flash_bwd_dq_tc_kernel<D>;
+  static cudaError_t opted = [&] {
+    cudaError_t e = fa::allow_smem(dkv_kernel, C::SMEM);
+    return e != cudaSuccess ? e : fa::allow_smem(dq_kernel, C::SMEM);
+  }();
+  if (opted != cudaSuccess) return opted;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  if (n_kv > 0) {
+    dim3 grid(b * h_kv, (n_kv + C::BIG - 1) / C::BIG);
+    dkv_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+        qb, kb, vb, dob, lse, di, lens, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h,
+        h_kv, n_q, n_kv, causal, window, sm_scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_q > 0) {
+    dim3 grid(b * h, (n_q + C::BIG - 1) / C::BIG);
+    dq_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qb, kb, vb, dob, lse, di, lens,
+                                                     static_cast<bf16*>(dq), h, h_kv, n_q,
+                                                     n_kv, causal, window, sm_scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* di, const int* lens,
+                          void* dq, void* dk, void* dv, int b, int h, int h_kv, int n_q,
+                          int n_kv, int causal, int window, float sm_scale, cudaStream_t st) {
+  switch (d) {
+    case 32: return launch_tc<32>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 64: return launch_tc<64>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 128: return launch_tc<128>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
@@ -367,7 +773,7 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
     return dispatch_d<float>(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv,
                              n_q, n_kv, causal, window, sm_scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h,
-                                     h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    return dispatch_bf16(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
+                         causal, window, sm_scale, st);
   return int(cudaErrorInvalidValue);
 }

@@ -124,21 +124,10 @@ struct Tc {
   static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * size_t(KV_BYTES);
 };
 
-// Rows [0, rows) of a row-major (rows_valid.., D) bf16 matrix at src into a
-// tile of regions of CPR columns (region stride rows * SW bytes), swizzled;
-// rows at or past rows_valid are zero.  One cp.async of 16 bytes a chunk.
 template <int D>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, const bf16* base,
                                           int rows_valid, int rows) {
-  using C = Tc<D>;
-  constexpr int CHUNKS = D / 8, REGION_CHUNKS = C::SW / 16;
-  for (int i = threadIdx.x; i < rows * CHUNKS; i += C::THREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const bool ok = r < rows_valid;
-    uint8_t* d = dst + (c / REGION_CHUNKS) * (rows * C::SW) +
-                 hop::swz<C::SW>(r * C::SW + (c % REGION_CHUNKS) * 16);
-    hop::cp_async<16>(hop::smem_u32(d), ok ? src + size_t(r) * D + c * 8 : base, ok);
-  }
+  hop::load_tile<D * 2, Tc<D>::SW, Tc<D>::THREADS>(dst, src, base, rows_valid, rows);
 }
 
 template <int D>

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // 128/64-byte shared-memory swizzle, wgmma matrix descriptors, the wgmma
 // instructions (bf16 x bf16 -> f32, A from shared memory or registers),
-// their fences, cp.async, mbarriers and TMA.  Inline PTX only, so a kernel
-// that includes this builds in seconds.
+// their fences, cp.async and a swizzled tile loader on it, mbarriers and
+// TMA; and the s8 x s8 -> s32 wgmma of the quantized-KV flash kernel.
+// Inline PTX only, so a kernel that includes this builds in seconds.
 //
 // Layouts (PTX ISA, "Shared memory matrix layout"; CUTLASS's canonical GMMA
 // layouts).  An operand tile lives in shared memory as regions of SW-byte
-// rows (SW = 128, or 64 when a row holds only 32 bf16), each region based
+// rows (SW = 128, or 64 when a row holds only 32 bf16; an 8-bit tile of D
+// bytes a row takes SW = D: 128, 64 or 32), each region based
 // at a 1024-byte boundary, with the 16-byte chunk c of row r stored at
 // chunk c ^ ((r * SW / 128) % (SW / 16)): the pattern TMA's SWIZZLE_128B /
 // _64B writes (swz below).  One descriptor reads a 64-row (A) or N-row (B)
@@ -67,6 +69,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 // Generic-proxy shared-memory writes (st.shared, cp.async) before an async-
 // proxy reader (wgmma, TMA).
 __device__ __forceinline__ void fence_async_smem() {
@@ -91,6 +98,24 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool pre
                  "n"(BYTES), "r"(n)
                  : "memory");
 }
+// Rows [0, rows) of a row-major matrix of ROW_BYTES-byte rows at src into a
+// tile of swizzled regions of SW-byte rows (region stride rows * SW bytes);
+// rows at or past rows_valid are zero (base: any valid address).  One
+// cp.async of 16 bytes a chunk, spread over THREADS threads.
+template <int ROW_BYTES, int SW, int THREADS>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const void* src, const void* base,
+                                          int rows_valid, int rows) {
+  constexpr int CHUNKS = ROW_BYTES / 16, REGION_CHUNKS = SW / 16;
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = r < rows_valid;
+    uint8_t* d = dst + (c / REGION_CHUNKS) * (rows * SW) +
+                 swz<SW>(r * SW + (c % REGION_CHUNKS) * 16);
+    cp_async<16>(smem_u32(d), ok ? s + size_t(r) * ROW_BYTES + c * 16 : base, ok);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -133,7 +158,7 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint3
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, N = 2 x the accumulator
 // registers a thread (n32, n64, n128).  wgmma_ss: A and B by descriptor (A
-// K-major; n128 only, the one width a caller uses); wgmma_rs: A from four
+// K-major; n64 and n128, the widths callers use); wgmma_rs: A from four
 // registers per thread (bf16 pairs).  TB = 1 reads B MN-major.  scale_d = 0
 // overwrites d.
 template <int TB>
@@ -184,6 +209,43 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// wgmma.mma_async m64n128k32, s32 += s8 x s8: A and B by descriptor, both
+// K-major (8-bit wgmma takes no other layout), 32 bytes of K a step.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 template <int TB>

@@ -9,7 +9,8 @@ forward kernels
 (causal / window / kv_lengths / GQA / cross-attention) and also covers the
 dense causal function of ``_fwd_subrow_kernel``, ``_fwd_loop_kernel`` and
 ``_fwd_twolevel_kernel``; and ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ
-kernel that replace the backward kernels of the grid (``_bwd_dkv_kernel``,
+kernel (wgmma tensor-core kernels for bf16, CUDA-core kernels for f32)
+that replace the backward kernels of the grid (``_bwd_dkv_kernel``,
 ``_bwd_dq_kernel``), subrow (``_bwd_subrow_kernel``) and loop
 (``_bwd_dq_loop_kernel``, ``_bwd_dkv_loop_kernel``) schedules.  There is no
 length threshold and no fallback: a CUDA tensor always runs the kernels or
@@ -121,21 +122,23 @@ def _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths=None,
 def _reference_bwd(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
                    window=None):
     """Plain version of :func:`flash_bwd`: (dq, dk, dv) by the explicit
-    formulas, in f32 — p = exp(s - lse) on live pairs (0 elsewhere),
-    dv = p^T do, ds = p (do v^T - di) scale, dq = ds k, dk = ds^T q, with
-    dk/dv summed over each GQA group."""
+    formulas, as the JAX backward kernels compute them — in base 2,
+    p = exp2(s * scale * log2(e) - lse * log2(e)) on live pairs (0 elsewhere
+    and on rows whose lse is -inf), ds = p (do v^T - di) scale in f32; p and
+    ds round to q's dtype before dv = p^T do, dq = ds k and dk = ds^T q,
+    which sum in f32, with dk/dv summed over each GQA group."""
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     kr, vr = repeat_kv(k, v, h)
     qf, kf, vf, dof = (t.float() for t in (q, kr, vr, do))
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
-    p = torch.exp(s - lse)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * (scale * LOG2E)
+    live = torch.isfinite(lse)
+    p = torch.exp2(s - torch.where(live, lse, torch.zeros_like(lse)) * LOG2E)
     keep = _keep_mask(n_q, n_kv, causal, window, kv_lengths, q.device)
-    if keep is not None:
-        p = p.masked_fill(~keep, 0.0)
+    p = p.masked_fill(~(live if keep is None else keep & live), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dp - di) * scale
+    p, ds = (t.to(q.dtype).float() for t in (p, ds))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)

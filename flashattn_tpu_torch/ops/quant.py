@@ -13,7 +13,8 @@ tensors, each with a plain PyTorch version beside it that the CPU runs:
 * :func:`int8_weight_only_matmul` — ``csrc/wo_matmul.cu`` (TPU
   ``_wo_matmul_kernel``);
 * :func:`flash_attention_kv_int8` — ``csrc/kv8_flash.cu`` (TPU
-  ``_kv8_fwd_kernel``, ``_kv8_loop_kernel`` and ``_kv8_subrow_kernel``);
+  ``_kv8_fwd_kernel``, ``_kv8_loop_kernel`` and ``_kv8_subrow_kernel``; a
+  wgmma tensor-core kernel for bf16 q, a CUDA-core one for f32 q);
 * :func:`quantize_int8_stochastic` — ``csrc/quant.cu`` (TPU
   ``_stochastic_quant_kernel``).
 
@@ -31,9 +32,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from ._utils import LN2, LOG2E, check_no_grad, on_cuda
+from ._utils import DEFAULT_MASK_VALUE, LN2, LOG2E, check_no_grad, on_cuda
 from .dropout import philox_bits
-from .flash_attention import _reference_fwd_with_lse
 
 _wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 5)
 _kv8_kernel = _build.Kernel("fa_kv8_flash", [_build.P] * 7 + [_build.I] * 7
@@ -238,18 +238,41 @@ def flash_attention_kv_int8_reference(q, k: QuantizedTensor, v: QuantizedTensor,
                                       causal: bool = False,
                                       sm_scale: Optional[float] = None):
     """Plain version of :func:`flash_attention_kv_int8` (no fp8 transcode:
-    the public function does that first): returns (o, lse (B, H, Nq, 1)).
-    q is pre-scaled by sm_scale * log2(e) in its dtype; with int8 payloads
-    each q row is then quantized to int8; the plain flash forward runs in
-    f32 over K/V dequantized in f32, its scores scaled by ln 2 back to
-    natural log."""
+    the public function does that first): returns (o, lse (B, H, Nq, 1)),
+    rounding where the TPU grid kernel ``_kv8_fwd_kernel`` rounds.  q is
+    pre-scaled by sm_scale * log2(e) in its dtype.  int8 payloads: each q
+    row is quantized to int8 and the scores are the exact integer product
+    q8 k8^T times the q row scale, then the key scale; fp8 payloads: q k8^T
+    in f32 times the key scale.  The softmax runs in f32 in base 2; the
+    unnormalised p = exp2(s - m) and V = v8 * vs each round to q's dtype
+    before the PV product, which sums in f32 and is divided by the row sum
+    last; lse = m ln 2 + ln l (-inf where l = 0)."""
     _check_kv8(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    qf = (q * _prescale(q, scale).to(q.device)).float()
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.values.shape[1], k.values.shape[2]
+    group = h // h_kv
+    qp = q * _prescale(q, scale).to(q.device)
+    k8, ks, v8, vs = (t.repeat_interleave(group, dim=1) for t in
+                      (k.values, k.scales, v.values, v.scales))
+    ks = ks.transpose(-1, -2)
     if k.values.dtype == torch.int8:
-        qf = quantize_int8(qf, axis=-1).dequantize()
-    o, lse = _reference_fwd_with_lse(qf, k.dequantize(), v.dequantize(), causal,
-                                     LN2)
+        # |q8 . k8| <= 128 * 127^2 < 2^24: the f32 product is the exact
+        # integer one, in any order of summation
+        q8 = quantize_int8(qp.float(), axis=-1)
+        s = (q8.values.float() @ k8.float().transpose(-1, -2)) * q8.scales * ks
+    else:
+        s = (qp.float() @ k8.float().transpose(-1, -2)) * ks
+    if causal:
+        keep = (torch.arange(n_kv, device=q.device)[None, :]
+                <= torch.arange(n_q, device=q.device)[:, None])
+        s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    vd = (v8.float() * vs).to(q.dtype)
+    o = (p.to(q.dtype).float() @ vd.float()) / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l == 0, -math.inf, m * LN2 + torch.log(l))
     return o.to(q.dtype), lse
 
 

@@ -202,6 +202,17 @@ FLASH_BWD_CASES = {
     "varlen_gqa_len0_d128": (3, 8, 2, 130, 130, 128, True, [130, 65, 0], None),
     "varlen_window_d64": (2, 4, 4, 200, 200, 64, True, [200, 77], 33),
     "window_gqa_d128": (1, 4, 1, 192, 192, 128, True, None, 50),
+    # ragged n for the bf16 tensor-core kernels' 64- and 128-row tiles,
+    # every head dim, GQA 4, a window, lengths with a 0, cross 1000 x 2048
+    "n70_d32": (2, 2, 2, 70, 70, 32, True, None, None),
+    "n1000_d64": (1, 4, 4, 1000, 1000, 64, True, None, None),
+    "n1001_d128": (1, 2, 2, 1001, 1001, 128, True, None, None),
+    "gqa4_n1000_d128": (1, 8, 2, 1000, 1000, 128, True, None, None),
+    "window_n1001_d64": (1, 2, 2, 1001, 1001, 64, True, None, 100),
+    "len0_gqa4_n1001_d128": (3, 4, 1, 1001, 1001, 128, True, [1001, 0, 517],
+                             None),
+    "cross_1000x2048_d128": (1, 2, 2, 1000, 2048, 128, False, None, None),
+    "cross_70x1001_d32": (2, 4, 2, 70, 1001, 32, False, [1001, 300], None),
 }
 
 
@@ -222,15 +233,17 @@ def test_flash_bwd_kernel(dev, dtype, case):
     o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=scale,
                           kv_lengths=lens, window=window)
     di = (o.float() * do.float()).sum(-1, keepdim=True)
+    kw = dict(causal=causal, sm_scale=scale, kv_lengths=lens, window=window)
     before = fa._bwd_kernel.launches
-    got = fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=scale,
-                       kv_lengths=lens, window=window)
+    got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
     assert fa._bwd_kernel.launches == before + 1
     want = fa._reference_bwd(q, k, v, lse, di, do, causal, scale, lens, window)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.isfinite(a).all()
         assert _rel_err(a, b) <= TOL[dtype]
+    for a, b in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
+        assert torch.equal(a, b)        # no atomics: the same bits every run
     if lens is not None:
         for bi, n in enumerate(lens.tolist()):
             assert (got[1][bi, :, n:] == 0).all() and (got[2][bi, :, n:] == 0).all()
@@ -358,6 +371,14 @@ KV8_CASES = {
     "cross_noncausal_d32": (2, 2, 1, 37, 150, 32, False),
     "gqa_causal_d128": (1, 8, 2, 130, 130, 128, True),
     "subrow_envelope_d128": (1, 2, 1, 1024, 1024, 128, True),
+    # ragged n for the bf16-q tensor-core kernel's 128-row tiles, every
+    # head dim, GQA, cross
+    "causal_n1000_d32": (1, 2, 2, 1000, 1000, 32, True),
+    "causal_gqa2_n1001_d64": (1, 4, 2, 1001, 1001, 64, True),
+    "causal_gqa4_n1001_d128": (1, 8, 2, 1001, 1001, 128, True),
+    "cross_1000x2048_d128": (1, 2, 2, 1000, 2048, 128, False),
+    "cross_70x1001_d64": (2, 4, 2, 70, 1001, 64, False),
+    "cross_1001x1000_d32": (1, 2, 1, 1001, 1000, 32, False),
 }
 
 

@@ -271,3 +271,164 @@ def test_engine_speculation_knobs_raise_naming_a5b(tiny_model, knob):
     with pytest.raises(NotImplementedError, match="A5b"):
         pt.ContinuousBatchingEngine(tiny_model, max_batch=1, page_size=8,
                                     pages_per_seq=2, **knob)
+
+
+# -- C6: the bf16 flash backward rounds p and dS like JAX ---------------------------
+
+
+def _differ(got, want):
+    """(fraction of elements that differ, max abs difference) between a
+    torch tensor and a jax array."""
+    g, w = _bits(got), _bits(want)
+    assert g.shape == w.shape
+    diff = np.abs(g.view(np.float32) - w.view(np.float32))
+    return float((g != w).mean()), float(diff.max())
+
+
+def _bf16_inputs(seed, b, h, h_kv, n, d):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((b, h, n, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, h_kv, n, d)).astype(np.float32)
+            for _ in range(2))
+    return [_pair(a, "bfloat16") for a in (q, k, v, do)]
+
+
+def _check_bwd(got, want, h, h_kv):
+    """dv bit for bit (to one element in a thousand when a GQA group sums
+    f32 partial products in its own order); dq and dk within 2% of their
+    elements: the JAX dots' f32 sums run in another order, which moves a
+    rounding of ds or of an output now and then.  The unrounded plain
+    version differed in ~40% of each."""
+    (fq, eq), (fk, ek), (fv, ev) = (_differ(g, w) for g, w in zip(got, want))
+    assert fq <= 0.02 and fk <= 0.02, (fq, fk)
+    assert fv <= (0.0 if h == h_kv else 1e-3), (fv, ev)
+    assert max(eq, ek, ev) <= 2 ** -6
+
+
+@pytest.mark.parametrize("schedule", ["subrow", "loop"])
+@pytest.mark.parametrize("heads", [(2, 2), (4, 2)])
+def test_flash_bwd_bf16_rounds_like_jax(schedule, heads):
+    """The plain backward (``_reference_bwd``, what the CPU runs and what the
+    CUDA kernels are held to) against the TPU dense causal backward
+    kernels at b1 n128 d32 bf16, lse and di from JAX's forward."""
+    from flashattn_tpu_torch.ops import flash_attention as tfa
+
+    h, h_kv = heads
+    (qt, qj), (kt, kj), (vt, vj), (dot, doj) = _bf16_inputs(1, 1, h, h_kv,
+                                                            128, 32)
+    scale = 32 ** -0.5
+    o, lse = jfa._reference_fwd_with_lse(qj, kj, vj, True, scale)
+    di = jnp.sum(o.astype(jnp.float32) * doj.astype(jnp.float32), axis=-1,
+                 keepdims=True)
+    if schedule == "subrow":
+        want = jfa._flash_bwd_subrow(qj, kj, vj, lse, di, doj, sm_scale=scale,
+                                     sub=64)
+    else:
+        want = jfa._flash_bwd_loop(qj, kj, vj, lse, di, doj, sm_scale=scale,
+                                   block=64)
+    got = tfa._reference_bwd(qt, kt, vt, torch.from_numpy(np.array(lse)),
+                             torch.from_numpy(np.array(di)), dot, True, scale)
+    _check_bwd(got, want, h, h_kv)
+
+
+@pytest.mark.parametrize("case", ["window", "lengths"])
+def test_flash_bwd_bf16_grid_rounds_like_jax(case):
+    """Against the grid backward (``_flash_bwd``, blocks of 16): a window of
+    12, and kv_lengths with a 0 (that row's dq and its dk / dv are 0)."""
+    from flashattn_tpu_torch.ops import flash_attention as tfa
+
+    (qt, qj), (kt, kj), (vt, vj), (dot, doj) = _bf16_inputs(2, 2, 2, 2, 64, 32)
+    scale = 32 ** -0.5
+    window = 12 if case == "window" else None
+    lens = np.array([64, 0] if case == "lengths" else [64, 64], np.int32)
+    lens_j = None if case == "window" else jnp.asarray(lens)
+    lens_t = None if case == "window" else torch.from_numpy(lens)
+    o, lse = jfa._reference_fwd_with_lse(qj, kj, vj, True, scale, lens_j,
+                                         window)
+    want = jfa._flash_bwd(qj, kj, vj, o, lse, doj, causal=True, sm_scale=scale,
+                          block_q=16, block_k=16, kv_lengths=lens_j,
+                          window=window)
+    di = jnp.sum(o.astype(jnp.float32) * doj.astype(jnp.float32), axis=-1,
+                 keepdims=True)
+    got = tfa._reference_bwd(qt, kt, vt, torch.from_numpy(np.array(lse)),
+                             torch.from_numpy(np.array(di)), dot, True, scale,
+                             lens_t, window)
+    _check_bwd(got, want, 2, 2)
+    if case == "lengths":
+        assert all((g[1] == 0).all() for g in got)
+
+
+# -- C5: bf16 kv8_flash rounds V and P like JAX -----------------------------------
+
+
+def _kv8_bf16(seed, h, h_kv, n, d, payload):
+    from flashattn_tpu.ops import quant as jq
+    from flashattn_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, h, n, d)).astype(np.float32)
+    k, v = (jnp.asarray(rng.standard_normal((1, h_kv, n, d)).astype(np.float32))
+            for _ in range(2))
+    quantize = jq.quantize_int8 if payload == "int8" else jq.quantize_fp8
+    tdt = torch.int8 if payload == "int8" else torch.float8_e4m3fn
+
+    def port(t):
+        vals = torch.from_numpy(np.array(t.values.astype(jnp.float32))).to(tdt)
+        return tq.QuantizedTensor(vals, torch.from_numpy(np.array(t.scales)))
+
+    kq, vq = quantize(k, -1), quantize(v, -1)
+    qt, qj = _pair(q, "bfloat16")
+    return (qt, port(kq), port(vq)), (qj, kq, vq)
+
+
+def _check_kv8(got, want, max_frac, lse_tol=1e-6):
+    """o differing in at most ``max_frac`` of its elements (0: bit for bit;
+    the JAX grid walks the keys in blocks whose running max may differ
+    from the row's, and sums the row and PV in f32 in another order, which
+    moves a rounding now and then in longer rows), lse to ``lse_tol``.  The
+    f32-dequantized plain version differed in 47-50% of o."""
+    frac, _ = _differ(got[0], want[0])
+    assert frac <= max_frac, frac
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=lse_tol, rtol=0)
+
+
+@pytest.mark.parametrize("payload", ["int8", "fp8"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv8_flash_bf16_rounds_like_jax(payload, causal):
+    """b1 h2 n128 d32 bf16 q against ``_kv8_fwd_kernel`` (the JAX grid)."""
+    from flashattn_tpu.ops import quant as jq
+
+    port, ref = _kv8_bf16(7, 2, 2, 128, 32, payload)
+    _check_kv8(pt.flash_attention_kv_int8(*port, causal),
+               jq.flash_attention_kv_int8(*ref, causal), 0.0 if causal else 1e-3)
+
+
+@pytest.mark.parametrize("payload", ["int8", "fp8"])
+def test_kv8_flash_bf16_gqa_rounds_like_jax(payload):
+    """GQA 4q/2kv at n 512 d64 causal: the port's grouped call against the
+    JAX grid kernel on K/V repeated to every query head (the grid kernel
+    reads kv head h; JAX's loop and subrow schedules, which take GQA, fold
+    the V scale into p and round p * vs instead of V, another function in
+    bf16).  With int8 payloads ten of the 2048 rows' lse differ from the
+    interpret-mode grid kernel's by up to 1.5e-3, by as much before the
+    repair (so not through V or P); the rest agree to 1e-6.  The grouped
+    call must equal the port's own call on the repeated K/V bit for bit."""
+    from flashattn_tpu.ops import quant as jq
+    from flashattn_tpu_torch.ops import quant as tq
+
+    port, (qj, kq, vq) = _kv8_bf16(8, 4, 2, 512, 64, payload)
+    rep_t = [tq.QuantizedTensor(t.values.repeat_interleave(2, dim=1),
+                                t.scales.repeat_interleave(2, dim=1))
+             for t in port[1:]]
+    rep = [jq.QuantizedTensor(jnp.repeat(t.values, 2, axis=1),
+                              jnp.repeat(t.scales, 2, axis=1))
+           for t in (kq, vq)]
+    got = pt.flash_attention_kv_int8(*port, True)
+    for g, w in zip(got, pt.flash_attention_kv_int8(port[0], *rep_t, True)):
+        assert torch.equal(g, w)
+    want = jq.flash_attention_kv_int8(qj, *rep, True)
+    lse_ok = np.abs(got[1].numpy() - np.asarray(want[1])) <= 1e-6
+    assert lse_ok.mean() >= (0.99 if payload == "int8" else 1.0)
+    _check_kv8(got, want, 0.01, 2e-3 if payload == "int8" else 1e-6)

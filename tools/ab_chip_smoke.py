@@ -1,10 +1,10 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,serve_quant,train] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,serve_quant,train] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
-``git archive`` of another commit, say).  The roots are built in parallel
-(each into its own ``_build/``), then run in the order A B ... B A, each in
+``git archive`` of another commit, say).  The roots are built one after the
+other (each into its own ``_build/``), then run in the order A B ... B A, each in
 a process of its own that imports that root's package and this repo's
 ``chip_smoke.py`` phases:
 
@@ -14,6 +14,12 @@ a process of its own that imports that root's package and this repo's
   overhead, and ``x @ W_bf16`` beside both;
 * ``flash``: the bf16 flash forward at the train step's dense causal
   shape, the varlen prefill and N 16384, with SDPA beside;
+* ``bwd``: the bf16 flash backward (``flash_bwd``) at the train step's
+  head shape B4 H16 N2048 D128 causal and cross 1000 x 2048 non-causal,
+  with SDPA's backward beside;
+* ``kv8``: ``kv8_flash`` with bf16 q at B4 H8 N2048 D128 causal (int8 and
+  fp8 payloads; the kernel call itself, so fp8 is not transcoded) and
+  cross 1000 x 2048 int8, with SDPA on the dequantized cache beside;
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -77,6 +83,49 @@ def _flash(torch, cs, dev):
               flush=True)
 
 
+BWD_SHAPES = [("train B4 H16 N2048 D128 causal", (4, 16, 2048, 2048), True),
+              ("cross B4 H16 1000 x 2048 D128", (4, 16, 1000, 2048), False)]
+
+
+def _bwd(torch, cs, dev):
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, (b, h, n_q, n_kv), causal in BWD_SHAPES:
+        q, do = (torch.randn(b, h, n_q, 128, generator=g, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, h, n_kv, 128, generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=128 ** -0.5)
+        di = (o.float() * do.float()).sum(-1, keepdim=True)
+        ms = cs.time_ms(lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
+                                             sm_scale=128 ** -0.5))
+        lib = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, None))
+        print(f"[ab] flash_bwd {label}: ms {ms:.4f}, SDPA bwd {lib:.4f}", flush=True)
+
+
+KV8_SHAPES = [("B4 H8 N2048 D128 causal", (4, 8, 2048, 2048), True, ("int8", "fp8")),
+              ("cross B4 H8 1000 x 2048 D128", (4, 8, 1000, 2048), False, ("int8",))]
+
+
+def _kv8(torch, cs, dev):
+    from flashattn_tpu_torch.ops import quant as qt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    quantizers = {"int8": qt.quantize_int8, "fp8": qt.quantize_fp8}
+    for label, (b, h, n_q, n_kv), causal, payloads in KV8_SHAPES:
+        q = torch.randn(b, h, n_q, 128, generator=g, device=dev).to(torch.bfloat16)
+        for payload in payloads:
+            k, v = (quantizers[payload](torch.randn(b, h, n_kv, 128, generator=g,
+                                                    device=dev)) for _ in range(2))
+            lib, args = cs._sdpa(torch, q, k.dequantize(torch.bfloat16),
+                                 v.dequantize(torch.bfloat16), causal, None, None)
+            ms = cs.time_ms(lambda: qt.kv8_flash_fwd(q, k, v, causal=causal,
+                                                     sm_scale=128 ** -0.5))
+            print(f"[ab] kv8_flash {payload} {label}: ms {ms:.4f}, SDPA on the "
+                  f"dequantized cache {cs.time_ms(lambda: lib(*args)):.4f}", flush=True)
+
+
 def child(root: str, phases: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
@@ -96,6 +145,10 @@ def child(root: str, phases: list[str]) -> None:
         _wo(torch, cs, dev)
     if "flash" in phases:
         _flash(torch, cs, dev)
+    if "bwd" in phases:
+        _bwd(torch, cs, dev)
+    if "kv8" in phases:
+        _kv8(torch, cs, dev)
     if "train" in phases:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0))
     if "serve_quant" in phases:
@@ -116,13 +169,13 @@ def main() -> int:
     if args.child:
         child(args.roots[0], phases)
         return 0
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "from flashattn_tpu_torch.ops import _build; _build.build()", root])
-        for root in args.roots]
-    if any(p.wait() for p in builds):
-        print("[ab] a build failed", file=sys.stderr)
-        return 1
+    for root in args.roots:   # one root at a time: each runs an nvcc per source
+        if subprocess.run(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                 "from flashattn_tpu_torch.ops import _build; _build.build()",
+                 root]).returncode:
+            print(f"[ab] the build of {root} failed", file=sys.stderr)
+            return 1
     out = Path(args.log_dir)
     out.mkdir(parents=True, exist_ok=True)
     order = args.roots + args.roots[::-1]
