@@ -122,6 +122,21 @@ class Kernel:
         self.launches += 1
 
 
+def query(symbol: str, argtypes: Sequence, *args) -> int:
+    """Call a host function of the library that launches nothing (a launch
+    plan) and return its int result; a negative result is minus a CUDA
+    error code, and raises."""
+    fn = getattr(library(), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = I
+    res = fn(*args)
+    if res < 0:
+        msg = library().fa_error_string(-res).decode()
+        raise RuntimeError(f"{symbol} failed: CUDA error {-res} ({msg})")
+    return res
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """The C interface's dtype code of an activation: 0 float32, 1 bfloat16."""
     if t.dtype == torch.float32:

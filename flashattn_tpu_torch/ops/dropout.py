@@ -121,6 +121,20 @@ def _divide(y: torch.Tensor, div: float) -> torch.Tensor:
     return y / torch.tensor(div, dtype=torch.float32, device=y.device)
 
 
+def _empty_alike(x: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor shaped as contiguous ``x`` whose address
+    lies as far past a 16-byte boundary as x's, so that the kernel's 16-byte
+    accesses line up in both (for an x that is a view with a storage offset,
+    a view into a buffer 16 bytes longer)."""
+    off = x.data_ptr() % 16
+    if off == 0:
+        return torch.empty_like(x)
+    isz = x.element_size()
+    buf = torch.empty(x.numel() + 16 // isz, dtype=x.dtype, device=x.device)
+    start = (off - buf.data_ptr() % 16) % 16 // isz
+    return buf[start:start + x.numel()].view(x.shape)
+
+
 def dropout(x: torch.Tensor, rate: float, seed: int,
             scale: bool = True) -> torch.Tensor:
     """Kernel launch: keep ? x / (1 - rate) : 0, 1 - rate rounded to x's
@@ -128,7 +142,7 @@ def dropout(x: torch.Tensor, rate: float, seed: int,
     the survivors as they are."""
     _check(rate, seed)
     x = x.detach().contiguous()
-    out = torch.empty_like(x)
+    out = _empty_alike(x)
     _kernel(x.data_ptr(), out.data_ptr(), x.numel(), seed, _threshold(rate),
             _divisor(rate, x.dtype, scale), _build.dtype_code(x))
     return out

@@ -14,14 +14,15 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._utils import cdiv, on_cuda
+from ._utils import on_cuda
 
 _kernel = _build.Kernel("fa_layernorm_fwd", [_build.P] * 6 + [
     _build.I, _build.I, _build.F, _build.I, _build.I])
 _bwd_kernel = _build.Kernel("fa_layernorm_bwd", [_build.P] * 10 + [
-    _build.I] * 4)
-
-_BWD_ROWS = 64   # rows per block of the backward kernel (its partial sums)
+    _build.I] * 5)
+# the backward's launch plan: how many partial rows of dgamma and dbeta it
+# writes (its row kernel's block count) for given pointers and sizes
+_BWD_PARTS = ("fa_layernorm_bwd_parts", [_build.P] * 4 + [_build.I] * 4)
 
 
 def _check_params(h, gamma, beta):
@@ -56,7 +57,9 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     """Kernel launch: (dx, dgamma, dbeta), dx in x's dtype and dgamma/dbeta
     summed in f32 and returned in gamma's dtype — the outputs of the TPU
     kernel's ``_ln_bwd``.  One count covers its two launches (the rows, then
-    the column sums of their partials)."""
+    the column sums of their partials).  The rows take the kernel's 16-byte
+    path when h is a whole number of 16-byte chunks and x, dy, dx and gamma
+    are 16-byte aligned, its generic path otherwise."""
     h = x.shape[-1]
     x2 = x.detach().reshape(-1, h).contiguous()
     dy2 = dy.detach().reshape(-1, h).to(x.dtype).contiguous()
@@ -68,15 +71,16 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
     rstd = rstd.detach().float().contiguous()
     gamma = gamma.detach().contiguous()
     dx = torch.empty_like(x2)
-    part = torch.empty((2, cdiv(n, _BWD_ROWS), h), device=x.device,
-                       dtype=torch.float32)
+    codes = _build.dtype_code(x2), _build.dtype_code(gamma)
+    parts = _build.query(*_BWD_PARTS, x2.data_ptr(), dy2.data_ptr(),
+                         gamma.data_ptr(), dx.data_ptr(), n, h, *codes)
+    part = torch.empty((2, parts, h), device=x.device, dtype=torch.float32)
     dg = torch.empty_like(gamma)
     db = torch.empty_like(gamma)
     _bwd_kernel(x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(),
                 rstd.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
                 part[0].data_ptr(), part[1].data_ptr(), dg.data_ptr(),
-                db.data_ptr(), n, h, _build.dtype_code(x2),
-                _build.dtype_code(gamma))
+                db.data_ptr(), n, h, parts, *codes)
     return dx.reshape(x.shape), dg, db
 
 

@@ -161,16 +161,45 @@ def test_kernels_refuse_grad_and_bad_head_dim(dev):
         fa.flash_attention(x, x, x, True)
 
 
+def _ln_bwd_inputs(shape, dtype, dev, offset=None):
+    """x, dy, gamma, beta; ``offset`` "row" or "element" makes x and dy
+    contiguous views one row or one element into a longer buffer."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, h = torch.Size(shape[:-1]).numel(), shape[-1]
+    skip = {None: 0, "row": h, "element": 1}[offset]
+    x, dy = (_randn(g, n * h + skip, dtype=dtype, dev=dev)[skip:].view(shape)
+             for _ in range(2))
+    x.mul_(2).add_(0.5)
+    gam = _randn(g, h, dtype=dtype, dev=dev)
+    bet = _randn(g, h, dtype=dtype, dev=dev)
+    return x, dy, gam, bet
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 32), (37, 100), (130, 200),
-                                   (3, 67, 1000)])
+                                   (3, 67, 1000), (1, 8), (5, 2056),
+                                   (3, 4096), (16384, 2048)])
 def test_layernorm_bwd_kernel(dev, dtype, shape):
-    """Rows not a multiple of the 64-row block; h of 200 and 1000."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    x = _randn(g, *shape, dtype=dtype, dev=dev) * 2 + 0.5
-    dy = _randn(g, *shape, dtype=dtype, dev=dev)
-    gam = _randn(g, shape[-1], dtype=dtype, dev=dev)
-    bet = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    """Rows not a multiple of the 64-row block; h of 200 and 1000; the
+    16-byte path at h 8 (one masked chunk), 1000 (bf16: 125 chunks, a lane
+    with a masked last one), 2056 (not a multiple of 256), 4096 and the
+    train shape (16384, 2048); the generic path at h 100 in bf16 (not whole
+    16-byte chunks)."""
+    _ln_bwd_check(*_ln_bwd_inputs(shape, dtype, dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", ["row", "element"])
+def test_layernorm_bwd_kernel_offset_views(dev, dtype, offset):
+    """x and dy one row into a buffer (still 16-byte aligned: the 16-byte
+    path) and one element into it (not aligned: the generic path)."""
+    x, dy, gam, bet = _ln_bwd_inputs((70, 1024), dtype, dev, offset)
+    assert x.storage_offset() > 0 and x.is_contiguous()
+    assert (x.data_ptr() % 16 == 0) == (offset == "row")
+    _ln_bwd_check(x, dy, gam, bet, dtype)
+
+
+def _ln_bwd_check(x, dy, gam, bet, dtype):
     _, mean, rstd = ln.layernorm_fwd(x, gam, bet)
     before = ln._bwd_kernel.launches
     got = ln.layernorm_bwd(x, dy, mean, rstd, gam)
@@ -267,17 +296,36 @@ def test_flash_autograd_launches_fwd_and_bwd(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 3, 4097, 100003])
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 4097, 100003, 16384 * 2048])
 def test_dropout_kernel_bit_exact(dev, dtype, n):
-    """Odd element counts (a partial last Philox block); the kernel and its
-    plain version agree bit for bit, forward and backward."""
+    """Odd element counts (a partial last Philox block, a scalar tail after
+    the 8-element groups, fewer elements than one group) and the train
+    shape; the kernel and its plain version agree bit for bit, forward and
+    backward."""
     g = torch.Generator(device=dev).manual_seed(5)
     x = _randn(g, n, dtype=dtype, dev=dev)
+    _dropout_check(x, dtype, dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [9, 100003])
+def test_dropout_kernel_offset_view(dev, dtype, n):
+    """x = buf[1:], a base one element past a 16-byte boundary: the
+    kernel's scalar head runs up to the first aligned element, then its
+    16-byte groups start mid Philox block."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _randn(g, n + 1, dtype=dtype, dev=dev)[1:]
+    assert x.data_ptr() % 16 != 0
+    _dropout_check(x, dtype, dev)
+
+
+def _dropout_check(x, dtype, dev):
+    n = x.numel()
     seed = 2**64 - 12345
     before = dr._kernel.launches
-    got = dr.dropout(x, 0.1, seed, 1 / 0.9)
+    got = dr.dropout(x, 0.1, seed, True)
     assert dr._kernel.launches == before + 1
-    want = dr.dropout_reference(x, 0.1, seed, 1 / 0.9)
+    want = dr.dropout_reference(x, 0.1, seed, True)
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(got.view(bits), want.view(bits))
     keep = dr.keep_mask(n, 0.1, seed, dev)
@@ -571,7 +619,7 @@ def _bits_equal(a, b):
 def test_dropout_res_bias_kernels(dev, dtype, shape):
     n, d = shape
     x, bias, r, gy = _bias_inputs(n, d, dtype, dev)
-    seed, rate, scale = 2**64 - 999, 0.1, 1 / 0.9
+    seed, rate, scale = 2**64 - 999, 0.1, True
     keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
     before = dr._res_kernel.launches
     got = dr.dropout_res_bias(x, bias, r, rate, seed, scale)
@@ -593,7 +641,7 @@ def test_dropout_res_bias_kernels(dev, dtype, shape):
 def test_dropout_act_bias_kernels(dev, dtype, shape, act):
     n, d = shape
     x, bias, _, gy = _bias_inputs(n, d, dtype, dev, seed=14)
-    seed, rate, scale = 12345, 0.1, 1 / 0.9
+    seed, rate, scale = 12345, 0.1, True
     keep = dr.keep_mask(n * d, rate, seed, dev).reshape(n, d)
     before = dr._act_kernel.launches
     got = dr.dropout_act_bias(x, bias, rate, seed, scale, act)

@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,serve_quant,train] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,serve_quant,train,train_fused] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -20,14 +20,20 @@ a process of its own that imports that root's package and this repo's
 * ``kv8``: ``kv8_flash`` with bf16 q at B4 H8 N2048 D128 causal (int8 and
   fp8 payloads; the kernel call itself, so fp8 is not transcoded) and
   cross 1000 x 2048 int8, with SDPA on the dequantized cache beside;
+* ``ln``: ``layernorm_fwd`` and ``layernorm_bwd`` at the train step's rows
+  (16384, 2048), bf16 and f32, with ``F.layer_norm`` and its autograd
+  backward beside, and the bounds;
+* ``drop``: ``dropout`` at (16384, 2048), p 0.1, bf16 and f32, with
+  ``F.dropout`` beside, and the bound;
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
-  profiled step), alone in its process.
+  profiled step);
+* ``train_fused``: the same with ``attn_impl="fused_softmax"``.
 
 Each process's full output goes to ``<log-dir>/ab_<n>_<root>.log``
 (default ``workdir_ab/logs``, git-ignored); the summary lines (``[ab]``,
-``[serve_quant]``, ``[train]``, the profiler's busy share) are printed.  Compare numbers only within one run: the host's clock moves
+``[serve_quant]``, ``[train...]``, the profiler's busy share) are printed.  Compare numbers only within one run: the host's clock moves
 decode rates between runs.
 """
 
@@ -126,6 +132,50 @@ def _kv8(torch, cs, dev):
                   f"dequantized cache {cs.time_ms(lambda: lib(*args)):.4f}", flush=True)
 
 
+TRAIN_ROWS = (16384, 2048)   # the train step's LayerNorm and dropout rows
+
+
+def _ln(torch, cs, dev):
+    from flashattn_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, h = TRAIN_ROWS
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(n, h, generator=g, device=dev) * 2 + 0.5).to(dtype)
+        dy, gam, bet = (torch.randn(*s, generator=g, device=dev).to(dtype)
+                        for s in ((n, h), (h,), (h,)))
+        name, isz = str(dtype).replace("torch.", ""), x.element_size()
+        fwd = cs.time_ms(lambda: ln.layernorm_fwd(x, gam, bet))
+        lib_fwd = cs.time_ms(lambda: torch.nn.functional.layer_norm(
+            x, (h,), gam, bet))
+        _, mean, rstd = ln.layernorm_fwd(x, gam, bet)
+        bwd = cs.time_ms(lambda: ln.layernorm_bwd(x, dy, mean, rstd, gam))
+        lib_bwd = cs.time_ms(cs._ln_bwd_library(torch, x, dy, gam, bet))
+        b_fwd, b_bwd = (cs.bound_ms(*cs._ln_cost(n, h, isz, backward=b), name)[0]
+                        for b in (False, True))
+        print(f"[ab] layernorm {name} ({n}, {h}): fwd ms {fwd:.4f}, "
+              f"F.layer_norm {lib_fwd:.4f}, bound {b_fwd:.4f}; bwd ms "
+              f"{bwd:.4f}, autograd of F.layer_norm {lib_bwd:.4f}, bound "
+              f"{b_bwd:.4f}", flush=True)
+        del x, dy, mean, rstd
+
+
+def _drop(torch, cs, dev):
+    from flashattn_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, h = TRAIN_ROWS
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(n, h, generator=g, device=dev).to(dtype)
+        name = str(dtype).replace("torch.", "")
+        ms = cs.time_ms(lambda: dr.dropout(x, 0.1, 0x9E3779B97F4A7C15))
+        lib = cs.time_ms(lambda: torch.nn.functional.dropout(x, 0.1, True))
+        bound = cs.bound_ms(2 * x.numel() * x.element_size(), 0, name)[0]
+        print(f"[ab] dropout {name} ({n}, {h}) p 0.1: ms {ms:.4f}, F.dropout "
+              f"{lib:.4f}, bound {bound:.4f}", flush=True)
+        del x
+
+
 def child(root: str, phases: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
@@ -149,8 +199,17 @@ def child(root: str, phases: list[str]) -> None:
         _bwd(torch, cs, dev)
     if "kv8" in phases:
         _kv8(torch, cs, dev)
+    if "ln" in phases:
+        _ln(torch, cs, dev)
+    if "drop" in phases:
+        _drop(torch, cs, dev)
     if "train" in phases:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0))
+        torch.cuda.empty_cache()
+    if "train_fused" in phases:
+        cs.train_phase(torch, dev, torch.cuda.get_device_name(0),
+                       cs.TRAIN_FUSED, "train_fused_softmax", cs.FUSED_KERNELS,
+                       cs.FUSED_ABSENT)
     if "serve_quant" in phases:
         res = cs.serve_quant_phase(torch, dev)
         print("[ab] serve_quant " + json.dumps(
@@ -187,7 +246,7 @@ def main() -> int:
                                  "--phases", args.phases, root],
                                 stdout=f, stderr=subprocess.STDOUT).returncode
         for line in log.read_text().splitlines():
-            if line.startswith(("[ab]", "[serve_quant]", "[train]")) or "device busy" in line:
+            if line.startswith(("[ab]", "[serve_quant]", "[train")) or "device busy" in line:
                 print(line, flush=True)
         if rc != 0:
             print(f"[ab] run {i} failed (rc {rc}); see {log}", file=sys.stderr)
