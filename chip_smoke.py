@@ -10,7 +10,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: compiles ``flashattn_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version, bf16 and f32, at the paths' shapes (serving:
-   B4 H8 N2048 prefill, LN 8192 x 1024, paged decode; training: LN
+   B4 H8 N2048 prefill, LN 8192 x 1024 and decode rows 4 x 1024 (by
+   CUDA-graph replay), paged decode; training: LN
    16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
    B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
    16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward
@@ -88,23 +89,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    argmax agreement >= 0.8.
 11. fused-softmax kernels: the attention softmax forward and backward at
    the fused path's shape (8, 16, 2048, 2048) causal without a mask, and
-   ragged variants (T 33, 1000, causal; T 4097 non-causal, so every column
-   is read; a (B,1,1,T) padding mask with a length-0 row; a (1,1,F,T)
-   window mask; F != T), each in bf16 and f32, and the dropout variants at
-   the training FFN's shapes (act-bias GELU and ReLU at 16384 x 8192,
+   ragged variants (T 33, 1000, causal; T 4097 and 8200 non-causal, so
+   every column is read, the second past the register envelope; a
+   (B,1,1,T) padding mask with a length-0 row; a (1,1,F,T) window mask;
+   F != T), bf16 in both roundings (JAX's op graph, impl "auto", the
+   fused model's and the kernels line's; the Pallas function, "pallas")
+   and f32, each against its own plain version; and the dropout variants
+   at the training FFN's shapes (act-bias GELU and ReLU at 16384 x 8192,
    res-bias at 16384 x 2048, p 0.1, forward and backward, bf16 and f32).
-   The bf16 softmax is gated per element at one bf16 ulp of the reference
-   (2^-7 |ref| + 1e-6, the backward with slack for the f32 rounding of its
-   row sum), f32 as in phase 3.  Other tolerances as in phase 3; the dropout
+   The bf16 Pallas function is gated per element at one bf16 ulp of the
+   reference (2^-7 |ref| + 1e-6, the backward with slack for the f32
+   rounding of its row sum); the op graph, whose arithmetic is its plain
+   version's, at 99% of the elements bit for bit and every element within
+   two ulps forward (w = sum(e), an f32 sum in another order rounded to
+   bf16, may take the neighbouring value in a row) and one ulp plus
+   |out| 2^-4 (sum_row |dout out| + |dout|) backward; f32 as in phase 3.
+   Other tolerances as in phase 3; the dropout
    variants' dropped positions must be exactly those of the plain version's
    mask, then the values within tolerance (res-bias and ReLU bit for bit,
    GELU gated like a gradient: tanhf differs from torch.tanh).  The
    softmax yardsticks are torch.softmax on the pre-masked scores and
    torch._softmax_backward_data; the dropout variants have none.
 12. train_fused_softmax: phase 6's configuration and step with
-   attn_impl="fused_softmax" (score matmul, the softmax kernels, matmul
-   with V): losses finite and falling; softmax_fwd, softmax_bwd, LayerNorm
-   and dropout launched in every step and flash in none; one profiled step.
+   attn_impl="fused_softmax" (score matmul, the softmax kernels in JAX's
+   op-graph rounding, matmul with V): the bf16 step's losses finite and
+   falling, its peak memory logged (the op graph's backward keeps each
+   layer's scores); softmax_fwd, softmax_bwd, LayerNorm and dropout
+   launched in every step and flash in none; one profiled step.
 13. fused consistency: phase 7 with attn_impl="fused_softmax" (card vs CPU
    backward, p 0 and 0.1, the same bounds), and the fused-softmax model's
    dense f32 logits against the flash model's on the same weights, to 1e-4.
@@ -414,6 +425,13 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
                  _ln_cost(8192, 1024, isz), main=main,
                  library=lambda: torch.nn.functional.layer_norm(
                      x, (1024,), gam, bet))
+        xd = randn(4, 1024, dtype=dtype)
+        ph.check("layernorm_fwd", "decode rows 4 h 1024", dtype,
+                 lambda: ln.layernorm_fwd(xd, gam, bet)[0],
+                 lambda: ln.layernorm_reference(xd, gam, bet),
+                 _ln_cost(4, 1024, isz), graph=True,
+                 library=lambda: torch.nn.functional.layer_norm(
+                     xd, (1024,), gam, bet))
 
         # flash: batched varlen prefill B4 H8 N2048 D128
         lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
@@ -804,83 +822,123 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
     del xs
 
 
-def _softmax_cost(x, mask, causal, backward=False):
+def _softmax_cost(x, mask, causal, backward=False, op_graph=False):
     """(bytes, 0): the forward reads the entries of x that the causal mask
     leaves live (those past the diagonal are known without reading them)
-    and the mask's own elements once, and writes every output; the backward
-    reads out and dout and writes dinp."""
+    and the mask's own elements once, and writes every output; the Pallas
+    function's backward reads out and dout and writes dinp; the op graph's
+    backward reads x's and dout's live entries and the mask, and writes
+    dinp (0 past the diagonal, written without reading)."""
     b, h, f, t = x.shape
     isz = x.element_size()
-    if backward:
+    mask_bytes = 0 if mask is None else 4 * mask.numel()
+    if backward and not op_graph:
         return 3 * x.numel() * isz, 0
     live = b * h * (sum(min(i + 1, t) for i in range(f)) if causal else f * t)
-    return ((live + x.numel()) * isz
-            + (0 if mask is None else 4 * mask.numel())), 0
+    reads = 2 * live if backward else live
+    return (reads + x.numel()) * isz + mask_bytes, 0
 
 
 BF16_ULP = 2.0 ** -7   # one bf16 ulp relative to a value of [1, 2)
 
 
-def _ulp_err(got, want, slack=None):
+def _ulp_err(got, want, slack=None, ulps=1):
     """Per element, for bf16 results of f32 arithmetic: (max abs err, max of
-    |err| / (2^-7 |ref| + 1e-6 [+ slack])), gated at 1.  Both sides round
-    an f32 value to bf16, so a sound kernel is at most one bf16 ulp off; a
-    softmax output averages 1/T, far under any absolute gate."""
+    |err| / (ulps 2^-7 |ref| + 1e-6 [+ slack])), gated at 1.  Both sides
+    round an f32 value to bf16, so a sound kernel is at most one bf16 ulp
+    off; a softmax output averages 1/T, far under any absolute gate."""
     d = (got.float() - want.float()).abs()
-    allowed = want.float().abs().mul_(BF16_ULP).add_(1e-6)
+    allowed = want.float().abs().mul_(ulps * BF16_ULP).add_(1e-6)
     if slack is not None:
         allowed += slack
     return float(d.max()), float((d / allowed).max())
 
 
-def _softmax_bwd_ulp_err(out, dout):
-    """_ulp_err for dinp = out (dout - s), s = sum_row(dout out): the slack
-    |out| 2^-12 (sum_row |dout out| + |dout|) covers the f32 rounding of s
-    and of dout - s, whose difference may cancel to far below either."""
+def _softmax_bwd_ulp_err(out, dout, op_graph=False):
+    """_ulp_err for dinp = out (dout - s), s = sum_row(dout out).  The
+    Pallas function: the slack |out| 2^-12 (sum_row |dout out| + |dout|)
+    covers the f32 rounding of s and of dout - s, whose difference may
+    cancel to far below either.  The op graph computes the kernel's
+    arithmetic bit for bit (:func:`_softmax_check` holds the share), except
+    where w = sum(e), an f32 sum in another order rounded to bf16, takes
+    the neighbouring value: then dout / w moves by an ulp and s, a bf16
+    sum rounded at every add, by a few ulps of sum_row |dout out|, hence
+    |out| 2^-4 (sum_row |dout out| + |dout|)."""
     o, g = out.float(), dout.float()
     slack = (o * g).abs().sum(-1, keepdim=True).add(g.abs()).mul_(o.abs())
-    slack *= 2.0 ** -12
+    slack *= 2.0 ** (-4 if op_graph else -12)
     del o, g
     return lambda got, want: _ulp_err(got, want, slack)
 
 
-def _softmax_check(torch, ph, randn, label, x, mask, causal, main=False):
-    """softmax_fwd and softmax_bwd on one input; the yardsticks are
-    torch.softmax on the pre-masked scores and its backward.  bf16 is gated
-    per element at one ulp (:func:`_ulp_err`), f32 at ``TOL``."""
+def _softmax_check(torch, ph, randn, label, x, mask, causal, impl="auto",
+                   main=False):
+    """softmax_fwd and softmax_bwd on one input with ``impl``'s rounding
+    (the op graph for "auto" in bf16, the Pallas function else), each held
+    to its own plain version; the yardsticks are torch.softmax on the
+    pre-masked scores and its backward.  bf16 is gated per element at one
+    ulp (:func:`_ulp_err`), f32 at ``TOL``."""
     from flashattn_tpu_torch.ops import softmax as sm
     from flashattn_tpu_torch.ops._utils import DEFAULT_MASK_VALUE
 
     dtype = x.dtype
     bf = dtype == torch.bfloat16
+    op = bf and impl == "auto"
+    fwd_plain = (sm.attn_softmax_reference if impl == "auto"
+                 else sm._attn_softmax_pallas_reference)
     pre = x.float() if mask is None else x.float() + mask
     if causal:
         f, t = x.shape[-2:]
         future = torch.ones(f, t, dtype=torch.bool, device=x.device).triu(1)
         pre = pre.masked_fill(future, DEFAULT_MASK_VALUE)
     pre = pre.to(dtype)
-    ph.check("softmax_fwd", label, dtype,
-             lambda: sm.softmax_fwd(x, mask, causal),
-             lambda: sm.attn_softmax_reference(x, mask, causal),
+    # the op graph adds the mask in the scores' dtype (a weakly typed mask)
+    pmask = None if mask is None else mask.to(dtype) if op else mask
+    # the op graph rounds w = sum(e) to bf16: an f32 sum in another order may
+    # take the neighbouring value (2^-7 relative), moving the row's outputs
+    # by up to one more ulp
+    compare = ((lambda a, b: _ulp_err(a, b, ulps=2)) if op else _ulp_err
+               ) if bf else _max_err
+    ph.check("softmax_fwd", f"{label} {impl}", dtype,
+             lambda: sm.softmax_fwd(x, pmask, causal, impl),
+             lambda: fwd_plain(x, pmask, causal),
              _softmax_cost(x, mask, causal), main=main,
-             compare=_ulp_err if bf else _max_err, tol=1.0 if bf else None,
+             compare=compare, tol=1.0 if bf else None,
              library=lambda: torch.softmax(pre, -1))
     del pre
-    out = sm.attn_softmax_reference(x, mask, causal)
+    out = fwd_plain(x, pmask, causal)
     dout = randn(*x.shape, dtype=dtype)
-    ph.check("softmax_bwd", label, dtype,
-             lambda: sm.softmax_bwd(out, dout),
-             lambda: sm.softmax_bwd_reference(out, dout),
-             _softmax_cost(out, None, False, backward=True), main=main,
-             compare=_softmax_bwd_ulp_err(out, dout) if bf else _scaled_err,
+    if op:
+        run_kernel = lambda: sm.softmax_bwd(x, dout, pmask, causal, impl)
+        run_plain = lambda: sm._softmax_bwd_op_graph(x, dout, pmask, causal)
+    else:
+        run_kernel = lambda: sm.softmax_bwd(out, dout)
+        run_plain = lambda: sm.softmax_bwd_reference(out, dout)
+    ph.check("softmax_bwd", f"{label} {impl}", dtype, run_kernel, run_plain,
+             _softmax_cost(x, mask, causal, backward=True, op_graph=op),
+             main=main,
+             compare=_softmax_bwd_ulp_err(out, dout, op) if bf else _scaled_err,
              tol=1.0 if bf else None,
              library=lambda: torch._softmax_backward_data(dout, out, -1, dtype))
+    if op:
+        # the arithmetic is the plain version's: all but the rows whose w
+        # rounds the other way agree bit for bit
+        same = [float((k() == p()).float().mean()) for k, p in (
+            (lambda: sm.softmax_fwd(x, pmask, causal, impl),
+             lambda: fwd_plain(x, pmask, causal)), (run_kernel, run_plain))]
+        log(f"[kernel] softmax {label} auto: {100 * same[0]:.4f}% (forward), "
+            f"{100 * same[1]:.4f}% (backward) of the elements equal the "
+            f"plain version's bit for bit (gate 99%)")
+        if min(same) < 0.99:
+            raise AssertionError(f"softmax {label} auto: only {same} of the "
+                                 f"elements are bit-exact")
 
 
 def softmax_kernel_phases(torch, dev, ph: Phases, randn):
     """The fused-softmax path's kernels at its shape (B8 H16 N2048 causal, no
-    mask), then ragged and masked variants; each in bf16 and f32 (whose
-    kernels are other template instances)."""
+    mask; the main shape in the model's "auto" rounding), then ragged and
+    masked variants; each in bf16 and f32 (whose kernels are other template
+    instances), bf16 in both roundings."""
     b, h, n = TRAIN_BATCH, TRAIN["n_head"], TRAIN_SEQ
     lens = torch.tensor([2048, 0, 1536, 1024, 517, 2048, 1000, 33][:b],
                         device=dev)
@@ -888,18 +946,22 @@ def softmax_kernel_phases(torch, dev, ph: Phases, randn):
     padding = torch.where(cols[None] < lens[:, None], 0.0, -1e9)[:, None, None]
     window = torch.where(cols[None] > cols[:, None] - 256, 0.0, -1e9)[None, None]
     for dtype in (torch.bfloat16, torch.float32):
+        impls = ("auto", "pallas") if dtype == torch.bfloat16 else ("auto",)
         for i, (label, shape, mask, causal) in enumerate([
                 (f"B{b} H{h} N{n} causal", (b, h, n, n), None, True),
                 (f"T 33 causal, F {n}", (b, h, n, 33), None, True),
                 ("T 1000 causal", (b, h, 1000, 1000), None, True),
                 ("T 4097 non-causal, F 512", (2, h, 512, 4097), None, False),
+                ("T 8200 non-causal, F 64", (2, h, 64, 8200), None, False),
                 ("(B,1,1,T) padding mask, a length-0 row", (b, h, n, n),
                  padding, True),
                 ("(1,1,F,T) window 256 mask", (b, h, n, n), window, True),
                 ("F 1000 x T 2048 non-causal", (4, h, 1000, n), None, False)]):
             x = randn(*shape, dtype=dtype) * 3
-            _softmax_check(torch, ph, randn, label, x, mask, causal,
-                           main=dtype == torch.bfloat16 and i == 0)
+            for impl in impls:
+                _softmax_check(torch, ph, randn, label, x, mask, causal, impl,
+                               main=dtype == torch.bfloat16 and i == 0
+                               and impl == "auto")
             del x
             torch.cuda.empty_cache()
 

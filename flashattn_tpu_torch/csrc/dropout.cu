@@ -130,19 +130,12 @@ template <typename T, int S>
 cudaError_t launch_s(const T* x, T* out, long long n, long long head, long long groups,
                      unsigned long long seed, uint32_t threshold, float div,
                      cudaStream_t stream) {
-  static int per_sm = 0;  // resident blocks of this kernel on one SM
-  if (per_sm == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, dropout_kernel<T, S>, kThreads, 0);
-    if (e != cudaSuccess) return e;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static int per_sm = 0;
+  long long slots = 0;
+  const cudaError_t e = fa::resident_blocks(dropout_kernel<T, S>, kThreads, &per_sm, &slots);
   if (e != cudaSuccess) return e;
   const long long want = ((n + 7) / 8 + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-  const long long slots = (long long)sms * per_sm;
-  const int grid = int(want < slots ? want : slots > 0 ? slots : 1);
+  const int grid = int(want < slots ? want : slots);
   dropout_kernel<T, S><<<grid, kThreads, 0, stream>>>(x, out, n, head, groups, seed,
                                                       threshold, div);
   return cudaGetLastError();

@@ -7,10 +7,26 @@
 //
 // What bounds it on the H100: bytes.  A row is read and written once from
 // HBM (2 bytes an element each way in bf16), and the arithmetic is a few
-// operations an element.  Design: one warp per row, statistics in f32 with
-// a two-pass (mean, then centred variance) reduction by warp shuffles, so
-// no shared memory and no block barrier; the second and third passes over
-// the row hit L1.  Any hidden size works (strided loop, no envelope).
+// operations an element.  The 16-byte path (layernorm_fwd_vec_kernel, the
+// backward's layout) reads each row once: a row group of G warps owns a
+// row, each lane holding C 16-byte chunks of x in registers, all loads
+// issued before any is used; the mean, then the centred variance, from the
+// registers (the arithmetic order of _ln_fwd_kernel: mean = sum / h, var =
+// sum((x - mean)^2) / h, rstd = rsqrt(var + eps), y = (x - mean) * rstd *
+// gamma + beta), by warp shuffles and, for G > 1, the group's warps through
+// shared memory in warp order behind the group's own named barrier; y
+// stored from the registers with 16-byte stores, mean and rstd by the
+// group's first lane.  gamma and beta are read once per lane, with 16-byte
+// loads in their own dtype (two per chunk for f32 beside bf16 x), and kept
+// in registers while the lane's group walks its rows: the grid is sized to
+// the card (SMs x resident blocks).  G and C as the backward picks them (G
+// <= 8 warps, C <= 4 chunks: h up to 8192 bf16, 4096 f32).  Registers
+// (nvcc -Xptxas -v, sm_90a, no spills): bf16 x and gamma at G 4, C 2 (the
+// train rows, 2048) 59, at G 2, C 2 (1024) 59, at G 8, C 4 104; with f32
+// gamma 61 and 108; f32 x and gamma 48 (C 2) and 76 (C 4).  The
+// generic path (layernorm_fwd_kernel: one warp a row, scalar accesses, the
+// second and third passes over the row from L1) takes any h and any
+// alignment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,6 +149,137 @@ __device__ __forceinline__ void load_words(const void* p, uint32_t* w) {
 
 __device__ __forceinline__ void group_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <typename T, typename P, int G, int C>
+__global__ void __launch_bounds__(kBwdThreads)
+layernorm_fwd_vec_kernel(const T* __restrict__ x, const P* __restrict__ gamma,
+                         const P* __restrict__ beta, T* __restrict__ y,
+                         float* __restrict__ mean_out, float* __restrict__ rstd_out, int n,
+                         int h, float eps) {
+  constexpr int V = fa::kVec<T>;                 // values in a chunk
+  constexpr int GW = V * int(sizeof(P)) / 4;     // words of gamma (or beta) a chunk
+  constexpr int R = kBwdWarps / G;               // row groups in a block
+  __shared__ float red[2][kBwdWarps];            // a warp's sum, then its sum of squares
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / G, wg = warp % G;
+  const int nv = h / V;
+  // chunk k of this lane: 16-byte vector (k * G + wg) * 32 + lane of the row
+  int vec[C];
+  bool live[C];
+  uint32_t gw[C][GW], bw[C][GW];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    vec[k] = (k * G + wg) * 32 + lane;
+    live[k] = vec[k] < nv;
+    if (live[k]) {
+      load_words<GW>(gamma + size_t(vec[k]) * V, gw[k]);
+      load_words<GW>(beta + size_t(vec[k]) * V, bw[k]);
+    }
+  }
+
+  for (int row = blockIdx.x * R + grp; row < n; row += gridDim.x * R) {
+    const size_t base = size_t(row) * h;
+    uint4 xv[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (live[k]) xv[k] = fa::load16(x + base + size_t(vec[k]) * V);
+
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (live[k]) {
+        float xf[V];
+        fa::unpack16<T>(xv[k], xf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) s += xf[j];
+      }
+    s = warp_sum(s);
+    if constexpr (G > 1) {
+      if (lane == 0) red[0][warp] = s;
+      group_sync(1 + grp, 32 * G);
+      s = 0.f;
+#pragma unroll
+      for (int i = 0; i < G; ++i) s += red[0][grp * G + i];
+    }
+    const float mean = s / h;
+
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (live[k]) {
+        float xf[V];
+        fa::unpack16<T>(xv[k], xf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = xf[j] - mean;
+          ss += d * d;
+        }
+      }
+    ss = warp_sum(ss);
+    if constexpr (G > 1) {
+      if (lane == 0) red[1][warp] = ss;
+      group_sync(1 + grp, 32 * G);
+      ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < G; ++i) ss += red[1][grp * G + i];
+    }
+    const float rstd = rsqrtf(ss / h + eps);
+
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      if (live[k]) {
+        float xf[V], gf[V], bf[V];
+        fa::unpack16<T>(xv[k], xf);
+        fa::unpack<P, GW>(gw[k], gf);
+        fa::unpack<P, GW>(bw[k], bf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) xf[j] = (xf[j] - mean) * rstd * gf[j] + bf[j];
+        fa::store16(y + base + size_t(vec[k]) * V, fa::pack16<T>(xf));
+      }
+    if (wg == 0 && lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
+  }
+}
+
+template <typename T, typename P, int G, int C>
+cudaError_t launch_fwd_vec(const void* x, const void* gamma, const void* beta, void* y,
+                           void* mean, void* rstd, int n, int h, float eps,
+                           cudaStream_t stream) {
+  static int per_sm = 0;
+  long long resident = 0;
+  const cudaError_t e = fa::resident_blocks(layernorm_fwd_vec_kernel<T, P, G, C>, kBwdThreads,
+                                            &per_sm, &resident);
+  if (e != cudaSuccess) return e;
+  constexpr int R = kBwdWarps / G;
+  const long long want = (n + R - 1) / R;
+  const int blocks = int(want < resident ? want : resident);
+  layernorm_fwd_vec_kernel<T, P, G, C><<<blocks, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const P*>(gamma), static_cast<const P*>(beta),
+      static_cast<T*>(y), static_cast<float*>(mean), static_cast<float*>(rstd), n, h, eps);
+  return cudaGetLastError();
+}
+
+// The 16-byte path when h is whole chunks (at most 1024: 8192 bf16, 4096
+// f32) and x, y, gamma and beta are 16-byte aligned; the generic one else.
+// G and C as the backward picks them.
+template <typename T, typename P>
+cudaError_t run_fwd(const void* x, const void* gamma, const void* beta, void* y, void* mean,
+                    void* rstd, int n, int h, float eps, cudaStream_t st) {
+  constexpr int V = fa::kVec<T>;
+  const int nv = h / V;
+  const bool vec = h % V == 0 && nv <= 32 * kBwdWarps * kMaxChunks && fa::aligned16(x) &&
+                   fa::aligned16(y) && fa::aligned16(gamma) && fa::aligned16(beta);
+  if (!vec) return launch<T, P>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  if (nv <= 32) return launch_fwd_vec<T, P, 1, 1>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  if (nv <= 64) return launch_fwd_vec<T, P, 1, 2>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  if (nv <= 128) return launch_fwd_vec<T, P, 2, 2>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  if (nv <= 256) return launch_fwd_vec<T, P, 4, 2>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  if (nv <= 512) return launch_fwd_vec<T, P, 8, 2>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+  return launch_fwd_vec<T, P, 8, 4>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
 }
 
 template <typename T, typename P, int G, int C>
@@ -365,18 +512,13 @@ struct BwdArgs {
 // so that the grid fills the card once; plan_only sets a.parts to the grid.
 template <typename T, typename P, int G, int C>
 cudaError_t run_vec(BwdArgs& a, bool plan_only) {
-  static int per_sm = 0;  // resident blocks of this kernel on one SM
-  if (per_sm == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, layernorm_bwd_vec_kernel<T, P, G, C>, kBwdThreads, 0);
-    if (e != cudaSuccess) return e;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static int per_sm = 0;
+  long long resident = 0;
+  const cudaError_t e = fa::resident_blocks(layernorm_bwd_vec_kernel<T, P, G, C>, kBwdThreads,
+                                            &per_sm, &resident);
   if (e != cudaSuccess) return e;
   constexpr int R = kBwdWarps / G;
-  const int slots = max(1, sms * per_sm);
+  const int slots = int(resident);
   const int rows = (((a.n + slots - 1) / slots) + R - 1) / R * R;
   const int blocks = a.n == 0 ? 0 : (a.n + rows - 1) / rows;
   if (plan_only) {
@@ -479,17 +621,17 @@ extern "C" int fa_layernorm_bwd(const void* x, const void* dy, const void* mean,
 extern "C" int fa_layernorm_fwd(const void* x, const void* gamma, const void* beta,
                                 void* y, void* mean, void* rstd, int n, int h,
                                 float eps, int x_dtype, int p_dtype, void* stream) {
-  if (n == 0) return 0;
+  if (n == 0 || h == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && p_dtype == 0)
-    return launch<float, float>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+    return run_fwd<float, float>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
   if (x_dtype == 0 && p_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+    return run_fwd<float, __nv_bfloat16>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
   if (x_dtype == 1 && p_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
+    return run_fwd<__nv_bfloat16, float>(x, gamma, beta, y, mean, rstd, n, h, eps, st);
   if (x_dtype == 1 && p_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mean, rstd, n, h,
-                                                 eps, st);
+    return run_fwd<__nv_bfloat16, __nv_bfloat16>(x, gamma, beta, y, mean, rstd, n, h, eps,
+                                                 st);
   return int(cudaErrorInvalidValue);
 }
 

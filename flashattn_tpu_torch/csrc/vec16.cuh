@@ -1,7 +1,8 @@
 // 16-byte accesses of f32 and bf16 tensors: a uint4 holds 4 floats or 8
 // bf16 values, widened to and rounded from f32 (round to nearest even, as
 // __float2bfloat16).  Used by the bandwidth kernels (layernorm.cu,
-// dropout.cu), whose vector paths need 16-byte aligned bases.
+// dropout.cu, softmax.cu), whose vector paths need 16-byte aligned bases;
+// with the grid those kernels size to the card (resident_blocks).
 
 #pragma once
 
@@ -50,6 +51,32 @@ __device__ __forceinline__ uint4 pack16(const float* f) {
   constexpr int e = 4 / sizeof(T);
   return make_uint4(pack_word(f, T()), pack_word(f + e, T()), pack_word(f + 2 * e, T()),
                     pack_word(f + 3 * e, T()));
+}
+
+// Blocks of `kernel` at `threads` a block that the current device holds at
+// once (SMs x resident blocks an SM, at least 1): the grid of a kernel whose
+// blocks walk their work.  *per_sm caches the kernel's occupancy (a static
+// of its launcher, 0 before the first call); the SM count is cached per
+// device.
+template <typename Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, int* per_sm, long long* blocks) {
+  if (*per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  static int sms_by_device[64] = {0};
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && sms_by_device[dev] > 0) {
+    sms = sms_by_device[dev];
+  } else {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) sms_by_device[dev] = sms;
+  }
+  *blocks = (long long)sms * (*per_sm > 0 ? *per_sm : 1);
+  return cudaSuccess;
 }
 
 template <typename T>

@@ -159,7 +159,11 @@ class MultiHeadAttention(nn.Module):
         and the window (summed when both are set), the fused softmax kernel,
         then the product with V.  No dropout on the weights, as in JAX.  The
         divisor is a 0-dim tensor on the scores' device: PyTorch's CUDA
-        division by a Python scalar multiplies by its reciprocal instead."""
+        division by a Python scalar multiplies by its reciprocal instead.
+        The masks are built in f32 and summed, then taken to the scores'
+        dtype, as JAX's weakly typed masks (built from Python floats) meet
+        bf16 scores: the weights and the output stay in the scores'
+        dtype."""
         seq = q.shape[2]
         k, v = repeat_kv(k, v, q.shape[1])
         s = torch.matmul(q, k.transpose(-1, -2))
@@ -177,6 +181,8 @@ class MultiHeadAttention(nn.Module):
             local = cols[None, :] > rows[:, None] - self.window
             wmask = torch.where(local, 0.0, -1e9)[None, None, :, :]
             mask = wmask if mask is None else mask + wmask
+        if mask is not None:
+            mask = mask.to(s.dtype)
         return torch.matmul(attn_softmax(s, mask, self.causal), v)
 
     def forward(self, x: torch.Tensor, kv_lengths=None) -> torch.Tensor:

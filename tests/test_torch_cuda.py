@@ -55,18 +55,52 @@ def _rel_err(a, b):
     return _err(a, b) / max(1.0, float(b.float().abs().max()))
 
 
+LN_SHAPES = [(1, 1024), (37, 100), (5, 3, 2049)]
+# the 16-byte path's envelope, gated like chip_smoke's train rows: by
+# max(1, max |ref|), as over many rows |y| reaches [8, 16), where one bf16
+# ulp is 0.0625
+LN_VEC_SHAPES = [(3, 8), (70, 64), (4, 1024), (33, 2048), (9, 2056), (5, 4096),
+                 (3, 8192), (16384, 2048)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 1024), (37, 100), (5, 3, 2049)])
+@pytest.mark.parametrize("shape", LN_SHAPES + LN_VEC_SHAPES)
 def test_layernorm_kernel(dev, dtype, shape):
+    """The 16-byte path from h 8 (one masked chunk a row) to 8192 (bf16: 4
+    chunks a lane; f32 past the envelope, generic), 2056 (not a multiple of
+    256), decode rows (4, 1024) and the train rows; the generic path at h
+    100 and 2049 (not whole chunks in bf16)."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = _randn(g, *shape, dtype=dtype, dev=dev) * 2 + 0.5
     gam = _randn(g, shape[-1], dtype=dtype, dev=dev)
     bet = _randn(g, shape[-1], dtype=dtype, dev=dev)
+    _ln_fwd_check(x, gam, bet, dtype, scaled=shape in LN_VEC_SHAPES)
+
+
+@pytest.mark.parametrize("offset", ["row", "element"])
+@pytest.mark.parametrize("params", [torch.float32, torch.bfloat16])
+def test_layernorm_kernel_params_and_views(dev, params, offset):
+    """f32 gamma / beta beside bf16 x (two 16-byte loads of each per chunk)
+    and bf16 ones; x one row into a buffer (aligned: the 16-byte path) and
+    one element into it (the generic path)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    h = 1024
+    skip = h if offset == "row" else 1
+    x = _randn(g, 70 * h + skip, dtype=torch.bfloat16, dev=dev)[skip:].view(70, h)
+    assert (x.data_ptr() % 16 == 0) == (offset == "row")
+    gam = _randn(g, h, dtype=params, dev=dev)
+    bet = _randn(g, h, dtype=params, dev=dev)
+    _ln_fwd_check(x, gam, bet, torch.bfloat16)
+
+
+def _ln_fwd_check(x, gam, bet, dtype, scaled=False):
+    shape = x.shape
     before = ln._kernel.launches
     y, mean, rstd = ln.layernorm_fwd(x, gam, bet)
     assert ln._kernel.launches == before + 1
     assert y.dtype == dtype and mean.shape == (x.numel() // shape[-1], 1)
-    assert _err(y, ln.layernorm_reference(x, gam, bet)) <= TOL[dtype]
+    err = (_rel_err if scaled else _err)(y, ln.layernorm_reference(x, gam, bet))
+    assert err <= TOL[dtype]
     xf = x.float().reshape(-1, shape[-1])
     assert _err(mean[:, 0], xf.mean(-1)) <= 1e-4
     assert _err(rstd[:, 0], torch.rsqrt(xf.var(-1, unbiased=False) + 1e-5)) \
@@ -503,19 +537,28 @@ def test_quant_kernels_refuse_host_scales(dev):
     torch.cuda.synchronize()
 
 
-# (B, H, F, T, mask broadcast dims (B, H, F) or None, causal): T not a
-# multiple of the vector width, T past 4096, F != T both ways, every mask form
+# (B, H, F, T, mask or None, causal): mask is a broadcast form (B, H, F) of
+# random keys, or "window" (a (1,1,F,T) window of 16); T 1, 33 (not whole
+# 16-byte chunks: the scalar row path), 64 (several rows a warp), 1000, 2048
+# (row groups of 4 warps), 4097 and 8200 (past the register envelope: the
+# generic kernels), F != T both ways, every mask form
 SOFTMAX_CASES = {
     "t1_causal": (2, 3, 5, 1, None, True),
     "t33_b11t": (2, 3, 17, 33, (1, 0, 0), False),
     "t33_b11t_causal": (2, 3, 17, 33, (1, 0, 0), True),
+    "t64_causal": (2, 2, 64, 64, None, True),
     "t1000_11ft_causal": (1, 2, 40, 1000, (0, 0, 1), True),
     "t4097_bhft": (1, 2, 9, 4097, (1, 1, 1), False),
     "t4097_causal_f_lt_t": (1, 2, 9, 4097, None, True),
+    "t8200_b11t_causal": (2, 1, 9, 8200, (1, 0, 0), True),
     "f_gt_t_1h1t_causal": (2, 2, 70, 48, (0, 1, 0), True),
     "t2048_causal": (1, 2, 64, 2048, None, True),
+    "t2048_b11t_causal": (2, 2, 33, 2048, (1, 0, 0), True),
+    "t2048_window_causal": (1, 2, 80, 2048, "window", True),
     "t256_nomask": (2, 2, 16, 256, None, False),
 }
+SOFTMAX_IMPLS = [(torch.float32, "auto"), (torch.bfloat16, "auto"),
+                 (torch.bfloat16, "pallas")]
 
 
 def _within_bf16_ulp(got, want, slack=0.0):
@@ -525,61 +568,117 @@ def _within_bf16_ulp(got, want, slack=0.0):
     return bool((d <= want.float().abs() * 2 ** -7 + 1e-6 + slack).all())
 
 
-def _softmax_ok(got, want, dtype):
+def _softmax_ok(got, want, dtype, op_graph=False):
+    """bf16: one ulp; the op graph two, as w = sum(e), an f32 sum in another
+    order rounded to bf16, may take the neighbouring value (2^-7
+    relative), moving the row's outputs by one more ulp."""
     if dtype == torch.bfloat16:
-        return _within_bf16_ulp(got, want)
+        return _within_bf16_ulp(got, want, want.float().abs() * 2 ** -7
+                                if op_graph else 0.0)
     return _err(got, want) <= TOL[dtype]
 
 
-def _softmax_bwd_ok(got, want, out, dout, dtype):
+def _softmax_bwd_ok(got, want, out, dout, dtype, op_graph=False):
     """bf16: one ulp, plus |out| 2^-12 (sum_row |dout out| + |dout|) for the
-    f32 rounding of the row sum s and of dout - s, which may cancel."""
+    f32 rounding of the row sum s and of dout - s, which may cancel.  The op
+    graph is the plain version's arithmetic, except in a row whose w (an
+    f32 sum in another order, rounded to bf16) takes the neighbouring
+    value: dout / w moves by an ulp, s (a bf16 sum rounded at every add) by
+    a few ulps of sum_row |dout out|, hence the slack's 2^-4; such rows are
+    rare (test_softmax_op_graph_bwd_mostly_bit_exact)."""
     if dtype != torch.bfloat16:
         return _rel_err(got, want) <= TOL[dtype]
     o, g = out.float(), dout.float()
-    slack = (o * g).abs().sum(-1, keepdim=True).add(g.abs()) * o.abs() * 2 ** -12
-    return _within_bf16_ulp(got, want, slack)
+    slack = (o * g).abs().sum(-1, keepdim=True).add(g.abs()) * o.abs()
+    return _within_bf16_ulp(got, want, slack * 2 ** (-4 if op_graph else -12))
 
 
-def _softmax_inputs(case, dtype, dev):
+def _softmax_inputs(case, dtype, dev, offset=False):
+    """x (``offset``: a view one element into its buffer), the mask (in x's
+    dtype for bf16: the model's, a weakly typed mask in JAX) and causal."""
     b, h, f, t, dims, causal = SOFTMAX_CASES[case]
     g = torch.Generator(device=dev).manual_seed(11)
-    x = _randn(g, b, h, f, t, dtype=dtype, dev=dev) * 3
+    n = b * h * f * t
+    x = _randn(g, n + int(offset), dtype=dtype, dev=dev)
+    x = x.mul_(3)[int(offset):].view(b, h, f, t)
     mask = None
-    if dims is not None:
+    if dims == "window":
+        cols = torch.arange(t, device=dev)
+        rows = torch.arange(f, device=dev)
+        mask = torch.where(cols[None] > rows[:, None] - 16, 0.0, -1e9)[None, None]
+    elif dims is not None:
         shape = tuple(n if k else 1 for n, k in zip((b, h, f), dims)) + (t,)
         keep = torch.rand(shape, generator=g, device=dev) < 0.85
         mask = torch.where(keep, 0.0, -1e9)
         if dims[0] and b > 1:
             mask[1] = -1e9          # a batch row with every key masked
+    if mask is not None and dtype == torch.bfloat16:
+        mask = mask.to(dtype)
     return x, mask, causal
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
-def test_softmax_kernels(dev, dtype, case):
-    x, mask, causal = _softmax_inputs(case, dtype, dev)
+def _softmax_kernels_check(x, mask, causal, dtype, impl, dev):
+    op = dtype == torch.bfloat16 and impl == "auto"
+    plain = (sm.attn_softmax_reference if impl == "auto"
+             else sm._attn_softmax_pallas_reference)
     before = sm._fwd_kernel.launches
-    got = sm.softmax_fwd(x, mask, causal)
+    got = sm.softmax_fwd(x, mask, causal, impl)
     assert sm._fwd_kernel.launches == before + 1
-    want = sm.attn_softmax_reference(x, mask, causal)
+    want = plain(x, mask, causal)
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.isfinite(got).all()
-    assert _softmax_ok(got, want, dtype)
+    assert _softmax_ok(got, want, dtype, op)
     g = torch.Generator(device=dev).manual_seed(12)
     dout = _randn(g, *x.shape, dtype=dtype, dev=dev)
     before = sm._bwd_kernel.launches
-    dinp = sm.softmax_bwd(want, dout)
+    if op:
+        dinp = sm.softmax_bwd(x, dout, mask, causal, impl)
+        ref = sm._softmax_bwd_op_graph(x, dout, mask, causal)
+    else:
+        dinp = sm.softmax_bwd(want, dout)
+        ref = sm.softmax_bwd_reference(want, dout)
     assert sm._bwd_kernel.launches == before + 1
-    ref = sm.softmax_bwd_reference(want, dout)
     assert dinp.dtype == dtype
-    assert _softmax_bwd_ok(dinp, ref, want, dout, dtype)
+    assert _softmax_bwd_ok(dinp, ref, want, dout, dtype, op)
+
+
+@pytest.mark.parametrize("dtype, impl", SOFTMAX_IMPLS)
+@pytest.mark.parametrize("case", list(SOFTMAX_CASES))
+def test_softmax_kernels(dev, dtype, impl, case):
+    """Both roundings (the op graph is bf16's "auto"; f32 has one function)
+    against their plain versions: forward at one bf16 ulp, backward at one
+    ulp plus the slack of _softmax_bwd_ok."""
+    _softmax_kernels_check(*_softmax_inputs(case, dtype, dev), dtype, impl, dev)
+
+
+@pytest.mark.parametrize("dtype, impl", SOFTMAX_IMPLS)
+@pytest.mark.parametrize("case", ["t33_b11t_causal", "t2048_causal"])
+def test_softmax_kernels_offset_view(dev, dtype, impl, case):
+    """Scores one element into their buffer: a base off 16 bytes."""
+    x, mask, causal = _softmax_inputs(case, dtype, dev, offset=True)
+    assert x.storage_offset() == 1
+    _softmax_kernels_check(x, mask, causal, dtype, impl, dev)
+
+
+def test_softmax_op_graph_bwd_mostly_bit_exact(dev):
+    """The op graph's backward at T 2048 causal: the kernel's arithmetic is
+    the plain version's (XLA's bf16 sum in the same windows), so all but a
+    few rows, where the f32 row sum of e rounds w to the other bf16
+    neighbour, agree bit for bit."""
+    x, mask, causal = _softmax_inputs("t2048_causal", torch.bfloat16, dev)
+    dout = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+    got = sm.softmax_bwd(x, dout, mask, causal, "auto")
+    want = sm._softmax_bwd_op_graph(x, dout, mask, causal)
+    assert float((got == want).float().mean()) >= 0.99
+    fwd = sm.softmax_fwd(x, mask, causal, "auto")
+    same = fwd == sm.attn_softmax_reference(x, mask, causal)
+    assert float(same.float().mean()) >= 0.99
 
 
 @pytest.mark.parametrize("impl", ["auto", "pallas"])
 def test_softmax_autograd_launches_both_kernels(dev, impl):
     """Every call on a CUDA tensor launches the kernels, whatever impl says;
-    the gradients match the CPU's plain versions."""
+    the gradients match the CPU's plain versions (f32: one function)."""
     x, mask, causal = _softmax_inputs("t33_b11t_causal", torch.float32, dev)
     xg = x.clone().requires_grad_()
     dout = torch.randn_like(x)
@@ -594,6 +693,27 @@ def test_softmax_autograd_launches_both_kernels(dev, impl):
     (want,) = torch.autograd.grad(out_c, xc, dout.cpu())
     assert _err(out.detach().cpu(), out_c.detach()) <= 1e-5
     assert _rel_err(got.cpu(), want) <= 1e-5
+
+
+def test_softmax_autograd_bf16_op_graph(dev):
+    """bf16 through ``attn_softmax`` ("auto", a bf16 padding mask): the
+    forward and the op graph's backward launch once each and hold the CPU's
+    plain versions, bit for bit in all but a few rows."""
+    x, mask, causal = _softmax_inputs("t2048_b11t_causal", torch.bfloat16, dev)
+    xg = x.clone().requires_grad_()
+    dout = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+    fwd, bwd = sm._fwd_kernel.launches, sm._bwd_kernel.launches
+    out = sm.attn_softmax(xg, mask, causal)
+    (got,) = torch.autograd.grad(out, xg, dout)
+    assert (sm._fwd_kernel.launches, sm._bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    assert out.dtype == got.dtype == torch.bfloat16
+    xc = x.cpu().requires_grad_()
+    out_c = sm.attn_softmax(xc, mask.cpu(), causal)
+    (want,) = torch.autograd.grad(out_c, xc, dout.cpu())
+    assert float((out.detach().cpu() == out_c.detach()).float().mean()) >= 0.99
+    assert float((got.cpu() == want).float().mean()) >= 0.99
+    assert _softmax_bwd_ok(got.cpu(), want, out_c.detach(), dout.cpu(),
+                           torch.bfloat16, op_graph=True)
 
 
 # (n, d): one row, d not a multiple of 4 or 8, Philox blocks straddling rows,

@@ -11,6 +11,10 @@ the CPU with the same numpy-seeded inputs.
   variant and both backwards compute in f32 after rounding x + b to the
   input dtype, as their TPU kernels do.
 * GELU's constants take the input's dtype (bf16 literals for bf16 input).
+* The bf16 fused softmax (``attn_softmax``, impl "auto") is JAX's op graph:
+  each op rounded to bf16, the promoted dtype of a strong f32 mask, and the
+  backward JAX's autodiff of the graph with XLA:CPU's windowed bf16 sum,
+  bit for bit; ``impl="pallas"`` keeps the Pallas kernels' function (C7).
 * Public names of the done slices: ``Embedding(use_one_hot_matmul=)``,
   ``attn_softmax_pallas``, ``mha_attention`` and the engine keywords.
 """
@@ -432,3 +436,130 @@ def test_kv8_flash_bf16_gqa_rounds_like_jax(payload):
     lse_ok = np.abs(got[1].numpy() - np.asarray(want[1])) <= 1e-6
     assert lse_ok.mean() >= (0.99 if payload == "int8" else 1.0)
     _check_kv8(got, want, 0.01, 2e-3 if payload == "int8" else 1e-6)
+
+
+# -- C7: the bf16 fused-softmax path rounds like JAX's op graph -------------------
+
+
+def _sm_data(shape, seed):
+    """bf16 scores ~ 3 N(0, 1) and an upstream gradient, as torch and jax."""
+    x_np, g_np = _data(shape, seed, 3.0), _data(shape, seed + 1)
+    return _pair(x_np, "bfloat16"), _pair(g_np, "bfloat16")
+
+
+def _padding_masks(b, t, lengths):
+    """The model's (B, 1, 1, T) padding mask: the port's in bf16, JAX's
+    weakly typed (Python floats), as ``MultiHeadAttention`` builds them."""
+    valid = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    mt = torch.where(torch.from_numpy(valid), 0.0, -1e9).to(torch.bfloat16)
+    mj = jnp.where(jnp.asarray(valid), 0.0, -1e9)
+    return mt[:, None, None, :], mj[:, None, None, :]
+
+
+def _jax_vjp(x, mask, causal, g, impl="auto"):
+    fn = lambda a: jsm.attn_softmax(a, mask, causal, impl=impl)
+    return jax.vjp(fn, x)[1](g)[0]
+
+
+@pytest.mark.parametrize("t", [64, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_softmax_auto_bf16_matches_jax(t, causal):
+    """``attn_softmax`` (impl "auto") on bf16 scores is JAX's op graph bit
+    for bit: d = x - max, e = exp(d), w = sum_f32(e) and e / w each rounded
+    to bf16.  The f32-inside function (the parent's) differed in 72% of the
+    elements non-causal, 36% causal, at T 64."""
+    (xt, xj), _ = _sm_data((2, 2, 64, t), 21)
+    got = pt.attn_softmax(xt, None, causal)
+    assert got.dtype == torch.bfloat16
+    _same_bits(got, jsm.attn_softmax(xj, None, causal))
+
+
+def test_attn_softmax_auto_bf16_weak_mask_with_empty_row():
+    """A bf16 padding mask (JAX: weakly typed, so ``s + mask`` stays bf16)
+    with a length-0 row, causal and not: bf16 out, bit for bit, forward and
+    backward."""
+    (xt, xj), (gt, gj) = _sm_data((3, 2, 40, 96), 23)
+    mt, mj = _padding_masks(3, 96, [96, 0, 37])
+    for causal in (False, True):
+        xg = xt.clone().requires_grad_()
+        got = pt.attn_softmax(xg, mt, causal)
+        assert got.dtype == torch.bfloat16
+        _same_bits(got, jsm.attn_softmax(xj, mj, causal))
+        (dx,) = torch.autograd.grad(got, xg, gt)
+        _same_bits(dx, _jax_vjp(xj, mj, causal, gj))
+
+
+def test_attn_softmax_auto_strong_f32_mask_promotes_like_jax():
+    """A strong f32 mask beside bf16 scores promotes the result to f32 in
+    JAX; the port returns f32 too, with JAX's values (f32 arithmetic: exp
+    may differ in its last bit, hence 1e-6) and a bf16 gradient."""
+    (xt, xj), _ = _sm_data((2, 2, 16, 64), 25)
+    m_np = np.where(_data((2, 1, 1, 64), 26) > -0.8, 0.0, -1e9).astype(
+        np.float32)
+    want = jsm.attn_softmax(xj, jnp.asarray(m_np), True)
+    xg = xt.clone().requires_grad_()
+    got = pt.attn_softmax(xg, torch.from_numpy(m_np), True)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-6, rtol=0)
+    got.sum().backward()
+    assert xg.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("t", [64, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_softmax_auto_bf16_backward_matches_jax(t, causal):
+    """The bf16 backward against ``jax.vjp`` of JAX's ``attn_softmax``:
+    bit for bit (measured: 0 elements differ at T 64 and 2048, causal and
+    not).  Its ``reduce_sum`` of (dout / w^2) e is XLA:CPU's bf16 sum:
+    windows of 32, each summed in order with a bf16 rounding per add.  The
+    f32 formula out (dout - sum(out dout)) differed in 52-86%."""
+    (xt, xj), (gt, gj) = _sm_data((2, 2, 64, t), 27)
+    xg = xt.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(pt.attn_softmax(xg, None, causal), xg, gt)
+    _same_bits(dx, _jax_vjp(xj, None, causal, gj))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_softmax_pallas_bf16_matches_jax_kernel(causal):
+    """Guard: ``impl="pallas"`` keeps the Pallas kernels' function (f32
+    inside, one rounding) against the TPU kernels in interpret mode,
+    forward and backward, bf16 with a bf16 padding mask."""
+    (xt, xj), (gt, gj) = _sm_data((2, 2, 32, 64), 29)
+    mt, mj = _padding_masks(2, 64, [64, 21])
+    mj = mj.astype(jnp.bfloat16)
+    xg = xt.clone().requires_grad_()
+    got = pt.attn_softmax(xg, mt, causal, impl="pallas")
+    assert got.dtype == torch.bfloat16
+    _same_bits(got, jsm.attn_softmax(xj, mj, causal, impl="pallas"))
+    (dx,) = torch.autograd.grad(got, xg, gt)
+    frac, err = _differ(dx, _jax_vjp(xj, mj, causal, gj, impl="pallas"))
+    assert frac <= 0.01 and err <= 2 ** -8, (frac, err)
+
+
+@pytest.mark.parametrize("lengths", [None, [11, 0, 5]])
+def test_mha_fused_softmax_bf16_matches_jax(lengths):
+    """``MultiHeadAttention(attn_impl="fused_softmax")`` in bf16 (weights and
+    input cast to bf16 on both sides) against the JAX twin: the output
+    within one bf16 ulp of JAX's largest value (2^-8 max |JAX|), and at most
+    2% of its elements differ (the score and value products may accumulate
+    in f32 in another order; measured: none differs).  The f32-inside
+    softmax differed in 32-43% of them."""
+    jm = ft.MultiHeadAttention(64, 4, p_dropout=0.0, attn_impl="fused_softmax",
+                               causal=lengths is None, key=jax.random.PRNGKey(8))
+    tm = pt.MultiHeadAttention(64, 4, p_dropout=0.0, attn_impl="fused_softmax",
+                               causal=lengths is None)
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    jm = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, jm)
+    tm = tm.to(torch.bfloat16)
+    xt, xj = _pair(_data((3, 48, 64), 31), "bfloat16")
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    with torch.inference_mode():
+        got = tm(xt, None if lens is None else torch.from_numpy(lens))
+    want = jm(xj, kv_lengths=None if lens is None else jnp.asarray(lens))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    frac, err = _differ(got, want)
+    scale = float(jnp.abs(want.astype(jnp.float32)).max())
+    assert frac <= 0.02 and err <= 2 ** -8 * scale, (frac, err)

@@ -3,7 +3,9 @@
 The same numpy inputs go to the port's ``attn_softmax`` (a CPU tensor runs
 the plain forward and the plain version of the backward kernel), to JAX
 ``attn_softmax_reference`` and to JAX ``attn_softmax(..., impl="pallas")``,
-the Pallas kernels in interpret mode.  Tolerances are those of the JAX
+the Pallas kernels in interpret mode: in f32 the op graph (``impl="auto"``)
+and the Pallas function are one function.  bf16, where they differ, is held
+bit for bit in tests/test_torch_faults.py.  Tolerances are those of the JAX
 package's own tests (tests/test_ops_softmax.py): forward atol 1e-6 /
 rtol 1e-5, backward atol 1e-5 / rtol 1e-4, float32.
 """
@@ -119,14 +121,22 @@ def test_causal_replaces_the_mask():
 
 
 def test_rows_sum_to_one_and_dtype():
+    """bf16 scores beside a strong f32 mask: ``impl="auto"`` takes JAX's
+    promoted dtype, f32, with JAX's values; ``impl="pallas"`` keeps the
+    scores' dtype, as the Pallas kernel does."""
     x, mask = _inputs((1, 2, 16, 64), "b11t", seed=11)
-    out = pt.attn_softmax(torch.from_numpy(x).to(torch.bfloat16),
-                          torch.from_numpy(mask), True)
-    assert out.dtype == torch.bfloat16
-    np.testing.assert_allclose(out.float().sum(-1).numpy(), 1.0, atol=1e-2)
-    ref = pt.attn_softmax_reference(torch.from_numpy(x), torch.from_numpy(mask),
-                                    True)
-    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=4e-3)
+    xb, mt = torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask)
+    out = pt.attn_softmax(xb, mt, True)
+    want = j_attn_softmax(jnp.asarray(x).astype(jnp.bfloat16),
+                          jnp.asarray(mask), True)
+    assert out.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **FWD)
+    pal = pt.attn_softmax(xb, mt, True, impl="pallas")
+    assert pal.dtype == torch.bfloat16
+    np.testing.assert_allclose(pal.float().sum(-1).numpy(), 1.0, atol=1e-2)
+    ref = pt.attn_softmax_reference(torch.from_numpy(x), mt, True)
+    np.testing.assert_allclose(pal.float().numpy(), ref.numpy(), atol=4e-3)
 
 
 def test_impl_and_mask_shape_checks():

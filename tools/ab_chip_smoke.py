@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,serve_quant,train,train_fused] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,softmax,serve_quant,train,train_fused] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -25,6 +25,11 @@ a process of its own that imports that root's package and this repo's
   backward beside, and the bounds;
 * ``drop``: ``dropout`` at (16384, 2048), p 0.1, bf16 and f32, with
   ``F.dropout`` beside, and the bound;
+* ``softmax``: ``softmax_fwd`` and ``softmax_bwd`` at the fused step's
+  shape (8, 16, 2048, 2048) causal and at T 33 (F 2048), bf16 in both
+  roundings (a root whose kernels take no ``impl`` has the Pallas
+  function's alone) and f32, with ``torch.softmax`` and its backward
+  beside, and the bounds;
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -176,6 +181,45 @@ def _drop(torch, cs, dev):
         del x
 
 
+SOFTMAX_SHAPES = [("B8 H16 N2048 causal", (8, 16, 2048, 2048)),
+                  ("T 33 causal, F 2048", (8, 16, 2048, 33))]
+
+
+def _softmax(torch, cs, dev):
+    import inspect
+
+    from flashattn_tpu_torch.ops import softmax as sm
+
+    has_impl = "impl" in inspect.signature(sm.softmax_fwd).parameters
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, shape in SOFTMAX_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+            dout = torch.randn(shape, generator=g, device=dev).to(dtype)
+            name = str(dtype).replace("torch.", "")
+            future = torch.ones(shape[-2:], dtype=torch.bool, device=dev).triu(1)
+            pre = x.masked_fill(future, float("-inf"))
+            lib = cs.time_ms(lambda: torch.softmax(pre, -1))
+            out = torch.softmax(pre, -1)
+            lib_b = cs.time_ms(lambda: torch._softmax_backward_data(dout, out, -1, dtype))
+            impls = ["auto", "pallas"] if has_impl and dtype == torch.bfloat16 else [None]
+            for impl in impls:
+                kw = {} if impl is None else {"impl": impl}
+                op = impl == "auto"
+                fwd = cs.time_ms(lambda: sm.softmax_fwd(x, None, True, **kw))
+                res = x if op else sm.softmax_fwd(x, None, True, **kw)
+                bwd = cs.time_ms(lambda: sm.softmax_bwd(res, dout, None, True, **kw)
+                                 if kw else sm.softmax_bwd(res, dout))
+                b_f = cs.bound_ms(*cs._softmax_cost(x, None, True), name)[0]
+                b_b = cs.bound_ms(*cs._softmax_cost(x, None, True, backward=True,
+                                                    op_graph=op), name)[0]
+                print(f"[ab] softmax {name} {label} {impl or 'pallas (only)'}: fwd ms "
+                      f"{fwd:.4f}, torch.softmax {lib:.4f}, bound {b_f:.4f}; bwd ms "
+                      f"{bwd:.4f}, _softmax_backward_data {lib_b:.4f}, bound {b_b:.4f}",
+                      flush=True)
+            del x, dout, pre, out
+
+
 def child(root: str, phases: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
@@ -203,6 +247,8 @@ def child(root: str, phases: list[str]) -> None:
         _ln(torch, cs, dev)
     if "drop" in phases:
         _drop(torch, cs, dev)
+    if "softmax" in phases:
+        _softmax(torch, cs, dev)
     if "train" in phases:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0))
         torch.cuda.empty_cache()
