@@ -11,7 +11,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. kernels: every kernel of the serving and training paths against its
    plain PyTorch version, bf16 and f32, at the paths' shapes (serving:
    B4 H8 N2048 prefill, LN 8192 x 1024 and decode rows 4 x 1024 (by
-   CUDA-graph replay), paged decode; training: LN
+   CUDA-graph replay), paged attention (split-K decode and the wgmma
+   extend wave, against paged_attention_plain, the TPU kernels' page
+   walk: bf16 gated relative to max |ref|); training: LN
    16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
    B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
    16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward
@@ -63,7 +65,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    their eager time, the host's launch work included, logged beside),
    quantized
    paged attention (int8 and fp8 pools: decode B4 Hkv8 d128 at histories
-   <= 8192, chunk 64, GQA group 4, window 256), flash attention over an
+   <= 8192, chunk 64, GQA group 4, window 256; B1 Hkv8 decode at 16384
+   positions, the quantized model's capacity, for bf16, int8 and fp8
+   pools; the split plans and the paged kernels' registers and shared
+   memory logged once), flash attention over an
    int8 / fp8 KV cache (B4 H8 N2048 D128 causal, fp8 there transcoded to
    int8 as at the TPU subrow envelope; GQA 8q/2kv, cross non-causal
    1000 x 2048, ragged N 1000, bf16 q on the tensor-core kernel; yardstick
@@ -453,8 +458,9 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         qd = randn(4, 8, 128, dtype=dtype)
         ph.check("paged_attention", "decode B4 Hkv8 d128 page128", dtype,
                  lambda: pa.paged_attention(qd, kp, vp, lens, table),
-                 lambda: pa.paged_attention_reference(qd, kp, vp, lens, table),
-                 _paged_cost(qd, 1, 8, 8, lens), main=main)
+                 lambda: pa.paged_attention_plain(qd, kp, vp, lens, table),
+                 _paged_cost(qd, 1, 8, 8, lens), main=main,
+                 compare=_rel_err if main else None)
 
     bf = torch.bfloat16
     # flash variants at the prefill shape: every head dim, ragged lengths
@@ -510,8 +516,8 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
              2048, 8)]:
         ph.check("paged_attention", label, bf,
                  lambda: pa.paged_attention(q_, kp, vp, ln_, table),
-                 lambda: pa.paged_attention_reference(q_, kp, vp, ln_, table),
-                 _paged_cost(q_, chunk, hq, 8, ln_))
+                 lambda: pa.paged_attention_plain(q_, kp, vp, ln_, table),
+                 _paged_cost(q_, chunk, hq, 8, ln_), compare=_rel_err)
 
 
 def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False, window=None):
@@ -662,6 +668,27 @@ def _kv8_cost(q, k_values, causal):
             + 2 * kv_tokens * (d + 4)), ops
 
 
+def _log_paged_plan(torch, pa):
+    """The split plan of the paged shapes above, and the paged kernels'
+    registers, shared memory and spills (d 128), once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (b, rows, chunk, pps, dtype) in {
+            "decode B4 Hkv8 <= 2048": (4, 1, 1, 16, torch.bfloat16),
+            "decode B4 Hkv8 <= 8192": (4, 1, 1, 64, torch.bfloat16),
+            "decode B1 Hkv8 16384": (1, 1, 1, 128, torch.bfloat16),
+            "GQA 4 <= 8192": (4, 4, 1, 64, torch.bfloat16),
+            "chunk 64 <= 8192": (4, 64, 64, 64, torch.bfloat16),
+            "extend wave 2048": (4, 2048, 2048, 16, torch.bfloat16),
+            "f32 decode <= 8192": (4, 1, 1, 64, torch.float32)}.items():
+        sp, n = pa.split_plan(b, 8, rows, chunk, 128, pps, dtype, None, sms)
+        log(f"[paged] plan {label}: {n} splits of {sp} pages")
+    for pool in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+        attrs = pa.kernel_attrs(128, pool)
+        log(f"[paged] d128 {str(pool)[6:]} pool: " + ", ".join(
+            f"{k} {r} regs / {sm} B smem / {lc} B spill"
+            for k, (r, sm, lc) in attrs.items()))
+
+
 def quant_kernel_phases(torch, dev, ph: Phases, randn):
     """The four quantization kernels (quantized paged attention, the
     weight-only matmul, flash over a quantized KV cache, stochastic
@@ -721,9 +748,23 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
     # bf16 outputs are gated relative to max |ref|, f32 ones at 1e-4 abs
     ph.check("paged_attention", "decode B4 Hkv8 d128 <= 8192", bf,
              lambda: pa.paged_attention(qd, kp, vp, lens, table),
-             lambda: pa.paged_attention_reference(qd, kp, vp, lens, table),
+             lambda: pa.paged_attention_plain(qd, kp, vp, lens, table),
              _paged_cost(qd, 1, 8, 8, lens), compare=_rel_err)
     del kp, vp
+    # B1 Hkv8 d128 decode at 16384 positions (the serve_quant model's
+    # capacity), where one sequence has only eight (sequence, kv head) pairs
+    pps16 = 128
+    table16 = torch.randperm(pps16 + 1, generator=g, device=dev)[:pps16]
+    table16 = table16.reshape(1, pps16).int()
+    lens16 = torch.tensor([16384], device=dev)
+    q16 = randn(1, 8, 128, dtype=bf)
+    kp, vp = (randn(8, pps16 + 1, 128, 128, dtype=bf) for _ in range(2))
+    ph.check("paged_attention", "decode B1 Hkv8 d128 16384", bf,
+             lambda: pa.paged_attention(q16, kp, vp, lens16, table16),
+             lambda: pa.paged_attention_plain(q16, kp, vp, lens16, table16),
+             _paged_cost(q16, 1, 8, 8, lens16), compare=_rel_err)
+    del kp, vp
+    _log_paged_plan(torch, pa)
     for pname, payload in payloads.items():
         kq, vq = (quantize(randn(8, n_pages, 128, 128, dtype=torch.float32),
                            payload) for _ in range(2))
@@ -740,7 +781,7 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                          lambda: pa.paged_attention(q_, kq.values, vq.values,
                                                     lens, table, window=win,
                                                     **kw),
-                         lambda: pa.paged_attention_reference(
+                         lambda: pa.paged_attention_plain(
                              q_, kq.values, vq.values, lens, table, window=win,
                              **kw),
                          _paged_cost(q_, chunk, hq, 8, lens, quantized=True,
@@ -748,6 +789,17 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                          main=dtype == bf and chunk == 1 and hq == 8
                          and win is None,
                          compare=_rel_err if dtype == bf else None)
+        kq, vq = (quantize(randn(8, pps16 + 1, 128, 128, dtype=torch.float32),
+                           payload) for _ in range(2))
+        ph.check(f"paged_attention_{pname}", "decode B1 Hkv8 d128 16384", bf,
+                 lambda: pa.paged_attention(q16, kq.values, vq.values, lens16,
+                                            table16, k_scales=kq.scales,
+                                            v_scales=vq.scales),
+                 lambda: pa.paged_attention_plain(
+                     q16, kq.values, vq.values, lens16, table16,
+                     k_scales=kq.scales, v_scales=vq.scales),
+                 _paged_cost(q16, 1, 8, 8, lens16, quantized=True),
+                 compare=_rel_err)
         del kq, vq, kw
 
     # flash attention over a quantized KV cache
@@ -1430,7 +1482,7 @@ def profile_step(torch, run, label: str = "train step") -> None:
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
         r"\(anonymous namespace\)::(flash_|layernorm_|dropout_|softmax_"
-        r"|paged_kernel|wo_matmul_kernel|kv8_flash_"
+        r"|paged_|wo_matmul_kernel|kv8_flash_"
         r"|stochastic_quant_kernel)", kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])

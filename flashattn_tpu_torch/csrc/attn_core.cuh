@@ -13,11 +13,15 @@
 // Q, K and V tiles are staged in shared memory as f32 and every thread
 // computes a TR x TC block of scores with float4 shared-memory reads, so a
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
-// It serves the f32 flash forward, paged decode and kv8_flash with f32 q;
-// none of those has a tensor-core (mma/wgmma) path, cp.async/TMA double
-// buffering or split-K over keys yet.  The bf16 flash forward and
-// kv8_flash with bf16 q have their own wgmma kernels (flash_fwd.cu,
-// kv8_flash.cu, on hopper.cuh).
+// It serves the f32 flash forward, f32 paged attention and kv8_flash with
+// f32 q (TF32 tensor cores would break their 1e-4 gates); the bf16 flash
+// forward, kv8_flash and paged attention with bf16 q have their own
+// tensor-core kernels (flash_fwd.cu, kv8_flash.cu, paged_attention.cu, on
+// hopper.cuh).  Paged attention runs it under a split-K grid: a paged Src
+// (one with mask_value) gives the block its walk (a range of whole pages
+// of one sequence), scores a key that its page walk visits but a row does
+// not see at JAX's -1e30 rather than -inf, and may take the row's
+// unnormalised partial (acc, m, l) for a merge pass instead of o.
 
 #pragma once
 
@@ -27,6 +31,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fa {
 
@@ -125,6 +131,11 @@ __device__ void quantize_rows_int8(float* q_s, int ds, int n_rows) {
   }
 }
 
+// A paged Src: one with mask_value (see attend).
+template <class S, class = void> struct PagedMask : std::false_type {};
+template <class S>
+struct PagedMask<S, std::void_t<decltype(&S::mask_value)>> : std::true_type {};
+
 // Src is a policy with:
 //   int n_rows;                         valid query rows of this tile
 //   int kv_cap;                         key positions >= kv_cap read as 0
@@ -134,6 +145,11 @@ __device__ void quantize_rows_int8(float* q_s, int ds, int n_rows) {
 //     as f32 (dequantized for a quantized source), 0 <= pos < kv_cap
 //   T* o_row(int r);  float* lse_row(int r) (nullptr when not wanted)
 //   static constexpr bool kQuantQ;      quantize the staged q rows to int8
+// and, for a paged Src (PagedMask), also:
+//   void walk(int& lo, int& hi);        the block's key range (empty: 0, 0)
+//   float mask_value(int pos);          score of a key a row does not see
+//   float* partial_row(int r);          (acc[D], m, l) of row r unnormalised
+//                                       (exp2 base), or nullptr: write o
 // scale_log2 = sm_scale * log2(e) is folded into q as it is staged, so the
 // softmax runs in exp2 and lse is converted back to natural log.
 template <typename T, int D, int BM, class Src>
@@ -177,10 +193,14 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
     if (r < src.n_rows) src.bounds(r, lo[i], hi[i]);
   }
   int walk_lo = 1 << 30, walk_hi = 0;
-  for (int r = 0; r < src.n_rows; ++r) {
-    int a, b;
-    src.bounds(r, a, b);
-    if (a < b) { walk_lo = min(walk_lo, a); walk_hi = max(walk_hi, b); }
+  if constexpr (PagedMask<Src>::value) {
+    src.walk(walk_lo, walk_hi);
+  } else {
+    for (int r = 0; r < src.n_rows; ++r) {
+      int a, b;
+      src.bounds(r, a, b);
+      if (a < b) { walk_lo = min(walk_lo, a); walk_hi = max(walk_hi, b); }
+    }
   }
 
   float m[TR], l[TR], acc[TR][CPT];
@@ -236,7 +256,10 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         const int pos = kt + cg + CG * j;
-        if (pos < lo[i] || pos >= hi[i]) s[i][j] = -INFINITY;
+        if (pos < lo[i] || pos >= hi[i]) {
+          if constexpr (PagedMask<Src>::value) s[i][j] = src.mask_value(pos);
+          else s[i][j] = -INFINITY;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       mx = row_max<CG>(mx);
@@ -277,6 +300,15 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
   for (int i = 0; i < TR; ++i) {
     const int r = rg + RG * i;
     if (r >= src.n_rows) continue;
+    if constexpr (PagedMask<Src>::value) {
+      float* part = src.partial_row(r);
+      if (part != nullptr) {
+#pragma unroll
+        for (int e = 0; e < CPT; ++e) part[cg + CG * e] = acc[i][e];
+        if (cg == 0) { part[D] = m[i]; part[D + 1] = l[i]; }
+        continue;
+      }
+    }
     const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
     T* o = src.o_row(r);
 #pragma unroll

@@ -2,8 +2,10 @@
 // 128/64-byte shared-memory swizzle, wgmma matrix descriptors, the wgmma
 // instructions (bf16 x bf16 -> f32, A from shared memory or registers),
 // their fences, cp.async and a swizzled tile loader on it, mbarriers and
-// TMA; and the s8 x s8 -> s32 wgmma of the quantized-KV flash kernel.
-// Inline PTX only, so a kernel that includes this builds in seconds.
+// TMA; the s8 x s8 -> s32 wgmma of the quantized-KV flash kernel; and the
+// warp-level mma.sync m16n8k16 (bf16 -> f32) with ldmatrix, for tiles of
+// at most 16 rows (paged decode).  Inline PTX only, so a kernel that
+// includes this builds in seconds.
 //
 // Layouts (PTX ISA, "Shared memory matrix layout"; CUTLASS's canonical GMMA
 // layouts).  An operand tile lives in shared memory as regions of SW-byte
@@ -268,6 +270,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// mma.sync m16n8k16, f32 += bf16 x bf16, one warp.  Fragments (PTX ISA,
+// "Matrix fragments for mma.m16n8k16"), g = lane / 4, t = lane % 4:
+//   A (16 x 16, row-major): a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1],
+//     a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9] (bf16 pairs, the
+//     lower column in the low half);
+//   B (16 x 8): b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g];
+//   C (16 x 8, f32): d[0..1] = C[g][2t, 2t+1], d[2..3] = C[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix .x4 .trans: four 8 x 8 bf16 matrices whose rows lanes 8i..8i+7
+// address (16 bytes each); r[i] of lane (g, t) holds matrix i's elements
+// [2t][g] and [2t+1][g], the B fragment of a row-major K x N tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 }  // namespace hop

@@ -1,33 +1,87 @@
 """Paged attention over a paged KV cache (counterpart of
 flashattn_tpu/ops/paged_attention.py).
 
-On CUDA tensors :func:`paged_attention` launches the hand-written kernel
-``csrc/paged_attention.cu``, which replaces both TPU kernels
+On CUDA tensors :func:`paged_attention` launches the hand-written kernels
+of ``csrc/paged_attention.cu``, which replace both TPU kernels
 (``_paged_dma_body``, the pipelined page walk, and ``_paged_kernel``, the
-page-slot grid); on CPU tensors it runs :func:`paged_attention_reference`.
+page-slot grid): a split-K grid over each sequence's page walk (a
+``mma.sync`` decode tile for bf16 q at up to 16 rows per kv head, the bf16
+flash forward's ``wgmma`` tile for wider extend waves, the FMA tile for
+f32 q), whose splits a merge kernel combines.  On CPU tensors it runs
+:func:`paged_attention_plain`, the TPU kernels' function in PyTorch.
+
+Both follow the TPU kernels' rounding order, which JAX's model and engine
+run: q prescaled by ``scale * log2(e)`` in q's dtype, f32 scores from
+operands in q's dtype, the K scale on the scores, the softmax in exp2
+against a running max, p times the V scale rounded to q's dtype before
+the PV product.  :func:`paged_attention_reference` is the twin of JAX's
+oracle instead (dense gather, one f32 softmax over dequantized pages).
 
 A pool is either in q's dtype or quantized: int8 or float8_e4m3fn payload
 pages with per-token f32 scales ``k_scales``/``v_scales`` of shape
-(n_kv_heads, n_pages, page_size, 1), K = payload * scale.  The kernel
-dequantizes each K/V row in f32 as it stages it, as the plain version
-dequantizes the pages in f32 (the JAX oracle's order; the TPU kernel
-instead rounds p * v_scale to q's dtype before its PV dot).
+(n_kv_heads, n_pages, page_size, 1), K = payload * scale.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from . import _build
-from ._utils import check_no_grad, on_cuda, LOG2E
+from ._utils import cdiv, check_no_grad, on_cuda, LOG2E
 
-_kernel = _build.Kernel("fa_paged_attention", [_build.P] * 8 + [_build.I] * 9
+_kernel = _build.Kernel("fa_paged_attention", [_build.P] * 9 + [_build.I] * 11
                         + [_build.F, _build.I, _build.I])
 
 HEAD_DIMS = (32, 64, 128)
+# rows per kv head up to which bf16 q takes the mma.sync decode tile (one
+# m16 tile); wider waves take the 128-row wgmma tile
+DECODE_ROWS = 16
+# the least keys a split walks, so that its partial (d + 2 floats a row)
+# stays small beside the K/V it reads
+MIN_SPLIT_KEYS = 512
+# a grid of row tiles under two waves of the card is split into about this
+# many waves of blocks
+WAVES = 4
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def row_tile(rows: int, dtype: torch.dtype) -> int:
+    """Rows of one block's tile: the decode tile's 16 (bf16, rows <= 16),
+    the extend tile's 128 (bf16) or the FMA tile's 4, 16 or 64 (f32)."""
+    if dtype == torch.bfloat16:
+        return DECODE_ROWS if rows <= DECODE_ROWS else 128
+    return 4 if rows <= 4 else 16 if rows <= 16 else 64
+
+
+def split_plan(b: int, h_kv: int, rows: int, chunk: int, page_size: int,
+               pages_per_seq: int, dtype: torch.dtype, window: Optional[int],
+               sm_count: int, split_pages: Optional[int] = None):
+    """(split_pages, n_splits): how many pages of a sequence's walk one block
+    takes, and the number of splits.  The walk has at most the table's
+    width of pages (fewer under a window).  Without ``split_pages``, a grid
+    of row tiles that fills two waves of the card takes one split (no
+    merge); a smaller one as many splits as bring it near ``WAVES`` waves,
+    each of at least ``MIN_SPLIT_KEYS`` keys."""
+    walk = pages_per_seq
+    if window is not None:
+        walk = min(walk, cdiv(window + chunk - 1, page_size) + 1)
+    walk = max(walk, 1)
+    if split_pages is None:
+        blocks = b * h_kv * cdiv(rows, row_tile(rows, dtype))
+        split_pages = walk
+        if blocks < 2 * sm_count:
+            split_pages = max(cdiv(MIN_SPLIT_KEYS, page_size),
+                              cdiv(walk, cdiv(WAVES * sm_count, blocks)))
+    split_pages = max(1, min(int(split_pages), walk))
+    return split_pages, cdiv(walk, split_pages)
 
 
 def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
@@ -63,41 +117,71 @@ def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
             raise TypeError(f"{name} must be float32, got {sc.dtype}")
 
 
-def paged_attention_fwd(qg, k_pages, v_pages, lengths, page_indices, *,
-                        chunk: int, sm_scale: float,
-                        window: Optional[int] = None, k_scales=None,
-                        v_scales=None) -> torch.Tensor:
-    """Kernel launch on the kernel's layout: qg (B, Hkv, group*chunk, d) with
-    rows in (group, chunk) order; returns the same shape."""
-    check_no_grad(qg, k_pages, v_pages)
-    _check_pools(qg, k_pages, v_pages, k_scales, v_scales)
-    b, h_kv, rows, d = qg.shape
-    n_pages, page_size = k_pages.shape[1], k_pages.shape[2]
+def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
+                        sm_scale: float, window: Optional[int] = None,
+                        k_scales=None, v_scales=None,
+                        split_pages: Optional[int] = None) -> torch.Tensor:
+    """Kernel launch: q (B, chunk, Hq, d), returns the same shape; the
+    kernels read q and write o in this layout (a kv head's rows in (group,
+    chunk) order).  ``split_pages`` overrides :func:`split_plan`'s pages a
+    split (1: as many splits as pages)."""
+    check_no_grad(q, k_pages, v_pages)
+    _check_pools(q, k_pages, v_pages, k_scales, v_scales)
+    b, chunk, n_q_heads, d = q.shape
+    h_kv, n_pages, page_size = k_pages.shape[:3]
     if d not in HEAD_DIMS:
         raise ValueError(f"paged kernel head_dim must be one of {HEAD_DIMS}, "
                          f"got {d}")
+    if n_q_heads % h_kv:
+        raise ValueError(f"q heads ({n_q_heads}) must be a multiple of kv "
+                         f"heads ({h_kv})")
     if k_pages.shape != (h_kv, n_pages, page_size, d):
         raise ValueError(f"page pools {tuple(k_pages.shape)} do not match q "
-                         f"{tuple(qg.shape)}")
+                         f"{tuple(q.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    code = _build.dtype_code(qg)
+    rows = n_q_heads // h_kv * chunk
+    code = _build.dtype_code(q)
     page_code = code if k_scales is None else _build.payload_code(k_pages)
-    qg, k_pages, v_pages = (_build.aligned(t) for t in (qg, k_pages, v_pages))
+    q, k_pages, v_pages = (_build.aligned(t) for t in (q, k_pages, v_pages))
     scales = [None if t is None else _build.aligned(t)
               for t in (k_scales, v_scales)]
-    lens = lengths.to(device=qg.device, dtype=torch.int32).contiguous()
-    table = page_indices.to(device=qg.device, dtype=torch.int32).contiguous()
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    table = page_indices.to(device=q.device, dtype=torch.int32).contiguous()
     if lens.shape != (b,) or table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"lengths {tuple(lens.shape)} / page_indices "
                          f"{tuple(table.shape)} do not match batch {b}")
-    out = torch.empty_like(qg)
-    _kernel(qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    split_pages, n_splits = split_plan(
+        b, h_kv, rows, chunk, page_size, table.shape[1], q.dtype, window,
+        _sm_count(q.device.index or 0), split_pages)
+    ws = None
+    if n_splits > 1:
+        ws = torch.empty((b, h_kv, n_splits, rows, d + 2), dtype=torch.float32,
+                         device=q.device)
+    # q * scale_log2 is rounded to q's dtype in the kernels, as JAX rounds
+    # its weakly typed product: the scale itself is rounded first
+    scale_log2 = float(torch.tensor(sm_scale * LOG2E, dtype=q.dtype))
+    out = torch.empty_like(q)
+    _kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             *(None if t is None else t.data_ptr() for t in scales),
-            lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, h_kv, rows,
-            chunk, n_pages, page_size, table.shape[1], d, int(window or 0),
-            float(sm_scale * LOG2E), code, page_code)
+            lens.data_ptr(), table.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h_kv, rows, chunk,
+            n_pages, page_size, table.shape[1], d, int(window or 0),
+            split_pages, n_splits, scale_log2, code, page_code)
     return out
+
+
+def kernel_attrs(d: int, page_dtype: torch.dtype) -> dict:
+    """Registers a thread, dynamic shared memory and local (spill) bytes of
+    the paged kernels for head dim ``d`` and a pool of ``page_dtype``
+    (bf16, int8 or fp8), without launching: {kernel: (regs, smem, local)}."""
+    code = (1 if page_dtype == torch.bfloat16
+            else _build.payload_code(torch.empty(0, dtype=page_dtype)))
+    names = ("decode (bf16 q)", "extend (bf16 q)", "fma (f32 q, 16 rows)",
+             "merge")
+    return {name: tuple(_build.query("fa_paged_kernel_attr", [_build.I] * 4,
+                                     kind, d, code, what) for what in range(3))
+            for kind, name in enumerate(names)}
 
 
 def paged_attention(
@@ -122,28 +206,91 @@ def paged_attention(
     attention to the last ``window`` positions.  A quantized pool (int8 or
     float8_e4m3fn pages) comes with its f32 ``k_scales``/``v_scales``."""
     if not on_cuda(q, k_pages, v_pages, k_scales, v_scales):
-        return paged_attention_reference(q, k_pages, v_pages, lengths,
-                                         page_indices, k_scales, v_scales,
-                                         sm_scale=sm_scale, window=window)
+        return paged_attention_plain(q, k_pages, v_pages, lengths,
+                                     page_indices, k_scales, v_scales,
+                                     sm_scale=sm_scale, window=window)
+    chunked_in = q.dim() == 4
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    out = paged_attention_fwd(q if chunked_in else q[:, None], k_pages,
+                              v_pages, lengths, page_indices, sm_scale=scale,
+                              window=window, k_scales=k_scales,
+                              v_scales=v_scales)
+    return out if chunked_in else out[:, 0]
+
+
+def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
+                          k_scales=None, v_scales=None, sm_scale=None,
+                          window=None):
+    """Plain PyTorch version of the TPU kernels' function (the page walk of
+    ``_paged_dma_body`` / ``_paged_kernel``), which JAX's model and engine
+    run: q is prescaled by ``scale * log2(e)`` rounded to q's dtype; scores
+    are f32 dots of q with the payload in q's dtype, times the per-token K
+    scale; the online softmax runs page by page in exp2 against the running
+    max, masked scores at -1e30; p times the V scale is rounded to q's dtype
+    before the PV dot, acc stays f32 and is multiplied by 1 / l at the end
+    (1 where l is 0).  A page a sequence does not walk (before the window's
+    first page, or at and past ``min(cdiv(length, page), pages_per_seq)``)
+    leaves its m, l and acc untouched.  Page slots are walked across the
+    batch at once."""
+    _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     chunked_in = q.dim() == 4
     if not chunked_in:
         q = q[:, None]
     b, chunk, n_q_heads, d = q.shape
-    n_kv_heads = k_pages.shape[0]
-    if n_q_heads % n_kv_heads:
-        raise ValueError(f"q heads ({n_q_heads}) must be a multiple of kv "
-                         f"heads ({n_kv_heads})")
+    n_kv_heads, n_pages, page_size, _ = k_pages.shape
     group = n_q_heads // n_kv_heads
+    rows = group * chunk
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    # (B, chunk, Hq, d) -> (B, Hkv, group*chunk, d), rows ordered (group, chunk)
-    qg = q.reshape(b, chunk, n_kv_heads, group, d).permute(0, 2, 3, 1, 4)
-    qg = qg.reshape(b, n_kv_heads, group * chunk, d)
-    out = paged_attention_fwd(qg, k_pages, v_pages, lengths, page_indices,
-                              chunk=chunk, sm_scale=scale, window=window,
-                              k_scales=k_scales, v_scales=v_scales)
-    out = out.reshape(b, n_kv_heads, group, chunk, d).permute(0, 3, 1, 2, 4)
-    out = out.reshape(b, chunk, n_q_heads, d)
-    return out if chunked_in else out[:, 0]
+    dev = q.device
+    qg = q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=dev)
+    qg = qg.reshape(b, chunk, n_kv_heads, group, d).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(b, n_kv_heads, rows, d).float()
+    table = page_indices.to(dev).long()
+    lengths = lengths.to(dev).long()
+    pages_per_seq = table.shape[1]
+    base = lengths - chunk
+    n_walk = torch.clamp(torch.div(lengths.clamp(min=0) + page_size - 1,
+                                   page_size, rounding_mode="floor"),
+                         max=pages_per_seq)
+    first = torch.zeros_like(lengths)
+    if window is not None:
+        first = torch.div((base + 1 - window).clamp(min=0), page_size,
+                          rounding_mode="floor")
+    hi = base[:, None] + 1 + torch.arange(rows, device=dev)[None] % chunk
+    m = torch.full((b, n_kv_heads, rows), -math.inf, device=dev)
+    l = torch.zeros((b, n_kv_heads, rows), device=dev)
+    acc = torch.zeros((b, n_kv_heads, rows, d), device=dev)
+    for i in range(pages_per_seq):
+        run = (first <= i) & (i < n_walk)
+        if not bool(run.any()):
+            continue
+        pid = table[:, i].clamp(0, n_pages - 1)
+        k = k_pages[:, pid].transpose(0, 1).to(q.dtype).float()   # (B, H, page, d)
+        v = v_pages[:, pid].transpose(0, 1).to(q.dtype).float()
+        s = qg @ k.transpose(-1, -2)                              # (B, H, rows, page)
+        if k_scales is not None:
+            s = s * k_scales[:, pid, :, 0].transpose(0, 1)[:, :, None]
+        pos = i * page_size + torch.arange(page_size, device=dev)
+        keep = pos[None, None] < hi[:, :, None]                   # (B, rows, page)
+        if window is not None:
+            keep = keep & (pos[None, None] >= hi[:, :, None] - window)
+        s = torch.where(keep[:, None], s, -1e30)
+        m_next = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_next)
+        p = torch.exp2(s - m_next[..., None])
+        l_next = alpha * l + p.sum(-1)
+        if v_scales is not None:
+            p = p * v_scales[:, pid, :, 0].transpose(0, 1)[:, :, None]
+        pv = p.to(q.dtype).float() @ v
+        live = run[:, None, None]
+        m = torch.where(live, m_next, m)
+        l = torch.where(live, l_next, l)
+        acc = torch.where(live[..., None], acc * alpha[..., None] + pv, acc)
+    inv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    o = (acc * inv[..., None]).to(q.dtype)
+    o = o.reshape(b, n_kv_heads, group, chunk, d).permute(0, 3, 1, 2, 4)
+    o = o.reshape(b, chunk, n_q_heads, d)
+    return o if chunked_in else o[:, 0]
 
 
 def paged_attention_reference(q, k_pages, v_pages, lengths, page_indices,

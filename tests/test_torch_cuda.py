@@ -147,8 +147,8 @@ def test_flash_kernel(dev, dtype, case):
     assert _err(lse[fin], lse_ref[fin]) <= TOL[dtype]
 
 
-# (b, hq, hkv, d, chunk, page, pps, window): rows = group*chunk picks the
-# 4-, 16- and 64-row tiles
+# (b, hq, hkv, d, chunk, page, pps, window): small ragged shapes (pages
+# smaller than a tile, a chunk of 40 rows)
 PAGED_CASES = {
     "decode_page4_d32": (3, 4, 4, 32, 1, 4, 9, None),
     "gqa4_chunk3_page8_d64": (2, 8, 2, 64, 3, 8, 6, None),
@@ -177,8 +177,102 @@ def test_paged_kernel(dev, dtype, case):
     before = pa._kernel.launches
     out = pa.paged_attention(q, kp, vp, lens, table, window=window)
     assert pa._kernel.launches == before + 1
-    ref = pa.paged_attention_reference(q, kp, vp, lens, table, window=window)
-    assert _err(out, ref) <= TOL[dtype]
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window)
+    assert _paged_err(out, ref) <= TOL[dtype]
+
+
+# (b, hq, hkv, d, chunk, page, pps, lengths, window): the split-K grid at
+# serving sizes.  Page sizes 16, 100 and 128; lengths 0, 1, page +- 1, 8192
+# and 16384; chunks 1, 4, 64, 952 and 2048 (rows <= 16 take the decode
+# tile, wider waves the wgmma tile in bf16); GQA 1, 4 and 16; window 256;
+# lengths shorter than the chunk (rows that see no key) and padding waves
+# whose lengths run past the table's capacity.
+PAGED_SPLIT_CASES = {
+    "decode_gqa4_page16_d128": (6, 8, 2, 128, 1, 16, 1024,
+                                [0, 1, 15, 17, 8192, 16384], None),
+    "decode_gqa16_page128_d64": (5, 16, 1, 64, 1, 128, 128,
+                                 [127, 128, 129, 16384, 0], None),
+    "chunk4_gqa4_page100_d32": (5, 8, 2, 32, 4, 100, 82,
+                                [0, 1, 99, 101, 8192], None),
+    "decode_window256_page16_d128": (4, 4, 4, 128, 1, 16, 512,
+                                     [8192, 300, 1, 0], 256),
+    "chunk4_window256_page128_d128": (4, 8, 8, 128, 4, 128, 64,
+                                      [8192, 300, 4, 2], 256),
+    "chunk64_page128_d128": (4, 2, 2, 128, 64, 128, 64,
+                             [64, 129, 8192, 2], None),
+    "wave952_pad_page128_d128": (4, 2, 2, 128, 952, 128, 16,
+                                 [952, 1500, 2548, 0], None),
+    "wave952_pad_window256_page100_d64": (3, 4, 2, 64, 952, 100, 20,
+                                          [952, 2300, 1000], 256),
+    "wave2048_page128_d128": (2, 2, 2, 128, 2048, 128, 32, [2048, 4096],
+                              None),
+}
+POOLS = ["native", "int8", "fp8"]
+
+
+def _paged_err(got, want):
+    """bf16: max |err| over max |ref| (attention outputs over long random
+    histories are averages well under 1); f32: max |err|."""
+    err = _err(got, want)
+    if want.dtype == torch.bfloat16:
+        err /= max(float(want.float().abs().max()), 1e-30)
+    return err
+
+
+def _paged_split_inputs(case, dtype, pool, dev):
+    b, hq, hkv, d, chunk, page, pps, lens, window = PAGED_SPLIT_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11)
+    n_pages = b * pps + 1
+    if pool == "native":
+        kp, vp = (_randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+                  for _ in range(2))
+        kw = {}
+    else:
+        payload = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+        kq, vq = (_quantize(torch.randn(hkv, n_pages, page, d, generator=g,
+                                        device=dev), payload)
+                  for _ in range(2))
+        kp, vp = kq.values, vq.values
+        kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    q = _randn(g, b, chunk, hq, d, dtype=dtype, dev=dev)
+    return q, kp, vp, torch.tensor(lens, device=dev), table, kw, window
+
+
+@pytest.mark.parametrize("split", ["auto", "one", "max"])
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_kernel_splits(dev, case, dtype, pool, split, capsys):
+    """The split kernels and their merge against paged_attention_plain: the
+    planned split count, one split (the block writes o itself) and one
+    split per page; two calls equal bit for bit.  Logs the share of
+    elements equal to the plain version's bit for bit."""
+    q, kp, vp, lens, table, kw, window = _paged_split_inputs(case, dtype,
+                                                            pool, dev)
+    split_pages = {"auto": None, "one": table.shape[1], "max": 1}[split]
+
+    def run():
+        return pa.paged_attention_fwd(q, kp, vp, lens, table,
+                                      sm_scale=q.shape[-1] ** -0.5,
+                                      window=window, split_pages=split_pages,
+                                      **kw)
+
+    before = pa._kernel.launches
+    out = run()
+    assert pa._kernel.launches == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert torch.equal(out, again)          # fixed merge order, no atomics
+    err = _paged_err(out, ref)
+    same = float((out == ref).float().mean())
+    with capsys.disabled():
+        print(f"\n[paged] {case} {str(dtype)[6:]} {pool} split={split}: "
+              f"err {err:.3e}, bit for bit {100 * same:.2f}%")
+    assert err <= TOL[dtype]
 
 
 def test_kernels_refuse_grad_and_bad_head_dim(dev):
@@ -442,9 +536,9 @@ def test_paged_kernel_quantized(dev, case, dtype, payload):
     before = pa._kernel.launches
     out = pa.paged_attention(q, kq.values, vq.values, lens, table, **kw)
     assert pa._kernel.launches == before + 1
-    ref = pa.paged_attention_reference(q, kq.values, vq.values, lens, table,
-                                       **kw)
-    assert out.dtype == dtype and _err(out, ref) <= TOL[dtype]
+    ref = pa.paged_attention_plain(q, kq.values, vq.values, lens, table,
+                                   **kw)
+    assert out.dtype == dtype and _paged_err(out, ref) <= TOL[dtype]
 
 
 # (b, h, h_kv, n_q, n_kv, d, causal)

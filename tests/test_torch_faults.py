@@ -563,3 +563,134 @@ def test_mha_fused_softmax_bf16_matches_jax(lengths):
     frac, err = _differ(got, want)
     scale = float(jnp.abs(want.astype(jnp.float32)).max())
     assert frac <= 0.02 and err <= 2 ** -8 * scale, (frac, err)
+
+
+# -- C8: bf16 paged attention ----------------------------------------------------
+
+# (d, chunk, page, window, hq, hkv): d 128 takes JAX's pipelined page walk
+# (_paged_dma_body), d 32 its page-slot grid (_paged_kernel); GQA groups of
+# 2 and 4
+PAGED_BF16_CASES = {
+    "pipelined_decode": (128, 1, 8, None, 4, 2),
+    "pipelined_chunk4": (128, 4, 8, None, 4, 2),
+    "pipelined_gqa4_chunk2_window6": (128, 2, 8, 6, 8, 2),
+    "grid_decode": (32, 1, 4, None, 4, 2),
+    "grid_chunk4_window6": (32, 4, 4, 6, 4, 2),
+}
+# quantized pools: d 128 at page 128 rides the pipelined quantized walk,
+# d 32 the grid
+PAGED_QUANT_CASES = {
+    "pipelined_decode": (128, 1, 128, None, 4, 2),
+    "pipelined_chunk4": (128, 4, 128, None, 4, 2),
+    "grid_decode": (32, 1, 4, None, 4, 2),
+    "grid_chunk4_window6": (32, 4, 4, 6, 4, 2),
+}
+
+
+def _paged_bf16_inputs(seed, d, chunk, page, hq, hkv, payload=None):
+    """bf16 q and pools (or int8 / fp8 pools with their scales) for the port
+    and for JAX from the same numpy draws.  Five sequences of three pages:
+    a full table, a mid-page length, a length equal to the chunk, a length
+    0 and a padding length past the table's capacity."""
+    from flashattn_tpu.ops import quant as jq
+
+    rng = np.random.default_rng(seed)
+    b, pps, n_pages = 5, 3, 16
+    shape = (b, chunk, hq, d) if chunk > 1 else (b, hq, d)
+    q = rng.standard_normal(shape).astype(np.float32)
+    kp, vp = (rng.standard_normal((hkv, n_pages, page, d)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(n_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    lens = np.asarray([page * pps, page + chunk + 1, chunk, 0,
+                       page * pps + 3], np.int32)
+    qt, qj = _pair(q, "bfloat16")
+    rest_t = [torch.from_numpy(a) for a in (lens, table)]
+    rest_j = [jnp.asarray(a) for a in (lens, table)]
+    if payload is None:
+        (kt, kj), (vt, vj) = _pair(kp, "bfloat16"), _pair(vp, "bfloat16")
+        return (qt, kt, vt, *rest_t), {}, (qj, kj, vj, *rest_j), {}
+    quantize = jq.quantize_int8 if payload == "int8" else jq.quantize_fp8
+    tdt = torch.int8 if payload == "int8" else torch.float8_e4m3fn
+    kq, vq = quantize(jnp.asarray(kp), -1), quantize(jnp.asarray(vp), -1)
+
+    def values(t):
+        return torch.from_numpy(np.array(t.values.astype(jnp.float32))).to(tdt)
+
+    def scales(t):
+        return torch.from_numpy(np.array(t.scales))
+
+    return ((qt, values(kq), values(vq), *rest_t),
+            dict(k_scales=scales(kq), v_scales=scales(vq)),
+            (qj, kq.values, vq.values, *rest_j),
+            dict(k_scales=kq.scales, v_scales=vq.scales))
+
+
+def _paged_matches(got, want, d, abs_tol=None):
+    """Bit for bit at d 32.  At d 128 the f32 sums of the dots (128 products,
+    of widened int8 / fp8 payloads up to 127 or 448 in a quantized pool)
+    round in XLA's summation order, which PyTorch's matmul does not share
+    (XLA's own jit and eager dots disagree in ~0.4% of such scores): there
+    at least 99.5% of the elements are equal (0.01-0.12% differ at these
+    seeds) and every other one is within one bf16 ulp of JAX's value (and
+    ``abs_tol``, if given).  The order the port ran before differed in
+    34-51%."""
+    frac, err = _differ(got, want)
+    if d == 32:
+        assert frac == 0, f"{frac:.2e} of the elements differ (max {err:.2e})"
+        return
+    assert frac <= 5e-3, frac
+    want_f = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got.float().numpy() - want_f)
+    assert np.all(diff <= np.abs(want_f) * 2.0 ** -7), err
+    if abs_tol is not None:
+        assert err <= abs_tol, err
+
+
+@pytest.mark.parametrize("case", list(PAGED_BF16_CASES))
+def test_paged_attention_bf16_matches_jax_kernel(case):
+    """The port's paged attention on CPU tensors (its plain page walk) is
+    JAX's paged_attention in bf16 (tolerance: :func:`_paged_matches`): q
+    prescaled in bf16, f32 scores, the softmax page by page in exp2 at a
+    -1e30 mask, p rounded to bf16 before the PV dot.  The f32 oracle order
+    it ran before differed in 34-45% of the elements."""
+    from flashattn_tpu.ops import paged_attention as jpa
+
+    d, chunk, page, window, hq, hkv = PAGED_BF16_CASES[case]
+    args_t, _, args_j, _ = _paged_bf16_inputs(11, d, chunk, page, hq, hkv)
+    got = pt.paged_attention(*args_t, window=window)
+    want = jpa.paged_attention(*args_j, window=window)
+    assert got.dtype == torch.bfloat16
+    _paged_matches(got, want, d)
+
+
+@pytest.mark.parametrize("case", list(PAGED_QUANT_CASES))
+@pytest.mark.parametrize("payload", ["int8", "fp8"])
+def test_paged_attention_quantized_bf16_matches_jax_kernel(payload, case):
+    """int8 / fp8 pools with bf16 q: the payload widened to bf16 unscaled,
+    the K scale on the scores, p times the V scale rounded to bf16 before
+    the PV dot, as the TPU kernels (tolerance: :func:`_paged_matches`,
+    int8's other elements within 1e-4 besides).  The f32 dequantized order
+    it ran before differed in 35-51%."""
+    from flashattn_tpu.ops import paged_attention as jpa
+
+    d, chunk, page, window, hq, hkv = PAGED_QUANT_CASES[case]
+    args_t, kw_t, args_j, kw_j = _paged_bf16_inputs(12, d, chunk, page, hq, hkv,
+                                                    payload)
+    got = pt.paged_attention(*args_t, window=window, **kw_t)
+    want = jpa.paged_attention(*args_j, window=window, **kw_j)
+    assert got.dtype == torch.bfloat16
+    _paged_matches(got, want, d, abs_tol=1e-4 if payload == "int8" else None)
+
+
+@pytest.mark.parametrize("case", ["pipelined_chunk4", "grid_chunk4_window6"])
+def test_paged_attention_reference_bf16_matches_jax_oracle(case):
+    """The guard: the port's paged_attention_reference stays the twin of
+    JAX's f32 oracle (dense gather, one softmax) in bf16 too."""
+    from flashattn_tpu.ops import paged_attention as jpa
+
+    d, chunk, page, window, hq, hkv = PAGED_BF16_CASES[case]
+    args_t, _, args_j, _ = _paged_bf16_inputs(13, d, chunk, page, hq, hkv)
+    got = pt.paged_attention_reference(*args_t, window=window)
+    want = jpa.paged_attention_reference(*args_j, window=window)
+    frac, err = _differ(got, want)
+    assert frac <= 1e-3 and err <= 2.0 ** -7, (frac, err)

@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,softmax,serve_quant,train,train_fused] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,softmax,paged,serve_quant,train,train_fused] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -30,6 +30,12 @@ a process of its own that imports that root's package and this repo's
   roundings (a root whose kernels take no ``impl`` has the Pallas
   function's alone) and f32, with ``torch.softmax`` and its backward
   beside, and the bounds;
+* ``paged``: ``paged_attention`` at the serving shapes (B4 Hkv8 d128,
+  page 128: decode over histories <= 2048 and <= 8192 with bf16, int8 and
+  fp8 pools, chunk 64 and GQA group 4 over a bf16 pool at <= 2048 and an
+  int8 pool at <= 8192, the 2048-row extend wave; B1 Hkv8 decode at 16384
+  positions), with the plain version (where the root has
+  ``paged_attention_plain``) and the bound beside;
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -220,6 +226,57 @@ def _softmax(torch, cs, dev):
             del x, dout, pre, out
 
 
+# (label, batch, q shape after the batch, chunk, q heads, histories, pool)
+PAGED_SHAPES = [
+    ("decode <= 2048", (8, 128), 1, 8, [2048, 1536, 1024, 517], "bf16"),
+    ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "bf16"),
+    ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "int8"),
+    ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "fp8"),
+    ("chunk 64 <= 2048", (64, 8, 128), 64, 8, [2048, 1536, 1024, 517], "bf16"),
+    ("GQA 4 <= 2048", (32, 128), 1, 32, [2048, 1536, 1024, 517], "bf16"),
+    ("chunk 64 <= 8192", (64, 8, 128), 64, 8, [8192, 6144, 4096, 2053], "int8"),
+    ("GQA 4 <= 8192", (32, 128), 1, 32, [8192, 6144, 4096, 2053], "int8"),
+    ("extend wave 2048", (2048, 8, 128), 2048, 8, [2048] * 4, "bf16"),
+    ("B1 decode 16384", (8, 128), 1, 8, [16384], "bf16"),
+    ("B1 decode 16384", (8, 128), 1, 8, [16384], "int8"),
+]
+
+
+def _paged(torch, cs, dev):
+    from flashattn_tpu_torch.ops import paged_attention as pa
+    from flashattn_tpu_torch.ops import quant as qt
+
+    plain = getattr(pa, "paged_attention_plain", None)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, q_shape, chunk, hq, lens, pool in PAGED_SHAPES:
+        b = len(lens)
+        pps = max(-(-n // 128) for n in lens)
+        n_pages = b * pps + 1
+        table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+        table = table.reshape(b, pps).int()
+        lens_t = torch.tensor(lens, device=dev)
+        q = torch.randn((b, *q_shape), generator=g, device=dev).to(torch.bfloat16)
+        kv = [torch.randn(8, n_pages, 128, 128, generator=g, device=dev)
+              for _ in range(2)]
+        kw = {}
+        if pool == "bf16":
+            kp, vp = (t.to(torch.bfloat16) for t in kv)
+        else:
+            quantize = qt.quantize_int8 if pool == "int8" else qt.quantize_fp8
+            kq, vq = (quantize(t) for t in kv)
+            kp, vp = kq.values, vq.values
+            kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+        ms = cs.time_ms(lambda: pa.paged_attention(q, kp, vp, lens_t, table, **kw))
+        plain_ms = (cs.time_ms(lambda: plain(q, kp, vp, lens_t, table, **kw))
+                    if plain is not None else float("nan"))
+        bound = cs.bound_ms(*cs._paged_cost(q, chunk, hq, 8, lens_t,
+                                            quantized=pool != "bf16"),
+                            "bfloat16")[0]
+        print(f"[ab] paged {label} {pool} pool: ms {ms:.4f}, plain {plain_ms:.4f}, "
+              f"bound {bound:.4f}", flush=True)
+        del kv, kp, vp, kw
+
+
 def child(root: str, phases: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
@@ -249,6 +306,8 @@ def child(root: str, phases: list[str]) -> None:
         _drop(torch, cs, dev)
     if "softmax" in phases:
         _softmax(torch, cs, dev)
+    if "paged" in phases:
+        _paged(torch, cs, dev)
     if "train" in phases:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0))
         torch.cuda.empty_cache()
