@@ -20,7 +20,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and backward, tensor-core kernels, at head dims 32 / 64 / 128, n 517 /
    1000 / 3000, GQA 8/2 and 16/4, window 256, cross 1000 x 2048, a
    length-0 row, varlen).
-   Tolerance: f32 1e-4, bf16 2e-2, abs on unit-variance inputs for outputs
+   The bf16 flash forward (each schedule's function and the op graph) and
+   the op graph's backward: at least 99% of the elements bit for bit, the
+   rest within one bf16 ulp of their row's largest, lse within 1e-5; at
+   16384 keys LOOP_16K_GATE.
+   Other tolerances: f32 1e-4, bf16 2e-2, abs on unit-variance inputs for outputs
    and scaled by max(1, max |ref|) for gradients, which are sums over rows
    (bf16 rounds each output once, at 2^-8 of its magnitude); dropout
    bit-exact (the kernel and its plain version compute the same Philox
@@ -313,6 +317,68 @@ def _lse_err(got, want):
     return err, err
 
 
+# (share bit for bit, ulps of the row's largest) of the bf16 flash forward
+# at 16384 keys, below the 99% and one ulp of the other flash phases.  A
+# score's summation order flips the bf16 rounding of ~0.004% of the p at
+# any length, but a row sees up to 16384 of them: with its scores summed in
+# f64 the plain version agrees with itself in 99.80% of o at 2048 keys,
+# 99.51% at 9216 and 99.31% at 16384, and the tensor cores' order is a
+# third one (tools/flash_share_probe.py).  The kernel reads 98.8% there,
+# the rest within 1.19 ulps.
+LOOP_16K_GATE = (0.985, 2)
+
+
+def _row_ulp_share(got, want):
+    """(share of elements bit for bit, max |err| over one bf16 ulp of the
+    row's largest magnitude, 2^-7 max |ref row|; max abs err)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    row = w.abs().amax(-1, keepdim=True) * 2.0 ** -7
+    ratio = torch.where(d == 0, torch.zeros_like(d), d / row)
+    return float((g == w).float().mean()), float(ratio.max()), float(d.max())
+
+
+def _row_ulp_err(got, want, share=0.99, lse_tol=1e-5, label="", ulps=1):
+    """For bf16 results that round where the plain version rounds (the flash
+    forward's schedule functions and the op graph, its backward): (max abs
+    err, gated), gated <= 1 when at least ``share`` of the elements are bit
+    for bit, every other one within one bf16 ulp of its row's largest
+    magnitude, and lse (for an (o, lse) pair) within ``lse_tol``.  Over a
+    tuple of gradients, the worst of them.  Logs the shares."""
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    lse_gated = 0.0
+    if isinstance(got, tuple) and len(got) == 2 and got[1].dtype != got[0].dtype:
+        (o, lse), (o_ref, lse_ref) = got, want
+        fin = lse_ref.isfinite()
+        if not bool((lse.isfinite() == fin).all()):
+            return math.inf, math.inf
+        lse_gated = _abs_err(lse[fin], lse_ref[fin]) / lse_tol
+        pairs = [(o, o_ref)]
+    err, gated, shares = 0.0, lse_gated, []
+    for g, w in pairs:
+        sh, ulp, e = _row_ulp_share(g, w)
+        shares.append(sh)
+        err = max(err, e)
+        gated = max(gated, ulp / ulps, (1.0 - sh) / (1.0 - share))
+    log(f"[kernel] {label} bf16: " + ", ".join(f"{100 * x:.3f}%" for x in shares)
+        + f" bit for bit (gate {100 * share:.2f}%, the rest within {ulps} ulp of "
+        f"the row's largest)")
+    return err, gated
+
+
+def _flash_gate(dtype, label):
+    """``compare`` and ``tol`` of a flash forward check: bf16 by
+    :func:`_row_ulp_err` (gated at 1), f32 by :func:`_lse_err` at TOL."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return dict(compare=lambda got, want: _row_ulp_err(got, want, label=label),
+                    tol=1.0)
+    return dict(compare=_lse_err)
+
+
 def _grad_err(got, want):
     """Over a tuple of gradients: (max abs err, max of abs err over
     max(1, max |ref|)) — gradients are sums over rows."""
@@ -446,9 +512,10 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         ph.check("flash_fwd", "B4 H8 N2048 D128 causal varlen", dtype,
                  lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=scale,
                                       kv_lengths=lens),
-                 lambda: fa._reference_fwd_with_lse(q, k, v, True, scale, lens),
+                 lambda: fa.flash_fwd_plain(q, k, v, True, scale, lens),
                  _flash_cost(q, k, True, None, lens), main=main,
-                 compare=_lse_err, library=lambda: lib(*args))
+                 **_flash_gate(dtype, "flash_fwd varlen prefill"),
+                 library=lambda: lib(*args))
 
         # paged decode: B4, 8 kv heads, d128, page 128, histories <= 2048
         n_pages, pps = 4 * 16 + 1, 16
@@ -486,6 +553,11 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         ("causal N3000", (q3k, k3k, v3k), {}),
         ("cross non-causal 1000 x 2048", (q[:, :, :1000], k, v),
          dict(causal=False)),
+        ("grid D64 non-causal N2048", (q64, k64, v64), dict(causal=False)),
+        ("window 256, no lengths", (q, k, v), dict(window=256)),
+        ("op graph varlen N768", (q[:, :, :768], k[:, :, :768],
+                                  v[:, :, :768]),
+         dict(kv_lengths=torch.tensor([768, 500, 0, 300], device=dev))),
     ]
     for label, (a, b_, c), kw in variants:
         a, b_, c = (t.contiguous() for t in (a, b_, c))
@@ -496,9 +568,10 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         lib, args = _sdpa(torch, a, b_, c, causal, win, ln_)
         ph.check("flash_fwd", label, bf,
                  lambda: fa.flash_fwd(a, b_, c, causal=causal, sm_scale=sc, **kw),
-                 lambda: fa._reference_fwd_with_lse(a, b_, c, causal, sc, ln_,
-                                                    win),
-                 _flash_cost(a, b_, causal, win, ln_), compare=_lse_err,
+                 lambda: fa.flash_fwd_plain(a, b_, c, causal, sc, ln_, win),
+                 _flash_cost(a, b_, causal, win, ln_),
+                 **_flash_gate(bf, f"flash_fwd {label} ("
+                                        f"{fa._schedule(a, b_, causal, win, ln_ is not None).name})"),
                  library=lambda: lib(*args))
     del q, k, v, k2, v2, q32, k32, v32, q64, k64, v64, q3k, k3k, v3k
 
@@ -585,8 +658,9 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
         lib, args = _sdpa(torch, q, k, v, True, None, None)
         ph.check("flash_fwd", "train B4 H16 N2048 D128 causal", dtype,
                  lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
-                 lambda: fa._reference_fwd_with_lse(q, k, v, True, 128**-0.5),
-                 _flash_cost(q, k, True, None, None), compare=_lse_err,
+                 lambda: fa.flash_fwd_plain(q, k, v, True, 128**-0.5),
+                 _flash_cost(q, k, True, None, None),
+                 **_flash_gate(dtype, "flash_fwd train (subrow)"),
                  library=lambda: lib(*args))
         del q, k, v, do, lib, args
 
@@ -607,14 +681,32 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
         _flash_bwd_check(torch, ph, fa, label, bf, q, k, v, do, causal,
                          window, lens)
 
-    # two-level panel schedule's function (TPU row 7): the forward at 16K
+    # the op graph's forward and backward (below 1024 keys) at the train
+    # head shape
+    q, k, v, do = (randn(4, 16, 512, 128, dtype=bf) for _ in range(4))
+    lib, args = _sdpa(torch, q, k, v, True, None, None)
+    ph.check("flash_fwd", "op graph B4 H16 N512 D128 causal", bf,
+             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
+             lambda: fa.flash_fwd_plain(q, k, v, True, 128**-0.5),
+             _flash_cost(q, k, True, None, None),
+             **_flash_gate(bf, "flash_fwd op graph N512"),
+             library=lambda: lib(*args))
+    _flash_bwd_check(torch, ph, fa, "op graph B4 H16 N512 D128 causal", bf, q,
+                     k, v, do, True, None, None)
+
+    # the loop schedule's function (TPU rows 6, 7): the forward at 16K, held
+    # to LOOP_16K_GATE (see there)
     q, k, v = (randn(1, 2, 16384, 128, dtype=bf) for _ in range(3))
+    sc = 128 ** -0.5
     lib, args = _sdpa(torch, q, k, v, True, None, None)
     ph.check("flash_fwd", "B1 H2 N16384 D128 causal", bf,
-             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
-             lambda: fa._reference_fwd_with_lse(q, k, v, True, 128**-0.5),
-             _flash_cost(q, k, True, None, None), compare=_lse_err,
-             library=lambda: lib(*args))
+             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=sc),
+             lambda: fa.flash_fwd_plain(q, k, v, True, sc),
+             _flash_cost(q, k, True, None, None),
+             compare=lambda a, b: _row_ulp_err(
+                 a, b, LOOP_16K_GATE[0], label="flash_fwd loop N16384",
+                 ulps=LOOP_16K_GATE[1]),
+             tol=1.0, library=lambda: lib(*args))
 
 
 def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
@@ -626,10 +718,15 @@ def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
     ph.check("flash_bwd", label, dtype,
              lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
                                   sm_scale=sc, kv_lengths=lens, window=window),
-             lambda: fa._reference_bwd(q, k, v, lse, di, do, causal, sc, lens,
-                                       window),
+             lambda: fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens,
+                                        window),
              _flash_cost(q, k, causal, window, lens, backward=True),
-             main=main, compare=_grad_err,
+             main=main, **(
+                 dict(compare=lambda a, b: _row_ulp_err(
+                     a, b, label=f"flash_bwd {label}"), tol=1.0)
+                 if dtype == torch.bfloat16 and fa._schedule(
+                     q, k, causal, window, lens is not None).name == "op_graph"
+                 else dict(compare=_grad_err)),
              library=_sdpa_bwd(torch, q, k, v, do, causal, window, lens))
 
 
@@ -694,6 +791,7 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
     weight-only matmul, flash over a quantized KV cache, stochastic
     quantization) against their plain versions at the quantized serving
     shapes."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.ops import paged_attention as pa
     from flashattn_tpu_torch.ops import quant as qt
 
@@ -842,6 +940,25 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
         kv8_check(f"ragged N1000 causal {pname}", bf,
                   randn(4, 8, 1000, 128, dtype=bf), k3, v3, True)
         del k, v, k2, v2, k3, v3
+        # shapes the JAX tiler cannot divide (n_q 1 and 7): the public
+        # function falls back to the flash op graph over K and V dequantized
+        # to q's dtype, the flash kernel's op-graph mode
+        for n_q, n_kv in ((1, 40), (7, 200)):
+            kf, vf = kv(4, 8, n_kv, payload)
+            qf = randn(4, 8, n_q, 128, dtype=bf)
+            for causal in (False, True):
+                kd, vd = kf.dequantize(bf), vf.dequantize(bf)
+                lib, args = _sdpa(torch, qf, kd, vd, causal, None, None)
+                label = f"kv8 fallback {n_q} x {n_kv} {pname}" + (
+                    " causal" if causal else "")
+                ph.check("flash_fwd", label, bf,
+                         lambda: qt.flash_attention_kv_int8(qf, kf, vf, causal),
+                         lambda: fa._reference_fwd_with_lse(
+                             qf, kf.dequantize(bf), vf.dequantize(bf), causal,
+                             128 ** -0.5),
+                         _flash_cost(qf, kd, causal, None, None),
+                         **_flash_gate(bf, f"flash_fwd {label}"),
+                         library=lambda: lib(*args))
 
     # stochastic-rounding int8 quantization
     xs = randn(32768, 1024, dtype=bf)

@@ -28,25 +28,40 @@
 // fixed order.  Deterministic, no atomics.
 //
 // What bounds it on the H100: bytes (x, and r or g, read once; out or dx
-// written once), with Philox's ten rounds of integer multiplies behind.
-// Design: a block owns 64 rows x 1024 columns; each thread owns 4
-// consecutive columns, keeps their bias (and its db partial sums) in
-// registers, and walks the 64 rows.  When d % 4 == 0 the thread's 4
-// elements are exactly one Philox block and one vector load; otherwise they
-// straddle at most two blocks and load one by one.  The res-bias arithmetic
-// uses round-to-nearest intrinsics (__fadd_rn, __fdiv_rn: no fused
-// multiply-add, no reciprocal), so it is bit for bit the plain version's.
+// written once), with Philox's ten rounds of integer multiplies close
+// behind: act-bias at (16384, 8192) draws 33.5 M Philox blocks.  So it is
+// fast only if loads are in flight while the rounds run, the design of
+// dropout.cu.  A thread owns a group of 8 consecutive columns (one 16-byte
+// access of each operand in bf16, two in f32; two Philox blocks), keeps
+// their bias and db partial sums in registers, and walks rows with a
+// stride of the grid's row lanes, two rows at a time, the next two rows'
+// loads issued before this pair's Philox rounds (a register double
+// buffer).  Issue is the other limit: the division by 1 - rate runs as a
+// multiply by its reciprocal and one correction with the exact residual
+// (div8, the IEEE quotient), and GELU in bf16 takes the MUFU
+// tanh.  A block holds
+// min(256, d / 8) column groups and 256 / that row lanes; the grid holds
+// the column blocks times as many row blocks as fill the card once (the
+// kernel's resident blocks: SMs x blocks an SM), so there are
+// lanes = row blocks x row lanes a block db partial rows
+// (fa_dropout_bias_lanes), summed per column in a fixed order by the
+// second launch.  d % 8 != 0 (or a base off 16 bytes) takes the same
+// walk one element at a time, drawing a third Philox block where a group
+// straddles three.  The res-bias arithmetic uses round-to-nearest
+// intrinsics (__fadd_rn, __fdiv_rn: no fused multiply-add, no
+// reciprocal), so it is bit for bit the plain version's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "vec16.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // rows per block: one db partial per column
-constexpr int kThreads = 256;  // 4 columns a thread: 1024 columns a block
+constexpr int kThreads = 256;
+constexpr int kUnroll = 2;     // rows a thread has in flight at once
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
 
 enum Op { kResFwd = 0, kActFwd = 1, kResBwd = 2, kActBwd = 3 };
@@ -62,111 +77,212 @@ template <> __device__ __forceinline__ float round_t<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// four consecutive elements at a 4-element-aligned index
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
+// tanh for GELU: the accurate tanhf in f32; where the result rounds to bf16,
+// the MUFU approximation (one instruction, relative error about 2^-11, a
+// sixteenth of a bf16 ulp), as the accurate one costs more issue than the
+// kernel's bytes take at (16384, 8192).
+template <typename T> __device__ __forceinline__ float tanh_t(float x) { return tanhf(x); }
+template <> __device__ __forceinline__ float tanh_t<__nv_bfloat16>(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int ACT>
+template <typename T, int ACT>
 __device__ __forceinline__ float act_fwd(float u) {
   if constexpr (ACT == kGelu)
-    return 0.5f * u * (1.f + tanhf(kGeluC * (u + 0.044715f * (u * u * u))));
+    return 0.5f * u * (1.f + tanh_t<T>(kGeluC * (u + 0.044715f * (u * u * u))));
   return fmaxf(u, 0.f);
 }
 
-template <int ACT>
+template <typename T, int ACT>
 __device__ __forceinline__ float act_grad(float u) {
   if constexpr (ACT == kGelu) {
-    const float t = tanhf(kGeluC * (u + 0.044715f * (u * u * u)));
+    const float t = tanh_t<T>(kGeluC * (u + 0.044715f * (u * u * u)));
     return 0.5f * (1.f + t) + 0.5f * u * (1.f - t * t) * kGeluC * (1.f + 0.134145f * u * u);
   }
   return u > 0.f ? 1.f : 0.f;
 }
 
+// Eight quotients a[k] / b rounded to nearest, the IEEE quotients
+// __fdiv_rn gives, from rb = 1 / b (an IEEE division, once per b): q =
+// a rb, then one correction with the exact residual r = a - b q
+// (Markstein's step, the last of the division's own sequence; r == 0 means
+// q is exact, which also keeps the sign of a zero), three or four
+// instructions a quotient instead of the division's sequence, whose
+// range check sends zeros down its slow path.  Correctly rounded while a
+// and b stay far from the subnormal and overflow ranges: b_ok (b in
+// [2^-100, 2^100], checked once by the caller) and every nonzero |a[k]| in
+// [2^-100, 2^100]; otherwise the eight take __fdiv_rn.
+__device__ __forceinline__ void div8(float (&q)[8], const float (&a)[8], float b, float rb,
+                                     bool b_ok) {
+  bool ok = b_ok;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float aa = fabsf(a[k]);
+    ok &= aa == 0.f || (aa >= 0x1p-100f && aa <= 0x1p100f);
+  }
+  if (ok) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float q0 = __fmul_rn(a[k], rb);
+      const float r = __fmaf_rn(-q0, b, a[k]);
+      q[k] = r == 0.f ? q0 : __fmaf_rn(r, rb, q0);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q[k] = __fdiv_rn(a[k], b);
+  }
+}
+
+// Whether div8 may divide by b on its fast path.
+__device__ __forceinline__ bool div_by_ok(float b) {
+  return b >= 0x1p-100f && b <= 0x1p100f;
+}
+
+// The 8 values of a group: one (bf16) or two (f32) 16-byte loads when kVec,
+// else element by element (0 past d).
+template <typename T, bool kVec>
+struct Group {
+  static constexpr int V = fa::kVec<T>, kLoads = 8 / V;
+  uint4 raw[kLoads];
+  float f[8];
+  __device__ __forceinline__ void load(const T* p, int cols) {
+    if constexpr (kVec) {
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) raw[q] = fa::load16(p + q * V);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = k < cols ? to_f(p[k]) : 0.f;
+    }
+  }
+  __device__ __forceinline__ void unpack() {
+    if constexpr (kVec)
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) fa::unpack16<T>(raw[q], f + q * V);
+  }
+};
+
+// The Philox words of elements e0 .. e0 + 7: two blocks when e0 % 4 == 0
+// (kVec: d % 8 == 0), else three.
+template <bool kVec>
+__device__ __forceinline__ void group_bits(long long e0, unsigned long long seed,
+                                           uint32_t (&bits)[8]) {
+  const long long j0 = e0 >> 2;
+  const uint4 w0 = fa::philox_block(j0, seed), w1 = fa::philox_block(j0 + 1, seed);
+  if constexpr (kVec) {
+    const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) bits[k] = w[k];
+  } else {
+    const int s = int(e0 & 3);
+    const uint4 w2 = s ? fa::philox_block(j0 + 2, seed) : w1;
+    const uint32_t w[12] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y,
+                            w1.z, w1.w, w2.x, w2.y, w2.z, w2.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) bits[k] = w[s + k];
+  }
+}
+
 // a: x (forward) or g (backward); x2: x for the act-bias backward; r: the
-// residual of the res-bias forward; out: out or dx; part: (row blocks, d)
-// f32 partial column sums of dx (backward only).
-template <typename T, int OP, int ACT, bool kAligned>
+// residual of the res-bias forward; out: out or dx; part: (lanes, d) f32
+// partial column sums of dx (backward only).  bc column groups of 8 a
+// block, kThreads / bc row lanes a block, `lanes` row lanes in the grid.
+template <typename T, int OP, int ACT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 dropout_bias_kernel(const T* __restrict__ a, const T* __restrict__ x2,
                     const float* __restrict__ bias, const T* __restrict__ r,
-                    T* __restrict__ out, float* __restrict__ part, long long n, int d,
-                    unsigned long long seed, uint32_t threshold, float div) {
-  const int c0 = (blockIdx.y * kThreads + threadIdx.x) * 4;
-  if (c0 >= d) return;
-  const int cols = min(4, d - c0);
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int rows = int(min((long long)kRows, n - row0));
+                    T* __restrict__ out, float* __restrict__ part, long long n, int d, int bc,
+                    int lanes, unsigned long long seed, uint32_t threshold, float div) {
   constexpr bool kBwd = OP == kResBwd || OP == kActBwd;
+  constexpr bool kX2 = OP == kActBwd, kR = OP == kResFwd;
+  const int br = kThreads / bc;
+  if (int(threadIdx.x) >= bc * br) return;
+  const int c0 = (blockIdx.x * bc + threadIdx.x % bc) * 8;
+  if (c0 >= d) return;
+  const int cols = min(8, d - c0);
+  const int lane = blockIdx.y * br + threadIdx.x / bc;
 
-  float b[4] = {0.f, 0.f, 0.f, 0.f}, acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (OP != kResBwd)
-    for (int k = 0; k < cols; ++k) b[k] = bias[c0 + k];
-
-  for (int rr = 0; rr < rows; ++rr) {
-    const long long base = (row0 + rr) * d + c0;
-    uint32_t bits[4];
-    float av[4] = {}, xv[4] = {}, rv[4] = {}, y[4];
-    if constexpr (kAligned) {  // d % 4 == 0: base % 4 == 0, one Philox block
-      const uint4 w = fa::philox_block(base >> 2, seed);
-      bits[0] = w.x, bits[1] = w.y, bits[2] = w.z, bits[3] = w.w;
-      load4(a + base, av);
-      if constexpr (OP == kActBwd) load4(x2 + base, xv);
-      if constexpr (OP == kResFwd) load4(r + base, rv);
-    } else {
-      const long long j0 = base >> 2;
-      const uint4 w0 = fa::philox_block(j0, seed);
-      const uint4 w1 = ((base + cols - 1) >> 2) != j0 ? fa::philox_block(j0 + 1, seed) : w0;
-      const uint32_t words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      for (int k = 0; k < 4; ++k) {
-        bits[k] = words[int((base & 3) + k) & 7];
-        if (k < cols) {
-          av[k] = to_f(a[base + k]);
-          if constexpr (OP == kActBwd) xv[k] = to_f(x2[base + k]);
-          if constexpr (OP == kResFwd) rv[k] = to_f(r[base + k]);
-        }
-      }
-    }
+  float b[8], acc[8];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const bool keep = bits[k] >= threshold;
-      if constexpr (OP == kResFwd) {
-        const float u = round_t<T>(__fadd_rn(av[k], b[k]));
-        y[k] = __fadd_rn(rv[k], keep ? round_t<T>(__fdiv_rn(u, div)) : 0.f);
-      } else if constexpr (OP == kActFwd) {
-        y[k] = keep ? __fdiv_rn(act_fwd<ACT>(round_t<T>(__fadd_rn(av[k], b[k]))), div) : 0.f;
-      } else if constexpr (OP == kResBwd) {
-        y[k] = keep ? __fdiv_rn(av[k], div) : 0.f;
-      } else {
-        y[k] = keep ? __fdiv_rn(av[k], div) * act_grad<ACT>(round_t<T>(__fadd_rn(xv[k], b[k])))
-                    : 0.f;
+  for (int k = 0; k < 8; ++k) {
+    b[k] = OP != kResBwd && k < cols ? bias[c0 + k] : 0.f;
+    acc[k] = 0.f;
+  }
+  // x / div as __fdiv_rn gives it, by the reciprocal and one correction
+  // (div8)
+  const float rdiv = 1.f / div;
+  const bool fast = div_by_ok(div);
+  using G = Group<T, kVec>;
+  // kUnroll rows from r0 (a stride of `lanes` apart) into (a_, x_, r_)
+  auto load = [&](long long r0, G (&a_)[kUnroll], G (&x_)[kUnroll], G (&r_)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long ru = r0 + (long long)u * lanes;
+      if (ru < n) {
+        const long long base = ru * d + c0;
+        a_[u].load(a + base, cols);
+        if constexpr (kX2) x_[u].load(x2 + base, cols);
+        if constexpr (kR) r_[u].load(r + base, cols);
       }
-      if constexpr (kBwd) acc[k] += k < cols ? y[k] : 0.f;
     }
-    if constexpr (kAligned) {
-      store4(out + base, y);
-    } else {
-      for (int k = 0; k < cols; ++k) put(out + base + k, y[k]);
+  };
+  auto process = [&](long long r0, G (&a_)[kUnroll], G (&x_)[kUnroll], G (&r_)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long ru = r0 + (long long)u * lanes;
+      if (ru >= n) continue;
+      const long long base = ru * d + c0;
+      uint32_t bits[8];
+      group_bits<kVec>(base, seed, bits);
+      a_[u].unpack();
+      if constexpr (kX2) x_[u].unpack();
+      if constexpr (kR) r_[u].unpack();
+      // the numerators, their quotients by div, then the result
+      float num[8], q[8], y[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if constexpr (OP == kResFwd)
+          num[k] = round_t<T>(__fadd_rn(a_[u].f[k], b[k]));
+        else if constexpr (OP == kActFwd)
+          num[k] = act_fwd<T, ACT>(round_t<T>(__fadd_rn(a_[u].f[k], b[k])));
+        else
+          num[k] = a_[u].f[k];
+      }
+      div8(q, num, div, rdiv, fast);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const bool keep = bits[k] >= threshold;
+        if constexpr (OP == kResFwd)
+          y[k] = __fadd_rn(r_[u].f[k], keep ? round_t<T>(q[k]) : 0.f);
+        else if constexpr (OP == kActBwd)
+          y[k] = keep ? q[k] * act_grad<T, ACT>(round_t<T>(__fadd_rn(x_[u].f[k], b[k]))) : 0.f;
+        else
+          y[k] = keep ? q[k] : 0.f;
+        if constexpr (kBwd) acc[k] += k < cols ? y[k] : 0.f;
+      }
+      if constexpr (kVec) {
+        constexpr int V = fa::kVec<T>;
+#pragma unroll
+        for (int q = 0; q < 8 / V; ++q) fa::store16(out + base + q * V, fa::pack16<T>(y + q * V));
+      } else {
+        for (int k = 0; k < cols; ++k) put(out + base + k, y[k]);
+      }
     }
+  };
+  // two sets of kUnroll rows: the next set's loads are in flight while this
+  // set's Philox rounds and arithmetic run
+  const long long step = (long long)kUnroll * lanes;
+  G a0[kUnroll], x0[kUnroll], r0[kUnroll], a1[kUnroll], x1[kUnroll], r1[kUnroll];
+  load(lane, a0, x0, r0);
+  for (long long row = lane; row < n; row += 2 * step) {
+    load(row + step, a1, x1, r1);
+    process(row, a0, x0, r0);
+    load(row + 2 * step, a0, x0, r0);
+    process(row + step, a1, x1, r1);
   }
   if constexpr (kBwd)
-    for (int k = 0; k < cols; ++k) part[(long long)blockIdx.x * d + c0 + k] = acc[k];
+    for (int k = 0; k < cols; ++k) part[(long long)lane * d + c0 + k] = acc[k];
 }
 
 // db = the partials summed per column: 32 columns x 8 row groups per block,
@@ -188,34 +304,77 @@ dropout_colsum_kernel(const float* __restrict__ part, float* __restrict__ db, in
   }
 }
 
+// The launch shape of a kernel instance: column groups a block (bc),
+// grid (gx column blocks, gy row blocks) and row lanes (the db partial
+// rows).  gy fills the card once with gx * gy blocks, or gives each lane a
+// row when n is small.
+struct Plan {
+  int bc, gx, gy, lanes;
+};
+
+template <typename T, int OP, int ACT, bool kVec>
+cudaError_t plan(long long n, int d, Plan* p) {
+  static int per_sm = 0;
+  long long slots = 0;
+  const cudaError_t e =
+      fa::resident_blocks(dropout_bias_kernel<T, OP, ACT, kVec>, kThreads, &per_sm, &slots);
+  if (e != cudaSuccess) return e;
+  const int groups = (d + 7) / 8;
+  p->bc = groups < kThreads ? groups : kThreads;
+  const int br = kThreads / p->bc;
+  p->gx = (groups + p->bc - 1) / p->bc;
+  long long gy = slots / p->gx;
+  const long long need = (n + br - 1) / br;
+  gy = gy < need ? gy : need;
+  p->gy = int(gy > 0 ? gy : 1);
+  p->lanes = p->gy * br;
+  return cudaSuccess;
+}
+
+// The row lanes (db partial rows) of a launch on (n, d), 16-byte aligned
+// bases: d % 8 == 0 takes the vector kernel.
+template <typename T, int OP, int ACT>
+cudaError_t lanes_of(long long n, int d, int* lanes) {
+  Plan p;
+  const cudaError_t e = d % 8 == 0 ? plan<T, OP, ACT, true>(n, d, &p)
+                                   : plan<T, OP, ACT, false>(n, d, &p);
+  *lanes = p.lanes;
+  return e;
+}
+
+template <typename T, int OP, int ACT, bool kVec>
+cudaError_t launch_v(const void* a, const void* x2, const void* bias, const void* r,
+                     void* out, void* part, void* db, long long n, int d,
+                     unsigned long long seed, uint32_t threshold, float div, cudaStream_t st) {
+  Plan p;
+  cudaError_t e = plan<T, OP, ACT, kVec>(n, d, &p);
+  if (e != cudaSuccess) return e;
+  float* pp = static_cast<float*>(part);
+  if (n > 0) {
+    dropout_bias_kernel<T, OP, ACT, kVec><<<dim3(p.gx, p.gy), kThreads, 0, st>>>(
+        static_cast<const T*>(a), static_cast<const T*>(x2), static_cast<const float*>(bias),
+        static_cast<const T*>(r), static_cast<T*>(out), pp, n, d, p.bc, p.lanes, seed,
+        threshold, div);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (OP == kResBwd || OP == kActBwd) {
+    dropout_colsum_kernel<<<(d + 31) / 32, 256, 0, st>>>(pp, static_cast<float*>(db),
+                                                         n > 0 ? p.lanes : 0, d);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int OP, int ACT>
 cudaError_t launch(const void* a, const void* x2, const void* bias, const void* r, void* out,
                    void* part, void* db, long long n, int d, unsigned long long seed,
                    uint32_t threshold, float div, cudaStream_t st) {
-  const long long parts = (n + kRows - 1) / kRows;
-  if (parts > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(unsigned(parts), unsigned((d + 4 * kThreads - 1) / (4 * kThreads)));
-  const T* ap = static_cast<const T*>(a);
-  const T* xp = static_cast<const T*>(x2);
-  const float* bp = static_cast<const float*>(bias);
-  const T* rp = static_cast<const T*>(r);
-  T* op = static_cast<T*>(out);
-  float* pp = static_cast<float*>(part);
-  if (parts > 0) {
-    if (d % 4 == 0)
-      dropout_bias_kernel<T, OP, ACT, true><<<grid, kThreads, 0, st>>>(
-          ap, xp, bp, rp, op, pp, n, d, seed, threshold, div);
-    else
-      dropout_bias_kernel<T, OP, ACT, false><<<grid, kThreads, 0, st>>>(
-          ap, xp, bp, rp, op, pp, n, d, seed, threshold, div);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  if (OP == kResBwd || OP == kActBwd) {
-    dropout_colsum_kernel<<<(d + 31) / 32, 256, 0, st>>>(pp, static_cast<float*>(db), int(parts), d);
-    return cudaGetLastError();
-  }
-  return cudaSuccess;
+  if (d % 8 == 0)
+    return launch_v<T, OP, ACT, true>(a, x2, bias, r, out, part, db, n, d, seed, threshold,
+                                      div, st);
+  return launch_v<T, OP, ACT, false>(a, x2, bias, r, out, part, db, n, d, seed, threshold,
+                                     div, st);
 }
 
 template <int OP, int ACT>
@@ -233,12 +392,32 @@ int dispatch(const void* a, const void* x2, const void* bias, const void* r, voi
   return int(cudaErrorInvalidValue);
 }
 
+template <int OP, int ACT>
+int lanes_dtype(long long n, int d, int dtype) {
+  int lanes = 0;
+  const cudaError_t e = dtype == 0   ? lanes_of<float, OP, ACT>(n, d, &lanes)
+                        : dtype == 1 ? lanes_of<__nv_bfloat16, OP, ACT>(n, d, &lanes)
+                                     : cudaErrorInvalidValue;
+  return e != cudaSuccess ? -int(e) : lanes;
+}
+
 }  // namespace
 
+// The db partial rows of a backward launch on (n, d) (the `part` scratch
+// is (lanes, d) f32): res-bias (act < 0) or act-bias with act (0 GELU, 1
+// ReLU); minus a CUDA error code on failure.  Launches nothing.
+extern "C" int fa_dropout_bias_lanes(long long n, int d, int act, int dtype) {
+  if (d <= 0) return 0;
+  if (act < 0) return lanes_dtype<kResBwd, kGelu>(n, d, dtype);
+  if (act == kGelu) return lanes_dtype<kActBwd, kGelu>(n, d, dtype);
+  if (act == kRelu) return lanes_dtype<kActBwd, kRelu>(n, d, dtype);
+  return -int(cudaErrorInvalidValue);
+}
+
 // Forward (backward = 0): a = x, r = residual, out (n, d); part, db unused.
-// Backward (backward = 1): a = g, out = dx (n, d); part f32 (ceil(n / 64), d)
-// scratch, db f32 (d,).  bias f32 (d,).  dtype: 0 = float32, 1 = bfloat16
-// (a, r and out share it).  Every (n, d) array contiguous, 16-byte aligned.
+// Backward (backward = 1): a = g, out = dx (n, d); part f32 (lanes, d)
+// scratch (fa_dropout_bias_lanes), db f32 (d,).  bias f32 (d,).  dtype:
+// 0 = float32, 1 = bfloat16 (a, r and out share it).  Every (n, d) array contiguous, 16-byte aligned.
 extern "C" int fa_dropout_res_bias(const void* a, const void* bias, const void* r, void* out,
                                    void* part, void* db, long long n, int d,
                                    unsigned long long seed, unsigned int threshold,

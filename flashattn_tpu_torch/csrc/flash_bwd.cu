@@ -9,7 +9,10 @@
 //     backward of the bf16 training route;
 //   _bwd_dq_loop_kernel + _bwd_dkv_loop_kernel (wrapper _flash_bwd_loop),
 //     the split dense causal backward of the f32 training route.
-// One pair of kernels (per dtype) computes all three functions.
+// One pair of kernels (per dtype) computes all three functions.  Below
+// 1024 keys and at shapes JAX cannot tile, JAX differentiates XLA's op
+// graph instead (jax.vjp in _flash_vjp_bwd / _varlen_vjp_bwd); in bf16 the
+// op_graph mode below computes that function.
 //
 // Math, for query row R and key c in R's live interval [lo, hi)
 // (fa::dense_bounds, the policy of the forward kernel), in base 2 as the
@@ -57,6 +60,20 @@
 // throughput and shared-memory reads: TF32 tensor cores would break the
 // 1e-4 gates of the f32 card-vs-CPU backward.  A block there owns 64 keys
 // or 64 query rows and stages its tiles as f32.
+//
+// The op graph's backward in bf16 (op_graph = 1) runs the same CUDA-core
+// kernels (kOp), whose f32 products keep its ds unrounded: with
+// s = q . k sm_scale, e = exp(s - m), l = sum e and p = e / l, autodiff
+// (torch autograd's order, which matches JAX's) gives per pair
+//   dp = bf16(do . v);   ds = (dp / l + r) e sm_scale, each op rounded in f32;
+//   dv_c += bf16(p) do;   dq_R += ds k_c;   dk_c += ds q_R   (f32, rounded once)
+// with r = sum_c -dp ((e / l) / l), the gradient reaching l.  A first
+// launch (flash_bwd_opstats_kernel) walks each row's keys three times for
+// (m, l, r); the dK/dV and dQ kernels then take (m, l, r) where they took
+// (lse, di).  With GQA each query head's dk and dv round to bf16 before
+// the group sums them, as the backward of repeating K and V does.  The
+// argmax's share of the max's gradient (zero but for rounding) is left
+// out.
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
@@ -73,7 +90,11 @@ constexpr int PS = BT + 4;            // padded stride of a 64 x 64 tile
 
 template <int D> constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (4 * size_t(BT) * (D + 4) + 2 * size_t(BT) * PS + 2 * size_t(BT));
+         (4 * size_t(BT) * (D + 4) + 2 * size_t(BT) * PS + 3 * size_t(BT));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Stage rows [row0, row0 + BT) of a (n, D) row-major matrix as f32 with
@@ -136,25 +157,49 @@ __device__ __forceinline__ void tile_times(const float* p, const float* m,
   }
 }
 
-// p and ds of one (row R, key c) pair; p = 0 outside R's live interval.
+// p and ds of one (row R, key c) pair from the row's statistics st[0..2]
+// (stride BT); p = 0 outside R's live interval.
+//   kOp = false (the TPU kernels): st = (lse log2(e), di), in base 2,
+//     p = exp2(s sm_scale log2(e) - lse2), ds = p (dp - di) sm_scale.
+//   kOp = true (autodiff of the op graph, in torch autograd's order):
+//     st = (m, l, r), e = exp(s sm_scale - m), p = bf16(e / l),
+//     ds = (bf16(dp) / l + r) e sm_scale, each op rounded in f32.
+template <bool kOp>
 __device__ __forceinline__ void prob(float s, float dp, int R, int c, int n_q,
                                      int kv_len, int causal, int window,
                                      float scale_log2, float sm_scale,
-                                     float lse2, float di, float& p, float& ds) {
+                                     const float* st, float& p, float& ds) {
   int lo, hi;
   fa::dense_bounds(R, kv_len, causal, window, lo, hi);
-  p = (R < n_q && c >= lo && c < hi) ? exp2f(s * scale_log2 - lse2) : 0.f;
-  ds = p * (dp - di) * sm_scale;
+  const bool live = R < n_q && c >= lo && c < hi;
+  if constexpr (kOp) {
+    const float m = st[0], l = st[BT], r = st[2 * BT];
+    if (!live || l == 0.f) { p = ds = 0.f; return; }
+    const float e = expf(__fmul_rn(s, sm_scale) - m);
+    p = round_bf16(__fdiv_rn(e, l));
+    ds = __fmul_rn(__fmul_rn(__fadd_rn(__fdiv_rn(round_bf16(dp), l), r), e), sm_scale);
+  } else {
+    p = live ? exp2f(s * scale_log2 - st[0]) : 0.f;
+    ds = p * (dp - st[BT]) * sm_scale;
+  }
 }
 
-// Per-row statistics of a query tile: lse in base 2 and di; 0 past n_q.
-__device__ __forceinline__ void stage_stats(float* lse_s, float* di_s,
-                                            const float* lse, const float* di,
-                                            int row0, int n_q) {
+// Per-row statistics of a query tile into st (three arrays of BT): the
+// TPU kernels' (lse in base 2, di); the op graph's (m, l, r) from ops.
+// 0 past n_q.
+template <bool kOp>
+__device__ __forceinline__ void stage_stats(float* st, const float* lse, const float* di,
+                                            const float* ops, int row0, int n_q) {
   for (int i = threadIdx.x; i < BT; i += NT) {
     const int R = row0 + i;
-    lse_s[i] = R < n_q ? lse[R] * LOG2E : 0.f;
-    di_s[i] = R < n_q ? di[R] : 0.f;
+    const bool in = R < n_q;
+    if constexpr (kOp) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) st[c * BT + i] = in ? ops[size_t(R) * 3 + c] : 0.f;
+    } else {
+      st[i] = in ? lse[R] * LOG2E : 0.f;
+      st[BT + i] = in ? di[R] : 0.f;
+    }
   }
 }
 
@@ -171,11 +216,107 @@ __device__ __forceinline__ void store_tile(T* dst, const float (&acc)[TR][D / CG
   }
 }
 
+// The op graph's row statistics for its backward: per query row, with
+// s = q . k sm_scale over the live keys, m = max s, l = sum exp(s - m) and
+// r = sum -bf16(do . v) (exp(s - m) / l) / l, the gradient that reaches l
+// through the normalisation (torch's DivBackward); (m, l, r) as f32 rows
+// of three.  Three walks over the row's keys: the max, the sum, then r.
 template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_opstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const int* __restrict__ kv_lengths, float* __restrict__ ops,
+                         int h, int h_kv, int n_q, int n_kv, int causal, int window,
+                         float sm_scale) {
+  constexpr int DS = D + 4;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + BT * DS;
+  float* k_s = do_s + BT * DS;
+  float* v_s = k_s + BT * DS;
+
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int qt = blockIdx.y * BT;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
+  const size_t q_off = size_t(bh) * n_q * D;
+  const size_t kv_off = (size_t(b) * h_kv + hk) * n_kv * D;
+  stage<T, D>(q_s, q + q_off, qt, n_q);
+  stage<T, D>(do_s, dout + q_off, qt, n_q);
+
+  int walk_lo = 1 << 30, walk_hi = 0;
+  for (int r = 0; r < min(BT, n_q - qt); ++r) {
+    int lo, hi;
+    fa::dense_bounds(qt + r, kv_len, causal, window, lo, hi);
+    if (lo < hi) { walk_lo = min(walk_lo, lo); walk_hi = max(walk_hi, hi); }
+  }
+  int lo[TR], hi[TR];
+  float m[TR], l[TR], rr[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int R = qt + rg + RG * i;
+    lo[i] = hi[i] = 0;
+    if (R < n_q) fa::dense_bounds(R, kv_len, causal, window, lo[i], hi[i]);
+    m[i] = -INFINITY;
+    l[i] = rr[i] = 0.f;
+  }
+
+  const int start = walk_hi > walk_lo ? (walk_lo / BT) * BT : 0;
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int kt = start; kt < walk_hi; kt += BT) {
+      __syncthreads();  // the previous tile's readers are done
+      stage<T, D>(k_s, k + kv_off, kt, n_kv);
+      if (pass == 2) stage<T, D>(v_s, v + kv_off, kt, n_kv);
+      __syncthreads();
+      float s[TR][TC], dp[TR][TC];
+      dot_tile<D>(q_s, k_s, s);
+      if (pass == 2) dot_tile<D>(do_s, v_s, dp);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const float mu = m[i] == -INFINITY ? 0.f : m[i];
+        float part = pass == 0 ? -INFINITY : 0.f;
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int c = kt + cg + CG * j;
+          if (c < lo[i] || c >= hi[i]) continue;
+          const float x = __fmul_rn(s[i][j], sm_scale);
+          if (pass == 0) {
+            part = fmaxf(part, x);
+          } else {
+            const float e = expf(x - mu);
+            part += pass == 1 ? e
+                              : __fmul_rn(-round_bf16(dp[i][j]),
+                                          __fdiv_rn(__fdiv_rn(e, l[i]), l[i]));
+          }
+        }
+        if (pass == 0) m[i] = fmaxf(m[i], fa::row_max<CG>(part));
+        else if (pass == 1) l[i] += part;
+        else rr[i] += part;
+      }
+    }
+    if (pass == 1)
+#pragma unroll
+      for (int i = 0; i < TR; ++i) l[i] = fa::row_sum<CG>(l[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int R = qt + rg + RG * i;
+    rr[i] = fa::row_sum<CG>(rr[i]);
+    if (cg == 0 && R < n_q) {
+      float* o = ops + (size_t(bh) * n_q + R) * 3;
+      o[0] = m[i];
+      o[1] = l[i];
+      o[2] = l[i] == 0.f ? 0.f : rr[i];
+    }
+  }
+}
+
+template <typename T, int D, bool kOp>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
+                     const float* __restrict__ ops,
                      const int* __restrict__ kv_lengths, T* __restrict__ dk,
                      T* __restrict__ dv, int h, int h_kv, int n_q, int n_kv,
                      int causal, int window, float sm_scale) {
@@ -187,8 +328,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* do_s = q_s + BT * DS;
   float* p_s = do_s + BT * DS;
   float* ds_s = p_s + BT * PS;
-  float* lse_s = ds_s + BT * PS;
-  float* di_s = lse_s + BT;
+  float* st_s = ds_s + BT * PS;
 
   const int bk = blockIdx.x;                    // b * h_kv + kv head
   const int b = bk / h_kv, hk = bk % h_kv;
@@ -202,11 +342,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, D>(k_s, k + kv_off, kt, n_kv);
   stage<T, D>(v_s, v + kv_off, kt, n_kv);
 
-  float dk_acc[TR][CPT], dv_acc[TR][CPT];
+  // the op graph rounds each query head's dk and dv to T before the GQA
+  // group sums them (the backward of repeating K and V), in f32
+  float dk_acc[TR][CPT], dv_acc[TR][CPT], dk_grp[TR][CPT], dv_grp[TR][CPT];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+    for (int e = 0; e < CPT; ++e) dk_acc[i][e] = dv_acc[i][e] = dk_grp[i][e] = dv_grp[i][e] = 0.f;
 
   // Query rows that can see a key of this tile: R >= kt when causal,
   // R < kt + BT - 1 + window with a window, none when the tile lies past
@@ -223,7 +365,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the previous tile's readers are done
       stage<T, D>(q_s, qh, qt, n_q);
       stage<T, D>(do_s, doh, qt, n_q);
-      stage_stats(lse_s, di_s, lse + bh * n_q, di + bh * n_q, qt, n_q);
+      stage_stats<kOp>(st_s, lse + bh * n_q, di + bh * n_q, ops + bh * n_q * 3, qt, n_q);
       __syncthreads();
 
       float s[TR][TC], dp[TR][TC];
@@ -235,8 +377,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < TC; ++j) {
           const int kr = rg + RG * i, qr = cg + CG * j;
           float p, ds;
-          prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
-               scale_log2, sm_scale, lse_s[qr], di_s[qr], p, ds);
+          prob<kOp>(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
+                    scale_log2, sm_scale, st_s + qr, p, ds);
           p_s[kr * PS + qr] = p;
           ds_s[kr * PS + qr] = ds;
         }
@@ -244,16 +386,32 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tile_times<D>(p_s, do_s, dv_acc);         // dv += p^T do
       tile_times<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
     }
+    if constexpr (kOp) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int e = 0; e < CPT; ++e) {
+          dk_grp[i][e] += round_bf16(dk_acc[i][e]);
+          dv_grp[i][e] += round_bf16(dv_acc[i][e]);
+          dk_acc[i][e] = dv_acc[i][e] = 0.f;
+        }
+    }
   }
-  store_tile<T, D>(dk + kv_off, dk_acc, kt, n_kv);
-  store_tile<T, D>(dv + kv_off, dv_acc, kt, n_kv);
+  if constexpr (kOp) {
+    store_tile<T, D>(dk + kv_off, dk_grp, kt, n_kv);
+    store_tile<T, D>(dv + kv_off, dv_grp, kt, n_kv);
+  } else {
+    store_tile<T, D>(dk + kv_off, dk_acc, kt, n_kv);
+    store_tile<T, D>(dv + kv_off, dv_acc, kt, n_kv);
+  }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kOp>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
+                    const float* __restrict__ ops,
                     const int* __restrict__ kv_lengths, T* __restrict__ dq, int h,
                     int h_kv, int n_q, int n_kv, int causal, int window,
                     float sm_scale) {
@@ -264,8 +422,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* k_s = do_s + BT * DS;
   float* v_s = k_s + BT * DS;
   float* ds_s = v_s + BT * DS;
-  float* lse_s = ds_s + BT * PS;
-  float* di_s = lse_s + BT;
+  float* st_s = ds_s + BT * PS;
 
   const int bh = blockIdx.x;                    // b * h + query head
   const int b = bh / h, hq = bh % h;
@@ -279,7 +436,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_off = (size_t(b) * h_kv + hk) * n_kv * D;
   stage<T, D>(q_s, q + q_off, qt, n_q);
   stage<T, D>(do_s, dout + q_off, qt, n_q);
-  stage_stats(lse_s, di_s, lse + size_t(bh) * n_q, di + size_t(bh) * n_q, qt, n_q);
+  stage_stats<kOp>(st_s, lse + size_t(bh) * n_q, di + size_t(bh) * n_q,
+                   ops + size_t(bh) * n_q * 3, qt, n_q);
 
   // The walk covers the union of the tile rows' live intervals.
   int walk_lo = 1 << 30, walk_hi = 0;
@@ -311,8 +469,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TC; ++j) {
         const int qr = rg + RG * i, kr = cg + CG * j;
         float p, ds;
-        prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
-             scale_log2, sm_scale, lse_s[qr], di_s[qr], p, ds);
+        prob<kOp>(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
+                  scale_log2, sm_scale, st_s + qr, p, ds);
         ds_s[qr * PS + kr] = ds;
       }
     __syncthreads();
@@ -321,16 +479,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, D>(dq + q_off, dq_acc, qt, n_q);
 }
 
-template <typename T, int D>
+// The CUDA-core backward: the TPU kernels' function (kOp = false, f32) or
+// the op graph's autodiff (kOp = true, bf16, after the row-statistics
+// launch into ops).
+template <typename T, int D, bool kOp>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* lens, void* dq,
+                   const float* lse, const float* di, float* ops, const int* lens, void* dq,
                    void* dk, void* dv, int b, int h, int h_kv, int n_q, int n_kv,
                    int causal, int window, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
-  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, D, kOp>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, D, kOp>;
+  auto stats_kernel = flash_bwd_opstats_kernel<T, D>;
   static cudaError_t opted = [&] {
     cudaError_t e = fa::allow_smem(dkv_kernel, smem);
+    if (e == cudaSuccess && kOp) e = fa::allow_smem(stats_kernel, smem);
     return e != cudaSuccess ? e : fa::allow_smem(dq_kernel, smem);
   }();
   if (opted != cudaSuccess) return opted;
@@ -338,9 +501,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
+  if (kOp && n_q > 0) {
+    if (ops == nullptr) return cudaErrorInvalidValue;
+    dim3 grid(b * h, (n_q + BT - 1) / BT);
+    stats_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lens, ops, h, h_kv, n_q, n_kv,
+                                             causal, window, sm_scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   if (n_kv > 0) {
     dim3 grid(b * h_kv, (n_kv + BT - 1) / BT);
-    dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens,
+    dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, ops, lens,
                                            static_cast<T*>(dk), static_cast<T*>(dv),
                                            h, h_kv, n_q, n_kv, causal, window, sm_scale);
     cudaError_t e = cudaGetLastError();
@@ -348,7 +519,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   }
   if (n_q > 0) {
     dim3 grid(b * h, (n_q + BT - 1) / BT);
-    dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens,
+    dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, ops, lens,
                                           static_cast<T*>(dq), h, h_kv, n_q, n_kv,
                                           causal, window, sm_scale);
   }
@@ -738,16 +909,16 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
+template <typename T, bool kOp>
 cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di,
+                       const void* dout, const float* lse, const float* di, float* ops,
                        const int* lens, void* dq, void* dk, void* dv, int b, int h,
                        int h_kv, int n_q, int n_kv, int causal, int window,
                        float sm_scale, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 32: return launch<T, 32, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 64: return launch<T, 64, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 128: return launch<T, 128, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -756,22 +927,29 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 // q, dout, dq (b, h, n_q, d); k, v, dk, dv (b, h_kv, n_kv, d); lse and di
 // (b, h, n_q) f32, lse in natural log.  kv_lengths (b,) int32 or null;
-// window <= 0 means none.  Launches the dK/dV kernel, then the dQ kernel.
-// dtype codes: 0 = float32, 1 = bfloat16.
+// window <= 0 means none.  dtype codes: 0 = float32, 1 = bfloat16.
+// op_graph = 0: the TPU kernels' backward from (lse, di): the dK/dV
+// kernel, then the dQ kernel.  op_graph = 1 (bfloat16): autodiff of the op
+// graph; lse and di are unused, ops (b, h, n_q, 3) f32 is the scratch of
+// the row-statistics launch that comes first.
 extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* di,
-                            const void* kv_lengths, void* dq, void* dk, void* dv,
-                            int b, int h, int h_kv, int n_q, int n_kv, int d,
+                            void* ops, const void* kv_lengths, void* dq, void* dk,
+                            void* dv, int b, int h, int h_kv, int n_q, int n_kv, int d,
                             int causal, int window, float sm_scale, int dtype,
-                            void* stream) {
+                            int op_graph, void* stream) {
   if (b == 0 || h == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_lengths);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  if (dtype == 0)
-    return dispatch_d<float>(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv,
-                             n_q, n_kv, causal, window, sm_scale, st);
+  float* os = static_cast<float*>(ops);
+  if (dtype == 0 && !op_graph)
+    return dispatch_d<float, false>(d, q, k, v, dout, l, dd, os, lens, dq, dk, dv, b, h,
+                                    h_kv, n_q, n_kv, causal, window, sm_scale, st);
+  if (dtype == 1 && op_graph)
+    return dispatch_d<bf16, true>(d, q, k, v, dout, l, dd, os, lens, dq, dk, dv, b, h,
+                                  h_kv, n_q, n_kv, causal, window, sm_scale, st);
   if (dtype == 1)
     return dispatch_bf16(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
                          causal, window, sm_scale, st);

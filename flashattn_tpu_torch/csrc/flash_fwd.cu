@@ -6,40 +6,62 @@
 //     causal varlen forward of batched prefill;
 //   _fwd_kernel (wrapper _flash_fwd), the grid FA-2 forward with causal,
 //     sliding window, kv_lengths, GQA and cross-attention;
-// and computes the same function as the dense causal schedules
-// _fwd_subrow_kernel / _fwd_loop_kernel / _fwd_twolevel_kernel when no
-// lengths are given.
+//   _fwd_subrow_kernel and _fwd_loop_kernel, the dense causal schedules
+//     (and _fwd_twolevel_kernel, which JAX's dispatcher never picks: its
+//     shapes get the subrow or loop function here);
+// and XLA's op-graph attention, which JAX runs below 1024 keys.
 //
-// Semantics (those of _reference_fwd_with_lse): row R of q attends key c
-// when c < n_kv, c < kv_lengths[b] (if given), c <= R (causal, top-left
-// aligned) and c > R - window (if window > 0).  Padding rows past a
-// length still attend the valid prefix.  A row with no live key gives
-// o = 0 and lse = -inf.  GQA: q head h reads kv head h / (h_q / h_kv).
+// Masks: row R of q attends key c when c < n_kv, c < kv_lengths[b] (if
+// given), c <= R (causal, top-left aligned) and c > R - window (if
+// window > 0).  Padding rows past a length still attend the valid prefix.
+// A row with no live key gives o = 0 and lse = -inf.  GQA: q head h reads
+// kv head h / (h_q / h_kv).
+//
+// The function is the one JAX computes at the shape, chosen by the caller
+// (ops/flash_attention.py::_schedule, a copy of JAX's dispatcher), in bf16:
+//   mode 1, the grid and loop schedules (_fwd_kernel, _fwd_loop_kernel): q
+//     pre-scaled by sm_scale * log2(e) in bf16 by the caller; f32 scores;
+//     a running max over JAX's key blocks of `span` keys (8 to 1024), acc
+//     and l rescaled by exp2(m_old - m_new) where a block starts; the
+//     unnormalised p = exp2(s - m) rounded to bf16 before the PV product;
+//     o = acc * (1 / l); lse = m ln 2 + ln l.
+//   mode 2, the subrow schedules (_fwd_subrow_kernel and its varlen twin):
+//     the same with the whole row's max, and o = acc / l.
+//   mode 0, XLA's op graph (below 1024 keys, shapes JAX cannot tile, and
+//     the quantized-KV fallback): s = (q . k) sm_scale in f32, the row's
+//     max m and sum l of exp(s - m), p = exp(s - m) / l normalised and then
+//     rounded to bf16, o = sum p v; lse = m + ln l.
 //
 // bf16 (head dim 32, 64 or 128) runs a tensor-core kernel.  What bounds it
-// on the H100 is the two products (4 d flops per live (row, key) pair at
-// 989 TF/s), the softmax's exponentials behind them.  A block owns 128
-// query rows of one (batch, head): two consumer warpgroups of 64 rows.  Q
-// is loaded once into shared memory; K and V tiles of 128 keys stream
-// through a double-buffered ring in bf16 (cp.async, zero fill past n_kv),
-// the next tile's copy overlapping this tile's math, in the swizzled
-// layout of hopper.cuh.  S = Q K^T is a wgmma (both K-major) into 64 f32
-// registers a thread; the online softmax runs on that fragment in exp2
-// with sm_scale * log2(e) applied to the scores; P is rounded to bf16 in
-// registers and is the A operand of the P V wgmma (V MN-major, the
-// transpose bit set), which accumulates O in f32 registers.  The block
-// walks only the key tiles its rows can see (causal and length bound on
-// the right, window on the left; the last row tiles start first, having
+// on the H100 is the products (4 d flops per live (row, key) pair at 989
+// TF/s, more where a max pass repeats Q K^T), the softmax's exponentials
+// behind them.  A block owns 128 query rows of one (batch, head): two
+// consumer warpgroups of 64 rows.  Q is loaded once into shared memory; K
+// (and V) tiles of 128 keys stream through a double-buffered ring in bf16
+// (cp.async, zero fill past n_kv), the next step's copy overlapping this
+// step's math, in the swizzled layout of hopper.cuh.  The walk over the
+// key tiles is a sequence of (tile, pass) steps (Walk): a segment of keys
+// (JAX's key block where it is wider than a tile; the whole walk in modes
+// 0 and 2) first takes a max pass, S = Q K^T and each row's masked max,
+// without exp or PV and without loading V; the op graph then a sum pass;
+// then the PV pass.  S = Q K^T is a wgmma (both K-major) into 64 f32
+// registers a thread; P is rounded to bf16 in registers and is the A
+// operand of the P V wgmma (V MN-major, the transpose bit set), which sums
+// each tile from zero before it is added to the f32 O accumulator, as the
+// TPU kernels add each block's PV.  A key block narrower than the tile
+// (span 8..64) is its own online-softmax update inside the tile (the
+// 16-key PV chunk that two 8-key blocks share runs once for each).  The
+// block walks only the key tiles its rows can see (causal and length bound
+// on the right, window on the left; the last row tiles start first, having
 // the longest walks); only tiles that cut some row's interval are masked.
-// The epilogue writes lse (f32, (b, h, n_q)) and o (bf16, staged in
-// shared memory and stored in whole rows), which flash_bwd.cu reads.
-// Rounding P to bf16 before the PV product (the plain version rounds p
-// after normalising) moves o by about one bf16 ulp of p, inside the bf16
-// gate.
+// The epilogue writes lse (f32, (b, h, n_q)) and o (bf16, staged in shared
+// memory and stored in whole rows), which flash_bwd.cu reads.
 
 // f32 keeps the CUDA-core kernel of attn_core.cuh (fa::attend): TF32
 // tensor cores would break the f32 gates of the training path.  One block
-// owns (batch*head, 64 query rows) there and walks the same key tiles.
+// owns (batch*head, 64 query rows) there and walks the same key tiles; in
+// f32 the schedules' functions agree to f32 rounding, so one online
+// softmax serves them all.
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
@@ -130,12 +152,146 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, const b
   hop::load_tile<D * 2, Tc<D>::SW, Tc<D>::THREADS>(dst, src, base, rows_valid, rows);
 }
 
+// The passes a key segment takes, in order: kMax (S only, each row's max
+// over the segment), kSum (the op graph's row sum of exp(s - m)) and kPv
+// (P and the P V product).
+enum Pass { kMax = 0, kSum = 1, kPv = 2 };
+
+// The block's walk as a sequence of (tile, pass) steps: the key tiles
+// [start, end) fall into segments of `seg` keys (aligned to multiples of
+// seg from key 0), and each segment runs its passes over its tiles in
+// turn, starting with `first`.  A step of the kMax and kSum passes, which
+// read K alone, takes two tiles: twice the bytes in flight a step.
+struct Walk {
+  int start, end, seg, first;
+  bool op;   // the op graph: kMax, kSum, kPv
+  __device__ int seg_lo(int kt) const { return max(start, kt / seg * seg); }
+  __device__ int seg_hi(int kt) const { return min(end, (kt / seg + 1) * seg); }
+  // a kMax or kSum step takes two tiles (both slots of a ring buffer)
+  __device__ bool next(int& kt, int& pass, int bn) const {
+    const int step = pass == kPv ? bn : 2 * bn;
+    if (kt + step < seg_hi(kt)) { kt += step; return true; }
+    if (pass != kPv) {
+      pass = pass == kMax && op ? kSum : kPv;
+      kt = seg_lo(kt);
+      return true;
+    }
+    const int hi = seg_hi(kt);
+    if (hi >= end) return false;
+    kt = hi;
+    pass = first;
+    return true;
+  }
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc += P V for one tile, P (bf16 pairs in the A fragment's layout) over
+// the 16-key chunks that meet the 8-key groups [j0, j1), V MN-major.  The
+// product sums from zero in its own registers and is then added to acc,
+// as the TPU kernels and the plain versions add each block's PV to the
+// rescaled accumulator, so the long f32 chain over the row has one add a
+// tile, not one a 16-key chunk.
 template <int D>
+__device__ __forceinline__ void pv_add(float (&acc)[D / 2], const uint32_t (&p)[Tc<D>::BN / 4],
+                                       uint32_t v_addr, int j0, int j1) {
+  constexpr int BN = Tc<D>::BN, SW = Tc<D>::SW;
+  float pv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+  hop::fence_regs(pv);
+  hop::wg_arrive();
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc) {
+    if (2 * kc + 1 < j0 || 2 * kc >= j1) continue;
+    const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3]};
+    hop::wgmma_rs<1>(pv, a, hop::desc<SW>(v_addr + kc * 16 * SW, BN * SW, 8 * SW), 1);
+  }
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::fence_regs(pv);
+  hop::fence_regs(acc);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += pv[i];
+}
+
+// The TPU kernels' online-softmax step on one S tile (scores in base 2):
+// an update per `sub` keys (JAX's key block when it is narrower than the
+// tile, kSplit; else one for the tile), taking the max over the update's
+// keys (local_max) or the max pass's m_seg, and applying it where the
+// update starts a block (rescale); then P = exp2(s - m) in bf16 and
+// O += P V over the 16-key chunks that meet the update's keys (pv_add).  A
+// chunk split between two 8-key blocks runs once for each, the other
+// block's half of P zero.
+template <int D, bool kSplit>
+__device__ __forceinline__ void tpu_update(float (&s)[Tc<D>::BN / 2], float (&acc)[D / 2],
+                                           float (&m)[2], float (&l)[2], const float (&m_seg)[2],
+                                           bool local_max, bool rescale, int sub,
+                                           uint32_t v_addr) {
+  constexpr int BN = Tc<D>::BN;
+  const int jper = kSplit ? sub / 8 : BN / 8;
+  const int n_up = kSplit ? BN / sub : 1;
+  for (int sp = 0; sp < n_up; ++sp) {
+    const int j0 = sp * jper, j1 = j0 + jper;
+    if (rescale) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = m_seg[hh];
+        if (local_max) {
+          mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+            if (!kSplit || (j >= j0 && j < j1))
+              mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+          mx = quad_max(mx);
+        }
+        const float m_new = fmaxf(m[hh], mx);
+        const float alpha = exp2f(m[hh] - (m_new == -INFINITY ? 0.f : m_new));
+        m[hh] = m_new;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          acc[4 * jj + 2 * hh] *= alpha;
+          acc[4 * jj + 2 * hh + 1] *= alpha;
+        }
+      }
+    }
+    uint32_t p[BN / 4];   // p[2j + hh] = row hh's keys 8j + 2 quad + {0, 1}
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float p0 = 0.f, p1 = 0.f;
+        if (!kSplit || (j >= j0 && j < j1)) {
+          const float mu = m[hh] == -INFINITY ? 0.f : m[hh];
+          p0 = exp2f(s[4 * j + 2 * hh] - mu);
+          p1 = exp2f(s[4 * j + 2 * hh + 1] - mu);
+          l[hh] += p0 + p1;
+        }
+        p[2 * j + hh] = hop::pack_bf16(p0, p1);
+      }
+    pv_add<D>(acc, p, v_addr, kSplit ? j0 : 0, kSplit ? j1 : BN / 8);
+  }
+}
+
+// kOp = false: the TPU kernels' function.  mode 1 (grid, loop): a running
+// max over JAX's key blocks of `span` keys; o = acc * (1 / l).  mode 2
+// (subrow): the whole row's max; o = acc / l.  q arrives pre-scaled by
+// sm_scale * log2(e) (scale = 1).  kOp = true: the op graph's function,
+// scale = sm_scale on the f32 scores, p = exp(s - m) / l rounded.
+template <int D, bool kOp>
 __global__ void __launch_bounds__(Tc<D>::THREADS, 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
                     bf16* __restrict__ o, float* __restrict__ lse, int h, int h_kv, int n_q,
-                    int n_kv, int causal, int window, float scale_log2) {
+                    int n_kv, int causal, int window, float scale, int mode, int span) {
   using C = Tc<D>;
   constexpr int BN = C::BN, SW = C::SW, CPR = C::CPR;
   extern __shared__ uint8_t smem_raw[];
@@ -157,8 +313,16 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int walk_lo, walk_hi, all_lo, all_hi;
   fa::dense_bounds(row0, kv_len, causal, window, walk_lo, all_hi);
   fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, all_lo, walk_hi);
-  const int start = walk_hi > walk_lo ? (walk_lo / BN) * BN : 0;
-  const int end = walk_hi > walk_lo ? walk_hi : 0;
+  Walk walk;
+  walk.start = walk_hi > walk_lo ? (walk_lo / BN) * BN : 0;
+  walk.end = walk_hi > walk_lo ? walk_hi : 0;
+  walk.op = kOp;
+  // one segment for the op graph and subrow, JAX's key blocks for the
+  // grid and loop; a block wider than a tile first takes a max pass
+  const bool whole = kOp || mode == 2;
+  walk.seg = whole ? (1 << 30) : max(span, BN);
+  walk.first = whole || span > BN ? kMax : kPv;
+  const int sub = whole ? BN : min(span, BN);   // keys of one softmax update
 
   const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
   const int lane = lt % 32, quad = lane % 4;
@@ -168,128 +332,170 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh)
     fa::dense_bounds(row0 + rl + 8 * hh, kv_len, causal, window, lo[hh], hi[hh]);
 
+  int kt = walk.start, pass = walk.first;
+  bool more = walk.start < walk.end;
   load_tile<D>(qs, qp + size_t(row0) * D, qp, n_rows, C::BM);
-  if (start < end) {
-    load_tile<D>(kvs, kp + size_t(start) * D, kp, n_kv - start, BN);
-    load_tile<D>(kvs + C::KV_BYTES, vp + size_t(start) * D, vp, n_kv - start, BN);
+  if (more) {
+    load_tile<D>(kvs, kp + size_t(kt) * D, kp, n_kv - kt, BN);
+    if (pass == kPv)
+      load_tile<D>(kvs + C::KV_BYTES, vp + size_t(kt) * D, vp, n_kv - kt, BN);
+    else if (kt + BN < walk.seg_hi(kt))
+      load_tile<D>(kvs + C::KV_BYTES, kp + size_t(kt + BN) * D, kp, n_kv - kt - BN, BN);
   }
   hop::cp_async_commit();
 
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // l: this thread's columns
+  // m: the running max (the op graph: the row's); l: this thread's
+  // columns' sum; m_seg: the max pass's result; l_row: the op graph's row sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float m_seg[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
 
   const uint32_t q_addr = hop::smem_u32(qs) + wg * 64 * SW;
   int buf = 0;
-  for (int kt = start; kt < end; kt += BN, buf ^= 1) {
+  while (more) {
     hop::cp_async_wait<0>();
     hop::fence_async_smem();
-    __syncthreads();   // tile kt has landed everywhere; buffer buf ^ 1 is free
-    if (kt + BN < end) {
+    __syncthreads();   // step (kt, pass) has landed everywhere; buffer buf ^ 1 is free
+    int nkt = kt, npass = pass;
+    const bool has_next = walk.next(nkt, npass, BN);
+    if (has_next) {
+      // a kPv step: K and V of one tile; else K of two tiles
       uint8_t* nk = kvs + (buf ^ 1) * 2 * C::KV_BYTES;
-      load_tile<D>(nk, kp + size_t(kt + BN) * D, kp, n_kv - kt - BN, BN);
-      load_tile<D>(nk + C::KV_BYTES, vp + size_t(kt + BN) * D, vp, n_kv - kt - BN, BN);
+      const int second = npass == kPv ? nkt : nkt + BN;
+      load_tile<D>(nk, kp + size_t(nkt) * D, kp, n_kv - nkt, BN);
+      if (npass == kPv)
+        load_tile<D>(nk + C::KV_BYTES, vp + size_t(nkt) * D, vp, n_kv - nkt, BN);
+      else if (second < walk.seg_hi(nkt))
+        load_tile<D>(nk + C::KV_BYTES, kp + size_t(second) * D, kp, n_kv - second, BN);
     }
     hop::cp_async_commit();
     const uint32_t k_addr = hop::smem_u32(kvs + buf * 2 * C::KV_BYTES);
     const uint32_t v_addr = k_addr + C::KV_BYTES;
 
-    // S = Q K^T: 64 rows x 128 keys a warpgroup, contracted over D
+    // S = Q K^T for the tile of keys from kt_ at kaddr: 64 rows x 128 keys a
+    // warpgroup, contracted over D; s[4j + 2hh + e] is row rl + 8hh, key
+    // kt_ + 8j + 2 quad + e, and a key the row does not see scores -inf
     float s[BN / 2];
+    auto scores = [&](uint32_t kaddr, int kt_) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-    hop::fence_regs(s);
-    hop::wg_arrive();
+      for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+      hop::fence_regs(s);
+      hop::wg_arrive();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t region = ks * 16 / CPR, off = (ks * 16 % CPR) * 2;
-      hop::wgmma_ss<0>(s, hop::desc<SW>(q_addr + region * C::BM * SW + off, 16, 8 * SW),
-                       hop::desc<SW>(k_addr + region * BN * SW + off, 16, 8 * SW), 1);
-    }
-    hop::wg_commit();
-    hop::wg_wait<0>();
-    hop::fence_regs(s);
-
-    // online softmax on the fragment: s[4j + 2hh + e] is row rl + 8hh,
-    // key kt + 8j + 2 quad + e
-    const bool full = kt >= all_lo && kt + BN <= all_hi;
-    float mx[2] = {-INFINITY, -INFINITY};
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t region = ks * 16 / CPR, off = (ks * 16 % CPR) * 2;
+        hop::wgmma_ss<0>(s, hop::desc<SW>(q_addr + region * C::BM * SW + off, 16, 8 * SW),
+                         hop::desc<SW>(kaddr + region * BN * SW + off, 16, 8 * SW), 1);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::fence_regs(s);
+      const bool full = kt_ >= all_lo && kt_ + BN <= all_hi;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float x = s[4 * j + 2 * hh + e] * scale_log2;
-          if (!full) {
-            const int c = kt + 8 * j + 2 * quad + e;
-            if (c < lo[hh] || c >= hi[hh]) x = -INFINITY;
+          for (int e = 0; e < 2; ++e) {
+            float x = __fmul_rn(s[4 * j + 2 * hh + e], scale);
+            if (!full) {
+              const int c = kt_ + 8 * j + 2 * quad + e;
+              if (c < lo[hh] || c >= hi[hh]) x = -INFINITY;
+            }
+            s[4 * j + 2 * hh + e] = x;
           }
-          s[4 * j + 2 * hh + e] = x;
-          mx[hh] = fmaxf(mx[hh], x);
-        }
-    float m_use[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m[hh], mx[hh]);
-      m_use[hh] = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m[hh] - m_use[hh]);
-      m[hh] = m_new;
-      l[hh] *= alpha;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j + 2 * hh] *= alpha;
-        acc[4 * j + 2 * hh + 1] *= alpha;
-      }
-    }
-    uint32_t p[BN / 4];   // P in bf16 pairs: p[2j + hh] = row hh's keys 8j + 2 quad + {0, 1}
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float p0 = exp2f(s[4 * j + 2 * hh] - m_use[hh]);
-        const float p1 = exp2f(s[4 * j + 2 * hh + 1] - m_use[hh]);
-        l[hh] += p0 + p1;
-        p[2 * j + hh] = hop::pack_bf16(p0, p1);
-      }
+    };
 
-    // O += P V: P from registers (16 keys a step), V MN-major
-    hop::fence_regs(acc);
-    hop::wg_arrive();
+    const bool seg_start = kt == walk.seg_lo(kt);
+    if (pass != kPv) {
+      const int tiles = kt + BN < walk.seg_hi(kt) ? 2 : 1;
+      for (int t = 0; t < tiles; ++t) {
+        scores(k_addr + t * C::KV_BYTES, kt + t * BN);
+        if (pass == kMax) {
 #pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3]};
-      hop::wgmma_rs<1>(acc, a, hop::desc<SW>(v_addr + kc * 16 * SW, BN * SW, 8 * SW), 1);
+          for (int hh = 0; hh < 2; ++hh) {
+            float mx = seg_start && t == 0 ? -INFINITY : m_seg[hh];
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+              mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+            m_seg[hh] = quad_max(mx);
+          }
+        } else if constexpr (kOp) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float mu = m_seg[hh] == -INFINITY ? 0.f : m_seg[hh];
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) l[hh] += expf(s[4 * j + 2 * hh + e] - mu);
+          }
+        }
+      }
+    } else if constexpr (kOp) {
+      // the op graph: p = exp(s - m) / l, normalised, then rounded
+      scores(k_addr, kt);
+      if (seg_start) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) { l_row[hh] = quad_sum(l[hh]); m[hh] = m_seg[hh]; }
+      }
+      uint32_t p[BN / 4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mu = m[hh] == -INFINITY ? 0.f : m[hh];
+          float pe[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pe[e] = l_row[hh] > 0.f ? __fdiv_rn(expf(s[4 * j + 2 * hh + e] - mu), l_row[hh])
+                                    : 0.f;
+          p[2 * j + hh] = hop::pack_bf16(pe[0], pe[1]);
+        }
+      pv_add<D>(acc, p, v_addr, 0, BN / 8);
+    } else {
+      scores(k_addr, kt);
+      if (sub == BN)
+        tpu_update<D, false>(s, acc, m, l, m_seg, walk.first == kPv, seg_start, BN, v_addr);
+      else
+        tpu_update<D, true>(s, acc, m, l, m_seg, true, true, sub, v_addr);
     }
-    hop::wg_commit();
-    hop::wg_wait<0>();
-    hop::fence_regs(acc);
+    kt = nkt;
+    pass = npass;
+    more = has_next;
+    buf ^= 1;
   }
   hop::cp_async_wait<0>();
 
-  // epilogue: the row sums over the quad, then o = acc / l and lse.  o is
-  // staged in shared memory (the K/V ring is free; rows padded by 16 bytes,
-  // so the fragment's writes hit 32 banks) and leaves in whole rows of
-  // 16-byte stores, not eight rows of 16 bytes a warp instruction.
+  // epilogue: the row sums over the quad, then o and lse.  o is staged in
+  // shared memory (the K/V ring is free; rows padded by 16 bytes, so the
+  // fragment's writes hit 32 banks) and leaves in whole rows of 16-byte
+  // stores, not eight rows of 16 bytes a warp instruction.
   __syncthreads();   // both warpgroups' last wgmmas are done with Q, K and V
   constexpr int OS = D * 2 + 16;   // bytes of a staged row
   static_assert(C::BM * OS <= 4 * C::KV_BYTES, "the staged tile fits in the K/V ring");
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    float lt_ = l[hh];
-    lt_ += __shfl_xor_sync(0xffffffffu, lt_, 1);
-    lt_ += __shfl_xor_sync(0xffffffffu, lt_, 2);
+    const float lt_ = kOp ? l_row[hh] : quad_sum(l[hh]);
     const int r = rl + 8 * hh, row = row0 + r;
     const float inv = lt_ == 0.f ? 0.f : 1.f / lt_;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      float o0 = acc[4 * j + 2 * hh], o1 = acc[4 * j + 2 * hh + 1];
+      if (!kOp && mode == 2) {
+        o0 = lt_ == 0.f ? 0.f : __fdiv_rn(o0, lt_);
+        o1 = lt_ == 0.f ? 0.f : __fdiv_rn(o1, lt_);
+      } else if (!kOp) {
+        o0 *= inv;
+        o1 *= inv;
+      }
       *reinterpret_cast<__nv_bfloat162*>(kvs + r * OS + 2 * (8 * j + 2 * quad)) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+          __floats2bfloat162_rn(o0, o1);
+    }
     if (quad == 0 && row < n_q)
-      lse[size_t(bh) * n_q + row] = lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
+      lse[size_t(bh) * n_q + row] =
+          lt_ == 0.f ? -INFINITY : (kOp ? m[hh] : m[hh] * fa::LN2) + logf(lt_);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n_rows * (D / 8); i += C::THREADS) {
@@ -302,14 +508,20 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* lens, void* o,
                       float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
-                      int window, float scale_log2, cudaStream_t stream) {
-  auto kernel = flash_fwd_tc_kernel<D>;
-  static cudaError_t opted = fa::allow_smem(kernel, Tc<D>::SMEM);
+                      int window, float scale, int mode, int span, cudaStream_t stream) {
+  auto kernel = mode == 0 ? flash_fwd_tc_kernel<D, true> : flash_fwd_tc_kernel<D, false>;
+  static cudaError_t opted = [] {
+    cudaError_t e = fa::allow_smem(flash_fwd_tc_kernel<D, true>, Tc<D>::SMEM);
+    return e != cudaSuccess ? e : fa::allow_smem(flash_fwd_tc_kernel<D, false>, Tc<D>::SMEM);
+  }();
   if (opted != cudaSuccess) return opted;
+  if (mode == 1 && (span < 8 || span % 8 != 0 || (span > Tc<D>::BN && span % Tc<D>::BN != 0) ||
+                    (span < Tc<D>::BN && Tc<D>::BN % span != 0)))
+    return cudaErrorInvalidValue;
   dim3 grid(b * h, (n_q + Tc<D>::BM - 1) / Tc<D>::BM);
   kernel<<<grid, Tc<D>::THREADS, Tc<D>::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2);
+      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, mode, span);
   return cudaGetLastError();
 }
 
@@ -326,11 +538,12 @@ cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, con
 
 cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, const int* lens,
                           void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                          int causal, int window, float scale_log2, cudaStream_t st) {
+                          int causal, int window, float scale, int mode, int span,
+                          cudaStream_t st) {
   switch (d) {
-    case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 128: return launch_tc<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
+    case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
+    case 128: return launch_tc<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -339,20 +552,25 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, co
 
 // q (b, h, n_q, d); k, v (b, h_kv, n_kv, d); o like q; lse (b, h, n_q) f32.
 // kv_lengths (b,) int32 or null; window <= 0 means none.
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes: 0 = float32, 1 = bfloat16.  f32 runs the online softmax with
+// scale = sm_scale * log2(e) folded into q (mode and span unused).  bf16
+// modes: 0 the op graph (scale = sm_scale); 1 a running max per `span`
+// keys (8 to 1024, JAX's grid and loop key blocks) and 2 the whole row's
+// max (subrow), both on q pre-scaled by the caller (scale = 1).
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kv_lengths, void* o, void* lse, int b,
                             int h, int h_kv, int n_q, int n_kv, int d, int causal,
-                            int window, float scale_log2, int dtype, void* stream) {
+                            int window, float scale, int dtype, int mode, int span,
+                            void* stream) {
   if (b == 0 || h == 0 || n_q == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(kv_lengths);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
     return dispatch_f32(d, q, k, v, lens, o, l, b, h, h_kv, n_q, n_kv, causal, window,
-                        scale_log2, st);
+                        scale, st);
   if (dtype == 1)
     return dispatch_bf16(d, q, k, v, lens, o, l, b, h, h_kv, n_q, n_kv, causal, window,
-                         scale_log2, st);
+                         scale, mode, span, st);
   return int(cudaErrorInvalidValue);
 }

@@ -58,3 +58,15 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
             "this kernel is inference-only: it has no backward")
+
+
+def largest_divisor_block(n: int, target: int, minimum: int = 8):
+    """Largest block <= target that divides n, halving from min(target, n),
+    or None below ``minimum`` (the JAX package's tiler, whose answer picks
+    the attention schedule)."""
+    b = min(target, n)
+    while b >= minimum:
+        if n % b == 0:
+            return b
+        b //= 2
+    return None

@@ -49,7 +49,6 @@ _act_kernel = _build.Kernel("fa_dropout_act_bias", [
     _build.P] * 6 + [_build.I64, _build.I, _build.U64, _build.U32, _build.F,
                      _build.I, _build.I, _build.I])
 
-_BIAS_ROWS = 64   # rows per block of the bias kernels (their db partials)
 _ACTS = {"gelu": 0, "relu": 1}
 _GELU_C = 0.7978845608028654   # sqrt(2 / pi), f32 in the act-bias kernels
 
@@ -232,8 +231,12 @@ def _bias_launch(kernel, a, bias, rate, seed, div, *, x=None, r=None,
     out = torch.empty_like(a)
     part = db = None
     if backward:
-        part = torch.empty((cdiv(n, _BIAS_ROWS), d), device=a.device,
-                           dtype=torch.float32)
+        # the kernel's row lanes, each of which leaves one row of db partials
+        lanes = _build.query("fa_dropout_bias_lanes", [_build.I64, _build.I,
+                                                       _build.I, _build.I],
+                             n, d, -1 if act is None else _ACTS[act],
+                             _build.dtype_code(a))
+        part = torch.empty((lanes, d), device=a.device, dtype=torch.float32)
         db = torch.empty(d, device=a.device, dtype=torch.float32)
     if bias is not None:
         bias = _build.aligned(bias.detach().float())

@@ -1,21 +1,34 @@
 """Flash attention, forward and backward (counterpart of
 flashattn_tpu/ops/flash_attention.py).
 
-On CUDA tensors every entry point launches the hand-written kernels:
-``csrc/flash_fwd.cu`` forward (a wgmma tensor-core kernel for bf16, the
-CUDA-core kernel of ``attn_core.cuh`` for f32), which replaces the TPU
-forward kernels
-``_fwd_subrow_varlen_kernel`` (batched varlen prefill) and ``_fwd_kernel``
-(causal / window / kv_lengths / GQA / cross-attention) and also covers the
-dense causal function of ``_fwd_subrow_kernel``, ``_fwd_loop_kernel`` and
-``_fwd_twolevel_kernel``; and ``csrc/flash_bwd.cu``, a dK/dV kernel and a dQ
-kernel (wgmma tensor-core kernels for bf16, CUDA-core kernels for f32)
-that replace the backward kernels of the grid (``_bwd_dkv_kernel``,
-``_bwd_dq_kernel``), subrow (``_bwd_subrow_kernel``) and loop
-(``_bwd_dq_loop_kernel``, ``_bwd_dkv_loop_kernel``) schedules.  There is no
-length threshold and no fallback: a CUDA tensor always runs the kernels or
-raises.  On CPU tensors the plain PyTorch versions run
-(:func:`_reference_fwd_with_lse`, :func:`_reference_bwd`).
+The function depends on the shape, as it does in the JAX package, whose
+dispatcher picks a schedule by shape and each schedule rounds in its own
+way.  :func:`_schedule` is a copy of that choice:
+
+* ``"op_graph"``: kv_len < 1024 (``MIN_KERNEL_KV_LEN``), or an n_q or
+  n_kv that ``largest_divisor_block`` cannot tile.  JAX runs XLA's op
+  graph (:func:`_reference_fwd_with_lse`: f32 scores times sm_scale, the
+  whole row's max, p normalised and then rounded to q's dtype) and its
+  backward is autodiff of that graph.
+* ``"subrow"`` (``_fwd_subrow_kernel``, ``_fwd_subrow_varlen_kernel``;
+  zero padding of d < 128 keeps its function), ``"loop"``
+  (``_fwd_loop_kernel``, blocks of 1024 keys, 512 in f32) and ``"grid"``
+  (``_fwd_kernel``, key blocks of ``largest_divisor_block(n_kv, 1024)``):
+  q is pre-scaled by sm_scale * log2(e) in its own dtype, the unnormalised
+  p = exp2(s - m) rounds to q's dtype before the PV product, m being the
+  whole row's max (subrow) or a running max per key block (loop, grid);
+  o = pv / l (subrow) or acc * (1 / l).  :func:`_kernel_fwd_plain`.  The
+  backward is the TPU backward kernels' (:func:`_reference_bwd`).
+
+The dispatch is by shape and never by device.  On CUDA tensors every shape
+launches a hand-written kernel: ``csrc/flash_fwd.cu`` (a wgmma
+tensor-core kernel for bf16 with one mode per function above, the
+CUDA-core kernel of ``attn_core.cuh`` for f32) and ``csrc/flash_bwd.cu``
+(a dK/dV and a dQ kernel; bf16 tensor-core kernels for the TPU kernels'
+backward, CUDA-core kernels behind a row-statistics launch for the op
+graph's autodiff in bf16, and CUDA-core kernels for f32, which has one
+function up to f32 rounding).  On CPU tensors the plain versions run
+(:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
@@ -24,27 +37,112 @@ gradients.  kv_lengths gets no gradient.
 
 The TPU-only knobs (``block_q``, ``block_k``, ``vmem_limit`` and the
 schedule names in ``impl``) are not carried over: ``impl`` is ``"auto"``
-(the kernels on CUDA) or ``"reference"`` (the plain forward anywhere,
+(the dispatch above) or ``"reference"`` (the op graph at every shape,
 differentiated by autograd).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
-from ._utils import DEFAULT_MASK_VALUE, LOG2E, on_cuda
+from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, largest_divisor_block,
+                     on_cuda)
 
 _kernel = _build.Kernel("fa_flash_fwd", [_build.P] * 6 + [_build.I] * 8 + [
-    _build.F, _build.I])
-_bwd_kernel = _build.Kernel("fa_flash_bwd", [_build.P] * 10 + [_build.I] * 8
-                            + [_build.F, _build.I])
+    _build.F, _build.I, _build.I, _build.I])
+_bwd_kernel = _build.Kernel("fa_flash_bwd", [_build.P] * 11 + [_build.I] * 8
+                            + [_build.F, _build.I, _build.I])
 
 HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
+
+# The JAX dispatcher's constants: below MIN_KERNEL_KV_LEN keys XLA's op
+# graph runs; the kernels tile by blocks of up to 1024 rows and keys (512
+# query rows above head dim 128), no smaller than 8.
+MIN_KERNEL_KV_LEN = 1024
+_BLOCK = 1024
+_MIN_BLOCK = 8
+# the C interface's codes of the kernel modes
+_MODES = {"op_graph": 0, "grid": 1, "loop": 1, "subrow": 2}
+
+
+class Schedule(NamedTuple):
+    """The JAX schedule whose function a shape gets, and the keys over which
+    one running max holds (the whole row for subrow, 0 for the op graph)."""
+
+    name: str
+    span: int
+
+
+def _subrow_ok(n_q, n_kv, d, causal, window, itemsize):
+    """JAX's ``_subrow_ok``: causal dense self-attention, d 128, n in
+    [1024, 8192] a multiple of 512 (f32 only at 1024)."""
+    if not causal or window is not None:
+        return False
+    if not (n_q == n_kv and d == 128 and 1024 <= n_q <= 8192
+            and n_q % 512 == 0):
+        return False
+    return n_q <= 1024 or itemsize <= 2
+
+
+def _pad128_ok(n_q, n_kv, d, causal, window, itemsize):
+    """JAX's ``_pad128_ok``: head dims 16..120 (multiples of 8) zero-padded
+    to 128 for the subrow and loop schedules; the padding changes no
+    score."""
+    if not causal or window is not None:
+        return False
+    if not (16 <= d < 128 and d % 8 == 0):
+        return False
+    if not (n_q == n_kv and n_q >= 1024 and n_q % 512 == 0):
+        return False
+    return n_q <= 1024 or itemsize <= 2 or n_q % 1024 == 0
+
+
+def _loop_block(n_q, n_kv, d, causal, window, itemsize, block_q):
+    """JAX's ``_loop_block`` under ``impl="auto"``: the loop schedule's key
+    block (1024, or 512 in f32) for causal dense self-attention at d 128,
+    else None."""
+    if window is not None or not causal or n_q != n_kv or d != 128:
+        return None
+    if itemsize <= 2 and n_q % 1024 == 0 and block_q >= 1024:
+        return 1024
+    if itemsize == 4 and n_q % 512 == 0 and block_q >= 512:
+        return 512
+    return None
+
+
+def _tileable(n_q, n_kv, d) -> bool:
+    """Whether JAX's tiler divides the shape: ``largest_divisor_block`` of
+    n_q by 1024 (512 above head dim 128) and of n_kv by 1024, at least 8."""
+    return (largest_divisor_block(n_q, _BLOCK if d <= 128 else 512,
+                                  _MIN_BLOCK) is not None
+            and largest_divisor_block(n_kv, _BLOCK, _MIN_BLOCK) is not None)
+
+
+def _schedule(q, k, causal, window, varlen=False) -> Schedule:
+    """The schedule JAX's ``flash_attention`` (or, with ``varlen``,
+    ``flash_attention_varlen``, which has no loop schedule) runs at these
+    shapes under ``impl="auto"``: ``_use_kernel``, ``_subrow_ok``,
+    ``_pad128_ok``, ``_loop_block``, then the grid."""
+    n_q, n_kv, d = q.shape[2], k.shape[2], q.shape[3]
+    isz = q.element_size()
+    if n_kv < MIN_KERNEL_KV_LEN or not _tileable(n_q, n_kv, d):
+        return Schedule("op_graph", 0)
+    block_q = largest_divisor_block(n_q, _BLOCK if d <= 128 else 512,
+                                    _MIN_BLOCK)
+    if _pad128_ok(n_q, n_kv, d, causal, window, isz):
+        d = 128
+    if _subrow_ok(n_q, n_kv, d, causal, window, isz):
+        return Schedule("subrow", n_kv)
+    if not varlen:
+        lb = _loop_block(n_q, n_kv, d, causal, window, isz, block_q)
+        if lb is not None:
+            return Schedule("loop", lb)
+    return Schedule("grid", largest_divisor_block(n_kv, _BLOCK, _MIN_BLOCK))
 
 
 def repeat_kv(k: torch.Tensor, v: torch.Tensor, n_q_heads: int):
@@ -119,6 +217,71 @@ def _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths=None,
     return o.to(q.dtype), lse
 
 
+def _kernel_fwd_plain(q, k, v, causal, scale, kv_lengths, window,
+                      sched: Schedule):
+    """Plain version of the TPU kernels' forward (``_fwd_subrow_kernel``,
+    ``_fwd_subrow_varlen_kernel``, ``_fwd_loop_kernel``, ``_fwd_kernel``),
+    returning (o, lse (b, h, n_q, 1) f32).  q is pre-scaled by
+    sm_scale * log2(e) in its dtype; scores in f32, masked at
+    DEFAULT_MASK_VALUE; m is the whole row's max (subrow) or a running max
+    over blocks of ``sched.span`` keys, with acc and l rescaled by
+    alpha = exp2(m_old - m_new); the unnormalised p = exp2(s - m) rounds to
+    q's dtype before the PV product, which sums in f32; o = pv / l (subrow)
+    or acc * (1 / l); lse = m ln 2 + ln l.  A row with no live key (a
+    length-0 row) gives o = 0 and lse = -inf."""
+    c = torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+    k, v = repeat_kv(k, v, q.shape[1])
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * c).float(), k.float())
+    n_q, n_kv = s.shape[-2:]
+    keep = _keep_mask(n_q, n_kv, causal, window, kv_lengths, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
+    # the kernels zero p off the mask where a row may see no key of a block
+    zero = keep is not None and (kv_lengths is not None or window is not None)
+    vf = v.float()
+    if sched.name == "subrow":
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        if zero:
+            p = p.masked_fill(~keep, 0.0)
+        l = p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf)
+        o = torch.where(l == 0.0, torch.zeros_like(pv), pv / l)
+    else:
+        m = torch.full_like(s[..., :1], -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(*s.shape[:-1], vf.shape[-1], device=s.device)
+        for c0 in range(0, n_kv, sched.span):
+            c1 = min(n_kv, c0 + sched.span)
+            sb = s[..., c0:c1]
+            m_new = torch.maximum(m, sb.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sb - m_new)
+            if zero:
+                p = p.masked_fill(~keep[..., c0:c1], 0.0)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v.dtype).float(), vf[:, :, c0:c1])
+            m = m_new
+        o = acc * torch.where(l == 0.0, torch.ones_like(l),
+                              torch.ones_like(l) / l)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    lse = torch.where(l == 0.0, torch.full_like(l, -math.inf),
+                      m * LN2 + torch.log(l_safe))
+    return o.to(q.dtype), lse
+
+
+def flash_fwd_plain(q, k, v, causal, scale, kv_lengths=None, window=None):
+    """Plain version of :func:`flash_fwd`: (o, lse) of the function the
+    shape's schedule computes (:func:`_schedule`)."""
+    sched = _schedule(q, k, causal, window, kv_lengths is not None)
+    if sched.name == "op_graph":
+        return _reference_fwd_with_lse(q, k, v, causal, scale, kv_lengths,
+                                       window)
+    return _kernel_fwd_plain(q, k, v, causal, scale, kv_lengths, window,
+                             sched)
+
+
 def _reference_bwd(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
                    window=None):
     """Plain version of :func:`flash_bwd`: (dq, dk, dv) by the explicit
@@ -148,6 +311,30 @@ def _reference_bwd(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _op_graph_bwd(q, k, v, do, causal, scale, kv_lengths=None,
+                  window=None):
+    """Plain version of the op graph's backward: autograd of
+    :func:`_reference_fwd_with_lse`, as JAX's is ``jax.vjp`` of its graph
+    (``_flash_vjp_bwd`` below the kernel threshold)."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        o = _reference_fwd_with_lse(qg, kg, vg, causal, scale, kv_lengths,
+                                    window)[0]
+        return torch.autograd.grad(o, (qg, kg, vg), do.to(o.dtype))
+
+
+def flash_bwd_plain(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
+                    window=None):
+    """Plain version of :func:`flash_bwd`: at op-graph shapes autograd of
+    the op graph (lse and di unused), else the TPU kernels' explicit
+    formulas (:func:`_reference_bwd`)."""
+    sched = _schedule(q, k, causal, window, kv_lengths is not None)
+    if sched.name == "op_graph":
+        return _op_graph_bwd(q, k, v, do, causal, scale, kv_lengths, window)
+    return _reference_bwd(q, k, v, lse, di, do, causal, scale, kv_lengths,
+                          window)
+
+
 def _check_kernel_args(q, k, v):
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -171,11 +358,23 @@ def _lengths(kv_lengths, b, device):
 
 
 def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
-    """Kernel launch: (o, lse (b, h, n_q, 1) f32) for CUDA tensors."""
+    """Kernel launch: (o, lse (b, h, n_q, 1) f32) for CUDA tensors, of the
+    function of the shape's schedule (:func:`_schedule`).  In
+    bf16 the kernel schedules take q pre-scaled by sm_scale * log2(e) in
+    bf16, as JAX prescales it outside its kernels; the op graph's mode
+    scales the f32 scores."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
+    sched = _schedule(q, k, causal, window, kv_lengths is not None)
     code = _build.dtype_code(q)
+    mode = _MODES[sched.name]
+    scale = float(sm_scale * LOG2E)
+    if code == 1 and mode:
+        q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+        scale = 1.0
+    elif code == 1:
+        scale = float(sm_scale)
     q, k, v = (_build.aligned(t.detach()) for t in (q, k, v))
     lens = _lengths(kv_lengths, b, q.device)
     o = torch.empty_like(q)
@@ -183,7 +382,7 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
     _kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lens is None else lens.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q, n_kv, d,
-            int(causal), int(window or 0), float(sm_scale * LOG2E), code)
+            int(causal), int(window or 0), scale, code, mode, sched.span)
     return o, lse
 
 
@@ -191,8 +390,9 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
               window=None):
     """Kernel launch: (dq, dk, dv) for CUDA tensors, dk/dv at the kv heads.
     ``lse`` is the forward's (b, h, n_q, 1) natural-log lse and
-    ``di = rowsum(o * do)`` (b, h, n_q, 1) f32.  One count covers its two
-    launches (dK/dV, then dQ)."""
+    ``di = rowsum(o * do)`` (b, h, n_q, 1) f32.  At op-graph shapes in
+    bf16 the kernels compute the op graph's autodiff from their own row
+    statistics (lse and di unused).  One count covers its launches."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -201,25 +401,31 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
         raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and "
                          f"di {tuple(di.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    sched = _schedule(q, k, causal, window, kv_lengths is not None)
     code = _build.dtype_code(q)
+    op_graph = int(code == 1 and sched.name == "op_graph")
     q, k, v, do = (_build.aligned(t.detach().to(q.dtype))
                    for t in (q, k, v, do))
     lse, di = (t.detach().float().contiguous() for t in (lse, di))
     lens = _lengths(kv_lengths, b, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ops = (torch.empty((b, h, n_q, 3), device=q.device, dtype=torch.float32)
+           if op_graph else None)
     _bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), di.data_ptr(),
+                None if ops is None else ops.data_ptr(),
                 None if lens is None else lens.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, h, h_kv, n_q, n_kv, d, int(causal), int(window or 0),
-                float(sm_scale), code)
+                float(sm_scale), code, op_graph)
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
-    """(o, lse) = flash attention; the backward launches ``flash_bwd`` on
-    CUDA.  No gradient flows through lse: a nonzero one raises (the JAX
-    package's ``flash_attention_with_lse`` is forward-only)."""
+    """(o, lse) = flash attention of the shape's schedule; the backward
+    launches ``flash_bwd`` on CUDA.  No gradient flows through lse: a
+    nonzero one raises (the JAX package's ``flash_attention_with_lse`` is
+    forward-only)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, causal, scale, window):
@@ -227,8 +433,8 @@ class _Flash(torch.autograd.Function):
             o, lse = flash_fwd(q, k, v, causal=causal, sm_scale=scale,
                                kv_lengths=kv_lengths, window=window)
         else:
-            o, lse = _reference_fwd_with_lse(q, k, v, causal, scale,
-                                             kv_lengths, window)
+            o, lse = flash_fwd_plain(q, k, v, causal, scale, kv_lengths,
+                                     window)
         ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
         ctx.attrs = (causal, scale, window)
         ctx.set_materialize_grads(False)
@@ -250,8 +456,8 @@ class _Flash(torch.autograd.Function):
                                    sm_scale=scale, kv_lengths=kv_lengths,
                                    window=window)
         else:
-            dq, dk, dv = _reference_bwd(q, k, v, lse, di, do, causal, scale,
-                                        kv_lengths, window)
+            dq, dk, dv = flash_bwd_plain(q, k, v, lse, di, do, causal, scale,
+                                         kv_lengths, window)
         return dq, dk, dv, None, None, None, None
 
 

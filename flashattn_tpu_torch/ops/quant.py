@@ -18,9 +18,13 @@ tensors, each with a plain PyTorch version beside it that the CPU runs:
 * :func:`quantize_int8_stochastic` — ``csrc/quant.cu`` (TPU
   ``_stochastic_quant_kernel``).
 
-The kernels take every shape: the JAX wrappers' fallbacks for shapes their
-TPU tiling does not divide are not carried over, nor are the TPU tiling
-knobs (``block_m``, ``block_q`` ...).
+``flash_attention_kv_int8`` keeps the JAX wrapper's fallback: where
+``largest_divisor_block`` cannot tile n_q (by 1024, or 512 above head dim
+128) or n_kv (by 1024) (``flash_attention._tileable``), K and V are dequantized to q's dtype and the flash
+op graph runs over them (``flash_attention.flash_fwd`` in its op-graph
+mode on CUDA, its plain version on the CPU), as JAX runs XLA's graph.  The
+other kernels take every shape; the TPU tiling knobs (``block_m``,
+``block_q`` ...) are not carried over.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from ._utils import DEFAULT_MASK_VALUE, LN2, LOG2E, check_no_grad, on_cuda
+from . import flash_attention as _fa
+from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, check_no_grad,
+                     on_cuda)
 from .dropout import philox_bits
 
 _wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 5)
@@ -320,9 +326,19 @@ def flash_attention_kv_int8(q: torch.Tensor, k: QuantizedTensor,
     after the sm_scale prefold, as the TPU kernels do; fp8 payloads at the
     TPU subrow envelope (causal, Nq == Nkv, D 128, 1024 <= N <= 8192,
     N % 512 == 0) are transcoded to int8 first (:func:`requantize_fp8_to_int8`),
-    as the JAX dispatcher does, so every shape gives the JAX numbers."""
+    as the JAX dispatcher does, so every shape gives the JAX numbers.
+    Shapes the JAX tiler cannot divide (n_q or n_kv under 8 or without a
+    power-of-two block of at least 8) take its fallback: the flash op graph
+    over K and V dequantized to q's dtype."""
     b, h, n_q, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    if not _fa._tileable(n_q, k.values.shape[2], d):
+        _check_kv8(q, k, v)
+        check_no_grad(q)
+        kd, vd = k.dequantize(q.dtype), v.dequantize(q.dtype)
+        if on_cuda(q, kd, vd):
+            return _fa.flash_fwd(q, kd, vd, causal=causal, sm_scale=scale)
+        return _fa.flash_fwd_plain(q, kd, vd, causal, scale)
     if (k.values.dtype == torch.float8_e4m3fn
             and _subrow_envelope(causal, n_q, k.values.shape[2], d)):
         k, v = requantize_fp8_to_int8(k), requantize_fp8_to_int8(v)

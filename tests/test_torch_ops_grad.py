@@ -2,9 +2,10 @@
 fused dropout.
 
 On CPU tensors the port differentiates through its autograd Functions,
-whose backward runs the plain explicit formulas (``_reference_bwd``,
-``layernorm_bwd_reference``) that the CUDA kernels are held to on the
-card.  The JAX side runs its Pallas backward kernels in interpret mode: the
+whose backward runs the plain versions that the CUDA kernels are held to
+on the card (``layernorm_bwd_reference``; for flash attention, below 1024
+keys autograd of the op graph, as JAX differentiates its op graph there,
+and from 1024 keys the explicit formulas ``_reference_bwd``).  The JAX side runs its Pallas backward kernels in interpret mode: the
 grid kernels (``_bwd_dkv_kernel``/``_bwd_dq_kernel``), the fused subrow
 kernel and the split loop kernels.  Inputs and cotangents come from a numpy
 seed.  Tolerance: float32, atol 1e-5 (the frameworks sum in different

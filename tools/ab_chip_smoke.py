@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,bwd,kv8,ln,drop,softmax,paged,serve_quant,train,train_fused] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -13,10 +13,11 @@ a process of its own that imports that root's package and this repo's
   for M <= 16, CUDA events above), eager ms with the host's launch
   overhead, and ``x @ W_bf16`` beside both;
 * ``flash``: the bf16 flash forward at the train step's dense causal
-  shape, the varlen prefill and N 16384, with SDPA beside;
+  shape, the varlen prefill, N 16384, d64 non-causal N2048, window 256
+  and causal N517 (below 1024 keys: JAX's op graph), with SDPA beside;
 * ``bwd``: the bf16 flash backward (``flash_bwd``) at the train step's
-  head shape B4 H16 N2048 D128 causal and cross 1000 x 2048 non-causal,
-  with SDPA's backward beside;
+  head shape B4 H16 N2048 D128 causal, cross 1000 x 2048 non-causal and
+  causal N512 (the op graph's autodiff), with SDPA's backward beside;
 * ``kv8``: ``kv8_flash`` with bf16 q at B4 H8 N2048 D128 causal (int8 and
   fp8 payloads; the kernel call itself, so fp8 is not transcoded) and
   cross 1000 x 2048 int8, with SDPA on the dequantized cache beside;
@@ -25,6 +26,14 @@ a process of its own that imports that root's package and this repo's
   backward beside, and the bounds;
 * ``drop``: ``dropout`` at (16384, 2048), p 0.1, bf16 and f32, with
   ``F.dropout`` beside, and the bound;
+* ``share``: the bf16 flash forward's share of o bit for bit against its
+  plain version (``flash_fwd_plain``) and its time, at the loop schedule's
+  B1 H2 N16384 and N9216 and the train shape, d 128 causal;
+* ``bias``: the dropout-bias kernels at the training FFN's shapes, p 0.1:
+  act-bias GELU and ReLU at (16384, 8192) and res-bias at (16384, 2048),
+  forward and backward, bf16 (and GELU in f32), with the bound;
+* ``sq``: stochastic int8 quantization at (32768, 1024) bf16 and f32,
+  with the bound;
 * ``softmax``: ``softmax_fwd`` and ``softmax_bwd`` at the fused step's
   shape (8, 16, 2048, 2048) causal and at T 33 (F 2048), bf16 in both
   roundings (a root whose kernels take no ``impl`` has the Pallas
@@ -80,28 +89,36 @@ def _wo(torch, cs, dev):
                   f"{eager:.4f}, x @ W_bf16 {lib:.4f}", flush=True)
 
 
-FLASH_SHAPES = [("train B4 H16 N2048 D128 causal", (4, 16, 2048), None),
-                ("varlen B4 H8 N2048 D128", (4, 8, 2048), [2048, 1536, 1024, 517]),
-                ("B1 H2 N16384 D128 causal", (1, 2, 16384), None)]
+# (label, (b, h, n, d), lengths, causal, window)
+FLASH_SHAPES = [
+    ("train B4 H16 N2048 D128 causal", (4, 16, 2048, 128), None, True, None),
+    ("varlen B4 H8 N2048 D128", (4, 8, 2048, 128), [2048, 1536, 1024, 517], True,
+     None),
+    ("B1 H2 N16384 D128 causal", (1, 2, 16384, 128), None, True, None),
+    ("B4 H8 N2048 D64 non-causal", (4, 8, 2048, 64), None, False, None),
+    ("B4 H8 N2048 D128 window 256", (4, 8, 2048, 128), None, True, 256),
+    ("B4 H8 N517 D128 causal", (4, 8, 517, 128), None, True, None)]
 
 
 def _flash(torch, cs, dev):
     from flashattn_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(0)
-    for label, (b, h, n), lens in FLASH_SHAPES:
-        q, k, v = (torch.randn(b, h, n, 128, generator=g, device=dev)
+    for label, (b, h, n, d), lens, causal, window in FLASH_SHAPES:
+        q, k, v = (torch.randn(b, h, n, d, generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         lens = None if lens is None else torch.tensor(lens, device=dev)
-        lib, args = cs._sdpa(torch, q, k, v, True, None, lens)
-        ms = cs.time_ms(lambda: fa.flash_fwd(q, k, v, causal=True,
-                                             sm_scale=128 ** -0.5, kv_lengths=lens))
+        lib, args = cs._sdpa(torch, q, k, v, causal, window, lens)
+        ms = cs.time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal,
+                                             sm_scale=d ** -0.5, kv_lengths=lens,
+                                             window=window))
         print(f"[ab] flash_fwd {label}: ms {ms:.4f}, SDPA {cs.time_ms(lambda: lib(*args)):.4f}",
               flush=True)
 
 
 BWD_SHAPES = [("train B4 H16 N2048 D128 causal", (4, 16, 2048, 2048), True),
-              ("cross B4 H16 1000 x 2048 D128", (4, 16, 1000, 2048), False)]
+              ("cross B4 H16 1000 x 2048 D128", (4, 16, 1000, 2048), False),
+              ("B4 H16 N512 D128 causal", (4, 16, 512, 512), True)]
 
 
 def _bwd(torch, cs, dev):
@@ -185,6 +202,73 @@ def _drop(torch, cs, dev):
         print(f"[ab] dropout {name} ({n}, {h}) p 0.1: ms {ms:.4f}, F.dropout "
               f"{lib:.4f}, bound {bound:.4f}", flush=True)
         del x
+
+
+def _share(torch, cs, dev):
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for b, h, n in ((1, 2, 16384), (1, 2, 9216), (4, 16, 2048)):
+        q, k, v = (torch.randn(b, h, n, 128, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        o, _ = fa.flash_fwd(q, k, v, causal=True, sm_scale=128 ** -0.5)
+        ref, _ = fa.flash_fwd_plain(q, k, v, True, 128 ** -0.5)
+        share = float((o == ref).float().mean())
+        ms = cs.time_ms(lambda: fa.flash_fwd(q, k, v, causal=True,
+                                             sm_scale=128 ** -0.5))
+        print(f"[ab] flash_fwd share B{b} H{h} N{n}: {100 * share:.3f}% of o bit "
+              f"for bit, ms {ms:.4f}", flush=True)
+        del q, k, v, o, ref
+        torch.cuda.empty_cache()
+
+
+def _bias(torch, cs, dev):
+    from flashattn_tpu_torch.ops import dropout as dr
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    seed, rate, n = 0x9E3779B97F4A7C15, 0.1, TRAIN_ROWS[0]
+    for dtype, acts in ((torch.bfloat16, ("gelu", "relu")),
+                        (torch.float32, ("gelu",))):
+        name, isz = str(dtype).replace("torch.", ""), dtype.itemsize
+        d = 4 * TRAIN_ROWS[1]
+        x, gy = (torch.randn(n, d, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        bias = torch.randn(d, generator=g, device=dev).to(dtype)
+        for act in acts:
+            for bwd in (False, True):
+                fn = ((lambda: dr.dropout_act_bias_bwd(gy, x, bias, rate, seed,
+                                                       True, act)) if bwd else
+                      (lambda: dr.dropout_act_bias(x, bias, rate, seed, True, act)))
+                nbytes = ((3 if bwd else 2) * n * d + d) * isz + (4 * d if bwd else 0)
+                print(f"[ab] dropout_act_bias {act} {'bwd' if bwd else 'fwd'} {name} "
+                      f"({n}, {d}): ms {cs.time_ms(fn):.4f}, bound "
+                      f"{cs.bound_ms(nbytes, 0, name)[0]:.4f}", flush=True)
+        del x, gy
+        d = TRAIN_ROWS[1]
+        x, r, gy = (torch.randn(n, d, generator=g, device=dev).to(dtype)
+                    for _ in range(3))
+        bias = torch.randn(d, generator=g, device=dev).to(dtype)
+        for bwd in (False, True):
+            fn = ((lambda: dr.dropout_res_bias_bwd(gy, rate, seed, True)) if bwd else
+                  (lambda: dr.dropout_res_bias(x, bias, r, rate, seed, True)))
+            nbytes = (2 * n * d * isz + 4 * d) if bwd else (3 * n * d + d) * isz
+            print(f"[ab] dropout_res_bias {'bwd' if bwd else 'fwd'} {name} ({n}, {d}): "
+                  f"ms {cs.time_ms(fn):.4f}, bound {cs.bound_ms(nbytes, 0, name)[0]:.4f}",
+                  flush=True)
+        del x, r, gy
+
+
+def _sq(torch, cs, dev):
+    from flashattn_tpu_torch.ops import quant as qt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        x = torch.randn(32768, 1024, generator=g, device=dev).to(dtype)
+        ms = cs.time_ms(lambda: qt.stochastic_quant(x, 7))
+        nbytes = x.numel() * (x.element_size() + 1) + 4 * 32768
+        print(f"[ab] stochastic_quant {name} (32768, 1024): ms {ms:.4f}, bound "
+              f"{cs.bound_ms(nbytes, 0, name)[0]:.4f}", flush=True)
 
 
 SOFTMAX_SHAPES = [("B8 H16 N2048 causal", (8, 16, 2048, 2048)),
@@ -304,6 +388,12 @@ def child(root: str, phases: list[str]) -> None:
         _ln(torch, cs, dev)
     if "drop" in phases:
         _drop(torch, cs, dev)
+    if "share" in phases:
+        _share(torch, cs, dev)
+    if "bias" in phases:
+        _bias(torch, cs, dev)
+    if "sq" in phases:
+        _sq(torch, cs, dev)
     if "softmax" in phases:
         _softmax(torch, cs, dev)
     if "paged" in phases:
