@@ -19,7 +19,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward
    and backward, tensor-core kernels, at head dims 32 / 64 / 128, n 517 /
    1000 / 3000, GQA 8/2 and 16/4, window 256, cross 1000 x 2048, a
-   length-0 row, varlen).
+   length-0 row, varlen; the loop schedule's forward and backward at B1 H2
+   N16384).
    The bf16 flash forward (each schedule's function and the op graph) and
    the op graph's backward: at least 99% of the elements bit for bit, the
    rest within one bf16 ulp of their row's largest, lse within 1e-5; at
@@ -96,7 +97,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward of the same quantized model, to the JAX tests' bounds
    (tests/test_serving.py:181-185): max |diff| / max |dense| < 0.08 and
    argmax agreement >= 0.8.
-11. fused-softmax kernels: the attention softmax forward and backward at
+11. serve_features: the north-star serving model of phase 4 in bf16 under
+   kernel_bench/bench_serving.py's traffic (16 requests of 64-token
+   prompts from default_rng(0) in [1, 999), 64 new tokens each; engine
+   max_batch 16, page 128, 8 pages a sequence, 8 steps a dispatch), one
+   engine a mode: greedy; sampled at t 0.8 with a quarter of the requests
+   each adding top-k 50, top-p 0.9, min-p 0.05, or repetition 1.2 with
+   frequency 0.3; draft-model speculation k 4 with bench_serving.py's
+   draft (E128, 2 heads, 1 layer); self-draft speculation, greedy and at
+   t 0.8; prompt lookup k 3; and the prefix cache (4 requests sharing a
+   1024-token prefix with distinct 64-token suffixes, 10 pages a
+   sequence).  Logs new tok/s (generated tokens over the run's wall
+   time, prefill included, after a warm-up engine), stats() and the
+   n-gram proposer that ran, and profiles the first decode dispatch of
+   the greedy, sampled and draft modes.  Gates: every request finishes; no page
+   leaks once the cache is dropped; paged_attention and layernorm_fwd
+   launch in every mode (counts zeroed just before each mode's run) and
+   the model's multi-token forward_extend_paged runs in the speculative
+   and prefix-cache modes; the prefix-cache admissions attach the 8 cached
+   pages; the native proposer ran; two sampled runs with the same seeds
+   land the same tokens; sampled requests alone land what they land
+   inside the batch.  The same model in f32: draft, self-draft, lookup
+   and prefix-cache greedy tokens identical to plain greedy (in bf16 the
+   agreement is logged, not gated).
+12. fused-softmax kernels: the attention softmax forward and backward at
    the fused path's shape (8, 16, 2048, 2048) causal without a mask, and
    ragged variants (T 33, 1000, causal; T 4097 and 8200 non-causal, so
    every column is read, the second past the register envelope; a
@@ -119,13 +143,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    GELU gated like a gradient: tanhf differs from torch.tanh).  The
    softmax yardsticks are torch.softmax on the pre-masked scores and
    torch._softmax_backward_data; the dropout variants have none.
-12. train_fused_softmax: phase 6's configuration and step with
+13. train_fused_softmax: phase 6's configuration and step with
    attn_impl="fused_softmax" (score matmul, the softmax kernels in JAX's
    op-graph rounding, matmul with V): the bf16 step's losses finite and
    falling, its peak memory logged (the op graph's backward keeps each
    layer's scores); softmax_fwd, softmax_bwd, LayerNorm and dropout
    launched in every step and flash in none; one profiled step.
-13. fused consistency: phase 7 with attn_impl="fused_softmax" (card vs CPU
+14. fused consistency: phase 7 with attn_impl="fused_softmax" (card vs CPU
    backward, p 0 and 0.1, the same bounds), and the fused-softmax model's
    dense f32 logits against the flash model's on the same weights, to 1e-4.
 
@@ -182,6 +206,21 @@ TRAIN_FUSED = dict(TRAIN, attn_impl="fused_softmax")
 FUSED_KERNELS = ("layernorm_fwd", "layernorm_bwd", "softmax_fwd", "softmax_bwd",
                  "dropout")
 FUSED_ABSENT = ("flash_fwd", "flash_bwd")
+# the serving-feature traffic of kernel_bench/bench_serving.py:27-60 and
+# its draft (:170), on the north-star model
+FEAT_ENGINE = dict(max_batch=16, page_size=128, pages_per_seq=8,
+                   steps_per_dispatch=8)
+FEAT_REQUESTS, FEAT_PROMPT, FEAT_NEW_TOKENS = 16, 64, 64
+FEAT_DRAFT = dict(n_vocab=1000, n_embd=128, n_head=2, n_positions=4096,
+                  n_layer=1, p_dropout=0.0, attn_impl="flash")
+# each quarter of the sampled requests adds one of these to t 0.8
+FEAT_SAMPLED = (dict(top_k=50), dict(top_p=0.9), dict(min_p=0.05),
+                dict(repetition_penalty=1.2, frequency_penalty=0.3))
+PREFIX_REQUESTS, PREFIX_LEN, SUFFIX_LEN = 4, 1024, 64
+PREFIX_ENGINE = dict(FEAT_ENGINE, pages_per_seq=10)
+FEAT_KERNELS = ("paged_attention", "layernorm_fwd")
+# modes whose first decode dispatch is profiled
+FEAT_PROFILED = ("greedy", "sampled", "draft k=4")
 
 
 def log(msg: str) -> None:
@@ -707,6 +746,11 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
                  a, b, LOOP_16K_GATE[0], label="flash_fwd loop N16384",
                  ulps=LOOP_16K_GATE[1]),
              tol=1.0, library=lambda: lib(*args))
+    del lib, args
+    # and the loop schedule's backward (TPU row 9) at the same shape
+    do = randn(1, 2, 16384, 128, dtype=bf)
+    _flash_bwd_check(torch, ph, fa, "B1 H2 N16384 D128 causal (loop)", bf, q,
+                     k, v, do, True, None, None)
 
 
 def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
@@ -1492,6 +1536,241 @@ def quant_consistency_phase(torch, model, dev) -> None:
                                  f"{worst_agree}")
 
 
+def _feature_prompts():
+    """bench_serving.py's prompts: 16 of 64 tokens from default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, 999, size=FEAT_PROMPT).tolist()
+            for _ in range(FEAT_REQUESTS)]
+
+
+def _prefix_prompts():
+    """4 prompts sharing a 1024-token prefix, each with its own 64-token
+    suffix."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 6)
+    prefix = rng.integers(1, 999, size=PREFIX_LEN).tolist()
+    return [prefix + rng.integers(1, 999, size=SUFFIX_LEN).tolist()
+            for _ in range(PREFIX_REQUESTS)]
+
+
+def _sampled_kw(i: int, extras: bool = True) -> dict:
+    kw = dict(temperature=0.8, seed=i)
+    if extras:
+        kw.update(FEAT_SAMPLED[i * len(FEAT_SAMPLED) // FEAT_REQUESTS])
+    return kw
+
+
+class _ExtendCalls:
+    """Counts a model's multi-token ``forward_extend_paged`` calls (verify
+    waves, chunked prefill) while active; decode steps do not go through
+    it."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, 0
+
+    def __enter__(self):
+        bound = self.model.forward_extend_paged
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return bound(*args, **kwargs)
+
+        self.model.forward_extend_paged = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.forward_extend_paged
+
+
+def _feature_run(torch, model, dtype, engine_kw, reqs, prefix=False):
+    """One engine serves ``reqs`` (prompt, submit kwargs); with ``prefix``
+    the first request runs alone (its prompt pages enter the cache) and the
+    rest are admitted together after it.  Returns (requests, a dict of the
+    run's seconds, kernel launches, extend calls, shared pages of the later
+    admissions, stats() and n-gram proposer)."""
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, dtype=dtype, **engine_kw)
+    counters = {n: k for n, k in kernel_counters().items()
+                if n in SERVE_KERNELS}
+    shared = []
+    torch.cuda.synchronize()
+    for kern in counters.values():
+        kern.launches = 0
+    with _ExtendCalls(model) as ext:
+        t0 = time.perf_counter()
+        if prefix:
+            first = eng.submit(reqs[0][0], FEAT_NEW_TOKENS, **reqs[0][1])
+            eng.run()
+            out = [first] + [eng.submit(p, FEAT_NEW_TOKENS, **kw)
+                             for p, kw in reqs[1:]]
+            eng.step()                      # admission + suffix prefill
+            shared = [s.shared_pages for s in eng.slots if s is not None]
+        else:
+            out = [eng.submit(p, FEAT_NEW_TOKENS, **kw) for p, kw in reqs]
+        eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    run = dict(seconds=dt, extends=ext.calls, shared=shared,
+               launches={name: k.launches for name, k in counters.items()},
+               stats=eng.stats(), proposer=eng._ngram_impl)
+    for r in out:
+        assert r.done and not r.truncated, f"request {r.uid} did not finish"
+        assert len(r.generated) == FEAT_NEW_TOKENS, (r.uid, len(r.generated))
+        assert all(0 <= t < MODEL["n_vocab"] for t in r.generated)
+        assert all(math.isfinite(lp) and lp <= 0 for lp in r.token_logprobs)
+    # drop the prefix cache: every page must then be free
+    for key, page in list(eng._prefix_cache.items()):
+        del eng._prefix_cache[key]
+        eng._drop_page_ref(page)
+    assert eng.pool.n_free == eng.pool.total, "pages leaked"
+    return out, run
+
+
+def _feature_modes(model, draft):
+    """mode -> (engine settings, submit kwargs of request i, the stats()
+    key counting its speculative waves or None)."""
+    greedy = lambda i: {}
+    return {
+        "greedy": ({}, greedy, None),
+        "sampled": ({}, _sampled_kw, None),
+        "draft k=4": (dict(draft_model=draft, spec_len=4), greedy,
+                      "spec_waves"),
+        "self-draft k=4": (dict(draft_model=model, spec_len=4), greedy,
+                           "spec_waves"),
+        "self-draft k=4 t=0.8": (dict(draft_model=model, spec_len=4),
+                                 lambda i: _sampled_kw(i, extras=False),
+                                 "spec_waves"),
+        "lookup k=3": (dict(prompt_lookup=3), greedy, "lookup_waves"),
+        "prefix cache": (dict(enable_prefix_cache=True), greedy, None),
+    }
+
+
+# modes held to plain greedy: token-identical in f32, agreement logged in bf16
+FEAT_GREEDY_EXACT = ("draft k=4", "self-draft k=4", "lookup k=3",
+                     "prefix cache")
+
+
+def serve_features_phase(torch, model_f32, dev) -> dict:
+    """Sampling, penalties, seeds, the prefix cache and both speculation
+    modes on the north-star model at full width (phase 11)."""
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.utils import native_loader
+
+    prompts, prefix_prompts = _feature_prompts(), _prefix_prompts()
+    draft_f32 = pt.DecoderLM(**FEAT_DRAFT,
+                             generator=torch.Generator().manual_seed(SEED + 3),
+                             device=dev).eval()
+    total = {name: 0 for name in SERVE_KERNELS}
+    tokens = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = copy.deepcopy(model_f32).to(dtype)
+        draft = copy.deepcopy(draft_f32).to(dtype)
+        for mode, (engine_kw, kw, waves) in _feature_modes(model,
+                                                         draft).items():
+            if label == "f32" and mode not in ("greedy",) + FEAT_GREEDY_EXACT:
+                continue
+            prefix = mode == "prefix cache"
+            reqs = ([(p, kw(i)) for i, p in enumerate(prefix_prompts)]
+                    if prefix else [(p, kw(i)) for i, p in enumerate(prompts)])
+            eng_kw = dict(PREFIX_ENGINE if prefix else FEAT_ENGINE,
+                          **engine_kw)
+            if label == "bf16":   # warm-up engine: two requests, 16 tokens
+                warm = pt.ContinuousBatchingEngine(model, dtype=dtype,
+                                                   **eng_kw)
+                for p, k in reqs[:2]:
+                    warm.submit(p, 16, **k)
+                warm.run()
+                del warm
+            out, run = _feature_run(torch, model, dtype, eng_kw, reqs, prefix)
+            tokens[label, mode] = [r.generated for r in out]
+            if label == "f32":
+                continue
+            new = sum(len(r.generated) for r in out)
+            proposer = run["proposer"]
+            if mode == "lookup k=3":
+                assert proposer is native_loader.ngram_propose_native, (
+                    f"the n-gram proposer was {proposer!r}, not the native one")
+            log(f"[serve_features] bf16 {mode}: {new} new tokens in "
+                f"{run['seconds'] * 1e3:.1f} ms "
+                f"({new / run['seconds']:.1f} new tok/s), launches "
+                f"{run['launches']}, extend calls {run['extends']}, stats "
+                f"{run['stats']}"
+                + (f", n-gram proposer {proposer.__module__}."
+                   f"{proposer.__name__}" if proposer else "")
+                + (f", shared pages {run['shared']}" if prefix else ""))
+            for name, n in run["launches"].items():
+                assert name not in FEAT_KERNELS or n > 0, (
+                    f"{mode}: {name} was not launched")
+                total[name] += n
+            if mode in FEAT_GREEDY_EXACT:
+                assert run["extends"] > 0, f"{mode}: the extend path did not run"
+            if waves:
+                assert run["stats"].get(waves, 0) > 0, f"{mode}: no waves"
+            if prefix:
+                hits = [PREFIX_LEN // PREFIX_ENGINE["page_size"]] * (
+                    PREFIX_REQUESTS - 1)
+                assert run["shared"] == hits, f"cache hits {run['shared']}"
+            if mode == "sampled":
+                _sampled_gates(torch, model, dtype, eng_kw, reqs,
+                               tokens[label, mode])
+            if mode in FEAT_PROFILED:
+                _profile_dispatch(torch, model, dtype, eng_kw, reqs, mode)
+        del model, draft
+        torch.cuda.empty_cache()
+    for label in ("bf16", "f32"):
+        plain, prefix_plain = tokens[label, "greedy"], None
+        for mode in FEAT_GREEDY_EXACT:
+            want = plain
+            if mode == "prefix cache":
+                model = copy.deepcopy(model_f32).to(
+                    torch.bfloat16 if label == "bf16" else torch.float32)
+                want = [r.generated for r in _feature_run(
+                    torch, model, next(model.parameters()).dtype,
+                    PREFIX_ENGINE, [(p, {}) for p in prefix_prompts],
+                    prefix=True)[0]]
+                del model
+            got = tokens[label, mode]
+            same = sum(g == w for g, w in zip(got, want))
+            log(f"[serve_features] {label} {mode}: {same}/{len(want)} "
+                f"requests token-identical to plain greedy")
+            if label == "f32" and same != len(want):
+                raise AssertionError(f"f32 {mode} differs from plain greedy")
+    return dict(launches=total)
+
+
+def _profile_dispatch(torch, model, dtype, eng_kw, reqs, mode) -> None:
+    """One dispatch after the admission (8 decode steps, or a scan of
+    speculative waves) under torch.profiler."""
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, dtype=dtype, **eng_kw)
+    for p, kw in reqs:
+        eng.submit(p, FEAT_NEW_TOKENS, **kw)
+    eng.step()
+    profile_step(torch, eng.step, f"serve_features bf16 {mode}: the first "
+                 "dispatch after the admission")
+    eng.run()
+
+
+def _sampled_gates(torch, model, dtype, eng_kw, reqs, batched) -> None:
+    """Two runs with the same seeds land the same tokens; a sampled request
+    alone lands what it lands inside the batch (one of each quarter)."""
+    again = [r.generated for r in _feature_run(torch, model, dtype, eng_kw,
+                                               reqs)[0]]
+    assert again == batched, "sampled tokens differ between two runs"
+    step = FEAT_REQUESTS // len(FEAT_SAMPLED)
+    for i in range(1, FEAT_REQUESTS, step):
+        alone = _feature_run(torch, model, dtype, eng_kw, [reqs[i]])[0][0]
+        assert alone.generated == batched[i], (
+            f"request {i} alone differs from the batch")
+    log(f"[serve_features] bf16 sampled: two runs identical; requests "
+        f"{list(range(1, FEAT_REQUESTS, step))} alone equal the batch")
+
+
 def train_flops(cfg, batch, seq) -> float:
     """Model FLOP per train step, the formula of
     kernel_bench/bench_train_mfu.py:70-73: 6 x matmul weights x tokens, plus
@@ -1753,13 +2032,14 @@ QUANT_PAGED = {"paged_attention_int8": "int8 weights + int8 pool",
                "paged_attention_fp8": "int8 weights + fp8 pool"}
 
 
-def main_path_launches(name, train, train_fused, serve, serve_quant) -> int:
+def main_path_launches(name, train, train_fused, serve, serve_quant,
+                       serve_features) -> int:
     """A kernel's launches over the main-path runs.  The paged kernel's
     launches over a quantized pool count under that pool's entry, the
     others under ``paged_attention``."""
     if name in QUANT_PAGED:
         return serve_quant[QUANT_PAGED[name]]["launches"]["paged_attention"]
-    runs = [train, train_fused, serve] + [
+    runs = [train, train_fused, serve, serve_features] + [
         res for label, res in serve_quant.items()
         if name != "paged_attention" or label not in QUANT_PAGED.values()]
     return sum(r["launches"].get(name, 0) for r in runs)
@@ -1807,6 +2087,7 @@ def main() -> int:
     serve = serve_phase(torch, copy.deepcopy(model).to(torch.bfloat16), dev)
     consistency_phase(torch, model, dev)
     quant_consistency_phase(torch, model, dev)
+    serve_features = serve_features_phase(torch, model, dev)
     del model
     torch.cuda.empty_cache()
     serve_quant = serve_quant_phase(torch, dev)
@@ -1826,7 +2107,7 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         launches = main_path_launches(name, train, train_fused, serve,
-                                      serve_quant)
+                                      serve_quant, serve_features)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=tpu[0], counterparts=tpu,
                             launches=launches, **phases.main[name]))

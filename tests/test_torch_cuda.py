@@ -996,3 +996,144 @@ def test_dropout_bias_autograd_launches_both_directions(dev):
     assert _err(act.detach().cpu(), act_c.detach()) <= 1e-5
     for a, b in zip(got, want):
         assert _rel_err(a.cpu(), b) <= 1e-5
+
+
+# -- serving features: the engine's draws and speculative verify waves ----------
+
+
+@pytest.mark.parametrize("v", [1000, 16384])
+def test_threefry_cuda_equals_cpu(dev, v):
+    """The engine's threefry keys and uniforms are integer ops: the card's
+    words equal the CPU's bit for bit (B 16)."""
+    from flashattn_tpu_torch.serving import _threefry, engine as eng
+
+    g = torch.Generator().manual_seed(3)
+    seeds = torch.randint(0, 2**31 - 1, (16,), generator=g, dtype=torch.int32)
+    pos = torch.randint(0, 16384, (16,), generator=g, dtype=torch.int32)
+    key_c = eng._row_keys(seeds, pos, eng._SALT_RESIDUAL)
+    key_g = eng._row_keys(seeds.to(dev), pos.to(dev), eng._SALT_RESIDUAL)
+    for a, b in zip(key_g, key_c):
+        assert torch.equal(a.cpu(), b)
+    u_c, u_g = _threefry.uniform(key_c, v), _threefry.uniform(key_g, v)
+    assert torch.equal(u_g.cpu().view(torch.int32), u_c.view(torch.int32))
+
+
+def _near_tie(scores, got, want):
+    """Rows where the card's token differs from the CPU's must be ties of the
+    CPU's perturbed scores to 1e-5 relative (the Gumbel noise's log may
+    round to the neighbouring float on the card)."""
+    rows = (got != want).nonzero().flatten()
+    for r in rows.tolist():
+        a, c = scores[r, got[r]], scores[r, want[r]]
+        assert abs(float(a - c)) <= 1e-5 * max(1.0, abs(float(c))), r
+    return len(rows)
+
+
+def test_sample_tokens_cuda_equals_cpu(dev):
+    """_sample_tokens on the card's logits lands the CPU's tokens: 64 rows of
+    mixed temperature, top-k, top-p, min-p and penalties at V 1000."""
+    from flashattn_tpu_torch.serving import engine as eng
+
+    g = torch.Generator().manual_seed(4)
+    b, v = 64, 1000
+    logits = torch.randn(b, v, generator=g) * 3
+    temps = torch.tensor([0.0, 0.7, 1.5, 1.0]).repeat(16)
+    topks = torch.tensor([0, 0, 50, 1, 0, 5, 0, 0], dtype=torch.int32).repeat(8)
+    topps = torch.tensor([0.0, 0.9, 0.0, 0.5], dtype=torch.float32).repeat(16)
+    minps = torch.tensor([0.0, 0.0, 0.05, 0.0, 0.3, 0.0, 0.0, 0.0]).repeat(8)
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=g, dtype=torch.int32)
+    pos = torch.randint(0, 4096, (b,), generator=g, dtype=torch.int32)
+    presence = (torch.rand(b, v, generator=g) < 0.05).float() * 2
+    pen = dict(presence=presence, reps=torch.tensor([1.0, 1.2]).repeat(32),
+               freqs=torch.tensor([0.0, 0.0, 0.3, 0.0]).repeat(16),
+               press=torch.tensor([0.0, 0.5]).repeat(32), minps=minps)
+    args = (logits, temps, topks, topps, seeds, pos)
+    want = eng._sample_tokens(*args, **pen)
+    got = eng._sample_tokens(*(t.to(dev) for t in args),
+                             **{k: t.to(dev) for k, t in pen.items()}).cpu()
+    # the CPU's perturbed scores, for the near-tie check
+    adj = torch.where(logits > 0, logits / pen["reps"][:, None],
+                      logits * pen["reps"][:, None])
+    pl = torch.where((presence > 0) & (pen["reps"][:, None] != 1), adj, logits)
+    pl = pl - (pen["freqs"][:, None] * presence
+               + pen["press"][:, None] * (presence > 0))
+    scores = (pl / temps.clamp_min(1e-6)[:, None]
+              + eng._row_gumbel(seeds, pos, eng._SALT_SAMPLE, v))
+    assert _near_tie(scores, got, want) <= 2
+
+
+def test_spec_accept_sampled_cuda_equals_cpu(dev):
+    """The accept/residual wave on the card's logits: the CPU's accepted
+    counts, tokens and logprobs (B 64, k+1 = 5, V 1000)."""
+    from flashattn_tpu_torch.serving import engine as eng
+
+    g = torch.Generator().manual_seed(5)
+    b, n, v = 64, 5, 1000
+    logits = torch.randn(b, n, v, generator=g) * 2
+    proposed = logits[:, :-1].argmax(-1).int()
+    proposed[::3, 1] = torch.randint(0, v, (22,), generator=g).int()
+    proposed[::5, 2:] = -1
+    temps = torch.tensor([0.0, 0.8, 1.2, 0.5]).repeat(16)
+    seeds = torch.randint(0, 2**31 - 1, (b,), generator=g, dtype=torch.int32)
+    pos0 = torch.randint(0, 4096, (b,), generator=g, dtype=torch.int32)
+    args = (logits, proposed, temps, seeds, pos0)
+    n_c, t_c, l_c = eng._spec_accept_sampled(*args)
+    n_g, t_g, l_g = (t.cpu() for t in eng._spec_accept_sampled(
+        *(t.to(dev) for t in args)))
+    assert torch.equal(n_g, n_c)
+    rows = torch.arange(b)
+    logp = torch.log_softmax(logits / temps.clamp_min(1e-6)[:, None, None], -1)
+    scores = logp[rows, n_c] + eng._row_gumbel(seeds, pos0 + n_c,
+                                                eng._SALT_RESIDUAL, v)
+    last_g, last_c = t_g[rows, n_c].long(), t_c[rows, n_c].long()
+    assert torch.equal(t_g[rows[:, None], torch.arange(n)] * (
+        torch.arange(n) < n_c[:, None]), t_c * (torch.arange(n) < n_c[:, None]))
+    assert _near_tie(scores, last_g, last_c) <= 2
+    same = t_g == t_c
+    assert _err(l_g[same], l_c[same]) <= 1e-5
+
+
+# (b, hq, hkv, d, page, pps, bases): speculative verify waves of k+1 = 5
+# rows a sequence at bases that cross a page, the north-star heads (8 q / 8
+# kv: 5 rows a kv head, the decode tile) and GQA (20 rows, the wgmma tile)
+VERIFY_CASES = {
+    "north_star_heads_page16_d128": (4, 8, 8, 128, 16, 8, [14, 30, 45, 0]),
+    "gqa4_page128_d128": (3, 8, 2, 128, 128, 4, [126, 253, 3]),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(VERIFY_CASES))
+def test_paged_verify_wave(dev, dtype, case):
+    """A verify wave of k+1 rows at base ``lengths`` against
+    paged_attention_plain under the paged gates; the pages past each row's
+    length (a speculative scan's rejected writes) and the neighbours'
+    lengths leave a row's output bit for bit unchanged."""
+    b, hq, hkv, d, page, pps, bases = VERIFY_CASES[case]
+    k1 = 5
+    g = torch.Generator(device=dev).manual_seed(12)
+    n_pages = b * pps + 1
+    kp = _randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+    vp = _randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    q = _randn(g, b, k1, hq, d, dtype=dtype, dev=dev)
+    lens = torch.tensor(bases, device=dev) + k1
+    before = pa._kernel.launches
+    out = pa.paged_attention(q, kp, vp, lens, table)
+    assert pa._kernel.launches == before + 1
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table)
+    assert _paged_err(out, ref) <= TOL[dtype]
+    # overwrite every position at or past each row's length
+    kp2, vp2 = kp.clone(), vp.clone()
+    for r in range(b):
+        for col in range(pps):
+            start = max(0, int(lens[r]) - col * page)
+            if start < page:
+                kp2[:, table[r, col], start:] = 7.0
+                vp2[:, table[r, col], start:] = -7.0
+    assert torch.equal(pa.paged_attention(q, kp2, vp2, lens, table), out)
+    # a neighbour's length does not move row 0
+    lens2 = lens.clone()
+    lens2[1:] = torch.clamp(lens2[1:] + page + 1, max=pps * page)
+    assert torch.equal(pa.paged_attention(q, kp, vp, lens2, table)[0], out[0])

@@ -37,6 +37,7 @@ from flashattn_tpu.nn import functional as jF
 from flashattn_tpu.ops import dropout as jdr
 from flashattn_tpu.ops import flash_attention as jfa
 from flashattn_tpu.ops import softmax as jsm
+from flashattn_tpu.serving import ContinuousBatchingEngine as JaxEngine
 from flashattn_tpu_torch.ops import dropout as dr
 
 torch.set_num_threads(1)
@@ -256,9 +257,18 @@ def test_mha_attention_matches_jax(use_flash, causal):
 
 
 @pytest.fixture(scope="module")
-def tiny_model():
-    return pt.DecoderLM(64, 32, 4, 64, p_dropout=0.0, n_layer=1,
-                        device="cpu").eval()
+def tiny_pair():
+    jm = ft.DecoderLM(64, 32, 4, 64, p_dropout=0.0, n_layer=1,
+                      key=jax.random.PRNGKey(5)).eval()
+    tm = pt.DecoderLM(64, 32, 4, 64, p_dropout=0.0, n_layer=1,
+                      device="cpu").eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def tiny_model(tiny_pair):
+    return tiny_pair[1]
 
 
 def test_engine_accepts_jax_keywords_at_defaults(tiny_model):
@@ -277,10 +287,25 @@ def test_engine_accepts_jax_keywords_at_defaults(tiny_model):
 @pytest.mark.parametrize("knob", [dict(spec_len=2),
                                   dict(spec_waves_per_dispatch=1),
                                   dict(lookup_max_ngram=5)])
-def test_engine_speculation_knobs_raise_naming_a5b(tiny_model, knob):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pt.ContinuousBatchingEngine(tiny_model, max_batch=1, page_size=8,
-                                    pages_per_seq=2, **knob)
+def test_engine_speculation_knobs_match_jax(tiny_pair, knob):
+    """Each speculation knob away from its default serves as the JAX engine
+    does: spec_len and spec_waves_per_dispatch under self-draft
+    speculation, lookup_max_ngram under prompt lookup.  Same tokens and
+    the same acceptance counters."""
+    mode = ({"prompt_lookup": 3} if "lookup_max_ngram" in knob
+            else {"draft_model": None})
+    runs = []
+    for cls, model in ((JaxEngine, tiny_pair[0]),
+                       (pt.ContinuousBatchingEngine, tiny_pair[1])):
+        extra = {k: model if k == "draft_model" else v
+                 for k, v in mode.items()}
+        eng = cls(model, max_batch=1, page_size=8, pages_per_seq=4,
+                  steps_per_dispatch=1, **knob, **extra)
+        req = eng.submit([5, 9, 2, 5, 9, 2, 5], 12)
+        eng.run()
+        runs.append((req.generated, eng.spec_stats, eng.lookup_stats))
+    assert runs[0] == runs[1]
+    assert max(runs[1][1][1], runs[1][2][1]) > 0
 
 
 # -- C6: the bf16 flash backward rounds p and dS like JAX ---------------------------

@@ -220,6 +220,9 @@ def test_functional_parity():
 def test_import_leaves_jax_out():
     """The port imports torch and never jax."""
     code = ("import sys, flashattn_tpu_torch, flashattn_tpu_torch.serving; "
+            "import flashattn_tpu_torch.serving._threefry; "
+            "from flashattn_tpu_torch.utils import native_loader; "
+            "native_loader.ngram_propose_native([1, 2, 1], 1); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'flashattn_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

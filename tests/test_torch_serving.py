@@ -173,14 +173,7 @@ def test_eos_stop_and_cancel(models):
 
 
 def test_unported_engine_options_raise(models):
+    """Tensor-parallel serving is the one engine option still to port."""
     _, tm = models
-    with pytest.raises(NotImplementedError):
-        pt.ContinuousBatchingEngine(tm, enable_prefix_cache=True)
-    with pytest.raises(NotImplementedError):
-        pt.ContinuousBatchingEngine(tm, prompt_lookup=2)
-    eng = pt.ContinuousBatchingEngine(tm, max_batch=1, page_size=8,
-                                      pages_per_seq=2)
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], 3, temperature=0.7)
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], 3, repetition_penalty=1.3)
+    with pytest.raises(NotImplementedError, match="A7"):
+        pt.ContinuousBatchingEngine(tm, mesh=object())
