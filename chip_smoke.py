@@ -152,6 +152,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
 14. fused consistency: phase 7 with attn_impl="fused_softmax" (card vs CPU
    backward, p 0 and 0.1, the same bounds), and the fused-softmax model's
    dense f32 logits against the flash model's on the same weights, to 1e-4.
+15. generate: batched generation over the dense KV cache on the serving
+   model of phase 4.  f32 gates: forward_decode step by step over 256
+   tokens (B2) against one dense forward, 1e-3 abs; greedy_generate on
+   eight ragged prompts (17 to 300 tokens, 64 new) token-identical to the
+   engine's greedy tokens; beam 1 equal to greedy; beam 4 (length penalty
+   0, an eos no row emits) at least greedy's joint log-prob on two rows
+   (tests/test_beam_search.py:69); layernorm_fwd launched.  bf16 (JAX's
+   default f32 cache): new tok/s of greedy at B8 and of beam 4 at B2, and
+   one profiled 8-step greedy loop.
+16. distill: 200 steps of make_train_scan(Adam(1e-3),
+   make_distill_loss(), clip 1.0) with the bf16 serving model as the ctx
+   teacher of phase 11's draft (E128, 2 heads, 1 layer, f32), B16 x 128
+   tokens from default_rng(0): the KL's last 20 steps below its first 20;
+   then phase 11's draft mode (k 4, bf16) with the untrained and the
+   distilled draft: acceptance and new tok/s, logged (no gate).
+17. serve_rope: the serving model with pos_encoding="rope": phase 5's f32
+   engine-vs-dense gate and phase 15's cached-decode gate, then phase 4's
+   bf16 traffic (prompt tok/s, TTFT, decode tok/s; layernorm_fwd,
+   flash_fwd and paged_attention launched); then with 8 experts, top-2:
+   the same two f32 gates (equal logits mean equal routing).
+18. train_moe: phase 6's configuration with pos_encoding="rope", 8 experts
+   and top-2 routing under make_moe_loss(0.01), Adam: losses finite and
+   falling, the peak under 80 GB, the training kernels launched in every
+   step; then phase 7 on the consistency model with RoPE and 8 experts
+   under make_moe_loss (the key-projection bias, whose gradient RoPE makes
+   real, compared like the others).
+19. train_adafactor: phase 6 with Adafactor() for Adam: losses finite and
+   falling, ms/step and the peak logged beside Adam's, the peak below
+   Adam's; then three Adafactor steps of the consistency model on the card
+   and on the CPU, f32: parameters within 1e-5 relative L2 after steps 1
+   and 3 (the key-projection bias, Adafactor's normalised rounding noise
+   on a zero gradient, logged).
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -221,6 +253,20 @@ PREFIX_ENGINE = dict(FEAT_ENGINE, pages_per_seq=10)
 FEAT_KERNELS = ("paged_attention", "layernorm_fwd")
 # modes whose first decode dispatch is profiled
 FEAT_PROFILED = ("greedy", "sampled", "draft k=4")
+# batched generation over the dense KV cache, on the serving model: eight
+# ragged prompts, 64 new tokens; beam 4 on the first two
+GEN_PROMPTS = (17, 300, 45, 128, 233, 64, 190, 99)
+GEN_NEW_TOKENS, BEAM_ROWS, BEAM = 64, 2, 4
+DECODE_GATE_LEN = 256
+# the serving model with rotary positions, and with 8 experts (top-2) too
+ROPE_MODEL = dict(MODEL, pos_encoding="rope")
+ROPE_MOE_MODEL = dict(ROPE_MODEL, n_experts=8, moe_top_k=2)
+# the training configuration with rotary positions and 8 experts (top-2)
+TRAIN_MOE = dict(TRAIN, pos_encoding="rope", n_experts=8, moe_top_k=2)
+CONSIST_MOE = dict(CONSIST, pos_encoding="rope", n_experts=8, moe_top_k=2)
+MOE_AUX_ALPHA = 0.01
+# distillation of serve_features' draft from the serving model
+DISTILL_STEPS, DISTILL_BATCH, DISTILL_SEQ = 200, 16, 128
 
 
 def log(msg: str) -> None:
@@ -1302,7 +1348,7 @@ def kernel_counters():
 SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention")
 
 
-def serve_phase(torch, model, dev) -> dict:
+def serve_phase(torch, model, dev, label: str = "serve") -> dict:
     import numpy as np
 
     from flashattn_tpu_torch import ContinuousBatchingEngine
@@ -1326,6 +1372,7 @@ def serve_phase(torch, model, dev) -> dict:
         kern.launches = 0
     prompt_tok = decode_tok = 0
     prefill_s = decode_s = 0.0
+    ttft = {}
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     while True:
@@ -1337,6 +1384,9 @@ def serve_phase(torch, model, dev) -> dict:
         dt = time.perf_counter() - t0
         if not progressed:
             break
+        for r in reqs:
+            if r.generated and r.uid not in ttft:
+                ttft[r.uid] = (time.perf_counter() - t_start) * 1e3
         admitted = [r for r in reqs if id(r) in queued and r not in eng.queue]
         if admitted:
             prefill_s += dt
@@ -1358,16 +1408,17 @@ def serve_phase(torch, model, dev) -> dict:
     out = dict(prompt_tok_s=prompt_tok / prefill_s,
                decode_tok_s=decode_tok / decode_s, wall_ms=wall_ms,
                prompt_tokens=prompt_tok, decode_tokens=decode_tok,
-               launches=launches)
-    log(f"[serve] {torch.cuda.get_device_name(0)} bf16 E1024 8x128 L4: "
+               ttft_ms=[ttft[r.uid] for r in reqs], launches=launches)
+    log(f"[{label}] {torch.cuda.get_device_name(0)} bf16 E1024 8x128 L4: "
         f"prompt {prompt_tok} tok in {prefill_s * 1e3:.1f} ms "
         f"({out['prompt_tok_s']:.1f} tok/s), decode {decode_tok} tok in "
         f"{decode_s * 1e3:.1f} ms ({out['decode_tok_s']:.1f} tok/s), "
-        f"wall {wall_ms:.1f} ms, launches {launches}")
+        f"wall {wall_ms:.1f} ms, TTFT ms by request "
+        f"{[round(t, 1) for t in out['ttft_ms']]}, launches {launches}")
     return out
 
 
-def consistency_phase(torch, model, dev) -> float:
+def consistency_phase(torch, model, dev, label: str = "consistency") -> float:
     import numpy as np
 
     from flashattn_tpu_torch import ContinuousBatchingEngine
@@ -1388,7 +1439,7 @@ def consistency_phase(torch, model, dev) -> float:
             got = torch.from_numpy(np.stack(r.logits))
             assert got.shape == dense.shape, (got.shape, dense.shape)
             err = max(err, float((got - dense).abs().max()))
-    log(f"[consistency] f32 engine vs dense forward over "
+    log(f"[{label}] f32 engine vs dense forward over "
         f"{[len(r.prompt) + len(r.generated) - 1 for r in reqs]} positions: "
         f"max_abs_err={err:.3e}")
     if not err <= 1e-3:
@@ -1774,17 +1825,22 @@ def _sampled_gates(torch, model, dtype, eng_kw, reqs, batched) -> None:
 def train_flops(cfg, batch, seq) -> float:
     """Model FLOP per train step, the formula of
     kernel_bench/bench_train_mfu.py:70-73: 6 x matmul weights x tokens, plus
-    the causal attention's 7 score-shaped products."""
+    the causal attention's 7 score-shaped products.  An MoE layer counts
+    the expert products of its top-k choices a token (not the capacity's
+    padding, the router, nor the dispatch and combine products)."""
     e, m, l, h, v = (cfg[k] for k in ("n_embd", "middle_dim", "n_layer",
                                        "n_head", "n_vocab"))
-    w = l * (4 * e * e + 2 * e * m) + e * v
+    k = cfg.get("moe_top_k", 2) if cfg.get("n_experts") else 1
+    w = l * (4 * e * e + k * 2 * e * m) + e * v
     return 6 * w * batch * seq + l * batch * h * (seq * seq / 2) * (e // h) * 2 * 7
 
 
 def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
-                kernels=TRAIN_KERNELS, absent=()) -> dict:
+                kernels=TRAIN_KERNELS, absent=(), opt=None, loss=None) -> dict:
     """The training step at full width: losses finite and falling, every
-    kernel of ``kernels`` launched in every step and none of ``absent``."""
+    kernel of ``kernels`` launched in every step and none of ``absent``.
+    ``opt`` defaults to Adam(1e-4), ``loss`` to lm_loss; either is wrapped
+    in make_mixed_precision_loss."""
     import numpy as np
 
     import flashattn_tpu_torch as pt
@@ -1792,10 +1848,11 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
     model = pt.DecoderLM(**cfg, generator=torch.Generator().manual_seed(SEED),
                          device=dev).train()
     n_params = sum(p.numel() for p in model.parameters())
-    opt = pt.Adam(lr=1e-4)
+    opt = pt.Adam(lr=1e-4) if opt is None else opt
     state = opt.init(model)
-    step = pt.make_train_step(opt, pt.make_mixed_precision_loss(pt.lm_loss),
-                              grad_clip=1.0)
+    step = pt.make_train_step(
+        opt, pt.make_mixed_precision_loss(pt.lm_loss if loss is None else loss),
+        grad_clip=1.0)
     tok = np.random.default_rng(SEED).integers(
         0, cfg["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
     tokens = torch.from_numpy(tok).to(dev)
@@ -1823,8 +1880,11 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tflops = flops / (ms * 1e-3) / 1e12
     launches = {n: sum(s[n] for s in per_step) for n in counters}
+    extras = {k: cfg[k] for k in ("pos_encoding", "n_experts", "moe_top_k")
+              if k in cfg}
     log(f"[{name}] {power} bf16-mixed E2048 M8192 L4 H16x128 V16384 B8 S2048 "
-        f"p0.1 attn_impl={cfg['attn_impl']}, {n_params / 1e6:.1f} M params: "
+        f"p0.1 attn_impl={cfg['attn_impl']} {extras} "
+        f"{type(opt).__name__}, {n_params / 1e6:.1f} M params: "
         f"losses {[round(x, 4) for x in losses]}")
     log(f"[{name}] step ms {[round(t * 1e3, 1) for t in times]}; median of "
         f"{TIMED_STEPS} timed: {ms:.1f} ms, "
@@ -1849,7 +1909,9 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
                                      f"step {i}")
             if kern not in absent and n <= 0:
                 raise AssertionError(f"{kern} not launched in {name} step {i}")
-    return dict(ms=ms, launches=launches)
+    if not peak < 80e9:
+        raise AssertionError(f"{name} peak {peak / 2**30:.2f} GiB")
+    return dict(ms=ms, peak=peak, launches=launches)
 
 
 def profile_step(torch, run, label: str = "train step") -> None:
@@ -1905,9 +1967,10 @@ def _rel(a, b) -> float:
 
 
 def train_consistency_phase(torch, dev, cfg=CONSIST,
-                            name: str = "train-consistency") -> None:
-    """One lm_loss backward on the card vs a CPU copy (the plain versions);
-    f32 with TF32 off."""
+                            name: str = "train-consistency",
+                            loss_fn=None) -> None:
+    """One backward of ``loss_fn`` (lm_loss by default) on the card vs a
+    CPU copy (the plain versions); f32 with TF32 off."""
     import numpy as np
 
     import flashattn_tpu_torch as pt
@@ -1923,8 +1986,8 @@ def train_consistency_phase(torch, dev, cfg=CONSIST,
             d = next(m.parameters()).device
             tokens = torch.from_numpy(tok).to(d)
             gen = torch.Generator().manual_seed(SEED + 3) if p else None
-            loss = pt.lm_loss(m, tokens, torch.roll(tokens, -1, dims=1),
-                              None, gen)
+            loss = (loss_fn or pt.lm_loss)(
+                m, tokens, torch.roll(tokens, -1, dims=1), None, gen)
             names, params = zip(*m.named_parameters())
             grads = torch.autograd.grad(loss, params)
             out.append((loss.detach().cpu(), {n: g.cpu() for n, g in
@@ -1933,15 +1996,21 @@ def train_consistency_phase(torch, dev, cfg=CONSIST,
         loss_err = abs(float(l_card) - float(l_host)) / abs(float(l_host))
         # the key-projection bias has an exactly zero gradient (softmax is
         # blind to a shift shared by every key): both devices return
-        # rounding noise there, held to 1e-4 of the global norm instead
-        zero = [n for n in g_host if n.endswith("k_projection.bias")]
+        # rounding noise there, held to 1e-4 of the global norm instead.
+        # Under RoPE the rotation makes the shift depend on the key's
+        # position, so the gradient is real and compared as any other.
+        zero = [n for n in g_host if n.endswith("k_projection.bias")
+                and cfg.get("pos_encoding") != "rope"]
         total = math.sqrt(sum(float(g.double().square().sum())
                               for g in g_host.values()))
-        noise = max(float(g[n].norm()) for g in (g_card, g_host) for n in zero)
+        noise = max([float(g[n].norm()) for g in (g_card, g_host)
+                     for n in zero], default=0.0)
         grad_err = {n: _rel(g_card[n], g_host[n]) for n in g_host
                     if n not in zero}
         worst = max(grad_err, key=grad_err.get)
-        log(f"[{name}] f32 E1024 L2 B2 S1024 {cfg['attn_impl']} p{p}: loss card "
+        log(f"[{name}] f32 E1024 L2 B2 S1024 {cfg['attn_impl']} "
+            f"{cfg.get('pos_encoding', 'learned')} experts "
+            f"{cfg.get('n_experts')} p{p}: loss card "
             f"{float(l_card):.6f} cpu {float(l_host):.6f} (rel {loss_err:.2e}); "
             f"max grad rel-norm err {grad_err[worst]:.2e} ({worst}); "
             f"token_embeddings {grad_err['token_embeddings.weights']:.2e}; "
@@ -1977,6 +2046,274 @@ def fused_logits_phase(torch, dev) -> None:
         f"{float(flash.abs().max()):.3f})")
     if not err <= 1e-4:
         raise AssertionError(f"fused-softmax logits differ from flash by {err}")
+
+
+class _Launches:
+    """Zeroes the named kernels' launch counts on entry; ``counts`` holds
+    them on exit."""
+
+    def __init__(self, names):
+        self.kernels = {n: k for n, k in kernel_counters().items()
+                        if n in names}
+        self.counts = {}
+
+    def __enter__(self):
+        for kern in self.kernels.values():
+            kern.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {n: k.launches for n, k in self.kernels.items()}
+
+
+def cached_decode_gate(torch, model, dev, label: str) -> float:
+    """The dense-cache decode, step by step over DECODE_GATE_LEN tokens of
+    two rows, against one dense forward: f32 logits within 1e-3."""
+    import numpy as np
+
+    tok = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, MODEL["n_vocab"], (2, DECODE_GATE_LEN))).to(dev)
+    with torch.inference_mode():
+        dense = model(tok)
+        caches = model.init_cache(2, DECODE_GATE_LEN)
+        steps = torch.arange(DECODE_GATE_LEN, device=dev)
+        err = torch.zeros((), device=dev)
+        for i in range(DECODE_GATE_LEN):
+            logits, caches = model.forward_decode(tok[:, i:i + 1], caches,
+                                                  steps[i])
+            err = torch.maximum(err, (logits[:, 0] - dense[:, i]).abs().max())
+    err = float(err)
+    log(f"[{label}] f32 cached decode vs dense forward over "
+        f"{DECODE_GATE_LEN} positions, B2: max_abs_err={err:.3e}")
+    if not err <= 1e-3:
+        raise AssertionError(f"{label}: cached decode differs by {err}")
+    return err
+
+
+def _gen_inputs(torch, dev):
+    """GEN_PROMPTS' prompts from default_rng: (list of prompts, padded (B,
+    max) ids on the card, lengths on the card)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [rng.integers(0, MODEL["n_vocab"], n).tolist()
+               for n in GEN_PROMPTS]
+    buf = np.zeros((len(prompts), max(GEN_PROMPTS)), np.int64)
+    for r, p in enumerate(prompts):
+        buf[r, :len(p)] = p
+    return (prompts, torch.from_numpy(buf).to(dev),
+            torch.tensor(GEN_PROMPTS, device=dev))
+
+
+def _joint_logprob(torch, model, row, p: int) -> float:
+    """Log-probability of ``row``'s tokens after its first ``p`` under one
+    dense forward."""
+    with torch.inference_mode():
+        logp = torch.log_softmax(model(row[None])[0].float(), -1)
+    idx = torch.arange(p - 1, row.shape[0] - 1, device=row.device)
+    return float(logp[idx, row[idx + 1]].sum())
+
+
+def generate_phase(torch, model_f32, dev) -> dict:
+    """Batched generation over the dense KV cache on the serving model:
+    the f32 cached decode against the dense forward; greedy_generate on
+    eight ragged prompts token-identical to the engine's greedy tokens;
+    beam 1 equal to greedy; beam 4's hypotheses scoring at least greedy's;
+    then bf16 new tok/s of greedy (B8) and beam 4 (B2)."""
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+    from flashattn_tpu_torch.training.generate import (
+        beam_search_generate,
+        greedy_generate,
+    )
+
+    cached_decode_gate(torch, model_f32, dev, "generate")
+    prompts, buf, plen = _gen_inputs(torch, dev)
+    never = MODEL["n_vocab"] + 5           # an eos no row can emit
+    with _Launches(("layernorm_fwd",)) as run:
+        greedy = greedy_generate(model_f32, buf, plen, GEN_NEW_TOKENS)
+    assert run.counts["layernorm_fwd"] > 0, "layernorm_fwd did not launch"
+    eng = ContinuousBatchingEngine(model_f32, max_batch=len(prompts),
+                                   page_size=128, pages_per_seq=3)
+    reqs = [eng.submit(p, GEN_NEW_TOKENS) for p in prompts]
+    eng.run()
+    rows = greedy.cpu().tolist()
+    same = sum(r.generated == rows[i][n:n + GEN_NEW_TOKENS]
+               for i, (r, n) in enumerate(zip(reqs, GEN_PROMPTS)))
+    beam1 = beam_search_generate(model_f32, buf, plen, GEN_NEW_TOKENS, 1,
+                                 never)
+    b, bp = buf[:BEAM_ROWS], plen[:BEAM_ROWS]
+    beam4 = beam_search_generate(model_f32, b, bp, GEN_NEW_TOKENS, BEAM,
+                                 never, length_penalty=0.0)
+    g2 = greedy_generate(model_f32, b, bp, GEN_NEW_TOKENS)
+    scores = [(_joint_logprob(torch, model_f32, beam4[r], GEN_PROMPTS[r]),
+               _joint_logprob(torch, model_f32, g2[r], GEN_PROMPTS[r]))
+              for r in range(BEAM_ROWS)]
+    log(f"[generate] f32 B{len(prompts)} prompts {list(GEN_PROMPTS)}, "
+        f"{GEN_NEW_TOKENS} new tokens: greedy_generate token-identical to "
+        f"the engine on {same}/{len(prompts)} requests; beam 1 equals "
+        f"greedy: {bool(torch.equal(beam1, greedy))}; beam {BEAM} vs greedy "
+        f"joint log-prob (lp 0) by row {[tuple(round(x, 4) for x in sc) for sc in scores]}; "
+        f"layernorm_fwd launches {run.counts['layernorm_fwd']}")
+    if same != len(prompts):
+        raise AssertionError("greedy_generate differs from the engine")
+    if not torch.equal(beam1, greedy):
+        raise AssertionError("beam 1 differs from greedy")
+    for r, (sb, sg) in enumerate(scores):
+        if not sb >= sg - 1e-4:
+            raise AssertionError(f"beam {BEAM} row {r} scores {sb} < greedy {sg}")
+
+    model = copy.deepcopy(model_f32).to(torch.bfloat16)
+    rates, launches = {}, {}
+    for label, fn, new in (
+            ("greedy B8", lambda: greedy_generate(model, buf, plen,
+                                                  GEN_NEW_TOKENS),
+             int((buf.shape[1] + GEN_NEW_TOKENS - plen).sum())),
+            (f"beam {BEAM} B{BEAM_ROWS}", lambda: beam_search_generate(
+                model, b, bp, GEN_NEW_TOKENS, BEAM, never),
+             int((buf.shape[1] + GEN_NEW_TOKENS - bp).sum()))):
+        fn()                                          # warm-up
+        with _Launches(SERVE_KERNELS) as run:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        steps = buf.shape[1] + GEN_NEW_TOKENS - 1
+        rates[label] = new / dt
+        for n, c in run.counts.items():
+            launches[n] = launches.get(n, 0) + c
+        log(f"[generate] bf16 {label}: {new} new tokens ({steps} decode "
+            f"steps, f32 cache) in {dt * 1e3:.1f} ms: {new / dt:.1f} new "
+            f"tok/s, {dt * 1e3 / steps:.2f} ms a step; launches {run.counts}")
+    profile_step(torch, lambda: greedy_generate(model, buf[:, :1], 1, 8),
+                 "generate bf16 greedy B8, 8 decode steps")
+    del model
+    return dict(rates=rates, launches=launches)
+
+
+def serve_rope_phase(torch, dev) -> dict:
+    """The serving model with rotary positions: f32 engine logits and the
+    cached decode against the dense forward, the bf16 serve traffic, then
+    the RoPE + MoE model's f32 engine logits against its dense forward."""
+    from flashattn_tpu_torch import DecoderLM
+
+    model = DecoderLM(**ROPE_MODEL, device=dev,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+    consistency_phase(torch, model, dev, "serve_rope")
+    cached_decode_gate(torch, model, dev, "serve_rope")
+    out = serve_phase(torch, copy.deepcopy(model).to(torch.bfloat16), dev,
+                      "serve_rope")
+    del model
+    moe = DecoderLM(**ROPE_MOE_MODEL, device=dev,
+                    generator=torch.Generator().manual_seed(SEED)).eval()
+    with _Launches(SERVE_KERNELS) as run:
+        consistency_phase(torch, moe, dev, "serve_rope_moe")
+    log(f"[serve_rope_moe] launches {run.counts}")
+    cached_decode_gate(torch, moe, dev, "serve_rope_moe")
+    out["launches"] = {n: out["launches"][n] + run.counts[n]
+                       for n in run.counts}
+    return out
+
+
+def adafactor_consistency_phase(torch, dev) -> None:
+    """Three Adafactor train steps (lm_loss, clip 1.0) of the consistency
+    model on the card and on a CPU copy, f32: every parameter within 1e-5
+    relative L2 after steps 1 and 3 but the key-projection bias, whose
+    exact gradient is 0 and whose update, Adafactor's normalised rounding
+    noise on either device, is logged instead."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+
+    tok = np.random.default_rng(SEED + 9).integers(0, CONSIST["n_vocab"],
+                                                   (2, 1024))
+    card = pt.DecoderLM(**CONSIST, p_dropout=0.0, device=dev,
+                        generator=torch.Generator().manual_seed(SEED)).train()
+    host = copy.deepcopy(card).to("cpu")
+    runs = []
+    for m in (card, host):
+        d = next(m.parameters()).device
+        tokens = torch.from_numpy(tok).to(d)
+        opt = pt.Adafactor()
+        step, state = pt.make_train_step(opt, grad_clip=1.0), opt.init(m)
+        snaps = []
+        for i in range(3):
+            m, state, _ = step(m, state, tokens, torch.roll(tokens, -1, 1))
+            if i in (0, 2):
+                snaps.append({n: p.detach().cpu().clone()
+                              for n, p in m.named_parameters()})
+        runs.append(snaps)
+    for i, (c, h) in zip((1, 3), zip(*runs)):
+        err = {n: _rel(c[n], h[n]) for n in h
+               if not n.endswith("k_projection.bias")}
+        worst = max(err, key=err.get)
+        kb = max(_rel(c[n], h[n]) for n in h if n.endswith("k_projection.bias"))
+        log(f"[adafactor-consistency] f32 E1024 L2 B2 S1024 after step {i}: "
+            f"max param rel-L2 err {err[worst]:.2e} ({worst}); key bias "
+            f"(zero gradient) {kb:.2e}")
+        if not err[worst] <= 1e-5:
+            raise AssertionError(f"Adafactor step {i}: {worst} differs by "
+                                 f"{err[worst]}")
+
+
+def distill_phase(torch, model_f32, dev) -> dict:
+    """DISTILL_STEPS steps of make_train_scan(Adam, make_distill_loss())
+    with the bf16 serving model as the ctx teacher of serve_features' draft
+    (B16 x 128 tokens from default_rng(0)); the KL must fall.  Then the
+    draft-model mode of serve_features with the untrained and the
+    distilled draft: acceptance and new tok/s side by side."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+
+    teacher = copy.deepcopy(model_f32).to(torch.bfloat16).eval()
+    draft = pt.DecoderLM(**FEAT_DRAFT, device=dev,
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    untrained = copy.deepcopy(draft).eval()
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, MODEL["n_vocab"], (DISTILL_STEPS, DISTILL_BATCH, DISTILL_SEQ + 1)
+    )).to(dev)
+    opt = pt.Adam(1e-3)
+    state = opt.init(draft)
+    scan = pt.make_train_scan(opt, pt.make_distill_loss(), grad_clip=1.0)
+    with _Launches(TRAIN_KERNELS) as run:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draft, state, losses = scan(draft.train(), state, tok[..., :-1],
+                                    tok[..., 1:], None, None, ctx=teacher)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    losses = losses.tolist()
+    head, tail = np.mean(losses[:20]), np.mean(losses[-20:])
+    log(f"[distill] {DISTILL_STEPS} steps, B{DISTILL_BATCH} x {DISTILL_SEQ}, "
+        f"teacher bf16 E1024 L4, draft f32 E128 L1: KL first 20 mean "
+        f"{head:.4f}, last 20 mean {tail:.4f} (every {DISTILL_STEPS // 4}th "
+        f"loss: {[round(x, 4) for x in losses[::DISTILL_STEPS // 4]]}); "
+        f"{dt * 1e3 / DISTILL_STEPS:.2f} ms a step; launches {run.counts}")
+    if not (all(math.isfinite(x) for x in losses) and tail < head):
+        raise AssertionError(f"the distillation KL did not fall: {head} -> {tail}")
+    for kern in ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd"):
+        assert run.counts[kern] > 0, f"{kern} did not launch in distill"
+    reqs = [(p, {}) for p in _feature_prompts()]
+    eng_kw = dict(FEAT_ENGINE, spec_len=4)
+    out = {}
+    for label, d in (("untrained", untrained), ("distilled", draft.eval())):
+        d = copy.deepcopy(d).to(torch.bfloat16)
+        warm = pt.ContinuousBatchingEngine(teacher, dtype=torch.bfloat16,
+                                           draft_model=d, **eng_kw)
+        for p, _ in reqs[:2]:
+            warm.submit(p, 16)
+        warm.run()
+        done, res = _feature_run(torch, teacher, torch.bfloat16,
+                                 dict(eng_kw, draft_model=d), reqs)
+        new = sum(len(r.generated) for r in done)
+        out[label] = dict(acceptance=res["stats"]["spec_acceptance"],
+                          tok_s=new / res["seconds"])
+    log(f"[distill] serve_features draft k=4 (bf16): acceptance untrained "
+        f"{out['untrained']['acceptance']:.3f} / distilled "
+        f"{out['distilled']['acceptance']:.3f} a wave; new tok/s "
+        f"{out['untrained']['tok_s']:.1f} / {out['distilled']['tok_s']:.1f}")
+    return dict(out, launches=run.counts)
 
 
 SOURCES = {
@@ -2032,14 +2369,14 @@ QUANT_PAGED = {"paged_attention_int8": "int8 weights + int8 pool",
                "paged_attention_fp8": "int8 weights + fp8 pool"}
 
 
-def main_path_launches(name, train, train_fused, serve, serve_quant,
-                       serve_features) -> int:
-    """A kernel's launches over the main-path runs.  The paged kernel's
-    launches over a quantized pool count under that pool's entry, the
-    others under ``paged_attention``."""
+def main_path_launches(name, runs, serve_quant) -> int:
+    """A kernel's launches over the main-path runs (``runs``: each phase's
+    result with its ``launches``).  The paged kernel's launches over a
+    quantized pool count under that pool's entry, the others under
+    ``paged_attention``."""
     if name in QUANT_PAGED:
         return serve_quant[QUANT_PAGED[name]]["launches"]["paged_attention"]
-    runs = [train, train_fused, serve, serve_features] + [
+    runs = list(runs) + [
         res for label, res in serve_quant.items()
         if name != "paged_attention" or label not in QUANT_PAGED.values()]
     return sum(r["launches"].get(name, 0) for r in runs)
@@ -2071,6 +2408,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
 
+    import flashattn_tpu_torch as pt
     from flashattn_tpu_torch import DecoderLM
     from flashattn_tpu_torch.ops import _build
 
@@ -2088,7 +2426,11 @@ def main() -> int:
     consistency_phase(torch, model, dev)
     quant_consistency_phase(torch, model, dev)
     serve_features = serve_features_phase(torch, model, dev)
+    generate = generate_phase(torch, model, dev)
+    distill = distill_phase(torch, model, dev)
     del model
+    torch.cuda.empty_cache()
+    serve_rope = serve_rope_phase(torch, dev)
     torch.cuda.empty_cache()
     serve_quant = serve_quant_phase(torch, dev)
     torch.cuda.empty_cache()
@@ -2103,11 +2445,28 @@ def main() -> int:
     train_consistency_phase(torch, dev, dict(CONSIST, attn_impl="fused_softmax"),
                             "fused-consistency")
     fused_logits_phase(torch, dev)
+    torch.cuda.empty_cache()
+    train_moe = train_phase(torch, dev, power, TRAIN_MOE, "train_moe",
+                            loss=pt.make_moe_loss(MOE_AUX_ALPHA))
+    torch.cuda.empty_cache()
+    train_consistency_phase(torch, dev, CONSIST_MOE, "moe-consistency",
+                            pt.make_moe_loss(MOE_AUX_ALPHA))
+    torch.cuda.empty_cache()
+    train_adafactor = train_phase(torch, dev, power, TRAIN, "train_adafactor",
+                                  opt=pt.Adafactor())
+    log(f"[train_adafactor] {power}: {train_adafactor['ms']:.1f} ms/step, "
+        f"peak {train_adafactor['peak'] / 2**30:.2f} GiB; Adam (phase train) "
+        f"{train['ms']:.1f} ms/step, peak {train['peak'] / 2**30:.2f} GiB")
+    if not train_adafactor["peak"] < train["peak"]:
+        raise AssertionError("Adafactor's peak is not below Adam's")
+    torch.cuda.empty_cache()
+    adafactor_consistency_phase(torch, dev)
 
+    runs = (train, train_fused, serve, serve_features, generate, distill,
+            serve_rope, train_moe, train_adafactor)
     kernels = []
     for name, (src, tpu) in SOURCES.items():
-        launches = main_path_launches(name, train, train_fused, serve,
-                                      serve_quant, serve_features)
+        launches = main_path_launches(name, runs, serve_quant)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=tpu[0], counterparts=tpu,
                             launches=launches, **phases.main[name]))

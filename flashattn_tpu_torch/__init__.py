@@ -3,15 +3,21 @@ NVIDIA Hopper (H100).
 
 The layout follows the JAX package, module for module.  Four paths are
 ported: serving, the paged continuous-batching engine
-(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods;
+(:mod:`.serving.engine`) over :class:`DecoderLM`'s paged methods, and
+batched generation over its dense KV cache (:mod:`.training.generate`:
+greedy and beam search);
 quantized serving, the same engine over a model whose Linears
 :func:`quantize_model_weights` made weight-only int8 / fp8
 (:class:`QuantizedLinear`) and over int8 / fp8 page pools
 (``ContinuousBatchingEngine(..., dtype=torch.int8)``); training,
 :func:`make_train_step` over :func:`lm_loss` (optionally in bf16 over f32
-masters, :func:`make_mixed_precision_loss`) with the optimizers of
-:mod:`.optim`; and the same model with ``attn_impl="fused_softmax"``
-(score matmul, :func:`attn_softmax`, matmul with V).  The dropout entry
+masters, :func:`make_mixed_precision_loss`), :func:`make_moe_loss` or
+:func:`make_distill_loss`, with the optimizers of :mod:`.optim` (SGD, Adam,
+AdamW, Adafactor); and the same model with ``attn_impl="fused_softmax"``
+(score matmul, :func:`attn_softmax`, matmul with V).  The model takes
+rotary position embeddings (``pos_encoding="rope"``, :mod:`.ops.rope`)
+and mixture-of-experts layers (``n_experts``, :mod:`.models.moe`) on
+every path, in plain torch ops.  The dropout entry
 points with bias, residual or activation (:func:`fused_dropout_res_bias`,
 :func:`fused_dropout_act_bias`, ``F.dropout_res_bias``,
 ``F.dropout_act_bias``) are ported too, though no model calls them.  Every
@@ -75,6 +81,7 @@ from .ops.quant import (
     quantize_model_weights,
     requantize_fp8_to_int8,
 )
+from .models.moe import MoEFeedForward
 from .models.transformer import (
     DecoderLM,
     FeedForward,
@@ -83,6 +90,7 @@ from .models.transformer import (
 )
 from .optim import (
     SGD,
+    Adafactor,
     Adam,
     AdamW,
     clip_by_global_norm,
@@ -92,8 +100,10 @@ from .optim import (
 from .serving.engine import ContinuousBatchingEngine
 from .training import (
     lm_loss,
+    make_distill_loss,
     make_eval_step,
     make_mixed_precision_loss,
+    make_moe_loss,
     make_train_scan,
     make_train_step,
 )
@@ -135,11 +145,13 @@ __all__ = [
     "quantize_kv",
     "quantize_model_weights",
     "requantize_fp8_to_int8",
+    "MoEFeedForward",
     "DecoderLM",
     "FeedForward",
     "MultiHeadAttention",
     "TransformerLayer",
     "SGD",
+    "Adafactor",
     "Adam",
     "AdamW",
     "clip_by_global_norm",
@@ -147,8 +159,10 @@ __all__ = [
     "warmup_cosine",
     "ContinuousBatchingEngine",
     "lm_loss",
+    "make_distill_loss",
     "make_eval_step",
     "make_mixed_precision_loss",
+    "make_moe_loss",
     "make_train_scan",
     "make_train_step",
     "load_jax_params",

@@ -7,7 +7,11 @@ imports jax::
     load_jax_params(torch_model, params)
 
 Names match one to one (``layers.0.attention.q_projection.weights`` ...)
-because the port keeps the JAX modules' attribute names and layouts.  A
+because the port keeps the JAX modules' attribute names and layouts: a
+RoPE model has no ``position_embeddings.*``, and an MoE layer holds
+``layers.{i}.ff.router.weights``, ``layers.{i}.ff.experts_in`` and
+``layers.{i}.ff.experts_out``, so a learned-position model's weights do not
+load into a RoPE model (``KeyError`` naming the position table).  A
 weight-only quantized model (``quantize_model_weights``) carries its int8
 or float8 payloads (``...q_projection.values``) and f32 ``scales`` across
 exactly: quantize both models the same way first.

@@ -1,12 +1,16 @@
-"""Decoder-only transformer LM with paged-KV serving methods (counterpart of
-flashattn_tpu/models/transformer.py).
+"""Decoder-only transformer LM with KV-cached and paged-KV decoding
+(counterpart of flashattn_tpu/models/transformer.py).
 
 Module and parameter names match the JAX model (``layers.{i}.attention.
 q_projection.weights`` ...), so ``convert.load_jax_params`` copies a JAX
-model into this one by name.  The paged methods keep the JAX pool layout
-``(n_kv_head, total_pages, page_size, head_dim)`` and update the pools IN
-PLACE (PyTorch tensors are mutable; this saves a pool-sized copy per step)
-while still returning them, so callers read like the JAX code.
+model into this one by name.  The dense cache is ``{"k", "v"}`` of ``(B,
+n_kv_head, max_len, head_dim)`` a layer; the paged methods keep the JAX pool
+layout ``(n_kv_head, total_pages, page_size, head_dim)``.  Both are updated
+IN PLACE (PyTorch tensors are mutable; this saves a cache-sized copy per
+step) while still being returned, so callers read like the JAX code.
+``pos_encoding="rope"`` rotates q and the new keys on every path before any
+cache write; ``n_experts`` swaps each FeedForward for a
+:class:`~.moe.MoEFeedForward`.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from ..ops.flash_attention import (
 from ..ops._build import PAYLOAD_DTYPES
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import FP8_MAX, absmax_scale
+from ..ops.rope import apply_rope
 from ..ops.softmax import attn_softmax
+from .moe import MoEFeedForward
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -97,6 +103,7 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, n_embd: int, n_head: int, causal: bool = False,
                  p_dropout: float = 0.1, bias: bool = True, *,
                  n_kv_head: Optional[int] = None, attn_impl: str = "flash",
+                 pos_encoding: str = "none", rope_theta: float = 10000.0,
                  window: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None):
@@ -107,6 +114,14 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("window requires causal attention")
         if attn_impl not in ("flash", "fused_softmax", "reference"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if pos_encoding not in ("none", "rope"):
+            raise ValueError(f"pos_encoding must be 'none' or 'rope', got "
+                             f"{pos_encoding!r}")
+        # "rope" rotates q and k by position after the projections, so the
+        # caches and pools hold rotated keys; "none" leaves positions to the
+        # model (learned absolute embeddings)
+        self.pos_encoding = pos_encoding
+        self.rope_theta = rope_theta
         self.window = window
         self.n_embd = n_embd
         self.n_head = n_head
@@ -135,6 +150,14 @@ class MultiHeadAttention(nn.Module):
         return (proj(self.q_projection, self.n_head),
                 proj(self.k_projection, self.n_kv_head),
                 proj(self.v_projection, self.n_kv_head))
+
+    def _rope(self, q, k, positions):
+        """Rotate q and the NEW keys at ``positions`` (cached keys are
+        rotated already); the identity unless pos_encoding is "rope"."""
+        if self.pos_encoding != "rope":
+            return q, k
+        return (apply_rope(q, positions, self.rope_theta),
+                apply_rope(k, positions, self.rope_theta))
 
     def self_attention(self, q, k, v, kv_lengths=None) -> torch.Tensor:
         """softmax(q k^T / sqrt(hd)) v -> (B, Sq, E)."""
@@ -187,7 +210,56 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv_lengths=None) -> torch.Tensor:
         q, k, v = self.project_to_query_key_value(x)
+        q, k = self._rope(q, k, torch.arange(x.shape[1], device=x.device))
         return self.out_projection(self.self_attention(q, k, v, kv_lengths))
+
+    # -- KV-cached decode path -------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.float32,
+                   device=None) -> dict:
+        """Static-shape cache {"k", "v"} of (batch, n_kv_head, max_len, hd),
+        on the module's device unless ``device`` names another.  f32 by
+        default, as in JAX: a bf16 model's cached decode then computes its
+        scores in f32."""
+        if device is None:
+            device = self.q_projection.weights.device
+        shape = (batch, self.n_kv_head, max_len, self.attn_hidden_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def forward_decode(self, x: torch.Tensor, cache: dict, index):
+        """One decode step: x (B, 1, E) at position ``index`` (a Python int
+        or a 0-dim tensor).  Writes the new (rotated) key and value at
+        ``index`` in place, attends over positions <= index (and > index -
+        window) with plain torch ops, and returns (out (B, 1, E), cache).
+
+        The scores, softmax and product with V run in the promoted dtype of
+        q and the cache, as JAX's einsums promote; out-of-range positions
+        take finfo(dtype).min / 2."""
+        bs = x.shape[0]
+        q, k, v = self.project_to_query_key_value(x)       # (B, nh, 1, hd)
+        q, k = self._rope(q, k, index)
+        ck, cv = cache["k"], cache["v"]
+        if isinstance(index, torch.Tensor):
+            at = index.to(device=ck.device, dtype=torch.long).reshape(1)
+            ck.index_copy_(2, at, k.to(ck.dtype))
+            cv.index_copy_(2, at, v.to(cv.dtype))
+        else:
+            ck[:, :, index:index + 1] = k
+            cv[:, :, index:index + 1] = v
+        dt = torch.promote_types(q.dtype, ck.dtype)
+        rk, rv = repeat_kv(ck, cv, q.shape[1])
+        s = torch.matmul(q.to(dt), rk.to(dt).transpose(-1, -2))
+        s = s / torch.full((), math.sqrt(self.attn_hidden_dim), dtype=dt,
+                           device=s.device)
+        pos = torch.arange(ck.shape[2], device=s.device)
+        valid = pos <= index
+        if self.window is not None:
+            valid = valid & (pos > index - self.window)
+        s = torch.where(valid, s, torch.finfo(dt).min / 2)
+        out = torch.matmul(torch.softmax(s, dim=-1), rv.to(dt))
+        out = out.transpose(1, 2).reshape(bs, 1, self.n_embd)
+        return self.out_projection(out), cache
 
     # -- paged serving path --------------------------------------------------
 
@@ -215,6 +287,7 @@ class MultiHeadAttention(nn.Module):
         page_size = pool["k"].shape[2]
         q, k, v = self.project_to_query_key_value(x)
         pos = torch.arange(seq, device=x.device)
+        q, k = self._rope(q, k, pos)
         page_ids = page_table[:, pos // page_size]               # (B, S)
         offs = (pos % page_size).expand(bs, seq)
         _scatter_kv(pool, k, v, page_ids, offs)
@@ -233,6 +306,7 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self.project_to_query_key_value(x)
         positions = lengths.long()[:, None] + torch.arange(
             kk, device=x.device)[None]                            # (B, k)
+        q, k = self._rope(q, k, positions)     # unclamped, as in JAX
         # clamp WRITE positions to the table's capacity: a chunked-prefill
         # wave's padding can run past a short row's last real page; clamped
         # writes land on position cap-1, overwritten before any read
@@ -272,12 +346,15 @@ class FeedForward(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre-LN layer: ln_1 -> causal MHA -> residual -> ln_2 -> FFN -> residual."""
+    """Pre-LN layer: ln_1 -> causal MHA -> residual -> ln_2 -> FFN (dense, or
+    mixture-of-experts with ``n_experts``) -> residual."""
 
     def __init__(self, n_embd: int, n_head: int, p_dropout: float = 0.1,
                  ln_eps: float = 1e-5, bias: bool = True, *,
                  middle_dim: int = 256, n_kv_head: Optional[int] = None,
-                 attn_impl: str = "flash", window: Optional[int] = None,
+                 attn_impl: str = "flash", pos_encoding: str = "none",
+                 rope_theta: float = 10000.0, window: Optional[int] = None,
+                 n_experts: Optional[int] = None, moe_top_k: int = 2,
                  use_fused_layernorm: bool = True,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None):
@@ -285,17 +362,38 @@ class TransformerLayer(nn.Module):
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.attention = MultiHeadAttention(
             n_embd, n_head, causal=True, p_dropout=p_dropout, bias=bias,
-            n_kv_head=n_kv_head, attn_impl=attn_impl, window=window, **kw)
-        self.ff = FeedForward(n_embd, middle_dim, p_dropout, bias, **kw)
+            n_kv_head=n_kv_head, attn_impl=attn_impl,
+            pos_encoding=pos_encoding, rope_theta=rope_theta, window=window,
+            **kw)
+        if n_experts:
+            self.ff = MoEFeedForward(n_embd, middle_dim, n_experts,
+                                     top_k=moe_top_k, p_dropout=p_dropout,
+                                     **kw)
+        else:
+            self.ff = FeedForward(n_embd, middle_dim, p_dropout, bias, **kw)
         norm = FusedLayerNorm if use_fused_layernorm else LayerNorm1d
         self.ln_1 = norm(n_embd, ln_eps, dtype=dtype, device=device)
         self.ln_2 = norm(n_embd, ln_eps, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None) -> torch.Tensor:
-        """``seed`` keys the layer's one dropout site, the FFN output (the
+        return self.forward_with_aux(x, seed)[0]
+
+    def forward_with_aux(self, x: torch.Tensor, seed: Optional[int] = None):
+        """(x, aux): an MoE layer's load-balancing loss, 0 for a dense layer.
+        ``seed`` keys the layer's one dropout site, the FFN output (the
         attention applies none, as in the JAX layer)."""
         x = x + self.attention(self.ln_1(x))
-        return x + self.ff(self.ln_2(x), seed)
+        if isinstance(self.ff, MoEFeedForward):
+            y, aux = self.ff.forward_with_aux(self.ln_2(x), seed)
+        else:
+            y = self.ff(self.ln_2(x), seed)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, aux
+
+    def forward_decode(self, x, cache: dict, index):
+        attn, cache = self.attention.forward_decode(self.ln_1(x), cache, index)
+        x = x + attn
+        return x + self.ff(self.ln_2(x)), cache
 
     def _paged(self, method: str, x, pool, page_table, lengths):
         attn, pool = getattr(self.attention, method)(
@@ -315,8 +413,9 @@ class TransformerLayer(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only pre-LN transformer LM: token + learned position
-    embeddings -> dropout -> n_layer TransformerLayers -> final LN -> lm_head.
+    """Decoder-only pre-LN transformer LM: token embeddings (+ learned
+    position embeddings unless ``pos_encoding="rope"``) -> dropout ->
+    n_layer TransformerLayers -> final LN -> lm_head.
 
     Weights are drawn from ``generator`` (a ``torch.Generator``; one seeded
     with 0 when omitted) and placed on ``device``, the CUDA device unless the
@@ -330,20 +429,17 @@ class DecoderLM(nn.Module):
                  ln_eps: float = 1e-5, bias: bool = True, *,
                  n_layer: int = 4, middle_dim: int = 256,
                  n_kv_head: Optional[int] = None, attn_impl: str = "flash",
-                 pos_encoding: str = "learned", window: Optional[int] = None,
-                 n_experts: Optional[int] = None,
+                 pos_encoding: str = "learned", rope_theta: float = 10000.0,
+                 window: Optional[int] = None,
+                 n_experts: Optional[int] = None, moe_top_k: int = 2,
                  use_fused_layernorm: bool = True,
                  remat: bool = False, remat_policy: str = "nothing",
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if pos_encoding != "learned":
-            raise NotImplementedError(
-                f"pos_encoding={pos_encoding!r} is not ported yet; only "
-                "'learned' (ROADMAP A6)")
-        if n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet (ROADMAP A6)")
+        if pos_encoding not in ("learned", "rope"):
+            raise ValueError(f"pos_encoding must be 'learned' or 'rope', got "
+                             f"{pos_encoding!r}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         device = torch.device("cuda" if device is None else device)
@@ -356,11 +452,16 @@ class DecoderLM(nn.Module):
         self.n_positions = n_positions
         self.pos_encoding = pos_encoding
         self.token_embeddings = Embedding(n_vocab, n_embd, **kw)
-        self.position_embeddings = Embedding(n_positions, n_embd, **kw)
+        if pos_encoding == "learned":
+            self.position_embeddings = Embedding(n_positions, n_embd, **kw)
         self.layers = nn.ModuleList([
             TransformerLayer(n_embd, n_head, p_dropout, ln_eps, bias,
                              middle_dim=middle_dim, n_kv_head=n_kv_head,
-                             attn_impl=attn_impl, window=window,
+                             attn_impl=attn_impl,
+                             pos_encoding=("rope" if pos_encoding == "rope"
+                                           else "none"),
+                             rope_theta=rope_theta, window=window,
+                             n_experts=n_experts, moe_top_k=moe_top_k,
                              use_fused_layernorm=use_fused_layernorm, **kw)
             for _ in range(n_layer)])
         self.dropout = Dropout(p_dropout)
@@ -369,15 +470,24 @@ class DecoderLM(nn.Module):
         self.lm_head = Linear(n_embd, n_vocab, bias, **kw)
 
     def _embed(self, idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        x = self.token_embeddings(idx)
+        if self.pos_encoding != "learned":
+            return x       # rope: positions enter inside attention
         # padding positions of a chunked-prefill wave may run past the
         # table; clamp them (their outputs are never read) instead of
         # indexing out of range on the device
         pos = pos.clamp(max=self.n_positions - 1)
-        return self.token_embeddings(idx) + self.position_embeddings(pos)
+        return x + self.position_embeddings(pos)
 
     def forward(self, idx: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, S) int token ids -> (B, S, n_vocab) logits.
+        """(B, S) int token ids -> (B, S, n_vocab) logits."""
+        return self.forward_with_aux(idx, generator)[0]
+
+    def forward_with_aux(self, idx: torch.Tensor,
+                         generator: Optional[torch.Generator] = None):
+        """(logits, aux): aux sums the MoE layers' load-balancing losses (0
+        for a dense model); add ``alpha * aux`` to the training loss.
 
         With a ``generator``, one integer seed per dropout site (the
         embedding dropout, then each layer's FFN dropout) is drawn from it
@@ -391,15 +501,43 @@ class DecoderLM(nn.Module):
                 device=generator.device).tolist()]
         pos = torch.arange(idx.shape[1], device=idx.device)[None, :]
         x = self.dropout(self._embed(idx, pos), seeds[0])
-        run = lambda layer, x, seed: layer(x, seed)
+        step = lambda layer, x, seed: layer.forward_with_aux(x, seed)
         if self.remat and torch.is_grad_enabled():
             ctx = {} if self._remat_context is None else dict(
                 context_fn=self._remat_context)
-            run = functools.partial(checkpoint.checkpoint, use_reentrant=False,
-                                    **ctx)
+            step = functools.partial(checkpoint.checkpoint, step,
+                                     use_reentrant=False, **ctx)
+        aux = torch.zeros((), dtype=torch.float32, device=idx.device)
         for layer, seed in zip(self.layers, seeds[1:]):
-            x = run(layer, x, seed)
-        return self.lm_head(self.ln(x))
+            x, a = step(layer, x, seed)
+            aux = aux + a
+        return self.lm_head(self.ln(x)), aux
+
+    # -- KV-cached decoding ----------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: Optional[int] = None,
+                   dtype=torch.float32, device=None) -> list:
+        """One dense cache a layer (see :meth:`MultiHeadAttention.
+        init_cache`), ``max_len`` positions (n_positions by default)."""
+        max_len = max_len or self.n_positions
+        return [layer.attention.init_cache(batch, max_len, dtype, device)
+                for layer in self.layers]
+
+    def forward_decode(self, idx_tok: torch.Tensor, caches: list, index):
+        """One decode step: idx_tok (B, 1) int ids at position ``index`` (a
+        Python int or a 0-dim tensor).  Returns (logits (B, 1, n_vocab),
+        caches), the caches updated in place."""
+        if isinstance(index, torch.Tensor):
+            pos = index.to(device=idx_tok.device).reshape(1, 1)
+        else:
+            pos = torch.full((1, 1), index, dtype=torch.long,
+                             device=idx_tok.device)
+        x = self._embed(idx_tok, pos)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.forward_decode(x, cache, index)
+            new_caches.append(cache)
+        return self.lm_head(self.ln(x)), new_caches
 
     # -- paged decoding (serving: continuous batching over page pools) ------
 

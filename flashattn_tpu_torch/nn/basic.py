@@ -95,7 +95,14 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = x @ self.weights
+        w = self.weights
+        if x.dtype != w.dtype:
+            # JAX's dot(x, W, preferred_element_type=x.dtype): the product
+            # in the promoted type, the result in x's
+            dt = torch.promote_types(x.dtype, w.dtype)
+            out = (x.to(dt) @ w.to(dt)).to(x.dtype)
+        else:
+            out = x @ w
         if self.bias is not None:
             out = out + self.bias
         return out

@@ -1,5 +1,5 @@
-"""Optimizers over a model's parameters: SGD, Adam, AdamW (counterpart of
-flashattn_tpu/optim.py).
+"""Optimizers over a model's parameters: SGD, Adam, AdamW, Adafactor
+(counterpart of flashattn_tpu/optim.py).
 
 The JAX names are kept outside and PyTorch idiom inside: ``opt.init(model)``
 makes the state and ``opt.step(model, grads, state) -> (model, state)``
@@ -12,14 +12,15 @@ The update rules are the JAX package's, not ``torch.optim``'s: Adam keeps
 eps outside sqrt(v) and folds sqrt(1 - beta2^t) into the step size, and
 ``reproduce_reference_bug`` keeps the reference's second-moment coefficient
 for differential tests.  The step count is a Python int, so a schedule lr
-is evaluated on the host with no device sync.  Adafactor is not ported yet.
+is evaluated on the host with no device sync.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -154,3 +155,109 @@ class AdamW(Adam):
                 for p in _params(model).values():
                     p.mul_(decay)
         return super().step(model, grads, state)
+
+
+class AdafactorState(NamedTuple):
+    step: int
+    vr: Grads    # row statistics (ndim >= 2) / full second moment (ndim < 2)
+    vc: Grads    # column statistics (ndim >= 2) / an empty placeholder
+    m: Optional[Grads]   # f32 first moment when beta1 > 0, else None
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x.float().square().mean() + 1e-30)
+
+
+class Adafactor:
+    """Adafactor (Shazeer & Stern 2018), the JAX package's rule: the second
+    moment of a parameter with ndim >= 2 is factored into exp-decayed means
+    of g^2 over its last axis (vr) and its second-to-last (vc), so the
+    optimizer state is about one row plus one column a matrix.
+
+    * 0/1-d parameters keep a full second moment;
+    * the decay is beta2_t = 1 - t^-decay_exponent;
+    * updates are RMS-clipped at ``clip_threshold``;
+    * ``relative_step=True`` takes the step min(1e-2, 1/sqrt(t)) times
+      max(eps2, rms(p)); otherwise ``lr`` (a float or a schedule called
+      with t), and exactly one of the two must be given;
+    * ``beta1 > 0`` adds first-moment momentum, kept in f32;
+    * ``weight_decay`` scales p by (1 - weight_decay) before the update.
+
+    The update is computed in f32 and subtracted in the parameter's dtype,
+    in place; every step stays on the device."""
+
+    def __init__(self, lr: Optional[LR] = None, *, beta1: float = 0.0,
+                 decay_exponent: float = 0.8, eps1: float = 1e-30,
+                 eps2: float = 1e-3, clip_threshold: float = 1.0,
+                 relative_step: bool = True, weight_decay: float = 0.0):
+        if lr is None and not relative_step:
+            raise ValueError("give lr or set relative_step=True")
+        if lr is not None and relative_step:
+            raise ValueError(
+                "lr and relative_step=True are mutually exclusive — an "
+                "explicit lr would be silently ignored; pass "
+                "relative_step=False with lr")
+        self.lr = lr
+        self.beta1 = beta1
+        self.decay_exponent = decay_exponent
+        self.eps1 = eps1
+        self.eps2 = eps2
+        self.clip_threshold = clip_threshold
+        self.relative_step = relative_step
+        self.weight_decay = weight_decay
+
+    def init(self, model: nn.Module) -> AdafactorState:
+        vr, vc = {}, {}
+        for n, p in _params(model).items():
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if p.ndim >= 2:
+                vr[n] = torch.zeros(p.shape[:-1], **f32)
+                vc[n] = torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)
+            else:
+                vr[n] = torch.zeros(p.shape, **f32)
+                vc[n] = torch.zeros((0,), **f32)
+        m = ({n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for n, p in _params(model).items()} if self.beta1 > 0 else None)
+        return AdafactorState(step=0, vr=vr, vc=vc, m=m)
+
+    def _update(self, p, g, vr, vc, t: int, b2t: float,
+                new_share: float) -> torch.Tensor:
+        """Advance vr / vc in place (vr <- b2t vr + new_share mean(g^2))
+        and return the f32 update for ``p``."""
+        g = g.float()
+        g2 = g.square() + self.eps1
+        if p.ndim >= 2:
+            vr.mul_(b2t).add_(new_share * g2.mean(-1))
+            vc.mul_(b2t).add_(new_share * g2.mean(-2))
+            red = vr / vr.mean(-1, keepdim=True)
+            u = g * torch.rsqrt(red)[..., None] * torch.rsqrt(vc)[..., None, :]
+        else:
+            vr.mul_(b2t).add_(new_share * g2)
+            u = g * torch.rsqrt(vr)
+        u = u / torch.clamp(_rms(u) / self.clip_threshold, min=1.0)
+        if self.relative_step:
+            rho = min(1e-2, 1.0 / math.sqrt(t))
+            return u * (torch.clamp(_rms(p), min=self.eps2) * rho)
+        return u * (self.lr(t) if callable(self.lr) else self.lr)
+
+    def step(self, model: nn.Module, grads: Grads,
+             state: AdafactorState) -> Tuple[nn.Module, AdafactorState]:
+        """Update ``model``'s parameters and the statistics in place; returns
+        (model, state) with the step count advanced."""
+        t = state.step + 1
+        # beta2_t and 1 - beta2_t rounded as JAX's f32 scalars are
+        one = np.float32(1.0)
+        b2t = one - np.float32(t) ** np.float32(-self.decay_exponent)
+        with torch.no_grad():
+            for name, p in _params(model).items():
+                u = self._update(p, grads[name], state.vr[name],
+                                 state.vc[name], t, float(b2t),
+                                 float(one - b2t))
+                if self.beta1 > 0:
+                    m = state.m[name]
+                    m.mul_(self.beta1).add_((1.0 - self.beta1) * u)
+                    u = m
+                if self.weight_decay:
+                    p.mul_(1.0 - self.weight_decay)
+                p.sub_(u.to(p.dtype))
+        return model, AdafactorState(t, state.vr, state.vc, state.m)

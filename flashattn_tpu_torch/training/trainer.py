@@ -1,16 +1,15 @@
 """Training step and losses (counterpart of flashattn_tpu/training/trainer.py).
 
 ``make_train_step(opt, loss_fn, grad_clip, accum_steps)`` returns
-``step(model, opt_state, tokens, targets, loss_mask, generator) -> (model,
-opt_state, loss)``: forward, autograd backward, optional global-norm
-clipping and the optimizer update, which changes the model's parameters in
-place (see :mod:`..optim`).  PyTorch runs eagerly, so there is no ``jit``
-and no ``donate``; a JAX ``key`` becomes a ``torch.Generator`` from which
-the model draws its dropout seeds.  The loss comes back as a 0-dim device
-tensor, so a step does not wait for the device.
-
-``make_moe_loss``, ``make_distill_loss`` and ``ShardedTrainer`` are not
-ported yet.
+``step(model, opt_state, tokens, targets, loss_mask, generator, ctx=None)
+-> (model, opt_state, loss)``: forward, autograd backward, optional
+global-norm clipping and the optimizer update, which changes the model's
+parameters in place (see :mod:`..optim`).  PyTorch runs eagerly, so there
+is no ``jit`` and no ``donate``; a JAX ``key`` becomes a ``torch.Generator``
+from which the model draws its dropout seeds.  The loss comes back as a
+0-dim device tensor, so a step does not wait for the device.  ``ctx``, when
+given, reaches the loss as a sixth argument (a distillation teacher, see
+:func:`make_distill_loss`).  ``ShardedTrainer`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,10 +38,70 @@ def lm_loss(model: nn.Module, tokens: Tensor, targets: Tensor,
     n_vocab = logits.shape[-1]
     losses = F.softmax_loss(logits.reshape(-1, n_vocab),
                             targets.reshape(-1)).reshape(targets.shape)
+    return _masked_mean(losses, loss_mask)
+
+
+def _masked_mean(per_pos: Tensor, loss_mask: Optional[Tensor]) -> Tensor:
     if loss_mask is None:
-        return losses.mean()
-    total = (losses * loss_mask).sum()
-    return total / torch.clamp(loss_mask.sum(), min=1.0)
+        return per_pos.mean()
+    return (per_pos * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+
+
+def make_moe_loss(aux_alpha: float = 0.01) -> Callable[..., Tensor]:
+    """Masked LM loss plus ``aux_alpha`` times the Switch load-balancing
+    loss that ``forward_with_aux`` sums over the MoE layers.  A loss_fn for
+    make_train_step / make_train_scan."""
+
+    def loss_fn(model, tokens, targets, loss_mask=None, generator=None):
+        logits, aux = model.forward_with_aux(tokens, generator)
+        logits = logits.float()
+        n_vocab = logits.shape[-1]
+        losses = F.softmax_loss(logits.reshape(-1, n_vocab),
+                                targets.reshape(-1)).reshape(targets.shape)
+        return _masked_mean(losses, loss_mask) + aux_alpha * aux
+
+    return loss_fn
+
+
+def make_distill_loss(teacher: Optional[nn.Module] = None, alpha: float = 1.0,
+                      temperature: float = 1.0) -> Callable[..., Tensor]:
+    """Knowledge distillation for speculative-decoding drafts: KL(teacher ||
+    student) over the vocabulary at every unmasked position, mixed with the
+    hard-label cross entropy when ``alpha < 1`` (``alpha`` weights the KL,
+    ``1 - alpha`` the CE), both at ``temperature``.
+
+    The teacher runs in eval mode under ``torch.no_grad()`` and is left in
+    the mode it had.  Give it here, or per call through the step
+    factories' ``ctx`` argument (``make_train_scan(...)(model, state, tok,
+    tgt, msk, generator, ctx=teacher)``), which wins when both are given."""
+
+    def loss_fn(student, tokens, targets, loss_mask=None, generator=None,
+                ctx=None):
+        t_model = ctx if ctx is not None else teacher
+        if t_model is None:
+            raise ValueError("make_distill_loss: no teacher; pass one at "
+                             "construction or as the step's ctx")
+        was_training = t_model.training
+        t_model.eval()
+        try:
+            with torch.no_grad():
+                t_logits = t_model(tokens).float()
+        finally:
+            t_model.train(was_training)
+        s_logits = student(tokens, generator=generator).float()
+        temp = torch.full((), temperature, dtype=torch.float32,
+                          device=s_logits.device)
+        t_logp = torch.log_softmax(t_logits / temp, dim=-1)
+        s_logp = torch.log_softmax(s_logits / temp, dim=-1)
+        per_pos = (t_logp.exp() * (t_logp - s_logp)).sum(-1)
+        if alpha < 1.0:
+            n_vocab = s_logits.shape[-1]
+            ce = F.softmax_loss(s_logits.reshape(-1, n_vocab),
+                                targets.reshape(-1)).reshape(targets.shape)
+            per_pos = alpha * per_pos + (1.0 - alpha) * ce
+        return _masked_mean(per_pos, loss_mask)
+
+    return loss_fn
 
 
 class _Bound(nn.Module):
@@ -81,10 +140,20 @@ def make_mixed_precision_loss(loss_fn: Callable[..., Tensor] = lm_loss,
     return wrapped
 
 
-def _value_and_grad(loss_fn, model, tokens, targets, loss_mask, generator
-                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+def _call_loss(loss_fn, model, tokens, targets, loss_mask, generator, ctx):
+    """Call a loss fn, passing ``ctx`` only when given (a plain loss fn
+    takes five arguments, a ctx-aware one such as make_distill_loss's
+    six)."""
+    if ctx is None:
+        return loss_fn(model, tokens, targets, loss_mask, generator)
+    return loss_fn(model, tokens, targets, loss_mask, generator, ctx)
+
+
+def _value_and_grad(loss_fn, model, tokens, targets, loss_mask, generator,
+                    ctx=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     names, params = zip(*model.named_parameters())
-    loss = loss_fn(model, tokens, targets, loss_mask, generator)
+    loss = _call_loss(loss_fn, model, tokens, targets, loss_mask, generator,
+                      ctx)
     grads = torch.autograd.grad(loss, params)
     return loss.detach(), dict(zip(names, grads))
 
@@ -93,7 +162,7 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
                     grad_clip: Optional[float] = None,
                     accum_steps: int = 1) -> Callable:
     """Returns step(model, opt_state, tokens, targets, loss_mask=None,
-    generator=None) -> (model, opt_state, loss).
+    generator=None, ctx=None) -> (model, opt_state, loss).
 
     ``grad_clip`` applies global-norm clipping.  ``accum_steps > 1`` splits
     the batch's leading dim into that many microbatches, runs them one after
@@ -101,10 +170,10 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
     update with their gradients weighted by each microbatch's loss-mask
     token count, which reproduces the full-batch masked mean."""
 
-    def grads_of(model, tokens, targets, loss_mask, generator):
+    def grads_of(model, tokens, targets, loss_mask, generator, ctx):
         if accum_steps == 1:
             return _value_and_grad(loss_fn, model, tokens, targets,
-                                   loss_mask, generator)
+                                   loss_mask, generator, ctx)
         if tokens.shape[0] % accum_steps:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by "
                              f"accum_steps {accum_steps}")
@@ -113,7 +182,7 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
         for tok, tgt, msk in zip(split(tokens), split(targets),
                                  split(loss_mask) or [None] * accum_steps):
             loss, grads = _value_and_grad(loss_fn, model, tok, tgt, msk,
-                                          generator)
+                                          generator, ctx)
             w = msk.sum().float() if msk is not None else 1.0
             loss_sum = loss_sum + w * loss
             grad_sum = ({n: w * g.float() for n, g in grads.items()}
@@ -129,8 +198,9 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
                                   for n, g in grad_sum.items()}
 
     def step(model, opt_state, tokens, targets, loss_mask=None,
-             generator=None):
-        loss, grads = grads_of(model, tokens, targets, loss_mask, generator)
+             generator=None, ctx=None):
+        loss, grads = grads_of(model, tokens, targets, loss_mask, generator,
+                               ctx)
         if grad_clip is not None:
             grads = clip_by_global_norm(grads, grad_clip)
         model, opt_state = opt.step(model, grads, opt_state)
@@ -141,20 +211,20 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
 
 def make_train_scan(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
                     grad_clip: Optional[float] = None) -> Callable:
-    """Returns scan(model, opt_state, tokens, targets, loss_mask, generator)
-    where tokens/targets/loss_mask carry a leading (n_steps,) axis: one
-    train step per slice, in order, and the (n_steps,) losses.  (The JAX
-    package runs these steps in one ``lax.scan`` dispatch; here it is a
-    Python loop.)"""
+    """Returns scan(model, opt_state, tokens, targets, loss_mask, generator,
+    ctx=None) where tokens/targets/loss_mask carry a leading (n_steps,)
+    axis: one train step per slice, in order, and the (n_steps,) losses.
+    (The JAX package runs these steps in one ``lax.scan`` dispatch; here it
+    is a Python loop.)"""
     step = make_train_step(opt, loss_fn, grad_clip)
 
     def scan(model, opt_state, tokens, targets, loss_mask=None,
-             generator=None):
+             generator=None, ctx=None):
         losses = []
         for i in range(targets.shape[0]):
             model, opt_state, loss = step(
                 model, opt_state, tokens[i], targets[i],
-                None if loss_mask is None else loss_mask[i], generator)
+                None if loss_mask is None else loss_mask[i], generator, ctx)
             losses.append(loss)
         return model, opt_state, torch.stack(losses)
 

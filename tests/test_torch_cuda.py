@@ -1137,3 +1137,113 @@ def test_paged_verify_wave(dev, dtype, case):
     lens2 = lens.clone()
     lens2[1:] = torch.clamp(lens2[1:] + page + 1, max=pps * page)
     assert torch.equal(pa.paged_attention(q, kp, vp, lens2, table)[0], out[0])
+
+
+def _card_and_host_models(dev, **kw):
+    """An f32 DecoderLM on the card (TF32 off: the dev fixture) and its CPU
+    copy, which runs the plain versions of the kernels."""
+    import copy
+
+    import flashattn_tpu_torch as pt
+
+    card = pt.DecoderLM(64, 256, 2, 512, p_dropout=0.0, device=dev,
+                        generator=torch.Generator().manual_seed(3),
+                        **kw).eval()
+    return card, copy.deepcopy(card).to("cpu")
+
+
+def test_rope_paged_paths_match_plain(dev):
+    """A RoPE model's paged prefill (ragged prompts, an idle row), a 3-token
+    extend at per-row bases and one decode step on the card, against the
+    same calls on a CPU copy (paged_attention_plain, the plain flash
+    version): logits within 1e-4, the flash and paged kernels launched."""
+    card, host = _card_and_host_models(dev, n_layer=2, n_kv_head=1,
+                                       pos_encoding="rope")
+    page, pps = 16, 6
+    table = torch.arange(3 * pps, dtype=torch.int32).reshape(3, pps)
+    lens = torch.tensor([37, 5, 0])
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, 64, (3, 40), generator=g)
+    chunk = torch.randint(0, 64, (3, 3), generator=g)
+    nxt = torch.randint(0, 64, (3, 1), generator=g)
+    out = []
+    before = fa._kernel.launches, pa._kernel.launches
+    for model, d in ((card, dev), (host, torch.device("cpu"))):
+        pools = model.init_page_pools(3 * pps + 1, page, device=d)
+        t, ln = table.to(d), lens.to(d)
+        with torch.inference_mode():
+            pre, pools = model.forward_prefill_paged(prompt.to(d), pools, t,
+                                                     ln)
+            ext, pools = model.forward_extend_paged(chunk.to(d), pools, t, ln)
+            dec, pools = model.forward_decode_paged(nxt.to(d), pools, t,
+                                                    ln + 3)
+        out.append([x.cpu() for x in (pre, ext, dec)])
+    assert fa._kernel.launches > before[0]          # the card's prefill
+    assert pa._kernel.launches >= before[1] + 4     # 2 layers x extend, decode
+    (pre, ext, dec), (pre_h, ext_h, dec_h) = out
+    for r, n in enumerate(lens.tolist()[:2]):      # row 2 is idle
+        assert _err(pre[r, :n], pre_h[r, :n]) <= 1e-4
+    assert _err(ext[:2], ext_h[:2]) <= 1e-4
+    assert _err(dec[:2], dec_h[:2]) <= 1e-4
+
+
+def test_moe_cached_decode_routes_as_dense_forward(dev):
+    """An MoE + RoPE model in eval mode on the card: every token's experts
+    in each layer during the cached decode equal those of one dense forward
+    over the same tokens, and the logits agree within 1e-3."""
+    card, _ = _card_and_host_models(dev, n_layer=2, n_experts=8,
+                                    moe_top_k=2, pos_encoding="rope")
+    toks = torch.randint(0, 64, (3, 41), generator=torch.Generator()
+                         .manual_seed(5)).to(dev)
+    seen = []
+
+    def record(layer):
+        route = layer.ff._route
+
+        def wrapped(xt):
+            probs, combine, top_mask = route(xt)
+            seen.append((layer, top_mask))
+            return probs, combine, top_mask
+
+        layer.ff._route = wrapped
+
+    for layer in card.layers:
+        record(layer)
+    with torch.inference_mode():
+        dense = card(toks)
+        dense_routes = {id(l): m.reshape(3, 41, -1) for l, m in seen}
+        seen.clear()
+        caches, steps = card.init_cache(3, 41), []
+        for i in range(41):
+            lg, caches = card.forward_decode(toks[:, i:i + 1], caches,
+                                             torch.tensor(i, device=dev))
+            steps.append(lg[:, 0])
+    for i, (layer, mask) in enumerate(seen):
+        s = i // len(card.layers)
+        assert torch.equal(mask, dense_routes[id(layer)][:, s]), (s, i)
+    assert _err(torch.stack(steps, 1), dense) <= 1e-3
+
+
+def test_beam_search_cuda_equals_cpu(dev):
+    """Beam 3 over ragged prompts with an eos: the card's hypotheses equal
+    the CPU's and the final beam scores agree within 1e-4 (f32); greedy
+    likewise."""
+    from flashattn_tpu_torch.training import generate as gen
+
+    card, host = _card_and_host_models(dev, n_layer=2, n_kv_head=1)
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(3, 64, (3, 9), generator=g)
+    plen = torch.tensor([9, 4, 1])
+    out = []
+    for model in (card, host):
+        d = next(model.parameters()).device
+        buf, pl, _ = gen._buffer(model, prompt, plen, 12, repeat=3)
+        with torch.inference_mode():
+            best, scores = gen._beam_search(model.eval(), buf, pl, 3, 1, 0.6)
+        greedy = gen.greedy_generate(model, prompt.to(d), plen.to(d), 12,
+                                     eos_id=1)
+        out.append((best.cpu(), scores.cpu(), greedy.cpu()))
+    (b_c, s_c, g_c), (b_h, s_h, g_h) = out
+    assert torch.equal(b_c, b_h)
+    assert _err(s_c, s_h) <= 1e-4
+    assert torch.equal(g_c, g_h)

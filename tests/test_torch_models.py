@@ -155,10 +155,16 @@ def test_load_jax_params_checks_names_and_shapes():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope", device="cpu")
+    """Every DecoderLM option of the JAX model is ported, RoPE and MoE
+    included; unknown values raise, as JAX's asserts do."""
+    with pytest.raises(ValueError):
+        pt.DecoderLM(64, 32, 4, 64, pos_encoding="alibi", device="cpu")
     with pytest.raises(ValueError):
         pt.DecoderLM(64, 32, 4, 64, attn_impl="xla", device="cpu")
+    with pytest.raises(ValueError):
+        pt.DecoderLM(64, 32, 4, 64, n_experts=4, moe_top_k=3, device="cpu")
+    pt.DecoderLM(64, 32, 4, 64, pos_encoding="rope", n_experts=4,
+                 moe_top_k=1, device="cpu")
 
 
 # -- attn_impl="fused_softmax": score matmul, fused softmax, matmul with V --

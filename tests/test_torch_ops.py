@@ -221,6 +221,7 @@ def test_import_leaves_jax_out():
     """The port imports torch and never jax."""
     code = ("import sys, flashattn_tpu_torch, flashattn_tpu_torch.serving; "
             "import flashattn_tpu_torch.serving._threefry; "
+            "import flashattn_tpu_torch.training.generate; "
             "from flashattn_tpu_torch.utils import native_loader; "
             "native_loader.ngram_propose_native([1, 2, 1], 1); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
