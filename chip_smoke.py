@@ -184,6 +184,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and on the CPU, f32: parameters within 1e-5 relative L2 after steps 1
    and 3 (the key-projection bias, Adafactor's normalised rounding noise
    on a zero gradient, logged).
+20. MT kernels (run with phase 3): the op graph (flash_fwd mode 0 and
+   flash_bwd's op-graph mode) at the machine-translation model's attention
+   shapes, B128 H8 D32 over 40 keys: the encoder's varlen self-attention,
+   the decoder's causal self-attention, the cross-attention (forward and
+   backward) and generation's cross-attention at n_q 1 (forward), source
+   lengths from 1 to 40, f32 and bf16, gated as phase 3's flash lines,
+   with SDPA and the bound beside.
+21. seq2seq_train: the MT app's model at its defaults
+   (flashattn_tpu_torch/training/translation.py MTConfig, arch seq2seq:
+   E256, 8 heads of 32, 4 + 4 layers, vocab 10000, 40 tokens, p 0.1) over
+   the vendored de-en corpus (the app's "deen-fixture" splits), collated
+   by the port's collate_batch_seq2seq with a word-level tokenizer
+   stand-in (the card's machine may lack the app's tokenizer packages),
+   B128, 64 steps through the app's _dispatch_chunk / make_train_scan
+   (Adam under the app's warmup-cosine schedule at 0.002, clip 1.0, 8
+   steps a dispatch): the loss falls (the last 8 steps' mean below the
+   first 8's), every MT kernel launches; ms/step, tokens/s, the peak and
+   a profiled dispatch.  Then the same in bf16-mixed with remat.
+   seq2seq-consistency: the f32 seq2seq_loss backward on the card against
+   a CPU copy, B32, p 0 and 0.1, phase 7's gates.
+22. seq2seq_generate: greedy_generate_seq2seq on the trained f32 model, 32
+   test sources, 40 new tokens: the tokens equal a no-cache greedy loop
+   over the full forward, the cached decode's logits within 1e-3 of the
+   teacher-forced forward; new tok/s and a profiled call.
+23. mt_app: the app's run() for one short epoch (16 steps) of each arch on
+   "deen-fixture" (seq2seq; decoder-only with the engine) where
+   tokenizers, transformers, sacrebleu and tqdm all import, its results
+   logged; else one line naming the missing packages.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -201,6 +229,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -267,6 +296,23 @@ CONSIST_MOE = dict(CONSIST, pos_encoding="rope", n_experts=8, moe_top_k=2)
 MOE_AUX_ALPHA = 0.01
 # distillation of serve_features' draft from the serving model
 DISTILL_STEPS, DISTILL_BATCH, DISTILL_SEQ = 200, 16, 128
+# the machine-translation app's model and batch at their defaults
+# (flashattn_tpu_torch/training/translation.py MTConfig, arch="seq2seq"):
+# E256, 8 heads of 32, 4 encoder and 4 decoder layers, vocab 10000, 40
+# tokens, batch 128, dropout 0.1, Adam at 0.002 under the app's one-epoch
+# warmup-cosine schedule (20000 samples), clip 1.0, 8 steps a dispatch
+MT = dict(n_vocab=10000, n_embd=256, n_head=8, n_positions=40,
+          n_encoder_layer=4, n_decoder_layer=4, p_dropout=0.1,
+          attn_impl="flash")
+MT_LEN, MT_BATCH, MT_SPD, MT_STEPS = 40, 128, 8, 64
+MT_LR, MT_SAMPLES, MT_SEED = 0.002, 20000, 11111
+MT_GEN_BATCH = 32                     # the app's generation batch
+MT_CONSIST_BATCH = 32
+MT_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
+              "dropout")
+MG_KERNELS = ("layernorm_fwd", "flash_fwd")
+MT_APP_PACKAGES = ("tokenizers", "transformers", "sacrebleu", "tqdm")
+MT_APP_SAMPLES = 2048                 # one short epoch: 16 steps of 128
 
 
 def log(msg: str) -> None:
@@ -820,6 +866,48 @@ def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
              library=_sdpa_bwd(torch, q, k, v, do, causal, window, lens))
 
 
+def mt_kernel_phases(torch, dev, ph: Phases, randn):
+    """The op graph (``flash_fwd`` mode 0 and ``flash_bwd``'s op-graph mode)
+    at the MT model's attention shapes, B128 H8 D32 (40 keys, under the
+    1024 where JAX's dispatcher leaves the op graph): the encoder's varlen
+    self-attention, the decoder's causal self-attention, the
+    cross-attention (forward and backward) and generation's cross-attention
+    at n_q 1 (forward), over source lengths from 1 to 40, in f32 and
+    bf16."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    b, h, d = MT_BATCH, MT["n_head"], MT["n_embd"] // MT["n_head"]
+    g = torch.Generator().manual_seed(SEED + 11)
+    lens = torch.randint(1, MT_LEN + 1, (b,), generator=g)
+    lens[:2] = torch.tensor([1, MT_LEN])
+    lens = lens.to(dev)
+    cases = (("encoder 40x40 varlen", MT_LEN, False, lens, True),
+             ("decoder 40x40 causal", MT_LEN, True, None, True),
+             ("cross 40x40 varlen", MT_LEN, False, lens, True),
+             ("generate cross 1x40 varlen", 1, False, lens, False))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, n_q, causal, kv_lens, bwd in cases:
+            q = randn(b, h, n_q, d, dtype=dtype)
+            k, v = (randn(b, h, MT_LEN, d, dtype=dtype) for _ in range(2))
+            assert fa._schedule(q, k, causal, None, kv_lens is not None
+                                ).name == "op_graph"
+            lib, args = _sdpa(torch, q, k, v, causal, None, kv_lens)
+            ph.check("flash_fwd", f"MT {label} B128 H8 D32", dtype,
+                     lambda: fa.flash_fwd(q, k, v, causal=causal,
+                                          sm_scale=d ** -0.5,
+                                          kv_lengths=kv_lens),
+                     lambda: fa.flash_fwd_plain(q, k, v, causal, d ** -0.5,
+                                                kv_lens),
+                     _flash_cost(q, k, causal, None, kv_lens),
+                     **_flash_gate(dtype, f"flash_fwd MT {label}"),
+                     library=lambda: lib(*args))
+            if bwd:
+                do = randn(b, h, n_q, d, dtype=dtype)
+                _flash_bwd_check(torch, ph, fa, f"MT {label} B128 H8 D32",
+                                 dtype, q, k, v, do, causal, None, kv_lens)
+            del q, k, v, lib, args
+
+
 def _quant_bits_err(got, want):
     """0 when payloads and scales are bit-identical, else inf."""
     import torch
@@ -1324,6 +1412,8 @@ def kernel_phases(torch, dev) -> Phases:
     softmax_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
     dropout_bias_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
+    mt_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
     return ph
 
@@ -1992,36 +2082,42 @@ def train_consistency_phase(torch, dev, cfg=CONSIST,
             grads = torch.autograd.grad(loss, params)
             out.append((loss.detach().cpu(), {n: g.cpu() for n, g in
                                               zip(names, grads)}))
-        (l_card, g_card), (l_host, g_host) = out
-        loss_err = abs(float(l_card) - float(l_host)) / abs(float(l_host))
-        # the key-projection bias has an exactly zero gradient (softmax is
-        # blind to a shift shared by every key): both devices return
-        # rounding noise there, held to 1e-4 of the global norm instead.
-        # Under RoPE the rotation makes the shift depend on the key's
-        # position, so the gradient is real and compared as any other.
-        zero = [n for n in g_host if n.endswith("k_projection.bias")
-                and cfg.get("pos_encoding") != "rope"]
-        total = math.sqrt(sum(float(g.double().square().sum())
-                              for g in g_host.values()))
-        noise = max([float(g[n].norm()) for g in (g_card, g_host)
-                     for n in zero], default=0.0)
-        grad_err = {n: _rel(g_card[n], g_host[n]) for n in g_host
-                    if n not in zero}
-        worst = max(grad_err, key=grad_err.get)
-        log(f"[{name}] f32 E1024 L2 B2 S1024 {cfg['attn_impl']} "
-            f"{cfg.get('pos_encoding', 'learned')} experts "
-            f"{cfg.get('n_experts')} p{p}: loss card "
-            f"{float(l_card):.6f} cpu {float(l_host):.6f} (rel {loss_err:.2e}); "
-            f"max grad rel-norm err {grad_err[worst]:.2e} ({worst}); "
-            f"token_embeddings {grad_err['token_embeddings.weights']:.2e}; "
-            f"k-bias noise {noise:.2e} of global norm {total:.3e}")
-        if not loss_err <= 1e-5:
-            raise AssertionError(f"card loss differs from CPU by {loss_err}")
-        if not grad_err[worst] <= 1e-4:
-            raise AssertionError(f"{worst} gradient differs by {grad_err[worst]}")
-        if not noise <= 1e-4 * total:
-            raise AssertionError(f"key-bias gradient {noise} is not ~0")
+        _backward_gates(name, f"f32 E1024 L2 B2 S1024 {cfg['attn_impl']} "
+                        f"{cfg.get('pos_encoding', 'learned')} experts "
+                        f"{cfg.get('n_experts')} p{p}", out,
+                        cfg.get("pos_encoding") == "rope")
         del card, host, out
+
+
+def _backward_gates(name: str, head: str, out, rope: bool = False) -> None:
+    """Card vs CPU backward, ``out`` = [(loss, grads by name)] for the card
+    and the CPU: the loss within 1e-5 relative, each gradient within 1e-4
+    in relative L2 norm.  The key-projection biases have an exactly zero
+    gradient (softmax is blind to a shift shared by every key): both
+    devices return rounding noise there, held to 1e-4 of the global norm
+    instead.  Under RoPE the rotation makes the shift depend on the key's
+    position, so the gradient is real and compared as any other."""
+    (l_card, g_card), (l_host, g_host) = out
+    loss_err = abs(float(l_card) - float(l_host)) / abs(float(l_host))
+    zero = [n for n in g_host if n.endswith("k_projection.bias") and not rope]
+    total = math.sqrt(sum(float(g.double().square().sum())
+                          for g in g_host.values()))
+    noise = max([float(g[n].norm()) for g in (g_card, g_host)
+                 for n in zero], default=0.0)
+    grad_err = {n: _rel(g_card[n], g_host[n]) for n in g_host
+                if n not in zero}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"[{name}] {head}: loss card {float(l_card):.6f} cpu "
+        f"{float(l_host):.6f} (rel {loss_err:.2e}); max grad rel-norm err "
+        f"{grad_err[worst]:.2e} ({worst}); token_embeddings "
+        f"{grad_err['token_embeddings.weights']:.2e}; k-bias noise "
+        f"{noise:.2e} of global norm {total:.3e}")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"card loss differs from CPU by {loss_err}")
+    if not grad_err[worst] <= 1e-4:
+        raise AssertionError(f"{worst} gradient differs by {grad_err[worst]}")
+    if not noise <= 1e-4 * total:
+        raise AssertionError(f"key-bias gradient {noise} is not ~0")
 
 
 def fused_logits_phase(torch, dev) -> None:
@@ -2316,6 +2412,260 @@ def distill_phase(torch, model_f32, dev) -> dict:
     return dict(out, launches=run.counts)
 
 
+class _WordTokenizer:
+    """A word-level stand-in for the MT app's byte-level BPE tokenizer
+    (the card's machine may lack ``tokenizers`` and ``transformers``): the
+    app's three specials, ``<unk>``, then the train split's words in order
+    of first appearance, within the app's 10000 ids.  It has what the
+    port's collate and generation use: ``__call__(text)["input_ids"]``,
+    ``.vocab`` and ``.decode``; it is no part of the port."""
+
+    def __init__(self, examples, size: int):
+        self.vocab = {"<eos_de>": 0, "<eos_en>": 1, "<pad>": 2, "<unk>": 3}
+        for ex in examples:
+            for w in f"{ex['de']} {ex['en']}".split():
+                if w not in self.vocab and len(self.vocab) < size:
+                    self.vocab[w] = len(self.vocab)
+        self._words = {i: w for w, i in self.vocab.items()}
+
+    def __call__(self, text: str) -> dict:
+        words = text.replace("<eos_", " <eos_").split()
+        return {"input_ids": [self.vocab.get(w, 3) for w in words]}
+
+    def decode(self, ids) -> str:
+        return " ".join(self._words.get(i, "<unk>") for i in ids)
+
+
+def mt_data():
+    """(splits of the vendored de-en corpus as the app makes them, the
+    word-level tokenizer over its train split)."""
+    from flashattn_tpu_torch.training import translation as tr
+
+    dataset, _, _ = tr.get_dataset("deen-fixture", MT_LEN, seed=MT_SEED)
+    return dataset, _WordTokenizer(dataset["train"], MT["n_vocab"])
+
+
+def _mt_batches(data, n: int, batch: Optional[int] = None):
+    """``n`` batches (of MT_BATCH rows unless ``batch`` says) of the train
+    split, shuffled from SEED, by the port's collate_batch_seq2seq."""
+    import random
+
+    from flashattn_tpu_torch.training import translation as tr
+
+    dataset, tok = data
+    batch = batch or MT_BATCH
+    ex = list(dataset["train"])
+    random.Random(SEED).shuffle(ex)
+    return [tr.collate_batch_seq2seq(ex[i * batch:(i + 1) * batch], "de",
+                                     "en", tok, MT_LEN) for i in range(n)]
+
+
+def seq2seq_train_phase(torch, dev, power: str, data, mixed: bool = False,
+                        remat: bool = False) -> dict:
+    """MT_STEPS steps of the MT model at full width and depth through the
+    app's _dispatch_chunk / make_train_scan (Adam under the app's schedule,
+    clip 1.0, 8 steps a dispatch) over collated fixture batches: losses
+    finite and falling, every MT kernel launched; ms/step, tokens/s, the
+    peak, and one profiled dispatch."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.training import translation as tr
+
+    name = "seq2seq_train" + ("_mixed_remat" if mixed else "")
+    model = pt.EncoderDecoderLM(**MT, remat=remat, device=dev,
+                                generator=torch.Generator().manual_seed(SEED)
+                                ).train()
+    total = MT_SAMPLES // MT_BATCH
+    opt = pt.Adam(lr=pt.warmup_cosine(MT_LR, max(10, total // 20), total))
+    state = opt.init(model)
+    loss_fn = (pt.make_mixed_precision_loss(tr.seq2seq_loss) if mixed
+               else tr.seq2seq_loss)
+    scan = pt.make_train_scan(opt, loss_fn, grad_clip=1.0)
+    batches = _mt_batches(data, MT_STEPS)
+    gen = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, n_tok = [], [], 0
+    with _Launches(MT_KERNELS) as run:
+        for i in range(0, MT_STEPS, MT_SPD):
+            t0 = time.perf_counter()
+            model, state, gen, chunk, n = tr._dispatch_chunk(
+                model, state, scan, batches[i:i + MT_SPD], gen)
+            times.append(time.perf_counter() - t0)    # the losses synced
+            losses.extend(chunk.tolist())
+            n_tok = n
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times[1:]) * 1e3 / MT_SPD
+    tok_s = n_tok / (statistics.median(times[1:]))
+    head, tail = np.mean(losses[:MT_SPD]), np.mean(losses[-MT_SPD:])
+    log(f"[{name}] {power} {'bf16-mixed' if mixed else 'f32'} "
+        f"{'remat ' if remat else ''}E256 H8x32 L4+4 V10000 B{MT_BATCH} "
+        f"S{MT_LEN} p0.1, {MT_STEPS} steps in dispatches of {MT_SPD}: loss "
+        f"first {MT_SPD} mean {head:.4f}, last {MT_SPD} mean {tail:.4f} "
+        f"(every 8th: {[round(x, 4) for x in losses[::8]]})")
+    log(f"[{name}] dispatch s {[round(t, 3) for t in times]}; median of the "
+        f"last {len(times) - 1}: {ms:.2f} ms/step, {tok_s:.1f} tokens/s "
+        f"(source + target, padding included); max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches over the {MT_STEPS} steps "
+        f"{run.counts}")
+    profile_step(torch, lambda: tr._dispatch_chunk(
+        model, state, scan, batches[:MT_SPD], gen), f"{name} dispatch "
+        f"({MT_SPD} steps)")
+    if not (all(math.isfinite(x) for x in losses) and tail < head):
+        raise AssertionError(f"{name}: the loss did not fall: {head} -> {tail}")
+    for kern, n in run.counts.items():
+        if n <= 0:
+            raise AssertionError(f"{kern} not launched in {name}")
+    return dict(model=model, ms=ms, tok_s=tok_s, peak=peak,
+                launches=run.counts)
+
+
+def seq2seq_consistency_phase(torch, dev, data) -> None:
+    """One seq2seq_loss backward of the MT model on the card against the
+    same on a CPU copy, f32, p 0 and p 0.1 from one generator seed (the
+    same Philox masks): _backward_gates."""
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.training import translation as tr
+
+    batch = _mt_batches(data, 1, MT_CONSIST_BATCH)[0]
+    for p in (0.0, 0.1):
+        card = pt.EncoderDecoderLM(**dict(MT, p_dropout=p), device=dev,
+                                   generator=torch.Generator().manual_seed(
+                                       SEED)).train()
+        host = copy.deepcopy(card).to("cpu")
+        out = []
+        for m in (card, host):
+            d = next(m.parameters()).device
+            to = lambda name: torch.from_numpy(batch[name]).to(d)
+            inputs = {"src": to("src"), "src_lens": to("src_lens"),
+                      "tgt_in": to("input_ids")}
+            gen = torch.Generator().manual_seed(SEED + 3) if p else None
+            loss = tr.seq2seq_loss(m, inputs, to("labels"),
+                                   to("label_token_weights"), gen)
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            out.append((loss.detach().cpu(), {n: g.cpu() for n, g in
+                                              zip(names, grads)}))
+        _backward_gates("seq2seq-consistency", f"f32 MT E256 L4+4 "
+                        f"B{MT_CONSIST_BATCH} S{MT_LEN} p{p}", out)
+        del card, host, out
+
+
+def _mt_sources(torch, dev, data, batch: int = MT_GEN_BATCH):
+    """The first ``batch`` test sources, padded as generate_seq2seq pads
+    them: (ids (B, 40), lengths (B,)) on the card."""
+    dataset, tok = data
+    buf = torch.full((batch, MT_LEN), tok.vocab["<pad>"], dtype=torch.long)
+    lens = []
+    for r, ex in enumerate(dataset["test"][:batch]):
+        ids = tok(f"{ex['de']}<eos_de>")["input_ids"][:MT_LEN]
+        buf[r, :len(ids)] = torch.tensor(ids)
+        lens.append(len(ids))
+    return buf.to(dev), torch.tensor(lens, device=dev)
+
+
+def seq2seq_generate_phase(torch, dev, model, data) -> dict:
+    """greedy_generate_seq2seq on the trained f32 MT model at the app's
+    batch of 32 test sources and 40 new tokens.  Gates: the tokens equal a
+    no-cache greedy loop over the full forward; the cached decode's logits
+    along them within 1e-3 of the teacher-forced forward.  Then new tok/s
+    (B x 40 positions over the loop's wall time) and a profiled call."""
+    from flashattn_tpu_torch.training.generate import greedy_generate_seq2seq
+
+    _, tok = data
+    src, lens = _mt_sources(torch, dev, data)
+    bos, eos = tok.vocab["<eos_de>"], tok.vocab["<eos_en>"]
+    model.eval()
+    with _Launches(MG_KERNELS) as run:
+        out = greedy_generate_seq2seq(model, src, lens, MT_LEN, bos, eos)
+    with torch.inference_mode():
+        tgt = torch.full((src.shape[0], 1), bos, device=dev)
+        done = torch.zeros(src.shape[0], dtype=torch.bool, device=dev)
+        for _ in range(MT_LEN):
+            nxt = model(src, tgt, lens)[:, -1].argmax(-1)
+            nxt = torch.where(done, eos, nxt)
+            done = done | (nxt == eos)
+            tgt = torch.cat([tgt, nxt[:, None]], 1)
+        forced = model(src, tgt[:, :-1], lens)
+        mem = model.encode(src, lens)
+        cross, caches = model.precompute_cross(mem), model.init_cache(
+            src.shape[0], MT_LEN)
+        steps = torch.arange(MT_LEN, device=dev)
+        err = torch.zeros((), device=dev)
+        for i in range(MT_LEN):
+            logits, caches = model.forward_decode(tgt[:, i:i + 1], caches,
+                                                  cross, steps[i], lens)
+            err = torch.maximum(err, (logits[:, 0] - forced[:, i]).abs().max())
+    same = int((out == tgt[:, 1:]).all(1).sum())
+    err = float(err)
+    ended = int((out == eos).any(1).sum())
+    log(f"[seq2seq_generate] f32 B{src.shape[0]} {MT_LEN} new tokens: "
+        f"token-identical to the no-cache greedy loop on {same}/"
+        f"{src.shape[0]} rows; cached decode vs teacher-forced logits "
+        f"max_abs_err={err:.3e}; {ended} rows emitted eos; launches "
+        f"{run.counts}; first row: {tok.decode(out[0].tolist())!r}")
+    if same != src.shape[0]:
+        raise AssertionError("greedy_generate_seq2seq differs from the "
+                             "no-cache greedy loop")
+    if not err <= 1e-3:
+        raise AssertionError(f"cached decode differs by {err}")
+    for kern, n in run.counts.items():
+        if n <= 0:
+            raise AssertionError(f"{kern} not launched in seq2seq_generate")
+    fn = lambda: greedy_generate_seq2seq(model, src, lens, MT_LEN, bos, eos)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rate = src.shape[0] * MT_LEN / dt
+    log(f"[seq2seq_generate] f32 B{src.shape[0]}: {src.shape[0] * MT_LEN} "
+        f"positions in {dt * 1e3:.1f} ms: {rate:.1f} new tok/s, "
+        f"{dt * 1e3 / MT_LEN:.2f} ms a step (one encode, one cross "
+        f"projection, {MT_LEN} cached steps)")
+    profile_step(torch, fn, f"seq2seq_generate f32 B{src.shape[0]}, "
+                 f"{MT_LEN} steps")
+    return dict(rate=rate, launches=run.counts)
+
+
+def mt_app_phase(torch) -> Optional[dict]:
+    """The MT app's run() for one short epoch of each arch on the vendored
+    corpus at its defaults (seq2seq; decoder-only with the engine), where
+    tokenizers, transformers, sacrebleu and tqdm all import; otherwise one
+    line naming the missing ones.  Any error inside run() fails the
+    script."""
+    import importlib.util
+    import shutil
+
+    missing = [m for m in MT_APP_PACKAGES if importlib.util.find_spec(m) is None]
+    if missing:
+        log(f"[mt_app] not run: {', '.join(missing)} does not import "
+            f"(run() needs {', '.join(MT_APP_PACKAGES)}); the app's "
+            f"model, collate, loss, scan dispatch and generation ran in "
+            f"seq2seq_train and seq2seq_generate")
+        return None
+    from flashattn_tpu_torch.training import translation as tr
+
+    root = REPO / "workdir_mt_app"
+    out = {}
+    try:
+        for arch, extra in (("seq2seq", {}),
+                            ("decoder_only", dict(decode="engine"))):
+            cfg = tr.MTConfig(arch=arch, dataset_name="deen-fixture",
+                              samples_per_epoch=MT_APP_SAMPLES,
+                              workdir=str(root / arch), device="cuda",
+                              **extra)
+            t0 = time.perf_counter()
+            out[arch] = tr.run(cfg)
+            log(f"[mt_app] {arch} {extra}: {json.dumps(out[arch])} in "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 SOURCES = {
     "layernorm_fwd": ("flashattn_tpu_torch/csrc/layernorm.cu",
                       ["flashattn_tpu/ops/layernorm.py:47"]),
@@ -2461,9 +2811,23 @@ def main() -> int:
         raise AssertionError("Adafactor's peak is not below Adam's")
     torch.cuda.empty_cache()
     adafactor_consistency_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    mt = mt_data()
+    s2s = seq2seq_train_phase(torch, dev, power, mt)
+    s2s_mixed = seq2seq_train_phase(torch, dev, power, mt, mixed=True,
+                                    remat=True)
+    del s2s_mixed["model"]
+    seq2seq_consistency_phase(torch, dev, mt)
+    s2s_gen = seq2seq_generate_phase(torch, dev, s2s.pop("model"), mt)
+    torch.cuda.empty_cache()
+    mt_app_phase(torch)
+    log(f"[mt] launches a step of the MT train step (MT, f32): "
+        f"{ {n: c / MT_STEPS for n, c in s2s['launches'].items()} }; "
+        f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")
 
     runs = (train, train_fused, serve, serve_features, generate, distill,
-            serve_rope, train_moe, train_adafactor)
+            serve_rope, train_moe, train_adafactor, s2s, s2s_mixed, s2s_gen)
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         launches = main_path_launches(name, runs, serve_quant)

@@ -17,7 +17,15 @@ AdamW, Adafactor); and the same model with ``attn_impl="fused_softmax"``
 (score matmul, :func:`attn_softmax`, matmul with V).  The model takes
 rotary position embeddings (``pos_encoding="rope"``, :mod:`.ops.rope`)
 and mixture-of-experts layers (``n_experts``, :mod:`.models.moe`) on
-every path, in plain torch ops.  The dropout entry
+every path, in plain torch ops.  The encoder-decoder model
+(:class:`EncoderDecoderLM`, :mod:`.models.seq2seq`: cross-attention through
+:class:`MultiHeadAttention`'s ``kv``) trains by the same step and
+generates by ``training.generate.greedy_generate_seq2seq``; the
+machine-translation app (:mod:`.training.translation`, ``python -m
+flashattn_tpu_torch.training.translation``) drives it or the decoder-only
+model from tokenizer to BLEU, with checkpoints (:mod:`.utils.checkpoint`)
+and the native C++ data loader (:mod:`.utils.native_loader`).  The
+dropout entry
 points with bias, residual or activation (:func:`fused_dropout_res_bias`,
 :func:`fused_dropout_act_bias`, ``F.dropout_res_bias``,
 ``F.dropout_act_bias``) are ported too, though no model calls them.  Every
@@ -36,8 +44,10 @@ with a plain PyTorch version beside it:
 
 On CUDA tensors the ops launch their kernels (built with nvcc at first use,
 see :mod:`.ops._build`); on CPU tensors they run the plain versions.
-:class:`DecoderLM` builds on the CUDA device unless the caller names
-another.  The package imports torch and never jax.
+:class:`DecoderLM` and :class:`EncoderDecoderLM` build on the CUDA device
+unless the caller names another.  The package imports torch and never
+jax; the MT app imports its tokenizer, BLEU and progress-bar packages only
+inside the functions that use them.
 """
 
 from .nn import functional as F
@@ -87,6 +97,11 @@ from .models.transformer import (
     FeedForward,
     MultiHeadAttention,
     TransformerLayer,
+)
+from .models.seq2seq import (
+    CrossDecoderLayer,
+    EncoderDecoderLM,
+    EncoderLayer,
 )
 from .optim import (
     SGD,
@@ -150,6 +165,9 @@ __all__ = [
     "FeedForward",
     "MultiHeadAttention",
     "TransformerLayer",
+    "CrossDecoderLayer",
+    "EncoderDecoderLM",
+    "EncoderLayer",
     "SGD",
     "Adafactor",
     "Adam",

@@ -14,7 +14,11 @@ RoPE model has no ``position_embeddings.*``, and an MoE layer holds
 load into a RoPE model (``KeyError`` naming the position table).  A
 weight-only quantized model (``quantize_model_weights``) carries its int8
 or float8 payloads (``...q_projection.values``) and f32 ``scales`` across
-exactly: quantize both models the same way first.
+exactly: quantize both models the same way first.  An
+:class:`~.models.seq2seq.EncoderDecoderLM` carries ``encoder_layers.{i}.*``
+and ``decoder_layers.{i}.*`` (``attention``, ``cross_attention``, ``ff``,
+``ln_1``, ``ln_c``, ``ln_2``) beside the embeddings, ``ln_enc``, ``ln`` and
+``lm_head``, all by the same names as the JAX model's.
 """
 
 from __future__ import annotations

@@ -65,6 +65,42 @@ def remat_policy(name: Optional[str]):
 _remat_policy = remat_policy   # DecoderLM's argument of the same name shadows it
 
 
+class _Method(nn.Module):
+    """``getattr(module, name)`` as a forward, so that
+    ``torch.func.functional_call`` can run any method of ``module``."""
+
+    def __init__(self, module: nn.Module, name: str):
+        super().__init__()
+        self.module = module
+        self.name = name
+
+    def forward(self, *args):
+        return getattr(self.module, self.name)(*args)
+
+
+def remat_step(method: str, context):
+    """``step(layer, x, seed, *args) = getattr(layer, method)(x, *args,
+    seed)``, checkpointed (``torch.utils.checkpoint``, non-reentrant) under
+    ``context`` (a :func:`remat_policy`).  The layer's parameters as the
+    forward finds them are inputs of the checkpoint, so the backward's
+    recomputation runs on the same tensors: under
+    :func:`..training.trainer.make_mixed_precision_loss` those are the bf16
+    casts that ``functional_call`` swapped in, which the module no longer
+    holds by the time the backward runs."""
+    ctx = {} if context is None else dict(context_fn=context)
+
+    def run(params, layer, x, seed, *args):
+        return torch.func.functional_call(_Method(layer, method), params,
+                                          (x, *args, seed))
+
+    def step(layer, x, seed, *args):
+        params = {"module." + n: p for n, p in layer.named_parameters()}
+        return checkpoint.checkpoint(run, params, layer, x, seed, *args,
+                                     use_reentrant=False, **ctx)
+
+    return step
+
+
 def _quantize_kv(t: torch.Tensor, dtype):
     """Per-token symmetric quantization of pool writes, in f32 throughout:
     payload in ``dtype`` (int8 absmax / 127, fp8 e4m3 absmax / 448) and f32
@@ -94,9 +130,31 @@ def _scatter_kv(pool: dict, k: torch.Tensor, v: torch.Tensor,
         pool[name][:, flat_pages, flat_offs] = new.to(pool[name].dtype)
 
 
+def dropout_seeds(generator: Optional[torch.Generator], n: int) -> list:
+    """``n`` integer dropout seeds drawn from ``generator`` (None each
+    without one).  A model draws all of a forward's seeds up front, which
+    lets a checkpointed layer recompute the same masks."""
+    if generator is None:
+        return [None] * n
+    return [s & (2**64 - 1) for s in torch.randint(
+        -2**63, 2**63 - 1, (n,), generator=generator,
+        device=generator.device).tolist()]
+
+
+def _fill_past_table(x: torch.Tensor, pos: torch.Tensor,
+                     n_positions: int) -> torch.Tensor:
+    """NaN where ``pos`` lies past the position table, as JAX's
+    ``jnp.take`` fills an out-of-range embedding row: a cached decode step
+    past ``n_positions`` gives NaN logits (argmax 0) in both packages.  The
+    paged methods clamp instead, for their padding positions, whose outputs
+    are never read."""
+    return torch.where((pos < n_positions)[..., None], x, float("nan"))
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head (optionally causal) self-attention with GQA and an optional
-    sliding window.  ``attn_impl`` is "flash" (the flash kernel),
+    sliding window, or cross-attention over another sequence (``kv``).
+    ``attn_impl`` is "flash" (the flash kernel),
     "fused_softmax" (score matmul, the fused softmax kernel, matmul with V)
     or "reference" (the plain PyTorch version)."""
 
@@ -139,17 +197,21 @@ class MultiHeadAttention(nn.Module):
         self.out_projection = Linear(n_embd, n_embd, bias, **kw)
         self.dropout = Dropout(p_dropout)
 
-    def project_to_query_key_value(self, x: torch.Tensor):
-        """(B,S,E) -> q (B,nh,S,hd), k/v (B,n_kv_head,S,hd)."""
-        bs, seq, _ = x.shape
+    def project_to_query_key_value(self, x: torch.Tensor,
+                                   kv_src: Optional[torch.Tensor] = None):
+        """(B,S,E) -> q (B,nh,S,hd), k/v (B,n_kv_head,Skv,hd).  ``kv_src``
+        (B,Skv,E) routes K and V through another sequence (cross-attention
+        over an encoder's memory); by default they come from ``x``."""
+        kv_src = x if kv_src is None else kv_src
 
-        def proj(lin: Linear, heads: int) -> torch.Tensor:
-            return lin(x).reshape(bs, seq, heads,
-                                  self.attn_hidden_dim).transpose(1, 2)
+        def proj(lin: Linear, src: torch.Tensor, heads: int) -> torch.Tensor:
+            bs, seq, _ = src.shape
+            return lin(src).reshape(bs, seq, heads,
+                                    self.attn_hidden_dim).transpose(1, 2)
 
-        return (proj(self.q_projection, self.n_head),
-                proj(self.k_projection, self.n_kv_head),
-                proj(self.v_projection, self.n_kv_head))
+        return (proj(self.q_projection, x, self.n_head),
+                proj(self.k_projection, kv_src, self.n_kv_head),
+                proj(self.v_projection, kv_src, self.n_kv_head))
 
     def _rope(self, q, k, positions):
         """Rotate q and the NEW keys at ``positions`` (cached keys are
@@ -208,9 +270,16 @@ class MultiHeadAttention(nn.Module):
             mask = mask.to(s.dtype)
         return torch.matmul(attn_softmax(s, mask, self.causal), v)
 
-    def forward(self, x: torch.Tensor, kv_lengths=None) -> torch.Tensor:
-        q, k, v = self.project_to_query_key_value(x)
-        q, k = self._rope(q, k, torch.arange(x.shape[1], device=x.device))
+    def forward(self, x: torch.Tensor, kv_lengths=None, *,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention over ``x`` (B, S, E); cross-attention over ``kv``
+        (B, Skv, E), an encoder's memory, when it is given.  ``kv_lengths``
+        (B,) masks the keys past each row's valid prefix.  RoPE rotates
+        self-attention only, as in JAX (the query and the memory do not
+        share a position scale)."""
+        q, k, v = self.project_to_query_key_value(x, kv)
+        if kv is None:
+            q, k = self._rope(q, k, torch.arange(x.shape[1], device=x.device))
         return self.out_projection(self.self_attention(q, k, v, kv_lengths))
 
     # -- KV-cached decode path -------------------------------------------------
@@ -494,19 +563,12 @@ class DecoderLM(nn.Module):
         up front, in that order — the counterpart of the JAX model's key
         split.  Drawing them before the layers run is what lets a
         checkpointed layer recompute the same masks."""
-        seeds = [None] * (len(self.layers) + 1)
-        if generator is not None:
-            seeds = [s & (2**64 - 1) for s in torch.randint(
-                -2**63, 2**63 - 1, (len(seeds),), generator=generator,
-                device=generator.device).tolist()]
+        seeds = dropout_seeds(generator, len(self.layers) + 1)
         pos = torch.arange(idx.shape[1], device=idx.device)[None, :]
         x = self.dropout(self._embed(idx, pos), seeds[0])
         step = lambda layer, x, seed: layer.forward_with_aux(x, seed)
         if self.remat and torch.is_grad_enabled():
-            ctx = {} if self._remat_context is None else dict(
-                context_fn=self._remat_context)
-            step = functools.partial(checkpoint.checkpoint, step,
-                                     use_reentrant=False, **ctx)
+            step = remat_step("forward_with_aux", self._remat_context)
         aux = torch.zeros((), dtype=torch.float32, device=idx.device)
         for layer, seed in zip(self.layers, seeds[1:]):
             x, a = step(layer, x, seed)
@@ -533,6 +595,8 @@ class DecoderLM(nn.Module):
             pos = torch.full((1, 1), index, dtype=torch.long,
                              device=idx_tok.device)
         x = self._embed(idx_tok, pos)
+        if self.pos_encoding == "learned":
+            x = _fill_past_table(x, pos, self.n_positions)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.forward_decode(x, cache, index)

@@ -1,3 +1,4 @@
+from .generate import greedy_generate_seq2seq  # noqa: F401
 from .trainer import (  # noqa: F401
     lm_loss,
     make_distill_loss,

@@ -1,14 +1,15 @@
 """KV-cached autoregressive generation (counterpart of
 flashattn_tpu/training/generate.py).
 
-Each function is one device loop of ``total - 1`` steps of
-``DecoderLM.forward_decode`` over a static-shape dense cache, under
-``torch.inference_mode()``: the JAX package runs the same steps as one
-jitted ``lax.scan``.  The state (token buffer, caches, done flags, beam
-scores) stays on the model's device and the loop reads nothing back to the
-host.  The model runs in eval mode and is left in the mode it had.
-Encoder-decoder generation (``greedy_generate_seq2seq``) waits for the
-seq2seq model.
+Each function is one device loop of ``forward_decode`` steps over a
+static-shape dense cache, under ``torch.inference_mode()``: the JAX package
+runs the same steps as one jitted ``lax.scan``.  ``greedy_generate`` and
+``beam_search_generate`` take ``total - 1`` steps of
+``DecoderLM.forward_decode``; ``greedy_generate_seq2seq`` runs one
+``EncoderDecoderLM.encode``, one ``precompute_cross`` and ``max_new_tokens``
+cached steps.  The state (token buffer, caches, done flags, beam scores)
+stays on the model's device and the loop reads nothing back to the host.
+The model runs in eval mode and is left in the mode it had.
 """
 
 from __future__ import annotations
@@ -77,6 +78,41 @@ def greedy_generate(model: nn.Module, prompt, prompt_len: Union[int, Tensor],
             at = min(i + 1, total - 1)
             buf[:, at] = torch.where(in_gen, nxt, buf[:, at])
     return buf
+
+
+def greedy_generate_seq2seq(model: nn.Module, src, src_lens,
+                            max_new_tokens: int, bos_id: int,
+                            eos_id=None) -> Tensor:
+    """Greedy decode from an :class:`EncoderDecoderLM`.
+
+    src:      (B, S_src) int source ids, padded arbitrarily past each row's
+              length.
+    src_lens: an int or (B,) source lengths.
+    The decoder starts from ``bos_id``.  Returns (B, max_new_tokens) int64
+    ids; once a row emits ``eos_id`` the rest of it is eos."""
+    dev = next(model.parameters()).device
+    src = torch.as_tensor(src, device=dev).long()
+    b = src.shape[0]
+    lens = torch.as_tensor(src_lens, device=dev).long().expand(b)
+    eos = None if eos_id is None else int(eos_id)
+    with _eval_inference(model):
+        memory = model.encode(src, lens)
+        cross_kvs = model.precompute_cross(memory)
+        caches = model.init_cache(b, max_new_tokens, device=dev)
+        steps = torch.arange(max_new_tokens, device=dev)
+        done = torch.zeros(b, dtype=torch.bool, device=dev)
+        tok = torch.full((b, 1), int(bos_id), dtype=torch.long, device=dev)
+        out = torch.empty((b, max_new_tokens), dtype=torch.long, device=dev)
+        for i in range(max_new_tokens):
+            logits, caches = model.forward_decode(tok, caches, cross_kvs,
+                                                  steps[i], lens)
+            nxt = logits[:, -1].argmax(-1)
+            if eos is not None:
+                nxt = torch.where(done, eos, nxt)
+                done = done | (nxt == eos)
+            out[:, i] = nxt
+            tok = nxt[:, None]
+    return out
 
 
 def _beam_search(model: nn.Module, buf: Tensor, plen: Tensor, beam: int,

@@ -209,13 +209,25 @@ def make_train_step(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
     return step
 
 
+def _step_slice(t, i: int):
+    """Slice ``i`` of a stacked batch: of each value of a dict (the seq2seq
+    inputs ``{"src", "src_lens", "tgt_in"}``, as JAX's scan slices a
+    pytree), else of the tensor; None stays None."""
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {name: v[i] for name, v in t.items()}
+    return t[i]
+
+
 def make_train_scan(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
                     grad_clip: Optional[float] = None) -> Callable:
     """Returns scan(model, opt_state, tokens, targets, loss_mask, generator,
     ctx=None) where tokens/targets/loss_mask carry a leading (n_steps,)
     axis: one train step per slice, in order, and the (n_steps,) losses.
-    (The JAX package runs these steps in one ``lax.scan`` dispatch; here it
-    is a Python loop.)"""
+    ``tokens`` may be a dict of such stacks (the seq2seq inputs); targets
+    gives the step count.  (The JAX package runs these steps in one
+    ``lax.scan`` dispatch; here it is a Python loop.)"""
     step = make_train_step(opt, loss_fn, grad_clip)
 
     def scan(model, opt_state, tokens, targets, loss_mask=None,
@@ -223,8 +235,8 @@ def make_train_scan(opt: Any, loss_fn: Callable[..., Tensor] = lm_loss,
         losses = []
         for i in range(targets.shape[0]):
             model, opt_state, loss = step(
-                model, opt_state, tokens[i], targets[i],
-                None if loss_mask is None else loss_mask[i], generator, ctx)
+                model, opt_state, _step_slice(tokens, i), targets[i],
+                _step_slice(loss_mask, i), generator, ctx)
             losses.append(loss)
         return model, opt_state, torch.stack(losses)
 

@@ -1,0 +1,5 @@
+from .checkpoint import (  # noqa: F401
+    AsyncCheckpointManager,
+    restore_checkpoint,
+    save_checkpoint,
+)

@@ -1247,3 +1247,95 @@ def test_beam_search_cuda_equals_cpu(dev):
     assert torch.equal(b_c, b_h)
     assert _err(s_c, s_h) <= 1e-4
     assert torch.equal(g_c, g_h)
+
+
+# the machine-translation shapes, head dim 32, batch cut from 128 to 6:
+# (n_q, n_kv, causal, lengths) of the encoder's varlen self-attention, the
+# decoder's causal self-attention, the cross-attention (n_q != n_kv too),
+# and generation's cross-attention at n_q 1; lengths ragged down to 1
+MT_ATTN_CASES = {
+    "encoder_40x40_varlen": (40, 40, False, [40, 33, 17, 9, 2, 1]),
+    "decoder_40x40_causal": (40, 40, True, None),
+    "cross_40x40_varlen": (40, 40, False, [40, 1, 25, 7, 40, 13]),
+    "cross_31x40_varlen": (31, 40, False, [40, 1, 25, 7, 40, 13]),
+    "generate_cross_1x40_varlen": (1, 40, False, [40, 1, 25, 7, 40, 13]),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(MT_ATTN_CASES))
+def test_flash_op_graph_mt_shapes(dev, dtype, case):
+    """The op graph's forward and backward kernels at the MT app's shapes
+    (B6 H8 d32) against flash_fwd_plain / flash_bwd_plain: bf16 by
+    :func:`_bf16_match`, f32 within TOL."""
+    n_q, n_kv, causal, lengths = MT_ATTN_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, do = (_randn(g, 6, 8, n_q, 32, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(g, 6, 8, n_kv, 32, dtype=dtype, dev=dev) for _ in range(2))
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    assert fa._schedule(q, k, causal, None, lens is not None).name == "op_graph"
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=32 ** -0.5,
+                          kv_lengths=lens)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, 32 ** -0.5, lens)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    got = fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
+                       sm_scale=32 ** -0.5, kv_lengths=lens)
+    want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, 32 ** -0.5, lens)
+    for a, b, grad in [(o, o_ref, False)] + [(a, b, True)
+                                             for a, b in zip(got, want)]:
+        if dtype == torch.bfloat16:
+            _bf16_match(a, b)
+        else:
+            assert (_rel_err(a, b) if grad else _err(a, b)) <= TOL[dtype]
+    assert _err(lse, lse_ref) <= 1e-5
+
+
+def test_encoder_decoder_cuda_equals_cpu(dev):
+    """An f32 EncoderDecoderLM (E 256, 8 heads of 32, the MT app's width)
+    on the card against its CPU copy: teacher-forced logits within 1e-4;
+    one seq2seq_loss step's loss within 1e-5 relative and every gradient
+    within 1e-4 in relative L2 norm (the key biases, whose exact gradient
+    is 0, within 1e-4 of the global norm); the launch counts of the
+    forward and backward kernels grow."""
+    import copy
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.training.translation import seq2seq_loss
+
+    card = pt.EncoderDecoderLM(500, 256, 8, 40, p_dropout=0.0,
+                               n_encoder_layer=2, n_decoder_layer=2,
+                               device=dev,
+                               generator=torch.Generator().manual_seed(9))
+    host = copy.deepcopy(card).to("cpu")
+    g = torch.Generator().manual_seed(10)
+    src = torch.randint(3, 500, (4, 40), generator=g)
+    tgt = torch.randint(3, 500, (4, 37), generator=g)
+    lens = torch.tensor([40, 1, 23, 9])
+    labels = torch.randint(3, 500, (4, 37), generator=g)
+    mask = (torch.rand(4, 37, generator=g) < 0.8).float()
+    before = {k: getattr(fa, k).launches for k in ("_kernel", "_bwd_kernel")}
+    out = []
+    for model in (card, host):
+        d = next(model.parameters()).device
+        with torch.inference_mode():
+            logits = model(src.to(d), tgt.to(d), lens.to(d))
+        inputs = {"src": src.to(d), "src_lens": lens.to(d),
+                  "tgt_in": tgt.to(d)}
+        loss = seq2seq_loss(model, inputs, labels.to(d), mask.to(d))
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        out.append((logits.cpu(), float(loss.detach()),
+                    {n: gr.cpu() for n, gr in zip(names, grads)}))
+    assert fa._kernel.launches > before["_kernel"]
+    assert fa._bwd_kernel.launches > before["_bwd_kernel"]
+    (lc, l_c, g_c), (lh, l_h, g_h) = out
+    assert _err(lc, lh) <= 1e-4
+    assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
+    total = float(sum(gr.double().square().sum() for gr in g_h.values())) ** 0.5
+    for n in g_h:
+        diff = float((g_c[n].double() - g_h[n].double()).norm())
+        if n.endswith("k_projection.bias"):
+            assert max(float(g_c[n].norm()), float(g_h[n].norm())) \
+                <= 1e-4 * total, n
+        else:
+            assert diff <= 1e-4 * float(g_h[n].double().norm()), n

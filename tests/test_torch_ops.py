@@ -218,12 +218,22 @@ def test_functional_parity():
 
 
 def test_import_leaves_jax_out():
-    """The port imports torch and never jax."""
-    code = ("import sys, flashattn_tpu_torch, flashattn_tpu_torch.serving; "
+    """The port imports torch and never jax; the MT app's tokenizer, BLEU,
+    progress-bar and dataset packages only inside the functions that use
+    them (torch itself may import tqdm first, which is allowed)."""
+    code = ("import sys, torch; before = set(sys.modules); "
+            "import flashattn_tpu_torch, flashattn_tpu_torch.serving; "
             "import flashattn_tpu_torch.serving._threefry; "
             "import flashattn_tpu_torch.training.generate; "
+            "import flashattn_tpu_torch.models.seq2seq; "
+            "import flashattn_tpu_torch.training.translation; "
+            "import flashattn_tpu_torch.training.deen_fixture; "
+            "import flashattn_tpu_torch.utils.checkpoint; "
             "from flashattn_tpu_torch.utils import native_loader; "
             "native_loader.ngram_propose_native([1, 2, 1], 1); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert 'flashattn_tpu' not in sys.modules")
+            "assert 'flashattn_tpu' not in sys.modules; "
+            "new = [m for m in ('tokenizers', 'transformers', 'sacrebleu', "
+            "'tqdm', 'datasets') if m in sys.modules and m not in before]; "
+            "assert not new, new")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
