@@ -190,7 +190,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the decoder's causal self-attention, the cross-attention (forward and
    backward) and generation's cross-attention at n_q 1 (forward), source
    lengths from 1 to 40, f32 and bf16, gated as phase 3's flash lines,
-   with SDPA and the bound beside.
+   with SDPA and the bound beside; then the bf16 op graph at its tiles'
+   edges (keys 1, 127, 129, 1023; rows 1, 17, 40, 128; GQA 8q/2kv, a
+   length-0 row, a window, varlen; the distill draft's B16 H2 N128 D64
+   causal), forward and backward.
 21. seq2seq_train: the MT app's model at its defaults
    (flashattn_tpu_torch/training/translation.py MTConfig, arch seq2seq:
    E256, 8 heads of 32, 4 + 4 layers, vocab 10000, 40 tokens, p 0.1) over
@@ -906,6 +909,39 @@ def mt_kernel_phases(torch, dev, ph: Phases, randn):
                 _flash_bwd_check(torch, ph, fa, f"MT {label} B128 H8 D32",
                                  dtype, q, k, v, do, causal, None, kv_lens)
             del q, k, v, lib, args
+
+    # the bf16 kernels at their tiles' edges: keys 1, 127, 129 and 1023
+    # (one key tile, then the two-pass walk), rows 1, 17, 40 and 128, GQA
+    # 4, a length-0 row, a window, varlen; and the distill draft's shape
+    bf = torch.bfloat16
+    for label, (b, h, h_kv, n_q, n_kv, d), causal, lens, window in (
+            ("1x1 D32", (64, 8, 8, 1, 1, 32), False, None, None),
+            ("17x127 varlen len-0 D64", (16, 8, 8, 17, 127, 64), False,
+             [127, 0, 64, 1] * 4, None),
+            ("40x129 GQA 8q/2kv D32", (64, 8, 2, 40, 129, 32), False, None,
+             None),
+            ("distill B16 H2 128x128 causal D64", (16, 2, 2, 128, 128, 64),
+             True, None, None),
+            ("1023x1023 window 256 varlen D64", (4, 8, 8, 1023, 1023, 64),
+             True, [1023, 700, 1, 512], 256),
+            ("17x1023 D128", (8, 8, 8, 17, 1023, 128), False, None, None)):
+        q, do = (randn(b, h, n_q, d, dtype=bf) for _ in range(2))
+        k, v = (randn(b, h_kv, n_kv, d, dtype=bf) for _ in range(2))
+        lens = None if lens is None else torch.tensor(lens, device=dev)
+        assert fa._schedule(q, k, causal, window, lens is not None
+                            ).name == "op_graph"
+        lib, args = _sdpa(torch, q, k, v, causal, window, lens)
+        ph.check("flash_fwd", f"op graph {label}", bf,
+                 lambda: fa.flash_fwd(q, k, v, causal=causal, sm_scale=d ** -0.5,
+                                      kv_lengths=lens, window=window),
+                 lambda: fa.flash_fwd_plain(q, k, v, causal, d ** -0.5, lens,
+                                            window),
+                 _flash_cost(q, k, causal, window, lens),
+                 **_flash_gate(bf, f"flash_fwd op graph {label}"),
+                 library=lambda: lib(*args))
+        _flash_bwd_check(torch, ph, fa, f"op graph {label}", bf, q, k, v, do,
+                         causal, window, lens)
+        del q, k, v, do, lib, args
 
 
 def _quant_bits_err(got, want):
@@ -2050,6 +2086,15 @@ def profile_step(torch, run, label: str = "train step") -> None:
             f"  x{n:<5d} {short[:100]}")
     log("[profile] by group: " + ", ".join(
         f"{g} {t / 1e3:.1f} ms" for g, t in sums.items()))
+    # the op graph's kernels (an older tree's: the <..., true> instances of
+    # flash_{fwd,bwd}_*_kernel and flash_bwd_opstats_kernel)
+    op = [(n, t) for name, (n, t) in ours if re.search(
+        r"flash_\w*_op_|flash_bwd_opstats|flash_(fwd|bwd)_\w*<[^>]*, true>", name)]
+    if op:
+        t_op = sum(t for _, t in op)
+        log(f"[profile] op graph (flash_fwd_op_kernel, flash_bwd_op_*): "
+            f"{t_op / 1e3:.3f} ms in {sum(n for n, _ in op)} launches = "
+            f"{100 * t_op / max(busy, 1e-9):.1f}% of device busy")
 
 
 def _rel(a, b) -> float:

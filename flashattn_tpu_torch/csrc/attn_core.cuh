@@ -112,6 +112,16 @@ template <int CG> __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// x / b rounded to nearest (the bits of __fdiv_rn) from y = __frcp_rn(b),
+// for many x over one b: q = x y, then q + (x - b q) y, the remainder exact
+// by an FMA.  With y within half an ulp of 1 / b and q within one ulp of
+// x / b this rounds correctly (Markstein's theorem; normal results): three
+// instructions where __fdiv_rn takes a call with a slow-path check.
+__device__ __forceinline__ float div_rn(float x, float b, float y) {
+  const float q = __fmul_rn(x, y);
+  return __fmaf_rn(__fmaf_rn(-q, b, x), y, q);
+}
+
 // Quantize each staged q row to int8 on its own absmax (scale absmax / 127,
 // 1 for a zero row; round half to even) and store the dequantized values,
 // as the TPU quantized-KV kernels quantize q before their int8 scores dot.

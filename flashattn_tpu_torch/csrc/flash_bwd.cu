@@ -61,19 +61,29 @@
 // 1e-4 gates of the f32 card-vs-CPU backward.  A block there owns 64 keys
 // or 64 query rows and stages its tiles as f32.
 //
-// The op graph's backward in bf16 (op_graph = 1) runs the same CUDA-core
-// kernels (kOp), whose f32 products keep its ds unrounded: with
-// s = q . k sm_scale, e = exp(s - m), l = sum e and p = e / l, autodiff
-// (torch autograd's order, which matches JAX's) gives per pair
+// The op graph's backward in bf16 (op_graph = 1): with s = q . k sm_scale,
+// e = exp(s - m), l = sum e and p = e / l, autodiff (torch autograd's
+// order, which matches JAX's) gives per pair
 //   dp = bf16(do . v);   ds = (dp / l + r) e sm_scale, each op rounded in f32;
 //   dv_c += bf16(p) do;   dq_R += ds k_c;   dk_c += ds q_R   (f32, rounded once)
-// with r = sum_c -dp ((e / l) / l), the gradient reaching l.  A first
-// launch (flash_bwd_opstats_kernel) walks each row's keys three times for
-// (m, l, r); the dK/dV and dQ kernels then take (m, l, r) where they took
-// (lse, di).  With GQA each query head's dk and dv round to bf16 before
-// the group sums them, as the backward of repeating K and V does.  The
-// argmax's share of the max's gradient (zero but for rounding) is left
-// out.
+// with r = sum_c -dp ((e / l) / l), the gradient reaching l.  With GQA each
+// query head's dk and dv round to bf16 before the group sums them, as the
+// backward of repeating K and V does.  The argmax's share of the max's
+// gradient (zero but for rounding) is left out.  It runs two warp-level
+// tensor-core kernels (mma.sync m16n8k16, warps of 16 rows or keys, blocks
+// of up to four warps sized to the rows, so that the MT model's 40-row
+// launches fill the card): the dQ kernel (query-major) takes the rows'
+// (m, l, r) and dQ in one walk, from registers where one 64-key tile holds
+// the walk, else in three passes, and leaves (m, l, r) in ops; the dK/dV
+// kernel (key-major) reads them.  No sum crosses blocks.  The products are
+// bf16 x bf16 into f32 as the CUDA-core kernels computed them; ds is f32
+// and unrounded, so it enters dQ += dS K and dK += dS^T Q as three bf16
+// parts (hi, the remainder's hi, its remainder: 24 bits, an f32's), each
+// an mma.  Bound: nine score-shaped products a live pair (S and dP in both
+// kernels, dV, three parts each of dQ and dK; plus the row statistics'
+// passes over a longer walk) at the tensor cores' rate, and the per-pair
+// exp and IEEE divisions; at the MT shapes the bytes and the two launches'
+// latency.
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
@@ -157,49 +167,28 @@ __device__ __forceinline__ void tile_times(const float* p, const float* m,
   }
 }
 
-// p and ds of one (row R, key c) pair from the row's statistics st[0..2]
-// (stride BT); p = 0 outside R's live interval.
-//   kOp = false (the TPU kernels): st = (lse log2(e), di), in base 2,
-//     p = exp2(s sm_scale log2(e) - lse2), ds = p (dp - di) sm_scale.
-//   kOp = true (autodiff of the op graph, in torch autograd's order):
-//     st = (m, l, r), e = exp(s sm_scale - m), p = bf16(e / l),
-//     ds = (bf16(dp) / l + r) e sm_scale, each op rounded in f32.
-template <bool kOp>
-__device__ __forceinline__ void prob(float s, float dp, int R, int c, int n_q,
-                                     int kv_len, int causal, int window,
-                                     float scale_log2, float sm_scale,
+// p and ds of one (row R, key c) pair from the row's statistics st (lse
+// log2(e), then di at st[BT]), in base 2: p = exp2(s sm_scale log2(e) -
+// lse2), ds = p (dp - di) sm_scale; p = 0 outside R's live interval.
+__device__ __forceinline__ void prob(float s, float dp, int R, int c, int n_q, int kv_len,
+                                     int causal, int window, float scale_log2, float sm_scale,
                                      const float* st, float& p, float& ds) {
   int lo, hi;
   fa::dense_bounds(R, kv_len, causal, window, lo, hi);
   const bool live = R < n_q && c >= lo && c < hi;
-  if constexpr (kOp) {
-    const float m = st[0], l = st[BT], r = st[2 * BT];
-    if (!live || l == 0.f) { p = ds = 0.f; return; }
-    const float e = expf(__fmul_rn(s, sm_scale) - m);
-    p = round_bf16(__fdiv_rn(e, l));
-    ds = __fmul_rn(__fmul_rn(__fadd_rn(__fdiv_rn(round_bf16(dp), l), r), e), sm_scale);
-  } else {
-    p = live ? exp2f(s * scale_log2 - st[0]) : 0.f;
-    ds = p * (dp - st[BT]) * sm_scale;
-  }
+  p = live ? exp2f(s * scale_log2 - st[0]) : 0.f;
+  ds = p * (dp - st[BT]) * sm_scale;
 }
 
-// Per-row statistics of a query tile into st (three arrays of BT): the
-// TPU kernels' (lse in base 2, di); the op graph's (m, l, r) from ops.
-// 0 past n_q.
-template <bool kOp>
+// Per-row statistics of a query tile into st (two arrays of BT): lse in
+// base 2 and di; 0 past n_q.
 __device__ __forceinline__ void stage_stats(float* st, const float* lse, const float* di,
-                                            const float* ops, int row0, int n_q) {
+                                            int row0, int n_q) {
   for (int i = threadIdx.x; i < BT; i += NT) {
     const int R = row0 + i;
     const bool in = R < n_q;
-    if constexpr (kOp) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) st[c * BT + i] = in ? ops[size_t(R) * 3 + c] : 0.f;
-    } else {
-      st[i] = in ? lse[R] * LOG2E : 0.f;
-      st[BT + i] = in ? di[R] : 0.f;
-    }
+    st[i] = in ? lse[R] * LOG2E : 0.f;
+    st[BT + i] = in ? di[R] : 0.f;
   }
 }
 
@@ -216,107 +205,11 @@ __device__ __forceinline__ void store_tile(T* dst, const float (&acc)[TR][D / CG
   }
 }
 
-// The op graph's row statistics for its backward: per query row, with
-// s = q . k sm_scale over the live keys, m = max s, l = sum exp(s - m) and
-// r = sum -bf16(do . v) (exp(s - m) / l) / l, the gradient that reaches l
-// through the normalisation (torch's DivBackward); (m, l, r) as f32 rows
-// of three.  Three walks over the row's keys: the max, the sum, then r.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_opstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const int* __restrict__ kv_lengths, float* __restrict__ ops,
-                         int h, int h_kv, int n_q, int n_kv, int causal, int window,
-                         float sm_scale) {
-  constexpr int DS = D + 4;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + BT * DS;
-  float* k_s = do_s + BT * DS;
-  float* v_s = k_s + BT * DS;
-
-  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
-  const int qt = blockIdx.y * BT;
-  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  const size_t q_off = size_t(bh) * n_q * D;
-  const size_t kv_off = (size_t(b) * h_kv + hk) * n_kv * D;
-  stage<T, D>(q_s, q + q_off, qt, n_q);
-  stage<T, D>(do_s, dout + q_off, qt, n_q);
-
-  int walk_lo = 1 << 30, walk_hi = 0;
-  for (int r = 0; r < min(BT, n_q - qt); ++r) {
-    int lo, hi;
-    fa::dense_bounds(qt + r, kv_len, causal, window, lo, hi);
-    if (lo < hi) { walk_lo = min(walk_lo, lo); walk_hi = max(walk_hi, hi); }
-  }
-  int lo[TR], hi[TR];
-  float m[TR], l[TR], rr[TR];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int R = qt + rg + RG * i;
-    lo[i] = hi[i] = 0;
-    if (R < n_q) fa::dense_bounds(R, kv_len, causal, window, lo[i], hi[i]);
-    m[i] = -INFINITY;
-    l[i] = rr[i] = 0.f;
-  }
-
-  const int start = walk_hi > walk_lo ? (walk_lo / BT) * BT : 0;
-  for (int pass = 0; pass < 3; ++pass) {
-    for (int kt = start; kt < walk_hi; kt += BT) {
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D>(k_s, k + kv_off, kt, n_kv);
-      if (pass == 2) stage<T, D>(v_s, v + kv_off, kt, n_kv);
-      __syncthreads();
-      float s[TR][TC], dp[TR][TC];
-      dot_tile<D>(q_s, k_s, s);
-      if (pass == 2) dot_tile<D>(do_s, v_s, dp);
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const float mu = m[i] == -INFINITY ? 0.f : m[i];
-        float part = pass == 0 ? -INFINITY : 0.f;
-#pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          const int c = kt + cg + CG * j;
-          if (c < lo[i] || c >= hi[i]) continue;
-          const float x = __fmul_rn(s[i][j], sm_scale);
-          if (pass == 0) {
-            part = fmaxf(part, x);
-          } else {
-            const float e = expf(x - mu);
-            part += pass == 1 ? e
-                              : __fmul_rn(-round_bf16(dp[i][j]),
-                                          __fdiv_rn(__fdiv_rn(e, l[i]), l[i]));
-          }
-        }
-        if (pass == 0) m[i] = fmaxf(m[i], fa::row_max<CG>(part));
-        else if (pass == 1) l[i] += part;
-        else rr[i] += part;
-      }
-    }
-    if (pass == 1)
-#pragma unroll
-      for (int i = 0; i < TR; ++i) l[i] = fa::row_sum<CG>(l[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int R = qt + rg + RG * i;
-    rr[i] = fa::row_sum<CG>(rr[i]);
-    if (cg == 0 && R < n_q) {
-      float* o = ops + (size_t(bh) * n_q + R) * 3;
-      o[0] = m[i];
-      o[1] = l[i];
-      o[2] = l[i] == 0.f ? 0.f : rr[i];
-    }
-  }
-}
-
-template <typename T, int D, bool kOp>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ di,
-                     const float* __restrict__ ops,
                      const int* __restrict__ kv_lengths, T* __restrict__ dk,
                      T* __restrict__ dv, int h, int h_kv, int n_q, int n_kv,
                      int causal, int window, float sm_scale) {
@@ -342,13 +235,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, D>(k_s, k + kv_off, kt, n_kv);
   stage<T, D>(v_s, v + kv_off, kt, n_kv);
 
-  // the op graph rounds each query head's dk and dv to T before the GQA
-  // group sums them (the backward of repeating K and V), in f32
-  float dk_acc[TR][CPT], dv_acc[TR][CPT], dk_grp[TR][CPT], dv_grp[TR][CPT];
+  float dk_acc[TR][CPT], dv_acc[TR][CPT];
 #pragma unroll
   for (int i = 0; i < TR; ++i)
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) dk_acc[i][e] = dv_acc[i][e] = dk_grp[i][e] = dv_grp[i][e] = 0.f;
+    for (int e = 0; e < CPT; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   // Query rows that can see a key of this tile: R >= kt when causal,
   // R < kt + BT - 1 + window with a window, none when the tile lies past
@@ -365,7 +256,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the previous tile's readers are done
       stage<T, D>(q_s, qh, qt, n_q);
       stage<T, D>(do_s, doh, qt, n_q);
-      stage_stats<kOp>(st_s, lse + bh * n_q, di + bh * n_q, ops + bh * n_q * 3, qt, n_q);
+      stage_stats(st_s, lse + bh * n_q, di + bh * n_q, qt, n_q);
       __syncthreads();
 
       float s[TR][TC], dp[TR][TC];
@@ -377,8 +268,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < TC; ++j) {
           const int kr = rg + RG * i, qr = cg + CG * j;
           float p, ds;
-          prob<kOp>(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
-                    scale_log2, sm_scale, st_s + qr, p, ds);
+          prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window, scale_log2,
+               sm_scale, st_s + qr, p, ds);
           p_s[kr * PS + qr] = p;
           ds_s[kr * PS + qr] = ds;
         }
@@ -386,32 +277,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tile_times<D>(p_s, do_s, dv_acc);         // dv += p^T do
       tile_times<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
     }
-    if constexpr (kOp) {
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) {
-          dk_grp[i][e] += round_bf16(dk_acc[i][e]);
-          dv_grp[i][e] += round_bf16(dv_acc[i][e]);
-          dk_acc[i][e] = dv_acc[i][e] = 0.f;
-        }
-    }
   }
-  if constexpr (kOp) {
-    store_tile<T, D>(dk + kv_off, dk_grp, kt, n_kv);
-    store_tile<T, D>(dv + kv_off, dv_grp, kt, n_kv);
-  } else {
-    store_tile<T, D>(dk + kv_off, dk_acc, kt, n_kv);
-    store_tile<T, D>(dv + kv_off, dv_acc, kt, n_kv);
-  }
+  store_tile<T, D>(dk + kv_off, dk_acc, kt, n_kv);
+  store_tile<T, D>(dv + kv_off, dv_acc, kt, n_kv);
 }
 
-template <typename T, int D, bool kOp>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    const float* __restrict__ ops,
                     const int* __restrict__ kv_lengths, T* __restrict__ dq, int h,
                     int h_kv, int n_q, int n_kv, int causal, int window,
                     float sm_scale) {
@@ -436,8 +311,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_off = (size_t(b) * h_kv + hk) * n_kv * D;
   stage<T, D>(q_s, q + q_off, qt, n_q);
   stage<T, D>(do_s, dout + q_off, qt, n_q);
-  stage_stats<kOp>(st_s, lse + size_t(bh) * n_q, di + size_t(bh) * n_q,
-                   ops + size_t(bh) * n_q * 3, qt, n_q);
+  stage_stats(st_s, lse + size_t(bh) * n_q, di + size_t(bh) * n_q, qt, n_q);
 
   // The walk covers the union of the tile rows' live intervals.
   int walk_lo = 1 << 30, walk_hi = 0;
@@ -469,8 +343,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TC; ++j) {
         const int qr = rg + RG * i, kr = cg + CG * j;
         float p, ds;
-        prob<kOp>(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window,
-                  scale_log2, sm_scale, st_s + qr, p, ds);
+        prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window, scale_log2,
+             sm_scale, st_s + qr, p, ds);
         ds_s[qr * PS + kr] = ds;
       }
     __syncthreads();
@@ -479,21 +353,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_tile<T, D>(dq + q_off, dq_acc, qt, n_q);
 }
 
-// The CUDA-core backward: the TPU kernels' function (kOp = false, f32) or
-// the op graph's autodiff (kOp = true, bf16, after the row-statistics
-// launch into ops).
-template <typename T, int D, bool kOp>
+// The CUDA-core backward (f32): the dK/dV kernel, then the dQ kernel.
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, float* ops, const int* lens, void* dq,
-                   void* dk, void* dv, int b, int h, int h_kv, int n_q, int n_kv,
-                   int causal, int window, float sm_scale, cudaStream_t stream) {
+                   const float* lse, const float* di, const int* lens, void* dq, void* dk,
+                   void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal, int window,
+                   float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D, kOp>;
-  auto dq_kernel = flash_bwd_dq_kernel<T, D, kOp>;
-  auto stats_kernel = flash_bwd_opstats_kernel<T, D>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
   static cudaError_t opted = [&] {
     cudaError_t e = fa::allow_smem(dkv_kernel, smem);
-    if (e == cudaSuccess && kOp) e = fa::allow_smem(stats_kernel, smem);
     return e != cudaSuccess ? e : fa::allow_smem(dq_kernel, smem);
   }();
   if (opted != cudaSuccess) return opted;
@@ -501,27 +371,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  if (kOp && n_q > 0) {
-    if (ops == nullptr) return cudaErrorInvalidValue;
-    dim3 grid(b * h, (n_q + BT - 1) / BT);
-    stats_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lens, ops, h, h_kv, n_q, n_kv,
-                                             causal, window, sm_scale);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
   if (n_kv > 0) {
     dim3 grid(b * h_kv, (n_kv + BT - 1) / BT);
-    dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, ops, lens,
-                                           static_cast<T*>(dk), static_cast<T*>(dv),
-                                           h, h_kv, n_q, n_kv, causal, window, sm_scale);
+    dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dk),
+                                           static_cast<T*>(dv), h, h_kv, n_q, n_kv, causal,
+                                           window, sm_scale);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (n_q > 0) {
     dim3 grid(b * h, (n_q + BT - 1) / BT);
-    dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, ops, lens,
-                                          static_cast<T*>(dq), h, h_kv, n_q, n_kv,
-                                          causal, window, sm_scale);
+    dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dq), h,
+                                          h_kv, n_q, n_kv, causal, window, sm_scale);
   }
   return cudaGetLastError();
 }
@@ -909,16 +770,560 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T, bool kOp>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* di, float* ops,
-                       const int* lens, void* dq, void* dk, void* dv, int b, int h,
-                       int h_kv, int n_q, int n_kv, int causal, int window,
-                       float sm_scale, cudaStream_t st) {
+// -- bf16 op graph: warp-level tensor-core kernels ----------------------------------
+
+template <int D>
+struct Ob {
+  static constexpr int BN = 64;                 // keys of a dQ kernel's tile
+  // query rows of a dK/dV kernel's tile: at d 128 dK and dV hold 128
+  // registers a thread, so the score tiles are narrow
+  static constexpr int BQ = D == 128 ? 16 : 64;
+  static constexpr int ND = D / 8;
+  static constexpr int ROW = D * 2 + 16;        // bytes of a padded row
+  // warps a block: four, or eight over a long walk with enough blocks to
+  // fill the card, halving what each row or key reads from L2
+  static constexpr int MAX_WARPS = 8;
+  static constexpr int NP = 3;                  // bf16 parts of the f32 dS operand
+};
+
+// The A fragments of the f32 accumulators c0, c1 (n-tiles 2 kc, 2 kc + 1)
+// as NP bf16 parts whose sum is their value: hi = bf16(x), then the parts
+// of the remainder x - hi, which f32 holds exactly.
+template <int NP>
+__device__ __forceinline__ void split_a(uint32_t (&a)[NP][4], const float (&c0)[4],
+                                        const float (&c1)[4]) {
+  float r0[4], r1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { r0[i] = c0[i]; r1[i] = c1[i]; }
+#pragma unroll
+  for (int pt = 0; pt < NP; ++pt) {
+    float h0[4], h1[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h0[i] = round_bf16(r0[i]);
+      h1[i] = round_bf16(r1[i]);
+      r0[i] -= h0[i];
+      r1[i] -= h1[i];
+    }
+    hop::acc_to_a(a[pt], h0, h1);
+  }
+}
+
+// ds of one live pair: e = exp(s - m) with s scaled; ds = (bf16(dp) / l + r)
+// e sm_scale, each op rounded in f32 (torch autograd's order); rl = 1 / l
+// rounded, for fa::div_rn
+__device__ __forceinline__ float op_ds(float dp, float e, float l, float rl, float r,
+                                       float sm_scale) {
+  return __fmul_rn(__fmul_rn(__fadd_rn(fa::div_rn(round_bf16(dp), l, rl), r), e), sm_scale);
+}
+
+// dQ and the row statistics, query-major: a block of W warps (W =
+// min(4, cdiv(n_q, 16)), or up to eight over a long walk) owns 16 W query
+// rows of one (batch, head), a warp 16 of them as an mma.sync tile, and
+// walks the key tiles of BN its rows can see (K, and V where a pass needs
+// it, through a double-buffered cp.async ring).  A walk of one tile
+// computes S = Q K^T and dP = dO V^T once and takes m, l, r, P and dS from
+// those registers.  A longer walk
+// takes three passes: the max (S), then l and r (S, dP: l summed from the
+// final max, as the op graph sums it), then dS (S, dP) and dQ += dS K.
+// dS, f32, enters the product as NP bf16 parts.  (m, l, r, 1 / l) go to
+// ops for the dK/dV kernel.
+template <int D>
+__global__ void __launch_bounds__(Ob<D>::MAX_WARPS * 32)
+flash_bwd_op_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const int* __restrict__ kv_lengths, float* __restrict__ ops,
+                       bf16* __restrict__ dq, int h, int h_kv, int n_q, int n_kv, int causal,
+                       int window, float sm_scale, int tile_rows) {
+  using C = Ob<D>;
+  constexpr int BN = C::BN, ROW = C::ROW, NJ = BN / 8, NP = C::NP;
+  extern __shared__ __align__(16) uint8_t op_smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int bm = 16 * warps;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * bm;   // the longest walks first
+  const int n_rows = min(bm, n_q - row0);
+  const bf16* qp = q + size_t(bh) * n_q * D;
+  const bf16* dop = dout + size_t(bh) * n_q * D;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+
+  int walk_lo, walk_hi, lo_, hi_;
+  fa::dense_bounds(row0, kv_len, causal, window, walk_lo, hi_);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, lo_, walk_hi);
+  const int start = walk_hi > walk_lo ? walk_lo / BN * BN : 0;
+  const int end = walk_hi > walk_lo ? walk_hi : 0;
+  const int n_tiles = (end - start + BN - 1) / BN;
+  const bool one = n_tiles == 1;
+  const int steps = one ? 1 : 3 * n_tiles;
+
+  const int nstage = n_kv > BN ? 2 : 1;
+  uint8_t* qs = op_smem + nstage * 2 * tile_rows * ROW;
+  uint8_t* dos = qs + bm * ROW;
+  auto stage = [&](int st) { return op_smem + st * 2 * tile_rows * ROW; };
+  auto load_step = [&](int i) {
+    const int kt = start + i % n_tiles * BN;
+    const int rows = (min(BN, end - kt) + 15) / 16 * 16;
+    uint8_t* dst = stage(i % nstage);
+    hop::load_rows_padded<D * 2>(dst, kp + size_t(kt) * D, kp, n_kv - kt, rows);
+    if (one || i >= n_tiles)
+      hop::load_rows_padded<D * 2>(dst + tile_rows * ROW, vp + size_t(kt) * D, vp, n_kv - kt,
+                                   rows);
+  };
+
+  const int wr0 = 16 * warp;
+  const bool live_warp = wr0 < n_rows;
+  int lo[2], hi[2], all_lo, all_hi;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr0 + g + 8 * hh;
+    lo[hh] = hi[hh] = 0;
+    if (r < n_rows) fa::dense_bounds(row0 + r, kv_len, causal, window, lo[hh], hi[hh]);
+  }
+  fa::dense_bounds(row0 + wr0, kv_len, causal, window, lo_, all_hi);
+  fa::dense_bounds(row0 + min(wr0 + 15, n_rows - 1), kv_len, causal, window, all_lo, hi_);
+
+  hop::load_rows_padded<D * 2>(qs, qp + size_t(row0) * D, qp, n_rows, bm);
+  hop::load_rows_padded<D * 2>(dos, dop + size_t(row0) * D, dop, n_rows, bm);
+  if (steps > 0) load_step(0);
+  hop::cp_async_commit();
+
+  float acc[C::ND][4];
+#pragma unroll
+  for (int i = 0; i < C::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  // m: the row's max (running in the first pass); l, rr: this thread's
+  // columns' sums of e and of r's terms; lr, r: the row's
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rr[2] = {0.f, 0.f};
+  float lr[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = hop::smem_u32(qs), do_addr = hop::smem_u32(dos);
+  for (int i = 0; i < steps; ++i) {
+    hop::cp_async_wait<0>();
+    __syncthreads();   // step i has landed everywhere; the other stage is free
+    if (i + 1 < steps) load_step(i + 1);
+    hop::cp_async_commit();
+    if (!live_warp) continue;
+    const int pass = one ? 3 : i / n_tiles;   // 0: m; 1: l, r; 2: dS, dQ; 3: all
+    const int kt = start + i % n_tiles * BN;
+    const int rows = (min(BN, end - kt) + 15) / 16 * 16;
+    const uint32_t k_addr = hop::smem_u32(stage(i % nstage));
+    const uint32_t v_addr = k_addr + tile_rows * ROW;
+
+    // sc[j][2hh + e], dp[j][2hh + e]: row wr0 + g + 8hh, key kt + 8j + 2t + e
+    float sc[NJ][4], dp[NJ][4];
+    hop::tile_scores<D, NJ>(sc, q_addr, wr0, k_addr, ROW, rows, lane);
+    if (pass > 0) hop::tile_scores<D, NJ>(dp, do_addr, wr0, v_addr, ROW, rows, lane);
+    const bool full = kt >= all_lo && kt + rows <= all_hi;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(sc[j][2 * hh + e], sm_scale);
+          const int c = kt + 8 * j + 2 * t + e;
+          if (8 * j >= rows || (!full && (c < lo[hh] || c >= hi[hh]))) x = -INFINITY;
+          sc[j][2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+
+    if (pass == 0 || pass == 3) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) m[hh] = fmaxf(m[hh], fa::row_max<4>(mx[hh]));
+      if (pass == 0) continue;
+    }
+    // e = exp(s - m) in sc, 0 for a masked pair
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mu = m[hh] == -INFINITY ? 0.f : m[hh];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[j][2 * hh + e];
+          sc[j][2 * hh + e] = x == -INFINITY ? 0.f : expf(x - mu);
+        }
+    }
+    if (pass == 1) {
+      // l and sum -bf16(dp) e from the row's final max; r = that sum / l / l
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tl = 0.f, tr = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ex = sc[j][2 * hh + e];
+            tl += ex;
+            if (ex != 0.f) tr += __fmul_rn(-round_bf16(dp[j][2 * hh + e]), ex);
+          }
+        l[hh] += tl;
+        rr[hh] += tr;
+        if (i == 2 * n_tiles - 1) {
+          lr[hh] = fa::row_sum<4>(l[hh]);
+          const float rs = fa::row_sum<4>(rr[hh]);
+          r[hh] = lr[hh] > 0.f ? __fdiv_rn(__fdiv_rn(rs, lr[hh]), lr[hh]) : 0.f;
+        }
+      }
+      continue;
+    }
+    if (pass == 3) {
+      // one tile: l, then r = sum -bf16(dp) (e / l) / l, the gradient that
+      // reaches l, term by term as torch's autograd rounds it
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float tl = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) tl += sc[j][2 * hh] + sc[j][2 * hh + 1];
+        lr[hh] = fa::row_sum<4>(tl);
+        const float rl = __frcp_rn(lr[hh]);
+        float tr = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ex = sc[j][2 * hh + e];
+            if (ex != 0.f)
+              tr += __fmul_rn(-round_bf16(dp[j][2 * hh + e]),
+                              fa::div_rn(fa::div_rn(ex, lr[hh], rl), lr[hh], rl));
+          }
+        r[hh] = fa::row_sum<4>(tr);
+      }
+    }
+    // dS in dp, then dQ += dS K over the tile's 16-key chunks
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float rl = __frcp_rn(lr[hh]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = sc[j][2 * hh + e];
+          dp[j][2 * hh + e] =
+              ex != 0.f ? op_ds(dp[j][2 * hh + e], ex, lr[hh], rl, r[hh], sm_scale) : 0.f;
+        }
+    }
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) {
+      if (16 * kc >= rows) continue;
+      uint32_t a[NP][4];
+      split_a<NP>(a, dp[2 * kc], dp[2 * kc + 1]);
+      hop::mma_rows<D, NP>(acc, a, k_addr, ROW, 16 * kc, lane);
+    }
+  }
+  hop::cp_async_wait<0>();
+  if (!live_warp) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rl = wr0 + g + 8 * hh, row = row0 + rl;
+    if (rl >= n_rows) continue;
+    bf16* out = dq + (size_t(bh) * n_q + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < C::ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * nd + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+    if (t == 0) {
+      const bool live = lr[hh] > 0.f;
+      *reinterpret_cast<float4*>(ops + (size_t(bh) * n_q + row) * 4) =
+          make_float4(m[hh], lr[hh], live ? r[hh] : 0.f, live ? __frcp_rn(lr[hh]) : 0.f);
+    }
+  }
+}
+
+// dK and dV, key-major: a block of W warps (W = min(4, cdiv(n_kv, 16)),
+// or up to eight over many query tiles) owns 16 W keys of one (batch, kv
+// head), a warp 16 of them, with K and V resident in shared memory, and
+// walks the query tiles of BQ rows (Q, dO and the rows' (m, l, r, 1 / l)
+// from the dQ kernel, through a double-buffered
+// ring) of every query head of its GQA group that can see its keys.  Per
+// tile S^T = K Q^T and dP^T = V dO^T; P^T and dS^T on the fragment, the
+// A operands of dV += P^T dO (P rounded to bf16) and dK += dS^T Q (dS as
+// NP bf16 parts).  With GQA (kSeq) each head's dK and dV round to bf16
+// before the group sums them in f32 (in shared memory), as the backward of
+// repeating K and V does; a rounding there may move a head's sum by one
+// ulp of the head's value, larger than one of the group's sum where the
+// heads cancel, so those sums follow the plain version's order instead:
+// P^T and dS^T go through shared memory and each head's dV and dK add up
+// row by row in f32 FMAs on CUDA cores, as the CUDA-core kernels did.
+template <int D, bool kSeq>
+__global__ void __launch_bounds__(Ob<D>::MAX_WARPS * 32)
+flash_bwd_op_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const int* __restrict__ kv_lengths, const float* __restrict__ ops,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int h_kv, int n_q,
+                        int n_kv, int causal, int window, float sm_scale, int tile_rows) {
+  using C = Ob<D>;
+  constexpr int BQ = C::BQ, ROW = C::ROW, NJ = BQ / 8, NP = C::NP, ND = C::ND;
+  extern __shared__ __align__(16) uint8_t op_smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bk = blockIdx.x, b = bk / h_kv, hk = bk % h_kv, group = h / h_kv;
+  const int nk = 16 * warps;
+  const int k0 = blockIdx.y * nk;
+  const int n_keys = min(nk, n_kv - k0);
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  const bf16* kp = k + size_t(bk) * n_kv * D;
+  const bf16* vp = v + size_t(bk) * n_kv * D;
+
+  // query rows that can see a key of the block: R >= k0 when causal,
+  // R < k0 + nk - 1 + window with a window, none past the valid keys
+  const int r_lo = causal ? k0 : 0;
+  int r_hi = window > 0 ? min(n_q, k0 + nk - 1 + window) : n_q;
+  if (k0 >= kv_len) r_hi = 0;
+  const int q_first = r_lo / BQ * BQ;
+  const int per_head = r_hi > q_first ? (r_hi - q_first + BQ - 1) / BQ : 0;
+  const int steps = group * per_head;
+
+  const int nstage = n_q > BQ || group > 1 ? 2 : 1;
+  uint8_t* ks = op_smem;
+  uint8_t* vs = ks + nk * ROW;
+  uint8_t* ring = vs + nk * ROW;   // [stage][Q | dO]
+  float* stats = reinterpret_cast<float*>(ring + nstage * 2 * tile_rows * ROW);   // [stage][BQ][4]
+  float* grp = stats + nstage * 4 * BQ;   // GQA: [2 ND 4][threads], f32
+  float* seq = grp + 2 * ND * 4 * blockDim.x + warp * 2 * 16 * (BQ + 1);   // GQA: P^T, dS^T
+  auto load_step = [&](int i) {
+    const int qt = q_first + i % per_head * BQ;
+    const size_t bhq = size_t(b) * h + hk * group + i / per_head;
+    const int rows = (min(BQ, n_q - qt) + 15) / 16 * 16;
+    uint8_t* dst = ring + i % nstage * 2 * tile_rows * ROW;
+    hop::load_rows_padded<D * 2>(dst, q + (bhq * n_q + qt) * D, q, n_q - qt, rows);
+    hop::load_rows_padded<D * 2>(dst + tile_rows * ROW, dout + (bhq * n_q + qt) * D, dout,
+                                 n_q - qt, rows);
+    float* st = stats + i % nstage * 4 * BQ;
+    const float* src = ops + (bhq * n_q + qt) * 4;
+    for (int j = threadIdx.x; j < BQ; j += blockDim.x) {
+      const bool ok = j < n_q - qt;
+      hop::cp_async<16>(hop::smem_u32(st + 4 * j), ok ? src + 4 * j : ops, ok);
+    }
+  };
+
+  hop::load_rows_padded<D * 2>(ks, kp + size_t(k0) * D, kp, n_keys, nk);
+  hop::load_rows_padded<D * 2>(vs, vp + size_t(k0) * D, vp, n_keys, nk);
+  if (steps > 0) load_step(0);
+  hop::cp_async_commit();
+
+  const int wk0 = k0 + 16 * warp;   // the warp's first key
+  const bool live_warp = 16 * warp < n_keys;
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  if (kSeq)
+    for (int i = 0; i < 2 * ND * 4; ++i) grp[i * blockDim.x + threadIdx.x] = 0.f;
+
+  const uint32_t k_addr = hop::smem_u32(ks), v_addr = hop::smem_u32(vs);
+  for (int i = 0; i < steps; ++i) {
+    hop::cp_async_wait<0>();
+    __syncthreads();   // step i has landed everywhere; the other stage is free
+    if (i + 1 < steps) load_step(i + 1);
+    hop::cp_async_commit();
+    if (!live_warp) continue;
+    const int qt = q_first + i % per_head * BQ;
+    const int rows = (min(BQ, n_q - qt) + 15) / 16 * 16;
+    const uint32_t q_addr = hop::smem_u32(ring + i % nstage * 2 * tile_rows * ROW);
+    const uint32_t do_addr = q_addr + tile_rows * ROW;
+    const float* st = stats + i % nstage * 4 * BQ;
+    // the warp's keys see no query of the tile
+    const bool skip = (causal && wk0 > qt + rows - 1) || wk0 >= kv_len ||
+                      (window > 0 && wk0 + 15 <= qt - window);
+    if (!skip) {
+      // sc[j][2hh + e], dp[j][2hh + e]: key wk0 + g + 8hh, row qt + 8j + 2t + e
+      float sc[NJ][4], dp[NJ][4];
+      hop::tile_scores<D, NJ>(sc, k_addr, 16 * warp, q_addr, ROW, rows, lane);
+      hop::tile_scores<D, NJ>(dp, v_addr, 16 * warp, do_addr, ROW, rows, lane);
+      const bool full = qt + rows <= n_q && wk0 + 16 <= kv_len &&
+                        (!causal || wk0 + 15 <= qt) &&
+                        (window <= 0 || wk0 > qt + rows - 1 - window);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rl = 8 * j + 2 * t + e, R = qt + rl;
+          const float m = st[4 * rl], l = st[4 * rl + 1], r = st[4 * rl + 2],
+                      rcp = st[4 * rl + 3];
+          int lo = 0, hi = 0;
+          if (!full) fa::dense_bounds(R, kv_len, causal, window, lo, hi);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int c = wk0 + g + 8 * hh;
+            const bool live =
+                8 * j < rows && l > 0.f && (full || (R < n_q && c >= lo && c < hi));
+            const float ex = live ? expf(__fmul_rn(sc[j][2 * hh + e], sm_scale) - m) : 0.f;
+            sc[j][2 * hh + e] = live ? fa::div_rn(ex, l, rcp) : 0.f;
+            dp[j][2 * hh + e] = live ? op_ds(dp[j][2 * hh + e], ex, l, rcp, r, sm_scale) : 0.f;
+          }
+        }
+      if constexpr (kSeq) {
+        // P^T (rounded) and dS^T to this warp's shared memory, then each
+        // (key, column) of dV and dK sums the tile's rows in order
+        float* pt = seq;
+        float* dst = seq + 16 * (BQ + 1);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int at = (g + 8 * hh) * (BQ + 1) + 8 * j + 2 * t + e;
+              pt[at] = round_bf16(sc[j][2 * hh + e]);
+              dst[at] = dp[j][2 * hh + e];
+            }
+        __syncwarp();
+        const uint8_t* qrow = ring + i % nstage * 2 * tile_rows * ROW;
+        const uint8_t* dorow = qrow + tile_rows * ROW;
+        for (int rl = 0; rl < rows; ++rl) {
+          const float p0 = pt[g * (BQ + 1) + rl], p1 = pt[(g + 8) * (BQ + 1) + rl];
+          const float s0 = dst[g * (BQ + 1) + rl], s1 = dst[(g + 8) * (BQ + 1) + rl];
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd) {
+            const float2 d2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                dorow + rl * ROW + (8 * nd + 2 * t) * 2));
+            const float2 q2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                qrow + rl * ROW + (8 * nd + 2 * t) * 2));
+            dv_acc[nd][0] = __fmaf_rn(p0, d2.x, dv_acc[nd][0]);
+            dv_acc[nd][1] = __fmaf_rn(p0, d2.y, dv_acc[nd][1]);
+            dv_acc[nd][2] = __fmaf_rn(p1, d2.x, dv_acc[nd][2]);
+            dv_acc[nd][3] = __fmaf_rn(p1, d2.y, dv_acc[nd][3]);
+            dk_acc[nd][0] = __fmaf_rn(s0, q2.x, dk_acc[nd][0]);
+            dk_acc[nd][1] = __fmaf_rn(s0, q2.y, dk_acc[nd][1]);
+            dk_acc[nd][2] = __fmaf_rn(s1, q2.x, dk_acc[nd][2]);
+            dk_acc[nd][3] = __fmaf_rn(s1, q2.y, dk_acc[nd][3]);
+          }
+        }
+        __syncwarp();   // the tile's P^T and dS^T are read
+      } else {
+#pragma unroll
+        for (int kc = 0; kc < NJ / 2; ++kc) {
+          if (16 * kc >= rows) continue;
+          uint32_t pa[1][4], da[NP][4];
+          hop::acc_to_a(pa[0], sc[2 * kc], sc[2 * kc + 1]);
+          hop::mma_rows<D, 1>(dv_acc, pa, do_addr, ROW, 16 * kc, lane);
+          split_a<NP>(da, dp[2 * kc], dp[2 * kc + 1]);
+          hop::mma_rows<D, NP>(dk_acc, da, q_addr, ROW, 16 * kc, lane);
+        }
+      }
+    }
+    if (kSeq && i % per_head == per_head - 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          grp[(4 * nd + e) * blockDim.x + threadIdx.x] += round_bf16(dk_acc[nd][e]);
+          grp[(4 * (ND + nd) + e) * blockDim.x + threadIdx.x] += round_bf16(dv_acc[nd][e]);
+          dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
+        }
+    }
+  }
+  hop::cp_async_wait<0>();
+  if (!live_warp) return;
+  if (kSeq) {
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[nd][e] = grp[(4 * nd + e) * blockDim.x + threadIdx.x];
+        dv_acc[nd][e] = grp[(4 * (ND + nd) + e) * blockDim.x + threadIdx.x];
+      }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kl = 16 * warp + g + 8 * hh;
+    if (kl >= n_keys) continue;
+    const size_t off = (size_t(bk) * n_kv + k0 + kl) * D;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * nd + 2 * t) =
+          __floats2bfloat162_rn(dk_acc[nd][2 * hh], dk_acc[nd][2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * nd + 2 * t) =
+          __floats2bfloat162_rn(dv_acc[nd][2 * hh], dv_acc[nd][2 * hh + 1]);
+    }
+  }
+}
+
+// The op graph's backward: the dQ kernel (which writes the rows' (m, l, r)
+// to ops), then the dK/dV kernel, which reads them.
+template <int D>
+cudaError_t launch_op(const void* q, const void* k, const void* v, const void* dout,
+                      float* ops, const int* lens, void* dq, void* dk, void* dv, int b, int h,
+                      int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
+                      cudaStream_t stream) {
+  using C = Ob<D>;
+  auto dq_kernel = flash_bwd_op_dq_kernel<D>;
+  const int group = h / h_kv;
+  auto dkv_kernel = group > 1 ? flash_bwd_op_dkv_kernel<D, true> : flash_bwd_op_dkv_kernel<D, false>;
+  constexpr int kRows = 16 * C::MAX_WARPS;   // a block's query rows (dQ) or keys (dK/dV)
+  // GQA's shared memory: the group sums, and P^T and dS^T a warp
+  auto gqa_bytes = [](int warps) {
+    return (2 * C::ND * 4 * 32 + 2 * 16 * (C::BQ + 1)) * warps * sizeof(float);
+  };
+  static cudaError_t opted = [&] {
+    const size_t dkv = size_t(2 * kRows + 2 * 2 * C::BQ) * C::ROW + 2 * 4 * C::BQ * sizeof(float);
+    cudaError_t e = fa::allow_smem(dq_kernel, size_t(2 * 2 * C::BN + 2 * kRows) * C::ROW);
+    if (e == cudaSuccess) e = fa::allow_smem(flash_bwd_op_dkv_kernel<D, false>, dkv);
+    return e != cudaSuccess ? e
+                            : fa::allow_smem(flash_bwd_op_dkv_kernel<D, true>,
+                                             dkv + gqa_bytes(4));
+  }();
+  if (opted != cudaSuccess) return opted;
+  if (ops == nullptr) return cudaErrorInvalidValue;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* dob = static_cast<const bf16*>(dout);
+  if (n_q > 0) {
+    const int nstage = n_kv > C::BN ? 2 : 1;
+    const bool wide = nstage == 2 && size_t(b) * h * ((n_q + 127) / 128) >= 132;
+    const int warps = min(wide ? 8 : 4, (n_q + 15) / 16);
+    const int tile_rows = min(C::BN, (n_kv + 15) / 16 * 16);
+    const size_t smem = size_t(nstage * 2 * tile_rows + 2 * 16 * warps) * C::ROW;
+    dim3 grid(b * h, (n_q + 16 * warps - 1) / (16 * warps));
+    dq_kernel<<<grid, 32 * warps, smem, stream>>>(qb, kb, vb, dob, lens, ops,
+                                                  static_cast<bf16*>(dq), h, h_kv, n_q, n_kv,
+                                                  causal, window, sm_scale, tile_rows);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_kv > 0) {
+    const int nstage = n_q > C::BQ || group > 1 ? 2 : 1;
+    const bool wide = group == 1 && n_q > C::BQ &&
+                      size_t(b) * h_kv * ((n_kv + 127) / 128) >= 132;
+    const int warps = min(wide ? 8 : 4, (n_kv + 15) / 16);
+    const int tile_rows = min(C::BQ, (n_q + 15) / 16 * 16);
+    const size_t smem = size_t(2 * 16 * warps + nstage * 2 * tile_rows) * C::ROW +
+                        nstage * 4 * C::BQ * sizeof(float) + (group > 1 ? gqa_bytes(warps) : 0);
+    dim3 grid(b * h_kv, (n_kv + 16 * warps - 1) / (16 * warps));
+    dkv_kernel<<<grid, 32 * warps, smem, stream>>>(qb, kb, vb, dob, lens, ops,
+                                                   static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                   h, h_kv, n_q, n_kv, causal, window, sm_scale,
+                                                   tile_rows);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_op(int d, const void* q, const void* k, const void* v, const void* dout,
+                        float* ops, const int* lens, void* dq, void* dk, void* dv, int b, int h,
+                        int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
+                        cudaStream_t st) {
   switch (d) {
-    case 32: return launch<T, 32, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 64: return launch<T, 64, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 128: return launch<T, 128, kOp>(q, k, v, dout, lse, di, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 32: return launch_op<32>(q, k, v, dout, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 64: return launch_op<64>(q, k, v, dout, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 128: return launch_op<128>(q, k, v, dout, ops, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* di, const int* lens, void* dq, void* dk,
+                         void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                         int window, float sm_scale, cudaStream_t st) {
+  switch (d) {
+    case 32: return launch<float, 32>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 64: return launch<float, 64>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 128: return launch<float, 128>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -930,8 +1335,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 // window <= 0 means none.  dtype codes: 0 = float32, 1 = bfloat16.
 // op_graph = 0: the TPU kernels' backward from (lse, di): the dK/dV
 // kernel, then the dQ kernel.  op_graph = 1 (bfloat16): autodiff of the op
-// graph; lse and di are unused, ops (b, h, n_q, 3) f32 is the scratch of
-// the row-statistics launch that comes first.
+// graph; lse and di are unused, ops (b, h, n_q, 4) f32 is the scratch in
+// which the dQ kernel leaves each row's (m, l, r, 1 / l) for the dK/dV
+// kernel.
 extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse, const void* di,
                             void* ops, const void* kv_lengths, void* dq, void* dk,
@@ -943,13 +1349,12 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
   const int* lens = static_cast<const int*>(kv_lengths);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  float* os = static_cast<float*>(ops);
   if (dtype == 0 && !op_graph)
-    return dispatch_d<float, false>(d, q, k, v, dout, l, dd, os, lens, dq, dk, dv, b, h,
-                                    h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    return dispatch_f32(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
+                        causal, window, sm_scale, st);
   if (dtype == 1 && op_graph)
-    return dispatch_d<bf16, true>(d, q, k, v, dout, l, dd, os, lens, dq, dk, dv, b, h,
-                                  h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    return dispatch_op(d, q, k, v, dout, static_cast<float*>(ops), lens, dq, dk, dv, b, h,
+                       h_kv, n_q, n_kv, causal, window, sm_scale, st);
   if (dtype == 1)
     return dispatch_bf16(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
                          causal, window, sm_scale, st);

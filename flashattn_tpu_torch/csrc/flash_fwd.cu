@@ -32,30 +32,48 @@
 //     max m and sum l of exp(s - m), p = exp(s - m) / l normalised and then
 //     rounded to bf16, o = sum p v; lse = m + ln l.
 //
-// bf16 (head dim 32, 64 or 128) runs a tensor-core kernel.  What bounds it
-// on the H100 is the products (4 d flops per live (row, key) pair at 989
-// TF/s, more where a max pass repeats Q K^T), the softmax's exponentials
-// behind them.  A block owns 128 query rows of one (batch, head): two
-// consumer warpgroups of 64 rows.  Q is loaded once into shared memory; K
-// (and V) tiles of 128 keys stream through a double-buffered ring in bf16
-// (cp.async, zero fill past n_kv), the next step's copy overlapping this
-// step's math, in the swizzled layout of hopper.cuh.  The walk over the
-// key tiles is a sequence of (tile, pass) steps (Walk): a segment of keys
-// (JAX's key block where it is wider than a tile; the whole walk in modes
-// 0 and 2) first takes a max pass, S = Q K^T and each row's masked max,
-// without exp or PV and without loading V; the op graph then a sum pass;
-// then the PV pass.  S = Q K^T is a wgmma (both K-major) into 64 f32
-// registers a thread; P is rounded to bf16 in registers and is the A
-// operand of the P V wgmma (V MN-major, the transpose bit set), which sums
-// each tile from zero before it is added to the f32 O accumulator, as the
-// TPU kernels add each block's PV.  A key block narrower than the tile
-// (span 8..64) is its own online-softmax update inside the tile (the
-// 16-key PV chunk that two 8-key blocks share runs once for each).  The
-// block walks only the key tiles its rows can see (causal and length bound
-// on the right, window on the left; the last row tiles start first, having
-// the longest walks); only tiles that cut some row's interval are masked.
-// The epilogue writes lse (f32, (b, h, n_q)) and o (bf16, staged in shared
-// memory and stored in whole rows), which flash_bwd.cu reads.
+// bf16 (head dim 32, 64 or 128), modes 1 and 2 and the op graph's longer
+// walks, runs a wgmma tensor-core kernel.  What bounds it on the H100 is the products (4 d flops per live
+// (row, key) pair at 989 TF/s, more where a max pass repeats Q K^T), the
+// softmax's exponentials behind them.  A block owns 128 query rows of one
+// (batch, head): two consumer warpgroups of 64 rows.  Q is loaded once into
+// shared memory; K (and V) tiles of 128 keys stream through a
+// double-buffered ring in bf16 (cp.async, zero fill past n_kv), the next
+// step's copy overlapping this step's math, in the swizzled layout of
+// hopper.cuh.  The walk over the key tiles is a sequence of (tile, pass)
+// steps (Walk): a segment of keys (JAX's key block where it is wider than a
+// tile; the whole walk in mode 2 and the op graph) first takes a max
+// pass, S = Q K^T and each row's masked max (the op graph's also the sum
+// of exp(s - m)), without PV and without loading V; then the PV pass.  S = Q K^T is a wgmma (both K-major) into 64 f32 registers a
+// thread; P is rounded to bf16 in registers and is the A operand of the P V
+// wgmma (V MN-major, the transpose bit set), which sums each tile from zero
+// before it is added to the f32 O accumulator, as the TPU kernels add each
+// block's PV.  A key block narrower than the tile (span 8..64) is its own
+// online-softmax update inside the tile (the 16-key PV chunk that two 8-key
+// blocks share runs once for each).  The block walks only the key tiles
+// its rows can see (causal and length bound on the right, window on the
+// left; the last row tiles start first, having the longest walks); only
+// tiles that cut some row's interval are masked.  The epilogue writes lse
+// (f32, (b, h, n_q)) and o (bf16, staged in shared memory and stored in
+// whole rows), which flash_bwd.cu reads.
+//
+// bf16 mode 0, the op graph, which JAX takes below 1024 keys: s = (q . k)
+// sm_scale in f32, the row's max m and sum l of exp(s - m), p = exp(s - m)
+// / l rounded to bf16, o = sum p v, lse = m + ln l.  A walk of at most 128
+// keys (the MT model's 40, the distill draft's 128) runs
+// flash_fwd_op_kernel: there the wgmma tile's 128 x 128 block (255
+// registers a thread: one block an SM, a fixed ~19 us a block over three
+// serial passes) wasted most of its work, so this kernel is sized to the
+// rows instead: warps of 16 query rows on mma.sync m16n8k16, blocks of
+// cdiv(n_q, 16) warps up to four, one (batch, head) a block, so that a
+// launch of 1024 small blocks is resident at once; it loads Q, K and V
+// together and computes Q K^T once.  Longer walks (N 512, 517, 1000, the
+// quantized-KV fallback's 200 keys) run the wgmma kernel above with kOp:
+// two passes where it took three, the max pass summing exp(s - m) online.
+// Both divide by l through its reciprocal with one FMA correction
+// (fa::div_rn, __fdiv_rn's bits).  The bound is the products; at the MT
+// shapes the bytes (q, k, v, o at B128 H8 N40 d32: 3.2 us) and a launch's
+// latency.
 
 // f32 keeps the CUDA-core kernel of attn_core.cuh (fa::attend): TF32
 // tensor cores would break the f32 gates of the training path.  One block
@@ -153,26 +171,25 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, const b
 }
 
 // The passes a key segment takes, in order: kMax (S only, each row's max
-// over the segment), kSum (the op graph's row sum of exp(s - m)) and kPv
-// (P and the P V product).
-enum Pass { kMax = 0, kSum = 1, kPv = 2 };
+// over the segment; the op graph's kMaxSum also sums exp(s - m) online)
+// and kPv (P and the P V product).
+enum Pass { kMax = 0, kMaxSum = 1, kPv = 2 };
 
 // The block's walk as a sequence of (tile, pass) steps: the key tiles
 // [start, end) fall into segments of `seg` keys (aligned to multiples of
 // seg from key 0), and each segment runs its passes over its tiles in
-// turn, starting with `first`.  A step of the kMax and kSum passes, which
-// read K alone, takes two tiles: twice the bytes in flight a step.
+// turn, starting with `first`.  A step of the kMax or kMaxSum pass, which
+// reads K alone, takes two tiles: twice the bytes in flight a step.
 struct Walk {
   int start, end, seg, first;
-  bool op;   // the op graph: kMax, kSum, kPv
   __device__ int seg_lo(int kt) const { return max(start, kt / seg * seg); }
   __device__ int seg_hi(int kt) const { return min(end, (kt / seg + 1) * seg); }
-  // a kMax or kSum step takes two tiles (both slots of a ring buffer)
+  // a kMax or kMaxSum step takes two tiles (both slots of a ring buffer)
   __device__ bool next(int& kt, int& pass, int bn) const {
     const int step = pass == kPv ? bn : 2 * bn;
     if (kt + step < seg_hi(kt)) { kt += step; return true; }
     if (pass != kPv) {
-      pass = pass == kMax && op ? kSum : kPv;
+      pass = kPv;
       kt = seg_lo(kt);
       return true;
     }
@@ -284,8 +301,10 @@ __device__ __forceinline__ void tpu_update(float (&s)[Tc<D>::BN / 2], float (&ac
 // kOp = false: the TPU kernels' function.  mode 1 (grid, loop): a running
 // max over JAX's key blocks of `span` keys; o = acc * (1 / l).  mode 2
 // (subrow): the whole row's max; o = acc / l.  q arrives pre-scaled by
-// sm_scale * log2(e) (scale = 1).  kOp = true: the op graph's function,
-// scale = sm_scale on the f32 scores, p = exp(s - m) / l rounded.
+// sm_scale * log2(e) (scale = 1).  kOp = true: the op graph's function
+// over a walk of more than one tile (scale = sm_scale on the f32 scores):
+// the max pass also sums exp(s - m) online (l rescaled where the max
+// grows), then the P V pass rounds p = exp(s - m) / l.
 template <int D, bool kOp>
 __global__ void __launch_bounds__(Tc<D>::THREADS, 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -316,12 +335,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   Walk walk;
   walk.start = walk_hi > walk_lo ? (walk_lo / BN) * BN : 0;
   walk.end = walk_hi > walk_lo ? walk_hi : 0;
-  walk.op = kOp;
-  // one segment for the op graph and subrow, JAX's key blocks for the
-  // grid and loop; a block wider than a tile first takes a max pass
+  // one segment for the op graph and subrow, JAX's key blocks for the grid
+  // and loop; a block wider than a tile first takes a max pass
   const bool whole = kOp || mode == 2;
   walk.seg = whole ? (1 << 30) : max(span, BN);
-  walk.first = whole || span > BN ? kMax : kPv;
+  walk.first = kOp ? kMaxSum : whole || span > BN ? kMax : kPv;
   const int sub = whole ? BN : min(span, BN);   // keys of one softmax update
 
   const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
@@ -347,8 +365,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  // m: the running max (the op graph: the row's); l: this thread's
-  // columns' sum; m_seg: the max pass's result; l_row: the op graph's row sum
+  // m: the running max; l: this thread's columns' sum (the op graph's: of
+  // exp(s - m_seg), online in the max pass); m_seg: the max pass's result;
+  // l_row: the op graph's row sum
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float m_seg[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
 
@@ -425,16 +444,23 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         } else if constexpr (kOp) {
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            const float mu = m_seg[hh] == -INFINITY ? 0.f : m_seg[hh];
+            const float prev = seg_start && t == 0 ? -INFINITY : m_seg[hh];
+            float mx = prev;
 #pragma unroll
             for (int j = 0; j < BN / 8; ++j)
+              mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+            m_seg[hh] = quad_max(mx);
+            const float mu = m_seg[hh] == -INFINITY ? 0.f : m_seg[hh];
+            float tl = 0.f;
 #pragma unroll
-              for (int e = 0; e < 2; ++e) l[hh] += expf(s[4 * j + 2 * hh + e] - mu);
+            for (int j = 0; j < BN / 8; ++j)
+              tl += expf(s[4 * j + 2 * hh] - mu) + expf(s[4 * j + 2 * hh + 1] - mu);
+            l[hh] = (prev == m_seg[hh] ? l[hh] : l[hh] * expf(prev - mu)) + tl;
           }
         }
       }
     } else if constexpr (kOp) {
-      // the op graph: p = exp(s - m) / l, normalised, then rounded
+      // p = exp(s - m) / l, normalised, then rounded
       scores(k_addr, kt);
       if (seg_start) {
 #pragma unroll
@@ -442,17 +468,19 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       uint32_t p[BN / 4];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
+      for (int hh = 0; hh < 2; ++hh) {
+        const float mu = m[hh] == -INFINITY ? 0.f : m[hh], rl = __frcp_rn(l_row[hh]);
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float mu = m[hh] == -INFINITY ? 0.f : m[hh];
+        for (int j = 0; j < BN / 8; ++j) {
           float pe[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            pe[e] = l_row[hh] > 0.f ? __fdiv_rn(expf(s[4 * j + 2 * hh + e] - mu), l_row[hh])
-                                    : 0.f;
+            pe[e] = l_row[hh] > 0.f
+                        ? fa::div_rn(expf(s[4 * j + 2 * hh + e] - mu), l_row[hh], rl)
+                        : 0.f;
           p[2 * j + hh] = hop::pack_bf16(pe[0], pe[1]);
         }
+      }
       pv_add<D>(acc, p, v_addr, 0, BN / 8);
     } else {
       scores(k_addr, kt);
@@ -525,6 +553,178 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* le
   return cudaGetLastError();
 }
 
+// -- bf16 op graph: the warp-level tensor-core tile ----------------------------------
+
+template <int D>
+struct Og {
+  static constexpr int ROW = D * 2 + 16;   // bytes of a padded row
+  static constexpr int ND = D / 8;         // 8-column n-tiles of O
+  static constexpr int MAX_WARPS = 4;
+};
+
+// The op graph's function over a walk of at most one tile of BN (64 or
+// 128) keys: s = (q . k) sm_scale in f32, the row's max m and sum l of
+// exp(s - m), p = exp(s - m) / l rounded to bf16, o = sum p v, lse = m +
+// ln l.  A block of W warps (W = min(4, cdiv(n_q, 16)), so a short query
+// side gets a short block) owns 16 W query rows of one (batch, head), a
+// warp 16 of them as mma.sync m16n8k16 tiles.  Q, K and V come into shared
+// memory together (cp.async, rows padded against bank conflicts, zero past
+// n_kv, only the 16-key chunks the walk reaches); S = Q K^T goes into
+// registers (fragments by ldmatrix) and m, l and p come from those same
+// registers: one Q K^T and one P V, P rounded to bf16 in place as the A
+// operand.  A key a row does not see scores -inf; its p = 0 still
+// multiplies V, as the op graph's product does.
+template <int D, int BN>
+__global__ void __launch_bounds__(Og<D>::MAX_WARPS * 32)
+flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
+                    bf16* __restrict__ o, float* __restrict__ lse, int h, int h_kv, int n_q,
+                    int n_kv, int causal, int window, float scale, int tile_rows) {
+  using C = Og<D>;
+  constexpr int ROW = C::ROW, NJ = BN / 8;
+  extern __shared__ __align__(16) uint8_t op_smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int bm = 16 * warps;
+  const int row0 = blockIdx.y * bm;
+  const int n_rows = min(bm, n_q - row0);
+  const bf16* qp = q + size_t(bh) * n_q * D;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+
+  // the block's walk: the keys its rows' causal bound reaches, past the
+  // rows' lengths too, as the op graph's P V product takes every key with
+  // p = 0 past a length
+  int walk_lo, walk_hi, lo_, hi_;
+  fa::dense_bounds(row0 + n_rows - 1, n_kv, causal, window, lo_, walk_hi);
+  fa::dense_bounds(row0, n_kv, causal, window, walk_lo, hi_);
+  const int end = walk_hi > walk_lo ? walk_hi : 0;   // the tile's keys: [0, end)
+  const int rows = (end + 15) / 16 * 16;
+
+  uint8_t* ks = op_smem;
+  uint8_t* vs = ks + tile_rows * ROW;
+  uint8_t* qs = vs + tile_rows * ROW;
+  hop::load_rows_padded<D * 2>(qs, qp + size_t(row0) * D, qp, n_rows, bm);
+  hop::load_rows_padded<D * 2>(ks, kp, kp, n_kv, rows);
+  hop::load_rows_padded<D * 2>(vs, vp, vp, n_kv, rows);
+  hop::cp_async_commit();
+
+  // this warp's rows, their live keys, and the keys every one of them sees
+  const int wr0 = 16 * warp;
+  int lo[2], hi[2], all_lo, all_hi;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr0 + g + 8 * hh;
+    lo[hh] = hi[hh] = 0;
+    if (r < n_rows) fa::dense_bounds(row0 + r, kv_len, causal, window, lo[hh], hi[hh]);
+  }
+  fa::dense_bounds(row0 + wr0, kv_len, causal, window, lo_, all_hi);
+  fa::dense_bounds(row0 + min(wr0 + 15, n_rows - 1), kv_len, causal, window, all_lo, hi_);
+
+  float acc[C::ND][4];
+#pragma unroll
+  for (int i = 0; i < C::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, lr[2] = {0.f, 0.f};   // the row's max and sum
+
+  hop::cp_async_wait<0>();
+  __syncthreads();
+  if (wr0 >= n_rows) return;
+  if (rows > 0) {
+    // sc[j][2hh + e] is row wr0 + g + 8hh, key 8j + 2t + e
+    float sc[NJ][4];
+    hop::tile_scores<D, NJ>(sc, hop::smem_u32(qs), wr0, hop::smem_u32(ks), ROW, rows, lane);
+    const bool full = all_lo <= 0 && rows <= all_hi;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = __fmul_rn(sc[j][2 * hh + e], scale);
+          const int c = 8 * j + 2 * t + e;
+          if (8 * j >= rows || (!full && (c < lo[hh] || c >= hi[hh]))) x = -INFINITY;
+          sc[j][2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+    // e = exp(s - m), l, then p = e / l rounded: the A operand of P V
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = fa::row_max<4>(mx[hh]);
+      const float mu = m[hh] == -INFINITY ? 0.f : m[hh];
+      float tl = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = 8 * j < rows ? expf(sc[j][2 * hh + e] - mu) : 0.f;
+          sc[j][2 * hh + e] = ex;
+          tl += ex;
+        }
+      lr[hh] = fa::row_sum<4>(tl);
+      const float rl = __frcp_rn(lr[hh]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sc[j][2 * hh + e] = lr[hh] > 0.f ? fa::div_rn(sc[j][2 * hh + e], lr[hh], rl) : 0.f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < NJ / 2; ++kc) {
+      if (16 * kc >= rows) continue;
+      uint32_t pa[1][4];
+      hop::acc_to_a(pa[0], sc[2 * kc], sc[2 * kc + 1]);
+      hop::mma_rows<D, 1>(acc, pa, hop::smem_u32(vs), ROW, 16 * kc, lane);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr0 + g + 8 * hh, row = row0 + r;
+    if (r >= n_rows) continue;
+    bf16* orow = o + (size_t(bh) * n_q + row) * D;
+#pragma unroll
+    for (int nd = 0; nd < C::ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+    if (t == 0)
+      lse[size_t(bh) * n_q + row] = lr[hh] == 0.f ? -INFINITY : m[hh] + logf(lr[hh]);
+  }
+}
+
+template <int D, int BN>
+cudaError_t launch_op_bn(const void* q, const void* k, const void* v, const int* lens, void* o,
+                         float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                         int window, float scale, cudaStream_t stream) {
+  using C = Og<D>;
+  auto kernel = flash_fwd_op_kernel<D, BN>;
+  static cudaError_t opted =
+      fa::allow_smem(kernel, size_t(2 * BN + 16 * C::MAX_WARPS) * C::ROW);
+  if (opted != cudaSuccess) return opted;
+  const int warps = min(C::MAX_WARPS, (n_q + 15) / 16);
+  const int tile_rows = min(BN, (n_kv + 15) / 16 * 16);
+  const size_t smem = size_t(2 * tile_rows + 16 * warps) * C::ROW;
+  dim3 grid(b * h, (n_q + 16 * warps - 1) / (16 * warps));
+  kernel<<<grid, 32 * warps, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, tile_rows);
+  return cudaGetLastError();
+}
+
+// one key tile up to 128 keys; beyond, the wgmma kernel's two passes
+template <int D>
+cudaError_t launch_op(const void* q, const void* k, const void* v, const int* lens, void* o,
+                      float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                      int window, float scale, cudaStream_t st) {
+  if (n_kv > 128)
+    return launch_tc<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, 0,
+                        0, st);
+  if (n_kv <= 64)
+    return launch_op_bn<D, 64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+  return launch_op_bn<D, 128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+}
+
 cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const int* lens,
                          void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
                          int causal, int window, float scale_log2, cudaStream_t st) {
@@ -540,6 +740,14 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, co
                           void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
                           int causal, int window, float scale, int mode, int span,
                           cudaStream_t st) {
+  if (mode == 0) {
+    switch (d) {
+      case 32: return launch_op<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+      case 64: return launch_op<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+      case 128: return launch_op<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (d) {
     case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
     case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);

@@ -3,8 +3,9 @@
 // instructions (bf16 x bf16 -> f32, A from shared memory or registers),
 // their fences, cp.async and a swizzled tile loader on it, mbarriers and
 // TMA; the s8 x s8 -> s32 wgmma of the quantized-KV flash kernel; and the
-// warp-level mma.sync m16n8k16 (bf16 -> f32) with ldmatrix, for tiles of
-// at most 16 rows (paged decode).  Inline PTX only, so a kernel that
+// warp-level mma.sync m16n8k16 (bf16 -> f32) with ldmatrix and its
+// fragment loaders, for tiles of 16 rows a warp (paged decode, the op
+// graph's attention).  Inline PTX only, so a kernel that
 // includes this builds in seconds.
 //
 // Layouts (PTX ISA, "Shared memory matrix layout"; CUTLASS's canonical GMMA
@@ -296,6 +297,111 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// ldmatrix .x4: the same four matrices untransposed, r[i] of lane (g, t)
+// holding matrix i's elements [g][2t] and [g][2t+1].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// m16n8k16 fragments by ldmatrix.x4 from a bf16 tile of padded rows in
+// shared memory: `row` bytes apart, an odd multiple of 16, so that the
+// eight rows of a matrix hit distinct banks (D * 2 + 16 for a row of D
+// values, D a multiple of 16).  lane = threadIdx.x % 32.
+//   frag_a: A of the 16 x 16 block at (m0, k0) of a tile stored M-major
+//     (a row per A row: Q's rows for Q K^T);
+//   frag_b2: B of the n-tiles [n0, n0 + 8) and [n0 + 8, n0 + 16) over
+//     k0..k0 + 15 of a tile stored N-major (a row per B column: K's keys
+//     for Q K^T), b[0..1] the first, b[2..3] the second;
+//   frag_b2t: the same of a tile stored K-major (a row per B row: V's keys
+//     for P V), by ldmatrix.trans.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], uint32_t tile, int row, int m0, int k0,
+                                       int lane) {
+  const int m = m0 + lane % 8 + (lane / 8 % 2) * 8, k = k0 + lane / 16 * 8;
+  ldmatrix_x4(a, tile + m * row + k * 2);
+}
+__device__ __forceinline__ void frag_b2(uint32_t (&b)[4], uint32_t tile, int row, int n0, int k0,
+                                        int lane) {
+  const int n = n0 + lane % 8 + lane / 16 * 8, k = k0 + (lane / 8 % 2) * 8;
+  ldmatrix_x4(b, tile + n * row + k * 2);
+}
+__device__ __forceinline__ void frag_b2t(uint32_t (&b)[4], uint32_t tile, int row, int k0, int n0,
+                                         int lane) {
+  const int k = k0 + lane % 8 + (lane / 8 % 2) * 8, n = n0 + lane / 16 * 8;
+  ldmatrix_x4_trans(b, tile + k * row + n * 2);
+}
+
+// The A fragment of k-step kc from two m16n8 accumulators of the same 16
+// rows, n-tiles 2 kc and 2 kc + 1 (the columns become the contraction),
+// each value rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// c (16 x 8 NJ, f32) = the 16 rows at m0 of tile a (stored M-major) times
+// the first `rows` (a multiple of 16) rows of tile b (stored N-major)
+// transposed, contracted over D: a score tile, Q K^T.  n-tiles at or past
+// `rows` are zero.
+template <int D, int NJ>
+__device__ __forceinline__ void tile_scores(float (&c)[NJ][4], uint32_t a, int m0, uint32_t b,
+                                            int row, int rows, int lane) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t fa[4];
+    frag_a(fa, a, row, m0, 16 * ks, lane);
+#pragma unroll
+    for (int j2 = 0; j2 < NJ / 2; ++j2) {
+      if (16 * j2 >= rows) continue;
+      uint32_t fb[4];
+      frag_b2(fb, b, row, 16 * j2, 16 * ks, lane);
+      mma_16816(c[2 * j2], fa, fb[0], fb[1]);
+      mma_16816(c[2 * j2 + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// acc (16 x D, n-tiles of 8) += A (16 x 16, NP parts summed) times the
+// rows [k0, k0 + 16) of a tile stored K-major (B = its rows: V for P V).
+template <int D, int NP>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[NP][4],
+                                         uint32_t tile, int row, int k0, int lane) {
+#pragma unroll
+  for (int n2 = 0; n2 < D / 16; ++n2) {
+    uint32_t bb[4];
+    frag_b2t(bb, tile, row, k0, 16 * n2, lane);
+#pragma unroll
+    for (int pt = 0; pt < NP; ++pt) {
+      mma_16816(acc[2 * n2], a[pt], bb[0], bb[1]);
+      mma_16816(acc[2 * n2 + 1], a[pt], bb[2], bb[3]);
+    }
+  }
+}
+
+// Rows [0, rows) of a row-major matrix of ROW_BYTES-byte rows at src into
+// shared memory rows of ROW_BYTES + 16 bytes (the padding of frag_a);
+// rows at or past rows_valid are zero (base: any valid address).  One
+// 16-byte cp.async a chunk, spread over the block's threads.
+template <int ROW_BYTES>
+__device__ __forceinline__ void load_rows_padded(uint8_t* dst, const void* src, const void* base,
+                                                 int rows_valid, int rows) {
+  constexpr int CHUNKS = ROW_BYTES / 16;
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  for (int i = threadIdx.x; i < rows * CHUNKS; i += blockDim.x) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = r < rows_valid;
+    cp_async<16>(smem_u32(dst + r * (ROW_BYTES + 16) + c * 16),
+                 ok ? s + size_t(r) * ROW_BYTES + c * 16 : base, ok);
+  }
 }
 
 }  // namespace hop

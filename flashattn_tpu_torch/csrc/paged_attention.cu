@@ -26,7 +26,9 @@
 // in exp2; p times the key's V scale, rounded to q's dtype before the PV
 // product; acc in f32, times 1 / l at the end.  A key that the walk
 // visits but a row does not see scores -1e30, as in JAX: a row with no
-// live key among the visited pages averages their V, as JAX's does.
+// live key among the visited pages averages their V, as JAX's does, and
+// such a key's V row still enters the P V product with p = 0 (a NaN row
+// in a masked slot of a visited page makes the output NaN in both).
 //
 // What bounds it on the H100.  At decode (rows <= 16) the HBM bytes: the
 // K/V history read once per (sequence, kv head), half of it for a
@@ -130,11 +132,8 @@ __device__ __forceinline__ void row_bounds(const Args& a, const Walk& w, int R, 
   lo = a.window > 0 ? hi - a.window : INT_MIN / 2;
 }
 
-// The keys a block of rows [R0, R1) must visit in its split: the hull of
-// the rows' live keys, or the whole split when some row sees no key of the
-// walk (it then averages every visited key, as in JAX).  Rows in (group,
-// chunk) order cover a run of j = R % chunk, or every j when it wraps; the
-// hull's ends and the rows with no key are at the run's ends.
+// The rows [R0, R1) of (group, chunk) order cover a run of j = R % chunk,
+// or every j when it wraps: [jmin, jmax].
 __device__ __forceinline__ void chunk_span(const Args& a, int R0, int R1, int& jmin,
                                            int& jmax) {
   jmin = 0;
@@ -145,6 +144,16 @@ __device__ __forceinline__ void chunk_span(const Args& a, int R0, int R1, int& j
   }
 }
 
+// The keys a block of rows [R0, R1) visits in its split: the whole pages
+// that hold the hull of the rows' live keys, or the whole split when some
+// row sees no key of the walk (it then averages every visited key, as in
+// JAX).  JAX's page walk multiplies every V row of a page it reads by its
+// p, 0 for a key the row does not see, so a NaN row in such a slot (a page
+// holding positions past a model's table) reaches the output: the block
+// reads whole pages for it.  (A row tile of a wide extend wave leaves out
+// the wave's later pages, which JAX's walk reads too; only a non-finite V
+// row there could tell.)  The rows' bounds grow with j, so the hull's
+// ends and the rows with no key are at the run's ends.
 __device__ __forceinline__ void block_range(const Args& a, const Walk& w, int R0, int R1,
                                             int& lo, int& hi) {
   lo = hi = 0;
@@ -157,8 +166,8 @@ __device__ __forceinline__ void block_range(const Args& a, const Walk& w, int R0
   const bool dead = min(hi0, w.seq_hi) <= max(lo0, w.seq_lo) ||
                     min(hi1, w.seq_hi) <= max(lo1, w.seq_lo);
   if (dead) { lo = w.lo; hi = w.hi; return; }
-  lo = max(w.lo, lo0);
-  hi = min(w.hi, hi1);
+  lo = max(w.lo, lo0) / a.page_size * a.page_size;
+  hi = min(w.hi, (hi1 + a.page_size - 1) / a.page_size * a.page_size);
   if (lo >= hi) lo = hi = 0;
 }
 

@@ -31,8 +31,8 @@ import torch
 from torch import nn
 
 from ..nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
-from .transformer import (FeedForward, MultiHeadAttention, _fill_past_table,
-                          dropout_seeds, remat_step)
+from .transformer import (FeedForward, MultiHeadAttention, dropout_seeds,
+                          remat_step)
 from .transformer import remat_policy as _remat_policy
 
 Tensor = torch.Tensor
@@ -249,7 +249,7 @@ class EncoderDecoderLM(nn.Module):
         else:
             pos = torch.full((1, 1), index, dtype=torch.long,
                              device=tok.device)
-        x = _fill_past_table(self._embed(tok, pos), pos, self.n_positions)
+        x = self._embed(tok, pos)
         new_caches = []
         for layer, cache, (ck, cv) in zip(self.decoder_layers, caches,
                                           cross_kvs):

@@ -141,16 +141,6 @@ def dropout_seeds(generator: Optional[torch.Generator], n: int) -> list:
         device=generator.device).tolist()]
 
 
-def _fill_past_table(x: torch.Tensor, pos: torch.Tensor,
-                     n_positions: int) -> torch.Tensor:
-    """NaN where ``pos`` lies past the position table, as JAX's
-    ``jnp.take`` fills an out-of-range embedding row: a cached decode step
-    past ``n_positions`` gives NaN logits (argmax 0) in both packages.  The
-    paged methods clamp instead, for their padding positions, whose outputs
-    are never read."""
-    return torch.where((pos < n_positions)[..., None], x, float("nan"))
-
-
 class MultiHeadAttention(nn.Module):
     """Multi-head (optionally causal) self-attention with GQA and an optional
     sliding window, or cross-attention over another sequence (``kv``).
@@ -539,13 +529,13 @@ class DecoderLM(nn.Module):
         self.lm_head = Linear(n_embd, n_vocab, bias, **kw)
 
     def _embed(self, idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Token plus learned position embeddings.  A position past the
+        table embeds as NaN (``Embedding``'s ``jnp.take`` function), the
+        padding of a paged wave too, as in JAX: a cached decode step past
+        ``n_positions`` gives NaN logits (argmax 0) in both packages."""
         x = self.token_embeddings(idx)
         if self.pos_encoding != "learned":
             return x       # rope: positions enter inside attention
-        # padding positions of a chunked-prefill wave may run past the
-        # table; clamp them (their outputs are never read) instead of
-        # indexing out of range on the device
-        pos = pos.clamp(max=self.n_positions - 1)
         return x + self.position_embeddings(pos)
 
     def forward(self, idx: torch.Tensor,
@@ -595,8 +585,6 @@ class DecoderLM(nn.Module):
             pos = torch.full((1, 1), index, dtype=torch.long,
                              device=idx_tok.device)
         x = self._embed(idx_tok, pos)
-        if self.pos_encoding == "learned":
-            x = _fill_past_table(x, pos, self.n_positions)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.forward_decode(x, cache, index)

@@ -52,14 +52,24 @@ class Embedding(nn.Module):
                                            generator, dtype, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(batch, seq) int -> (batch, seq, embedding_dim)."""
+        """(batch, seq) int -> (batch, seq, embedding_dim).
+
+        An id outside the table gives what the JAX module gives, on every
+        device: ``jnp.take`` wraps an id in [-n, 0) once and fills NaN for
+        any other id past the table; ``jax.nn.one_hot`` gives a zero row for
+        any id outside [0, n)."""
+        n = self.num_embeddings
+        idx = x.long()
         if self.use_one_hot_matmul:
             bs, seq = x.shape
-            oh = F.one_hot(x, self.num_embeddings).reshape(
-                bs * seq, self.num_embeddings)
-            out = oh.to(self.weights.dtype) @ self.weights
+            inside = (idx >= 0) & (idx < n)
+            oh = F.one_hot(idx.clamp(0, n - 1), n) * inside[..., None]
+            out = oh.reshape(bs * seq, n).to(self.weights.dtype) @ self.weights
             return out.reshape(bs, seq, self.embedding_dim)
-        return self.weights[x.long()]
+        idx = torch.where(idx < 0, idx + n, idx)
+        inside = (idx >= 0) & (idx < n)
+        out = self.weights[idx.clamp(0, n - 1)]
+        return torch.where(inside[..., None], out, float("nan"))
 
 
 class Dropout(nn.Module):

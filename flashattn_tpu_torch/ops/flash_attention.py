@@ -21,12 +21,13 @@ way.  :func:`_schedule` is a copy of that choice:
   backward is the TPU backward kernels' (:func:`_reference_bwd`).
 
 The dispatch is by shape and never by device.  On CUDA tensors every shape
-launches a hand-written kernel: ``csrc/flash_fwd.cu`` (a wgmma
-tensor-core kernel for bf16 with one mode per function above, the
-CUDA-core kernel of ``attn_core.cuh`` for f32) and ``csrc/flash_bwd.cu``
-(a dK/dV and a dQ kernel; bf16 tensor-core kernels for the TPU kernels'
-backward, CUDA-core kernels behind a row-statistics launch for the op
-graph's autodiff in bf16, and CUDA-core kernels for f32, which has one
+launches a hand-written kernel: ``csrc/flash_fwd.cu`` (in bf16 a wgmma
+tensor-core kernel with a mode per kernel schedule and a warp-level
+mma.sync kernel for the op graph; the CUDA-core kernel of
+``attn_core.cuh`` for f32) and ``csrc/flash_bwd.cu`` (a dK/dV and a dQ
+kernel: in bf16 wgmma kernels for the TPU kernels' backward and mma.sync
+kernels for the op graph's autodiff, its dQ kernel leaving the rows'
+statistics to the dK/dV kernel; CUDA-core kernels for f32, which has one
 function up to f32 rounding).  On CPU tensors the plain versions run
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
 
@@ -392,7 +393,8 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     ``lse`` is the forward's (b, h, n_q, 1) natural-log lse and
     ``di = rowsum(o * do)`` (b, h, n_q, 1) f32.  At op-graph shapes in
     bf16 the kernels compute the op graph's autodiff from their own row
-    statistics (lse and di unused).  One count covers its launches."""
+    statistics (lse and di unused; ``ops`` holds them between the two
+    kernels).  One count covers its launches."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -409,7 +411,7 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     lse, di = (t.detach().float().contiguous() for t in (lse, di))
     lens = _lengths(kv_lengths, b, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ops = (torch.empty((b, h, n_q, 3), device=q.device, dtype=torch.float32)
+    ops = (torch.empty((b, h, n_q, 4), device=q.device, dtype=torch.float32)
            if op_graph else None)
     _bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), di.data_ptr(),

@@ -1339,3 +1339,93 @@ def test_encoder_decoder_cuda_equals_cpu(dev):
                 <= 1e-4 * total, n
         else:
             assert diff <= 1e-4 * float(g_h[n].double().norm()), n
+
+
+# the op graph's kernels at the edges of their tiles: keys 1, 40, 64, 127,
+# 128, 129, 512 and 1023 (one key tile of 128 at d 32 / 64 or 64 at d 128,
+# then the two-pass walk; the dQ kernel's 64-key tiles, the dK/dV kernel's
+# 64- or 32-row query tiles), query rows 1, 16, 17 and 40 (blocks of
+# cdiv(n_q, 16) warps, a warp past the last row), b * h odd, GQA 3 and 4,
+# a length-0 row, a window and varlen:
+# (b, h, h_kv, n_q, n_kv, d, causal, lengths, window)
+OP_EDGE_CASES = {
+    "nq1_nkv1_d32": (3, 3, 3, 1, 1, 32, False, None, None),
+    "nq16_nkv40_gqa3_d64": (3, 3, 1, 16, 40, 64, False, None, None),
+    "nq17_nkv64_causal_d128": (1, 5, 5, 17, 64, 128, True, None, None),
+    "nq40_nkv127_len0_d32": (3, 2, 2, 40, 127, 32, False, [127, 0, 50], None),
+    "nq128_nkv128_causal_d64": (3, 2, 2, 128, 128, 64, True, None, None),
+    "nq40_nkv129_gqa4_varlen_d64": (2, 8, 2, 40, 129, 64, False, [129, 64],
+                                    None),
+    "nq512_causal_d128": (1, 3, 3, 512, 512, 128, True, None, None),
+    "nq1023_window_varlen_d32": (2, 2, 2, 1023, 1023, 32, True, [1023, 500],
+                                 100),
+    "nq17_nkv1023_gqa4_len0_d128": (2, 4, 1, 17, 1023, 128, False, [1023, 0],
+                                    None),
+}
+
+
+@pytest.mark.parametrize("case", list(OP_EDGE_CASES))
+def test_flash_op_graph_edges(dev, case):
+    """The bf16 op graph's forward (o, lse) and backward kernels against
+    flash_fwd_plain / flash_bwd_plain by :func:`_bf16_match`; the backward
+    twice bit for bit; keys past a length get dk = dv = 0 and a row with no
+    key dq = 0."""
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = OP_EDGE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    q, do = (_randn(g, b, h, n_q, d, dtype=bf, dev=dev) for _ in range(2))
+    k, v = (_randn(g, b, h_kv, n_kv, d, dtype=bf, dev=dev) for _ in range(2))
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    assert fa._schedule(q, k, causal, window, lens is not None).name == "op_graph"
+    sc = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc, kv_lengths=lens,
+                          window=window)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, lens, window)
+    _bf16_match(o, o_ref)
+    fin = lse_ref.isfinite()
+    assert torch.equal(lse.isfinite(), fin)
+    assert _err(lse[fin], lse_ref[fin]) <= 1e-5
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
+    got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
+    want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens, window)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all()
+        _bf16_match(a, w)
+    for a, w in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
+        assert torch.equal(a, w)
+    if lens is not None:
+        for bi, n in enumerate(lens.tolist()):
+            assert (got[1][bi, :, n:] == 0).all() and (got[2][bi, :, n:] == 0).all()
+            if n == 0:
+                assert (got[0][bi] == 0).all()
+
+
+# C14: a page pool that holds NaN rows (a model's positions past its table)
+# in slots that a row does not see: JAX's page walk multiplies a visited
+# page's every V row by its p, 0 for such a slot, so the NaN reaches the
+# output (0 * NaN); a page the walk does not visit adds nothing.
+# (chunk, window): the decode tile, a bf16 extend wave of 40 rows, a window
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("chunk, window", [(1, None), (40, None), (1, 20)])
+def test_paged_kernel_nan_in_masked_slots(dev, dtype, chunk, window):
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, hq, hkv, d, page, pps = 4, 4, 2, 64, 16, 6
+    n_pages = b * pps + 1
+    kp, vp = (_randn(g, hkv, n_pages, page, d, dtype=dtype, dev=dev)
+              for _ in range(2))
+    table = torch.arange(b * pps, device=dev).reshape(b, pps).int()
+    lens = torch.tensor([50, 64, 80, 50], device=dev)
+    # row 0: NaN past its length on its last page (visited, masked); row 1:
+    # NaN on a page past its walk; row 2: NaN in a live slot; row 3 none
+    for bi, pos in ((0, 55), (1, 70), (2, 60)):
+        p, s = table[bi, pos // page], pos % page
+        kp[:, p, s] = float("nan")
+        vp[:, p, s] = float("nan")
+    q = _randn(g, b, chunk, hq, d, dtype=dtype, dev=dev)
+    out = pa.paged_attention(q, kp, vp, lens, table, window=window)
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window)
+    assert torch.equal(out.isnan(), ref.isnan())
+    assert ref[0].isnan().all() and ref[2].isnan().all()
+    assert not ref[1].isnan().any() and not ref[3].isnan().any()
+    assert _paged_err(out[1::2], ref[1::2]) <= TOL[dtype]

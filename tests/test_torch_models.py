@@ -310,3 +310,45 @@ def test_quantized_paged_parity(dtype):
                 np.testing.assert_allclose(
                     tp[name + "s"][:, pg, off].numpy(),
                     np.asarray(jp[name + "s"])[:, pg, off], rtol=2e-6, atol=0)
+
+
+# C14: ids and positions past an embedding table.  JAX's Embedding is
+# jnp.take (an id in [-n, 0) wraps once, any other id outside the table
+# gives a NaN row) or, with use_one_hot_matmul, jax.nn.one_hot (a zero row
+# for any id outside [0, n)).
+EMBED_IDS = {
+    "past the table": [[0, 5, 6, 7], [100, 3, 6, 2**20]],
+    "negative": [[-1, -6, -7, 2], [-100, 0, -3, 5]],
+}
+
+
+@pytest.mark.parametrize("one_hot", [False, True], ids=["take", "one_hot"])
+@pytest.mark.parametrize("case", list(EMBED_IDS))
+def test_embedding_ids_outside_table_match_jax(case, one_hot):
+    jm = ft.Embedding(6, 8, key=jax.random.PRNGKey(3),
+                      use_one_hot_matmul=one_hot)
+    tm = pt.Embedding(6, 8, use_one_hot_matmul=one_hot, device="cpu")
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    ids = np.asarray(EMBED_IDS[case], np.int32)
+    want = np.asarray(jm(jnp.asarray(ids)))
+    got = tm(torch.from_numpy(ids)).detach().numpy()
+    assert np.isnan(want).any() != one_hot
+    np.testing.assert_array_equal(got, want)   # NaN where JAX has NaN
+
+
+def test_dense_forward_past_position_table_matches_jax():
+    """S 12 over an 8-row position table: JAX's rows past the table are NaN,
+    and the op graph's P V (p = 0 times a NaN V row still NaN) carries them
+    into every row; the port's logits are NaN where JAX's are, the rest
+    equal."""
+    jm = ft.DecoderLM(50, 64, 2, 8, n_layer=1, attn_impl="reference",
+                      p_dropout=0.0, key=jax.random.PRNGKey(0))
+    tm = pt.DecoderLM(50, 64, 2, 8, n_layer=1, attn_impl="reference",
+                      p_dropout=0.0, device="cpu")
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    toks = np.random.default_rng(0).integers(0, 50, (2, 12)).astype(np.int32)
+    want = np.asarray(jm(jnp.asarray(toks)))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(toks)).numpy()
+    assert np.isnan(want).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))

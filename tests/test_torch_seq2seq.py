@@ -403,3 +403,43 @@ def test_remat_under_mixed_precision_equals_plain(arch, batch):
         assert torch.equal(l0, l1)
         for a, b in zip(g0, g1):
             assert torch.equal(a, b), policy
+
+
+def test_positions_past_table_match_jax():
+    """C14: over an 8-row position table, ``encode`` at S_src 12 and a
+    cached ``forward_decode`` at index 9 raise nothing and give JAX's NaN
+    (``jnp.take`` fills a row past the table); decode steps inside the
+    table stay equal to JAX's."""
+    kw = dict(p_dropout=0.0, n_encoder_layer=1, n_decoder_layer=1,
+              middle_dim=64)
+    jm = ft.EncoderDecoderLM(V, E, H, 8, key=jax.random.PRNGKey(1), **kw)
+    tm = pt.EncoderDecoderLM(V, E, H, 8, device="cpu", **kw)
+    pt.load_jax_params(tm, _params(jm))
+    rng = np.random.default_rng(0)
+    src = rng.integers(3, V, (2, 12)).astype(np.int32)
+    lens = np.asarray([12, 5], np.int32)
+    want = np.asarray(jm.encode(jnp.asarray(src), jnp.asarray(lens)))
+    with torch.inference_mode():
+        got = tm.encode(torch.from_numpy(src), torch.from_numpy(lens)).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               atol=1e-5)
+
+    lens = np.asarray([6, 5], np.int32)
+    j_mem = jm.encode(jnp.asarray(src[:, :6]), jnp.asarray(lens))
+    j_cross, j_cache = jm.precompute_cross(j_mem), jm.init_cache(2)
+    tok = np.asarray([[3], [4]], np.int32)
+    with torch.inference_mode():
+        t_mem = tm.encode(torch.from_numpy(src[:, :6]), torch.from_numpy(lens))
+        t_cross, t_cache = tm.precompute_cross(t_mem), tm.init_cache(2, device="cpu")
+        for index in (0, 7, 9):
+            want, j_cache = jm.forward_decode(jnp.asarray(tok), j_cache, j_cross,
+                                              jnp.int32(index), jnp.asarray(lens))
+            got, t_cache = tm.forward_decode(torch.from_numpy(tok), t_cache,
+                                             t_cross, index, torch.from_numpy(lens))
+            want, got = np.asarray(want), got.numpy()
+            assert np.isnan(want).all() == (index >= 8)
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                                       atol=1e-5)

@@ -287,6 +287,29 @@ def test_generate_engine_matches_generate():
     assert model.training
 
 
+def test_generate_engine_past_position_table_matches_jax(capsys):
+    """C14: the app's decoder-only model has ``n_positions ==
+    model_max_length`` and its engine serves up to twice that, so rows run
+    past the position table; there JAX's ``jnp.take`` gives NaN logits
+    (token 0) and NaN K/V rows in the pages, which a later request's page
+    walk meets again.  The port's engine gives JAX's engine's sentences and
+    prompt-lookup acceptance on the same weights."""
+    jm = ft.DecoderLM(64, 32, 4, 16, p_dropout=0.0, n_layer=2,
+                      key=jax.random.PRNGKey(7))
+    tm = pt.DecoderLM(64, 32, 4, 16, p_dropout=0.0, n_layer=2, device="cpu")
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    examples = [{"de": "w3 w4 w5", "en": ""}, {"de": "w6 w7", "en": ""},
+                {"de": "w3 w4 w3 w4 w3", "en": ""}]
+    outs = []
+    for module, model in ((jtr, jm), (ttr, tm)):
+        sents = module.generate_engine(model, examples, "de", "en", _Tok(), 16,
+                                       max_batch=2)
+        stats = capsys.readouterr().out
+        outs.append((sents, stats[stats.index("lookup_acceptance"):].split(",")[0]))
+    assert outs[1] == outs[0], outs
+    assert outs[0][1] == "lookup_acceptance': 1.875"
+
+
 def test_parse_args_matches_jax():
     """The same flags and defaults as the JAX app, plus ``--device``."""
     got = ttr.parse_args(["--arch", "seq2seq", "--dataset-name",

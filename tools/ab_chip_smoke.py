@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,opgraph,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused,mt_step] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -18,6 +18,16 @@ a process of its own that imports that root's package and this repo's
 * ``bwd``: the bf16 flash backward (``flash_bwd``) at the train step's
   head shape B4 H16 N2048 D128 causal, cross 1000 x 2048 non-causal and
   causal N512 (the op graph's autodiff), with SDPA's backward beside;
+* ``opgraph``: the op graph (``flash_fwd`` mode 0 and ``flash_bwd``'s
+  op-graph mode) at the MT model's attention shapes (B128 H8 D32 over 40
+  keys: the encoder's varlen and the decoder's causal self-attention,
+  forward and backward, and generation's n_q 1, forward; bf16 and f32),
+  at B4 H16 N512 D128 causal (forward and backward), N517, N1000 D64,
+  the distill draft's B16 H2 N128 D64 and the quantized-KV fallback's
+  7 x 200, bf16, with SDPA and its backward
+  beside, the backward's device ms by kernel (torch.profiler), and in
+  bf16 the share of o (and dq, dk, dv) bit for bit against the plain
+  versions;
 * ``kv8``: ``kv8_flash`` with bf16 q at B4 H8 N2048 D128 causal (int8 and
   fp8 payloads; the kernel call itself, so fp8 is not transcoded) and
   cross 1000 x 2048 int8, with SDPA on the dequantized cache beside;
@@ -49,7 +59,10 @@ a process of its own that imports that root's package and this repo's
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
   profiled step);
-* ``train_fused``: the same with ``attn_impl="fused_softmax"``.
+* ``train_fused``: the same with ``attn_impl="fused_softmax"``;
+* ``mt_step``: chip_smoke's seq2seq_train phase in bf16-mixed with remat
+  (the MT model's 64 steps, ms/step, one profiled dispatch with the op
+  graph's device ms and share).
 
 Each process's full output goes to ``<log-dir>/ab_<n>_<root>.log``
 (default ``workdir_ab/logs``, git-ignored); the summary lines (``[ab]``,
@@ -136,6 +149,94 @@ def _bwd(torch, cs, dev):
                                              sm_scale=128 ** -0.5))
         lib = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, None))
         print(f"[ab] flash_bwd {label}: ms {ms:.4f}, SDPA bwd {lib:.4f}", flush=True)
+
+
+# the op graph's shapes: (label, (b, h, n_q, n_kv, d), varlen, causal,
+# backward too, dtypes)
+OPGRAPH_SHAPES = [
+    ("MT encoder B128 H8 40x40 D32 varlen", (128, 8, 40, 40, 32), True, False, True,
+     ("bfloat16", "float32")),
+    ("MT decoder B128 H8 40x40 D32 causal", (128, 8, 40, 40, 32), False, True, True,
+     ("bfloat16", "float32")),
+    ("MT generate B128 H8 1x40 D32 varlen", (128, 8, 1, 40, 32), True, False, False,
+     ("bfloat16", "float32")),
+    ("B4 H16 N512 D128 causal", (4, 16, 512, 512, 128), False, True, True, ("bfloat16",)),
+    ("B4 H8 N517 D128 causal", (4, 8, 517, 517, 128), False, True, False, ("bfloat16",)),
+    ("B4 H8 N1000 D64 non-causal", (4, 8, 1000, 1000, 64), False, False, False,
+     ("bfloat16",)),
+    ("distill B16 H2 N128 D64 causal", (16, 2, 128, 128, 64), False, True, True,
+     ("bfloat16",)),
+    ("kv8 fallback's B4 H8 7x200 D128", (4, 8, 7, 200, 128), False, False, False,
+     ("bfloat16",))]
+
+
+def _opgraph(torch, cs, dev):
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    gl = torch.Generator().manual_seed(cs.SEED + 11)
+    for label, (b, h, n_q, n_kv, d), varlen, causal, bwd, dtypes in OPGRAPH_SHAPES:
+        lens = None
+        if varlen:
+            lens = torch.randint(1, n_kv + 1, (b,), generator=gl)
+            lens[:2] = torch.tensor([1, n_kv])
+            lens = lens.to(dev)
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            q, do = (torch.randn(b, h, n_q, d, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(b, h, n_kv, d, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            assert fa._schedule(q, k, causal, None, varlen).name == "op_graph"
+            sc = d ** -0.5
+            lib, args = cs._sdpa(torch, q, k, v, causal, None, lens)
+            ms = cs.time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc,
+                                                 kv_lengths=lens))
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc, kv_lengths=lens)
+            shares = [_same(o, fa.flash_fwd_plain(q, k, v, causal, sc, lens)[0])]
+            line = (f"[ab] op graph {label} {name}: fwd ms {ms:.4f}, SDPA "
+                    f"{cs.time_ms(lambda: lib(*args)):.4f}")
+            if bwd:
+                di = (o.float() * do.float()).sum(-1, keepdim=True)
+                ms = cs.time_ms(lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
+                                                     sm_scale=sc, kv_lengths=lens))
+                lib_b = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, lens))
+                line += f"; bwd ms {ms:.4f}, SDPA bwd {lib_b:.4f}"
+                line += "; " + _kernel_split(torch, lambda: fa.flash_bwd(
+                    q, k, v, lse, di, do, causal=causal, sm_scale=sc, kv_lengths=lens))
+                got = fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=sc,
+                                   kv_lengths=lens)
+                want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens)
+                shares += [_same(a, b) for a, b in zip(got, want)]
+            if dtype == torch.bfloat16:
+                line += ("; bit for bit o" + (", dq, dk, dv" if bwd else "") + " "
+                         + ", ".join(f"{100 * x:.3f}%" for x in shares))
+            print(line, flush=True)
+
+
+def _kernel_split(torch, fn, reps: int = 10) -> str:
+    """The device time of each kernel that ``fn`` launches, per call (a
+    torch.profiler trace of ``reps`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(anonymous namespace)::")[-1].split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    return ", ".join(f"{n} {t / reps / 1e3:.4f}" for n, t in sorted(by_name.items()))
+
+
+def _same(got, want) -> float:
+    """The share of elements equal to the plain version's bit for bit."""
+    return float((got == want).float().mean())
 
 
 KV8_SHAPES = [("B4 H8 N2048 D128 causal", (4, 8, 2048, 2048), True, ("int8", "fp8")),
@@ -382,6 +483,8 @@ def child(root: str, phases: list[str]) -> None:
         _flash(torch, cs, dev)
     if "bwd" in phases:
         _bwd(torch, cs, dev)
+    if "opgraph" in phases:
+        _opgraph(torch, cs, dev)
     if "kv8" in phases:
         _kv8(torch, cs, dev)
     if "ln" in phases:
@@ -405,6 +508,9 @@ def child(root: str, phases: list[str]) -> None:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0),
                        cs.TRAIN_FUSED, "train_fused_softmax", cs.FUSED_KERNELS,
                        cs.FUSED_ABSENT)
+    if "mt_step" in phases:
+        cs.seq2seq_train_phase(torch, dev, torch.cuda.get_device_name(0), cs.mt_data(),
+                               mixed=True, remat=True)
     if "serve_quant" in phases:
         res = cs.serve_quant_phase(torch, dev)
         print("[ab] serve_quant " + json.dumps(
@@ -441,7 +547,9 @@ def main() -> int:
                                  "--phases", args.phases, root],
                                 stdout=f, stderr=subprocess.STDOUT).returncode
         for line in log.read_text().splitlines():
-            if line.startswith(("[ab]", "[serve_quant]", "[train")) or "device busy" in line:
+            if line.startswith(("[ab]", "[serve_quant]", "[train", "[seq2seq_train",
+                                "[profile] op graph", "[profile] by group")) \
+                    or "device busy" in line:
                 print(line, flush=True)
         if rc != 0:
             print(f"[ab] run {i} failed (rc {rc}); see {log}", file=sys.stderr)
