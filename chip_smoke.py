@@ -215,6 +215,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    "deen-fixture" (seq2seq; decoder-only with the engine) where
    tokenizers, transformers, sacrebleu and tqdm all import, its results
    logged; else one line naming the missing packages.
+24. c15 (run after phase 3's serving kernels): paged waves wider than one
+   row tile (bf16 q at 256 rows, GQA 4 x chunk 64 and 2048 rows; f32 q at
+   128), causal and window 256, over bf16 / int8 / fp8 pools holding NaN V
+   rows (and, quantized, NaN V scales) on pages outside some tile's own:
+   the kernel's NaN pattern equal to paged_attention_plain's, its finite
+   elements under the paged gates; the marks kernel (paged_nonfinite) at
+   the 2048-row serving wave bit for bit against its plain version; the
+   2048-row wave and the chunk-64 call timed beside the parent's figures.
+25. utilities: the A6d modules on the card: conv1d / conv2d in f32 against
+   the CPU (1e-5) and grad_check of conv1d; train_classifier at the JAX
+   tests' arguments (accuracy gates 0.85 / 0.95, the final loss within
+   1e-4 relative of the CPU's, ms an epoch); KernelBench over the
+   LayerNorm kernel at bf16 (16384, 2048), its device_loop_time (a CUDA
+   graph of the chained calls) within 1.5x of time_ms; checkify_errors
+   raising on a CUDA NaN with the CUDA context still usable; find_nonfinite
+   over a CUDA model.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -421,7 +437,7 @@ class Phases:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
             f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) "
+            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) "
             f"{'(graph) ' if graph else ''}{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {label} {name}: error {gated} "
@@ -743,6 +759,128 @@ def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False, window=None):
         tokens = sum(min(n, window + chunk - 1) for n in lens)
     token = d + 4 if quantized else d * isz
     return 2 * q.numel() * isz + 2 * tokens * h_kv * token, 4 * d * pairs
+
+
+# C15: the 2048-row extend wave's and the chunk-64 call's times before the
+# marks and poison passes, as PERF.md (section 6, row 12) records them
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+C15_PARENT_MS = {"extend wave chunk 2048": 0.1564, "chunk 64": 0.0304}
+C15_WAVES = {"256 rows": (256, 2, 2), "256 rows, GQA 4 x chunk 64": (64, 8, 2),
+             "2048 rows": (2048, 2, 2)}
+
+
+def c15_inputs(torch, dev, g, dtype, pool, chunk, hq, hkv, d=128, page=128):
+    """q, pools (and scales) and a table for three sequences whose waves
+    start at 0, 300 and 700, with NaN V rows in columns that say where: 1 on
+    the first page (before a late tile's window), 2 mid-wave, 3 at the last
+    key, 4 past the length in the last page, 5 on a page past the walk
+    (never visited: no NaN); with a quantized pool NaN V scales in the last
+    sequence.  An int8 payload cannot hold a NaN."""
+    from flashattn_tpu_torch.ops import quant as qt
+
+    b = 3
+    lens = [chunk, chunk + 300, chunk + 700]
+    pps = -(-max(lens) // page) + 1
+    n_pages = b * pps + 1
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    kv = [torch.randn(hkv, n_pages, page, d, generator=g, device=dev)
+          for _ in range(2)]
+    kw = {}
+    if pool == "bf16":
+        kp, vp = (t.to(dtype) for t in kv)
+    else:
+        quantize = qt.quantize_int8 if pool == "int8" else qt.quantize_fp8
+        kq, vq = (quantize(t) for t in kv)
+        kp, vp = kq.values, vq.values
+        kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+    for bi, n in enumerate(lens):
+        end = -(-n // page) * page
+        for col, pos in ((1, 3), (2, n - chunk // 2), (3, n - 1),
+                         (4, end - 1), (5, end + 5)):
+            if pool != "int8" and pos // page < pps:
+                vp[:, table[bi, pos // page], pos % page, col + 8 * bi] = math.nan
+    if pool != "bf16":
+        for pos in (10, lens[2] - 3):
+            kw["v_scales"][:, table[2, pos // page], pos % page] = math.nan
+    q = torch.randn((b, chunk, hq, d), generator=g, device=dev).to(dtype)
+    return q, kp, vp, torch.tensor(lens, device=dev), table, kw
+
+
+def _nan_err(got, want):
+    """(max abs err, gated err) over the elements where ``want`` is not
+    NaN, the gated one over max |want| in bf16 (the paged gate); inf where
+    the NaN patterns differ."""
+    import torch
+
+    if not torch.equal(got.isnan(), want.isnan()):
+        return math.inf, math.inf
+    fin = ~want.isnan()
+    scaled = want.dtype == torch.bfloat16
+    got, want = got.float()[fin], want.float()[fin]
+    err = _abs_err(got, want)
+    return err, err / max(float(want.abs().max()), 1e-30) if scaled else err
+
+
+def c15_kernel_phases(torch, dev, ph: Phases, randn):
+    """C15: waves wider than one row tile hold the page walk's NaN pattern
+    (every visited page's non-finite V reaches every row of the wave) and
+    its finite values to the paged gates; the marks kernel at the serving
+    wave's shape against its plain version; the 2048-row extend wave and
+    the chunk-64 call timed beside the parent's figures."""
+    from flashattn_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cases = [(torch.bfloat16, name, shape, win, pool)
+             for name, shape in C15_WAVES.items() for win in (None, 256)
+             for pool in ("bf16", "int8", "fp8")]
+    cases += [(torch.float32, "128 rows", (128, 2, 2), win, pool)
+              for win in (None, 256) for pool in ("f32", "int8", "fp8")]
+    for dtype, name, (chunk, hq, hkv), win, pool in cases:
+        q, kp, vp, lens, table, kw = c15_inputs(
+            torch, dev, g, dtype, "bf16" if pool == "f32" else pool, chunk,
+            hq, hkv)
+        got = pa.paged_attention(q, kp, vp, lens, table, window=win, **kw)
+        want = pa.paged_attention_plain(q, kp, vp, lens, table, window=win,
+                                        **kw)
+        torch.cuda.synchronize()
+        err, gated = _nan_err(got, want)
+        nan_rows = [round(float(want[bi].isnan().any(-1).float().mean()), 3)
+                    for bi in range(3)]
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        ok = gated <= tol
+        log(f"[c15] {str(dtype)[6:]} q, {name}, window {win}, {pool} pool: "
+            f"NaN pattern {'equal' if math.isfinite(err) else 'DIFFERS'}, "
+            f"finite max_abs_err={err:.3e} gated={gated:.3e}, share of rows "
+            f"with a NaN by sequence {nan_rows} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"c15 {name} {win} {pool}: {gated}")
+        del q, kp, vp, got, want
+
+    # the marks kernel at the serving wave: B4 Hkv8 d128 page 128, 2048 rows
+    bf = torch.bfloat16
+    n_pages, pps = 4 * 16 + 1, 16
+    vp = randn(8, n_pages, 128, 128, dtype=bf)
+    vp[:, 5, 7, 9] = math.nan
+    table = torch.randperm(n_pages, generator=g, device=dev)[:4 * pps]
+    table = table.reshape(4, pps).int()
+    wave = torch.full((4,), 2048, device=dev)
+    ph.check("paged_nonfinite", "marks, 2048-row wave B4 Hkv8 d128", bf,
+             lambda: pa.paged_nonfinite(vp, wave, table, 2048),
+             lambda: pa.paged_nonfinite_plain(vp, wave, table, 2048),
+             (4 * 16 * 128 * 8 * 128 * 2 + 4 * 8 * 16 * 5 * 4, 0), main=True,
+             compare=_bit_err)
+    # the wave and the chunk-64 call (serving_kernel_phases' inputs) timed
+    # with the passes, beside the parent's times
+    kp = randn(8, n_pages, 128, 128, dtype=bf)
+    lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
+    for label, q_, ln_ in (("extend wave chunk 2048",
+                            randn(4, 2048, 8, 128, dtype=bf), wave),
+                           ("chunk 64", randn(4, 64, 8, 128, dtype=bf), lens)):
+        vp = randn(8, n_pages, 128, 128, dtype=bf)
+        ms = time_ms(lambda: pa.paged_attention(q_, kp, vp, ln_, table))
+        log(f"[c15] {label}: {ms:.4f} ms with the passes; the parent's "
+            f"{C15_PARENT_MS[label]:.4f} (PERF.md, row 12)")
 
 
 def training_kernel_phases(torch, dev, ph: Phases, randn):
@@ -1441,6 +1579,8 @@ def kernel_phases(torch, dev) -> Phases:
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     serving_kernel_phases(torch, dev, ph, randn)
+    c15_kernel_phases(torch, dev, ph, randn)
+    torch.cuda.empty_cache()
     training_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
     quant_kernel_phases(torch, dev, ph, randn)
@@ -1464,14 +1604,16 @@ def kernel_counters():
 
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
             "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel,
-            "paged_attention": pa._kernel, "dropout": dr._kernel,
+            "paged_attention": pa._kernel, "paged_nonfinite": pa._nf_kernel,
+            "dropout": dr._kernel,
             "wo_matmul": qt._wo_kernel, "kv8_flash": qt._kv8_kernel,
             "stochastic_quant": qt._sq_kernel, "softmax_fwd": sm._fwd_kernel,
             "softmax_bwd": sm._bwd_kernel, "dropout_res_bias": dr._res_kernel,
             "dropout_act_bias": dr._act_kernel}
 
 
-SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention")
+SERVE_KERNELS = ("layernorm_fwd", "flash_fwd", "paged_attention",
+                 "paged_nonfinite")
 
 
 def serve_phase(torch, model, dev, label: str = "serve") -> dict:
@@ -2711,6 +2853,114 @@ def mt_app_phase(torch) -> Optional[dict]:
     return out
 
 
+# the JAX tests' classifier calls (tests/test_neural_network.py) and their
+# accuracy gates
+CLASSIFIER_RUNS = ((("Xor", 60, 12, 0.5, 600, 0), 0.85),
+                   (("Simple", 60, 6, 0.5, 250, 3), 0.95))
+
+
+def utilities_phase(torch, dev) -> None:
+    """A6d on the card: f32 conv against the CPU (1e-5) and its grad_check;
+    the toy classifier's accuracy at the JAX tests' gates and its final
+    loss within 1e-4 relative of the same call on the CPU, ms an epoch;
+    KernelBench over the LayerNorm kernel against layernorm_reference at
+    bf16 (16384, 2048), its device_loop_time within 1.5x of time_ms of the
+    same call; checkify_errors raising on a CUDA NaN with the context still
+    usable; find_nonfinite over a CUDA model."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.autodiff import grad_check
+    from flashattn_tpu_torch.ops.conv import conv1d, conv2d
+    from flashattn_tpu_torch.training import classifier as tc
+    from flashattn_tpu_torch.utils import (KernelBench, assert_finite,
+                                           checkify_errors, datasets,
+                                           find_nonfinite)
+
+    g = torch.Generator().manual_seed(SEED)
+    for name, fn, xs, ws in (("conv1d", conv1d, (8, 16, 512), (32, 16, 5)),
+                             ("conv2d", conv2d, (4, 8, 64, 64), (16, 8, 3, 3))):
+        x, w = torch.randn(xs, generator=g), torch.randn(ws, generator=g)
+        err = _abs_err(fn(x.to(dev), w.to(dev)).cpu(), fn(x, w))
+        log(f"[utilities] {name} f32 {xs} x {ws}: card vs CPU max_abs_err "
+            f"{err:.3e} {'ok' if err <= 1e-5 else 'FAIL'}")
+        if err > 1e-5:
+            raise AssertionError(f"{name}: card vs CPU {err}")
+    grad_check(conv1d, torch.randn((2, 3, 9), generator=g).to(dev),
+               torch.randn((4, 3, 3), generator=g).to(dev), n_samples=10,
+               tol=2e-2, epsilon=1e-3)
+    log("[utilities] grad_check(conv1d) on the card: ok")
+
+    for args, gate in CLASSIFIER_RUNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, acc = tc.train_classifier(*args, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / args[4]
+        cpu_model, acc_cpu = tc.train_classifier(*args, device="cpu")
+        graph = datasets.datasets[args[0]](args[1], seed=args[5])
+        X = torch.tensor(np.asarray(graph.X, np.float32))
+        y = torch.tensor(np.asarray(graph.y, np.float32))
+        with torch.no_grad():
+            loss = tc.binary_nll(model(X.to(dev)), y.to(dev)).item()
+            loss_cpu = tc.binary_nll(cpu_model(X), y).item()
+        rel = abs(loss - loss_cpu) / abs(loss_cpu)
+        ok = acc >= gate and rel <= 1e-4
+        log(f"[utilities] train_classifier{args} on the card: accuracy "
+            f"{acc:.4f} (gate {gate}; CPU {acc_cpu:.4f}), final loss {loss:.6f} "
+            f"(CPU {loss_cpu:.6f}, rel {rel:.2e}), {ms:.3f} ms an epoch "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"train_classifier{args}: {acc} / {rel}")
+        bad = find_nonfinite(model)
+        with torch.no_grad():
+            model.layer2.bias[3] = math.nan
+        found = find_nonfinite({"net": model})
+        log(f"[utilities] find_nonfinite over the card model: {bad} before, "
+            f"{found} after a NaN")
+        if bad or found != {"net.layer2.bias": {"nan": 1, "inf": 0}}:
+            raise AssertionError(f"find_nonfinite: {bad} / {found}")
+
+    bf = torch.bfloat16
+    x = torch.randn((16384, 2048), generator=g).to(dev, bf)
+    gam, bet = (torch.randn(2048, generator=g).to(dev, bf) for _ in range(2))
+    kt = KernelBench(rtol=2e-2, atol=2e-2, ntest=1, iters=20)
+
+    @kt.case(name="layernorm")
+    def _ln_case(kt):
+        return (lambda a, w, b: pt.layernorm(a, w, b),
+                lambda a, w, b: pt.layernorm_reference(a, w, b), (x, gam, bet))
+
+    (res,) = kt.run("layernorm")
+    ms = time_ms(lambda: pt.layernorm(x, gam, bet))
+    ratio = res.custom_ms / ms
+    ok = 1 / 1.5 <= ratio <= 1.5
+    log(f"[utilities] KernelBench layernorm bf16 (16384, 2048): "
+        f"device_loop_time {res.custom_ms:.4f} ms, time_ms {ms:.4f} ms "
+        f"(ratio {ratio:.3f}), layernorm_reference {res.baseline_ms:.4f} ms, "
+        f"max_err {res.max_err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"device_loop_time vs time_ms: {ratio}")
+
+    @checkify_errors
+    def logs(t):
+        return torch.log(assert_finite(t, "input")) + assert_finite(
+            torch.log(t), "log")
+
+    logs(torch.ones(4, device=dev))
+    try:
+        logs(torch.tensor([-1.0, 2.0], device=dev))
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("checkify_errors did not raise on a CUDA NaN")
+    after = float((torch.ones(8, device=dev) * 2).sum())
+    log(f"[utilities] checkify_errors on a CUDA NaN raised {raised!r}; the "
+        f"next CUDA op gives {after}")
+    if raised != "log contains NaN/Inf" or after != 16.0:
+        raise AssertionError(f"checkify_errors: {raised!r} / {after}")
+
+
 SOURCES = {
     "layernorm_fwd": ("flashattn_tpu_torch/csrc/layernorm.cu",
                       ["flashattn_tpu/ops/layernorm.py:47"]),
@@ -2731,6 +2981,8 @@ SOURCES = {
     "paged_attention": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:119",
                          "flashattn_tpu/ops/paged_attention.py:34"]),
+    "paged_nonfinite": ("flashattn_tpu_torch/csrc/paged_attention.cu",
+                        ["flashattn_tpu/ops/paged_attention.py:34"]),
     "dropout": ("flashattn_tpu_torch/csrc/dropout.cu",
                 ["flashattn_tpu/ops/dropout.py:77"]),
     "wo_matmul": ("flashattn_tpu_torch/csrc/wo_matmul.cu",
@@ -2867,6 +3119,7 @@ def main() -> int:
     s2s_gen = seq2seq_generate_phase(torch, dev, s2s.pop("model"), mt)
     torch.cuda.empty_cache()
     mt_app_phase(torch)
+    utilities_phase(torch, dev)
     log(f"[mt] launches a step of the MT train step (MT, f32): "
         f"{ {n: c / MT_STEPS for n, c in s2s['launches'].items()} }; "
         f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")

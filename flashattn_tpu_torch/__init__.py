@@ -50,6 +50,8 @@ jax; the MT app imports its tokenizer, BLEU and progress-bar packages only
 inside the functions that use them.
 """
 
+from . import operators
+from .module import Module, Parameter
 from .nn import functional as F
 from .nn.basic import (
     Dropout,
@@ -127,6 +129,9 @@ from .convert import load_jax_params
 __version__ = "0.1.0"
 
 __all__ = [
+    "operators",
+    "Module",
+    "Parameter",
     "F",
     "Dropout",
     "Embedding",

@@ -28,7 +28,9 @@
 // visits but a row does not see scores -1e30, as in JAX: a row with no
 // live key among the visited pages averages their V, as JAX's does, and
 // such a key's V row still enters the P V product with p = 0 (a NaN row
-// in a masked slot of a visited page makes the output NaN in both).
+// in a masked slot of a visited page makes the output NaN in both, for
+// every row of the wave: the marks and the poison pass below carry that to
+// the row tiles whose own pages do not hold the slot, C15).
 //
 // What bounds it on the H100.  At decode (rows <= 16) the HBM bytes: the
 // K/V history read once per (sequence, kv head), half of it for a
@@ -150,10 +152,11 @@ __device__ __forceinline__ void chunk_span(const Args& a, int R0, int R1, int& j
 // JAX).  JAX's page walk multiplies every V row of a page it reads by its
 // p, 0 for a key the row does not see, so a NaN row in such a slot (a page
 // holding positions past a model's table) reaches the output: the block
-// reads whole pages for it.  (A row tile of a wide extend wave leaves out
-// the wave's later pages, which JAX's walk reads too; only a non-finite V
-// row there could tell.)  The rows' bounds grow with j, so the hull's
-// ends and the rows with no key are at the run's ends.
+// reads whole pages for it.  A row tile of a wave wider than one tile
+// leaves out pages that JAX's walk reads for the whole wave; the poison
+// pass (paged_poison_kernel) gives their non-finite V values' effect.  The
+// rows' bounds grow with j, so the hull's ends and the rows with no key
+// are at the run's ends.
 __device__ __forceinline__ void block_range(const Args& a, const Walk& w, int R0, int R1,
                                             int& lo, int& hi) {
   lo = hi = 0;
@@ -897,6 +900,127 @@ paged_fma_kernel(Args a, int row_tiles) {
   fa::attend<float, D, BM>(src, a.scale_log2, smem);
 }
 
+// -- the pages a row tile leaves out (C15) --------------------------------------------
+//
+// JAX's walk takes every row of the wave at each page it visits, and a key
+// that a row does not see enters the row's P V product with p = 0.  So a
+// non-finite V element anywhere in a visited page makes that column NaN
+// for every row of the wave (0 * NaN, 0 * inf), and a non-finite V scale
+// of a quantized pool every column (p * vs is NaN before the dot).  A row
+// tile of a wave wider than one tile reads only the pages of its own hull
+// (reading the whole walk cost the 2048-row extend wave 75%), and the
+// pages it leaves out could tell only through such values.  Two passes
+// restore JAX's function, launched only for such a wave:
+//   paged_nonfinite_kernel, before the split kernel: one block of 128
+//     threads a (page slot of the walk, kv head, sequence) marks the
+//     columns whose V holds a non-finite value (bit c % 32 of word c / 32)
+//     and a non-finite V scale (bit 0 of word D / 32), 16-byte loads, each
+//     thread always on the same 16 bytes of a row.  Bound by the bytes of
+//     V over the walk (an int8 pool: its scales alone; an int8 payload is
+//     always finite).
+//   paged_poison_kernel, after the split kernel and the merge: one block a
+//     (kv head, sequence, row tile) ORs the marks of the walk's pages
+//     outside the tile's hull and writes NaN into those columns of the
+//     tile's rows (nothing when no mark is set: it reads the marks only).
+
+template <int D> __host__ __device__ constexpr int nf_words() { return D / 32 + 1; }
+
+// Bit e: element e of 16 bytes of payload P is not finite (never for int8).
+template <typename P>
+__device__ __forceinline__ uint32_t nonfinite_bits(const uint4& v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bits = 0;
+  if constexpr (std::is_same<P, float>::value) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bits |= uint32_t((w[e] & 0x7F800000u) == 0x7F800000u) << e;
+  } else if constexpr (std::is_same<P, bf16>::value) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      bits |= uint32_t(((w[e / 2] >> (16 * (e % 2))) & 0x7F80u) == 0x7F80u) << e;
+  } else if constexpr (std::is_same<P, __nv_fp8_e4m3>::value) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      bits |= uint32_t(((w[e / 4] >> (8 * (e % 4))) & 0x7Fu) == 0x7Fu) << e;
+  }
+  return bits;
+}
+
+template <typename P, int D>
+__global__ void __launch_bounds__(128) paged_nonfinite_kernel(Args a, uint32_t* nf) {
+  constexpr int W = nf_words<D>(), EPC = 16 / int(sizeof(P)), CH = D / EPC;
+  constexpr int ROW = D * int(sizeof(P));
+  static_assert(128 % CH == 0, "a thread keeps to one 16 bytes of a row");
+  __shared__ uint32_t words[W];
+  const int i = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  if (threadIdx.x < W) words[threadIdx.x] = 0;
+  __syncthreads();
+  const Walk w = make_walk(a, b, 0);
+  const int page = a.page_size;
+  if (i * page >= w.seq_lo && i * page < w.seq_hi) {
+    const int pid = min(max(a.table[size_t(b) * a.pages_per_seq + i], 0), a.n_pages - 1);
+    const size_t first = (size_t(hk) * a.n_pages + pid) * page;   // the page's first slot
+    if constexpr (!std::is_same<P, int8_t>::value) {
+      const int c = threadIdx.x % CH;
+      const uint8_t* vp = static_cast<const uint8_t*>(a.vp) + first * ROW + c * 16;
+      uint32_t bits = 0;
+#pragma unroll 4
+      for (int r = threadIdx.x / CH; r < page; r += 128 / CH)
+        bits |= nonfinite_bits<P>(*reinterpret_cast<const uint4*>(vp + size_t(r) * ROW));
+      if (bits) atomicOr(&words[c * EPC / 32], bits << (c * EPC % 32));
+    }
+    if (a.vs != nullptr)
+      for (int r = threadIdx.x; r < page; r += 128)
+        if (!isfinite(a.vs[first + r])) atomicOr(&words[W - 1], 1u);
+  }
+  __syncthreads();
+  if (threadIdx.x < W)
+    nf[((size_t(b) * a.h_kv + hk) * a.pages_per_seq + i) * W + threadIdx.x] = words[threadIdx.x];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(128) paged_poison_kernel(Args a, const uint32_t* nf,
+                                                            int bm) {
+  constexpr int W = nf_words<D>();
+  __shared__ uint32_t words[W];
+  const int hk = blockIdx.x, b = blockIdx.y, r0 = blockIdx.z * bm;
+  const int r1 = min(r0 + bm, a.rows);
+  if (threadIdx.x < W) words[threadIdx.x] = 0;
+  __syncthreads();
+  Args whole = a;
+  whole.split_pages = a.pages_per_seq;   // one split: the whole walk
+  const Walk w = make_walk(whole, b, 0);
+  if (w.lo >= w.hi) return;
+  int lo, hi;
+  block_range(whole, w, r0, r1, lo, hi);   // the tile's pages, as its blocks read them
+  const int p0 = w.lo / a.page_size, n = w.hi / a.page_size;
+  const int c0 = lo < hi ? lo / a.page_size : p0, c1 = lo < hi ? hi / a.page_size : p0;
+  uint32_t acc[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) acc[k] = 0;
+  const uint32_t* marks = nf + (size_t(b) * a.h_kv + hk) * a.pages_per_seq * W;
+  for (int i = p0 + threadIdx.x; i < n; i += 128)
+    if (i < c0 || i >= c1)
+#pragma unroll
+      for (int k = 0; k < W; ++k) acc[k] |= marks[size_t(i) * W + k];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    acc[k] = __reduce_or_sync(0xffffffffu, acc[k]);
+    if (threadIdx.x % 32 == 0 && acc[k]) atomicOr(&words[k], acc[k]);
+  }
+  __syncthreads();
+  uint32_t any = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) any |= words[k];
+  if (!any) return;
+  const bool all = words[W - 1] & 1u;
+  T* o = static_cast<T*>(a.out);
+  for (int e = threadIdx.x; e < (r1 - r0) * D; e += 128) {
+    const int r = r0 + e / D, c = e % D;
+    if (all || (words[c / 32] >> (c % 32) & 1u))
+      fa::store1(o + q_off(a, b, hk, r, D) + c, __int_as_float(0x7fc00000));
+  }
+}
+
 // -- the merge of the splits' partials ----------------------------------------------
 
 // One block of four warps per output row: M = max_s m_s, then o = sum_s
@@ -1007,6 +1131,38 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The row tile launch() gives a block (bf16: the decode tile's 16 rows or
+// the extend tile's 128; f32: the FMA tile's 4, 16 or 64), as
+// ops/paged_attention.py::row_tile says.
+inline int row_tile(int dtype, int rows) {
+  if (dtype == 1) return rows <= 16 ? 16 : Ext<bf16, 32>::BM;
+  return rows <= 4 ? 4 : rows <= 16 ? 16 : 64;
+}
+
+template <typename P>
+cudaError_t nonfinite_d(int d, const Args& a, uint32_t* nf, cudaStream_t st) {
+  const dim3 grid(a.pages_per_seq, a.h_kv, a.b);
+  switch (d) {
+    case 32: paged_nonfinite_kernel<P, 32><<<grid, 128, 0, st>>>(a, nf); break;
+    case 64: paged_nonfinite_kernel<P, 64><<<grid, 128, 0, st>>>(a, nf); break;
+    case 128: paged_nonfinite_kernel<P, 128><<<grid, 128, 0, st>>>(a, nf); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t poison_d(int d, const Args& a, const uint32_t* nf, int bm, cudaStream_t st) {
+  const dim3 grid(a.h_kv, a.b, (a.rows + bm - 1) / bm);
+  switch (d) {
+    case 32: paged_poison_kernel<T, 32><<<grid, 128, 0, st>>>(a, nf, bm); break;
+    case 64: paged_poison_kernel<T, 64><<<grid, 128, 0, st>>>(a, nf, bm); break;
+    case 128: paged_poison_kernel<T, 128><<<grid, 128, 0, st>>>(a, nf, bm); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, typename P>
 cudaError_t dispatch_d(int d, const Args& a, cudaStream_t st) {
   switch (d) {
@@ -1059,15 +1215,18 @@ int attr_d(int kind, int d, int what) {
 // (h_kv, n_pages, page_size) f32 for a quantized pool, else null; lengths
 // (b,) int32 counting the chunk; page_indices (b, pages_per_seq) int32; out
 // like q.  ws: f32 (b, h_kv, n_splits, rows, d + 2) when n_splits > 1, else
-// unused; split k of a sequence takes its walk's pages [p0 + k *
+// unused; nf: fa_paged_nonfinite's marks of these pools for a wave wider
+// than one row tile (the poison pass then runs last), else null; split k
+// of a sequence takes its walk's pages [p0 + k *
 // split_pages, p0 + (k + 1) * split_pages).  window <= 0 means none;
 // scale_log2 = sm_scale * log2(e), rounded to q's dtype.  dtype codes: 0 =
 // float32, 1 = bfloat16 (q and out), 2 = int8, 3 = float8 e4m3 (page
-// payloads).  Launches the split kernel, then (n_splits > 1) the merge.
+// payloads).  Launches the split kernel, then (n_splits > 1) the merge,
+// then (nf given) the poison pass.
 extern "C" int fa_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                                   const void* k_scales, const void* v_scales,
                                   const void* lengths, const void* page_indices, void* out,
-                                  void* ws, int b, int h_kv, int rows, int chunk, int n_pages,
+                                  void* ws, const void* nf, int b, int h_kv, int rows, int chunk, int n_pages,
                                   int page_size, int pages_per_seq, int d, int window,
                                   int split_pages, int n_splits, float scale_log2, int dtype,
                                   int page_dtype, void* stream) {
@@ -1079,9 +1238,43 @@ extern "C" int fa_paged_attention(const void* q, const void* k_pages, const void
          static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
          static_cast<const int*>(page_indices), out, static_cast<float*>(ws), b, h_kv, rows,
          chunk, n_pages, page_size, pages_per_seq, window, split_pages, n_splits, scale_log2};
-  if (dtype == 0) return int(dispatch_pages<float>(page_dtype, dtype, d, a, st));
-  if (dtype == 1) return int(dispatch_pages<bf16>(page_dtype, dtype, d, a, st));
-  return int(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
+  const cudaError_t err = dtype == 0 ? dispatch_pages<float>(page_dtype, dtype, d, a, st)
+                                     : dispatch_pages<bf16>(page_dtype, dtype, d, a, st);
+  const int bm = row_tile(dtype, rows);
+  if (err != cudaSuccess || nf == nullptr || rows <= bm) return int(err);
+  const uint32_t* marks = static_cast<const uint32_t*>(nf);
+  return int(dtype == 0 ? poison_d<float>(d, a, marks, bm, st)
+                        : poison_d<bf16>(d, a, marks, bm, st));
+}
+
+// The marks of C15's poison pass: nf (b, h_kv, pages_per_seq, d / 32 + 1)
+// uint32, for page slot i of sequence b's walk (zero outside it) bit c % 32
+// of word c / 32 set where column c of the page's V (h_kv, n_pages,
+// page_size, d) holds a non-finite value, and bit 0 of word d / 32 where a
+// V scale (h_kv, n_pages, page_size) is not finite (v_scales null: a pool
+// in q's dtype).  lengths, page_indices, chunk and window as for
+// fa_paged_attention.  page_dtype: 0 float32, 1 bfloat16, 2 int8, 3 float8
+// e4m3.
+extern "C" int fa_paged_nonfinite(const void* v_pages, const void* v_scales,
+                                  const void* lengths, const void* page_indices, void* nf,
+                                  int b, int h_kv, int chunk, int n_pages, int page_size,
+                                  int pages_per_seq, int d, int window, int page_dtype,
+                                  void* stream) {
+  if (b == 0 || h_kv == 0 || pages_per_seq == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a{nullptr, nullptr, v_pages, nullptr, static_cast<const float*>(v_scales),
+         static_cast<const int*>(lengths), static_cast<const int*>(page_indices), nullptr,
+         nullptr, b, h_kv, 0, chunk, n_pages, page_size, pages_per_seq, window,
+         pages_per_seq, 1, 0.f};
+  uint32_t* marks = static_cast<uint32_t*>(nf);
+  switch (page_dtype) {
+    case 0: return int(nonfinite_d<float>(d, a, marks, st));
+    case 1: return int(nonfinite_d<bf16>(d, a, marks, st));
+    case 2: return int(nonfinite_d<int8_t>(d, a, marks, st));
+    case 3: return int(nonfinite_d<__nv_fp8_e4m3>(d, a, marks, st));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // A paged kernel's attribute, launching nothing: kind 0 the bf16 decode

@@ -7,7 +7,9 @@ of ``csrc/paged_attention.cu``, which replace both TPU kernels
 page-slot grid): a split-K grid over each sequence's page walk (a
 ``mma.sync`` decode tile for bf16 q at up to 16 rows per kv head, the bf16
 flash forward's ``wgmma`` tile for wider extend waves, the FMA tile for
-f32 q), whose splits a merge kernel combines.  On CPU tensors it runs
+f32 q), whose splits a merge kernel combines; for a wave wider than one
+row tile a marks pass (:func:`paged_nonfinite`) and a poison pass give each
+tile the effect of the walk's pages outside its own (C15).  On CPU tensors it runs
 :func:`paged_attention_plain`, the TPU kernels' function in PyTorch.
 
 Both follow the TPU kernels' rounding order, which JAX's model and engine
@@ -33,8 +35,9 @@ import torch
 from . import _build
 from ._utils import cdiv, check_no_grad, on_cuda, LOG2E
 
-_kernel = _build.Kernel("fa_paged_attention", [_build.P] * 9 + [_build.I] * 11
+_kernel = _build.Kernel("fa_paged_attention", [_build.P] * 10 + [_build.I] * 11
                         + [_build.F, _build.I, _build.I])
+_nf_kernel = _build.Kernel("fa_paged_nonfinite", [_build.P] * 5 + [_build.I] * 9)
 
 HEAD_DIMS = (32, 64, 128)
 # rows per kv head up to which bf16 q takes the mma.sync decode tile (one
@@ -82,6 +85,82 @@ def split_plan(b: int, h_kv: int, rows: int, chunk: int, page_size: int,
                               cdiv(walk, cdiv(WAVES * sm_count, blocks)))
     split_pages = max(1, min(int(split_pages), walk))
     return split_pages, cdiv(walk, split_pages)
+
+
+def _walk(lengths, chunk, page_size, pages_per_seq, window):
+    """(first, n): the page slots [first, n) of each sequence's walk, as the
+    TPU kernels visit them for the whole wave: up to ``cdiv(length, page)``
+    (at most the table's width), from the first page that the window of the
+    wave's earliest row reaches."""
+    n = torch.clamp(torch.div(lengths.clamp(min=0) + page_size - 1, page_size,
+                              rounding_mode="floor"), max=pages_per_seq)
+    first = torch.zeros_like(lengths)
+    if window is not None:
+        first = torch.div((lengths - chunk + 1 - window).clamp(min=0),
+                          page_size, rounding_mode="floor")
+    return first, n
+
+
+def paged_nonfinite(v_pages, lengths, page_indices, chunk: int, *,
+                    v_scales=None, window: Optional[int] = None) -> torch.Tensor:
+    """The marks of the pages a row tile leaves out (C15): an int32 tensor
+    (B, n_kv_heads, pages_per_seq, d // 32 + 1) of bit words; for page slot
+    i of sequence b's walk (zero outside it) bit c % 32 of word c // 32 is
+    set where column c of the page's V holds a non-finite value, and bit 0
+    of the last word where a V scale of the page is not finite.
+
+    JAX's page walk takes every row of a wave at each page it visits, so
+    such a value makes columns of every row NaN (a masked key's p is 0, and
+    0 * NaN is NaN); the paged kernels' row tiles read only their own pages,
+    and ``fa_paged_attention``'s poison pass uses these marks for the rest.
+    On CUDA tensors this launches ``paged_nonfinite_kernel``; on CPU tensors
+    it runs :func:`paged_nonfinite_plain`."""
+    if not on_cuda(v_pages, v_scales):
+        return paged_nonfinite_plain(v_pages, lengths, page_indices, chunk,
+                                     v_scales=v_scales, window=window)
+    check_no_grad(v_pages)
+    h_kv, n_pages, page_size, d = v_pages.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged kernel head_dim must be one of {HEAD_DIMS}, "
+                         f"got {d}")
+    if (v_scales is None) == (v_pages.dtype in _build.PAYLOAD_DTYPES):
+        raise TypeError(f"{v_pages.dtype} pages with v_scales "
+                        f"{'absent' if v_scales is None else 'given'}")
+    code = (_build.dtype_code(v_pages) if v_scales is None
+            else _build.payload_code(v_pages))
+    v_pages = _build.aligned(v_pages)
+    vs = None if v_scales is None else _build.aligned(v_scales)
+    lens = lengths.to(device=v_pages.device, dtype=torch.int32).contiguous()
+    table = page_indices.to(device=v_pages.device, dtype=torch.int32).contiguous()
+    b, pps = table.shape
+    out = torch.empty((b, h_kv, pps, d // 32 + 1), dtype=torch.int32,
+                      device=v_pages.device)
+    _nf_kernel(v_pages.data_ptr(), None if vs is None else vs.data_ptr(),
+               lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, h_kv,
+               chunk, n_pages, page_size, pps, d, int(window or 0), code)
+    return out
+
+
+def paged_nonfinite_plain(v_pages, lengths, page_indices, chunk: int, *,
+                          v_scales=None, window: Optional[int] = None):
+    """Plain PyTorch version of :func:`paged_nonfinite`."""
+    h_kv, n_pages, page_size, d = v_pages.shape
+    dev = v_pages.device
+    table = page_indices.to(dev).long().clamp(0, n_pages - 1)
+    b, pps = table.shape
+    first, n = _walk(lengths.to(dev).long(), chunk, page_size, pps, window)
+    slot = torch.arange(pps, device=dev)
+    walked = (first[:, None] <= slot) & (slot < n[:, None])        # (B, pps)
+    # (H, B, pps, d): a column of the page holds a non-finite V value
+    bad = torch.isfinite(v_pages[:, table].float()).logical_not().any(dim=3)
+    words = (bad.reshape(h_kv, b, pps, d // 32, 32).long()
+             << torch.arange(32, device=dev)).sum(-1)
+    scale = torch.zeros((h_kv, b, pps), dtype=torch.long, device=dev)
+    if v_scales is not None:
+        scale = torch.isfinite(v_scales[:, table, :, 0]).logical_not().any(dim=3).long()
+    words = torch.cat([words, scale[..., None]], dim=-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).int()   # uint32 bits
+    return (words * walked[None, ..., None]).permute(1, 0, 2, 3).contiguous()
 
 
 def _check_pools(q, k_pages, v_pages, k_scales, v_scales):
@@ -158,6 +237,12 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     if n_splits > 1:
         ws = torch.empty((b, h_kv, n_splits, rows, d + 2), dtype=torch.float32,
                          device=q.device)
+    # a wave wider than one row tile: the marks of its pages for the poison
+    # pass (C15)
+    nf = None
+    if rows > row_tile(rows, q.dtype):
+        nf = paged_nonfinite(v_pages, lens, table, chunk, v_scales=scales[1],
+                             window=window)
     # q * scale_log2 is rounded to q's dtype in the kernels, as JAX rounds
     # its weakly typed product: the scale itself is rounded first
     scale_log2 = float(torch.tensor(sm_scale * LOG2E, dtype=q.dtype))
@@ -165,7 +250,8 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     _kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             *(None if t is None else t.data_ptr() for t in scales),
             lens.data_ptr(), table.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), b, h_kv, rows, chunk,
+            None if ws is None else ws.data_ptr(),
+            None if nf is None else nf.data_ptr(), b, h_kv, rows, chunk,
             n_pages, page_size, table.shape[1], d, int(window or 0),
             split_pages, n_splits, scale_log2, code, page_code)
     return out
@@ -249,13 +335,7 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_indices,
     lengths = lengths.to(dev).long()
     pages_per_seq = table.shape[1]
     base = lengths - chunk
-    n_walk = torch.clamp(torch.div(lengths.clamp(min=0) + page_size - 1,
-                                   page_size, rounding_mode="floor"),
-                         max=pages_per_seq)
-    first = torch.zeros_like(lengths)
-    if window is not None:
-        first = torch.div((base + 1 - window).clamp(min=0), page_size,
-                          rounding_mode="floor")
+    first, n_walk = _walk(lengths, chunk, page_size, pages_per_seq, window)
     hi = base[:, None] + 1 + torch.arange(rows, device=dev)[None] % chunk
     m = torch.full((b, n_kv_heads, rows), -math.inf, device=dev)
     l = torch.zeros((b, n_kv_heads, rows), device=dev)

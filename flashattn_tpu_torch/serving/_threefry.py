@@ -9,14 +9,22 @@ the port's draws equal JAX's bit for bit, on the CPU and on the card
 alike.  No ``torch.Generator`` is involved.
 
 * ``PRNGKey(s)`` is the pair (0, s);
-* ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
+* ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``, and key i of
+  ``split(key, num)`` is ``threefry2x32(key, (0, i))``;
 * the 32 random bits of element i of a draw are ``x0 ^ x1`` of
   ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
 * a uniform float32 in [0, 1) is ``(bits >> 9) | 0x3F800000`` viewed as
-  float32, minus 1.
+  float32, minus 1; in [minval, maxval) that times (maxval - minval) plus
+  minval in one rounding to float32 (XLA fuses the two into an FMA), at
+  least minval.
+
+A key is the pair of its two words, each an int64 tensor of any batch
+shape (one key: 0-dim tensors).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -61,13 +69,27 @@ def fold_in(key, data):
     return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
 
 
-def random_bits(key, n: int):
-    """(B, n) int64 holding the uint32 words ``jax.random.bits`` draws for
-    shape (n,) from each of the B keys."""
-    i = torch.arange(n, dtype=torch.int64, device=key[0].device)
-    y0, y1 = threefry2x32(key[0][:, None], key[1][:, None],
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` of each key: the words of the ``num``
+    new keys, of the keys' batch shape plus (num,)."""
+    i = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    return threefry2x32(key[0][..., None], key[1][..., None],
+                        torch.zeros_like(i), i)
+
+
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def random_bits(key, shape):
+    """int64 holding the uint32 words ``jax.random.bits`` draws for
+    ``shape`` (an int n: (n,)) from each key: the keys' batch shape plus
+    ``shape``."""
+    shape = _shape(shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=key[0].device)
+    y0, y1 = threefry2x32(key[0][..., None], key[1][..., None],
                           torch.zeros_like(i), i)
-    return y0 ^ y1
+    return (y0 ^ y1).reshape(*key[0].shape, *shape)
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -77,9 +99,19 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key, n: int) -> torch.Tensor:
-    """(B, n) ``jax.random.uniform(key, (n,))`` per key."""
-    return bits_to_uniform(random_bits(key, n))
+def uniform(key, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` per key
+    (an int n: shape (n,)): the keys' batch shape plus ``shape``."""
+    f = bits_to_uniform(random_bits(key, shape))
+    if (minval, maxval) == (0.0, 1.0):
+        return f   # f * 1 + 0, at least 0: f itself
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=key[0].device)
+              for v in (minval, maxval))
+    # f * (hi - lo) + lo rounded once, as an FMA: the f32 product is exact
+    # in float64
+    fma = f.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, fma.float())
 
 
 def gumbel(key, n: int) -> torch.Tensor:

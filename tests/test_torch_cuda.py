@@ -1429,3 +1429,118 @@ def test_paged_kernel_nan_in_masked_slots(dev, dtype, chunk, window):
     assert ref[0].isnan().all() and ref[2].isnan().all()
     assert not ref[1].isnan().any() and not ref[3].isnan().any()
     assert _paged_err(out[1::2], ref[1::2]) <= TOL[dtype]
+
+
+# C15: a wave wider than one row tile (bf16 q: 128 rows, f32 q: 64).  JAX's
+# walk takes every row of the wave at each page it visits, so a non-finite V
+# value in any visited page makes its column NaN for every row of the wave,
+# a non-finite V scale every column; the kernels' row tiles read only their
+# own hull of pages, and the marks (paged_nonfinite) and the poison pass
+# give the rest.  NaN V rows sit before a late tile's window, inside the
+# hulls, past an early tile's last key, past a length in its last page and
+# on a page past the walk (which must add nothing); with a quantized pool
+# NaN V scales in the last sequence.
+C15_WAVES = {   # (chunk, hq, hkv): rows = hq / hkv * chunk a kv head
+    "rows256": (256, 2, 2),
+    "rows256_gqa4_chunk64": (64, 8, 2),
+    "rows2048": (2048, 2, 2),
+}
+
+
+def c15_inputs(g, dev, dtype, pool, chunk, hq, hkv, d=128, page=128):
+    """q, pools (with their scales) and a table for three sequences whose
+    waves start at 0, at 300 and at 700, with non-finite V values placed as
+    above; a page of each table past its walk holds one too."""
+    b = 3
+    lens = [chunk, chunk + 300, chunk + 700]
+    pps = -(-max(lens) // page) + 1
+    n_pages = b * pps + 1
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    kv = [torch.randn(hkv, n_pages, page, d, generator=g, device=dev)
+          for _ in range(2)]
+    if pool == "native":
+        kp, vp = (t.to(dtype) for t in kv)
+        kw = {}
+    else:
+        payload = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+        kq, vq = (_quantize(t, payload) for t in kv)
+        kp, vp = kq.values, vq.values
+        kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+
+    def at(bi, pos):
+        return table[bi, pos // page], pos % page
+
+    for bi, n in enumerate(lens):
+        # column c marks where: 1 the first page, 2 the wave's middle, 3
+        # its last key, 4 past the length in the last page, 5 a page past
+        # the walk (not visited: no NaN)
+        for col, pos in ((1, 3), (2, n - chunk // 2), (3, n - 1),
+                         (4, -(-n // page) * page - 1),
+                         (5, -(-n // page) * page + 5)):
+            if pool != "int8" and pos // page < pps:
+                p, s = at(bi, pos)
+                vp[:, p, s, col + 8 * bi] = float("nan")
+    if pool != "native":
+        for pos in (10, lens[2] - 3):
+            p, s = at(2, pos)
+            kw["v_scales"][:, p, s] = float("nan")
+    q = _randn(g, b, chunk, hq, d, dtype=dtype, dev=dev)
+    return q, kp, vp, torch.tensor(lens, device=dev), table, kw
+
+
+def _c15_check(out, ref, dtype):
+    """The NaN pattern equal, the finite elements under the paged gates."""
+    assert torch.equal(out.isnan(), ref.isnan())
+    fin = ~ref.isnan()
+    assert _paged_err(torch.where(fin, out, 0), torch.where(fin, ref, 0)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("wave", list(C15_WAVES))
+def test_paged_kernel_c15_wide_wave(dev, wave, window, pool):
+    g = torch.Generator(device=dev).manual_seed(15)
+    chunk, hq, hkv = C15_WAVES[wave]
+    q, kp, vp, lens, table, kw = c15_inputs(g, dev, torch.bfloat16, pool,
+                                            chunk, hq, hkv)
+    out = pa.paged_attention(q, kp, vp, lens, table, window=window, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
+    _c15_check(out, ref, torch.bfloat16)
+    # every sequence's visited NaN columns reach every row of its wave
+    if pool != "int8":
+        assert ref[0, :, :, 1:5].isnan().all()
+        assert not ref[0, :, :, 5].isnan().any()
+    if pool != "native":
+        assert ref[2].isnan().all()
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("window", [None, 256])
+def test_paged_kernel_c15_f32_q(dev, window, pool):
+    """f32 q at 128 rows: two of the FMA tile's 64-row tiles."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, kp, vp, lens, table, kw = c15_inputs(g, dev, torch.float32, pool,
+                                            128, 2, 2)
+    out = pa.paged_attention(q, kp, vp, lens, table, window=window, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
+    _c15_check(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("window", [None, 256])
+def test_paged_nonfinite_kernel(dev, window, pool):
+    """The marks kernel against its plain version, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    dtype = torch.bfloat16
+    for d in (32, 64, 128):
+        q, kp, vp, lens, table, kw = c15_inputs(g, dev, dtype, pool, 256, 2,
+                                                2, d=d, page=16)
+        vs = kw.get("v_scales")
+        got = pa.paged_nonfinite(vp, lens, table, 256, v_scales=vs,
+                                 window=window)
+        want = pa.paged_nonfinite_plain(vp, lens, table, 256, v_scales=vs,
+                                        window=window)
+        assert torch.equal(got, want)
+        assert bool(want.any())

@@ -727,6 +727,54 @@ def test_paged_attention_reference_bf16_matches_jax_oracle(case):
     assert frac <= 1e-3 and err <= 2.0 ** -7, (frac, err)
 
 
+# -- C15: a wave wider than one row tile ----------------------------------------
+
+
+@pytest.mark.parametrize("case", ["late_page_causal", "early_page_window"])
+def test_paged_wide_wave_nan_columns_match_jax(case):
+    """A 256-row wave (two of the bf16 extend tile's 128-row tiles) with a
+    NaN V row on a page that one tile's own keys never reach: past the
+    first tile's last key (causal), or before the last tile's window (window
+    40, on the first page the wave's earliest row reaches).  JAX's page walk
+    takes every row of the wave at each page it visits, so the NaN columns
+    reach every row; the port's plain walk (the card kernels' yardstick)
+    gives the same NaN pattern.  The marks of ``paged_nonfinite`` name the
+    page and column."""
+    from flashattn_tpu.ops import paged_attention as jpa
+    from flashattn_tpu_torch.ops import paged_attention as tpa
+
+    rng = np.random.default_rng(15)
+    b, chunk, hq, hkv, d, page, pps = 2, 256, 2, 2, 32, 16, 24
+    n_pages = b * pps
+    q = rng.standard_normal((b, chunk, hq, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((hkv, n_pages, page, d)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(n_pages).reshape(b, pps).astype(np.int32)
+    lens = np.asarray([chunk, chunk + 100], np.int32)
+    window = None if case == "late_page_causal" else 40
+    # sequence 0: late in its wave (causal) or on its first visited page
+    pos = chunk - 3 if window is None else 2
+    page_of = table[0, pos // page]
+    vp[:, page_of, pos % page, 5] = np.nan
+    # sequence 1: a page past its walk, never visited
+    vp[:, table[1, -1], 0, 6] = np.nan
+    qt, qj = _pair(q, "bfloat16")
+    (kt, kj), (vt, vj) = _pair(kp, "bfloat16"), _pair(vp, "bfloat16")
+    got = pt.paged_attention(qt, kt, vt, torch.from_numpy(lens),
+                             torch.from_numpy(table), window=window)
+    want = jpa.paged_attention(qj, kj, vj, jnp.asarray(lens),
+                               jnp.asarray(table), window=window)
+    want_nan = np.isnan(np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(got.float().isnan().numpy(), want_nan)
+    assert want_nan[0, :, :, 5].all() and want_nan.sum() == chunk * hq
+    marks = tpa.paged_nonfinite(vt, torch.from_numpy(lens),
+                                torch.from_numpy(table), chunk, window=window)
+    slot = list(table[0]).index(page_of)
+    assert marks.shape == (b, hkv, pps, 2)
+    assert marks[0, :, slot, 0].tolist() == [1 << 5] * hkv
+    assert int(marks.count_nonzero()) == hkv
+
+
 # -- C9-C11: the function depends on the shape, as JAX's dispatcher picks it ----
 
 

@@ -218,7 +218,8 @@ def test_functional_parity():
 
 
 def test_import_leaves_jax_out():
-    """The port imports torch and never jax; the MT app's tokenizer, BLEU,
+    """The port imports torch and never jax, nor any module of the JAX
+    package (A6d's modules keep their own copies); the MT app's tokenizer, BLEU,
     progress-bar and dataset packages only inside the functions that use
     them (torch itself may import tqdm first, which is allowed)."""
     code = ("import sys, torch; before = set(sys.modules); "
@@ -229,6 +230,13 @@ def test_import_leaves_jax_out():
             "import flashattn_tpu_torch.training.translation; "
             "import flashattn_tpu_torch.training.deen_fixture; "
             "import flashattn_tpu_torch.utils.checkpoint; "
+            "import flashattn_tpu_torch.operators, flashattn_tpu_torch.scalar; "
+            "import flashattn_tpu_torch.testing, flashattn_tpu_torch.autodiff; "
+            "import flashattn_tpu_torch.module, flashattn_tpu_torch.ops.conv; "
+            "import flashattn_tpu_torch.utils.datasets; "
+            "import flashattn_tpu_torch.utils.debug; "
+            "import flashattn_tpu_torch.utils.timing; "
+            "import flashattn_tpu_torch.training.classifier; "
             "from flashattn_tpu_torch.utils import native_loader; "
             "native_loader.ngram_propose_native([1, 2, 1], 1); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
