@@ -231,6 +231,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    graph of the chained calls) within 1.5x of time_ms; checkify_errors
    raising on a CUDA NaN with the CUDA context still usable; find_nonfinite
    over a CUDA model.
+26. parallel: a one-rank NCCL group (file:// store): the serve model in the
+   tensor-parallel engine (bf16 and int8 weights) token-identical to the
+   plain engine, logits within 1e-3; ShardedTrainer (plain and zero=True)
+   on the train configuration within 1e-5 relative of make_train_step
+   after 3 steps, ms/step beside it; ring_flash_attention and
+   pipeline_apply(megatron_layer_fn) on one-rank axes; the ring of 4 run
+   in one process at B4 H16 N2048 bf16 against the unsharded flash
+   forward and backward at the bf16 gate.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -242,6 +250,7 @@ import copy
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2961,6 +2970,357 @@ def utilities_phase(torch, dev) -> None:
         raise AssertionError(f"checkify_errors: {raised!r} / {after}")
 
 
+# -- parallel (A7): the sharded entry points on a one-rank NCCL group ---------
+
+RING_SHAPE = (4, 16, 2048, 128)   # B H N d: the train phase's flash shape
+RING_WORLD = 4                    # 512-key shards: the op graph's forward
+PARALLEL_STEPS = 3
+PIPE_BATCH, PIPE_SEQ, PIPE_MB = 8, 1024, 4
+
+def _engine_run(torch, model, prompts, mesh, collect: bool):
+    """Serve ``prompts`` (NEW_TOKENS each) through a fresh engine; returns
+    the requests and the decode steps' new tok/s (steps that admit
+    nothing, as serve_phase counts them)."""
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, dtype=torch.bfloat16, mesh=mesh,
+                                   collect_logits=collect, **ENGINE)
+    reqs = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    decode_s, decode_tok = 0.0, 0
+    torch.cuda.synchronize()
+    while True:
+        queued = {id(r) for r in eng.queue}
+        gen_before = sum(len(r.generated) for r in reqs)
+        t0 = time.perf_counter()
+        progressed = eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not progressed:
+            break
+        if not any(id(r) in queued and r not in eng.queue for r in reqs):
+            decode_s += dt
+            decode_tok += sum(len(r.generated) for r in reqs) - gen_before
+    assert eng.pool.n_free == eng.pool.total, "pages leaked"
+    for r in reqs:
+        assert r.done and len(r.generated) == NEW_TOKENS, r.uid
+    return reqs, decode_tok / decode_s
+
+
+def _tp_engine_check(torch, model, label: str, power: str, mesh,
+                     kernels) -> dict:
+    """The TP engine (mesh=) against the plain engine on the same model and
+    serve's requests: tokens identical, logits within 1e-3; decode tok/s of
+    both (no logits collected); the kernels of ``kernels`` launched in the
+    TP run."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, MODEL["n_vocab"], n).tolist() for n in PROMPTS]
+    counters = {n: k for n, k in kernel_counters().items() if n in kernels}
+    plain, _ = _engine_run(torch, model, prompts, None, True)
+    for kern in counters.values():
+        kern.launches = 0
+    tp, _ = _engine_run(torch, model, prompts, mesh, True)
+    launches = {n: k.launches for n, k in counters.items()}
+    err = 0.0
+    for a, b in zip(plain, tp):
+        if a.generated != b.generated:
+            raise AssertionError(f"[{label}] TP engine tokens differ: "
+                                 f"{a.generated} vs {b.generated}")
+        err = max(err, float(np.abs(np.stack(a.logits).astype(np.float32)
+                                    - np.stack(b.logits).astype(np.float32)
+                                    ).max()))
+    rates = {}
+    for name, m in (("plain", None), ("tp", mesh), ("plain again", None),
+                    ("tp again", mesh)):
+        _, rates[name] = _engine_run(torch, model, prompts, m, False)
+    log(f"[{label}] {power} TP engine (mesh (1,) model) vs plain: tokens "
+        f"identical over {len(prompts)} requests, logits max_abs_err="
+        f"{err:.3e}; decode new tok/s " + ", ".join(
+            f"{n} {r:.1f}" for n, r in rates.items())
+        + f"; launches in the TP run {launches}")
+    if not err <= 1e-3:
+        raise AssertionError(f"[{label}] TP logits differ by {err}")
+    for name, n in launches.items():
+        if not n > 0:
+            raise AssertionError(f"[{label}] {name} not launched")
+    return dict(launches=launches, rates=rates, err=err)
+
+
+def _train_runs(torch, dev, mesh, power: str) -> dict:
+    """make_train_step and ShardedTrainer (plain TP, then zero=True) on the
+    train configuration, PARALLEL_STEPS steps each from the same weights
+    and generator seed: losses and parameters equal within 1e-5
+    relative; ms/step of each; the training kernels launched in each
+    sharded run."""
+    import numpy as np
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.parallel import unshard
+    from flashattn_tpu_torch.training import ShardedTrainer
+
+    tok = np.random.default_rng(SEED).integers(
+        0, TRAIN["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
+    tokens = torch.from_numpy(tok).to(dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, device=dev)
+    loss_fn = pt.make_mixed_precision_loss(pt.lm_loss)
+    counters = {n: k for n, k in kernel_counters().items()
+                if n in TRAIN_KERNELS}
+    out = {}
+    for kind in ("make_train_step", "ShardedTrainer", "ShardedTrainer zero"):
+        model = pt.DecoderLM(**TRAIN,
+                             generator=torch.Generator().manual_seed(SEED),
+                             device=dev).train()
+        gen = torch.Generator().manual_seed(SEED)
+        opt = pt.Adam(lr=1e-4)
+        if kind == "make_train_step":
+            state = opt.init(model)
+            step = pt.make_train_step(opt, loss_fn, grad_clip=1.0)
+
+            def run():
+                nonlocal model, state
+                model, state, loss = step(model, state, tokens, targets,
+                                          mask, gen)
+                return loss
+        else:
+            trainer = ShardedTrainer(model, opt, mesh, loss_fn=loss_fn,
+                                     zero=kind.endswith("zero"),
+                                     grad_clip=1.0)
+            del model
+
+            def run():
+                return trainer.step(tokens, targets, mask, gen)
+        losses, times = [], []
+        for kern in counters.values():
+            kern.launches = 0
+        for _ in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(run()))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        final = (dict(model.named_parameters()) if kind == "make_train_step"
+                 else {n: unshard(p, mesh, p.spec) for n, p in
+                       trainer.model.named_parameters()})
+        out[kind] = dict(losses=losses, ms=times,
+                         params={n: p.detach().float().cpu()
+                                 for n, p in final.items()},
+                         launches={n: k.launches for n, k in counters.items()})
+        del final, run
+        if kind != "make_train_step":
+            del trainer
+        torch.cuda.empty_cache()
+    ref = out["make_train_step"]
+    for kind in ("ShardedTrainer", "ShardedTrainer zero"):
+        got = out[kind]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], ref["losses"]))
+        param_rel = max(float((got["params"][n] - p).norm()
+                              / max(float(p.norm()), 1e-30))
+                        for n, p in ref["params"].items())
+        log(f"[parallel] {power} {kind} (mesh (1, 1) data x model) vs "
+            f"make_train_step, train config bf16-mixed p0.1 clip 1.0, "
+            f"{PARALLEL_STEPS} steps: losses {got['losses']} vs "
+            f"{ref['losses']} (max rel {loss_rel:.2e}), parameters max rel "
+            f"L2 {param_rel:.2e}; ms/step {[round(t, 1) for t in got['ms']]}"
+            f" vs {[round(t, 1) for t in ref['ms']]}; launches "
+            f"{got['launches']}")
+        if not (loss_rel <= 1e-5 and param_rel <= 1e-5):
+            raise AssertionError(f"{kind} differs from make_train_step")
+        for name, n in got["launches"].items():
+            if not n > 0:
+                raise AssertionError(f"{kind}: {name} not launched")
+    return {k: dict(launches=v["launches"]) for k, v in out.items()
+            if k != "make_train_step"}
+
+
+def _ring_pair_times(torch, q, k, v, do, causal) -> dict:
+    """Device ms of one ring step's pieces at the shard length: the forward
+    pair (the op graph below 1024 keys), the backward pair (the grid
+    function, flash_bwd grid=True; the op graph's autodiff beside it) and
+    one merge."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+    from flashattn_tpu_torch.parallel.sharded_attention import _merge_partials
+
+    n = RING_SHAPE[2] // RING_WORLD
+    qs, ks, vs, ds = (t[:, :, :n] for t in (q, k, v, do))
+    sc = RING_SHAPE[3] ** -0.5
+    o, lse = fa.flash_attention_with_lse(qs, ks, vs, causal)
+    di = (o.float() * ds.float()).sum(-1, keepdim=True)
+    of = o.float()
+    return {
+        "forward": round(time_ms(lambda: fa.flash_attention_with_lse(
+            qs, ks, vs, causal)), 4),
+        "backward grid": round(time_ms(lambda: fa.flash_bwd(
+            qs, ks, vs, lse, di, ds, causal=causal, sm_scale=sc,
+            grid=True)), 4),
+        "backward op graph": round(time_ms(lambda: fa.flash_bwd(
+            qs, ks, vs, lse, di, ds, causal=causal, sm_scale=sc)), 4),
+        "merge": round(time_ms(lambda: _merge_partials(of, lse, of, lse)), 4)}
+
+
+def _ring_checks(torch, dev, power: str) -> dict:
+    """ring_flash_attention on a one-rank seq axis, and the ring of
+    RING_WORLD ranks in one process (its per-step functions), at
+    RING_SHAPE bf16, against the unsharded flash forward and backward."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+    from flashattn_tpu_torch.parallel import create_mesh, ring_flash_attention
+    from flashattn_tpu_torch.parallel.sharded_attention import (
+        _ring_in_process)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    seq = create_mesh((1,), ("seq",))
+    counters = {n: kn for n, kn in kernel_counters().items()
+                if n in ("flash_fwd", "flash_bwd")}
+    out = {}
+    for causal in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_ref, lse_ref = fa.flash_attention_with_lse(*leaves, causal)
+        o_ref.backward(do)
+        ref = (o_ref.detach(), lse_ref, *(t.grad for t in leaves))
+        for kern in counters.values():
+            kern.launches = 0
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o1 = ring_flash_attention(*leaves, causal, mesh=seq)
+        o1.backward(do)
+        launches = {n: kn.launches for n, kn in counters.items()}
+        one = (o1.detach(), *(t.grad for t in leaves))
+        with torch.no_grad():
+            o4, lse4, *grads4 = _ring_in_process(q, k, v, do, causal,
+                                                 RING_WORLD)
+        errs = {}
+        for name, (got, want) in {
+                "world 1 o": (one[0], ref[0]),
+                f"world {RING_WORLD} o": (o4, ref[0])}.items():
+            errs[name] = _abs_err(got, want)
+        errs[f"world {RING_WORLD} lse"] = _abs_err(lse4, ref[1])
+        g1 = _grad_err(one[1:], ref[2:])
+        g4 = _grad_err(tuple(grads4), ref[2:])
+        t_ring = time_ms(lambda: _ring_in_process(q, k, v, do, causal,
+                                                  RING_WORLD), reps=5)
+        pair = _ring_pair_times(torch, q, k, v, do, causal)
+        t_flash = time_ms(lambda: fa.flash_bwd(
+            q, k, v, ref[1], (ref[0].float() * do.float()).sum(
+                -1, keepdim=True), do, causal=causal,
+            sm_scale=RING_SHAPE[3] ** -0.5), reps=5)
+        log(f"[parallel] {power} ring B{RING_SHAPE[0]} H{RING_SHAPE[1]} "
+            f"N{RING_SHAPE[2]} d{RING_SHAPE[3]} bf16 causal={causal}: "
+            f"max_abs_err {errs}, gradients (abs, scaled) world 1 {g1}, "
+            f"world {RING_WORLD} {g4}; launches on the one-rank ring "
+            f"{launches}; in-process ring of {RING_WORLD} (forward + "
+            f"backward) {t_ring:.3f} ms, unsharded backward alone "
+            f"{t_flash:.3f} ms; one pair of {RING_SHAPE[2] // RING_WORLD} "
+            f"keys, ms: {pair}")
+        tol = TOL["bfloat16"]
+        if not (max(errs.values()) <= tol and g1[1] <= tol and g4[1] <= tol):
+            raise AssertionError(f"ring causal={causal} outside the bf16 "
+                                 f"gate {tol}")
+        if not all(n > 0 for n in launches.values()):
+            raise AssertionError(f"ring kernels not launched: {launches}")
+        out[f"causal={causal}"] = dict(launches=launches)
+    return out
+
+
+def _pipeline_check(torch, dev, power: str) -> dict:
+    """pipeline_apply of megatron_layer_fn over a one-rank stage x model
+    mesh: the serve model's layers (f32) on a PIPE_BATCH x PIPE_SEQ batch
+    in PIPE_MB microbatches, forward and backward, against the layers
+    applied in order."""
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.parallel import (create_mesh, megatron_layer_fn,
+                                              megatron_stage_specs,
+                                              pipeline_apply, scan_stage_fn,
+                                              shard_stage_params,
+                                              split_layers_into_stages,
+                                              stack_stage_params)
+
+    model = pt.DecoderLM(**MODEL, generator=torch.Generator().manual_seed(SEED),
+                         device=dev).eval()
+    mesh = create_mesh((1, 1), ("stage", "model"))
+    stacked = stack_stage_params(split_layers_into_stages(model.layers, 1))
+    specs = megatron_stage_specs(model.layers[0], "stage", "model")
+    local = shard_stage_params(stacked, mesh, "stage", specs)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(PIPE_BATCH, PIPE_SEQ, MODEL["n_embd"], generator=g,
+                    device=dev)
+    counters = {n: k for n, k in kernel_counters().items()
+                if n in ("layernorm_fwd", "flash_fwd", "layernorm_bwd",
+                         "flash_bwd")}
+    for kern in counters.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = pipeline_apply(scan_stage_fn(megatron_layer_fn(model.layers[0])),
+                       local, x, mesh, n_microbatches=PIPE_MB,
+                       param_specs=specs)
+    (h.float() ** 2).mean().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: k.launches for n, k in counters.items()}
+    want = x
+    for layer in model.layers:
+        want = layer(want)
+    (want.float() ** 2).mean().backward()
+    err = _abs_err(h.detach(), want.detach())
+    grads = stack_stage_params(split_layers_into_stages(
+        [{n: p.grad for n, p in layer.named_parameters()}
+         for layer in model.layers], 1))
+    g_err = max(_grad_err((local[n].grad,), (grads[n],))[1] for n in grads)
+    log(f"[parallel] {power} pipeline_apply(megatron_layer_fn) over a (1, 1) "
+        f"stage x model mesh, serve model f32 L{MODEL['n_layer']}, "
+        f"B{PIPE_BATCH} x {PIPE_SEQ} in {PIPE_MB} microbatches: forward "
+        f"max_abs_err {err:.3e}, gradients (scaled) {g_err:.3e}; forward + "
+        f"backward {ms:.1f} ms; launches {launches}")
+    if not (err <= TOL["float32"] and g_err <= TOL["float32"]):
+        raise AssertionError("pipeline differs from the layers in order")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"pipeline kernels not launched: {launches}")
+    return dict(launches=launches)
+
+
+def parallel_phase(torch, dev, power: str) -> list:
+    """A7 on the card: a one-rank NCCL group (file:// store), the sharded
+    entry points at full width against the unsharded port, the ring of
+    RING_WORLD in one process.  Returns the runs whose launches count on
+    the main path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.parallel import create_mesh, init_distributed
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(0, 1, f"file://{tmp}/store", device="cuda")
+        try:
+            serve = pt.DecoderLM(**MODEL,
+                                 generator=torch.Generator().manual_seed(SEED),
+                                 device=dev).eval().to(torch.bfloat16)
+            tp_mesh = create_mesh((1,), ("model",))
+            runs.append(_tp_engine_check(torch, serve, "parallel-serve", power,
+                                         tp_mesh, SERVE_KERNELS))
+            quant = pt.quantize_model_weights(serve, torch.int8)
+            del serve
+            runs.append(_tp_engine_check(torch, quant, "parallel-serve-int8",
+                                         power, tp_mesh,
+                                         SERVE_KERNELS + ("wo_matmul",)))
+            del quant
+            torch.cuda.empty_cache()
+            dm = create_mesh((1, 1), ("data", "model"))
+            runs += list(_train_runs(torch, dev, dm, power).values())
+            torch.cuda.empty_cache()
+            runs += list(_ring_checks(torch, dev, power).values())
+            runs.append(_pipeline_check(torch, dev, power))
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return runs
+
+
 SOURCES = {
     "layernorm_fwd": ("flashattn_tpu_torch/csrc/layernorm.cu",
                       ["flashattn_tpu/ops/layernorm.py:47"]),
@@ -3120,12 +3480,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     mt_app_phase(torch)
     utilities_phase(torch, dev)
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(torch, dev, power)
     log(f"[mt] launches a step of the MT train step (MT, f32): "
         f"{ {n: c / MT_STEPS for n, c in s2s['launches'].items()} }; "
         f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")
 
     runs = (train, train_fused, serve, serve_features, generate, distill,
-            serve_rope, train_moe, train_adafactor, s2s, s2s_mixed, s2s_gen)
+            serve_rope, train_moe, train_adafactor, s2s, s2s_mixed, s2s_gen,
+            *parallel)
     kernels = []
     for name, (src, tpu) in SOURCES.items():
         launches = main_path_launches(name, runs, serve_quant)

@@ -24,7 +24,11 @@ generates by ``training.generate.greedy_generate_seq2seq``; the
 machine-translation app (:mod:`.training.translation`, ``python -m
 flashattn_tpu_torch.training.translation``) drives it or the decoder-only
 model from tokenizer to BLEU, with checkpoints (:mod:`.utils.checkpoint`)
-and the native C++ data loader (:mod:`.utils.native_loader`).  The
+and the native C++ data loader (:mod:`.utils.native_loader`).
+Parallelism (:mod:`.parallel`: named meshes, the TP / FSDP rules, sharded
+and ring attention, the GPipe pipeline; ``training.ShardedTrainer``,
+``ContinuousBatchingEngine(mesh=...)``) runs one process a rank over
+``torch.distributed``.  The
 dropout entry
 points with bias, residual or activation (:func:`fused_dropout_res_bias`,
 :func:`fused_dropout_act_bias`, ``F.dropout_res_bias``,

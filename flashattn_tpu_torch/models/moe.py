@@ -82,6 +82,10 @@ class MoEFeedForward(nn.Module):
         self.experts_out = nn.Parameter(_uniform(
             (n_experts, middle_dim, n_embd), 1.0 / math.sqrt(middle_dim),
             generator, dtype, device))
+        # the expert split (parallel.sharding.shard_model) and the data
+        # split of the batch (parallel.sharding.apply_mesh)
+        self.tp = None
+        self.batch_group = None
 
     def _capacity(self, n_tokens: int) -> int:
         if not self.training:
@@ -99,9 +103,14 @@ class MoEFeedForward(nn.Module):
         cap) f32 gate weights, top_mask (T, E) chosen experts).  A token's
         slot in its expert is its rank among the tokens before it (in the
         flattened order) that chose that expert, counting the earlier
-        choices' slots first; slots at or past the capacity are dropped."""
+        choices' slots first; slots at or past the capacity are dropped.
+        Under a batch split (``batch_group``) the order and the capacity
+        are the global batch's: this rank's tokens follow the earlier
+        ranks'."""
         t, e = xt.shape[0], self.n_experts
-        cap = self._capacity(t)
+        from ..parallel.comm import group_size
+
+        cap = self._capacity(t * group_size(self.batch_group))
         logits = _RouterMatmul.apply(xt.float(), self.router.weights.float())
         probs = torch.softmax(logits, dim=-1)
         combine = xt.new_zeros((t, e, cap), dtype=torch.float32)
@@ -111,7 +120,8 @@ class MoEFeedForward(nn.Module):
         for _ in range(self.top_k):
             onehot = F.one_hot(masked.argmax(-1), e)                  # (T, E)
             gate = (probs * onehot).sum(-1)                           # (T,)
-            pos = (onehot.cumsum(0) - onehot) + top_mask.sum(0)[None]
+            pos = ((onehot.cumsum(0) - onehot) + self._before(onehot)[None]
+                   + self._batch_sum(top_mask)[None])
             pos = (pos * onehot).sum(-1).long()                       # (T,)
             keep = (pos < cap).float()
             gate = gate * keep
@@ -129,6 +139,22 @@ class MoEFeedForward(nn.Module):
             combine = combine / torch.clamp(gate_sum, min=1e-9)[:, None, None]
         return probs, combine, top_mask
 
+    def _before(self, onehot: torch.Tensor) -> torch.Tensor:
+        """(E,) choices of each expert on the ranks before this one of the
+        batch split (0 without one)."""
+        if self.batch_group is None:
+            return torch.zeros_like(onehot[0])
+        from ..parallel.comm import all_gather, group_rank
+
+        counts = all_gather(onehot.sum(0)[None], self.batch_group, 0)
+        return counts[:group_rank(self.batch_group)].sum(0)
+
+    def _batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """(E,) sum over the tokens of the global batch (no gradient)."""
+        from ..parallel.comm import all_reduce
+
+        return all_reduce(t.sum(0), self.batch_group)
+
     def forward_with_aux(self, x: torch.Tensor, seed: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (..., S, d) -> (y, aux loss): routing is per token; ``seed``
@@ -137,13 +163,35 @@ class MoEFeedForward(nn.Module):
         xt = x.reshape(-1, shape[-1])                                 # (T, d)
         probs, combine, top_mask = self._route(xt)
         dispatch = (combine > 0.0).to(xt.dtype)                       # (T, E, cap)
+        combine = combine.to(xt.dtype)
+        if self.tp is not None:
+            # this rank's experts; their combine sums over the ranks
+            from ..parallel.comm import (copy_to_group, local_block,
+                                         reduce_from_group, scatter_to_group)
+
+            group = self.tp.group
+            xt = copy_to_group(xt, group)
+            dispatch = local_block(dispatch, group, 1)
+            combine = scatter_to_group(combine, group, 1)
         expert_in = torch.einsum("tec,td->ecd", dispatch, xt)         # (E, cap, d)
         h = F.GELU(torch.bmm(expert_in, self.experts_in))
         expert_out = torch.bmm(h, self.experts_out)                   # (E, cap, d)
-        y = torch.einsum("tec,ecd->td", combine.to(xt.dtype), expert_out)
-        frac_tokens = top_mask.mean(0) / self.top_k
-        aux = (frac_tokens * probs.mean(0)).sum() * self.n_experts
+        y = torch.einsum("tec,ecd->td", combine, expert_out)
+        if self.tp is not None:
+            y = reduce_from_group(y, group)
+        frac_tokens = self._batch_mean(top_mask) / self.top_k
+        aux = (frac_tokens * self._batch_mean(probs)).sum() * self.n_experts
         return self.dropout(y.reshape(shape), seed), aux
+
+    def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean over the tokens, of the global batch under a data split
+        (``batch_group``): the ranks' sums, summed, over the global count."""
+        if self.batch_group is None:
+            return t.mean(0)
+        from ..parallel.comm import group_size, reduce_from_group
+
+        n = t.shape[0] * group_size(self.batch_group)
+        return reduce_from_group(t.sum(0), self.batch_group) / n
 
     def forward(self, x: torch.Tensor, seed: Optional[int] = None
                 ) -> torch.Tensor:

@@ -32,7 +32,7 @@ from torch import nn
 
 from ..nn.basic import Dropout, Embedding, FusedLayerNorm, LayerNorm1d, Linear
 from .transformer import (FeedForward, MultiHeadAttention, dropout_seeds,
-                          remat_step)
+                          head_logits, remat_step)
 from .transformer import remat_policy as _remat_policy
 
 Tensor = torch.Tensor
@@ -216,7 +216,7 @@ class EncoderDecoderLM(nn.Module):
         pos = torch.arange(tgt.shape[1], device=tgt.device)[None, :]
         x = self._embed(tgt, pos, seeds[0])
         x = self._stack(self.decoder_layers, x, seeds[1:], memory, src_lens)
-        return self.lm_head(self.ln(x))
+        return head_logits(self.lm_head, self.ln(x))
 
     def forward(self, src: Tensor, tgt: Tensor,
                 src_lens: Optional[Tensor] = None,
@@ -255,4 +255,4 @@ class EncoderDecoderLM(nn.Module):
                                           cross_kvs):
             x, cache = layer.forward_decode(x, cache, index, ck, cv, src_lens)
             new_caches.append(cache)
-        return self.lm_head(self.ln(x)), new_caches
+        return head_logits(self.lm_head, self.ln(x)), new_caches

@@ -141,6 +141,18 @@ def dropout_seeds(generator: Optional[torch.Generator], n: int) -> list:
         device=generator.device).tolist()]
 
 
+def head_logits(lm_head: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """``lm_head(h)``; a head split over the vocabulary
+    (:func:`~..parallel.sharding.shard_model`) all-gathers its logits, so
+    that every rank holds (and samples from) the whole distribution."""
+    logits = lm_head(h)
+    if lm_head.tp is None:
+        return logits
+    from ..parallel.comm import gather_from_group
+
+    return gather_from_group(logits, lm_head.tp.group, -1)
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head (optionally causal) self-attention with GQA and an optional
     sliding window, or cross-attention over another sequence (``kv``).
@@ -179,6 +191,13 @@ class MultiHeadAttention(nn.Module):
         self.causal = causal
         self.attn_hidden_dim = n_embd // n_head
         self.attn_impl = attn_impl
+        # Multi-rank wiring, set by parallel.sharding.apply_mesh: with a
+        # mesh the kernels run on this rank's heads and batch rows; with a
+        # seq axis in it, through the ring over sequence blocks.
+        self.mesh = None
+        self.mesh_batch_axis = None
+        self.mesh_head_axis = None
+        self.mesh_seq_axis = None
         kv_dim = self.n_kv_head * self.attn_hidden_dim
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.q_projection = Linear(n_embd, n_embd, bias, **kw)
@@ -187,21 +206,32 @@ class MultiHeadAttention(nn.Module):
         self.out_projection = Linear(n_embd, n_embd, bias, **kw)
         self.dropout = Dropout(p_dropout)
 
+    @property
+    def local_heads(self):
+        """(query heads, kv heads) this rank holds: all of them, or their
+        block when the projections are split over a mesh axis
+        (:func:`~..parallel.sharding.shard_model`)."""
+        tp = self.q_projection.tp
+        n = 1 if tp is None else tp.size
+        return self.n_head // n, self.n_kv_head // n
+
     def project_to_query_key_value(self, x: torch.Tensor,
                                    kv_src: Optional[torch.Tensor] = None):
-        """(B,S,E) -> q (B,nh,S,hd), k/v (B,n_kv_head,Skv,hd).  ``kv_src``
-        (B,Skv,E) routes K and V through another sequence (cross-attention
-        over an encoder's memory); by default they come from ``x``."""
+        """(B,S,E) -> q (B,nh,S,hd), k/v (B,n_kv_head,Skv,hd) (this rank's
+        heads when the projections are split).  ``kv_src`` (B,Skv,E) routes
+        K and V through another sequence (cross-attention over an encoder's
+        memory); by default they come from ``x``."""
         kv_src = x if kv_src is None else kv_src
+        heads, kv_heads = self.local_heads
 
         def proj(lin: Linear, src: torch.Tensor, heads: int) -> torch.Tensor:
             bs, seq, _ = src.shape
             return lin(src).reshape(bs, seq, heads,
                                     self.attn_hidden_dim).transpose(1, 2)
 
-        return (proj(self.q_projection, x, self.n_head),
-                proj(self.k_projection, kv_src, self.n_kv_head),
-                proj(self.v_projection, kv_src, self.n_kv_head))
+        return (proj(self.q_projection, x, heads),
+                proj(self.k_projection, kv_src, kv_heads),
+                proj(self.v_projection, kv_src, kv_heads))
 
     def _rope(self, q, k, positions):
         """Rotate q and the NEW keys at ``positions`` (cached keys are
@@ -211,10 +241,50 @@ class MultiHeadAttention(nn.Module):
         return (apply_rope(q, positions, self.rope_theta),
                 apply_rope(k, positions, self.rope_theta))
 
+    def _on_seq_axis(self) -> bool:
+        from ..parallel.mesh import axis_names
+
+        return (self.mesh is not None and self.mesh_seq_axis is not None
+                and self.mesh_seq_axis in axis_names(self.mesh))
+
+    def _ring_attention(self, q, k, v):
+        """The ring over the mesh's seq axis: q/k/v (whole sequences, as
+        every rank of the ring computes them) go in by this rank's block
+        of the sequence and the output comes back whole; the gradient of
+        each block reaches every rank (``scatter_to_group`` /
+        ``gather_from_group``)."""
+        from ..parallel.comm import gather_from_group, scatter_to_group
+        from ..parallel.mesh import axis_group, axis_names
+        from ..parallel.sharded_attention import ring_flash_attention
+
+        names = axis_names(self.mesh)
+        group = axis_group(self.mesh, self.mesh_seq_axis)
+        q, k, v = (scatter_to_group(t, group, 2) for t in (q, k, v))
+        out = ring_flash_attention(
+            q, k, v, self.causal, mesh=self.mesh, seq_axis=self.mesh_seq_axis,
+            batch_axis=(self.mesh_batch_axis
+                        if self.mesh_batch_axis in names else None),
+            head_axis=(self.mesh_head_axis
+                       if self.mesh_head_axis in names else None))
+        return gather_from_group(out, group, 2)
+
     def self_attention(self, q, k, v, kv_lengths=None) -> torch.Tensor:
-        """softmax(q k^T / sqrt(hd)) v -> (B, Sq, E)."""
+        """softmax(q k^T / sqrt(hd)) v -> (B, Sq, E) (this rank's heads'
+        columns under a head split).  The flash path runs the ring when the
+        mesh has the seq axis (no varlen, no window); otherwise every path
+        runs the kernels on this rank's block as it stands (its batch rows
+        and heads: no communication)."""
         bs, _, seq, _ = q.shape
-        if self.attn_impl == "flash":
+        if self.attn_impl == "flash" and self._on_seq_axis():
+            # real raises: a stripped guard would compute full attention
+            if kv_lengths is not None:
+                raise ValueError(
+                    "ring attention path does not support varlen masks")
+            if self.window is not None:
+                raise ValueError(
+                    "ring attention path does not support sliding windows")
+            out = self._ring_attention(q, k, v)
+        elif self.attn_impl == "flash":
             if kv_lengths is not None:
                 out = flash_attention_varlen(q, k, v, kv_lengths, self.causal,
                                              window=self.window)
@@ -226,7 +296,7 @@ class MultiHeadAttention(nn.Module):
             out = flash_attention_reference(q, k, v, self.causal,
                                             kv_lengths=kv_lengths,
                                             window=self.window)
-        return out.transpose(1, 2).reshape(bs, seq, self.n_embd)
+        return out.transpose(1, 2).reshape(bs, seq, -1)
 
     def _fused_softmax_attention(self, q, k, v, kv_lengths):
         """The JAX ``fused_softmax`` branch: scores in q's dtype (product,
@@ -282,7 +352,7 @@ class MultiHeadAttention(nn.Module):
         scores in f32."""
         if device is None:
             device = self.q_projection.weights.device
-        shape = (batch, self.n_kv_head, max_len, self.attn_hidden_dim)
+        shape = (batch, self.local_heads[1], max_len, self.attn_hidden_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -317,7 +387,7 @@ class MultiHeadAttention(nn.Module):
             valid = valid & (pos > index - self.window)
         s = torch.where(valid, s, torch.finfo(dt).min / 2)
         out = torch.matmul(torch.softmax(s, dim=-1), rv.to(dt))
-        out = out.transpose(1, 2).reshape(bs, 1, self.n_embd)
+        out = out.transpose(1, 2).reshape(bs, 1, -1)
         return self.out_projection(out), cache
 
     # -- paged serving path --------------------------------------------------
@@ -326,8 +396,9 @@ class MultiHeadAttention(nn.Module):
                        dtype=torch.float32, device=None) -> dict:
         """Per-layer paged KV pool (n_kv_head, total_pages, page_size, hd).
         An int8 or float8_e4m3fn ``dtype`` builds a quantized pool: payloads
-        plus per-token f32 scales ``"ks"``/``"vs"`` (..., 1), starting at 1."""
-        shape = (self.n_kv_head, total_pages, page_size, self.attn_hidden_dim)
+        plus per-token f32 scales ``"ks"``/``"vs"`` (..., 1), starting at 1.
+        Under a head split the pool holds this rank's KV heads."""
+        shape = (self.local_heads[1], total_pages, page_size, self.attn_hidden_dim)
         pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
         if dtype in PAYLOAD_DTYPES:
@@ -353,7 +424,7 @@ class MultiHeadAttention(nn.Module):
         out = flash_attention_varlen(q, k, v, prompt_lens, True,
                                      1.0 / math.sqrt(self.attn_hidden_dim),
                                      window=self.window)
-        out = out.transpose(1, 2).reshape(bs, seq, self.n_embd)
+        out = out.transpose(1, 2).reshape(bs, seq, -1)
         return self.out_projection(out), pool
 
     def forward_extend_paged(self, x, pool: dict, page_table, lengths):
@@ -379,7 +450,7 @@ class MultiHeadAttention(nn.Module):
                               v_scales=pool.get("vs"),
                               sm_scale=1.0 / math.sqrt(self.attn_hidden_dim),
                               window=self.window)
-        return self.out_projection(out.reshape(bs, kk, self.n_embd)), pool
+        return self.out_projection(out.reshape(bs, kk, -1)), pool
 
     def forward_decode_paged(self, x, pool: dict, page_table, lengths):
         """One decode step: the k=1 case of :meth:`forward_extend_paged`."""
@@ -527,6 +598,12 @@ class DecoderLM(nn.Module):
         norm = FusedLayerNorm if use_fused_layernorm else LayerNorm1d
         self.ln = norm(n_embd, ln_eps, dtype=dtype, device=device)
         self.lm_head = Linear(n_embd, n_vocab, bias, **kw)
+        # the data split of the batch (parallel.sharding.apply_mesh): the
+        # LM losses then average over the global batch
+        self.batch_group = None
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        return head_logits(self.lm_head, self.ln(h))
 
     def _embed(self, idx: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Token plus learned position embeddings.  A position past the
@@ -563,7 +640,7 @@ class DecoderLM(nn.Module):
         for layer, seed in zip(self.layers, seeds[1:]):
             x, a = step(layer, x, seed)
             aux = aux + a
-        return self.lm_head(self.ln(x)), aux
+        return self._logits(x), aux
 
     # -- KV-cached decoding ----------------------------------------------------
 
@@ -589,7 +666,7 @@ class DecoderLM(nn.Module):
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.forward_decode(x, cache, index)
             new_caches.append(cache)
-        return self.lm_head(self.ln(x)), new_caches
+        return self._logits(x), new_caches
 
     # -- paged decoding (serving: continuous batching over page pools) ------
 
@@ -605,7 +682,7 @@ class DecoderLM(nn.Module):
         for layer, pool in zip(self.layers, pools):
             x, pool = getattr(layer, method)(x, pool, page_table, lengths)
             new_pools.append(pool)
-        return self.lm_head(self.ln(x)), new_pools
+        return self._logits(x), new_pools
 
     def forward_decode_paged(self, idx_tok, pools: list, page_table, lengths):
         """One decode step: idx_tok (B, 1) at positions ``lengths`` (tokens

@@ -50,6 +50,7 @@ class Embedding(nn.Module):
         self.use_one_hot_matmul = use_one_hot_matmul
         self.weights = nn.Parameter(_randn((num_embeddings, embedding_dim),
                                            generator, dtype, device))
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(batch, seq) int -> (batch, seq, embedding_dim).
@@ -57,7 +58,9 @@ class Embedding(nn.Module):
         An id outside the table gives what the JAX module gives, on every
         device: ``jnp.take`` wraps an id in [-n, 0) once and fills NaN for
         any other id past the table; ``jax.nn.one_hot`` gives a zero row for
-        any id outside [0, n)."""
+        any id outside [0, n).  A table split over the embedding dim
+        (:func:`~..parallel.sharding.shard_model`) all-gathers its rows to
+        the full width."""
         n = self.num_embeddings
         idx = x.long()
         if self.use_one_hot_matmul:
@@ -65,27 +68,41 @@ class Embedding(nn.Module):
             inside = (idx >= 0) & (idx < n)
             oh = F.one_hot(idx.clamp(0, n - 1), n) * inside[..., None]
             out = oh.reshape(bs * seq, n).to(self.weights.dtype) @ self.weights
-            return out.reshape(bs, seq, self.embedding_dim)
-        idx = torch.where(idx < 0, idx + n, idx)
-        inside = (idx >= 0) & (idx < n)
-        out = self.weights[idx.clamp(0, n - 1)]
-        return torch.where(inside[..., None], out, float("nan"))
+            out = out.reshape(bs, seq, -1)
+        else:
+            idx = torch.where(idx < 0, idx + n, idx)
+            inside = (idx >= 0) & (idx < n)
+            out = self.weights[idx.clamp(0, n - 1)]
+            out = torch.where(inside[..., None], out, float("nan"))
+        return _gather_embed(self, out)
 
 
 class Dropout(nn.Module):
     """Inverted dropout keyed by an integer seed (the JAX module takes a PRNG
     key); the identity at eval, with p = 0 or without a seed.  On CUDA
-    tensors it runs the fused dropout kernel."""
+    tensors it runs the fused dropout kernel.
+
+    Under a batch split (``batch_group``, set by
+    :func:`~..parallel.sharding.apply_mesh`) ``x`` is this rank's block of
+    equal batch rows, and it takes the mask that the unsharded dropout
+    draws at those global positions."""
 
     def __init__(self, p_dropout: float = 0.1):
         super().__init__()
         self.p_dropout = float(p_dropout)
+        self.batch_group = None
 
     def forward(self, x: torch.Tensor,
                 seed: Optional[int] = None) -> torch.Tensor:
         if self.p_dropout == 0.0 or not self.training or seed is None:
             return x
-        return F.dropout(x, self.p_dropout, seed=seed, scale=True)
+        offset = 0
+        if self.batch_group is not None:
+            from ..parallel.comm import group_rank
+
+            offset = group_rank(self.batch_group) * x.numel()
+        return F.dropout(x, self.p_dropout, seed=seed, scale=True,
+                         offset=offset)
 
 
 class Linear(nn.Module):
@@ -103,8 +120,11 @@ class Linear(nn.Module):
         self.bias = (nn.Parameter(_uniform((out_size,), bound, generator,
                                            dtype, device))
                      if bias else None)
+        # tensor-parallel role (parallel.sharding.shard_model): "col" or "row"
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _tp_input(self, x)
         w = self.weights
         if x.dtype != w.dtype:
             # JAX's dot(x, W, preferred_element_type=x.dtype): the product
@@ -113,9 +133,38 @@ class Linear(nn.Module):
             out = (x.to(dt) @ w.to(dt)).to(x.dtype)
         else:
             out = x @ w
+        out = _tp_output(self, out)
         if self.bias is not None:
             out = out + self.bias
         return out
+
+
+def _tp_input(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel layer's input: the identity forward, its gradient
+    summed over the ranks of the split."""
+    if lin.tp is None or lin.tp.role != "col":
+        return x
+    from ..parallel.comm import copy_to_group
+
+    return copy_to_group(x, lin.tp.group)
+
+
+def _tp_output(lin: nn.Module, out: torch.Tensor) -> torch.Tensor:
+    """A row-parallel layer's product summed over the ranks (before its
+    replicated bias, as GSPMD adds it)."""
+    if lin.tp is None or lin.tp.role != "row":
+        return out
+    from ..parallel.comm import reduce_from_group
+
+    return reduce_from_group(out, lin.tp.group)
+
+
+def _gather_embed(emb: nn.Module, out: torch.Tensor) -> torch.Tensor:
+    if emb.tp is None:
+        return out
+    from ..parallel.comm import gather_from_group
+
+    return gather_from_group(out, emb.tp.group, -1)
 
 
 class LayerNorm1d(nn.Module):
@@ -180,6 +229,7 @@ class QuantizedLinear(nn.Module):
         self.values = nn.Parameter(values, requires_grad=False)
         self.scales = nn.Parameter(scales.float(), requires_grad=False)
         self.bias = None if bias is None else nn.Parameter(bias.detach().clone())
+        self.tp = None
 
     def _apply(self, fn, recurse=True):
         # nn.Module casts every floating tensor it holds, fp8 payloads
@@ -198,9 +248,10 @@ class QuantizedLinear(nn.Module):
                 p.data = p.data.view(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _tp_input(self, x)
         w = QuantizedTensor(self.values, self.scales)
         out = int8_weight_only_matmul(x.reshape(-1, x.shape[-1]), w)
-        out = out.reshape(*x.shape[:-1], self.out_size)
+        out = _tp_output(self, out.reshape(*x.shape[:-1], -1))
         if self.bias is not None:
             out = out + self.bias
         return out

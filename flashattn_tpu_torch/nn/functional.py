@@ -64,14 +64,17 @@ def softmax_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(input: torch.Tensor, rate: float, seed: Optional[int] = None,
-            ignore: bool = False, scale: bool = True) -> torch.Tensor:
+            ignore: bool = False, scale: bool = True,
+            offset: int = 0) -> torch.Tensor:
     """Dropout keyed by an integer ``seed``.  ``scale=True`` is inverted
     dropout; ``scale=False`` keeps the survivors unscaled.  The identity with
-    ``ignore=True``, ``rate <= 0`` or ``seed=None``.  Runs the fused dropout
-    kernel on CUDA tensors (``ops.dropout.fused_dropout``)."""
+    ``ignore=True``, ``rate <= 0`` or ``seed=None``.  ``offset``: ``input``
+    is elements [offset, offset + numel) of a larger tensor, whose mask it
+    takes.  Runs the fused dropout kernel on CUDA tensors
+    (``ops.dropout.fused_dropout``)."""
     if ignore:
         return input
-    return fused_dropout(input, rate, seed, scale)
+    return fused_dropout(input, rate, seed, scale, offset)
 
 
 def dropout_res_bias(input: torch.Tensor, bias: torch.Tensor,

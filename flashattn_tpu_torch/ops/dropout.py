@@ -85,20 +85,26 @@ def _threshold(rate: float) -> int:
     return min(int(rate * (1 << 32)), (1 << 32) - 1)
 
 
-def philox_bits(n: int, seed: int, device=None) -> torch.Tensor:
-    """The (n,) int64 tensor of 32-bit words that element i of a kernel
-    keyed by ``seed`` draws: word i % 4 of the Philox block at counter
-    i // 4 (``csrc/philox.cuh``)."""
-    j = torch.arange(cdiv(n, 4), device=device, dtype=torch.int64)
+def philox_bits(n: int, seed: int, device=None,
+                offset: int = 0) -> torch.Tensor:
+    """The (n,) int64 tensor of 32-bit words that elements offset ..
+    offset + n - 1 of a kernel keyed by ``seed`` draw: element i takes
+    word i % 4 of the Philox block at counter i // 4
+    (``csrc/philox.cuh``)."""
+    j = torch.arange(offset // 4, cdiv(offset + n, 4), device=device,
+                     dtype=torch.int64)
     zero = torch.zeros_like(j)
     bits = philox4x32(torch.stack([j & _M32, j >> 32, zero, zero], -1),
                       (seed & _M32, (seed >> 32) & _M32))
-    return bits.reshape(-1)[:n]
+    start = offset % 4
+    return bits.reshape(-1)[start:start + n]
 
 
-def keep_mask(n: int, rate: float, seed: int, device=None) -> torch.Tensor:
-    """The (n,) bool keep mask of a dropout of ``n`` elements."""
-    return philox_bits(n, seed, device) >= _threshold(rate)
+def keep_mask(n: int, rate: float, seed: int, device=None,
+              offset: int = 0) -> torch.Tensor:
+    """The (n,) bool keep mask of elements offset .. offset + n - 1 of a
+    dropout."""
+    return philox_bits(n, seed, device, offset) >= _threshold(rate)
 
 
 def _check(rate: float, seed: int):
@@ -135,12 +141,20 @@ def _empty_alike(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int,
-            scale: bool = True) -> torch.Tensor:
+            scale: bool = True, offset: int = 0) -> torch.Tensor:
     """Kernel launch: keep ? x / (1 - rate) : 0, 1 - rate rounded to x's
     dtype (f32 division, rounded once to x's dtype); ``scale=False`` keeps
-    the survivors as they are."""
+    the survivors as they are.  ``offset`` > 0 (a rank's block of a batch
+    split over ranks) runs the kernel over ``offset`` leading zeros and
+    ``x``, whose tail is the block's mask: the kernel has no counter
+    offset, so this costs ``offset`` more elements."""
     _check(rate, seed)
     x = x.detach().contiguous()
+    if offset:
+        padded = torch.zeros(offset + x.numel(), dtype=x.dtype,
+                             device=x.device)
+        padded[offset:] = x.reshape(-1)
+        return dropout(padded, rate, seed, scale)[offset:].view(x.shape)
     out = _empty_alike(x)
     _kernel(x.data_ptr(), out.data_ptr(), x.numel(), seed, _threshold(rate),
             _divisor(rate, x.dtype, scale), _build.dtype_code(x))
@@ -148,42 +162,44 @@ def dropout(x: torch.Tensor, rate: float, seed: int,
 
 
 def dropout_reference(x: torch.Tensor, rate: float, seed: int,
-                      scale: bool = True) -> torch.Tensor:
+                      scale: bool = True, offset: int = 0) -> torch.Tensor:
     """Plain version of :func:`dropout`, bit for bit."""
     _check(rate, seed)
-    keep = keep_mask(x.numel(), rate, seed, x.device).reshape(x.shape)
+    keep = keep_mask(x.numel(), rate, seed, x.device, offset).reshape(x.shape)
     y = _divide(x.float(), _divisor(rate, x.dtype, scale))
     return torch.where(keep, y, torch.zeros_like(y)).to(x.dtype)
 
 
-def _mask_scale(x, rate, seed, scale):
+def _mask_scale(x, rate, seed, scale, offset):
     if on_cuda(x):
-        return dropout(x, rate, seed, scale)
-    return dropout_reference(x, rate, seed, scale)
+        return dropout(x, rate, seed, scale, offset)
+    return dropout_reference(x, rate, seed, scale, offset)
 
 
 class _Dropout(torch.autograd.Function):
     """The mask-and-scale pass, forward and backward alike."""
 
     @staticmethod
-    def forward(ctx, x, rate, seed, scale):
-        ctx.args = (rate, seed, scale)
-        return _mask_scale(x, rate, seed, scale)
+    def forward(ctx, x, rate, seed, scale, offset):
+        ctx.args = (rate, seed, scale, offset)
+        return _mask_scale(x, rate, seed, scale, offset)
 
     @staticmethod
     def backward(ctx, g):
-        return _mask_scale(g, *ctx.args), None, None, None
+        return _mask_scale(g, *ctx.args), None, None, None, None
 
 
 def fused_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-                  scale: bool = True) -> torch.Tensor:
+                  scale: bool = True, offset: int = 0) -> torch.Tensor:
     """Inverted dropout of ``x`` keyed by ``seed`` (an int in [0, 2^64));
     the identity when ``rate <= 0`` or ``seed`` is None.  ``scale=False``
-    keeps the survivors unscaled (``nn.functional.dropout(scale=False)``)."""
+    keeps the survivors unscaled (``nn.functional.dropout(scale=False)``).
+    ``offset``: ``x`` is elements [offset, offset + numel) of a larger
+    tensor and takes their mask."""
     if rate <= 0.0 or seed is None:
         return x
     _check(rate, int(seed))
-    return _Dropout.apply(x, float(rate), int(seed), bool(scale))
+    return _Dropout.apply(x, float(rate), int(seed), bool(scale), int(offset))
 
 
 # -- dropout with bias, residual or activation ---------------------------------

@@ -388,13 +388,16 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
 
 
 def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
-              window=None):
+              window=None, grid=False):
     """Kernel launch: (dq, dk, dv) for CUDA tensors, dk/dv at the kv heads.
     ``lse`` is the forward's (b, h, n_q, 1) natural-log lse and
     ``di = rowsum(o * do)`` (b, h, n_q, 1) f32.  At op-graph shapes in
     bf16 the kernels compute the op graph's autodiff from their own row
     statistics (lse and di unused; ``ops`` holds them between the two
-    kernels).  One count covers its launches."""
+    kernels), unless ``grid`` asks for the TPU backward kernels' function
+    (:func:`_reference_bwd`) at every shape, as ring attention's pairs
+    take it (JAX calls ``_flash_bwd`` there directly).  One count covers
+    its launches."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -405,7 +408,7 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
                          f"{tuple(q.shape)}")
     sched = _schedule(q, k, causal, window, kv_lengths is not None)
     code = _build.dtype_code(q)
-    op_graph = int(code == 1 and sched.name == "op_graph")
+    op_graph = int(code == 1 and sched.name == "op_graph" and not grid)
     q, k, v, do = (_build.aligned(t.detach().to(q.dtype))
                    for t in (q, k, v, do))
     lse, di = (t.detach().float().contiguous() for t in (lse, di))

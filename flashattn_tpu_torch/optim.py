@@ -28,17 +28,49 @@ Grads = Dict[str, torch.Tensor]
 LR = Union[float, Callable[[int], float]]
 
 
-def global_norm(grads: Grads) -> torch.Tensor:
-    """L2 norm over every gradient, accumulated in f32 (a 0-dim tensor)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+def _split_groups(p, dims) -> list:
+    """The process groups over which the dims ``dims`` of parameter ``p``
+    are split (its ``spec`` and ``mesh``, set when a model is sharded over
+    ranks); empty for a whole parameter."""
+    mesh, spec = getattr(p, "mesh", None), getattr(p, "spec", None)
+    if mesh is None or not spec:
+        return []
+    from .parallel.comm import dims_groups
+
+    return dims_groups(spec, mesh, [d % p.ndim for d in dims])
 
 
-def clip_by_global_norm(grads: Grads, max_norm: float) -> Grads:
+def global_norm(grads: Grads, params: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """L2 norm over every gradient, accumulated in f32 (a 0-dim tensor).
+    With ``params`` whose tensors are this rank's blocks of split
+    parameters (``spec`` / ``mesh``), each split gradient's squares are
+    summed over the ranks holding its blocks, and a whole one counts
+    once."""
+    if params is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in grads.values()))
+    from .parallel.comm import shard_sum
+
+    buckets = {}
+    for n, g in grads.items():
+        groups = _split_groups(params[n], range(g.ndim))
+        key = tuple(id(x) for x in groups)
+        part = g.float().square().sum()
+        prev = buckets.get(key)
+        buckets[key] = (groups, part if prev is None else prev[1] + part)
+    return torch.sqrt(sum(shard_sum(part, groups)
+                          for groups, part in buckets.values()))
+
+
+def clip_by_global_norm(grads: Grads, max_norm: float,
+                        params: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> Grads:
     """Scale every gradient so that the global L2 norm is at most
     ``max_norm``.  A non-finite norm (loss spike, overflow) zeroes every
     gradient instead, so the step changes nothing rather than poisoning
-    every parameter.  No host sync."""
-    norm = global_norm(grads)
+    every parameter.  No host sync.  ``params``: see :func:`global_norm`."""
+    norm = global_norm(grads, params)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     finite = torch.isfinite(norm)
     return {n: torch.where(finite, g * scale.to(g.dtype), torch.zeros_like(g))
@@ -164,8 +196,27 @@ class AdafactorState(NamedTuple):
     m: Optional[Grads]   # f32 first moment when beta1 > 0, else None
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(x.float().square().mean() + 1e-30)
+def _rms(x: torch.Tensor, groups=()) -> torch.Tensor:
+    """RMS of ``x``, or of the whole tensor whose blocks the ranks of
+    ``groups`` hold."""
+    if not groups:
+        return torch.sqrt(x.float().square().mean() + 1e-30)
+    from .parallel.comm import group_size, shard_sum
+
+    n = x.numel() * math.prod(group_size(g) for g in groups)
+    return torch.sqrt(shard_sum(x.float().square().sum(), groups) / n
+                      + 1e-30)
+
+
+def _mean(x: torch.Tensor, dim: int, groups, keepdim: bool = False):
+    """``x.mean(dim)``, over the whole dim when the ranks of ``groups``
+    hold its blocks."""
+    if not groups:
+        return x.mean(dim, keepdim=keepdim)
+    from .parallel.comm import group_size, shard_sum
+
+    n = x.shape[dim] * math.prod(group_size(g) for g in groups)
+    return shard_sum(x.sum(dim, keepdim=keepdim), groups) / n
 
 
 class Adafactor:
@@ -226,18 +277,21 @@ class Adafactor:
         and return the f32 update for ``p``."""
         g = g.float()
         g2 = g.square() + self.eps1
+        # the means span the whole parameter where ranks hold its blocks
+        rows, cols = _split_groups(p, [-1]), _split_groups(p, [-2])
+        every = _split_groups(p, range(p.ndim))
         if p.ndim >= 2:
-            vr.mul_(b2t).add_(new_share * g2.mean(-1))
-            vc.mul_(b2t).add_(new_share * g2.mean(-2))
-            red = vr / vr.mean(-1, keepdim=True)
+            vr.mul_(b2t).add_(new_share * _mean(g2, -1, rows))
+            vc.mul_(b2t).add_(new_share * _mean(g2, -2, cols))
+            red = vr / _mean(vr, -1, cols, keepdim=True)
             u = g * torch.rsqrt(red)[..., None] * torch.rsqrt(vc)[..., None, :]
         else:
             vr.mul_(b2t).add_(new_share * g2)
             u = g * torch.rsqrt(vr)
-        u = u / torch.clamp(_rms(u) / self.clip_threshold, min=1.0)
+        u = u / torch.clamp(_rms(u, every) / self.clip_threshold, min=1.0)
         if self.relative_step:
             rho = min(1e-2, 1.0 / math.sqrt(t))
-            return u * (torch.clamp(_rms(p), min=self.eps2) * rho)
+            return u * (torch.clamp(_rms(p, every), min=self.eps2) * rho)
         return u * (self.lr(t) if callable(self.lr) else self.lr)
 
     def step(self, model: nn.Module, grads: Grads,

@@ -24,8 +24,13 @@ and presence penalties, per-request seeds, the prefix cache and both
 speculation modes follow the JAX engine.  Sampling randomness is a pure
 function of (request seed, absolute position, salt), drawn with JAX's
 threefry in integer torch ops (:mod:`._threefry`), so a sampled request
-draws what the JAX engine draws.  Tensor-parallel serving (``mesh=``) is
-not ported (ROADMAP A7).
+draws what the JAX engine draws.
+
+Tensor-parallel serving (``mesh=``): every rank runs this engine, the same
+host scheduler on the same requests; the model (and the draft) is split
+over the mesh's ``head_axis`` (:func:`~..parallel.sharding.shard_model`),
+each rank's page pools hold its KV heads' pages, and the logits are
+all-gathered before sampling, so that every rank chooses the same tokens.
 """
 
 from __future__ import annotations
@@ -313,6 +318,13 @@ def _has_penalty(req: Request) -> bool:
                 or req.frequency_penalty or req.presence_penalty)
 
 
+def _shard_for_serving(model, mesh, head_axis: str):
+    from ..parallel.sharding import apply_mesh, shard_model
+
+    meshed = apply_mesh(model, mesh, batch_axis=None, head_axis=head_axis)
+    return shard_model(meshed, mesh, head_axis).eval()
+
+
 class ContinuousBatchingEngine:
     """Continuous-batching decoder for a :class:`DecoderLM`: paged KV pools,
     batched and chunked prefill, per-request sampling (temperature, top-k,
@@ -330,14 +342,13 @@ class ContinuousBatchingEngine:
                  spec_waves_per_dispatch: int = 4, prompt_lookup: int = 0,
                  lookup_max_ngram: int = 3, prefill_chunk: int = 512,
                  enable_prefix_cache: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet "
-                "(ROADMAP A7)")
-        # head_axis names the mesh axis of tensor-parallel serving (A7); it
-        # is accepted and unused
         self.seed = seed
         self.model = model.eval()
+        self.mesh = mesh
+        if mesh is not None:
+            # TP-sharded serving: weights per the Megatron rules, each rank
+            # holding its heads' KV pools, paged attention on them
+            self.model = _shard_for_serving(self.model, mesh, head_axis)
         self.device = next(model.parameters()).device
         self.max_batch = max_batch
         self.page_size = page_size
@@ -399,6 +410,10 @@ class ContinuousBatchingEngine:
             draft_model = None
         if draft_model is not None:
             self.draft_model = draft_model.eval()
+            if mesh is not None:
+                # the draft shards over the same (mesh, head_axis)
+                self.draft_model = _shard_for_serving(self.draft_model, mesh,
+                                                      head_axis)
             self.draft_pools = self.draft_model.init_page_pools(
                 total_pages + 1, page_size, dtype, self.device)
 

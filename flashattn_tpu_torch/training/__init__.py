@@ -1,5 +1,6 @@
 from .generate import greedy_generate_seq2seq  # noqa: F401
 from .trainer import (  # noqa: F401
+    ShardedTrainer,
     lm_loss,
     make_distill_loss,
     make_eval_step,

@@ -9,11 +9,13 @@ is no ``jit`` and no ``donate``; a JAX ``key`` becomes a ``torch.Generator``
 from which the model draws its dropout seeds.  The loss comes back as a
 0-dim device tensor, so a step does not wait for the device.  ``ctx``, when
 given, reaches the loss as a sixth argument (a distillation teacher, see
-:func:`make_distill_loss`).  ``ShardedTrainer`` is not ported yet.
+:func:`make_distill_loss`).  :class:`ShardedTrainer` trains over a (data,
+model) mesh, one process a rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,13 +40,36 @@ def lm_loss(model: nn.Module, tokens: Tensor, targets: Tensor,
     n_vocab = logits.shape[-1]
     losses = F.softmax_loss(logits.reshape(-1, n_vocab),
                             targets.reshape(-1)).reshape(targets.shape)
-    return _masked_mean(losses, loss_mask)
+    return _masked_mean(losses, loss_mask, _batch_group(model))
 
 
-def _masked_mean(per_pos: Tensor, loss_mask: Optional[Tensor]) -> Tensor:
+def _batch_group(model: nn.Module):
+    """The group over which ``model``'s batch is split (set by
+    :func:`~..parallel.sharding.apply_mesh`), or None."""
+    return getattr(model, "batch_group", None)
+
+
+def _masked_mean(per_pos: Tensor, loss_mask: Optional[Tensor],
+                 group=None) -> Tensor:
+    """The masked mean over the positions; under a batch split over
+    ``group`` the mean over the global batch, sum(loss * mask) / sum(mask)
+    over every rank (not the mean of the ranks' means), each rank's
+    gradient its own share."""
+    if group is None:
+        if loss_mask is None:
+            return per_pos.mean()
+        return (per_pos * loss_mask).sum() / torch.clamp(loss_mask.sum(),
+                                                         min=1.0)
+    from ..parallel.comm import all_reduce, reduce_from_group
+
     if loss_mask is None:
-        return per_pos.mean()
-    return (per_pos * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+        num = per_pos.sum()
+        den = torch.full((), float(per_pos.numel()), device=per_pos.device)
+    else:
+        num = (per_pos * loss_mask).sum()
+        den = loss_mask.sum().float()
+    den = torch.clamp(all_reduce(den.detach(), group), min=1.0)
+    return reduce_from_group(num / den, group)
 
 
 def make_moe_loss(aux_alpha: float = 0.01) -> Callable[..., Tensor]:
@@ -58,7 +83,8 @@ def make_moe_loss(aux_alpha: float = 0.01) -> Callable[..., Tensor]:
         n_vocab = logits.shape[-1]
         losses = F.softmax_loss(logits.reshape(-1, n_vocab),
                                 targets.reshape(-1)).reshape(targets.shape)
-        return _masked_mean(losses, loss_mask) + aux_alpha * aux
+        return (_masked_mean(losses, loss_mask, _batch_group(model))
+                + aux_alpha * aux)
 
     return loss_fn
 
@@ -99,7 +125,7 @@ def make_distill_loss(teacher: Optional[nn.Module] = None, alpha: float = 1.0,
             ce = F.softmax_loss(s_logits.reshape(-1, n_vocab),
                                 targets.reshape(-1)).reshape(targets.shape)
             per_pos = alpha * per_pos + (1.0 - alpha) * ce
-        return _masked_mean(per_pos, loss_mask)
+        return _masked_mean(per_pos, loss_mask, _batch_group(student))
 
     return loss_fn
 
@@ -258,3 +284,168 @@ def make_eval_step(loss_fn: Callable[..., Tensor] = lm_loss) -> Callable:
             model.train(was_training)
 
     return evaluate
+
+
+class ShardedTrainer:
+    """DP x TP training over a (data, model) mesh, one process a rank.
+
+    - parameters split per the Megatron TP rules (:func:`~..parallel.
+      sharding.shard_model`), the model wired to the mesh
+      (:func:`~..parallel.sharding.apply_mesh`), so that each rank runs
+      its heads and FFN columns and the layers write out the reductions;
+    - the batch split over the data axis (:meth:`put_batch` takes this
+      rank's rows of the global batch); the loss is the global batch's
+      masked mean, and the gradients are summed over the data axis, so
+      that every update is the global batch's;
+    - ``grad_clip`` clips by the norm of the whole (unsplit) gradient.
+
+    ``zero=True`` also splits every parameter and optimizer moment over the
+    *data* axis (``fsdp_spec_for``; ZeRO-3): between steps the model's
+    parameters are this rank's (data, model) blocks, ``param.spec`` their
+    FSDP spec.  A step all-gathers each into its TP block for the forward
+    and backward (temporaries, freed when the step ends), reduce-scatters
+    the gradients back into the blocks, and the optimizer steps the blocks.
+
+    ``step`` and ``scan_steps`` return the loss(es) as device tensors.
+    ``key`` is a ``torch.Generator`` for the dropout seeds (None: no
+    dropout in ``step``; ``scan_steps`` then draws from the trainer's own
+    generator, seeded by ``seed``)."""
+
+    def __init__(self, model: nn.Module, opt: Any, mesh, data_axis: str = "data",
+                 model_axis: str = "model",
+                 loss_fn: Callable[..., Tensor] = lm_loss, zero: bool = False,
+                 grad_clip: Optional[float] = None, seed: int = 0):
+        from ..parallel.mesh import axis_group
+        from ..parallel.sharding import (apply_mesh, fsdp_sharding_tree,
+                                         shard_model)
+
+        self.mesh = mesh
+        self.opt = opt
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.loss_fn = loss_fn
+        self.zero = zero
+        self.grad_clip = grad_clip
+        self._scan_gen = torch.Generator().manual_seed(seed)
+        self._data_group = axis_group(mesh, data_axis)
+        meshed = apply_mesh(model, mesh, batch_axis=data_axis,
+                            head_axis=model_axis)
+        self.model = shard_model(meshed, mesh, model_axis)
+        self._fsdp_dim = {}
+        if zero:
+            specs = fsdp_sharding_tree(model, mesh, data_axis, model_axis)
+            for name, p in self.model.named_parameters():
+                spec = specs[name]
+                dim = spec.index(data_axis) if data_axis in spec else None
+                self._fsdp_dim[name] = dim
+                if dim is not None:
+                    p.data = _local_rows(p.detach(), self._data_group,
+                                         dim).clone()
+                p.spec = spec
+        self.opt_state = opt.init(self.model)
+
+    def put_batch(self, *arrays):
+        """This rank's rows (dim 0 split over the data axis) of each global
+        batch array, on the model's device."""
+        return tuple(self._rows(a, 0) for a in arrays)
+
+    def _rows(self, a, dim: int):
+        if a is None:
+            return None
+        device = next(self.model.parameters()).device
+        return _local_rows(torch.as_tensor(a), self._data_group, dim).to(device)
+
+    def _reduce_grads(self, grads: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Sum the ranks' gradients over the data axis: all-reduced, or
+        with ZeRO reduce-scattered into this rank's block."""
+        from ..parallel.comm import group_size
+
+        group = self._data_group
+        if group_size(group) == 1:
+            return grads
+        out = {}
+        whole = [n for n in grads if self._fsdp_dim.get(n) is None]
+        if whole:
+            flat = torch.cat([grads[n].reshape(-1) for n in whole])
+            torch.distributed.all_reduce(flat, group=group)
+            for n, part in zip(whole, flat.split([grads[n].numel()
+                                                  for n in whole])):
+                out[n] = part.view_as(grads[n])
+        for n, dim in self._fsdp_dim.items():
+            if dim is not None:
+                out[n] = _reduce_scatter_rows(grads[n], group, dim)
+        return {n: out[n] for n in grads}
+
+    @contextlib.contextmanager
+    def _gathered(self):
+        """With ZeRO: the model's parameters hold their TP blocks (each
+        all-gathered over the data axis) inside, their data blocks again
+        on leaving; the gathered tensors are then freed."""
+        from ..parallel.comm import all_gather
+
+        split = [(p, dim) for name, p in self.model.named_parameters()
+                 if (dim := self._fsdp_dim.get(name)) is not None]
+        blocks = [p.data for p, _ in split]
+        for p, dim in split:
+            p.data = all_gather(p.data, self._data_group, dim)
+        try:
+            yield
+        finally:
+            for (p, _), block in zip(split, blocks):
+                p.data = block
+
+    def _step(self, tokens, targets, loss_mask, generator, ctx=None):
+        with self._gathered():
+            loss, grads = _value_and_grad(self.loss_fn, self.model, tokens,
+                                          targets, loss_mask, generator, ctx)
+        grads = self._reduce_grads(grads)
+        if self.grad_clip is not None:
+            grads = clip_by_global_norm(grads, self.grad_clip,
+                                        dict(self.model.named_parameters()))
+        self.model, self.opt_state = self.opt.step(self.model, grads,
+                                                   self.opt_state)
+        return loss
+
+    def step(self, tokens, targets, loss_mask=None, key=None) -> Tensor:
+        """One update on the global batch (tokens, targets, loss_mask: the
+        global arrays; this rank takes its rows).  Returns the loss."""
+        tokens, targets, loss_mask = self.put_batch(tokens, targets,
+                                                    loss_mask)
+        return self._step(tokens, targets, loss_mask, key)
+
+    def scan_steps(self, tokens, targets, loss_mask=None, key=None,
+                   ctx=None) -> Tensor:
+        """K updates, one a slice of the leading (n_steps,) axis of the
+        stacked global batches (their dim 1 split over the data axis), in
+        order; returns the (n_steps,) losses.  A missing mask counts every
+        position, as ``make_train_scan`` does; with ``key=None`` the
+        dropout seeds come from the trainer's own generator."""
+        tokens, targets = self._rows(tokens, 1), self._rows(targets, 1)
+        loss_mask = (torch.ones(targets.shape, device=targets.device)
+                     if loss_mask is None else self._rows(loss_mask, 1))
+        gen = self._scan_gen if key is None else key
+        losses = [self._step(tokens[i], targets[i], loss_mask[i], gen, ctx)
+                  for i in range(targets.shape[0])]
+        return torch.stack(losses)
+
+
+def _local_rows(t: Tensor, group, dim: int) -> Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``group``."""
+    from ..parallel.comm import group_size, local_block
+
+    if group_size(group) > 1 and t.shape[dim] % group_size(group):
+        raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split "
+                         f"over {group_size(group)} data ranks")
+    return local_block(t, group, dim)
+
+
+def _reduce_scatter_rows(g: Tensor, group, dim: int) -> Tensor:
+    """The sum over ``group`` of ``g``, this rank's block along ``dim``."""
+    from ..parallel.comm import group_size
+
+    n = group_size(group)
+    src = g.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=src.dtype,
+                      device=src.device)
+    torch.distributed.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()

@@ -1544,3 +1544,210 @@ def test_paged_nonfinite_kernel(dev, window, pool):
                                         window=window)
         assert torch.equal(got, want)
         assert bool(want.any())
+
+
+# -- parallelism (A7): the ring's pairs, a one-rank NCCL group -----------------
+# (B, H, N, d, causal): the ring's pair shapes below the kernels' 1024 keys
+GRID_BWD_CASES = {"n16": (2, 4, 16, 64, True), "n100": (1, 2, 100, 128, False),
+                  "n512": (2, 4, 512, 128, True), "n512nc": (1, 4, 512, 64, False),
+                  "n70x300": (1, 2, 70, 32, False)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(GRID_BWD_CASES))
+def test_flash_bwd_grid_mode_at_op_graph_shapes(dev, dtype, case):
+    """flash_bwd(grid=True), the function of the ring's backward pairs (the
+    TPU grid backward's, JAX's ``_flash_bwd``) where the dispatcher would
+    take the op graph: against fa._reference_bwd within TOL, the same bits
+    every run."""
+    b, h, n, d, causal = GRID_BWD_CASES[case]
+    n_kv = 300 if case == "n70x300" else n
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, do = (_randn(g, b, h, n, d, dtype=dtype, dev=dev) for _ in range(2))
+    k, v = (_randn(g, b, h, n_kv, d, dtype=dtype, dev=dev) for _ in range(2))
+    sc = d ** -0.5
+    assert fa._schedule(q, k, causal, None).name == "op_graph"
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, sc)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    got = fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=sc,
+                       grid=True)
+    want = fa._reference_bwd(q, k, v, lse, di, do, causal, sc)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all()
+        assert _rel_err(a, w) <= TOL[dtype]
+    again = fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=sc,
+                         grid=True)
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_in_process_of_4(dev, dtype, causal):
+    """The ring's per-step functions for 4 ranks in one process (64-key
+    shards: op-graph forward pairs, grid backward pairs, the merge) against
+    the unsharded flash forward and backward at 256 keys."""
+    from flashattn_tpu_torch.parallel.sharded_attention import (
+        _ring_in_process)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, do = (_randn(g, 2, 4, 256, 64, dtype=dtype, dev=dev)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_ref, lse_ref = fa.flash_attention_with_lse(*leaves, causal)
+    o_ref.backward(do)
+    with torch.no_grad():
+        o, lse, *grads = _ring_in_process(q, k, v, do, causal, 4)
+    assert _err(o, o_ref) <= TOL[dtype]
+    assert _err(lse, lse_ref) <= 1e-4
+    for a, leaf in zip(grads, leaves):
+        assert a.dtype == dtype and _rel_err(a, leaf.grad) <= TOL[dtype]
+
+
+def test_parallel_one_rank_nccl(dev, tmp_path):
+    """A one-rank NCCL group: the TP model's forward, ShardedTrainer (plain
+    and ZeRO) and ring_flash_attention over one-rank axes equal the
+    unsharded port's on the card (f32)."""
+    import torch.distributed as dist
+
+    import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.parallel import (apply_mesh, create_mesh,
+                                              init_distributed,
+                                              ring_flash_attention,
+                                              shard_model)
+    from flashattn_tpu_torch.training import ShardedTrainer
+
+    init_distributed(0, 1, f"file://{tmp_path}/store", device="cuda")
+    try:
+        cfg = dict(n_vocab=64, n_embd=128, n_head=4, n_positions=64,
+                   n_layer=2, p_dropout=0.1)
+        build = lambda: pt.DecoderLM(
+            **cfg, generator=torch.Generator().manual_seed(0), device=dev)
+        mesh = create_mesh((1, 1), ("data", "model"))
+        model = build().eval()
+        tok = torch.randint(0, 64, (4, 33), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+        sharded = shard_model(apply_mesh(model, mesh), mesh)
+        with torch.no_grad():
+            assert _err(sharded(tok), model(tok)) <= 1e-5
+        ref = build().train()
+        opt = pt.Adam(lr=1e-3)
+        state = opt.init(ref)
+        step = pt.make_train_step(opt, grad_clip=1.0)
+        gens = [torch.Generator().manual_seed(2) for _ in range(3)]
+        trainers = [ShardedTrainer(build().train(), pt.Adam(lr=1e-3), mesh,
+                                   zero=z, grad_clip=1.0) for z in (False, True)]
+        for _ in range(2):
+            ref, state, want = step(ref, state, tok[:, :-1], tok[:, 1:], None,
+                                    gens[0])
+            for t, gen in zip(trainers, gens[1:]):
+                got = t.step(tok[:, :-1], tok[:, 1:], None, gen)
+                assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+        for t in trainers:
+            for (n, a), (_, b) in zip(t.model.named_parameters(),
+                                      ref.named_parameters()):
+                assert _err(a, b) <= 1e-5, n
+        seq = create_mesh((1,), ("seq",))
+        g = torch.Generator(device=dev).manual_seed(3)
+        q, k, v = (_randn(g, 2, 4, 128, 64, dtype=torch.float32, dev=dev)
+                   for _ in range(3))
+        got = ring_flash_attention(q, k, v, True, mesh=seq)
+        assert _err(got, fa.flash_attention(q, k, v, True)) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+# one rank of a world of two, both on cuda:0: argv rank, store, backend, op
+_TWO_RANKS = r"""
+import sys, datetime, torch, torch.distributed as dist
+rank, store, backend, what = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+torch.cuda.set_device(0)
+dist.init_process_group(backend, init_method="file://" + store, rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=30))
+x = torch.full((4,), float(rank + 1), device="cuda:0")
+try:
+    if what == "all_reduce":
+        dist.all_reduce(x)
+    elif what == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(2)]
+        dist.all_gather(parts, x)
+        x = torch.cat(parts)
+    elif rank == 0:
+        dist.send(x, 1)
+    else:
+        dist.recv(x, 0)
+    torch.cuda.synchronize()
+    print("RESULT ok", x.tolist(), flush=True)
+except Exception as e:
+    print("RESULT error", type(e).__name__, str(e).splitlines()[0][:200],
+          flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _two_ranks(tmp_path, backend: str, what: str,
+               deadline: float = 60.0) -> str:
+    """Rank 0's outcome of ``what`` between two ``backend`` ranks on cuda:0
+    (``ok ...``, the error, or a hang killed at the deadline)."""
+    import subprocess
+    import sys
+    import time
+
+    store = str(tmp_path / f"{backend}-{what}")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TWO_RANKS, str(r), store, backend, what],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    end = time.monotonic() + deadline
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, end - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        return f"no result within {deadline:.0f} s"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = [ln for ln in outs[0].splitlines() if ln.startswith("RESULT")]
+    if lines:
+        return lines[-1][len("RESULT "):]
+    tail = [ln for ln in outs[0].splitlines() if ln.strip()][-1:]
+    return f"exit {procs[0].returncode}: {tail[0][:200] if tail else ''}"
+
+
+def test_two_ranks_on_one_card(dev, tmp_path):
+    """Why every card run of the parallel package has one rank: on a
+    machine with one card, NCCL refuses two ranks on one device, and gloo
+    carries CUDA tensors for all_reduce / all_gather but not for send /
+    recv, which the ring and the pipeline need.  Each outcome is printed
+    (``-s``)."""
+    got = {(b, w): _two_ranks(tmp_path, b, w)
+           for b, w in (("nccl", "all_reduce"), ("gloo", "all_reduce"),
+                        ("gloo", "all_gather"), ("gloo", "send_recv"))}
+    for (b, w), res in got.items():
+        print(f"two {b} ranks on cuda:0, {w} of a CUDA tensor: {res}")
+    assert got[("gloo", "all_reduce")] == "ok [3.0, 3.0, 3.0, 3.0]"
+    assert got[("gloo", "all_gather")].startswith("ok [1.0, 1.0, 1.0, 1.0, "
+                                                  "2.0")
+    assert not got[("nccl", "all_reduce")].startswith("ok")
+    assert not got[("gloo", "send_recv")].startswith("ok")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [0, 3, 4096, 12288])
+def test_dropout_kernel_at_offset(dev, dtype, offset):
+    """A rank's block of a batch split: dropout at an element offset takes
+    the whole tensor's mask there (the padded kernel launch), bit for bit
+    with the plain version and with a slice of the whole dropout."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    whole = _randn(g, 4, 4096 + offset // 4096 * 4096 + 8, dtype=dtype,
+                   dev=dev).reshape(-1)
+    x = whole[offset:offset + 4096 * 2].reshape(2, 4096)
+    got = dr.dropout(x, 0.1, 2**40 + 7, offset=offset)
+    assert torch.equal(got, dr.dropout_reference(x, 0.1, 2**40 + 7,
+                                                 offset=offset))
+    full = dr.dropout(whole, 0.1, 2**40 + 7)
+    assert torch.equal(got.reshape(-1), full[offset:offset + x.numel()])

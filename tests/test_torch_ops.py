@@ -237,6 +237,10 @@ def test_import_leaves_jax_out():
             "import flashattn_tpu_torch.utils.debug; "
             "import flashattn_tpu_torch.utils.timing; "
             "import flashattn_tpu_torch.training.classifier; "
+            "import flashattn_tpu_torch.parallel; "
+            "import flashattn_tpu_torch.parallel.pipeline; "
+            "import flashattn_tpu_torch.parallel.sharded_attention; "
+            "from flashattn_tpu_torch.training import ShardedTrainer; "
             "from flashattn_tpu_torch.utils import native_loader; "
             "native_loader.ngram_propose_native([1, 2, 1], 1); "
             "assert 'jax' not in sys.modules, 'jax imported'; "

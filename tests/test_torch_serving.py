@@ -173,7 +173,11 @@ def test_eos_stop_and_cancel(models):
 
 
 def test_unported_engine_options_raise(models):
-    """Tensor-parallel serving is the one engine option still to port."""
+    """No engine option is left to port: tensor-parallel serving (mesh=,
+    A7) shards the model over the mesh instead of raising
+    NotImplementedError (its parity with JAX's TP engine:
+    tests/test_torch_parallel.py).  A mesh that is not a device mesh is
+    refused up front."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="device mesh"):
         pt.ContinuousBatchingEngine(tm, mesh=object())
