@@ -20,7 +20,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and backward, tensor-core kernels, at head dims 32 / 64 / 128, n 517 /
    1000 / 3000, GQA 8/2 and 16/4, window 256, cross 1000 x 2048, a
    length-0 row, varlen; the loop schedule's forward and backward at B1 H2
-   N16384).
+   N16384).  f32 flash from F32_TC_MIN_KV keys on runs the split-precision
+   tensor-core kernels, named flash_fwd_f32 / flash_bwd_f32 in the lines
+   and the kernels line (their main numbers: the train shape's f32 lines,
+   the loop schedule's function); below it the CUDA-core kernels, under
+   flash_fwd / flash_bwd.
    The bf16 flash forward (each schedule's function and the op graph) and
    the op graph's backward: at least 99% of the elements bit for bit, the
    rest within one bf16 ulp of their row's largest, lse within 1e-5; at
@@ -35,7 +39,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    time where PyTorch has one (a yardstick only,
    never called by the port) and the bound: the larger of the bytes the
    function must move over 3.35 TB/s and its useful operations over the
-   peak for the type (989 TF bf16 tensor, 67 TF f32).
+   peak for the type (989 TF bf16 tensor, 67 TF f32; on the split-precision
+   f32 kernels three times the operations at 494.7 TF TF32, f32-grade work
+   on the tensor cores, with the FMA figure printed beside).
 4. serve: the north-star serving model (E1024, 8 heads of 128, 4 layers,
    vocab 1000, middle 256) in bf16 with seeded random weights, driven
    through ContinuousBatchingEngine.submit()/step(): five greedy requests,
@@ -51,7 +57,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    make_train_step(Adam(1e-4), make_mixed_precision_loss(lm_loss),
    grad_clip=1.0): 2 warm-up and 5 timed steps on one batch.  Every loss
    finite, the last below the first, and each training kernel launched in
-   every step (counts zeroed before each step).
+   every step (counts zeroed before each step).  Then train_f32: the same
+   step in f32 (no mixed-precision wrapper), where every attention takes
+   the loop schedule's function: losses finite and falling, flash_fwd_f32,
+   flash_bwd_f32, LayerNorm and dropout launched in every step and the
+   CUDA-core flash kernels in none; ms/step, the peak and a profiled step
+   with the attention's share of the device time.
 7. train consistency: E1024 H8 M4096 L2 V16384, B2 x 1024, f32: one
    lm_loss backward on the card against the same on a CPU copy (the plain
    versions), with p 0 and with p 0.1 from the same generator seed (the
@@ -60,7 +71,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (index_put_ with accumulate) sums in no fixed order on the card — except
    the key-projection bias, whose exact gradient is 0 (softmax ignores a
    shift shared by every key): there both devices' rounding noise must stay
-   under 1e-4 of the global gradient norm.
+   under 1e-4 of the global gradient norm.  Then loop-consistency: the same
+   gates on E256 H2 (heads of 128) L2 V16384, B1 x 2048, whose attention
+   takes the loop schedule (512-key blocks) on the split-precision kernels.
 8. quantization kernels: the weight-only matmul (int8 and fp8 payloads,
    bf16 and f32 x) at the quantized serving model's Linear shapes (K and
    N in {1024, 256}, the lm head's N 1000; bf16 x at M 1, 4, 16, 17, 100
@@ -264,7 +277,7 @@ SEED = 0
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_S = 3.35e12                                  # H100 SXM
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12,   # dense tensor / FP32
-               "int8": 1979e12}                         # dense int8 tensor
+               "int8": 1979e12, "tf32": 494.7e12}       # dense int8 / TF32 tensor
 # the north-star serving model (kernel_bench/bench_serving.py:112-115)
 MODEL = dict(n_vocab=1000, n_embd=1024, n_head=8, n_positions=4096,
              n_layer=4, p_dropout=0.0, attn_impl="flash")
@@ -280,6 +293,10 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 CONSIST = dict(n_vocab=16384, n_embd=1024, n_head=8, n_positions=1024,
                n_layer=2, middle_dim=4096, attn_impl="flash")
+# a narrow model whose attention takes the loop schedule in f32 (heads of
+# 128, causal, 2048 keys: 512-key blocks), for the card-vs-CPU backward
+CONSIST_LOOP = dict(n_vocab=16384, n_embd=256, n_head=2, n_positions=2048,
+                    n_layer=2, middle_dim=1024, attn_impl="flash")
 # the north-star quantized serving configuration
 # (kernel_bench/bench_serving.py:112-127)
 QUANT_MODEL = dict(MODEL, n_positions=16384)
@@ -289,6 +306,12 @@ QUANT_PROMPT, QUANT_NEW_TOKENS = 8192, 64
 QUANT_KERNELS = ("wo_matmul", "paged_attention", "flash_fwd", "layernorm_fwd")
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
                  "dropout")
+# the same step in f32 (no mixed-precision wrapper): every attention takes
+# the loop schedule's function on the split-precision kernels, and the
+# CUDA-core f32 kernels none
+TRAIN_F32_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd_f32",
+                     "flash_bwd_f32", "dropout")
+TRAIN_F32_ABSENT = ("flash_fwd", "flash_bwd")
 # the same training step through attn_impl="fused_softmax": the softmax
 # kernels replace flash, which must not launch
 TRAIN_FUSED = dict(TRAIN, attn_impl="fused_softmax")
@@ -444,9 +467,13 @@ class Phases:
         tol = TOL[name] if tol is None else tol
         ok = gated <= tol
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        fma = ""
+        if isinstance(cost[1], dict) and "tf32" in cost[1]:
+            fma = (f"fma_bound_ms="
+                   f"{bound_ms(cost[0], cost[1]['tf32'] / 3, 'float32')[0]:.4g} ")
         log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
             f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) "
+            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) {fma}"
             f"{'(graph) ' if graph else ''}{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{kernel} {label} {name}: error {gated} "
@@ -583,9 +610,28 @@ def _live_pairs(n_q, n_kv, causal, window, lens, b):
     return total
 
 
+def _f32_tc(q, k) -> bool:
+    """Whether an f32 flash call runs the split-precision tensor-core
+    kernels (``flash_fwd_f32``, ``flash_bwd_f32``)."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    min_kv = getattr(fa, "F32_TC_MIN_KV", None)   # None: an older package
+    return (min_kv is not None and str(q.dtype) == "torch.float32"
+            and k.shape[2] >= min_kv)
+
+
+def _flash_name(kernel, q, k) -> str:
+    """The kernels-line name of a flash call's kernel: ``kernel`` + "_f32"
+    where the split-precision kernels run."""
+    return kernel + "_f32" if _f32_tc(q, k) else kernel
+
+
 def _flash_cost(q, k, causal, window, lens, backward=False):
     """(bytes, useful flops): fwd reads q, k, v and writes o, lse (2 dots);
-    bwd reads q, k, v, do, lse, di and writes dq, dk, dv (5 dots)."""
+    bwd reads q, k, v, do, lse, di and writes dq, dk, dv (5 dots).  On the
+    split-precision kernels the flops count three times at the TF32 peak
+    (f32-grade products on the tensor cores: three TF32 or six bf16 ones,
+    the same least time), as {"tf32": 3 flops}."""
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     isz = q.element_size()
@@ -593,9 +639,12 @@ def _flash_cost(q, k, causal, window, lens, backward=False):
                             None if lens is None else lens.tolist(), b)
     q_elems, kv_elems = b * h * n_q * d, b * h_kv * n_kv * d
     if backward:
-        return (3 * q_elems + 4 * kv_elems) * isz + 8 * b * h * n_q, \
+        cost = (3 * q_elems + 4 * kv_elems) * isz + 8 * b * h * n_q, \
             10 * d * pairs
-    return (2 * q_elems + 2 * kv_elems) * isz + 4 * b * h * n_q, 4 * d * pairs
+    else:
+        cost = (2 * q_elems + 2 * kv_elems) * isz + 4 * b * h * n_q, \
+            4 * d * pairs
+    return (cost[0], {"tf32": 3 * cost[1]}) if _f32_tc(q, k) else cost
 
 
 def _sdpa(torch, q, k, v, causal, window, lens):
@@ -668,7 +717,8 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         q, k, v = (randn(4, 8, 2048, 128, dtype=dtype) for _ in range(3))
         scale = 128 ** -0.5
         lib, args = _sdpa(torch, q, k, v, True, None, lens)
-        ph.check("flash_fwd", "B4 H8 N2048 D128 causal varlen", dtype,
+        ph.check(_flash_name("flash_fwd", q, k),
+                 "B4 H8 N2048 D128 causal varlen", dtype,
                  lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=scale,
                                       kv_lengths=lens),
                  lambda: fa.flash_fwd_plain(q, k, v, True, scale, lens),
@@ -934,16 +984,22 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
 
         # flash at the training head shape, B4 (see the module docstring)
         q, k, v, do = (randn(4, 16, 2048, 128, dtype=dtype) for _ in range(4))
+        # bf16: the subrow schedule; f32: the loop schedule's function on
+        # the split-precision kernels, whose main-shape numbers these are
         _flash_bwd_check(torch, ph, fa, "B4 H16 N2048 D128 dense causal",
-                         dtype, q, k, v, do, True, None, None, main=main)
+                         dtype, q, k, v, do, True, None, None, main=True)
         lib, args = _sdpa(torch, q, k, v, True, None, None)
-        ph.check("flash_fwd", "train B4 H16 N2048 D128 causal", dtype,
+        ph.check(_flash_name("flash_fwd", q, k),
+                 "train B4 H16 N2048 D128 causal", dtype,
                  lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=128**-0.5),
                  lambda: fa.flash_fwd_plain(q, k, v, True, 128**-0.5),
-                 _flash_cost(q, k, True, None, None),
+                 _flash_cost(q, k, True, None, None), main=not main,
                  **_flash_gate(dtype, "flash_fwd train (subrow)"),
                  library=lambda: lib(*args))
-        del q, k, v, do, lib, args
+        del lib, args
+        if _f32_tc(q, k):
+            _f64_flash_check(torch, fa, q, k, v, do, True)
+        del q, k, v, do
 
     bf = torch.bfloat16
     lens0 = torch.tensor([2048, 0, 1024, 517], device=dev)
@@ -995,13 +1051,66 @@ def training_kernel_phases(torch, dev, ph: Phases, randn):
                      k, v, do, True, None, None)
 
 
+# f32-grade: the split-precision flash kernels against a float64 evaluation
+# of the same formulas (_f64_flash_check), where the plain f32 version's own
+# error shows beside
+F32_GRADE = 1e-5
+
+
+def _f64_flash(torch, q, k, v, do, causal):
+    """(o, lse, dq, dk, dv) of dense attention (no window or lengths, one
+    kv head a query head) in float64, for q, k, v, do of one batch row
+    (h, n, d): the exact function the f32 kernels approximate."""
+    sc = q.shape[-1] ** -0.5
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    s = q @ k.transpose(-1, -2) * sc
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, -math.inf)
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.exp(s - lse)
+    del s
+    o = p @ v
+    ds = p * (do @ v.transpose(-1, -2) - (o * do).sum(-1, keepdim=True)) * sc
+    return o, lse, ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+def _f64_flash_check(torch, fa, q, k, v, do, causal) -> None:
+    """The f32 flash forward and backward, kernel and plain version, against
+    float64 (dense, no window or lengths; one batch row at a time): max abs
+    error of o, lse, dq, dk, dv, the backward given its own forward's lse
+    and di.  The kernel's must stay within F32_GRADE."""
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    got = (o, lse, *fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=sc))
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal, sc)
+    di_p = (o_p.float() * do.float()).sum(-1, keepdim=True)
+    plain = (o_p, lse_p, *fa.flash_bwd_plain(q, k, v, lse_p, di_p, do, causal, sc))
+    del di, di_p
+    err = {"kernel": [0.0] * 5, "plain": [0.0] * 5}
+    for b in range(q.shape[0]):
+        exact = _f64_flash(torch, q[b], k[b], v[b], do[b], causal)
+        for name, res in (("kernel", got), ("plain", plain)):
+            err[name] = [max(e, float((r[b].double() - x).abs().max()))
+                         for e, r, x in zip(err[name], res, exact)]
+        del exact
+    fmt = lambda e: " ".join(f"{n} {x:.3e}" for n, x in
+                             zip(("o", "lse", "dq", "dk", "dv"), e))
+    log(f"[kernel] flash f32 {tuple(q.shape)} causal={causal} against float64: "
+        f"kernel {fmt(err['kernel'])}; plain {fmt(err['plain'])} (gate "
+        f"{F32_GRADE:g} on the kernel's)")
+    if not max(err["kernel"]) <= F32_GRADE:
+        raise AssertionError(f"f32 flash off float64 by {max(err['kernel'])}")
+
+
 def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
                      lens, main=False):
     sc = q.shape[-1] ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc,
                           kv_lengths=lens, window=window)
     di = (o.float() * do.float()).sum(-1, keepdim=True)
-    ph.check("flash_bwd", label, dtype,
+    ph.check(_flash_name("flash_bwd", q, k), label, dtype,
              lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
                                   sm_scale=sc, kv_lengths=lens, window=window),
              lambda: fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens,
@@ -1611,8 +1720,12 @@ def kernel_counters():
     from flashattn_tpu_torch.ops import quant as qt
     from flashattn_tpu_torch.ops import softmax as sm
 
+    # an older package (tools/ab_chip_smoke.py's parent root) has no
+    # split-precision f32 kernels
+    f32 = ({"flash_fwd_f32": fa._f32_kernel, "flash_bwd_f32": fa._f32_bwd_kernel}
+           if hasattr(fa, "_f32_kernel") else {})
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
-            "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel,
+            "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel, **f32,
             "paged_attention": pa._kernel, "paged_nonfinite": pa._nf_kernel,
             "dropout": dr._kernel,
             "wo_matmul": qt._wo_kernel, "kv8_flash": qt._kv8_kernel,
@@ -2113,11 +2226,12 @@ def train_flops(cfg, batch, seq) -> float:
 
 
 def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
-                kernels=TRAIN_KERNELS, absent=(), opt=None, loss=None) -> dict:
+                kernels=TRAIN_KERNELS, absent=(), opt=None, loss=None,
+                mixed: bool = True) -> dict:
     """The training step at full width: losses finite and falling, every
     kernel of ``kernels`` launched in every step and none of ``absent``.
     ``opt`` defaults to Adam(1e-4), ``loss`` to lm_loss; either is wrapped
-    in make_mixed_precision_loss."""
+    in make_mixed_precision_loss unless ``mixed`` is False (f32 compute)."""
     import numpy as np
 
     import flashattn_tpu_torch as pt
@@ -2127,8 +2241,9 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
     n_params = sum(p.numel() for p in model.parameters())
     opt = pt.Adam(lr=1e-4) if opt is None else opt
     state = opt.init(model)
+    loss = pt.lm_loss if loss is None else loss
     step = pt.make_train_step(
-        opt, pt.make_mixed_precision_loss(pt.lm_loss if loss is None else loss),
+        opt, pt.make_mixed_precision_loss(loss) if mixed else loss,
         grad_clip=1.0)
     tok = np.random.default_rng(SEED).integers(
         0, cfg["n_vocab"], (TRAIN_BATCH, TRAIN_SEQ))
@@ -2159,7 +2274,8 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
     launches = {n: sum(s[n] for s in per_step) for n in counters}
     extras = {k: cfg[k] for k in ("pos_encoding", "n_experts", "moe_top_k")
               if k in cfg}
-    log(f"[{name}] {power} bf16-mixed E2048 M8192 L4 H16x128 V16384 B8 S2048 "
+    log(f"[{name}] {power} {'bf16-mixed' if mixed else 'f32'} E2048 M8192 L4 "
+        f"H16x128 V16384 B8 S2048 "
         f"p0.1 attn_impl={cfg['attn_impl']} {extras} "
         f"{type(opt).__name__}, {n_params / 1e6:.1f} M params: "
         f"losses {[round(x, 4) for x in losses]}")
@@ -2217,7 +2333,7 @@ def profile_step(torch, run, label: str = "train step") -> None:
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
         r"\(anonymous namespace\)::(flash_|layernorm_|dropout_|softmax_"
-        r"|paged_|wo_matmul_kernel|kv8_flash_"
+        r"|paged_|wo_matmul_kernel|kv8_flash_|sp::split_kernel"
         r"|stochastic_quant_kernel)", kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])
@@ -2237,6 +2353,13 @@ def profile_step(torch, run, label: str = "train step") -> None:
             f"  x{n:<5d} {short[:100]}")
     log("[profile] by group: " + ", ".join(
         f"{g} {t / 1e3:.1f} ms" for g, t in sums.items()))
+    attn = [(n, t) for name, (n, t) in ours
+            if re.search(r"::(flash_|sp::split_kernel)", name)]
+    if attn:
+        t_attn = sum(t for _, t in attn)
+        log(f"[profile] attention (flash_*, the f32 split): {t_attn / 1e3:.3f} "
+            f"ms in {sum(n for n, _ in attn)} launches = "
+            f"{100 * t_attn / max(busy, 1e-9):.1f}% of device busy")
     # the op graph's kernels (an older tree's: the <..., true> instances of
     # flash_{fwd,bwd}_*_kernel and flash_bwd_opstats_kernel)
     op = [(n, t) for name, (n, t) in ours if re.search(
@@ -2254,7 +2377,8 @@ def _rel(a, b) -> float:
 
 def train_consistency_phase(torch, dev, cfg=CONSIST,
                             name: str = "train-consistency",
-                            loss_fn=None) -> None:
+                            loss_fn=None, batch: int = 2,
+                            seq: int = 1024) -> None:
     """One backward of ``loss_fn`` (lm_loss by default) on the card vs a
     CPU copy (the plain versions); f32 with TF32 off."""
     import numpy as np
@@ -2262,7 +2386,7 @@ def train_consistency_phase(torch, dev, cfg=CONSIST,
     import flashattn_tpu_torch as pt
 
     tok = np.random.default_rng(SEED + 2).integers(0, cfg["n_vocab"],
-                                                   (2, 1024))
+                                                   (batch, seq))
     for p in (0.0, 0.1):
         card = pt.DecoderLM(**cfg, p_dropout=p, device=dev,
                             generator=torch.Generator().manual_seed(SEED)).train()
@@ -2278,7 +2402,8 @@ def train_consistency_phase(torch, dev, cfg=CONSIST,
             grads = torch.autograd.grad(loss, params)
             out.append((loss.detach().cpu(), {n: g.cpu() for n, g in
                                               zip(names, grads)}))
-        _backward_gates(name, f"f32 E1024 L2 B2 S1024 {cfg['attn_impl']} "
+        _backward_gates(name, f"f32 E{cfg['n_embd']} H{cfg['n_head']} "
+                        f"L{cfg['n_layer']} B{batch} S{seq} {cfg['attn_impl']} "
                         f"{cfg.get('pos_encoding', 'learned')} experts "
                         f"{cfg.get('n_experts')} p{p}", out,
                         cfg.get("pos_encoding") == "rope")
@@ -2557,6 +2682,7 @@ def distill_phase(torch, model_f32, dev) -> dict:
     import numpy as np
 
     import flashattn_tpu_torch as pt
+    from flashattn_tpu_torch.ops import flash_attention as fa
 
     teacher = copy.deepcopy(model_f32).to(torch.bfloat16).eval()
     draft = pt.DecoderLM(**FEAT_DRAFT, device=dev,
@@ -2568,7 +2694,10 @@ def distill_phase(torch, model_f32, dev) -> dict:
     opt = pt.Adam(1e-3)
     state = opt.init(draft)
     scan = pt.make_train_scan(opt, pt.make_distill_loss(), grad_clip=1.0)
-    with _Launches(TRAIN_KERNELS) as run:
+    # the f32 draft's attention: split precision from F32_TC_MIN_KV keys
+    draft_flash = (("flash_fwd_f32", "flash_bwd_f32")
+                   if DISTILL_SEQ >= fa.F32_TC_MIN_KV else ("flash_fwd", "flash_bwd"))
+    with _Launches(TRAIN_KERNELS + draft_flash) as run:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         draft, state, losses = scan(draft.train(), state, tok[..., :-1],
@@ -2584,7 +2713,7 @@ def distill_phase(torch, model_f32, dev) -> dict:
         f"{dt * 1e3 / DISTILL_STEPS:.2f} ms a step; launches {run.counts}")
     if not (all(math.isfinite(x) for x in losses) and tail < head):
         raise AssertionError(f"the distillation KL did not fall: {head} -> {tail}")
-    for kern in ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd"):
+    for kern in ("layernorm_fwd", "layernorm_bwd") + draft_flash:
         assert run.counts[kern] > 0, f"{kern} did not launch in distill"
     reqs = [(p, {}) for p in _feature_prompts()]
     eng_kw = dict(FEAT_ENGINE, spec_len=4)
@@ -3138,8 +3267,8 @@ def _train_runs(torch, dev, mesh, power: str) -> dict:
 def _ring_pair_times(torch, q, k, v, do, causal) -> dict:
     """Device ms of one ring step's pieces at the shard length: the forward
     pair (the op graph below 1024 keys), the backward pair (the grid
-    function, flash_bwd grid=True; the op graph's autodiff beside it) and
-    one merge."""
+    function, flash_bwd grid=True; the op graph's autodiff, SDPA's
+    backward and the bound beside it) and one merge."""
     from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.parallel.sharded_attention import _merge_partials
 
@@ -3157,6 +3286,11 @@ def _ring_pair_times(torch, q, k, v, do, causal) -> dict:
             grid=True)), 4),
         "backward op graph": round(time_ms(lambda: fa.flash_bwd(
             qs, ks, vs, lse, di, ds, causal=causal, sm_scale=sc)), 4),
+        "backward SDPA": round(time_ms(_sdpa_bwd(torch, qs, ks, vs, ds, causal,
+                                                 None, None)), 4),
+        "backward bound": round(bound_ms(*_flash_cost(
+            qs, ks, causal, None, None, backward=True),
+            str(q.dtype).replace("torch.", ""))[0], 4),
         "merge": round(time_ms(lambda: _merge_partials(of, lse, of, lse)), 4)}
 
 
@@ -3246,9 +3380,13 @@ def _pipeline_check(torch, dev, power: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn(PIPE_BATCH, PIPE_SEQ, MODEL["n_embd"], generator=g,
                     device=dev)
+    # f32 at PIPE_SEQ keys: the split-precision flash kernels
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    f32 = "_f32" if PIPE_SEQ >= fa.F32_TC_MIN_KV else ""
     counters = {n: k for n, k in kernel_counters().items()
-                if n in ("layernorm_fwd", "flash_fwd", "layernorm_bwd",
-                         "flash_bwd")}
+                if n in ("layernorm_fwd", "flash_fwd" + f32, "layernorm_bwd",
+                         "flash_bwd" + f32)}
     for kern in counters.values():
         kern.launches = 0
     torch.cuda.synchronize()
@@ -3338,6 +3476,17 @@ SOURCES = {
                    "flashattn_tpu/ops/flash_attention.py:1086",
                    "flashattn_tpu/ops/flash_attention.py:1320",
                    "flashattn_tpu/ops/flash_attention.py:1416"]),
+    "flash_fwd_f32": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                      ["flashattn_tpu/ops/flash_attention.py:327",
+                       "flashattn_tpu/ops/flash_attention.py:79",
+                       "flashattn_tpu/ops/flash_attention.py:551",
+                       "flashattn_tpu/ops/flash_attention.py:627"]),
+    "flash_bwd_f32": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+                      ["flashattn_tpu/ops/flash_attention.py:999",
+                       "flashattn_tpu/ops/flash_attention.py:1086",
+                       "flashattn_tpu/ops/flash_attention.py:874",
+                       "flashattn_tpu/ops/flash_attention.py:1320",
+                       "flashattn_tpu/ops/flash_attention.py:1416"]),
     "paged_attention": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:119",
                          "flashattn_tpu/ops/paged_attention.py:34"]),
@@ -3443,7 +3592,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(torch, dev, power)
     torch.cuda.empty_cache()
+    train_f32 = train_phase(torch, dev, power, name="train_f32",
+                            kernels=TRAIN_F32_KERNELS, absent=TRAIN_F32_ABSENT,
+                            mixed=False)
+    torch.cuda.empty_cache()
     train_consistency_phase(torch, dev)
+    torch.cuda.empty_cache()
+    train_consistency_phase(torch, dev, CONSIST_LOOP, "loop-consistency",
+                            batch=1, seq=2048)
     torch.cuda.empty_cache()
     train_fused = train_phase(torch, dev, power, TRAIN_FUSED,
                               "train_fused_softmax", FUSED_KERNELS,
@@ -3486,7 +3642,7 @@ def main() -> int:
         f"{ {n: c / MT_STEPS for n, c in s2s['launches'].items()} }; "
         f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")
 
-    runs = (train, train_fused, serve, serve_features, generate, distill,
+    runs = (train, train_f32, train_fused, serve, serve_features, generate, distill,
             serve_rope, train_moe, train_adafactor, s2s, s2s_mixed, s2s_gen,
             *parallel)
     kernels = []

@@ -13,11 +13,12 @@
 // Q, K and V tiles are staged in shared memory as f32 and every thread
 // computes a TR x TC block of scores with float4 shared-memory reads, so a
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
-// It serves the f32 flash forward, f32 paged attention and kv8_flash with
-// f32 q (TF32 tensor cores would break their 1e-4 gates); the bf16 flash
-// forward, kv8_flash and paged attention with bf16 q have their own
-// tensor-core kernels (flash_fwd.cu, kv8_flash.cu, paged_attention.cu, on
-// hopper.cuh).  Paged attention runs it under a split-K grid: a paged Src
+// It serves the f32 flash forward over walks of fewer than F32_TC_MIN_KV
+// keys (longer ones run split precision on the tensor cores, flash_fwd.cu),
+// f32 paged attention and kv8_flash with f32 q (single-pass TF32 tensor
+// cores would break their 1e-4 gates); the bf16 flash forward, kv8_flash
+// and paged attention with bf16 q have their own tensor-core kernels
+// (flash_fwd.cu, kv8_flash.cu, paged_attention.cu, on hopper.cuh).  Paged attention runs it under a split-K grid: a paged Src
 // (one with mask_value) gives the block its walk (a range of whole pages
 // of one sequence), scores a key that its page walk visits but a row does
 // not see at JAX's -1e30 rather than -inf, and may take the row's

@@ -56,10 +56,29 @@
 // whose keys no query of a tile sees skips it.  dK, dV and dQ leave staged
 // through shared memory in whole rows.
 //
-// f32 keeps the CUDA-core (FMA) kernels below, bound by FP32 instruction
-// throughput and shared-memory reads: TF32 tensor cores would break the
-// 1e-4 gates of the f32 card-vs-CPU backward.  A block there owns 64 keys
-// or 64 query rows and stages its tiles as f32.
+// f32 (one function for every schedule) runs on the tensor cores in split
+// precision (split.cuh) from F32_TC_MIN_KV keys on: flash_bwd_dkv_f32_kernel
+// and flash_bwd_dq_f32_kernel, the f32 training route's loop backward
+// (_bwd_dq_loop_kernel, _bwd_dkv_loop_kernel) and every other schedule's
+// f32 backward.  q, k, v and dO are split once a call into three bf16
+// planes, q scaled by sm_scale log2(e) first as the forward scales it, so
+// that S sums the forward's products in the forward's order and p =
+// exp2(s - lse log2(e)) is the forward's probability bit for bit: the
+// tensor cores round each step of S toward zero, and an S that drifted
+// from the forward's by those steps would move p by ~3e-6 against lse (dK
+// takes the scale back out at the end).  P and dS are split in registers
+// into the A operand of dV, dK and dQ.  Each of the seven products a pair
+// is six bf16 wgmmas (42 d x 6 flops a live pair at 989 TF/s: the bound).
+// The planes take 6 bytes an element of shared memory, so a block owns 64
+// keys (dK/dV) or 64 query rows (dQ) with the other side in 64-row tiles,
+// four tiles of planes (192 KB at d 128).  Its two warpgroups split each
+// tile's products, one S and P, the other dP and dS, and trade P and dS
+// through shared memory under named barriers, so that one's exponentials
+// and splits run beside the other's wgmmas.  The pair stays deterministic:
+// no atomics, no sum across blocks.  Below F32_TC_MIN_KV keys the
+// CUDA-core (FMA) kernels below stay, bound by FP32 instruction throughput
+// and shared-memory reads: a block owns 64 keys or 64 query rows and
+// stages its tiles as f32.
 //
 // The op graph's backward in bf16 (op_graph = 1): with s = q . k sm_scale,
 // e = exp(s - m), l = sum e and p = e / l, autodiff (torch autograd's
@@ -87,6 +106,7 @@
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -1316,6 +1336,427 @@ cudaError_t dispatch_op(int d, const void* q, const void* k, const void* v, cons
   }
 }
 
+// -- f32: split precision on the tensor cores -----------------------------------
+
+template <int D>
+struct Sb {
+  // two consumer warpgroups over 64 keys (dK/dV) or 64 query rows (dQ) a
+  // block, the other side in tiles of 64: one warpgroup computes S and P,
+  // the other dP and dS, and they trade P and dS through shared memory
+  static constexpr int THREADS = 256, ROWS = 64, NP = sp::NP;
+  static constexpr int SW = D >= 64 ? 128 : 64;   // bytes of a swizzled row
+  static constexpr int PLANE = ROWS * D * 2;      // bytes of one plane of a 64-row tile
+  // four tiles of planes, lse and di of a query tile, the P / dS exchange
+  static constexpr size_t SMEM =
+      1024 + 4 * NP * size_t(PLANE) + (2 * ROWS + ROWS * ROWS) * sizeof(float);
+};
+
+// The NP planes of rows [row0, row0 + 64) of a (n, D) matrix whose planes
+// lie `plane` elements apart, into swizzled tiles (hop::load_tile's
+// layout); rows at or past n are zero.  Threads tid = 0 .. NT - 1 share the
+// copies (the block, or one warpgroup).
+template <int D, int NT = Sb<D>::THREADS>
+__device__ __forceinline__ void load_planes(uint8_t* dst, const bf16* src, long long plane,
+                                            int row0, int n, int tid) {
+  using C = Sb<D>;
+  constexpr int CHUNKS = D * 2 / 16, REGION_CHUNKS = C::SW / 16;
+#pragma unroll
+  for (int p = 0; p < C::NP; ++p) {
+    const uint8_t* s = reinterpret_cast<const uint8_t*>(src + p * plane + size_t(row0) * D);
+    for (int i = tid; i < C::ROWS * CHUNKS; i += NT) {
+      const int r = i / CHUNKS, c = i % CHUNKS;
+      const bool ok = r < n - row0;
+      uint8_t* d = dst + p * C::PLANE + (c / REGION_CHUNKS) * (C::ROWS * C::SW) +
+                   hop::swz<C::SW>(r * C::SW + (c % REGION_CHUNKS) * 16);
+      hop::cp_async<16>(hop::smem_u32(d), ok ? s + size_t(r) * D * 2 + c * 16 : (const void*)src,
+                        ok);
+    }
+  }
+}
+
+// acc (64 x NCOL) += the six split products of a (sp::rs_pairs) times NCOL
+// columns of the 64-row tile at b (MN-major, b at their first region), in
+// chunks of at most 64 columns (one region), each summed from zero and
+// then added to acc in f32 (sp::pair_a).
+template <int D, int NCOL = D>
+__device__ __forceinline__ void promoted_rs(float (&acc)[NCOL / 2],
+                                            const uint32_t (&a)[sp::NP][16], uint32_t b) {
+  using C = Sb<D>;
+  constexpr int N = NCOL > 64 ? 64 : NCOL;
+#pragma unroll
+  for (int ch = 0; ch < NCOL / N; ++ch) {
+    float t[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) t[i] = 0.f;
+    hop::fence_regs(t);
+    hop::wg_arrive();
+    sp::rs_pairs<N, C::SW, false, 0, 6>(t, a, b + ch * C::ROWS * C::SW, C::PLANE);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(t);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[ch * N / 2 + i] += t[i];
+  }
+}
+
+// d (64 x 64) = the six split products of the 64-row tile at a times the
+// 64-row tile at b transposed, both K-major, waited for; kSwap: a holds the
+// B pieces of the product (sp::ss_pairs).
+template <int D, bool kSwap = false>
+__device__ __forceinline__ void split_ss(float (&d)[32], uint32_t a, uint32_t b) {
+  using C = Sb<D>;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  hop::fence_regs(d);
+  hop::wg_arrive();
+  sp::ss_pairs<D, C::SW, false, 0, 6, kSwap>(d, a, C::PLANE, C::ROWS * C::SW, b, C::PLANE,
+                                             C::ROWS * C::SW);
+  hop::wg_commit();
+  hop::wg_wait<0>();
+  hop::fence_regs(d);
+}
+
+// Rows [0, n) of a warpgroup's 64-row fragment of NCOL columns to dst (rows
+// D apart).
+template <int D, int NCOL = D>
+__device__ __forceinline__ void store_f32_rows(float* dst, const float (&acc)[NCOL / 2], int rl,
+                                               int quad, int n) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rl + 8 * hh;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < NCOL / 8; ++j)
+      *reinterpret_cast<float2*>(dst + size_t(r) * D + 8 * j + 2 * quad) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+// dK/dV in f32, key-major: a block owns 64 keys of one (batch, kv head),
+// their K and V planes resident, and walks every query tile of 64 rows (Q
+// and dO planes, lse and di) of each head of the GQA group that sees one of
+// its keys.  Warpgroup 1 computes S^T = K Q^T (Q scaled: the forward's S,
+// transposed) and P^T, hands P^T to warpgroup 0 through shared memory and
+// sums dV += P^T dO; warpgroup 0 computes dP^T = V dO^T, then dS^T from
+// P^T, and sums dK += dS^T Q.  Each product is six wgmmas a k16 step (the
+// score products K-major; P^T and dS^T split in registers into the A
+// operand, Q and dO read MN-major; promoted_rs).  Twelve of the 24 products
+// a tile fall to each warpgroup, so one's exponentials and splits run
+// beside the other's wgmmas.
+template <int D>
+__global__ void __launch_bounds__(Sb<D>::THREADS, 1)
+flash_bwd_dkv_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         const int* __restrict__ kv_lengths, float* __restrict__ dk,
+                         float* __restrict__ dv, long long q_plane, long long kv_plane, int h,
+                         int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
+                         float scale_log2) {
+  using C = Sb<D>;
+  constexpr int BT = C::ROWS, NP = C::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* v_s = k_s + NP * C::PLANE;
+  uint8_t* q_s = v_s + NP * C::PLANE;
+  uint8_t* do_s = q_s + NP * C::PLANE;
+  float* stats = reinterpret_cast<float*>(do_s + NP * C::PLANE);   // lse | di
+  float* xch = stats + 2 * BT;   // P^T, [i][thread of the warpgroup]
+
+  const int bk = blockIdx.x, b = bk / h_kv, hk = bk % h_kv, group = h / h_kv;
+  const int k0 = blockIdx.y * BT;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+
+  // query rows that can see a key of the block: R >= k0 when causal,
+  // R < k0 + 63 + window with a window, none past the valid keys
+  const int r_lo = causal ? k0 : 0;
+  int r_hi = window > 0 ? min(n_q, k0 + BT - 1 + window) : n_q;
+  if (k0 >= kv_len) r_hi = 0;
+  const int q_first = r_lo / BT * BT;
+  const int per_head = r_hi > q_first ? (r_hi - q_first + BT - 1) / BT : 0;
+  const int n_tiles = group * per_head;
+  auto head = [&](int t) { return size_t(b) * h + hk * group + t / per_head; };
+  auto tile_row = [&](int t) { return q_first + t % per_head * BT; };
+  auto load_tile = [&](int t) {   // Q and dO planes, lse and di of tile t
+    const size_t bh = head(t);
+    const int qt = tile_row(t), i = threadIdx.x;
+    load_planes<D>(q_s, q + bh * n_q * D, q_plane, qt, n_q, i);
+    load_planes<D>(do_s, dout + bh * n_q * D, q_plane, qt, n_q, i);
+    if (i < 2 * BT) {
+      const float* src = (i < BT ? lse : di) + bh * n_q + qt + i % BT;
+      const bool ok = qt + i % BT < n_q;
+      hop::cp_async<4>(hop::smem_u32(stats + i), ok ? src : lse, ok);
+    }
+  };
+
+  const size_t kv_off = size_t(bk) * n_kv * D;
+  load_planes<D>(k_s, k + kv_off, kv_plane, k0, n_kv, threadIdx.x);
+  load_planes<D>(v_s, v + kv_off, kv_plane, k0, n_kv, threadIdx.x);
+  if (n_tiles > 0) load_tile(0);
+  hop::cp_async_commit();
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = (lt / 32) * 16 + lane / 4;   // local key of hh = 0 (+8: hh = 1)
+  float acc[D / 2];   // dK (warpgroup 0) or dV (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const uint32_t k_addr = hop::smem_u32(k_s), v_addr = hop::smem_u32(v_s);
+  const uint32_t q_addr = hop::smem_u32(q_s), do_addr = hop::smem_u32(do_s);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int qt = tile_row(t);
+    hop::cp_async_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();   // tile t has landed everywhere
+    // x[4j + 2hh + e] is key k0 + rl + 8hh, query qt + 8j + 2 quad + e
+    float x[32];
+    uint32_t pa[NP][16];
+    if (wg == 1) {
+      split_ss<D, true>(x, k_addr, q_addr);   // S^T
+      const bool full = qt + BT <= n_q && k0 + BT <= kv_len && (!causal || k0 + BT - 1 <= qt) &&
+                        (window <= 0 || k0 > qt + BT - 1 - window);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * quad + e, R = qt + c, key = k0 + rl + 8 * hh;
+            bool live = true;
+            if (!full) {
+              int lo, hi;
+              fa::dense_bounds(R, kv_len, causal, window, lo, hi);
+              live = R < n_q && key >= lo && key < hi;
+            }
+            const int i = 4 * j + 2 * hh + e;
+            x[i] = live ? exp2f(x[i] - stats[c] * LOG2E) : 0.f;
+            xch[i * 128 + lt] = x[i];
+          }
+      hop::bar_arrive(1, C::THREADS);   // P^T is in the exchange
+      sp::split_tile(pa, x);
+      promoted_rs<D>(acc, pa, do_addr);   // dV += P^T dO
+    } else {
+      split_ss<D>(x, v_addr, do_addr);   // dP^T
+      hop::bar_sync(1, C::THREADS);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            x[i] = xch[i * 128 + lt] * (x[i] - stats[BT + 8 * j + 2 * quad + e]) * sm_scale;
+          }
+      sp::split_tile(pa, x);
+      promoted_rs<D>(acc, pa, q_addr);   // dK += dS^T Q
+    }
+    __syncthreads();   // tile t and the exchange are read
+    if (t + 1 < n_tiles) load_tile(t + 1);
+    hop::cp_async_commit();
+  }
+  hop::cp_async_wait<0>();
+  const int n_keys = max(0, min(BT, n_kv - k0));
+  if (wg == 0) {
+    // dK summed dS^T (q scale_log2): its reciprocal takes the scale back out
+    const float unscale = 1.f / scale_log2;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= unscale;
+  }
+  store_f32_rows<D>((wg == 0 ? dk : dv) + kv_off + size_t(k0) * D, acc, rl, quad, n_keys);
+}
+
+// dQ in f32, query-major: a block owns 64 query rows of one (batch, head),
+// their Q and dO planes resident, and walks the key tiles of 64 its rows
+// see.  Warpgroup 0 computes S = Q K^T (Q scaled: the forward's S) and P,
+// warpgroup 1 dP = dO V^T and, from P, dS; then each sums its half of dQ's
+// columns (d 128; below, warpgroup 0 all of them) += dS K (K read MN-major;
+// promoted_rs).  V's next tile loads behind this tile's dS and dQ, K's
+// behind nothing.
+template <int D>
+__global__ void __launch_bounds__(Sb<D>::THREADS, 1)
+flash_bwd_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        const int* __restrict__ kv_lengths, float* __restrict__ dq,
+                        long long q_plane, long long kv_plane, int h, int h_kv, int n_q, int n_kv,
+                        int causal, int window, float sm_scale, float scale_log2) {
+  using C = Sb<D>;
+  constexpr int BN = C::ROWS, NP = C::NP;
+  // dQ's columns a warpgroup holds: d 128 splits them, 64 each
+  constexpr int NQ = D == 128 ? 64 : D;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* do_s = q_s + NP * C::PLANE;
+  uint8_t* k_s = do_s + NP * C::PLANE;
+  uint8_t* v_s = k_s + NP * C::PLANE;
+  float* xch = reinterpret_cast<float*>(v_s + NP * C::PLANE) + 2 * C::ROWS;   // P, then dS
+
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;   // the longest walks first
+  const int n_rows = min(C::ROWS, n_q - row0);
+  const bf16* qp = q + size_t(bh) * n_q * D;
+  const bf16* dop = dout + size_t(bh) * n_q * D;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+
+  // both bounds of dense_bounds grow with the row
+  int walk_lo, walk_hi, all_lo, all_hi;
+  fa::dense_bounds(row0, kv_len, causal, window, walk_lo, all_hi);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, all_lo, walk_hi);
+  const int start = walk_hi > walk_lo ? walk_lo / BN * BN : 0;
+  const int end = walk_hi > walk_lo ? walk_hi : 0;
+
+  if (start < end) {
+    load_planes<D>(q_s, qp, q_plane, row0, n_q, threadIdx.x);
+    load_planes<D>(do_s, dop, q_plane, row0, n_q, threadIdx.x);
+    load_planes<D>(k_s, kp, kv_plane, start, n_kv, threadIdx.x);
+    load_planes<D>(v_s, vp, kv_plane, start, n_kv, threadIdx.x);
+  }
+  hop::cp_async_commit();
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = (lt / 32) * 16 + lane / 4;   // local row of hh = 0 (+8: hh = 1)
+  int lo[2], hi[2];
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + rl + 8 * hh;
+    fa::dense_bounds(row, kv_len, causal, window, lo[hh], hi[hh]);
+    const bool ok = row < n_q;
+    lse2[hh] = ok ? lse[size_t(bh) * n_q + row] * LOG2E : 0.f;
+    di_r[hh] = ok ? di[size_t(bh) * n_q + row] : 0.f;
+  }
+
+  const bool has_dq = D == 128 || wg == 0;
+  float acc[NQ / 2];
+#pragma unroll
+  for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = hop::smem_u32(q_s), do_addr = hop::smem_u32(do_s);
+  const uint32_t k_addr = hop::smem_u32(k_s), v_addr = hop::smem_u32(v_s);
+  const uint32_t k_cols = k_addr + (D == 128 ? wg * C::ROWS * C::SW : 0);
+  for (int kt = start; kt < end; kt += BN) {
+    const bool next = kt + BN < end;
+    hop::cp_async_wait<0>();
+    hop::fence_async_smem();
+    __syncthreads();   // K(kt) and V(kt) have landed everywhere
+    // x[4j + 2hh + e] is row rl + 8hh, key kt + 8j + 2 quad + e: S then P,
+    // or dP; then dS in both warpgroups
+    float x[32];
+    if (wg == 0) {
+      split_ss<D>(x, q_addr, k_addr);   // S
+      const bool full = kt >= all_lo && kt + BN <= all_hi;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = kt + 8 * j + 2 * quad + e, i = 4 * j + 2 * hh + e;
+            const bool live = full || (c >= lo[hh] && c < hi[hh]);
+            xch[i * 128 + lt] = live ? exp2f(x[i] - lse2[hh]) : 0.f;
+          }
+      hop::bar_arrive(1, C::THREADS);   // P is in the exchange
+      hop::bar_sync(2, C::THREADS);     // dS is
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = xch[i * 128 + lt];
+    } else {
+      split_ss<D>(x, do_addr, v_addr);   // dP
+      // V(kt) is read: warpgroup 1 alone loads the next V
+      if (next) load_planes<D, 128>(v_s, vp, kv_plane, kt + BN, n_kv, lt);
+      hop::cp_async_commit();
+      hop::bar_sync(1, C::THREADS);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * hh + e;
+            x[i] = xch[i * 128 + lt] * (x[i] - di_r[hh]) * sm_scale;
+            xch[i * 128 + lt] = x[i];
+          }
+      hop::bar_arrive(2, C::THREADS);
+    }
+    if (has_dq) {
+      uint32_t pa[NP][16];
+      sp::split_tile(pa, x);
+      promoted_rs<D, NQ>(acc, pa, k_cols);   // dQ += dS K
+    }
+    __syncthreads();   // K(kt) and the exchange are read
+    if (next) load_planes<D>(k_s, kp, kv_plane, kt + BN, n_kv, threadIdx.x);
+    hop::cp_async_commit();
+  }
+  hop::cp_async_wait<0>();
+  if (has_dq)
+    store_f32_rows<D, NQ>(dq + (size_t(bh) * n_q + row0) * D + (D == 128 ? wg * 64 : 0), acc, rl,
+                          quad, n_rows);
+}
+
+// Split q, dout, k and v into bf16 planes (in `planes`: 3 q_elems for q
+// and for dout, then 3 kv_elems for k and for v), then the dK/dV kernel,
+// then the dQ kernel.
+template <int D>
+cudaError_t launch_f32_tc(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* di, const int* lens, void* dq, void* dk,
+                          void* dv, void* planes, int b, int h, int h_kv, int n_q, int n_kv,
+                          int causal, int window, float sm_scale, float scale_log2,
+                          cudaStream_t stream) {
+  using C = Sb<D>;
+  auto dkv_kernel = flash_bwd_dkv_f32_kernel<D>;
+  auto dq_kernel = flash_bwd_dq_f32_kernel<D>;
+  static cudaError_t opted = [&] {
+    cudaError_t e = fa::allow_smem(dkv_kernel, C::SMEM);
+    return e != cudaSuccess ? e : fa::allow_smem(dq_kernel, C::SMEM);
+  }();
+  if (opted != cudaSuccess) return opted;
+  const long long q_elems = (long long)b * h * n_q * D, kv_elems = (long long)b * h_kv * n_kv * D;
+  bf16* qs = static_cast<bf16*>(planes);
+  bf16* dos = qs + 3 * q_elems;
+  bf16* ks = dos + 3 * q_elems;
+  bf16* vs = ks + 3 * kv_elems;
+  sp::SplitJobs jobs = {{static_cast<const float*>(q), static_cast<const float*>(dout),
+                         static_cast<const float*>(k), static_cast<const float*>(v)},
+                        {qs, dos, ks, vs},
+                        {q_elems, q_elems, kv_elems, kv_elems},
+                        {scale_log2, 1.f, 1.f, 1.f},
+                        {nullptr, nullptr, nullptr, nullptr}};
+  cudaError_t e = sp::split(jobs, 4, stream);
+  if (e != cudaSuccess) return e;
+  if (n_kv > 0) {
+    dim3 grid(b * h_kv, (n_kv + C::ROWS - 1) / C::ROWS);
+    dkv_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+        qs, ks, vs, dos, lse, di, lens, static_cast<float*>(dk), static_cast<float*>(dv), q_elems,
+        kv_elems, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (n_q > 0) {
+    dim3 grid(b * h, (n_q + C::ROWS - 1) / C::ROWS);
+    dq_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, dos, lse, di, lens,
+                                                     static_cast<float*>(dq), q_elems, kv_elems, h,
+                                                     h_kv, n_q, n_kv, causal, window, sm_scale,
+                                                     scale_log2);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* di, const int* lens, void* dq, void* dk,
+                            void* dv, void* planes, int b, int h, int h_kv, int n_q, int n_kv,
+                            int causal, int window, float sm_scale, float scale_log2,
+                            cudaStream_t st) {
+  switch (d) {
+    case 32: return launch_f32_tc<32>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 64: return launch_f32_tc<64>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 128: return launch_f32_tc<128>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* di, const int* lens, void* dq, void* dk,
                          void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal,
@@ -1359,4 +1800,23 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
     return dispatch_bf16(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
                          causal, window, sm_scale, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The f32 backward on the tensor cores in split precision (split.cuh):
+// arguments as fa_flash_bwd's f32 (op_graph 0), with planes: bf16 scratch
+// of 3 (2 q's elements + 2 k's elements), and scale_log2: the forward's
+// (fa_flash_fwd_f32's), folded into q before the split as there, so that
+// S is the forward's bit for bit and p = exp2(s - lse log2(e)) sums to 1
+// against the forward's lse (the tensor cores' truncation of S cancels).
+extern "C" int fa_flash_bwd_f32(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* di,
+                                const void* kv_lengths, void* dq, void* dk, void* dv,
+                                void* planes, int b, int h, int h_kv, int n_q, int n_kv, int d,
+                                int causal, int window, float sm_scale, float scale_log2,
+                                void* stream) {
+  if (b == 0 || h == 0) return 0;
+  return dispatch_f32_tc(d, q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(di), static_cast<const int*>(kv_lengths), dq,
+                         dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale,
+                         scale_log2, static_cast<cudaStream_t>(stream));
 }

@@ -75,14 +75,26 @@
 // shapes the bytes (q, k, v, o at B128 H8 N40 d32: 3.2 us) and a launch's
 // latency.
 
-// f32 keeps the CUDA-core kernel of attn_core.cuh (fa::attend): TF32
-// tensor cores would break the f32 gates of the training path.  One block
-// owns (batch*head, 64 query rows) there and walks the same key tiles; in
-// f32 the schedules' functions agree to f32 rounding, so one online
-// softmax serves them all.
+// f32 (every schedule's function: in f32 they agree to f32 rounding, so
+// one online softmax serves them all) runs on the tensor cores in split
+// precision (split.cuh) from F32_TC_MIN_KV keys on (ops/flash_attention.py),
+// flash_fwd_f32_kernel: the f32 function of _fwd_loop_kernel (the f32
+// training route: 512-key blocks at d 128) and of the grid, subrow and op
+// graph schedules.  Single-pass TF32 (10 bits) would miss the f32 gates;
+// three bf16 pieces an operand and six bf16 wgmmas a product keep 24 bits
+// on the tensor cores.  What bounds it: the six products, 24 d flops a
+// live pair at 989 TF/s (the same least time as 3 d x 4 at TF32's 494.7),
+// the split pass beside (4 bytes read, 6 written an element of q, k, v);
+// the pieces triple the shared memory of a tile (6 bytes an element), so a
+// block keeps Q's 128 rows resident and one 64-key K tile and one V tile
+// (192 KB at d 128), the next K loading behind this tile's P V and the
+// next V behind the next S.  Below F32_TC_MIN_KV keys (the MT model's 40)
+// the CUDA-core kernel of attn_core.cuh (fa::attend) stays, faster there:
+// one launch, no split pass, blocks of 64 rows (PERF.md row 6).
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -725,6 +737,280 @@ cudaError_t launch_op(const void* q, const void* k, const void* v, const int* le
   return launch_op_bn<D, 128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
 }
 
+// -- f32: split precision on the tensor cores -----------------------------------
+
+template <int D>
+struct Sp {
+  static constexpr int BM = 128, BN = 64, THREADS = 256, NP = sp::NP;
+  static constexpr int SW = D >= 64 ? 128 : 64;   // bytes of a swizzled row
+  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;   // one plane
+  static constexpr size_t SMEM = 1024 + NP * (size_t(Q_BYTES) + 2 * size_t(KV_BYTES));
+};
+
+// The f32 forward, every schedule's function (in f32 they agree to f32
+// rounding): one online softmax over tiles of 64 keys in base 2, q
+// pre-scaled by sm_scale * log2(e) before the split; o = acc * (1 / l),
+// lse = m ln 2 + ln l.  q, k and v arrive as bf16 planes (sp::split_kernel;
+// plane p of q at q + p * q_plane, of k and v at + p * kv_plane).  A block
+// owns 128 query rows of one (batch, head), two consumer warpgroups of 64,
+// with Q's three planes resident; the three planes of a K tile and of a V
+// tile come through one buffer each, the next K tile loading while this
+// tile's P V runs and the next V tile while the next S does.  S = Q K^T is
+// six wgmmas a k16 step (both K-major), P = exp2(s - m) is split in
+// registers into the A operand of P V's six (V MN-major), summed from zero
+// a tile and then added to acc in f32 (sp::pair_a).  A warpgroup
+// walks the key tiles its own rows see (those of the CUDA-core tile this
+// replaces, 64 rows and 64 keys a tile), so a non-finite V value reaches
+// the same rows.  nf[0] (nf[1]) set: K (V) holds a +-inf, and the tile's b0
+// plane is sanitized after the products that read it raw.
+template <int D>
+__global__ void __launch_bounds__(Sp<D>::THREADS, 1)
+flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
+                     const int* __restrict__ nf, float* __restrict__ o, float* __restrict__ lse,
+                     long long q_plane, long long kv_plane, int h, int h_kv, int n_q, int n_kv,
+                     int causal, int window) {
+  using C = Sp<D>;
+  constexpr int BN = C::BN, SW = C::SW, NP = C::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = qs + NP * C::Q_BYTES;
+  uint8_t* vs = ks + NP * C::KV_BYTES;
+
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BM;   // the longest walks first
+  const int n_rows = min(C::BM, n_q - row0);
+  const bf16* qp = q + size_t(bh) * n_q * D;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  const bool nf_k = nf[0] != 0, nf_v = nf[1] != 0;
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = wg * 64 + (lt / 32) * 16 + lane / 4;   // local row of hh = 0 (+8: hh = 1)
+  // the warpgroup's rows and walk [w_start, w_hi); the tiles inside every
+  // one of its rows' intervals are [all_lo, all_hi)
+  const int w_rows = min(64, n_rows - wg * 64);
+  int w_start = 0, w_hi = 0, all_lo = 0, all_hi = 0;
+  if (w_rows > 0) {
+    int lo_, hi_;
+    fa::dense_bounds(row0 + wg * 64, kv_len, causal, window, lo_, all_hi);
+    fa::dense_bounds(row0 + wg * 64 + w_rows - 1, kv_len, causal, window, all_lo, hi_);
+    if (hi_ > lo_) { w_start = lo_ / BN * BN; w_hi = hi_; }
+  }
+  // the block's walk: both bounds grow with the row
+  int b_lo, b_hi, lo_, hi_;
+  fa::dense_bounds(row0, kv_len, causal, window, b_lo, hi_);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, lo_, b_hi);
+  const int start = b_hi > b_lo ? b_lo / BN * BN : 0, end = b_hi > b_lo ? b_hi : 0;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    fa::dense_bounds(row0 + rl + 8 * hh, kv_len, causal, window, lo[hh], hi[hh]);
+
+  auto load_kv = [&](uint8_t* dst, const bf16* src, int kt) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      hop::load_tile<D * 2, SW, C::THREADS>(dst + p * C::KV_BYTES, src + p * kv_plane + size_t(kt) * D,
+                                             src, n_kv - kt, BN);
+  };
+  if (start < end) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      hop::load_tile<D * 2, SW, C::THREADS>(qs + p * C::Q_BYTES, qp + p * q_plane + size_t(row0) * D,
+                                             qp, n_rows, C::BM);
+    load_kv(ks, kp, start);
+  }
+  hop::cp_async_commit();
+  if (start < end) load_kv(vs, vp, start);
+  hop::cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // l: this thread's columns
+  const uint32_t q_addr = hop::smem_u32(qs) + wg * 64 * SW;
+  const uint32_t k_addr = hop::smem_u32(ks), v_addr = hop::smem_u32(vs);
+
+  for (int kt = start; kt < end; kt += BN) {
+    const bool act = kt >= w_start && kt < w_hi;   // this warpgroup's rows see the tile
+    const bool next = kt + BN < end;
+    hop::cp_async_wait<1>();
+    hop::fence_async_smem();
+    __syncthreads();   // K(kt) has landed everywhere
+
+    // S = Q K^T: s[4j + 2hh + e] is row rl + 8hh, key kt + 8j + 2 quad + e
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    hop::fence_regs(s);
+    if (act) {
+      hop::wg_arrive();
+      if (nf_k)
+        sp::ss_pairs<D, SW, true, 0, 4>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr, C::KV_BYTES,
+                                        BN * SW);
+      else
+        sp::ss_pairs<D, SW, false, 0, 6>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr,
+                                         C::KV_BYTES, BN * SW);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    if (nf_k) {
+      __syncthreads();
+      sp::sanitize<C::THREADS>(ks, C::KV_BYTES);
+      hop::fence_async_smem();
+      __syncthreads();
+      if (act) {
+        hop::wg_arrive();
+        sp::ss_pairs<D, SW, true, 4, 6>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr, C::KV_BYTES,
+                                        BN * SW);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+      }
+    }
+    hop::fence_regs(s);
+    __syncthreads();   // every warpgroup is done with K(kt)
+    if (next) load_kv(ks, kp, kt + BN);
+    hop::cp_async_commit();
+
+    uint32_t pp[NP][16];   // P's pieces: [i][2j + hh] = row hh's keys 8j + 2 quad + {0, 1}
+    if (act) {
+      const bool full = kt >= all_lo && kt + BN <= all_hi;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[4 * j + 2 * hh + e];
+            if (!full) {
+              const int c = kt + 8 * j + 2 * quad + e;
+              if (c < lo[hh] || c >= hi[hh]) x = -INFINITY;
+            }
+            mx = fmaxf(mx, x);
+          }
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m[hh], mx);
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[hh] - mu);
+        m[hh] = m_new;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          acc[4 * jj + 2 * hh] *= alpha;
+          acc[4 * jj + 2 * hh + 1] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float p0 = exp2f(s[4 * j + 2 * hh] - mu), p1 = exp2f(s[4 * j + 2 * hh + 1] - mu);
+          l[hh] += p0 + p1;
+          sp::split_pair(p0, p1, pp[0][2 * j + hh], pp[1][2 * j + hh], pp[2][2 * j + hh]);
+        }
+      }
+    }
+
+    hop::cp_async_wait<1>();
+    hop::fence_async_smem();
+    __syncthreads();   // V(kt) has landed everywhere
+    // P V sums from zero, then into acc (see sp::pair_a)
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+    hop::fence_regs(pv);
+    if (act) {
+      hop::wg_arrive();
+      if (nf_v)
+        sp::rs_pairs<D, SW, true, 0, 4>(pv, pp, v_addr, C::KV_BYTES);
+      else
+        sp::rs_pairs<D, SW, false, 0, 6>(pv, pp, v_addr, C::KV_BYTES);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    if (nf_v) {
+      __syncthreads();
+      sp::sanitize<C::THREADS>(vs, C::KV_BYTES);
+      hop::fence_async_smem();
+      __syncthreads();
+      if (act) {
+        hop::wg_arrive();
+        sp::rs_pairs<D, SW, true, 4, 6>(pv, pp, v_addr, C::KV_BYTES);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+      }
+    }
+    hop::fence_regs(pv);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += pv[i];
+    __syncthreads();   // every warpgroup is done with V(kt)
+    if (next) load_kv(vs, vp, kt + BN);
+    hop::cp_async_commit();
+  }
+  hop::cp_async_wait<0>();
+
+  // a row with no live key (l = 0) gives o = 0 and lse = -inf
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + rl + 8 * hh;
+    const float lt_ = quad_sum(l[hh]);
+    if (row >= n_q) continue;
+    const float inv = lt_ == 0.f ? 0.f : 1.f / lt_;
+    float* orow = o + (size_t(bh) * n_q + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) =
+          make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    if (quad == 0)
+      lse[size_t(bh) * n_q + row] = lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
+  }
+}
+
+// Split q (scaled by scale_log2), k and v into bf16 planes (in `planes`:
+// 3 q_elems, then 3 kv_elems for k and for v), then the kernel.  nf: two
+// ints of scratch.
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
+                       float* lse, void* planes, int* nf, int b, int h, int h_kv, int n_q,
+                       int n_kv, int causal, int window, float scale_log2, cudaStream_t stream) {
+  using C = Sp<D>;
+  auto kernel = flash_fwd_f32_kernel<D>;
+  static cudaError_t opted = fa::allow_smem(kernel, C::SMEM);
+  if (opted != cudaSuccess) return opted;
+  const long long q_elems = (long long)b * h * n_q * D, kv_elems = (long long)b * h_kv * n_kv * D;
+  bf16* qs = static_cast<bf16*>(planes);
+  bf16* ks = qs + 3 * q_elems;
+  bf16* vs = ks + 3 * kv_elems;
+  cudaError_t e = cudaMemsetAsync(nf, 0, 2 * sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  sp::SplitJobs jobs = {{static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), nullptr},
+                        {qs, ks, vs, nullptr},
+                        {q_elems, kv_elems, kv_elems, 0},
+                        {scale_log2, 1.f, 1.f, 1.f},
+                        {nullptr, nf, nf + 1, nullptr}};
+  e = sp::split(jobs, 3, stream);
+  if (e != cudaSuccess) return e;
+  dim3 grid(b * h, (n_q + C::BM - 1) / C::BM);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, lens, nf, static_cast<float*>(o), lse,
+                                                q_elems, kv_elems, h, h_kv, n_q, n_kv, causal,
+                                                window);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const int* lens,
+                            void* o, float* lse, void* planes, int* nf, int b, int h, int h_kv,
+                            int n_q, int n_kv, int causal, int window, float scale_log2,
+                            cudaStream_t st) {
+  switch (d) {
+    case 32: return launch_f32<32>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 64: return launch_f32<64>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 128: return launch_f32<128>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const int* lens,
                          void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
                          int causal, int window, float scale_log2, cudaStream_t st) {
@@ -781,4 +1067,18 @@ extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
     return dispatch_bf16(d, q, k, v, lens, o, l, b, h, h_kv, n_q, n_kv, causal, window,
                          scale, mode, span, st);
   return int(cudaErrorInvalidValue);
+}
+
+// The f32 forward on the tensor cores in split precision (split.cuh): q, k,
+// v, o f32 as fa_flash_fwd; scale_log2 = sm_scale * log2(e), folded into q;
+// planes: bf16 scratch of 3 (q's elements + 2 k's elements); nf: two ints
+// of scratch.  One function for every schedule, as fa_flash_fwd's f32.
+extern "C" int fa_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                const void* kv_lengths, void* o, void* lse, void* planes,
+                                void* nf, int b, int h, int h_kv, int n_q, int n_kv, int d,
+                                int causal, int window, float scale_log2, void* stream) {
+  if (b == 0 || h == 0 || n_q == 0) return 0;
+  return dispatch_f32_tc(d, q, k, v, static_cast<const int*>(kv_lengths), o,
+                         static_cast<float*>(lse), planes, static_cast<int*>(nf), b, h, h_kv,
+                         n_q, n_kv, causal, window, scale_log2, static_cast<cudaStream_t>(stream));
 }

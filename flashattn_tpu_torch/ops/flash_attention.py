@@ -23,13 +23,16 @@ way.  :func:`_schedule` is a copy of that choice:
 The dispatch is by shape and never by device.  On CUDA tensors every shape
 launches a hand-written kernel: ``csrc/flash_fwd.cu`` (in bf16 a wgmma
 tensor-core kernel with a mode per kernel schedule and a warp-level
-mma.sync kernel for the op graph; the CUDA-core kernel of
-``attn_core.cuh`` for f32) and ``csrc/flash_bwd.cu`` (a dK/dV and a dQ
-kernel: in bf16 wgmma kernels for the TPU kernels' backward and mma.sync
-kernels for the op graph's autodiff, its dQ kernel leaving the rows'
-statistics to the dK/dV kernel; CUDA-core kernels for f32, which has one
-function up to f32 rounding).  On CPU tensors the plain versions run
-(:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
+mma.sync kernel for the op graph) and ``csrc/flash_bwd.cu`` (a dK/dV and a
+dQ kernel: in bf16 wgmma kernels for the TPU kernels' backward and
+mma.sync kernels for the op graph's autodiff, its dQ kernel leaving the
+rows' statistics to the dK/dV kernel).  f32 has one function up to f32
+rounding at every shape: from ``F32_TC_MIN_KV`` keys on wgmma kernels in
+split precision (each f32 operand three bf16 pieces, six products a
+product: ``fa_flash_fwd_f32``, ``fa_flash_bwd_f32``, counted by
+``_f32_kernel`` and ``_f32_bwd_kernel``), below it the CUDA-core kernels
+(``attn_core.cuh``'s tile, the FMA backward pair).  On CPU tensors the
+plain versions run (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
@@ -57,6 +60,11 @@ _kernel = _build.Kernel("fa_flash_fwd", [_build.P] * 6 + [_build.I] * 8 + [
     _build.F, _build.I, _build.I, _build.I])
 _bwd_kernel = _build.Kernel("fa_flash_bwd", [_build.P] * 11 + [_build.I] * 8
                             + [_build.F, _build.I, _build.I])
+# f32 on the tensor cores in split precision (csrc/split.cuh)
+_f32_kernel = _build.Kernel("fa_flash_fwd_f32", [_build.P] * 8
+                            + [_build.I] * 8 + [_build.F])
+_f32_bwd_kernel = _build.Kernel("fa_flash_bwd_f32", [_build.P] * 11
+                                + [_build.I] * 8 + [_build.F, _build.F])
 
 HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
@@ -69,6 +77,12 @@ _BLOCK = 1024
 _MIN_BLOCK = 8
 # the C interface's codes of the kernel modes
 _MODES = {"op_graph": 0, "grid": 1, "loop": 1, "subrow": 2}
+# f32 takes the split-precision tensor-core kernels from this many keys on;
+# shorter walks (the MT model's 40, the distill draft's 128) keep the
+# CUDA-core kernels, whose single launch and two blocks an SM win there
+# (tools/f32_flash_probe.py: the crossover lies between 128 and 256 keys;
+# PERF.md, rows 6 and 9)
+F32_TC_MIN_KV = 256
 
 
 class Schedule(NamedTuple):
@@ -380,6 +394,15 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
     lens = _lengths(kv_lengths, b, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q, 1), device=q.device, dtype=torch.float32)
+    if code == 0 and n_kv >= F32_TC_MIN_KV:
+        planes = torch.empty(3 * (q.numel() + 2 * k.numel()),
+                             dtype=torch.bfloat16, device=q.device)
+        flags = torch.empty(2, dtype=torch.int32, device=q.device)
+        _f32_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    None if lens is None else lens.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), planes.data_ptr(), flags.data_ptr(), b, h,
+                    h_kv, n_q, n_kv, d, int(causal), int(window or 0), scale)
+        return o, lse
     _kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lens is None else lens.data_ptr(),
             o.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q, n_kv, d,
@@ -397,7 +420,8 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     kernels), unless ``grid`` asks for the TPU backward kernels' function
     (:func:`_reference_bwd`) at every shape, as ring attention's pairs
     take it (JAX calls ``_flash_bwd`` there directly).  One count covers
-    its launches."""
+    its launches (``_f32_bwd_kernel``'s for f32 from ``F32_TC_MIN_KV``
+    keys on, else ``_bwd_kernel``'s)."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -414,6 +438,17 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     lse, di = (t.detach().float().contiguous() for t in (lse, di))
     lens = _lengths(kv_lengths, b, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if code == 0 and n_kv >= F32_TC_MIN_KV:
+        planes = torch.empty(6 * (q.numel() + k.numel()), dtype=torch.bfloat16,
+                             device=q.device)
+        _f32_bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), di.data_ptr(),
+                        None if lens is None else lens.data_ptr(),
+                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        planes.data_ptr(), b, h, h_kv, n_q, n_kv, d,
+                        int(causal), int(window or 0), float(sm_scale),
+                        float(sm_scale * LOG2E))   # flash_fwd's q scale
+        return dq, dk, dv
     ops = (torch.empty((b, h, n_q, 4), device=q.device, dtype=torch.float32)
            if op_graph else None)
     _bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

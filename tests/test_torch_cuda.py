@@ -50,6 +50,14 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def _flash_launches():
+    """(forward, backward) launches of the flash kernels, either f32 route
+    (the split-precision kernels from fa.F32_TC_MIN_KV keys, the CUDA-core
+    ones below) counted with bf16's."""
+    return (fa._kernel.launches + fa._f32_kernel.launches,
+            fa._bwd_kernel.launches + fa._f32_bwd_kernel.launches)
+
+
 def _rel_err(a, b):
     """max |a - b| over max(1, max |b|): the scale of a sum over rows."""
     return _err(a, b) / max(1.0, float(b.float().abs().max()))
@@ -175,9 +183,9 @@ def test_flash_kernel(dev, dtype, case):
     k = _randn(g, b, h_kv, n_kv, d, dtype=dtype, dev=dev)
     v = _randn(g, b, h_kv, n_kv, d, dtype=dtype, dev=dev)
     lens = None if lengths is None else torch.tensor(lengths, device=dev)
-    before = fa._kernel.launches
+    before = _flash_launches()[0]
     o, lse = fa._flash_fwd_entry(q, k, v, causal, None, "auto", window, lens)
-    assert fa._kernel.launches == before + 1
+    assert _flash_launches()[0] == before + 1
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, d ** -0.5, lens,
                                         window)
     if dtype == torch.bfloat16:
@@ -443,9 +451,9 @@ def test_flash_bwd_kernel(dev, dtype, case):
                           kv_lengths=lens, window=window)
     di = (o.float() * do.float()).sum(-1, keepdim=True)
     kw = dict(causal=causal, sm_scale=scale, kv_lengths=lens, window=window)
-    before = fa._bwd_kernel.launches
+    before = _flash_launches()[1]
     got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
-    assert fa._bwd_kernel.launches == before + 1
+    assert _flash_launches()[1] == before + 1
     want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, scale, lens,
                               window)
     op_graph = fa._schedule(q, k, causal, window, lens is not None).name \
@@ -470,10 +478,10 @@ def test_flash_autograd_launches_fwd_and_bwd(dev):
     q, k, v, do, lens, causal, window = _flash_inputs(
         "varlen_gqa_len0_d128", torch.float32, dev)
     ts = [t.requires_grad_() for t in (q, k, v)]
-    fwd, bwd = fa._kernel.launches, fa._bwd_kernel.launches
+    fwd, bwd = _flash_launches()
     out = fa.flash_attention_varlen(*ts, lens, causal)
     got = torch.autograd.grad(out, ts, do)
-    assert (fa._kernel.launches, fa._bwd_kernel.launches) == (fwd + 1, bwd + 1)
+    assert _flash_launches() == (fwd + 1, bwd + 1)
     cpu = [t.detach().cpu().requires_grad_() for t in ts]
     want = torch.autograd.grad(fa.flash_attention_varlen(*cpu, lens.cpu(),
                                                          causal), cpu, do.cpu())
@@ -658,10 +666,10 @@ def test_kv8_flash_fallback(dev, case, dtype, payload, causal):
     q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
     k, v = (_quantize(torch.randn(b, h_kv, n_kv, d, generator=g, device=dev),
                       payload) for _ in range(2))
-    before = (fa._kernel.launches, qt._kv8_kernel.launches)
+    before = (_flash_launches()[0], qt._kv8_kernel.launches)
     o, lse = qt.flash_attention_kv_int8(q, k, v, causal)
-    assert (fa._kernel.launches, qt._kv8_kernel.launches) == (before[0] + 1,
-                                                              before[1])
+    assert (_flash_launches()[0], qt._kv8_kernel.launches) == (before[0] + 1,
+                                                               before[1])
     o_ref, lse_ref = fa._reference_fwd_with_lse(
         q, k.dequantize(dtype), v.dequantize(dtype), causal, d ** -0.5)
     if dtype == torch.bfloat16:
@@ -1751,3 +1759,113 @@ def test_dropout_kernel_at_offset(dev, dtype, offset):
                                                  offset=offset))
     full = dr.dropout(whole, 0.1, 2**40 + 7)
     assert torch.equal(got.reshape(-1), full[offset:offset + x.numel()])
+
+
+# f32 on the split-precision tensor-core kernels (fa._f32_kernel,
+# fa._f32_bwd_kernel from fa.F32_TC_MIN_KV keys; the CUDA-core kernels
+# below) against the plain versions, at each schedule's shapes and on both
+# sides of the dispatcher's thresholds: the op graph at the MT model's 40
+# keys and at 255 / 256 keys, subrow at 1024, the loop at 2048, the grid
+# with a window, GQA 16q/4kv, varlen with a length-0 row, d 32 and 64,
+# cross 1000 x 2048 and ragged lengths.  (b, h, h_kv, n_q, n_kv, d, causal,
+# lengths, window)
+F32_CASES = {
+    "op_graph_mt_40x40_d32": (16, 8, 8, 40, 40, 32, True, None, None),
+    "op_graph_n255_d64": (2, 4, 4, 255, 255, 64, True, None, None),
+    "op_graph_n256_d64": (2, 4, 4, 256, 256, 64, True, None, None),
+    "op_graph_17x1000_d128": (2, 4, 2, 17, 1000, 128, False, None, None),
+    "subrow_n1024_d128": (1, 4, 4, 1024, 1024, 128, True, None, None),
+    "loop_n2048_d128": (2, 4, 4, 2048, 2048, 128, True, None, None),
+    "grid_window256_n2048_d128": (1, 4, 4, 2048, 2048, 128, True, None, 256),
+    "gqa16_4_n2048_d128": (1, 16, 4, 2048, 2048, 128, True, None, None),
+    "varlen_len0_n1024_d128": (3, 2, 2, 1024, 1024, 128, True,
+                               [1024, 0, 515], None),
+    "d32_n1536_causal": (1, 4, 4, 1536, 1536, 32, True, None, None),
+    "d64_n2048_noncausal": (1, 4, 4, 2048, 2048, 64, False, None, None),
+    "cross_1000x2048_d128": (1, 4, 4, 1000, 2048, 128, False, None, None),
+    "ragged_70x3001_varlen_d64": (2, 4, 2, 70, 3001, 64, False, [3001, 1111],
+                                  None),
+    "ragged_causal_n1001_d128": (1, 2, 2, 1001, 1001, 128, True, None, None),
+}
+# f32-grade: the split keeps 24 bits of each operand and drops products
+# below 2^-23 of their terms; the CUDA-core kernels read ~2e-6 at these
+# shapes (o and lse absolute, gradients over max(1, max |ref|))
+F32_GRADE = 1e-5
+
+
+def _f32_inputs(case, dev, magnitude=1.0):
+    """Unit-normal inputs; at ``magnitude`` m, q, v and dO scaled by m and k
+    by 1 / m: operands far from 1 on both sides whose scores stay those of
+    unit inputs (scores of m^2 would make the softmax one-hot, where a
+    near-tie turns any score rounding into an error of the output's size)."""
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = F32_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, do = (torch.randn(b, h, n_q, d, generator=g, device=dev) * magnitude
+             for _ in range(2))
+    k, v = (torch.randn(b, h_kv, n_kv, d, generator=g, device=dev)
+            for _ in range(2))
+    k, v = k / magnitude, v * magnitude
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    return q, k, v, do, lens, causal, window
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 1e3])
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_flash_f32_split_kernels(dev, case, magnitude):
+    """Forward and backward against flash_fwd_plain / flash_bwd_plain at
+    F32_GRADE (o relative to max |ref| at magnitude 1e3: see _f32_inputs),
+    the launch on the route the dispatcher names: the split-precision
+    kernels from F32_TC_MIN_KV keys, the CUDA-core ones below; the
+    backward twice bit for bit."""
+    q, k, v, do, lens, causal, window = _f32_inputs(case, dev, magnitude)
+    n_kv, sc = k.shape[2], q.shape[-1] ** -0.5
+    kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
+    tc = n_kv >= fa.F32_TC_MIN_KV
+    fwd, bwd = ((fa._f32_kernel, fa._f32_bwd_kernel) if tc
+                else (fa._kernel, fa._bwd_kernel))
+    counts = [c.launches for c in (fa._kernel, fa._f32_kernel, fa._bwd_kernel,
+                                   fa._f32_bwd_kernel)]
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
+    delta = [c.launches - n for c, n in zip(
+        (fa._kernel, fa._f32_kernel, fa._bwd_kernel, fa._f32_bwd_kernel), counts)]
+    assert delta == ([0, 1, 0, 1] if tc else [1, 0, 1, 0])
+    assert (fwd.launches, bwd.launches) > (0, 0)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, lens, window)
+    fin = lse_ref.isfinite()
+    assert torch.equal(lse.isfinite(), fin)
+    assert _err(o, o_ref) <= F32_GRADE * magnitude
+    assert _err(lse[fin], lse_ref[fin]) <= F32_GRADE
+    want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens, window)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= F32_GRADE
+    for a, b in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+@pytest.mark.parametrize("where", ["k", "v"])
+@pytest.mark.parametrize("case", ["loop_n2048_d128", "op_graph_mt_40x40_d32"])
+def test_flash_f32_nonfinite_inputs(dev, case, where, value):
+    """An inf or a NaN in K or V on a key every row's walk visits (key 5 of
+    head 0, column 3): o's and lse's NaN and inf positions equal the plain
+    version's, the finite elements within F32_GRADE.  An inf in K gives
+    the rows that see it a score of +-inf (a NaN row, or the key dropped);
+    in V, +inf where p > 0 and 0 * inf = NaN where p = 0; a NaN reaches
+    every row whose walk reads the key.  The split keeps the inf in the hi
+    piece and zeroes it before the lower pieces' products, so no 0 * inf
+    appears that the f32 product would not make."""
+    q, k, v, do, lens, causal, window = _f32_inputs(case, dev)
+    (k if where == "k" else v)[0, 0, 5, 3] = value
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc)
+    for got, want in ((o, o_ref), (lse, lse_ref)):
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.isinf(), want.isinf())
+        assert torch.equal(got[got.isinf()], want[want.isinf()])
+        fin = want.isfinite()
+        assert _err(got[fin], want[fin]) <= F32_GRADE
+    assert bool(o_ref[0, 0].isnan().any() or o_ref[0, 0].isinf().any())

@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,opgraph,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused,mt_step] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,f32,opgraph,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused,train_f32,mt_step] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -18,6 +18,12 @@ a process of its own that imports that root's package and this repo's
 * ``bwd``: the bf16 flash backward (``flash_bwd``) at the train step's
   head shape B4 H16 N2048 D128 causal, cross 1000 x 2048 non-causal and
   causal N512 (the op graph's autodiff), with SDPA's backward beside;
+* ``f32``: every f32 flash line of ``chip_smoke.py``'s kernel phases,
+  forward and backward where it has one: the varlen prefill B4 H8 N2048
+  D128, the train shape B4 H16 N2048 D128 causal (the loop schedule), and
+  the MT model's B128 H8 D32 40-key shapes (encoder varlen, decoder
+  causal, cross varlen, generate 1 x 40), with SDPA's f32 call and its
+  backward beside;
 * ``opgraph``: the op graph (``flash_fwd`` mode 0 and ``flash_bwd``'s
   op-graph mode) at the MT model's attention shapes (B128 H8 D32 over 40
   keys: the encoder's varlen and the decoder's causal self-attention,
@@ -60,6 +66,7 @@ a process of its own that imports that root's package and this repo's
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
   profiled step);
 * ``train_fused``: the same with ``attn_impl="fused_softmax"``;
+* ``train_f32``: the same step in f32 (no mixed-precision wrapper);
 * ``mt_step``: chip_smoke's seq2seq_train phase in bf16-mixed with remat
   (the MT model's 64 steps, ms/step, one profiled dispatch with the op
   graph's device ms and share).
@@ -149,6 +156,46 @@ def _bwd(torch, cs, dev):
                                              sm_scale=128 ** -0.5))
         lib = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, None))
         print(f"[ab] flash_bwd {label}: ms {ms:.4f}, SDPA bwd {lib:.4f}", flush=True)
+
+
+# chip_smoke's f32 flash lines: (label, (b, h, n_q, n_kv, d), lengths
+# ("mt": the MT phase's draw), causal, backward too)
+F32_SHAPES = [
+    ("varlen B4 H8 N2048 D128 causal", (4, 8, 2048, 2048, 128),
+     [2048, 1536, 1024, 517], True, False),
+    ("train B4 H16 N2048 D128 causal", (4, 16, 2048, 2048, 128), None, True, True),
+    ("MT encoder B128 H8 40x40 D32 varlen", (128, 8, 40, 40, 32), "mt", False, True),
+    ("MT decoder B128 H8 40x40 D32 causal", (128, 8, 40, 40, 32), None, True, True),
+    ("MT cross B128 H8 40x40 D32 varlen", (128, 8, 40, 40, 32), "mt", False, True),
+    ("MT generate B128 H8 1x40 D32 varlen", (128, 8, 1, 40, 32), "mt", False, False)]
+
+
+def _f32(torch, cs, dev):
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for label, (b, h, n_q, n_kv, d), lens, causal, bwd in F32_SHAPES:
+        if lens == "mt":
+            gl = torch.Generator().manual_seed(cs.SEED + 11)
+            lens = torch.randint(1, n_kv + 1, (b,), generator=gl)
+            lens[:2] = torch.tensor([1, n_kv])
+        lens = None if lens is None else torch.as_tensor(lens).to(dev)
+        q, do = (torch.randn(b, h, n_q, d, generator=g, device=dev) for _ in range(2))
+        k, v = (torch.randn(b, h, n_kv, d, generator=g, device=dev) for _ in range(2))
+        sc = d ** -0.5
+        kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens)
+        lib, args = cs._sdpa(torch, q, k, v, causal, None, lens)
+        line = (f"[ab] f32 flash {label}: fwd ms "
+                f"{cs.time_ms(lambda: fa.flash_fwd(q, k, v, **kw)):.4f}, SDPA "
+                f"{cs.time_ms(lambda: lib(*args)):.4f}")
+        if bwd:
+            o, lse = fa.flash_fwd(q, k, v, **kw)
+            di = (o.float() * do.float()).sum(-1, keepdim=True)
+            ms = cs.time_ms(lambda: fa.flash_bwd(q, k, v, lse, di, do, **kw))
+            lib_b = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, lens))
+            line += f"; bwd ms {ms:.4f}, SDPA bwd {lib_b:.4f}"
+        print(line, flush=True)
+        del q, k, v, do
 
 
 # the op graph's shapes: (label, (b, h, n_q, n_kv, d), varlen, causal,
@@ -483,6 +530,8 @@ def child(root: str, phases: list[str]) -> None:
         _flash(torch, cs, dev)
     if "bwd" in phases:
         _bwd(torch, cs, dev)
+    if "f32" in phases:
+        _f32(torch, cs, dev)
     if "opgraph" in phases:
         _opgraph(torch, cs, dev)
     if "kv8" in phases:
@@ -508,6 +557,14 @@ def child(root: str, phases: list[str]) -> None:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0),
                        cs.TRAIN_FUSED, "train_fused_softmax", cs.FUSED_KERNELS,
                        cs.FUSED_ABSENT)
+    if "train_f32" in phases:
+        from flashattn_tpu_torch.ops import flash_attention as fa
+
+        split = hasattr(fa, "_f32_kernel")   # an older root: the CUDA-core f32 kernels
+        cs.train_phase(torch, dev, torch.cuda.get_device_name(0), name="train_f32",
+                       kernels=cs.TRAIN_F32_KERNELS if split else cs.TRAIN_KERNELS,
+                       absent=cs.TRAIN_F32_ABSENT if split else (), mixed=False)
+        torch.cuda.empty_cache()
     if "mt_step" in phases:
         cs.seq2seq_train_phase(torch, dev, torch.cuda.get_device_name(0), cs.mt_data(),
                                mixed=True, remat=True)
