@@ -77,8 +77,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. quantization kernels: the weight-only matmul (int8 and fp8 payloads,
    bf16 and f32 x) at the quantized serving model's Linear shapes (K and
    N in {1024, 256}, the lm head's N 1000; bf16 x at M 1, 4, 16, 17, 100
-   and 4 x 8192, where its GEMV and tensor-core tile branch; f32 x at
-   decode M 4 and prefill 4 x 8192; yardstick x @ W on the pre-dequantized
+   and 4 x 8192, where its GEMV and tensor-core tile branch; f32 x,
+   ``wo_matmul_f32``, at decode M 4 and 16 (the f32 GEMV; N 1024 and the
+   lm head's 1000) and prefill 4 x 8192 (the split-precision tile, its
+   FMA bound printed beside); yardstick x @ W on the pre-dequantized
    bf16 / f32 weight; calls of M <= 100 timed by CUDA-graph replay, and
    their eager time, the host's launch work included, logged beside),
    quantized
@@ -87,10 +89,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    positions, the quantized model's capacity, for bf16, int8 and fp8
    pools; the split plans and the paged kernels' registers and shared
    memory logged once), flash attention over an
-   int8 / fp8 KV cache (B4 H8 N2048 D128 causal, fp8 there transcoded to
-   int8 as at the TPU subrow envelope; GQA 8q/2kv, cross non-causal
-   1000 x 2048, ragged N 1000, bf16 q on the tensor-core kernel; yardstick
-   SDPA on the dequantized cache) and
+   int8 / fp8 KV cache at one shape of each of JAX's routes
+   (``ops/quant.py::_kv8_route``): the subrow B4 H8 N2048 D128 causal
+   (fp8 transcoded to int8 first, as JAX does; GQA 8q/2kv), the loop N512
+   and the grid cross non-causal 1000 x 2048 (two 1024-key blocks) and
+   ragged N 1000 (one block); bf16 q (``kv8_flash``, the route's mode)
+   gated as the flash forward, f32 q (``kv8_flash_f32``, split
+   precision) at 1e-4; yardstick SDPA on the dequantized cache) and
    stochastic-rounding int8 quantization (32768 x 1024 bf16, bit-exact;
    the mean of 8 seeds on a constant tensor within 2%).  Tolerances as in
    phase 3; the matmul, a sum over K, gated like a gradient.
@@ -98,12 +103,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel_bench/bench_serving.py:105-141 at full width and depth
    (E1024, 8 heads of 128, 4 layers, vocab 1000, n_positions 16384;
    engine max_batch 4, page 128, 66 pages a sequence, prefill_chunk 8192,
-   8 steps a dispatch), three variants in turn: bf16 weights + bf16 pool,
-   int8 weights + int8 pool, int8 weights + fp8 pool.  One warm-up request,
-   then four greedy requests of 8192-token prompts and 64 new tokens each
-   (one batched varlen prefill).  Every request finishes, no page leaks,
-   and the quantized variants launch wo_matmul, paged_attention, flash_fwd
-   and layernorm_fwd (the bf16 variant no wo_matmul).
+   8 steps a dispatch), five variants in turn: bf16 weights + bf16 pool,
+   int8 weights + int8 pool, int8 weights + fp8 pool (the model cast to
+   bf16), then northstar() at its own dtype, the f32 model with int8
+   weights over an int8 and an fp8 pool.  One warm-up request, then four
+   greedy requests of 8192-token prompts and 64 new tokens each (one
+   batched varlen prefill).  Every request finishes, no page leaks, the
+   bf16 quantized variants launch wo_matmul, paged_attention, flash_fwd
+   and layernorm_fwd (the bf16 variant no wo_matmul), the f32 ones
+   wo_matmul_f32, paged_attention, flash_fwd_f32 and layernorm_fwd and
+   no wo_matmul.  Then the f32 model's gate: one 8192-token prompt and 16
+   new tokens per pool, engine logits against a dense forward of the same
+   quantized model, max |diff| / max |dense| < 0.08 and argmax agreement
+   >= 0.8.
 10. quant_consistency: the f32 model with int8 weights over an int8 and
    then an fp8 pool; engine logits along a 500-token (batched prefill) and
    a 600-token (chunked prefill, chunk 512) trajectory against one dense
@@ -304,6 +316,15 @@ QUANT_ENGINE = dict(max_batch=4, page_size=128, pages_per_seq=66,
                     steps_per_dispatch=8, prefill_chunk=8192)
 QUANT_PROMPT, QUANT_NEW_TOKENS = 8192, 64
 QUANT_KERNELS = ("wo_matmul", "paged_attention", "flash_fwd", "layernorm_fwd")
+# JAX's north-star at its own dtype (f32 DecoderLM, int8 weights): the f32
+# kernels (split-precision wo tile and flash prefill, the f32 GEMV) launch,
+# the bf16 wo_matmul none
+QUANT_F32_KERNELS = ("wo_matmul_f32", "paged_attention", "flash_fwd_f32",
+                     "layernorm_fwd")
+QUANT_F32_ABSENT = ("wo_matmul",)
+# the f32 north-star gate: one 8192-token prompt and 16 new tokens, engine
+# logits against a dense forward of the same quantized model
+QUANT_F32_GATE_NEW = 16
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
                  "dropout")
 # the same step in f32 (no mixed-precision wrapper): every attention takes
@@ -449,7 +470,9 @@ class Phases:
     def check(self, kernel: str, label: str, dtype, run_kernel, run_plain,
               cost, main: bool = False, compare=None, library=None, tol=None,
               graph: bool = False):
-        """``cost`` = (bytes, useful flops); ``compare`` returns (abs err,
+        """``cost`` = (bytes, useful flops[, the flops of the FMA kernels a
+        split-precision kernel replaced, whose bound is printed beside]);
+        ``compare`` returns (abs err,
         gated err), gated at ``tol`` (default ``TOL`` of the dtype);
         ``library`` is the PyTorch yardstick call, or None.  ``graph``
         times all three calls by CUDA-graph replay (:func:`graph_ms`)."""
@@ -463,7 +486,7 @@ class Phases:
         ms, plain_ms = timer(run_kernel), timer(run_plain)
         lib_ms = None if library is None else timer(library)
         name = str(dtype).replace("torch.", "")
-        b_ms, b_by = bound_ms(*cost, name)
+        b_ms, b_by = bound_ms(*cost[:2], name)
         tol = TOL[name] if tol is None else tol
         ok = gated <= tol
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
@@ -471,6 +494,8 @@ class Phases:
         if isinstance(cost[1], dict) and "tf32" in cost[1]:
             fma = (f"fma_bound_ms="
                    f"{bound_ms(cost[0], cost[1]['tf32'] / 3, 'float32')[0]:.4g} ")
+        elif len(cost) > 2:
+            fma = f"fma_bound_ms={bound_ms(cost[0], cost[2], 'float32')[0]:.4g} "
         log(f"[kernel] {kernel:15s} {label:38s} {name:8s} max_abs_err={err:.3e}"
             f" gated={gated:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) {fma}"
@@ -1212,8 +1237,13 @@ def _quant_bits_err(got, want):
 
 
 def _wo_cost(m, k, n, isz):
-    """x read, the 1-byte payload and f32 scales read, y written; 2MNK."""
-    return m * k * isz + k * n + 4 * n + m * n * isz, 2 * m * n * k
+    """x read, the 1-byte payload and f32 scales read, y written; 2MNK.  f32
+    x above 16 rows runs split precision: three bf16 products, the FMA
+    kernel's 2MNK at the f32 peak beside."""
+    bytes_, flops = m * k * isz + k * n + 4 * n + m * n * isz, 2 * m * n * k
+    if isz == 4 and m > 16:
+        return bytes_, {"bfloat16": 3 * flops}, flops
+    return bytes_, flops
 
 
 def _kv8_cost(q, k_values, causal):
@@ -1229,10 +1259,16 @@ def _kv8_cost(q, k_values, causal):
     kv_tokens = b * h_kv * n_kv
     q_type = str(q.dtype).replace("torch.", "")
     dot = 2 * d * pairs
-    ops = ({"int8": dot, q_type: dot} if k_values.dtype == torch.int8
-           else {q_type: 2 * dot})
-    return (2 * q.numel() * q.element_size() + 4 * b * h * n_q
-            + 2 * kv_tokens * (d + 4)), ops
+    int8 = k_values.dtype == torch.int8
+    ops = {"int8": dot, q_type: dot} if int8 else {q_type: 2 * dot}
+    bytes_ = (2 * q.numel() * q.element_size() + 4 * b * h * n_q
+              + 2 * kv_tokens * (d + 4))
+    if q.dtype == torch.float32:
+        # split precision: the f32 side of each bf16 product in three pieces
+        split = ({"int8": dot, "bfloat16": 3 * dot} if int8
+                 else {"bfloat16": 6 * dot})
+        return bytes_, split, ops
+    return bytes_, ops
 
 
 def _log_paged_plan(torch, pa):
@@ -1275,8 +1311,9 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
     # at every M the kernels branch on (the GEMV at M <= 16, the tensor-core
     # tile above, ragged 17 and 100, decode 4 and prefill 4 x 8192) and
     # every (K, N) of the model, the lm head's N 1000 among them
-    shapes = [(4, 1024, 1024), (32768, 1024, 1024), (32768, 1024, 256),
-              (32768, 256, 1024), (32768, 1024, 1000)]
+    shapes = [(4, 1024, 1024), (4, 1024, 1000), (16, 1024, 1024),
+              (32768, 1024, 1024), (32768, 1024, 256), (32768, 256, 1024),
+              (32768, 1024, 1000)]
     bf16_shapes = [(m, k, n) for m in (1, 4, 16, 17, 100, 32768)
                    for k, n in ((1024, 1024), (1024, 256), (256, 1024),
                                 (1024, 1000))]
@@ -1287,9 +1324,11 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                 x = randn(m, k, dtype=dtype)
                 w = quantize(randn(k, n, dtype=torch.float32), payload, axis=0)
                 w_full = w.dequantize(dtype)
-                main = (pname == "int8" and dtype == torch.bfloat16
-                        and (m, k, n) == (32768, 1024, 1024))
-                ph.check("wo_matmul", f"({m}, {k}) x ({k}, {n}) {pname}", dtype,
+                main = pname == "int8" and (m, k, n) == (32768, 1024, 1024)
+                # f32 x: the split-precision tile (or the f32 GEMV), its own
+                # entry point and counter
+                kname = "wo_matmul" if dtype == torch.bfloat16 else "wo_matmul_f32"
+                ph.check(kname, f"({m}, {k}) x ({k}, {n}) {pname}", dtype,
                          lambda: qt.wo_matmul(x, w),
                          lambda: qt.int8_weight_only_matmul_reference(x, w),
                          _wo_cost(m, k, n, isz), main=main,
@@ -1298,7 +1337,7 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                 if m <= 100:   # the same call timed eagerly, host launch included
                     eager = time_ms(lambda: qt.wo_matmul(x, w), host=True)
                     lib = time_ms(lambda: x @ w_full, host=True)
-                    log(f"[kernel] wo_matmul       ({m}, {k}) x ({k}, {n}) {pname} "
+                    log(f"[kernel] {kname:15s} ({m}, {k}) x ({k}, {n}) {pname} "
                         f"{str(dtype)[6:]} eager ms={eager:.4f} library_ms={lib:.4f}")
                 del x, w, w_full
 
@@ -1370,46 +1409,55 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                  compare=_rel_err)
         del kq, vq, kw
 
-    # flash attention over a quantized KV cache
-    def kv8_check(label, dtype, q, k, v, causal, main=False, transcoded=False):
-        """``transcoded``: fp8 K/V at the TPU subrow envelope, which the
-        public function transcodes to int8 first; the plain version is then
-        given the transcoded K/V."""
+    # flash attention over a quantized KV cache, at one shape of each of
+    # JAX's routes (qt._kv8_route): the subrow (B4 H8 N2048 causal, fp8
+    # transcoded to int8 first; GQA 8q/2kv), the loop (N512: one 512-key
+    # chunk a query block) and the grid (cross 1000 x 2048: two 1024-key
+    # blocks; ragged N1000: one block); bf16 q on fa_kv8_flash in the
+    # route's mode, gated as the flash forward (at least 99% of o bit for
+    # bit, the rest within one bf16 ulp of its row's largest, lse 1e-5), f32
+    # q on fa_kv8_flash_f32 (split precision) at 1e-4
+    def kv8_check(label, dtype, q, k, v, causal, main=False):
         sc = q.shape[-1] ** -0.5
         lib, args = _sdpa(torch, q, k.dequantize(q.dtype), v.dequantize(q.dtype),
                           causal, None, None)
+        route = qt._kv8_route(causal, q.shape[2], k.values.shape[2], q.shape[3])
         k_ref, v_ref = k, v
-        if transcoded:
+        if k.values.dtype != torch.int8 and route.name == "subrow":
             k_ref, v_ref = (qt.requantize_fp8_to_int8(t) for t in (k, v))
             label += " (fp8 transcoded)"
-        ph.check("kv8_flash", label, dtype,
+        label = f"{route.name} {label}"
+        name = "kv8_flash" if dtype == bf else "kv8_flash_f32"
+        ph.check(name, label, dtype,
                  lambda: qt.flash_attention_kv_int8(q, k, v, causal, sc),
                  lambda: qt.flash_attention_kv_int8_reference(q, k_ref, v_ref,
                                                               causal, sc),
                  _kv8_cost(q, k_ref.values, causal), main=main,
-                 compare=_lse_err, library=lambda: lib(*args))
+                 **_flash_gate(dtype, f"{name} {label}"),
+                 library=lambda: lib(*args))
 
     def kv(b, h, n, payload):
         return (quantize(randn(b, h, n, 128, dtype=torch.float32), payload)
                 for _ in range(2))
 
     for pname, payload in payloads.items():
-        fp8 = pname == "fp8"    # N2048 causal D128 is in the subrow envelope
         k, v = kv(4, 8, 2048, payload)
+        k5, v5 = kv(4, 8, 512, payload)
         for dtype in (bf, torch.float32):
             q = randn(4, 8, 2048, 128, dtype=dtype)
             kv8_check(f"B4 H8 N2048 D128 causal {pname}", dtype, q, k, v, True,
-                      main=not fp8 and dtype == bf, transcoded=fp8)
+                      main=pname == "int8")
+            kv8_check(f"B4 H8 N512 D128 causal {pname}", dtype,
+                      randn(4, 8, 512, 128, dtype=dtype), k5, v5, True)
+            kv8_check(f"cross non-causal 1000 x 2048 {pname}", dtype,
+                      randn(4, 8, 1000, 128, dtype=dtype), k, v, False)
         k2, v2 = kv(4, 2, 2048, payload)
         kv8_check(f"GQA 8q/2kv N2048 causal {pname}", bf,
-                  randn(4, 8, 2048, 128, dtype=bf), k2, v2, True,
-                  transcoded=fp8)
-        kv8_check(f"cross non-causal 1000 x 2048 {pname}", bf,
-                  randn(4, 8, 1000, 128, dtype=bf), k, v, False)
+                  randn(4, 8, 2048, 128, dtype=bf), k2, v2, True)
         k3, v3 = kv(4, 8, 1000, payload)
         kv8_check(f"ragged N1000 causal {pname}", bf,
                   randn(4, 8, 1000, 128, dtype=bf), k3, v3, True)
-        del k, v, k2, v2, k3, v3
+        del k, v, k2, v2, k3, v3, k5, v5
         # shapes the JAX tiler cannot divide (n_q 1 and 7): the public
         # function falls back to the flash op graph over K and V dequantized
         # to q's dtype, the flash kernel's op-graph mode
@@ -1724,6 +1772,8 @@ def kernel_counters():
     # split-precision f32 kernels
     f32 = ({"flash_fwd_f32": fa._f32_kernel, "flash_bwd_f32": fa._f32_bwd_kernel}
            if hasattr(fa, "_f32_kernel") else {})
+    if hasattr(qt, "_wo_f32_kernel"):
+        f32.update(wo_matmul_f32=qt._wo_f32_kernel, kv8_flash_f32=qt._kv8_f32_kernel)
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
             "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel, **f32,
             "paged_attention": pa._kernel, "paged_nonfinite": pa._nf_kernel,
@@ -1842,10 +1892,11 @@ def _pool_bytes(pools) -> int:
                for t in pool.values())
 
 
-def serve_quant_variant(torch, model, label: str, pool_dtype) -> dict:
+def serve_quant_variant(torch, model, label: str, pool_dtype,
+                        kernels=QUANT_KERNELS) -> dict:
     """One variant of the quantized serving configuration: a warm-up
     request, then four 8192-token prompts through one batched prefill and
-    64 greedy decode steps each."""
+    64 greedy decode steps each; the launches of ``kernels``."""
     import numpy as np
 
     from flashattn_tpu_torch import ContinuousBatchingEngine
@@ -1857,7 +1908,7 @@ def serve_quant_variant(torch, model, label: str, pool_dtype) -> dict:
     warm = eng.submit(prompts[4], 9)
     eng.run()
     assert warm.done and not warm.truncated
-    counters = {n: k for n, k in kernel_counters().items() if n in QUANT_KERNELS}
+    counters = {n: k for n, k in kernel_counters().items() if n in kernels}
     for kern in counters.values():
         kern.launches = 0
     reqs = [eng.submit(p, QUANT_NEW_TOKENS) for p in prompts[:4]]
@@ -1916,28 +1967,78 @@ def serve_quant_variant(torch, model, label: str, pool_dtype) -> dict:
 
 def serve_quant_phase(torch, dev) -> dict:
     """bf16 weights + bf16 pool, int8 weights + int8 pool, int8 weights +
-    fp8 pool (bench_serving.py's northstar() configurations)."""
+    fp8 pool (bench_serving.py's northstar() configurations, the model cast
+    to bf16), then northstar() at its own dtype: the f32 model with int8
+    weights over an int8 and an fp8 pool, and its gate."""
     import flashattn_tpu_torch as pt
 
-    base = pt.DecoderLM(**QUANT_MODEL,
-                        generator=torch.Generator().manual_seed(SEED),
-                        device=dev).eval().to(torch.bfloat16)
+    base32 = pt.DecoderLM(**QUANT_MODEL,
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=dev).eval()
+    q32 = pt.quantize_model_weights(base32, torch.int8)
+    base = base32.to(torch.bfloat16)
+    del base32
     qmodel = pt.quantize_model_weights(base, torch.int8)
     variants = {"bf16 weights + bf16 pool": (base, torch.bfloat16),
                 "int8 weights + int8 pool": (qmodel, torch.int8),
-                "int8 weights + fp8 pool": (qmodel, torch.float8_e4m3fn)}
+                "int8 weights + fp8 pool": (qmodel, torch.float8_e4m3fn),
+                "f32, int8 weights + int8 pool": (q32, torch.int8),
+                "f32, int8 weights + fp8 pool": (q32, torch.float8_e4m3fn)}
     results = {}
     for label, (model, pool_dtype) in variants.items():
-        res = serve_quant_variant(torch, model, label, pool_dtype)
-        quantized = model is qmodel
+        f32 = model is q32
+        res = serve_quant_variant(
+            torch, model, label, pool_dtype,
+            QUANT_F32_KERNELS + QUANT_F32_ABSENT if f32 else QUANT_KERNELS)
+        quantized = model is not base
         for name, n in res["launches"].items():
-            if name == "wo_matmul" and not quantized:
-                assert n == 0, f"{label}: wo_matmul launched {n} times"
+            if (name == "wo_matmul" and not quantized) or (
+                    f32 and name in QUANT_F32_ABSENT):
+                assert n == 0, f"{label}: {name} launched {n} times"
             elif n <= 0:
                 raise AssertionError(f"{label}: {name} was not launched")
         results[label] = res
         torch.cuda.empty_cache()
+    del base, qmodel
+    torch.cuda.empty_cache()
+    northstar_f32_gate(torch, q32, dev)
     return results
+
+
+def northstar_f32_gate(torch, q32, dev) -> None:
+    """The f32 north-star model with int8 weights over an int8 and an fp8
+    pool: one 8192-token prompt and QUANT_F32_GATE_NEW greedy tokens
+    through the engine (its settings), the logits of every position against
+    one dense forward of the same quantized model over the trajectory, to
+    the JAX tests' bounds (max |diff| / max |dense| < 0.08, argmax
+    agreement >= 0.8)."""
+    import numpy as np
+
+    from flashattn_tpu_torch import ContinuousBatchingEngine
+
+    prompt = np.random.default_rng(SEED + 4).integers(
+        0, MODEL["n_vocab"], QUANT_PROMPT).tolist()
+    for name, dtype in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        eng = ContinuousBatchingEngine(q32, collect_logits=True, dtype=dtype,
+                                       **QUANT_ENGINE)
+        req = eng.submit(prompt, QUANT_F32_GATE_NEW)
+        eng.run()
+        assert req.done and eng.pool.n_free == eng.pool.total
+        traj = req.prompt + req.generated[:-1]
+        with torch.inference_mode():
+            dense = q32(torch.tensor([traj], device=dev))[0].float().cpu()
+        got = torch.from_numpy(np.stack(req.logits))
+        assert got.shape == dense.shape, (got.shape, dense.shape)
+        rel = float((got - dense).abs().max() / dense.abs().max())
+        agree = float((got.argmax(-1) == dense.argmax(-1)).float().mean())
+        log(f"[serve_quant] f32 north-star, int8 weights, {name} pool: engine "
+            f"vs dense over {len(traj)} positions: max rel err {rel:.3e} "
+            f"(< 0.08), argmax agreement {agree:.4f} (>= 0.8)")
+        if not (rel < 0.08 and agree >= 0.8):
+            raise AssertionError(f"f32 north-star {name} pool: rel {rel}, "
+                                 f"agreement {agree}")
+        del eng, req, dense, got
+        torch.cuda.empty_cache()
 
 
 def quant_consistency_phase(torch, model, dev) -> None:
@@ -2333,7 +2434,7 @@ def profile_step(torch, run, label: str = "train step") -> None:
             by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     ours = [kv for kv in by_name.items() if re.search(
         r"\(anonymous namespace\)::(flash_|layernorm_|dropout_|softmax_"
-        r"|paged_|wo_matmul_kernel|kv8_flash_|sp::split_kernel"
+        r"|paged_|wo_\w+_kernel|split_rows_kernel|kv8_flash_|sp::split_kernel"
         r"|stochastic_quant_kernel)", kv[0])]
     rest = sorted((kv for kv in by_name.items() if kv not in ours),
                   key=lambda kv: -kv[1][1])
@@ -3496,6 +3597,8 @@ SOURCES = {
                 ["flashattn_tpu/ops/dropout.py:77"]),
     "wo_matmul": ("flashattn_tpu_torch/csrc/wo_matmul.cu",
                   ["flashattn_tpu/ops/quant.py:145"]),
+    "wo_matmul_f32": ("flashattn_tpu_torch/csrc/wo_matmul.cu",
+                      ["flashattn_tpu/ops/quant.py:145"]),
     "paged_attention_int8": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                              ["flashattn_tpu/ops/paged_attention.py:119",
                               "flashattn_tpu/ops/paged_attention.py:34"]),
@@ -3506,6 +3609,10 @@ SOURCES = {
                   ["flashattn_tpu/ops/quant.py:216",
                    "flashattn_tpu/ops/quant.py:312",
                    "flashattn_tpu/ops/quant.py:516"]),
+    "kv8_flash_f32": ("flashattn_tpu_torch/csrc/kv8_flash.cu",
+                      ["flashattn_tpu/ops/quant.py:216",
+                       "flashattn_tpu/ops/quant.py:312",
+                       "flashattn_tpu/ops/quant.py:516"]),
     "stochastic_quant": ("flashattn_tpu_torch/csrc/quant.cu",
                          ["flashattn_tpu/ops/quant.py:84"]),
     "softmax_fwd": ("flashattn_tpu_torch/csrc/softmax.cu",
@@ -3520,9 +3627,11 @@ SOURCES = {
                          ["flashattn_tpu/ops/dropout.py:93",
                           "flashattn_tpu/ops/dropout.py:127"]),
 }
-# the quantized paged entries: the serve_quant variant whose pool they serve
-QUANT_PAGED = {"paged_attention_int8": "int8 weights + int8 pool",
-               "paged_attention_fp8": "int8 weights + fp8 pool"}
+# the quantized paged entries: the serve_quant variants whose pools they serve
+QUANT_PAGED = {"paged_attention_int8": ("int8 weights + int8 pool",
+                                        "f32, int8 weights + int8 pool"),
+               "paged_attention_fp8": ("int8 weights + fp8 pool",
+                                       "f32, int8 weights + fp8 pool")}
 
 
 def main_path_launches(name, runs, serve_quant) -> int:
@@ -3531,10 +3640,12 @@ def main_path_launches(name, runs, serve_quant) -> int:
     quantized pool count under that pool's entry, the others under
     ``paged_attention``."""
     if name in QUANT_PAGED:
-        return serve_quant[QUANT_PAGED[name]]["launches"]["paged_attention"]
+        return sum(serve_quant[label]["launches"]["paged_attention"]
+                   for label in QUANT_PAGED[name])
+    quant_pools = {label for labels in QUANT_PAGED.values() for label in labels}
     runs = list(runs) + [
         res for label, res in serve_quant.items()
-        if name != "paged_attention" or label not in QUANT_PAGED.values()]
+        if name != "paged_attention" or label not in quant_pools]
     return sum(r["launches"].get(name, 0) for r in runs)
 
 

@@ -1,5 +1,5 @@
-// Shared online-softmax attention tile for the flash forward, paged
-// decode and quantized-KV flash kernels.
+// Shared online-softmax attention tile for the flash forward and paged
+// decode kernels.
 //
 // One thread block owns BM query rows and walks the key positions it can
 // see in tiles of BN = 64.  Each row r attends the half-open key interval
@@ -15,10 +15,10 @@
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
 // It serves the f32 flash forward over walks of fewer than F32_TC_MIN_KV
 // keys (longer ones run split precision on the tensor cores, flash_fwd.cu),
-// f32 paged attention and kv8_flash with f32 q (single-pass TF32 tensor
-// cores would break their 1e-4 gates); the bf16 flash forward, kv8_flash
-// and paged attention with bf16 q have their own tensor-core kernels
-// (flash_fwd.cu, kv8_flash.cu, paged_attention.cu, on hopper.cuh).  Paged attention runs it under a split-K grid: a paged Src
+// and f32 paged attention (single-pass TF32 tensor cores would break
+// their 1e-4 gates); the bf16 flash forward and paged attention with bf16
+// q have their own tensor-core kernels (flash_fwd.cu, paged_attention.cu,
+// on hopper.cuh), as kv8_flash.cu has for every q dtype.  Paged attention runs it under a split-K grid: a paged Src
 // (one with mask_value) gives the block its walk (a range of whole pages
 // of one sequence), scores a key that its page walk visits but a row does
 // not see at JAX's -1e30 rather than -inf, and may take the row's
@@ -123,25 +123,6 @@ __device__ __forceinline__ float div_rn(float x, float b, float y) {
   return __fmaf_rn(__fmaf_rn(-q, b, x), y, q);
 }
 
-// Quantize each staged q row to int8 on its own absmax (scale absmax / 127,
-// 1 for a zero row; round half to even) and store the dequantized values,
-// as the TPU quantized-KV kernels quantize q before their int8 scores dot.
-template <int D, int NT>
-__device__ void quantize_rows_int8(float* q_s, int ds, int n_rows) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n_rows; r += NT / 32) {
-    float* row = q_s + r * ds;
-    float amax = 0.f;
-    for (int c = lane; c < D; c += 32) amax = fmaxf(amax, fabsf(row[c]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = amax == 0.f ? 1.f : amax / 127.f;
-    for (int c = lane; c < D; c += 32)
-      row[c] = fminf(fmaxf(rintf(row[c] / s), -127.f), 127.f) * s;
-  }
-}
-
 // A paged Src: one with mask_value (see attend).
 template <class S, class = void> struct PagedMask : std::false_type {};
 template <class S>
@@ -155,7 +136,6 @@ struct PagedMask<S, std::void_t<decltype(&S::mask_value)>> : std::true_type {};
 //   float4 k4(int pos, int c); float4 v4(int pos, int c);   K/V[pos][c..c+3]
 //     as f32 (dequantized for a quantized source), 0 <= pos < kv_cap
 //   T* o_row(int r);  float* lse_row(int r) (nullptr when not wanted)
-//   static constexpr bool kQuantQ;      quantize the staged q rows to int8
 // and, for a paged Src (PagedMask), also:
 //   void walk(int& lo, int& hi);        the block's key range (empty: 0, 0)
 //   float mask_value(int pos);          score of a key a row does not see
@@ -188,10 +168,6 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < src.n_rows) v = src.q4(r, c, scale_log2);
     *reinterpret_cast<float4*>(q_s + r * DS + c) = v;
-  }
-  if constexpr (Src::kQuantQ) {
-    __syncthreads();
-    quantize_rows_int8<D, NT>(q_s, DS, src.n_rows);
   }
 
   // Per-row key intervals for this thread's rows; the block's walk covers

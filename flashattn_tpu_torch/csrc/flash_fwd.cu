@@ -102,7 +102,6 @@ namespace {
 
 template <typename T, int D>
 struct DenseSrc {
-  static constexpr bool kQuantQ = false;
   const T* q; const T* k; const T* v; T* o; float* lse;
   int n_rows, kv_cap;
   int row0;            // first query row of this tile

@@ -834,7 +834,6 @@ paged_extend_kernel(Args a, int row_tiles) {
 
 template <typename P, int D>
 struct PagedSrc {
-  static constexpr bool kQuantQ = false;
   static constexpr bool kScaled = !std::is_same<P, float>::value;
   const float* q; const P* k_pages; const P* v_pages; float* o;
   const float* k_scales; const float* v_scales;   // (n_pages, page) of this head

@@ -12,7 +12,7 @@
 // plain version.  The JAX wrapper falls back to x @ dequantize(W) at shapes
 // its tiling does not divide; these kernels take every M, N and K.
 //
-// Three kernels, chosen by the launch:
+// Four kernels, chosen by the launch:
 //
 // * bf16 x, M > 16 (prefill, the lm head): a tensor-core tile.  What
 //   bounds it is the multiply-adds (2 M N K at 989 TF/s bf16).  A block of
@@ -36,23 +36,38 @@
 //   rows.
 //   x's row stride must be a multiple of 16 bytes for TMA (K % 8 == 0);
 //   other K take the FMA kernel below.
-// * bf16 x, M <= 16 (decode): a GEMV.  What bounds it is the weight bytes
-//   (1 MiB at (1024, 1024): 0.3 us at 3.35 TB/s); in practice the launch.
+// * f32 x, M > 16: the same tile in split precision (split.cuh).  The
+//   payloads are exact in bf16, so x cut into three bf16 pieces (the
+//   truncating split: x = b0 + b1 + b2 exactly) times W is three exact bf16
+//   products, f32-grade where single-pass TF32 (10 bits) would miss the
+//   f32 gate.  One pass before the kernel writes x's pieces as three bf16
+//   planes (rows padded with zeros to a multiple of 8, so any K takes
+//   TMA); a stage holds a 128-row tile of each plane (three TMA boxes), so
+//   a block owns 128 x 128 of y, one m64 half a warpgroup, three stages.
+//   The tensor cores truncate their f32 sums, so each K step's three
+//   products (b2 first, b0 last) sum from zero in registers of their own
+//   and are then added to the accumulator in f32.  What bounds it: the
+//   three products, 3 x 2 M N K at 989 TF/s, and the split pass beside (4
+//   bytes read and 6 written an element of x).
+// * M <= 16 (decode), bf16 or f32 x: a GEMV.  What bounds it is the weight
+//   bytes (1 MiB at (1024, 1024): 0.3 us at 3.35 TB/s); in practice the
+//   launch.  Multiply-adds on the CUDA cores in f32 (exact products of
+//   the payload with x in either dtype); the tensor cores would save
+//   nothing on a handful of rows.
 //   A block owns 64 columns, up to 4 rows of x (more rows: more blocks in
 //   z) and one K range: each thread reads its 16 columns of a weight row
 //   in one 16-byte load (8- or 4-byte pieces when N is not a multiple of
 //   16), 32 k-lanes stride over the rows, and x's rows wait in shared
 //   memory.  K is split over the blocks of a thread-block cluster (up to
-//   8, gridDim.y) so that about 132 blocks run; each block adds its
+//   8, gridDim.y) so that about 264 blocks run; each block adds its
 //   k-lanes in a fixed order, then the cluster adds the splits' sums in
 //   rank order through distributed shared memory and applies the scale.
 //   One launch, no scratch, no atomics: the result does not vary from run
 //   to run.
-// * f32 x (and bf16 with K % 8 != 0): the CUDA-core FMA kernel.  Tensor
-//   cores would mean TF32 for f32 x, whose three decimal digits break the
-//   f32 gates.  A block owns a BM x 64 tile of y (BM = 64, or 16 when M is
-//   small), walks K in steps of 32 with the tiles staged in shared memory
-//   as f32, and each of its 256 threads keeps a (BM / 16) x 4 block of sums.
+// * bf16 x with K % 8 != 0 and M > 16: the CUDA-core FMA kernel.  A block
+//   owns a 64 x 64 tile of y, walks K in steps of 32 with the tiles staged
+//   in shared memory as f32, and each of its 256 threads keeps a 4 x 4
+//   block of sums.
 
 #include <cooperative_groups.h>
 #include <cuda.h>   // CUtensorMap; the encoder is looked up from the driver at run time
@@ -62,6 +77,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -170,31 +186,36 @@ wo_matmul_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-template <typename T, typename W>
+template <typename W>
 cudaError_t launch_fma(const void* x, const void* w, const float* scales, void* y, int M,
                        int N, int K, cudaStream_t st) {
-  const unsigned gx = (N + BN - 1) / BN;
-  if (M <= 16) {
-    wo_matmul_kernel<T, W, 16><<<dim3(gx, (M + 15) / 16), NT, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), scales,
-        static_cast<T*>(y), M, N, K);
-  } else {
-    wo_matmul_kernel<T, W, 64><<<dim3(gx, (M + 63) / 64), NT, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), scales,
-        static_cast<T*>(y), M, N, K);
-  }
+  using T = __nv_bfloat16;
+  wo_matmul_kernel<T, W, 64><<<dim3((N + BN - 1) / BN, (M + 63) / 64), NT, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), scales, static_cast<T*>(y), M, N, K);
   return cudaGetLastError();
 }
 
-// -- tensor-core tile (bf16 x, M > 16) -------------------------------------------
+// -- tensor-core tile (M > 16: bf16 x, or f32 x as three bf16 planes) ----------------
 
-constexpr int TC_BM = 256, TC_BN = 128, TC_BK = 64, TC_STAGES = 4, TC_BUFS = 3, TC_THREADS = 256;
-constexpr int X_TILE = TC_BM * TC_BK * 2;    // bf16 x tile: the TMA box, 128-byte rows
+constexpr int TC_BN = 128, TC_BK = 64, TC_BUFS = 3, TC_THREADS = 256;
 constexpr int W_TILE = TC_BK * TC_BN;        // payload bytes, row-major
 constexpr int B_REGION = TC_BK * 128;        // one 64-column bf16 region of the B tile
 constexpr int B_TILE = 2 * B_REGION;
-constexpr size_t TC_SMEM =
-    1024 + TC_STAGES * (X_TILE + W_TILE) + TC_BUFS * B_TILE + TC_STAGES * sizeof(uint64_t);
+
+// The tile's shape: bf16 x, 256 rows (two m64 halves a warpgroup) and four
+// stages; f32 x, three planes of 128 rows (one half a warpgroup) and three
+// stages.
+template <bool kF32>
+struct WoTc {
+  static constexpr int BM = kF32 ? 128 : 256;
+  static constexpr int HALVES = BM / 128;            // m64 halves a warpgroup
+  static constexpr int PLANES = kF32 ? sp::NP : 1;
+  static constexpr int STAGES = kF32 ? 3 : 4;
+  static constexpr int X_PLANE = BM * TC_BK * 2;     // one TMA box: BM rows of 128 bytes
+  static constexpr int X_TILE = PLANES * X_PLANE;
+  static constexpr size_t SMEM =
+      1024 + STAGES * size_t(X_TILE + W_TILE) + TC_BUFS * B_TILE + STAGES * sizeof(uint64_t);
+};
 
 // The weight bytes of k-tile rows [k0, k0 + 64) x columns [n0, n0 + 128)
 // into a row-major staging tile, zero past K and N.  N % VEC == 0, so a
@@ -236,25 +257,29 @@ __device__ __forceinline__ void convert_w_tile(const uint8_t* stage, uint8_t* bt
   }
 }
 
-template <typename W, int VEC>
+// xmap: bf16 x (K, M), or f32 x's planes as one (Kp, 3 M) bf16 matrix, plane
+// p's rows at p M (a box past M reads the next plane's rows: they only
+// reach rows of y past M, which are not stored).
+template <typename W, int VEC, bool kF32>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 wo_tc_kernel(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restrict__ w,
-             const float* __restrict__ scales, __nv_bfloat16* __restrict__ y, int M, int N,
-             int K) {
+             const float* __restrict__ scales, void* __restrict__ y, int M, int N, int K) {
+  using C = WoTc<kF32>;
+  constexpr int STAGES = C::STAGES, HALVES = C::HALVES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* xs = smem;                                   // stages of the x tile
-  uint8_t* bs = xs + TC_STAGES * X_TILE;                // ring of bf16 B tiles
+  uint8_t* bs = xs + STAGES * C::X_TILE;                // ring of bf16 B tiles
   uint8_t* ws = bs + TC_BUFS * B_TILE;                  // stages of payload bytes
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ws + TC_STAGES * W_TILE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ws + STAGES * W_TILE);
 
   const int tid = threadIdx.x, wg = tid / 128, lt = tid % 128;
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * TC_BN;
   const int KT = (K + TC_BK - 1) / TC_BK;
 
   if (tid == 0) {
-    for (int s = 0; s < TC_STAGES; ++s) hop::mbar_init(hop::smem_u32(&bars[s]), 1);
+    for (int s = 0; s < STAGES; ++s) hop::mbar_init(hop::smem_u32(&bars[s]), 1);
     hop::mbar_fence_init();
   }
   __syncthreads();
@@ -262,102 +287,139 @@ wo_tc_kernel(const __grid_constant__ CUtensorMap xmap, const uint8_t* __restrict
   // k-tile t into stage t % STAGES: x by TMA (thread 0), bytes by all.
   auto issue = [&](int t) {
     if (t < KT) {
-      const int s = t % TC_STAGES;
+      const int s = t % STAGES;
       if (tid == 0) {
         const uint32_t bar = hop::smem_u32(&bars[s]);
-        hop::mbar_expect_tx(bar, X_TILE);
-        hop::tma_load_2d(hop::smem_u32(xs + s * X_TILE), &xmap, bar, t * TC_BK, m0);
+        hop::mbar_expect_tx(bar, C::X_TILE);
+#pragma unroll
+        for (int p = 0; p < C::PLANES; ++p)
+          hop::tma_load_2d(hop::smem_u32(xs + s * C::X_TILE + p * C::X_PLANE), &xmap, bar,
+                           t * TC_BK, p * M + m0);
       }
       load_w_tile<VEC>(ws + s * W_TILE, w, t * TC_BK, n0, K, N);
     }
     hop::cp_async_commit();
   };
 
-  for (int t = 0; t < TC_STAGES; ++t) issue(t);
-  hop::cp_async_wait<TC_STAGES - 1>();
+  for (int t = 0; t < STAGES; ++t) issue(t);
+  hop::cp_async_wait<STAGES - 1>();
   __syncthreads();
   convert_w_tile<W>(ws, bs);
   hop::fence_async_smem();
   __syncthreads();
 
-  float acc[2][64];   // the warpgroup's two m64 halves
+  float acc[HALVES][64];   // the warpgroup's m64 halves
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
+  for (int hf = 0; hf < HALVES; ++hf)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[hf][i] = 0.f;
 
-  // Iteration t: queue tile t's wgmma behind tile t - 1's, convert tile
-  // t + 1 meanwhile, then wait for tile t - 1 only and refill its stage.
-  // B tile t + 1 differs from the tiles of the two wgmmas in flight.
+  // Iteration t: queue tile t's wgmma, convert tile t + 1 meanwhile, then
+  // wait (bf16: for tile t - 1 only; f32: for tile t, whose product is
+  // then added to acc) and refill tile t - 1's stage.  B tile t + 1
+  // differs from the tiles of the wgmmas in flight.  (f32 overlapping tile
+  // t + 1's wgmmas with tile t's add, two product register sets, ran 6%
+  // slower at (32768, 1024) x (1024, 1024) on an H100 80GB HBM3 at 700 W,
+  // tools/ab_chip_smoke.py: ptxas serializes wgmmas whose neighbours'
+  // accumulators other instructions read, its warning C7514.)
   for (int t = 0; t < KT; ++t) {
-    const int s = t % TC_STAGES;
-    hop::mbar_wait(hop::smem_u32(&bars[s]), (t / TC_STAGES) & 1);
-    const uint32_t a0 = hop::smem_u32(xs + s * X_TILE + wg * 128 * 128);
+    const int s = t % STAGES;
+    hop::mbar_wait(hop::smem_u32(&bars[s]), (t / STAGES) & 1);
+    const uint32_t a0 = hop::smem_u32(xs + s * C::X_TILE + wg * HALVES * 64 * 128);
     const uint32_t b0 = hop::smem_u32(bs + (t % TC_BUFS) * B_TILE);
-    hop::fence_regs(acc[0]);
-    hop::fence_regs(acc[1]);
-    hop::wg_arrive();
+    float tile[64];   // f32: tile t's product, summed from zero
+    if constexpr (kF32) {
+      hop::fence_regs(tile);
+      hop::wg_arrive();
+      // the pieces b2, b1, b0 in turn (the small ones first)
 #pragma unroll
-    for (int ks = 0; ks < TC_BK / 16; ++ks) {
-      const uint64_t b = hop::desc<128>(b0 + ks * 16 * 128, B_REGION, 1024);
+      for (int p = C::PLANES - 1; p >= 0; --p)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        hop::wgmma_ss<1>(acc[hf], hop::desc<128>(a0 + hf * 64 * 128 + ks * 32, 16, 1024), b,
-                         1);
+        for (int ks = 0; ks < TC_BK / 16; ++ks)
+          hop::wgmma_ss<1>(tile, hop::desc<128>(a0 + p * C::X_PLANE + ks * 32, 16, 1024),
+                           hop::desc<128>(b0 + ks * 16 * 128, B_REGION, 1024),
+                           p < C::PLANES - 1 || ks > 0);
+    } else {
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) hop::fence_regs(acc[hf]);
+      hop::wg_arrive();
+#pragma unroll
+      for (int ks = 0; ks < TC_BK / 16; ++ks) {
+        const uint64_t b = hop::desc<128>(b0 + ks * 16 * 128, B_REGION, 1024);
+#pragma unroll
+        for (int hf = 0; hf < HALVES; ++hf)
+          hop::wgmma_ss<1>(acc[hf], hop::desc<128>(a0 + hf * 64 * 128 + ks * 32, 16, 1024), b,
+                           1);
+      }
     }
     hop::wg_commit();
     if (t + 1 < KT) {
       // tile t + 1's bytes: committed groups hold tiles up to t + STAGES - 2
       // (an empty group at t = 0), so at most STAGES - 3 may still be pending
-      hop::cp_async_wait<TC_STAGES - 3>();
+      hop::cp_async_wait<STAGES - 3>();
       __syncthreads();
-      convert_w_tile<W>(ws + ((t + 1) % TC_STAGES) * W_TILE, bs + ((t + 1) % TC_BUFS) * B_TILE);
+      convert_w_tile<W>(ws + ((t + 1) % STAGES) * W_TILE, bs + ((t + 1) % TC_BUFS) * B_TILE);
       hop::fence_async_smem();
     }
-    hop::wg_wait<1>();
-    hop::fence_regs(acc[0]);
-    hop::fence_regs(acc[1]);
+    if constexpr (kF32) {
+      hop::wg_wait<0>();
+      hop::fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[0][i] += tile[i];
+    } else {
+      hop::wg_wait<1>();
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) hop::fence_regs(acc[hf]);
+    }
     __syncthreads();   // both warpgroups are done with tile t - 1; B tile t + 1 is written
-    if (t >= 1) issue(t - 1 + TC_STAGES);
+    if (t >= 1) issue(t - 1 + STAGES);
     else hop::cp_async_commit();
   }
   hop::wg_wait<0>();
-  hop::fence_regs(acc[0]);
-  hop::fence_regs(acc[1]);
+#pragma unroll
+  for (int hf = 0; hf < HALVES; ++hf) hop::fence_regs(acc[hf]);
 
   // epilogue: scale and round in registers, stage the tile in shared memory
-  // (the x stages are free; rows padded to 272 bytes, so the fragment's
+  // (the x stages are free; rows padded by 16 bytes, so the fragment's
   // writes hit 32 banks), then write whole rows of y with 16-byte stores.
   // Stored straight from the fragment, each warp instruction would touch
   // eight rows with 16 bytes each: that took half the kernel's time.
   __syncthreads();   // both warpgroups' wgmmas have read their last x stage
-  constexpr int YS = TC_BN * 2 + 16;   // bytes of a staged row
-  static_assert(TC_BM * YS <= TC_STAGES * X_TILE, "the staged tile fits in the x stages");
+  constexpr int EB = kF32 ? 4 : 2;                 // bytes of an element of y
+  constexpr int YS = TC_BN * EB + 16;              // bytes of a staged row
+  constexpr int PER = 16 / EB;                     // elements of a 16-byte store
+  static_assert(C::BM * YS <= STAGES * C::X_TILE, "the staged tile fits in the x stages");
   const int warp = lt / 32, lane = lt % 32;
-  const int r0 = wg * 128 + warp * 16 + lane / 4;
+  const int r0 = wg * HALVES * 64 + warp * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < TC_BN / 8; ++j) {
     const int c = 8 * j + 2 * (lane % 4), col = n0 + c;
     const float s0 = col < N ? scales[col] : 0.f, s1 = col + 1 < N ? scales[col + 1] : 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {   // half r / 2, fragment row 8 (r % 2)
+    for (int r = 0; r < 2 * HALVES; ++r) {   // half r / 2, fragment row 8 (r % 2)
       const int hf = r / 2, h = r % 2;
-      *reinterpret_cast<__nv_bfloat162*>(xs + (r0 + 64 * hf + 8 * h) * YS + 2 * c) =
-          __floats2bfloat162_rn(acc[hf][4 * j + 2 * h] * s0, acc[hf][4 * j + 2 * h + 1] * s1);
+      uint8_t* dst = xs + (r0 + 64 * hf + 8 * h) * YS + EB * c;
+      const float v0 = acc[hf][4 * j + 2 * h] * s0, v1 = acc[hf][4 * j + 2 * h + 1] * s1;
+      if constexpr (kF32)
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
     }
   }
   __syncthreads();
-  for (int i = tid; i < TC_BM * TC_BN / 8; i += TC_THREADS) {
-    const int r = i / (TC_BN / 8), c = i % (TC_BN / 8) * 8;
+  uint8_t* yb = static_cast<uint8_t*>(y);
+  for (int i = tid; i < C::BM * TC_BN / PER; i += TC_THREADS) {
+    const int r = i / (TC_BN / PER), c = i % (TC_BN / PER) * PER;
     const int row = m0 + r, col = n0 + c;
     if (row >= M || col >= N) continue;
-    const uint4 v = *reinterpret_cast<const uint4*>(xs + r * YS + 2 * c);
-    __nv_bfloat16* out = y + size_t(row) * N + col;
-    if (N % 8 == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xs + r * YS + EB * c);
+    uint8_t* out = yb + (size_t(row) * N + col) * EB;
+    if (N % PER == 0) {
       *reinterpret_cast<uint4*>(out) = v;
     } else {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-      for (int q = 0; q < 8 && col + q < N; ++q) out[q] = e[q];
+      const uint8_t* e = reinterpret_cast<const uint8_t*>(&v);
+      for (int q = 0; q < PER && col + q < N; ++q)
+        for (int bt = 0; bt < EB; ++bt) out[q * EB + bt] = e[q * EB + bt];
     }
   }
 }
@@ -387,41 +449,75 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename W, int VEC>
+template <typename W, int VEC, bool kF32>
 cudaError_t launch_tc_vec(const CUtensorMap& map, const void* w, const float* scales, void* y,
                           int M, int N, int K, cudaStream_t st) {
-  auto kernel = wo_tc_kernel<W, VEC>;
+  using C = WoTc<kF32>;
+  auto kernel = wo_tc_kernel<W, VEC, kF32>;
   static const cudaError_t opted = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TC_SMEM));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
   if (opted != cudaSuccess) return opted;
-  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
-  kernel<<<grid, TC_THREADS, TC_SMEM, st>>>(map, static_cast<const uint8_t*>(w), scales,
-                                            static_cast<__nv_bfloat16*>(y), M, N, K);
+  const dim3 grid((N + TC_BN - 1) / TC_BN, (M + C::BM - 1) / C::BM);
+  kernel<<<grid, TC_THREADS, C::SMEM, st>>>(map, static_cast<const uint8_t*>(w), scales, y, M,
+                                            N, K);
   return cudaGetLastError();
 }
 
-template <typename W>
+// x: bf16 (M, K) with K % 8 == 0, or f32 x's three bf16 planes (3, M, kp),
+// kp = K rounded up to a multiple of 8.
+template <typename W, bool kF32>
 cudaError_t launch_tc(const void* x, const void* w, const float* scales, void* y, int M, int N,
-                      int K, cudaStream_t st) {
+                      int K, int kp, cudaStream_t st) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {cuuint64_t(K), cuuint64_t(M)};
-  const cuuint64_t strides[1] = {cuuint64_t(K) * 2};
-  const cuuint32_t box[2] = {TC_BK, TC_BM};
+  const cuuint64_t dims[2] = {cuuint64_t(kp), cuuint64_t(M) * WoTc<kF32>::PLANES};
+  const cuuint64_t strides[1] = {cuuint64_t(kp) * 2};
+  const cuuint32_t box[2] = {TC_BK, WoTc<kF32>::BM};
   const cuuint32_t unit[2] = {1, 1};
   if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims, strides,
              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  if (N % 16 == 0) return launch_tc_vec<W, 16>(map, w, scales, y, M, N, K, st);
-  if (N % 8 == 0) return launch_tc_vec<W, 8>(map, w, scales, y, M, N, K, st);
-  if (N % 4 == 0) return launch_tc_vec<W, 4>(map, w, scales, y, M, N, K, st);
-  return launch_tc_vec<W, 1>(map, w, scales, y, M, N, K, st);
+  if (N % 16 == 0) return launch_tc_vec<W, 16, kF32>(map, w, scales, y, M, N, K, st);
+  if (N % 8 == 0) return launch_tc_vec<W, 8, kF32>(map, w, scales, y, M, N, K, st);
+  if (N % 4 == 0) return launch_tc_vec<W, 4, kF32>(map, w, scales, y, M, N, K, st);
+  return launch_tc_vec<W, 1, kF32>(map, w, scales, y, M, N, K, st);
 }
 
-// -- GEMV (bf16 x, M <= 16) ----------------------------------------------------
+// f32 x (M, K) -> its three bf16 pieces, planes[p][m][k] (kp columns, zero
+// past K), for K % 8 != 0; sp::split_kernel takes K % 8 == 0.
+__global__ void __launch_bounds__(256)
+split_rows_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes, int M, int K,
+                  int kp) {
+  const long long n = (long long)M * kp;
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n; i += gridDim.x * 256ll) {
+    const int m = int(i / kp), k = int(i % kp);
+    float b0 = 0.f, b1 = 0.f, b2 = 0.f;
+    if (k < K) sp::split3(x[size_t(m) * K + k], b0, b1, b2);
+    planes[i] = __float2bfloat16(b0);
+    planes[n + i] = __float2bfloat16(b1);
+    planes[2 * n + i] = __float2bfloat16(b2);
+  }
+}
+
+cudaError_t split_x(const float* x, __nv_bfloat16* planes, int M, int K, int kp,
+                    cudaStream_t st) {
+  if (kp == K) {
+    sp::SplitJobs jobs = {{x, nullptr, nullptr, nullptr},
+                          {planes, nullptr, nullptr, nullptr},
+                          {(long long)M * K, 0, 0, 0},
+                          {1.f, 1.f, 1.f, 1.f},
+                          {nullptr, nullptr, nullptr, nullptr}};
+    return sp::split(jobs, 1, st);
+  }
+  const long long blocks = ((long long)M * kp + 255) / 256;
+  split_rows_kernel<<<unsigned(blocks < 1056 ? blocks : 1056), 256, 0, st>>>(x, planes, M, K, kp);
+  return cudaGetLastError();
+}
+
+// -- GEMV (M <= 16, bf16 or f32 x) ---------------------------------------------
 
 constexpr int GV_THREADS = 128, GV_CT = 4, GV_KL = 32, GV_MT = 4, GV_KC = 256;
 constexpr int GV_COLS = GV_CT * 16;                  // columns a block owns
@@ -431,11 +527,11 @@ constexpr int GV_MAX_SPLITS = 8;                     // the portable cluster siz
 // One block of a cluster: 64 columns, up to 4 rows of x, one K range.  The
 // cluster's blocks split K; each sums its range, then the cluster adds the
 // ranges through distributed shared memory in rank order.
-template <typename W, int VEC>
+template <typename T, typename W, int VEC>
 __global__ void __launch_bounds__(GV_THREADS)
-wo_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scales, __nv_bfloat16* __restrict__ y, int M, int N,
-               int K, int kchunk) {
+wo_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
+               const float* __restrict__ scales, T* __restrict__ y, int M, int N, int K,
+               int kchunk) {
   __shared__ float xs[GV_MT][GV_KC];
   __shared__ float red[GV_KL * GV_RED];
   __shared__ float part[GV_MT * GV_COLS];   // this block's sums over its K range
@@ -456,7 +552,7 @@ wo_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
     __syncthreads();   // the previous chunk's reads of xs are done
     for (int i = tid; i < GV_MT * GV_KC; i += GV_THREADS) {
       const int r = i / GV_KC, c = i % GV_KC, m = mg + r;
-      xs[r][c] = (m < M && c < kn) ? __bfloat162float(x[size_t(m) * K + k0 + c]) : 0.f;
+      xs[r][c] = (m < M && c < kn) ? to_f(x[size_t(m) * K + k0 + c]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -508,17 +604,20 @@ wo_gemv_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
     const int row = mg + i / GV_COLS, n = col0 + i % GV_COLS;
     float s = 0.f;
     for (int r = 0; r < splits; ++r) s += cluster.map_shared_rank(part, r)[i];
-    if (row < M && n < N) y[size_t(row) * N + n] = __float2bfloat16(s * scales[n]);
+    if (row < M && n < N) put(y + size_t(row) * N + n, s * scales[n]);
   }
   cluster.sync();   // no block leaves while another still reads its sums
 }
 
-template <typename W, int VEC>
+template <typename T, typename W, int VEC>
 cudaError_t launch_gemv_vec(const void* x, const void* w, const float* scales, void* y, int M,
                             int N, int K, cudaStream_t st) {
-  // K splits: about one block per SM, each at least 64 rows of W deep
+  // K splits: about two blocks per SM, each at least 64 rows of W deep (at
+  // M 16: 0.0086 ms against 0.0095 with one block an SM and 0.0118 with 8
+  // splits at any block count; M 4 alike, 0.0064; H100 80GB HBM3, 700 W,
+  // tools/ab_chip_smoke.py --phases wo)
   const int blocks = (N + GV_COLS - 1) / GV_COLS * ((M + GV_MT - 1) / GV_MT);
-  const int splits = max(1, min(min(GV_MAX_SPLITS, 132 / blocks), K / 64));
+  const int splits = max(1, min(min(GV_MAX_SPLITS, 264 / blocks), K / 64));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + GV_COLS - 1) / GV_COLS, splits, (M + GV_MT - 1) / GV_MT);
   cfg.blockDim = dim3(GV_THREADS);
@@ -530,41 +629,63 @@ cudaError_t launch_gemv_vec(const void* x, const void* w, const float* scales, v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, wo_gemv_kernel<W, VEC>,
-                            static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-                            scales, static_cast<__nv_bfloat16*>(y), M, N, K,
+  return cudaLaunchKernelEx(&cfg, wo_gemv_kernel<T, W, VEC>, static_cast<const T*>(x),
+                            static_cast<const uint8_t*>(w), scales, static_cast<T*>(y), M, N, K,
                             (K + splits - 1) / splits);
 }
 
-template <typename W>
+template <typename T, typename W>
 cudaError_t launch_gemv(const void* x, const void* w, const float* scales, void* y, int M, int N,
                         int K, cudaStream_t st) {
-  if (N % 16 == 0) return launch_gemv_vec<W, 16>(x, w, scales, y, M, N, K, st);
-  if (N % 8 == 0) return launch_gemv_vec<W, 8>(x, w, scales, y, M, N, K, st);
-  if (N % 4 == 0) return launch_gemv_vec<W, 4>(x, w, scales, y, M, N, K, st);
-  return launch_gemv_vec<W, 1>(x, w, scales, y, M, N, K, st);
+  if (N % 16 == 0) return launch_gemv_vec<T, W, 16>(x, w, scales, y, M, N, K, st);
+  if (N % 8 == 0) return launch_gemv_vec<T, W, 8>(x, w, scales, y, M, N, K, st);
+  if (N % 4 == 0) return launch_gemv_vec<T, W, 4>(x, w, scales, y, M, N, K, st);
+  return launch_gemv_vec<T, W, 1>(x, w, scales, y, M, N, K, st);
 }
 
 template <typename W>
-cudaError_t dispatch(int dtype, const void* x, const void* w, const float* scales, void* y, int M,
-                     int N, int K, cudaStream_t st) {
-  if (dtype == 0) return launch_fma<float, W>(x, w, scales, y, M, N, K, st);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if (M <= 16) return launch_gemv<W>(x, w, scales, y, M, N, K, st);
-  if (K > 0 && K % 8 == 0) return launch_tc<W>(x, w, scales, y, M, N, K, st);
-  return launch_fma<__nv_bfloat16, W>(x, w, scales, y, M, N, K, st);
+cudaError_t dispatch_bf16(const void* x, const void* w, const float* scales, void* y, int M, int N,
+                          int K, cudaStream_t st) {
+  if (M <= 16) return launch_gemv<__nv_bfloat16, W>(x, w, scales, y, M, N, K, st);
+  if (K > 0 && K % 8 == 0) return launch_tc<W, false>(x, w, scales, y, M, N, K, K, st);
+  return launch_fma<W>(x, w, scales, y, M, N, K, st);
+}
+
+template <typename W>
+cudaError_t dispatch_f32(const void* x, const void* w, const float* scales, void* y, void* planes,
+                         int M, int N, int K, cudaStream_t st) {
+  if (M <= 16) return launch_gemv<float, W>(x, w, scales, y, M, N, K, st);
+  if (K == 0) return cudaMemsetAsync(y, 0, size_t(M) * N * sizeof(float), st);
+  const int kp = (K + 7) / 8 * 8;
+  __nv_bfloat16* pl = static_cast<__nv_bfloat16*>(planes);
+  const cudaError_t e = split_x(static_cast<const float*>(x), pl, M, K, kp, st);
+  if (e != cudaSuccess) return e;
+  return launch_tc<W, true>(pl, w, scales, y, M, N, K, kp, st);
 }
 
 }  // namespace
 
-// x (M, K), y (M, N) row-major in dtype (0 = float32, 1 = bfloat16); w
-// (K, N) row-major payload (2 = int8, 3 = float8 e4m3); scales (N,) f32.
+// x (M, K), y (M, N) row-major bf16; w (K, N) row-major payload (2 = int8,
+// 3 = float8 e4m3); scales (N,) f32.
 extern "C" int fa_wo_matmul(const void* x, const void* w, const void* scales, void* y, int M,
-                            int N, int K, int dtype, int payload, void* stream) {
+                            int N, int K, int payload, void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* s = static_cast<const float*>(scales);
-  if (payload == 2) return int(dispatch<int8_t>(dtype, x, w, s, y, M, N, K, st));
-  if (payload == 3) return int(dispatch<__nv_fp8_e4m3>(dtype, x, w, s, y, M, N, K, st));
+  if (payload == 2) return int(dispatch_bf16<int8_t>(x, w, s, y, M, N, K, st));
+  if (payload == 3) return int(dispatch_bf16<__nv_fp8_e4m3>(x, w, s, y, M, N, K, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// The same with x and y f32: the GEMV at M <= 16, else the split pass into
+// planes (bf16 scratch of 3 M kp elements, kp = K rounded up to a multiple
+// of 8; unused at M <= 16) and the tensor-core tile on them.
+extern "C" int fa_wo_matmul_f32(const void* x, const void* w, const void* scales, void* y,
+                                void* planes, int M, int N, int K, int payload, void* stream) {
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scales);
+  if (payload == 2) return int(dispatch_f32<int8_t>(x, w, s, y, planes, M, N, K, st));
+  if (payload == 3) return int(dispatch_f32<__nv_fp8_e4m3>(x, w, s, y, planes, M, N, K, st));
   return int(cudaErrorInvalidValue);
 }

@@ -11,20 +11,25 @@ the JAX package.  Three functions are hand-written CUDA kernels on CUDA
 tensors, each with a plain PyTorch version beside it that the CPU runs:
 
 * :func:`int8_weight_only_matmul` — ``csrc/wo_matmul.cu`` (TPU
-  ``_wo_matmul_kernel``);
+  ``_wo_matmul_kernel``; a wgmma tensor-core tile above 16 rows, in split
+  precision for f32 x, and a cluster GEMV at decode);
 * :func:`flash_attention_kv_int8` — ``csrc/kv8_flash.cu`` (TPU
-  ``_kv8_fwd_kernel``, ``_kv8_loop_kernel`` and ``_kv8_subrow_kernel``; a
-  wgmma tensor-core kernel for bf16 q, a CUDA-core one for f32 q);
+  ``_kv8_fwd_kernel``, ``_kv8_loop_kernel`` and ``_kv8_subrow_kernel``: one
+  wgmma tensor-core kernel, in the mode of JAX's route for bf16 q and in
+  split precision for f32 q);
 * :func:`quantize_int8_stochastic` — ``csrc/quant.cu`` (TPU
   ``_stochastic_quant_kernel``).
 
-``flash_attention_kv_int8`` keeps the JAX wrapper's fallback: where
+``flash_attention_kv_int8`` computes the function of the route JAX's
+dispatcher takes at the shape (:func:`_kv8_route`): the grid, loop and
+subrow kernels each round in their own way in bf16.  Where
 ``largest_divisor_block`` cannot tile n_q (by 1024, or 512 above head dim
-128) or n_kv (by 1024) (``flash_attention._tileable``), K and V are dequantized to q's dtype and the flash
-op graph runs over them (``flash_attention.flash_fwd`` in its op-graph
-mode on CUDA, its plain version on the CPU), as JAX runs XLA's graph.  The
-other kernels take every shape; the TPU tiling knobs (``block_m``,
-``block_q`` ...) are not carried over.
+128) or n_kv (by 1024) (``flash_attention._tileable``), K and V are
+dequantized to q's dtype and the flash op graph runs over them
+(``flash_attention.flash_fwd`` in its op-graph mode on CUDA, its plain
+version on the CPU), as JAX runs XLA's graph.  The other kernels take
+every shape; the TPU tiling knobs (``block_m``, ``block_q`` ...) are not
+carried over.
 """
 
 from __future__ import annotations
@@ -38,12 +43,17 @@ import torch
 from . import _build
 from . import flash_attention as _fa
 from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, check_no_grad,
-                     on_cuda)
+                     largest_divisor_block, on_cuda)
 from .dropout import philox_bits
 
-_wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 5)
+_wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 4)
+# f32 x: the GEMV, or split precision on the tensor cores
+_wo_f32_kernel = _build.Kernel("fa_wo_matmul_f32", [_build.P] * 5 + [_build.I] * 4)
 _kv8_kernel = _build.Kernel("fa_kv8_flash", [_build.P] * 7 + [_build.I] * 7
-                            + [_build.F, _build.I, _build.I])
+                            + [_build.F] + [_build.I] * 3)
+# f32 q: split precision on the tensor cores
+_kv8_f32_kernel = _build.Kernel("fa_kv8_flash_f32", [_build.P] * 7
+                                + [_build.I] * 7 + [_build.F, _build.I])
 _sq_kernel = _build.Kernel("fa_stochastic_quant", [_build.P] * 3
                            + [_build.I, _build.I, _build.U64, _build.I])
 
@@ -185,10 +195,12 @@ def int8_weight_only_matmul_reference(x: torch.Tensor,
 
 
 def wo_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """Kernel launch of :func:`int8_weight_only_matmul` (CUDA tensors):
-    bf16 x runs the tensor-core tile, or at M <= 16 the cluster split-K
-    GEMV; f32 x runs the FMA kernel.  Inference-only, as the JAX kernel:
-    inputs that require grad raise."""
+    """Kernel launch of :func:`int8_weight_only_matmul` (CUDA tensors): at
+    M <= 16 the cluster split-K GEMV; above, bf16 x runs the tensor-core
+    tile (the FMA kernel where K % 8 != 0) and f32 x the same tile in split
+    precision, over x's three bf16 pieces (a bf16 scratch of 3 M K' values,
+    K' = K rounded up to a multiple of 8).  Inference-only, as the JAX
+    kernel: inputs that require grad raise."""
     _check_wo(x, w)
     check_no_grad(x)
     code, payload = _build.dtype_code(x), _build.payload_code(w.values)
@@ -199,8 +211,14 @@ def wo_matmul(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     x, values, scales = (_build.aligned(t.detach())
                          for t in (x, w.values, w.scales))
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
-    _wo_kernel(x.data_ptr(), values.data_ptr(), scales.data_ptr(), y.data_ptr(),
-               m, n, k, code, payload)
+    if code == 0:
+        planes = torch.empty(3 * m * -(-k // 8) * 8 if m > 16 else 0,
+                             device=x.device, dtype=torch.bfloat16)
+        _wo_f32_kernel(x.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                       y.data_ptr(), planes.data_ptr(), m, n, k, payload)
+    else:
+        _wo_kernel(x.data_ptr(), values.data_ptr(), scales.data_ptr(),
+                   y.data_ptr(), m, n, k, payload)
     return y
 
 
@@ -240,28 +258,84 @@ def _prescale(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
     return torch.tensor(sm_scale * LOG2E, dtype=q.dtype)
 
 
+class Kv8Route(NamedTuple):
+    """The function JAX's ``flash_attention_kv_int8`` computes at a shape:
+    ``name`` is ``"fallback"`` (the flash op graph over K and V dequantized
+    to q's dtype), ``"subrow"`` (``_kv8_subrow_kernel``), ``"loop"``
+    (``_kv8_loop_kernel``) or ``"grid"`` (``_kv8_fwd_kernel``); ``span`` is
+    the number of keys over which one running max holds (the whole row for
+    subrow, 0 for the fallback)."""
+
+    name: str
+    span: int
+
+
+# the C interface's codes of the bf16 kernel's modes
+_KV8_MODES = {"grid": 1, "subrow": 2, "loop": 3}
+
+
+def _subrow_envelope(causal, n_q, n_kv, d) -> bool:
+    """The shapes at which the JAX dispatcher takes its subrow schedule and
+    transcodes fp8 payloads to int8 first."""
+    return (causal and n_q == n_kv and d == 128 and 1024 <= n_q <= 8192
+            and n_q % 512 == 0)
+
+
+def _kv8_route(causal, n_q, n_kv, d) -> Kv8Route:
+    """JAX's dispatcher (``flash_attention_kv_int8``), by shape alone: the
+    fallback where its tiler cannot divide n_q or n_kv, then the subrow
+    envelope, then the loop schedule (causal self-attention at d 128 whose
+    query block ``largest_divisor_block(n_q, 1024)`` is a multiple of 128:
+    key chunks of that block), else the grid (key blocks of
+    ``largest_divisor_block(n_kv, 1024)``)."""
+    if not _fa._tileable(n_q, n_kv, d):
+        return Kv8Route("fallback", 0)
+    if _subrow_envelope(causal, n_q, n_kv, d):
+        return Kv8Route("subrow", n_kv)
+    bq = largest_divisor_block(n_q, 1024 if d <= 128 else 512, 8)
+    if causal and n_q == n_kv and d == 128 and bq % 128 == 0:
+        return Kv8Route("loop", bq)
+    return Kv8Route("grid", largest_divisor_block(n_kv, 1024, 8))
+
+
+def _check_tileable(route: Kv8Route, n_q, n_kv):
+    if route.name == "fallback":
+        raise ValueError(f"n_q {n_q} / n_kv {n_kv}: JAX's tiler cannot divide "
+                         f"them; flash_attention_kv_int8 falls back to the "
+                         f"flash op graph there")
+
+
 def flash_attention_kv_int8_reference(q, k: QuantizedTensor, v: QuantizedTensor,
                                       causal: bool = False,
                                       sm_scale: Optional[float] = None):
-    """Plain version of :func:`flash_attention_kv_int8` (no fp8 transcode:
-    the public function does that first): returns (o, lse (B, H, Nq, 1)),
-    rounding where the TPU grid kernel ``_kv8_fwd_kernel`` rounds.  q is
-    pre-scaled by sm_scale * log2(e) in its dtype.  int8 payloads: each q
-    row is quantized to int8 and the scores are the exact integer product
-    q8 k8^T times the q row scale, then the key scale; fp8 payloads: q k8^T
-    in f32 times the key scale.  The softmax runs in f32 in base 2; the
-    unnormalised p = exp2(s - m) and V = v8 * vs each round to q's dtype
-    before the PV product, which sums in f32 and is divided by the row sum
-    last; lse = m ln 2 + ln l (-inf where l = 0)."""
+    """Plain version of the kernel launch (:func:`kv8_flash_fwd`) at a
+    shape JAX's tiler divides, that is of :func:`flash_attention_kv_int8`
+    without its fp8 transcode and fallback: returns (o, lse (B, H, Nq, 1))
+    of the function JAX computes at the shape (:func:`_kv8_route`),
+    rounding where its kernel rounds.
+
+    q is pre-scaled by sm_scale * log2(e) in its dtype.  int8 payloads:
+    each q row is quantized to int8 and the scores are the exact integer
+    product q8 k8^T times the q row scale, then the key scale; fp8
+    payloads: q k8^T in f32 times the key scale.  The softmax runs in f32
+    in base 2 against a running max over blocks of ``span`` keys (grid,
+    loop; acc and l rescaled by exp2(m_old - m_new) where a block starts)
+    or the row's max (subrow).  grid: p = exp2(s - m) and V = v8 * vs each
+    round to q's dtype before the PV product; loop and subrow fold the V
+    scale into p, (p * vs) rounding to q's dtype against v8 (exact in it).
+    PV sums in f32; o = acc * (1 / l) (grid, loop) or pv / l (subrow);
+    lse = m ln 2 + ln l (-inf where l = 0)."""
     _check_kv8(q, k, v)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.values.shape[1], k.values.shape[2]
+    route = _kv8_route(causal, n_q, n_kv, d)
+    _check_tileable(route, n_q, n_kv)
     group = h // h_kv
     qp = q * _prescale(q, scale).to(q.device)
     k8, ks, v8, vs = (t.repeat_interleave(group, dim=1) for t in
                       (k.values, k.scales, v.values, v.scales))
-    ks = ks.transpose(-1, -2)
+    ks, vs_row = ks.transpose(-1, -2), vs.transpose(-1, -2)
     if k.values.dtype == torch.int8:
         # |q8 . k8| <= 128 * 127^2 < 2^24: the f32 product is the exact
         # integer one, in any order of summation
@@ -273,19 +347,43 @@ def flash_attention_kv_int8_reference(q, k: QuantizedTensor, v: QuantizedTensor,
         keep = (torch.arange(n_kv, device=q.device)[None, :]
                 <= torch.arange(n_q, device=q.device)[:, None])
         s = s.masked_fill(~keep, DEFAULT_MASK_VALUE)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp2(s - m)
-    l = p.sum(-1, keepdim=True)
-    vd = (v8.float() * vs).to(q.dtype)
-    o = (p.to(q.dtype).float() @ vd.float()) / torch.where(l == 0, 1.0, l)
+    v8f = v8.float()   # exact in q's dtype too
+
+    def pv(p, c0, c1):
+        if route.name == "grid":
+            vd = (v8f[:, :, c0:c1] * vs[:, :, c0:c1]).to(q.dtype).float()
+            return p.to(q.dtype).float() @ vd
+        return (p * vs_row[..., c0:c1]).to(q.dtype).float() @ v8f[:, :, c0:c1]
+
+    if route.name == "subrow":
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = pv(p, 0, n_kv) / torch.where(l == 0, 1.0, l)
+    else:
+        m = torch.full_like(s[..., :1], -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, n_q, d, device=q.device)
+        for c0 in range(0, n_kv, route.span):
+            c1 = min(n_kv, c0 + route.span)
+            m_new = torch.maximum(m, s[..., c0:c1].amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s[..., c0:c1] - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv(p, c0, c1)
+            m = m_new
+        o = acc * torch.where(l == 0, 1.0, torch.ones_like(l) / l)
     lse = torch.where(l == 0, -math.inf, m * LN2 + torch.log(l))
     return o.to(q.dtype), lse
 
 
 def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
                   sm_scale: float):
-    """Kernel launch of :func:`flash_attention_kv_int8` (CUDA tensors):
-    (o, lse (B, H, Nq, 1) f32)."""
+    """Kernel launch of :func:`flash_attention_kv_int8` (CUDA tensors) at a
+    shape JAX's tiler divides: (o, lse (B, H, Nq, 1) f32).  bf16 q runs
+    ``fa_kv8_flash`` in the mode of the shape's route, f32 q
+    ``fa_kv8_flash_f32`` (one function for every route: in f32 they agree
+    to f32 rounding)."""
     _check_kv8(q, k, v)
     check_no_grad(q)
     b, h, n_q, d = q.shape
@@ -293,6 +391,8 @@ def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
     if d not in HEAD_DIMS:
         raise ValueError(f"kv8 flash kernel head_dim must be one of "
                          f"{HEAD_DIMS}, got {d}")
+    route = _kv8_route(causal, n_q, n_kv, d)
+    _check_tileable(route, n_q, n_kv)
     code, payload = _build.dtype_code(q), _build.payload_code(k.values)
     if k.scales.dtype != torch.float32 or v.scales.dtype != torch.float32:
         raise TypeError("k/v scales must be float32")
@@ -300,18 +400,14 @@ def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
                           (q, k.values, v.values, k.scales, v.scales))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q, 1), device=q.device, dtype=torch.float32)
-    _kv8_kernel(q.data_ptr(), kv_.data_ptr(), vv.data_ptr(), ks.data_ptr(),
-                vs.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q,
-                n_kv, d, int(causal), float(_prescale(q, sm_scale)), code,
-                payload)
+    args = (q.data_ptr(), kv_.data_ptr(), vv.data_ptr(), ks.data_ptr(),
+            vs.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, h_kv, n_q, n_kv,
+            d, int(causal), float(_prescale(q, sm_scale)), payload)
+    if code == 0:
+        _kv8_f32_kernel(*args)
+    else:
+        _kv8_kernel(*args, _KV8_MODES[route.name], route.span)
     return o, lse
-
-
-def _subrow_envelope(causal, n_q, n_kv, d) -> bool:
-    """The shapes at which the JAX dispatcher takes its subrow schedule and
-    transcodes fp8 payloads to int8 first."""
-    return (causal and n_q == n_kv and d == 128 and 1024 <= n_q <= 8192
-            and n_q % 512 == 0)
 
 
 def flash_attention_kv_int8(q: torch.Tensor, k: QuantizedTensor,
@@ -322,25 +418,26 @@ def flash_attention_kv_int8(q: torch.Tensor, k: QuantizedTensor,
     q: (B, H, Nq, D) f32 / bf16; k, v: payloads (B, Hkv, Nkv, D) with f32
     scales (B, Hkv, Nkv, 1), H a multiple of Hkv (query head h reads kv
     head h // (H / Hkv)).  Returns (o, lse (B, H, Nq, 1) in natural log).
-    Inference-only.  With int8 payloads q is quantized per row to int8
-    after the sm_scale prefold, as the TPU kernels do; fp8 payloads at the
-    TPU subrow envelope (causal, Nq == Nkv, D 128, 1024 <= N <= 8192,
-    N % 512 == 0) are transcoded to int8 first (:func:`requantize_fp8_to_int8`),
-    as the JAX dispatcher does, so every shape gives the JAX numbers.
-    Shapes the JAX tiler cannot divide (n_q or n_kv under 8 or without a
+    Inference-only.  The function is JAX's at the shape (:func:`_kv8_route`,
+    by shape and never by device): with int8 payloads q is quantized per
+    row to int8 after the sm_scale prefold, as the TPU kernels do; fp8
+    payloads at the TPU subrow envelope (causal, Nq == Nkv, D 128,
+    1024 <= N <= 8192, N % 512 == 0) are transcoded to int8 first
+    (:func:`requantize_fp8_to_int8`), as the JAX dispatcher does.  Shapes
+    the JAX tiler cannot divide (n_q or n_kv under 8 or without a
     power-of-two block of at least 8) take its fallback: the flash op graph
     over K and V dequantized to q's dtype."""
     b, h, n_q, d = q.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if not _fa._tileable(n_q, k.values.shape[2], d):
+    route = _kv8_route(causal, n_q, k.values.shape[2], d)
+    if route.name == "fallback":
         _check_kv8(q, k, v)
         check_no_grad(q)
         kd, vd = k.dequantize(q.dtype), v.dequantize(q.dtype)
         if on_cuda(q, kd, vd):
             return _fa.flash_fwd(q, kd, vd, causal=causal, sm_scale=scale)
         return _fa.flash_fwd_plain(q, kd, vd, causal, scale)
-    if (k.values.dtype == torch.float8_e4m3fn
-            and _subrow_envelope(causal, n_q, k.values.shape[2], d)):
+    if k.values.dtype == torch.float8_e4m3fn and route.name == "subrow":
         k, v = requantize_fp8_to_int8(k), requantize_fp8_to_int8(v)
     if on_cuda(q, k.values, v.values, k.scales, v.scales):
         return kv8_flash_fwd(q, k, v, causal=causal, sm_scale=scale)

@@ -537,25 +537,76 @@ def _quantize(t, payload, axis=-1):
         t, axis=axis)
 
 
+def _wo_counts():
+    return qt._wo_kernel.launches, qt._wo_f32_kernel.launches
+
+
 @pytest.mark.parametrize("payload", PAYLOADS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mkn", [(1, 33, 17), (5, 100, 70), (16, 64, 64),
                                  (17, 7, 130), (130, 256, 1000)])
 def test_wo_matmul_kernel(dev, mkn, dtype, payload):
-    """Every kernel: f32 x the FMA kernel (16- and 64-row tiles and their
-    ragged edges), bf16 x the GEMV at M <= 16, the tensor-core tile at
-    M > 16 with K % 8 == 0 and the FMA kernel otherwise (K 7); K not a
-    multiple of the tiles' depths, N not a multiple of their widths."""
+    """Every kernel: the GEMV at M <= 16 (bf16 and f32 x), the tensor-core
+    tile at M > 16 (bf16 x with K % 8 == 0; f32 x at any K, in split
+    precision, its entry point fa_wo_matmul_f32) and the FMA kernel for
+    bf16 x otherwise (K 7); K not a multiple of the tiles' depths, N not a
+    multiple of their widths."""
     m, k, n = mkn
     g = torch.Generator(device=dev).manual_seed(6)
     x = _randn(g, m, k, dtype=dtype, dev=dev)
     w = _quantize(torch.randn(k, n, generator=g, device=dev), payload, axis=0)
-    before = qt._wo_kernel.launches
+    bf, f32 = _wo_counts()
     got = qt.int8_weight_only_matmul(x, w)
-    assert qt._wo_kernel.launches == before + 1
+    assert _wo_counts() == ((bf + 1, f32) if dtype == torch.bfloat16
+                            else (bf, f32 + 1))
     want = qt.int8_weight_only_matmul_reference(x, w)
     assert got.dtype == dtype and got.shape == (m, n)
     assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("k", [1024, 1000, 72, 7])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 100, 300])
+def test_wo_matmul_f32_kernels(dev, m, k, payload):
+    """f32 x at N 1000 (the lm head's), M on both sides of the GEMV's 16,
+    K a multiple of 64, of 8 only (the vectorized split) and of neither
+    (the padded split): within 1e-4 of the plain version scaled by
+    max(1, max |ref|), through fa_wo_matmul_f32 only (the FMA kernel no
+    longer takes f32 x), the same bits on a second call."""
+    n = 1000
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = _randn(g, m, k, dtype=torch.float32, dev=dev)
+    w = _quantize(torch.randn(k, n, generator=g, device=dev), payload, axis=0)
+    bf, f32 = _wo_counts()
+    got = qt.int8_weight_only_matmul(x, w)
+    assert _wo_counts() == (bf, f32 + 1)
+    want = qt.int8_weight_only_matmul_reference(x, w)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel_err(got, want) <= TOL[torch.float32]
+    assert torch.equal(got, qt.int8_weight_only_matmul(x, w))
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("-inf"), float("nan")])
+@pytest.mark.parametrize("m", [4, 300])
+def test_wo_matmul_f32_nonfinite(dev, m, value):
+    """A +-inf or NaN in f32 x reaches the outputs the plain version puts
+    it in (the split keeps it in the first piece; 0 * inf gives NaN where
+    a weight is 0, as in f32), and only those; the rest within TOL."""
+    k, n = 200, 136
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = _randn(g, m, k, dtype=torch.float32, dev=dev)
+    x[1, 5] = value
+    w = _quantize(torch.randn(k, n, generator=g, device=dev), torch.int8,
+                  axis=0)
+    w.values[5, :7] = 0
+    got = qt.int8_weight_only_matmul(x, w)
+    want = qt.int8_weight_only_matmul_reference(x, w)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert int(want[1].isfinite().sum()) == 0
+    fin = want.isfinite()
+    assert torch.equal(got[~fin & ~got.isnan()], want[~fin & ~want.isnan()])
+    assert _rel_err(got[fin], want[fin]) <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize("payload", PAYLOADS)
@@ -572,9 +623,9 @@ def test_wo_matmul_bf16_kernels(dev, m, kn, payload):
     g = torch.Generator(device=dev).manual_seed(16)
     x = _randn(g, m, k, dtype=torch.bfloat16, dev=dev)
     w = _quantize(torch.randn(k, n, generator=g, device=dev), payload, axis=0)
-    before = qt._wo_kernel.launches
+    before = _wo_counts()
     got = qt.int8_weight_only_matmul(x, w)
-    assert qt._wo_kernel.launches == before + 1
+    assert _wo_counts() == (before[0] + 1, before[1])
     want = qt.int8_weight_only_matmul_reference(x, w)
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
     assert _rel_err(got, want) <= TOL[torch.bfloat16]
@@ -624,26 +675,86 @@ KV8_CASES = {
 }
 
 
+def _kv8_counts():
+    return qt._kv8_kernel.launches, qt._kv8_f32_kernel.launches
+
+
 @pytest.mark.parametrize("payload", PAYLOADS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", list(KV8_CASES))
 def test_kv8_flash_kernel(dev, case, dtype, payload):
-    """o and lse; at the subrow envelope fp8 payloads are transcoded to int8
-    before the launch, on both sides."""
+    """o and lse against the plain version of the shape's route; at the
+    subrow envelope fp8 payloads are transcoded to int8 before the launch,
+    on both sides.  bf16 q launches fa_kv8_flash, f32 q fa_kv8_flash_f32."""
     b, h, h_kv, n_q, n_kv, d, causal = KV8_CASES[case]
     g = torch.Generator(device=dev).manual_seed(8)
     q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
     k, v = (_quantize(torch.randn(b, h_kv, n_kv, d, generator=g, device=dev),
                       payload) for _ in range(2))
-    before = qt._kv8_kernel.launches
+    bf, f32 = _kv8_counts()
     o, lse = qt.flash_attention_kv_int8(q, k, v, causal)
-    assert qt._kv8_kernel.launches == before + 1
-    if payload != torch.int8 and qt._subrow_envelope(causal, n_q, n_kv, d):
+    assert _kv8_counts() == ((bf + 1, f32) if dtype == torch.bfloat16
+                             else (bf, f32 + 1))
+    if qt._kv8_route(causal, n_q, n_kv, d).name == "subrow":
         k, v = qt.requantize_fp8_to_int8(k), qt.requantize_fp8_to_int8(v)
     o_ref, lse_ref = qt.flash_attention_kv_int8_reference(q, k, v, causal)
     assert o.dtype == dtype and lse.shape == (b, h, n_q, 1)
     assert _err(o, o_ref) <= TOL[dtype]
     assert _err(lse, lse_ref) <= TOL[dtype]
+
+
+# (b, h, h_kv, n_q, n_kv, d, causal, route): each route of JAX's dispatcher
+# (ops/quant.py::_kv8_route) and its key block: the loop at N512 (one
+# 512-key chunk a query block, GQA), N1152 (128-key chunks: the tile's own
+# max) and N1280 (256-key chunks: a max pass over two tiles); the subrow at
+# N1024 / 2048 (a max pass over the whole row); the grid with 1024-key
+# blocks (256 x 2048), 512-key blocks (cross 256 x 1536), 64-key blocks
+# (n 1088: updates inside the tile), 8-key blocks (200 x 3000), and one
+# block of every key where n_kv <= 1024 is not a multiple of 128 (576,
+# 1000, 384 x 1000); every head dim
+C16_KV8_CASES = {
+    "loop_n512_gqa4_2": (1, 8, 2, 512, 512, 128, True, "loop"),
+    "loop_n1152": (1, 2, 2, 1152, 1152, 128, True, "loop"),
+    "loop_n1280_gqa2_1": (1, 2, 1, 1280, 1280, 128, True, "loop"),
+    "subrow_n1024_gqa": (1, 4, 2, 1024, 1024, 128, True, "subrow"),
+    "subrow_n2048": (1, 2, 1, 2048, 2048, 128, True, "subrow"),
+    "grid_256x2048_d128": (1, 2, 2, 256, 2048, 128, False, "grid"),
+    "grid_256x1536_d64": (2, 2, 1, 256, 1536, 64, False, "grid"),
+    "grid_causal_1088_d32": (1, 2, 2, 1088, 1088, 32, True, "grid"),
+    "grid_200x3000_d128": (1, 2, 1, 200, 3000, 128, False, "grid"),
+    "grid_causal_576_d32": (1, 4, 2, 576, 576, 32, True, "grid"),
+    "grid_causal_1000_d128": (1, 2, 2, 1000, 1000, 128, True, "grid"),
+    "grid_384x1000_d64": (1, 2, 2, 384, 1000, 64, False, "grid"),
+}
+
+
+@pytest.mark.parametrize("payload", PAYLOADS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(C16_KV8_CASES))
+def test_kv8_flash_routes(dev, case, dtype, payload):
+    """The kernel at each route of JAX's dispatcher against the plain
+    version of that route (C16): bf16 at least 99% of o bit for bit, the
+    rest within one bf16 ulp of its row's largest element, lse within 1e-5
+    (the flash gate); f32 (split precision, one function) within 1e-4."""
+    b, h, h_kv, n_q, n_kv, d, causal, route = C16_KV8_CASES[case]
+    assert qt._kv8_route(causal, n_q, n_kv, d).name == route
+    g = torch.Generator(device=dev).manual_seed(19)
+    q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
+    k, v = (_quantize(torch.randn(b, h_kv, n_kv, d, generator=g, device=dev),
+                      payload) for _ in range(2))
+    bf, f32 = _kv8_counts()
+    o, lse = qt.flash_attention_kv_int8(q, k, v, causal)
+    assert _kv8_counts() == ((bf + 1, f32) if dtype == torch.bfloat16
+                             else (bf, f32 + 1))
+    if route == "subrow":
+        k, v = qt.requantize_fp8_to_int8(k), qt.requantize_fp8_to_int8(v)
+    o_ref, lse_ref = qt.flash_attention_kv_int8_reference(q, k, v, causal)
+    if dtype == torch.bfloat16:
+        _bf16_match(o, o_ref)
+        assert _err(lse, lse_ref) <= 1e-5
+    else:
+        assert _err(o, o_ref) <= TOL[dtype]
+        assert _err(lse, lse_ref) <= TOL[dtype]
 
 
 # (b, h, h_kv, n_q, n_kv, d): shapes the JAX tiler cannot divide (n_q 1,
@@ -666,10 +777,9 @@ def test_kv8_flash_fallback(dev, case, dtype, payload, causal):
     q = _randn(g, b, h, n_q, d, dtype=dtype, dev=dev)
     k, v = (_quantize(torch.randn(b, h_kv, n_kv, d, generator=g, device=dev),
                       payload) for _ in range(2))
-    before = (_flash_launches()[0], qt._kv8_kernel.launches)
+    before = (_flash_launches()[0], _kv8_counts())
     o, lse = qt.flash_attention_kv_int8(q, k, v, causal)
-    assert (_flash_launches()[0], qt._kv8_kernel.launches) == (before[0] + 1,
-                                                               before[1])
+    assert (_flash_launches()[0], _kv8_counts()) == (before[0] + 1, before[1])
     o_ref, lse_ref = fa._reference_fwd_with_lse(
         q, k.dequantize(dtype), v.dequantize(dtype), causal, d ** -0.5)
     if dtype == torch.bfloat16:
@@ -723,10 +833,10 @@ def test_quant_kernels_refuse_host_scales(dev):
     kq = qt.quantize_int8(torch.randn(2, 4, 8, 32, device=dev), axis=-1)
     host = qt.QuantizedTensor(kq.values, kq.scales.cpu())
     q = torch.randn(2, 4, 8, 32, device=dev)
-    before = qt._kv8_kernel.launches
+    before = _kv8_counts()
     with pytest.raises(ValueError):
         qt.flash_attention_kv_int8(q, host, host, True)
-    assert qt._kv8_kernel.launches == before
+    assert _kv8_counts() == before
     lens = torch.tensor([8, 5], device=dev)
     table = torch.tensor([[0], [1]], device=dev)
     before = pa._kernel.launches

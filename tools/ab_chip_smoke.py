@@ -8,10 +8,10 @@ other (each into its own ``_build/``), then run in the order A B ... B A, each i
 a process of its own that imports that root's package and this repo's
 ``chip_smoke.py`` phases:
 
-* ``wo``: ``wo_matmul`` (bf16 x, int8 and fp8 payloads) at the quantized
-  serving model's decode and prefill shapes: device ms (CUDA-graph replay
-  for M <= 16, CUDA events above), eager ms with the host's launch
-  overhead, and ``x @ W_bf16`` beside both;
+* ``wo``: ``wo_matmul`` (bf16 and f32 x, int8 and fp8 payloads) at the
+  quantized serving model's decode and prefill shapes: device ms
+  (CUDA-graph replay for M <= 16, CUDA events above), eager ms with the
+  host's launch overhead, and ``x @ W`` in x's dtype beside both;
 * ``flash``: the bf16 flash forward at the train step's dense causal
   shape, the varlen prefill, N 16384, d64 non-causal N2048, window 256
   and causal N517 (below 1024 keys: JAX's op graph), with SDPA beside;
@@ -34,9 +34,10 @@ a process of its own that imports that root's package and this repo's
   beside, the backward's device ms by kernel (torch.profiler), and in
   bf16 the share of o (and dq, dk, dv) bit for bit against the plain
   versions;
-* ``kv8``: ``kv8_flash`` with bf16 q at B4 H8 N2048 D128 causal (int8 and
-  fp8 payloads; the kernel call itself, so fp8 is not transcoded) and
-  cross 1000 x 2048 int8, with SDPA on the dequantized cache beside;
+* ``kv8``: ``kv8_flash_fwd`` (the kernel call itself, so fp8 is not
+  transcoded) with bf16 and f32 q at B4 H8 N2048 D128 causal, N512
+  causal and cross 1000 x 2048 (int8 and fp8 payloads) and GQA 8q/2kv
+  N2048 (int8), with SDPA on the dequantized cache beside;
 * ``ln``: ``layernorm_fwd`` and ``layernorm_bwd`` at the train step's rows
   (16384, 2048), bf16 and f32, with ``F.layer_norm`` and its autograd
   backward beside, and the bounds;
@@ -97,16 +98,18 @@ def _wo(torch, cs, dev):
     g = torch.Generator(device=dev).manual_seed(0)
     for payload, quantize in (("int8", qt.quantize_int8),
                               ("fp8", qt.quantize_fp8)):
-        for m, k, n in WO_SHAPES:
-            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-            w = quantize(torch.randn(k, n, generator=g, device=dev), axis=0)
-            w_full = w.dequantize(torch.bfloat16)
-            timer = cs.graph_ms if m <= 16 else cs.time_ms
-            ms, lib = timer(lambda: qt.wo_matmul(x, w)), timer(lambda: x @ w_full)
-            eager = cs.time_ms(lambda: qt.wo_matmul(x, w), host=True)
-            print(f"[ab] wo_matmul {payload} ({m}, {k}) x ({k}, {n}): ms "
-                  f"{ms:.4f} ({'graph' if m <= 16 else 'events'}), eager "
-                  f"{eager:.4f}, x @ W_bf16 {lib:.4f}", flush=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            for m, k, n in WO_SHAPES:
+                x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                w = quantize(torch.randn(k, n, generator=g, device=dev), axis=0)
+                w_full = w.dequantize(dtype)
+                timer = cs.graph_ms if m <= 16 else cs.time_ms
+                ms, lib = timer(lambda: qt.wo_matmul(x, w)), timer(lambda: x @ w_full)
+                eager = cs.time_ms(lambda: qt.wo_matmul(x, w), host=True)
+                print(f"[ab] wo_matmul {name} {payload} ({m}, {k}) x ({k}, {n}): ms "
+                      f"{ms:.4f} ({'graph' if m <= 16 else 'events'}), eager "
+                      f"{eager:.4f}, x @ W_{name} {lib:.4f}", flush=True)
 
 
 # (label, (b, h, n, d), lengths, causal, window)
@@ -286,8 +289,14 @@ def _same(got, want) -> float:
     return float((got == want).float().mean())
 
 
-KV8_SHAPES = [("B4 H8 N2048 D128 causal", (4, 8, 2048, 2048), True, ("int8", "fp8")),
-              ("cross B4 H8 1000 x 2048 D128", (4, 8, 1000, 2048), False, ("int8",))]
+# (label, (b, h, h_kv, n_q, n_kv), causal, payloads): a shape of each of
+# JAX's routes (the subrow, the loop, the grid with two key blocks) and the
+# subrow with GQA
+KV8_SHAPES = [("B4 H8 N2048 D128 causal", (4, 8, 8, 2048, 2048), True, ("int8", "fp8")),
+              ("B4 H8 N512 D128 causal", (4, 8, 8, 512, 512), True, ("int8", "fp8")),
+              ("cross B4 H8 1000 x 2048 D128", (4, 8, 8, 1000, 2048), False,
+               ("int8", "fp8")),
+              ("GQA 8q/2kv B4 N2048 D128 causal", (4, 8, 2, 2048, 2048), True, ("int8",))]
 
 
 def _kv8(torch, cs, dev):
@@ -295,17 +304,20 @@ def _kv8(torch, cs, dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     quantizers = {"int8": qt.quantize_int8, "fp8": qt.quantize_fp8}
-    for label, (b, h, n_q, n_kv), causal, payloads in KV8_SHAPES:
-        q = torch.randn(b, h, n_q, 128, generator=g, device=dev).to(torch.bfloat16)
-        for payload in payloads:
-            k, v = (quantizers[payload](torch.randn(b, h, n_kv, 128, generator=g,
-                                                    device=dev)) for _ in range(2))
-            lib, args = cs._sdpa(torch, q, k.dequantize(torch.bfloat16),
-                                 v.dequantize(torch.bfloat16), causal, None, None)
-            ms = cs.time_ms(lambda: qt.kv8_flash_fwd(q, k, v, causal=causal,
-                                                     sm_scale=128 ** -0.5))
-            print(f"[ab] kv8_flash {payload} {label}: ms {ms:.4f}, SDPA on the "
-                  f"dequantized cache {cs.time_ms(lambda: lib(*args)):.4f}", flush=True)
+    for label, (b, h, h_kv, n_q, n_kv), causal, payloads in KV8_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            q = torch.randn(b, h, n_q, 128, generator=g, device=dev).to(dtype)
+            for payload in payloads:
+                k, v = (quantizers[payload](torch.randn(b, h_kv, n_kv, 128, generator=g,
+                                                        device=dev)) for _ in range(2))
+                lib, args = cs._sdpa(torch, q, k.dequantize(dtype), v.dequantize(dtype),
+                                     causal, None, None)
+                ms = cs.time_ms(lambda: qt.kv8_flash_fwd(q, k, v, causal=causal,
+                                                         sm_scale=128 ** -0.5))
+                print(f"[ab] kv8_flash {name} {payload} {label}: ms {ms:.4f} (the "
+                      f"kernel call, fp8 not transcoded), SDPA on the dequantized "
+                      f"cache {cs.time_ms(lambda: lib(*args)):.4f}", flush=True)
 
 
 TRAIN_ROWS = (16384, 2048)   # the train step's LayerNorm and dropout rows
