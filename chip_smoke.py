@@ -13,7 +13,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    B4 H8 N2048 prefill, LN 8192 x 1024 and decode rows 4 x 1024 (by
    CUDA-graph replay), paged attention (split-K decode and the wgmma
    extend wave, against paged_attention_plain, the TPU kernels' page
-   walk: bf16 gated relative to max |ref|); training: LN
+   walk: bf16 gated relative to max |ref|; f32 q, the split-precision
+   tiles (kernels-line name paged_attention_f32) over an f32 pool at
+   decode, chunk 64, GQA 4 and the 2048-row wave, within 1e-4 of the
+   plain version and 1e-5 of its float64 run, the split bound printed
+   with the FMA figure beside); training: LN
    16384 x 2048, flash B4 H16 N2048 D128 (B4 rather than the train step's
    B8: the plain backward keeps several 1 GiB f32 score tensors), dropout
    16384 x 2048 at p 0.1) plus ragged variants (the bf16 flash forward
@@ -87,8 +91,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    paged attention (int8 and fp8 pools: decode B4 Hkv8 d128 at histories
    <= 8192, chunk 64, GQA group 4, window 256; B1 Hkv8 decode at 16384
    positions, the quantized model's capacity, for bf16, int8 and fp8
-   pools; the split plans and the paged kernels' registers and shared
-   memory logged once), flash attention over an
+   pools; f32 q on the split-precision tiles as in phase 3, the int8
+   decode at <= 8192 the kernels line's paged_attention_f32; the split
+   plans and the paged kernels' registers and shared memory logged
+   once), flash attention over an
    int8 / fp8 KV cache at one shape of each of JAX's routes
    (``ops/quant.py::_kv8_route``): the subrow B4 H8 N2048 D128 causal
    (fp8 transcoded to int8 first, as JAX does; GQA 8q/2kv), the loop N512
@@ -110,9 +116,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    greedy requests of 8192-token prompts and 64 new tokens each (one
    batched varlen prefill).  Every request finishes, no page leaks, the
    bf16 quantized variants launch wo_matmul, paged_attention, flash_fwd
-   and layernorm_fwd (the bf16 variant no wo_matmul), the f32 ones
-   wo_matmul_f32, paged_attention, flash_fwd_f32 and layernorm_fwd and
-   no wo_matmul.  Then the f32 model's gate: one 8192-token prompt and 16
+   and layernorm_fwd (the bf16 variant no wo_matmul) and no
+   paged_attention_f32, the f32 ones wo_matmul_f32, paged_attention_f32
+   (the split-precision paged tiles), flash_fwd_f32 and layernorm_fwd and
+   no wo_matmul or bf16-q paged tile.  Then the f32 model's gate: one 8192-token prompt and 16
    new tokens per pool, engine logits against a dense forward of the same
    quantized model, max |diff| / max |dense| < 0.08 and argmax agreement
    >= 0.8.
@@ -137,7 +144,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    n-gram proposer that ran, and profiles the first decode dispatch of
    the greedy, sampled and draft modes.  Gates: every request finishes; no page
    leaks once the cache is dropped; paged_attention and layernorm_fwd
-   launch in every mode (counts zeroed just before each mode's run) and
+   launch in every mode (counts zeroed just before each mode's run; the
+   f32 modes launch paged_attention_f32 and no bf16-q paged tile) and
    the model's multi-token forward_extend_paged runs in the speculative
    and prefix-cache modes; the prefix-cache admissions attach the 8 cached
    pages; the native proposer ran; two sampled runs with the same seeds
@@ -242,7 +250,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    logged; else one line naming the missing packages.
 24. c15 (run after phase 3's serving kernels): paged waves wider than one
    row tile (bf16 q at 256 rows, GQA 4 x chunk 64 and 2048 rows; f32 q at
-   128), causal and window 256, over bf16 / int8 / fp8 pools holding NaN V
+   256), causal and window 256, over bf16 / int8 / fp8 pools holding NaN V
    rows (and, quantized, NaN V scales) on pages outside some tile's own:
    the kernel's NaN pattern equal to paged_attention_plain's, its finite
    elements under the paged gates; the marks kernel (paged_nonfinite) at
@@ -316,12 +324,13 @@ QUANT_ENGINE = dict(max_batch=4, page_size=128, pages_per_seq=66,
                     steps_per_dispatch=8, prefill_chunk=8192)
 QUANT_PROMPT, QUANT_NEW_TOKENS = 8192, 64
 QUANT_KERNELS = ("wo_matmul", "paged_attention", "flash_fwd", "layernorm_fwd")
+QUANT_ABSENT = ("paged_attention_f32",)
 # JAX's north-star at its own dtype (f32 DecoderLM, int8 weights): the f32
-# kernels (split-precision wo tile and flash prefill, the f32 GEMV) launch,
-# the bf16 wo_matmul none
-QUANT_F32_KERNELS = ("wo_matmul_f32", "paged_attention", "flash_fwd_f32",
+# kernels (split-precision wo tile, paged tiles and flash prefill, the f32
+# GEMV) launch, the bf16 wo_matmul and bf16-q paged tiles none
+QUANT_F32_KERNELS = ("wo_matmul_f32", "paged_attention_f32", "flash_fwd_f32",
                      "layernorm_fwd")
-QUANT_F32_ABSENT = ("wo_matmul",)
+QUANT_F32_ABSENT = ("wo_matmul", "paged_attention")
 # the f32 north-star gate: one 8192-token prompt and 16 new tokens, engine
 # logits against a dense forward of the same quantized model
 QUANT_F32_GATE_NEW = 16
@@ -757,11 +766,13 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
         table = torch.randperm(n_pages, generator=g, device=dev)[:4 * pps]
         table = table.reshape(4, pps).int()
         qd = randn(4, 8, 128, dtype=dtype)
-        ph.check("paged_attention", "decode B4 Hkv8 d128 page128", dtype,
+        ph.check("paged_attention" if main else "paged_attention_f32",
+                 "decode B4 Hkv8 d128 page128", dtype,
                  lambda: pa.paged_attention(qd, kp, vp, lens, table),
                  lambda: pa.paged_attention_plain(qd, kp, vp, lens, table),
                  _paged_cost(qd, 1, 8, 8, lens), main=main,
-                 compare=_rel_err if main else None)
+                 **(dict(compare=_rel_err) if main else _paged_f32_gate(
+                     pa, qd, kp, vp, lens, table, {}, "decode f32 pool")))
 
     bf = torch.bfloat16
     # flash variants at the prefill shape: every head dim, ragged lengths
@@ -825,13 +836,54 @@ def serving_kernel_phases(torch, dev, ph: Phases, randn):
                  lambda: pa.paged_attention(q_, kp, vp, ln_, table),
                  lambda: pa.paged_attention_plain(q_, kp, vp, ln_, table),
                  _paged_cost(q_, chunk, hq, 8, ln_), compare=_rel_err)
+    # the same three over an f32 pool with f32 q (the split-precision
+    # tiles), drawn from a generator of their own so that the phases after
+    # this one keep their inputs
+    g32 = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def randn32(*shape):
+        return torch.randn(shape, generator=g32, device=dev)
+
+    kp, vp = (randn32(8, n_pages, 128, 128) for _ in range(2))
+    for label, q_, ln_, chunk, hq in [
+            ("chunk 64", randn32(4, 64, 8, 128), lens, 64, 8),
+            ("decode GQA group 4", randn32(4, 32, 128), lens, 1, 32),
+            ("extend wave chunk 2048", randn32(4, 2048, 8, 128), wave, 2048, 8)]:
+        ph.check("paged_attention_f32", f"{label} f32 pool", torch.float32,
+                 lambda: pa.paged_attention(q_, kp, vp, ln_, table),
+                 lambda: pa.paged_attention_plain(q_, kp, vp, ln_, table),
+                 _paged_cost(q_, chunk, hq, 8, ln_),
+                 **_paged_f32_gate(pa, q_, kp, vp, ln_, table, {},
+                                   f"{label} f32 pool"))
+
+
+def _abs_err64(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def _paged_f32_gate(pa, q, kp, vp, lens, table, kw, label):
+    """``compare`` and ``tol`` of an f32-q paged line: the split-precision
+    tiles against the plain version (TOL, 1e-4) and against a float64 run
+    of it (f32 pools widened) within 1e-5, where the plain f32 version is
+    itself off by its dots' roundings (logged beside); gated at 1 as the
+    larger of the two errors over its gate."""
+    def compare(got, want):
+        wide = [t.double() if t.dtype == q.dtype else t for t in (kp, vp)]
+        ref64 = pa.paged_attention_plain(q.double(), *wide, lens, table, **kw)
+        err, e64 = _abs_err64(got, want), _abs_err64(got, ref64)
+        log(f"[kernel] paged_attention_f32 {label}: against float64 {e64:.3e} "
+            f"(gate 1e-5), the plain f32 version {_abs_err64(want, ref64):.3e}")
+        return err, max(err / TOL["float32"], e64 / 1e-5)
+
+    return dict(compare=compare, tol=1.0)
 
 
 def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False, window=None):
     """(bytes, flops) of paged attention: q and out, the K/V of every token
     some row sees once (a quantized pool: 1-byte payloads and a 4-byte scale
     per token); row j of a chunk sees length - chunk + j + 1 keys, at most
-    ``window`` of them, so a sequence's last window + chunk - 1 tokens."""
+    ``window`` of them, so a sequence's last window + chunk - 1 tokens.
+    f32 q: (bytes, split-precision flops, FMA flops)."""
     isz, d = q.element_size(), q.shape[-1]
     lens = [int(n) for n in lens.tolist()]
     if window is None:
@@ -842,7 +894,13 @@ def _paged_cost(q, chunk, hq, h_kv, lens, quantized=False, window=None):
                     for j in range(chunk)) * hq
         tokens = sum(min(n, window + chunk - 1) for n in lens)
     token = d + 4 if quantized else d * isz
-    return 2 * q.numel() * isz + 2 * tokens * h_kv * token, 4 * d * pairs
+    bytes_, flops = 2 * q.numel() * isz + 2 * tokens * h_kv * token, 4 * d * pairs
+    if isz == 4:
+        # f32 q runs split precision: three bf16 products a product over a
+        # quantized pool (exact in bf16), six over an f32 one; the FMA
+        # kernels' flops at the f32 peak beside
+        return bytes_, {"bfloat16": (3 if quantized else 6) * flops}, flops
+    return bytes_, flops
 
 
 # C15: the 2048-row extend wave's and the chunk-64 call's times before the
@@ -918,7 +976,7 @@ def c15_kernel_phases(torch, dev, ph: Phases, randn):
     cases = [(torch.bfloat16, name, shape, win, pool)
              for name, shape in C15_WAVES.items() for win in (None, 256)
              for pool in ("bf16", "int8", "fp8")]
-    cases += [(torch.float32, "128 rows", (128, 2, 2), win, pool)
+    cases += [(torch.float32, "256 rows", (256, 2, 2), win, pool)
               for win in (None, 256) for pool in ("f32", "int8", "fp8")]
     for dtype, name, (chunk, hq, hkv), win, pool in cases:
         q, kp, vp, lens, table, kw = c15_inputs(
@@ -1285,7 +1343,7 @@ def _log_paged_plan(torch, pa):
             "f32 decode <= 8192": (4, 1, 1, 64, torch.float32)}.items():
         sp, n = pa.split_plan(b, 8, rows, chunk, 128, pps, dtype, None, sms)
         log(f"[paged] plan {label}: {n} splits of {sp} pages")
-    for pool in (torch.bfloat16, torch.int8, torch.float8_e4m3fn):
+    for pool in (torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn):
         attrs = pa.kernel_attrs(128, pool)
         log(f"[paged] d128 {str(pool)[6:]} pool: " + ", ".join(
             f"{k} {r} regs / {sm} B smem / {lc} B spill"
@@ -1384,7 +1442,12 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
             q32 = randn(*q_shape, dtype=torch.float32)
             for dtype in (bf, torch.float32):
                 q_ = q32.to(dtype)
-                ph.check(f"paged_attention_{pname}", label, dtype,
+                decode = chunk == 1 and hq == 8 and win is None
+                # f32 q: the split-precision tiles, their own count; the
+                # int8 decode is the f32 north-star's (the kernels line)
+                ph.check(f"paged_attention_{pname}" if dtype == bf
+                         else "paged_attention_f32",
+                         label if dtype == bf else f"{label} {pname}", dtype,
                          lambda: pa.paged_attention(q_, kq.values, vq.values,
                                                     lens, table, window=win,
                                                     **kw),
@@ -1393,9 +1456,11 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                              **kw),
                          _paged_cost(q_, chunk, hq, 8, lens, quantized=True,
                                      window=win),
-                         main=dtype == bf and chunk == 1 and hq == 8
-                         and win is None,
-                         compare=_rel_err if dtype == bf else None)
+                         main=decode and (dtype == bf or pname == "int8"),
+                         **(dict(compare=_rel_err) if dtype == bf else
+                            _paged_f32_gate(pa, q_, kq.values, vq.values, lens,
+                                            table, dict(kw, window=win),
+                                            f"{label} {pname}")))
         kq, vq = (quantize(randn(8, pps16 + 1, 128, 128, dtype=torch.float32),
                            payload) for _ in range(2))
         ph.check(f"paged_attention_{pname}", "decode B1 Hkv8 d128 16384", bf,
@@ -1407,6 +1472,17 @@ def quant_kernel_phases(torch, dev, ph: Phases, randn):
                      k_scales=kq.scales, v_scales=vq.scales),
                  _paged_cost(q16, 1, 8, 8, lens16, quantized=True),
                  compare=_rel_err)
+        q16f = q16.float()
+        kw16 = dict(k_scales=kq.scales, v_scales=vq.scales)
+        ph.check("paged_attention_f32", f"decode B1 Hkv8 d128 16384 {pname}",
+                 torch.float32,
+                 lambda: pa.paged_attention(q16f, kq.values, vq.values, lens16,
+                                            table16, **kw16),
+                 lambda: pa.paged_attention_plain(
+                     q16f, kq.values, vq.values, lens16, table16, **kw16),
+                 _paged_cost(q16f, 1, 8, 8, lens16, quantized=True),
+                 **_paged_f32_gate(pa, q16f, kq.values, vq.values, lens16,
+                                   table16, kw16, f"B1 16384 {pname}"))
         del kq, vq, kw
 
     # flash attention over a quantized KV cache, at one shape of each of
@@ -1774,6 +1850,8 @@ def kernel_counters():
            if hasattr(fa, "_f32_kernel") else {})
     if hasattr(qt, "_wo_f32_kernel"):
         f32.update(wo_matmul_f32=qt._wo_f32_kernel, kv8_flash_f32=qt._kv8_f32_kernel)
+    if hasattr(pa, "_f32_kernel"):
+        f32.update(paged_attention_f32=pa._f32_kernel)
     return {"layernorm_fwd": ln._kernel, "layernorm_bwd": ln._bwd_kernel,
             "flash_fwd": fa._kernel, "flash_bwd": fa._bwd_kernel, **f32,
             "paged_attention": pa._kernel, "paged_nonfinite": pa._nf_kernel,
@@ -1985,15 +2063,20 @@ def serve_quant_phase(torch, dev) -> dict:
                 "f32, int8 weights + int8 pool": (q32, torch.int8),
                 "f32, int8 weights + fp8 pool": (q32, torch.float8_e4m3fn)}
     results = {}
+    # an older root (tools/ab_chip_smoke.py's parent) counts f32-q paged
+    # launches under paged_attention
+    f32_absent = (QUANT_F32_ABSENT if "paged_attention_f32" in kernel_counters()
+                  else ("wo_matmul",))
     for label, (model, pool_dtype) in variants.items():
         f32 = model is q32
         res = serve_quant_variant(
             torch, model, label, pool_dtype,
-            QUANT_F32_KERNELS + QUANT_F32_ABSENT if f32 else QUANT_KERNELS)
+            QUANT_F32_KERNELS + f32_absent if f32
+            else QUANT_KERNELS + QUANT_ABSENT)
         quantized = model is not base
         for name, n in res["launches"].items():
             if (name == "wo_matmul" and not quantized) or (
-                    f32 and name in QUANT_F32_ABSENT):
+                    name in (f32_absent if f32 else QUANT_ABSENT)):
                 assert n == 0, f"{label}: {name} launched {n} times"
             elif n <= 0:
                 raise AssertionError(f"{label}: {name} was not launched")
@@ -2137,7 +2220,7 @@ def _feature_run(torch, model, dtype, engine_kw, reqs, prefix=False):
 
     eng = ContinuousBatchingEngine(model, dtype=dtype, **engine_kw)
     counters = {n: k for n, k in kernel_counters().items()
-                if n in SERVE_KERNELS}
+                if n in SERVE_KERNELS + ("paged_attention_f32",)}
     shared = []
     torch.cuda.synchronize()
     for kern in counters.values():
@@ -2206,7 +2289,7 @@ def serve_features_phase(torch, model_f32, dev) -> dict:
     draft_f32 = pt.DecoderLM(**FEAT_DRAFT,
                              generator=torch.Generator().manual_seed(SEED + 3),
                              device=dev).eval()
-    total = {name: 0 for name in SERVE_KERNELS}
+    total = {name: 0 for name in SERVE_KERNELS + ("paged_attention_f32",)}
     tokens = {}
     for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         model = copy.deepcopy(model_f32).to(dtype)
@@ -2229,7 +2312,14 @@ def serve_features_phase(torch, model_f32, dev) -> dict:
                 del warm
             out, run = _feature_run(torch, model, dtype, eng_kw, reqs, prefix)
             tokens[label, mode] = [r.generated for r in out]
+            # each q dtype on its own paged tiles
+            mine, other = (("paged_attention_f32", "paged_attention")
+                           if label == "f32" else
+                           ("paged_attention", "paged_attention_f32"))
+            assert run["launches"][mine] > 0 and run["launches"][other] == 0, (
+                f"{label} {mode}: paged launches {run['launches']}")
             if label == "f32":
+                total[mine] += run["launches"][mine]
                 continue
             new = sum(len(r.generated) for r in out)
             proposer = run["proposer"]
@@ -2461,6 +2551,15 @@ def profile_step(torch, run, label: str = "train step") -> None:
         log(f"[profile] attention (flash_*, the f32 split): {t_attn / 1e3:.3f} "
             f"ms in {sum(n for n, _ in attn)} launches = "
             f"{100 * t_attn / max(busy, 1e-9):.1f}% of device busy")
+    paged = [(name, n, t) for name, (n, t) in ours if re.search(r"::paged_", name)]
+    if paged:
+        t_paged = sum(t for _, _, t in paged)
+        t_f32 = sum(t for name, _, t in paged if "_f32_kernel" in name)
+        log(f"[profile] paged attention (the split kernels, merge, marks, "
+            f"poison): {t_paged / 1e3:.3f} ms in {sum(n for _, n, _ in paged)} "
+            f"launches = {100 * t_paged / max(busy, 1e-9):.1f}% of device busy; "
+            f"the f32-q tiles {t_f32 / 1e3:.3f} ms = "
+            f"{100 * t_f32 / max(busy, 1e-9):.1f}%")
     # the op graph's kernels (an older tree's: the <..., true> instances of
     # flash_{fwd,bwd}_*_kernel and flash_bwd_opstats_kernel)
     op = [(n, t) for name, (n, t) in ours if re.search(
@@ -2724,11 +2823,11 @@ def serve_rope_phase(torch, dev) -> dict:
     del model
     moe = DecoderLM(**ROPE_MOE_MODEL, device=dev,
                     generator=torch.Generator().manual_seed(SEED)).eval()
-    with _Launches(SERVE_KERNELS) as run:
+    with _Launches(SERVE_KERNELS + ("paged_attention_f32",)) as run:
         consistency_phase(torch, moe, dev, "serve_rope_moe")
     log(f"[serve_rope_moe] launches {run.counts}")
     cached_decode_gate(torch, moe, dev, "serve_rope_moe")
-    out["launches"] = {n: out["launches"][n] + run.counts[n]
+    out["launches"] = {n: out["launches"].get(n, 0) + run.counts[n]
                        for n in run.counts}
     return out
 
@@ -3591,6 +3690,9 @@ SOURCES = {
     "paged_attention": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:119",
                          "flashattn_tpu/ops/paged_attention.py:34"]),
+    "paged_attention_f32": ("flashattn_tpu_torch/csrc/paged_attention.cu",
+                            ["flashattn_tpu/ops/paged_attention.py:119",
+                             "flashattn_tpu/ops/paged_attention.py:34"]),
     "paged_nonfinite": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:34"]),
     "dropout": ("flashattn_tpu_torch/csrc/dropout.cu",
@@ -3627,11 +3729,10 @@ SOURCES = {
                          ["flashattn_tpu/ops/dropout.py:93",
                           "flashattn_tpu/ops/dropout.py:127"]),
 }
-# the quantized paged entries: the serve_quant variants whose pools they serve
-QUANT_PAGED = {"paged_attention_int8": ("int8 weights + int8 pool",
-                                        "f32, int8 weights + int8 pool"),
-               "paged_attention_fp8": ("int8 weights + fp8 pool",
-                                       "f32, int8 weights + fp8 pool")}
+# the quantized paged entries (bf16 q): the serve_quant variants whose pools
+# they serve; f32 q counts under paged_attention_f32
+QUANT_PAGED = {"paged_attention_int8": ("int8 weights + int8 pool",),
+               "paged_attention_fp8": ("int8 weights + fp8 pool",)}
 
 
 def main_path_launches(name, runs, serve_quant) -> int:

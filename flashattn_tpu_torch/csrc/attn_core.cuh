@@ -1,5 +1,5 @@
-// Shared online-softmax attention tile for the flash forward and paged
-// decode kernels.
+// The CUDA-core online-softmax attention tile of the f32 flash forward
+// below F32_TC_MIN_KV keys.
 //
 // One thread block owns BM query rows and walks the key positions it can
 // see in tiles of BN = 64.  Each row r attends the half-open key interval
@@ -14,15 +14,11 @@
 // computes a TR x TC block of scores with float4 shared-memory reads, so a
 // step is bound by shared-memory bandwidth and FP32 issue rather than HBM.
 // It serves the f32 flash forward over walks of fewer than F32_TC_MIN_KV
-// keys (longer ones run split precision on the tensor cores, flash_fwd.cu),
-// and f32 paged attention (single-pass TF32 tensor cores would break
-// their 1e-4 gates); the bf16 flash forward and paged attention with bf16
-// q have their own tensor-core kernels (flash_fwd.cu, paged_attention.cu,
-// on hopper.cuh), as kv8_flash.cu has for every q dtype.  Paged attention runs it under a split-K grid: a paged Src
-// (one with mask_value) gives the block its walk (a range of whole pages
-// of one sequence), scores a key that its page walk visits but a row does
-// not see at JAX's -1e30 rather than -inf, and may take the row's
-// unnormalised partial (acc, m, l) for a merge pass instead of o.
+// keys (longer ones run split precision on the tensor cores, flash_fwd.cu;
+// single-pass TF32 would break the 1e-4 gates); the bf16 flash forward
+// and paged attention (either q dtype) have their own tensor-core kernels
+// (flash_fwd.cu, paged_attention.cu, on hopper.cuh and split.cuh), as
+// kv8_flash.cu has for every q dtype.
 
 #pragma once
 
@@ -45,8 +41,6 @@ constexpr float LN2 = 0.6931471805599453f;
 // (row reductions are xor shuffles).
 template <int BM> struct Layout;
 template <> struct Layout<64> { static constexpr int RG = 16, CG = 16; };
-template <> struct Layout<16> { static constexpr int RG = 16, CG = 16; };
-template <> struct Layout<4> { static constexpr int RG = 4, CG = 32; };
 
 template <int BM> constexpr int threads() {
   return Layout<BM>::RG * Layout<BM>::CG;
@@ -68,15 +62,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   float2 fa = __bfloat1622float2(a);
   float2 fb = __bfloat1622float2(b);
   return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
-// Payload types of quantized tensors (int8, fp8 e4m3): four values as f32.
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4(float(c.x), float(c.y), float(c.z), float(c.w));
-}
-__device__ __forceinline__ float4 load4(const __nv_fp8_e4m3* p) {
-  return static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
 }
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
@@ -123,24 +108,14 @@ __device__ __forceinline__ float div_rn(float x, float b, float y) {
   return __fmaf_rn(__fmaf_rn(-q, b, x), y, q);
 }
 
-// A paged Src: one with mask_value (see attend).
-template <class S, class = void> struct PagedMask : std::false_type {};
-template <class S>
-struct PagedMask<S, std::void_t<decltype(&S::mask_value)>> : std::true_type {};
-
 // Src is a policy with:
 //   int n_rows;                         valid query rows of this tile
 //   int kv_cap;                         key positions >= kv_cap read as 0
 //   float4 q4(int r, int c, float scale_log2);   q[r][c..c+3] pre-scaled, r < n_rows
 //   void bounds(int r, int& lo, int& hi);   r < n_rows
 //   float4 k4(int pos, int c); float4 v4(int pos, int c);   K/V[pos][c..c+3]
-//     as f32 (dequantized for a quantized source), 0 <= pos < kv_cap
+//     as f32, 0 <= pos < kv_cap
 //   T* o_row(int r);  float* lse_row(int r) (nullptr when not wanted)
-// and, for a paged Src (PagedMask), also:
-//   void walk(int& lo, int& hi);        the block's key range (empty: 0, 0)
-//   float mask_value(int pos);          score of a key a row does not see
-//   float* partial_row(int r);          (acc[D], m, l) of row r unnormalised
-//                                       (exp2 base), or nullptr: write o
 // scale_log2 = sm_scale * log2(e) is folded into q as it is staged, so the
 // softmax runs in exp2 and lse is converted back to natural log.
 template <typename T, int D, int BM, class Src>
@@ -180,14 +155,10 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
     if (r < src.n_rows) src.bounds(r, lo[i], hi[i]);
   }
   int walk_lo = 1 << 30, walk_hi = 0;
-  if constexpr (PagedMask<Src>::value) {
-    src.walk(walk_lo, walk_hi);
-  } else {
-    for (int r = 0; r < src.n_rows; ++r) {
-      int a, b;
-      src.bounds(r, a, b);
-      if (a < b) { walk_lo = min(walk_lo, a); walk_hi = max(walk_hi, b); }
-    }
+  for (int r = 0; r < src.n_rows; ++r) {
+    int a, b;
+    src.bounds(r, a, b);
+    if (a < b) { walk_lo = min(walk_lo, a); walk_hi = max(walk_hi, b); }
   }
 
   float m[TR], l[TR], acc[TR][CPT];
@@ -243,10 +214,7 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         const int pos = kt + cg + CG * j;
-        if (pos < lo[i] || pos >= hi[i]) {
-          if constexpr (PagedMask<Src>::value) s[i][j] = src.mask_value(pos);
-          else s[i][j] = -INFINITY;
-        }
+        if (pos < lo[i] || pos >= hi[i]) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = row_max<CG>(mx);
@@ -287,15 +255,6 @@ __device__ void attend(const Src& src, float scale_log2, float* smem) {
   for (int i = 0; i < TR; ++i) {
     const int r = rg + RG * i;
     if (r >= src.n_rows) continue;
-    if constexpr (PagedMask<Src>::value) {
-      float* part = src.partial_row(r);
-      if (part != nullptr) {
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) part[cg + CG * e] = acc[i][e];
-        if (cg == 0) { part[D] = m[i]; part[D + 1] = l[i]; }
-        continue;
-      }
-    }
     const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
     T* o = src.o_row(r);
 #pragma unroll

@@ -232,7 +232,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ di,
                      const int* __restrict__ kv_lengths, T* __restrict__ dk,
                      T* __restrict__ dv, int h, int h_kv, int n_q, int n_kv,
-                     int causal, int window, float sm_scale) {
+                     int causal, int window, float sm_scale, const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;
   constexpr int DS = D + 4, CPT = D / CG;
   extern __shared__ float smem[];
   float* k_s = smem;
@@ -309,7 +310,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ di,
                     const int* __restrict__ kv_lengths, T* __restrict__ dq, int h,
                     int h_kv, int n_q, int n_kv, int causal, int window,
-                    float sm_scale) {
+                    float sm_scale, const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;
   constexpr int DS = D + 4, CPT = D / CG;
   extern __shared__ float smem[];
   float* q_s = smem;
@@ -374,11 +376,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // The CUDA-core backward (f32): the dK/dV kernel, then the dQ kernel.
+// gate: null, or the split pass's flag, when they run only where it is set
+// (behind the split-precision kernels, C17).
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* di, const int* lens, void* dq, void* dk,
                    void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal, int window,
-                   float sm_scale, cudaStream_t stream) {
+                   float sm_scale, cudaStream_t stream, const int* gate = nullptr) {
   constexpr size_t smem = smem_bytes<D>();
   auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
   auto dq_kernel = flash_bwd_dq_kernel<T, D>;
@@ -395,14 +399,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     dim3 grid(b * h_kv, (n_kv + BT - 1) / BT);
     dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dk),
                                            static_cast<T*>(dv), h, h_kv, n_q, n_kv, causal,
-                                           window, sm_scale);
+                                           window, sm_scale, gate);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (n_q > 0) {
     dim3 grid(b * h, (n_q + BT - 1) / BT);
     dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dq), h,
-                                          h_kv, n_q, n_kv, causal, window, sm_scale);
+                                          h_kv, n_q, n_kv, causal, window, sm_scale, gate);
   }
   return cudaGetLastError();
 }
@@ -1448,10 +1452,11 @@ __global__ void __launch_bounds__(Sb<D>::THREADS, 1)
 flash_bwd_dkv_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         const int* __restrict__ kv_lengths, float* __restrict__ dk,
-                         float* __restrict__ dv, long long q_plane, long long kv_plane, int h,
-                         int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
-                         float scale_log2) {
+                         const int* __restrict__ kv_lengths, const int* __restrict__ nf,
+                         float* __restrict__ dk, float* __restrict__ dv, long long q_plane,
+                         long long kv_plane, int h, int h_kv, int n_q, int n_kv, int causal,
+                         int window, float sm_scale, float scale_log2) {
+  if (*nf != 0) return;   // a +-inf: the CUDA-core kernels compute the call
   using C = Sb<D>;
   constexpr int BT = C::ROWS, NP = C::NP;
   extern __shared__ uint8_t smem_raw[];
@@ -1578,9 +1583,11 @@ __global__ void __launch_bounds__(Sb<D>::THREADS, 1)
 flash_bwd_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ di,
-                        const int* __restrict__ kv_lengths, float* __restrict__ dq,
-                        long long q_plane, long long kv_plane, int h, int h_kv, int n_q, int n_kv,
-                        int causal, int window, float sm_scale, float scale_log2) {
+                        const int* __restrict__ kv_lengths, const int* __restrict__ nf,
+                        float* __restrict__ dq, long long q_plane, long long kv_plane, int h,
+                        int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
+                        float scale_log2) {
+  if (*nf != 0) return;   // a +-inf: the CUDA-core kernels compute the call
   using C = Sb<D>;
   constexpr int BN = C::ROWS, NP = C::NP;
   // dQ's columns a warpgroup holds: d 128 splits them, 64 each
@@ -1698,12 +1705,13 @@ flash_bwd_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Split q, dout, k and v into bf16 planes (in `planes`: 3 q_elems for q
 // and for dout, then 3 kv_elems for k and for v), then the dK/dV kernel,
-// then the dQ kernel.
+// then the dQ kernel, then the CUDA-core pair gated on the split pass's
+// +-inf flag nf (C17).
 template <int D>
 cudaError_t launch_f32_tc(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* di, const int* lens, void* dq, void* dk,
-                          void* dv, void* planes, int b, int h, int h_kv, int n_q, int n_kv,
-                          int causal, int window, float sm_scale, float scale_log2,
+                          void* dv, void* planes, int* nf, int b, int h, int h_kv, int n_q,
+                          int n_kv, int causal, int window, float sm_scale, float scale_log2,
                           cudaStream_t stream) {
   using C = Sb<D>;
   auto dkv_kernel = flash_bwd_dkv_f32_kernel<D>;
@@ -1718,41 +1726,46 @@ cudaError_t launch_f32_tc(const void* q, const void* k, const void* v, const voi
   bf16* dos = qs + 3 * q_elems;
   bf16* ks = dos + 3 * q_elems;
   bf16* vs = ks + 3 * kv_elems;
+  cudaError_t e = cudaMemsetAsync(nf, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return e;
   sp::SplitJobs jobs = {{static_cast<const float*>(q), static_cast<const float*>(dout),
                          static_cast<const float*>(k), static_cast<const float*>(v)},
                         {qs, dos, ks, vs},
                         {q_elems, q_elems, kv_elems, kv_elems},
                         {scale_log2, 1.f, 1.f, 1.f},
-                        {nullptr, nullptr, nullptr, nullptr}};
-  cudaError_t e = sp::split(jobs, 4, stream);
+                        {nf, nf, nf, nf}};
+  e = sp::split(jobs, 4, stream);
   if (e != cudaSuccess) return e;
   if (n_kv > 0) {
     dim3 grid(b * h_kv, (n_kv + C::ROWS - 1) / C::ROWS);
     dkv_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-        qs, ks, vs, dos, lse, di, lens, static_cast<float*>(dk), static_cast<float*>(dv), q_elems,
-        kv_elems, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2);
+        qs, ks, vs, dos, lse, di, lens, nf, static_cast<float*>(dk), static_cast<float*>(dv),
+        q_elems, kv_elems, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (n_q > 0) {
     dim3 grid(b * h, (n_q + C::ROWS - 1) / C::ROWS);
-    dq_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, dos, lse, di, lens,
+    dq_kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, dos, lse, di, lens, nf,
                                                      static_cast<float*>(dq), q_elems, kv_elems, h,
                                                      h_kv, n_q, n_kv, causal, window, sm_scale,
                                                      scale_log2);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
-  return cudaGetLastError();
+  return launch<float, D>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal,
+                          window, sm_scale, stream, nf);
 }
 
 cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* di, const int* lens, void* dq, void* dk,
-                            void* dv, void* planes, int b, int h, int h_kv, int n_q, int n_kv,
-                            int causal, int window, float sm_scale, float scale_log2,
+                            void* dv, void* planes, int* nf, int b, int h, int h_kv, int n_q,
+                            int n_kv, int causal, int window, float sm_scale, float scale_log2,
                             cudaStream_t st) {
   switch (d) {
-    case 32: return launch_f32_tc<32>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
-    case 64: return launch_f32_tc<64>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
-    case 128: return launch_f32_tc<128>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 32: return launch_f32_tc<32>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 64: return launch_f32_tc<64>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 128: return launch_f32_tc<128>(q, k, v, dout, lse, di, lens, dq, dk, dv, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1804,19 +1817,21 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
 
 // The f32 backward on the tensor cores in split precision (split.cuh):
 // arguments as fa_flash_bwd's f32 (op_graph 0), with planes: bf16 scratch
-// of 3 (2 q's elements + 2 k's elements), and scale_log2: the forward's
+// of 3 (2 q's elements + 2 k's elements), nf: an int of scratch (the split
+// pass's flag of a +-inf in q, dout, k or v, on which the split kernels
+// exit and the CUDA-core kernels run instead, C17), and scale_log2: the forward's
 // (fa_flash_fwd_f32's), folded into q before the split as there, so that
 // S is the forward's bit for bit and p = exp2(s - lse log2(e)) sums to 1
 // against the forward's lse (the tensor cores' truncation of S cancels).
 extern "C" int fa_flash_bwd_f32(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* di,
                                 const void* kv_lengths, void* dq, void* dk, void* dv,
-                                void* planes, int b, int h, int h_kv, int n_q, int n_kv, int d,
-                                int causal, int window, float sm_scale, float scale_log2,
+                                void* planes, void* nf, int b, int h, int h_kv, int n_q, int n_kv,
+                                int d, int causal, int window, float sm_scale, float scale_log2,
                                 void* stream) {
   if (b == 0 || h == 0) return 0;
   return dispatch_f32_tc(d, q, k, v, dout, static_cast<const float*>(lse),
                          static_cast<const float*>(di), static_cast<const int*>(kv_lengths), dq,
-                         dk, dv, planes, b, h, h_kv, n_q, n_kv, causal, window, sm_scale,
-                         scale_log2, static_cast<cudaStream_t>(stream));
+                         dk, dv, planes, static_cast<int*>(nf), b, h, h_kv, n_q, n_kv, causal,
+                         window, sm_scale, scale_log2, static_cast<cudaStream_t>(stream));
 }

@@ -90,7 +90,11 @@
 // (192 KB at d 128), the next K loading behind this tile's P V and the
 // next V behind the next S.  Below F32_TC_MIN_KV keys (the MT model's 40)
 // the CUDA-core kernel of attn_core.cuh (fa::attend) stays, faster there:
-// one launch, no split pass, blocks of 64 rows (PERF.md row 6).
+// one launch, no split pass, blocks of 64 rows (PERF.md row 6).  A +-inf
+// among the pieces meets the other operand's zero pieces (0 * inf = NaN
+// where f32 gives +-inf, C17): the split pass flags one in q, k or v, the
+// split kernel's blocks then exit, and the CUDA-core kernel, launched
+// behind it and exiting unless the flag is set, computes the call in f32.
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
@@ -120,12 +124,16 @@ struct DenseSrc {
   }
 };
 
+// gate: null, or the split pass's flag, when the kernel runs only where it
+// is set (behind flash_fwd_f32_kernel)
 template <typename T, int D>
 __global__ void __launch_bounds__(fa::threads<64>())
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_lengths,
                  T* __restrict__ o, float* __restrict__ lse, int h, int h_kv,
-                 int n_q, int n_kv, int causal, int window, float scale_log2) {
+                 int n_q, int n_kv, int causal, int window, float scale_log2,
+                 const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;
   extern __shared__ float smem[];
   const int bh = blockIdx.x;
   const int b = bh / h, hq = bh % h;
@@ -150,7 +158,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
                    void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                   int causal, int window, float scale_log2, cudaStream_t stream) {
+                   int causal, int window, float scale_log2, cudaStream_t stream,
+                   const int* gate = nullptr) {
   constexpr size_t smem = fa::smem_bytes<D, 64>();
   auto kernel = flash_fwd_kernel<T, D>;
   static cudaError_t opted = fa::allow_smem(kernel, smem);
@@ -158,7 +167,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
   dim3 grid(b * h, (n_q + 63) / 64);
   kernel<<<grid, fa::threads<64>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lens, static_cast<T*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2);
+      lens, static_cast<T*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2, gate);
   return cudaGetLastError();
 }
 
@@ -759,9 +768,9 @@ struct Sp {
 // registers into the A operand of P V's six (V MN-major), summed from zero
 // a tile and then added to acc in f32 (sp::pair_a).  A warpgroup
 // walks the key tiles its own rows see (those of the CUDA-core tile this
-// replaces, 64 rows and 64 keys a tile), so a non-finite V value reaches
-// the same rows.  nf[0] (nf[1]) set: K (V) holds a +-inf, and the tile's b0
-// plane is sanitized after the products that read it raw.
+// replaces, 64 rows and 64 keys a tile), so a NaN in V reaches the same
+// rows.  nf[0] set: q, k or v holds a +-inf, and the block exits (the
+// CUDA-core kernel behind it computes the call).
 template <int D>
 __global__ void __launch_bounds__(Sp<D>::THREADS, 1)
 flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -784,7 +793,7 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
   const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
-  const bool nf_k = nf[0] != 0, nf_v = nf[1] != 0;
+  if (nf[0] != 0) return;
 
   const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
   const int lane = lt % 32, quad = lane % 4;
@@ -847,27 +856,10 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hop::fence_regs(s);
     if (act) {
       hop::wg_arrive();
-      if (nf_k)
-        sp::ss_pairs<D, SW, true, 0, 4>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr, C::KV_BYTES,
-                                        BN * SW);
-      else
-        sp::ss_pairs<D, SW, false, 0, 6>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr,
-                                         C::KV_BYTES, BN * SW);
+      sp::ss_pairs<D, SW, false, 0, 6>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr, C::KV_BYTES,
+                                       BN * SW);
       hop::wg_commit();
       hop::wg_wait<0>();
-    }
-    if (nf_k) {
-      __syncthreads();
-      sp::sanitize<C::THREADS>(ks, C::KV_BYTES);
-      hop::fence_async_smem();
-      __syncthreads();
-      if (act) {
-        hop::wg_arrive();
-        sp::ss_pairs<D, SW, true, 4, 6>(s, q_addr, C::Q_BYTES, C::BM * SW, k_addr, C::KV_BYTES,
-                                        BN * SW);
-        hop::wg_commit();
-        hop::wg_wait<0>();
-      }
     }
     hop::fence_regs(s);
     __syncthreads();   // every warpgroup is done with K(kt)
@@ -921,24 +913,9 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     hop::fence_regs(pv);
     if (act) {
       hop::wg_arrive();
-      if (nf_v)
-        sp::rs_pairs<D, SW, true, 0, 4>(pv, pp, v_addr, C::KV_BYTES);
-      else
-        sp::rs_pairs<D, SW, false, 0, 6>(pv, pp, v_addr, C::KV_BYTES);
+      sp::rs_pairs<D, SW, false, 0, 6>(pv, pp, v_addr, C::KV_BYTES);
       hop::wg_commit();
       hop::wg_wait<0>();
-    }
-    if (nf_v) {
-      __syncthreads();
-      sp::sanitize<C::THREADS>(vs, C::KV_BYTES);
-      hop::fence_async_smem();
-      __syncthreads();
-      if (act) {
-        hop::wg_arrive();
-        sp::rs_pairs<D, SW, true, 4, 6>(pv, pp, v_addr, C::KV_BYTES);
-        hop::wg_commit();
-        hop::wg_wait<0>();
-      }
     }
     hop::fence_regs(pv);
 #pragma unroll
@@ -967,7 +944,8 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // Split q (scaled by scale_log2), k and v into bf16 planes (in `planes`:
-// 3 q_elems, then 3 kv_elems for k and for v), then the kernel.  nf: two
+// 3 q_elems, then 3 kv_elems for k and for v), then the kernel, then the
+// CUDA-core kernel gated on the split pass's +-inf flag (C17).  nf: two
 // ints of scratch.
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
@@ -988,14 +966,17 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
                         {qs, ks, vs, nullptr},
                         {q_elems, kv_elems, kv_elems, 0},
                         {scale_log2, 1.f, 1.f, 1.f},
-                        {nullptr, nf, nf + 1, nullptr}};
+                        {nf, nf, nf, nullptr}};
   e = sp::split(jobs, 3, stream);
   if (e != cudaSuccess) return e;
   dim3 grid(b * h, (n_q + C::BM - 1) / C::BM);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, lens, nf, static_cast<float*>(o), lse,
                                                 q_elems, kv_elems, h, h_kv, n_q, n_kv, causal,
                                                 window);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch<float, D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window,
+                          scale_log2, stream, nf);
 }
 
 cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const int* lens,

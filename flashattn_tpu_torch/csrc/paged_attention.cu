@@ -36,8 +36,9 @@
 // K/V history read once per (sequence, kv head), half of it for a
 // quantized pool plus 8 bytes of scales a token; the operations are tiny.
 // A wide extend wave (2048 rows) is bound by its two products on the
-// tensor cores (4 d flops per live (row, key) pair at 989 TF/s).  Measured
-// on the card, a quantized pool's decode is bound by widening its payloads
+// tensor cores (4 d flops per live (row, key) pair at 989 TF/s; f32 q
+// three bf16 products a product, six over an f32 pool).  Measured on the
+// card, a quantized pool's decode is bound by widening its payloads
 // (instructions), not by its halved bytes.
 //
 // Design: split-K over the walk.  A block takes a run of split_pages whole
@@ -53,8 +54,8 @@
 // n_splits, rows, d + 2), and paged_merge_kernel (a block of four warps a
 // row) combines them in a fixed order (no atomics: two calls agree bit for
 // bit) and writes o; with one split the block writes o itself.  q and o
-// keep the caller's (b, chunk, h_q, d) layout.  Three tiles, by q's dtype
-// and the row count:
+// keep the caller's (b, chunk, h_q, d) layout.  Four tiles, by q's dtype
+// and the row count (16 rows a block at decode, 128 above, either dtype):
 //   bf16, rows <= 16 (every decode, GQA groups up to 16, short chunks):
 //     paged_decode_kernel, four warps, each an independent stream over
 //     every fourth chunk of 16 keys through a cp.async ring of its own
@@ -79,18 +80,28 @@
 //     bf16 in shared memory), the last row tiles first, masks only on the
 //     tiles that cut a row's interval, P rounded to bf16 in registers as
 //     the A operand of the PV wgmma.
-//   f32 (any rows): the FMA tile of attn_core.cuh (fa::attend) under the
-//     same split grid, bounds clipped to the split, writing partials
-//     through its paged hooks; no TF32, so the f32 gates stay 1e-4.
+//   f32, rows <= 16: paged_decode_f32_kernel, the bf16 decode tile's
+//     streams and merge in split precision (split.cuh): q's three bf16
+//     pieces made once in registers, S the sum of the piece products
+//     (three against a quantized pool's exact bf16 K, six against an f32
+//     pool's K split in registers), p (times the V scale) split in
+//     registers into the A operand of P V, whose product sums from zero a
+//     chunk and is added to the accumulator in f32.  See its note.
+//   f32, rows > 16: paged_extend_f32_kernel, the bf16 extend tile's walk
+//     with flash_fwd.cu's f32 split-precision products over 64-key tiles
+//     whose payloads are widened or split into bf16 planes in shared
+//     memory.  See its note.
 // The online softmax's max is per chunk of 16 keys, per 128- or 64-key
 // tile, and per split, where JAX's runs page by page: p rounds to bf16
-// against another max now and then, about one bf16 ulp of p.
+// against another max now and then, about one bf16 ulp of p (bf16 q; f32
+// q keeps p in f32).
 
 #include <climits>
 #include <type_traits>
 
 #include "attn_core.cuh"
 #include "hopper.cuh"
+#include "split.cuh"
 
 namespace {
 
@@ -830,73 +841,894 @@ paged_extend_kernel(Args a, int row_tiles) {
   }
 }
 
-// -- f32: the FMA tile of attn_core.cuh under the split grid ----------------------------
+// -- f32 q: split precision on the tensor cores ----------------------------------------
+//
+// An f32 q (and an f32 pool) has no single-pass bf16 product that holds the
+// f32 gates, so both f32 tiles cut each f32 operand into three bf16 pieces
+// (split.cuh: the truncating split, x = b0 + b1 + b2 exactly) and sum the
+// piece products of order <= 2 on the tensor cores with f32 accumulators.
+// A quantized pool's payload widens exactly to bf16, so only q's side (and
+// P's) splits: three products a product; an f32 pool's K and V split too:
+// six.  The tensor cores truncate each k16 step's f32 sum, so the small
+// products are summed first, each S apart from q's b0 product and each
+// chunk's or tile's P V from zero, and those partial sums are added in f32.
+// A +-inf keeps its value in b0 with zeros in b1 and b2: over an f32 pool
+// both operands' b0 (K's or V's, and q's) are taken with their non-finite
+// values zeroed (finite_part, sp::sanitize) in their products with the
+// other operand's b1 and b2, where 0 * inf would make NaN where f32 gives
+// +-inf (C17); the b0 x b0 product keeps them, so a NaN or inf V row at
+// p = 0 still makes the output NaN (C8, C15).  A quantized pool's K and V
+// are exact (one piece), and P = p * vs is the only non-finite A operand
+// there: its products are with that one piece.
+
+// A bf16 pair with its non-finite halves zeroed (sp::sanitize in registers).
+__device__ __forceinline__ uint32_t finite_part(uint32_t w) {
+  if ((w & 0x7F80u) == 0x7F80u) w &= 0xFFFF0000u;
+  if ((w & 0x7F800000u) == 0x7F800000u) w &= 0x0000FFFFu;
+  return w;
+}
+
+// c += a b, one mma.sync m16n8k16 (hop::mma_16816's fragments) over this
+// lane's HH row halves: a[kh * HH + hh] is A's row g + 8 hh, columns 2t +
+// 8 kh + {0, 1}; c[2 hh + e] is C's row g + 8 hh, column 2t + e.  HH = 1: a
+// tile of at most 8 rows, whose rows g + 8 are zero in A and dropped from C.
+template <int HH>
+__device__ __forceinline__ void mma_hh(float (&c)[2 * HH], const uint32_t (&a)[2 * HH],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (HH == 2) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    float x2, x3;
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %10, %11};\n"
+        : "+f"(c[0]), "+f"(c[1]), "=f"(x2), "=f"(x3)
+        : "r"(a[0]), "r"(0u), "r"(a[1]), "r"(0u), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f));
+  }
+}
+
+// c = the pieces of A (a[i], i = 0..2) times an exact bf16 B (three
+// products, the small first), or times B's pieces bj[j] (six, split.cuh's
+// order; b0f: B's b0 with its non-finite values zeroed), summed from zero.
+template <int HH>
+__device__ __forceinline__ void mma3(float (&c)[2 * HH], const uint32_t (&a)[3][2 * HH],
+                                     uint32_t b0, uint32_t b1) {
+#pragma unroll
+  for (int e = 0; e < 2 * HH; ++e) c[e] = 0.f;
+  mma_hh<HH>(c, a[2], b0, b1);
+  mma_hh<HH>(c, a[1], b0, b1);
+  mma_hh<HH>(c, a[0], b0, b1);
+}
+template <int HH>
+__device__ __forceinline__ void mma6(float (&c)[2 * HH], const uint32_t (&a)[3][2 * HH],
+                                     const uint32_t (&bj)[3][2], const uint32_t (&b0f)[2]) {
+#pragma unroll
+  for (int e = 0; e < 2 * HH; ++e) c[e] = 0.f;
+  mma_hh<HH>(c, a[2], b0f[0], b0f[1]);      // (2, 0)
+  mma_hh<HH>(c, a[0], bj[2][0], bj[2][1]);  // (0, 2)
+  mma_hh<HH>(c, a[1], bj[1][0], bj[1][1]);  // (1, 1)
+  mma_hh<HH>(c, a[1], b0f[0], b0f[1]);      // (1, 0)
+  mma_hh<HH>(c, a[0], bj[1][0], bj[1][1]);  // (0, 1)
+  mma_hh<HH>(c, a[0], bj[0][0], bj[0][1]);  // (0, 0)
+}
+
+__device__ __forceinline__ float4 scale4_rn(float4 v, float s) {
+  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s), __fmul_rn(v.w, s));
+}
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Four f32 values (two bf16 pairs of a B fragment) as their pieces and b0
+// with its non-finite values zeroed.
+__device__ __forceinline__ void split_b(float x0, float x1, float x2, float x3,
+                                        uint32_t (&bj)[3][2], uint32_t (&b0f)[2]) {
+  sp::split_pair(x0, x1, bj[0][0], bj[1][0], bj[2][0]);
+  sp::split_pair(x2, x3, bj[0][1], bj[1][1], bj[2][1]);
+  b0f[0] = finite_part(bj[0][0]);
+  b0f[1] = finite_part(bj[0][1]);
+}
+
+// -- f32 q, rows <= 16: the split-precision decode tile (mma.sync) ---------------------
 
 template <typename P, int D>
-struct PagedSrc {
-  static constexpr bool kScaled = !std::is_same<P, float>::value;
-  const float* q; const P* k_pages; const P* v_pages; float* o;
-  const float* k_scales; const float* v_scales;   // (n_pages, page) of this head
-  Args a; const int* table;                        // this sequence's page-table row
-  Walk w;
-  int n_rows, kv_cap, row0, b, hk, s;
-
-  __device__ size_t slot(int pos) const { return slot_of(a, table, pos); }
-  __device__ float4 q4(int r, int c, float scale) const {
-    return fa::scale4(fa::load4(q + q_off(a, b, hk, row0 + r, D) + c), scale);
+struct DecF {
+  static constexpr bool kQuant = !std::is_same<P, float>::value;
+  static constexpr int WARPS = 4, THREADS = 32 * WARPS, KC = 16;
+  static constexpr int NT = D / 8, KQ = D / 4;
+  // a staged key row: 8-bit payloads padded by 16 bytes (the bf16-q tile's
+  // layout), f32 rows unpadded with their 16-byte units swizzled (unit)
+  static constexpr int ROW = kQuant ? D + 16 : D * 4;
+  // a ring slot holds the K or the V rows of one chunk (and their scales)
+  static constexpr int HALF = KC * ROW + (kQuant ? KC * 4 : 0);
+  // slots a warp: three chunks in flight for a quantized pool (as the
+  // bf16-q tile), an f32 pool's 8 KB halves three or four slots, so that
+  // two (d 128) or three blocks fit an SM
+  static constexpr int HALVES = kQuant ? 6 : D == 128 ? 3 : 4;
+  static constexpr int WARP_BYTES = HALVES * HALF;
+  static constexpr int MERGE = (WARPS * 16 * D + 2 * WARPS * 16) * 4;
+  static constexpr size_t SMEM = size_t(WARPS * WARP_BYTES > MERGE ? WARPS * WARP_BYTES : MERGE);
+  // d of lane t's first value at k16 step ks (q's and K's fragments alike:
+  // a quantized K row's D / 4 contiguous bytes, as the bf16-q tile; an f32
+  // one 16 bytes a step); values + {0, 1} are the pair of k 2t, + {2, 3}
+  // that of k 2t + 8
+  __device__ static constexpr int kd(int ks, int t) { return kQuant ? t * KQ + 4 * ks : 16 * ks + 4 * t; }
+  // d of accumulator column n of n-tile nd: lane group g reads contiguous
+  // columns of V (NT bytes of an 8-bit row; 16 bytes of four n-tiles of an
+  // f32 row)
+  __device__ static constexpr int dcol(int nd, int n) {
+    return kQuant ? n * NT + nd : 32 * (nd / 4) + 4 * n + nd % 4;
   }
-  __device__ float4 k4(int pos, int c) const {
-    const size_t sl = slot(pos);
-    const float4 v = fa::load4(k_pages + sl * D + c);
-    if constexpr (kScaled) return fa::scale4(v, k_scales[sl]);
-    return v;
-  }
-  __device__ float4 v4(int pos, int c) const {
-    const size_t sl = slot(pos);
-    const float4 v = fa::load4(v_pages + sl * D + c);
-    if constexpr (kScaled) return fa::scale4(v, v_scales[sl]);
-    return v;
-  }
-  __device__ float* o_row(int r) const { return o + q_off(a, b, hk, row0 + r, D); }
-  __device__ float* lse_row(int) const { return nullptr; }
-  __device__ void bounds(int r, int& lo, int& hi) const {
-    row_bounds(a, w, row0 + r, lo, hi);
-    lo = max(lo, w.lo);
-    hi = min(hi, w.hi);
-  }
-  __device__ void walk(int& lo, int& hi) const {
-    block_range(a, w, row0, row0 + n_rows, lo, hi);
-  }
-  __device__ float mask_value(int pos) const { return masked(w, pos); }
-  __device__ float* partial_row(int r) const {
-    return a.n_splits > 1 ? partial(a, b, hk, s, row0 + r, D) : nullptr;
+  // the stored 16-byte unit of unit u of f32 row r: XOR-swizzled so that
+  // the K reads (rows g, unit 4 ks + t) and V reads (rows 2t.., unit 8c +
+  // g) of eight lanes hit eight distinct 16-byte bank groups
+  __device__ static constexpr int unit(int r, int u) {
+    return u ^ ((((r >> 1) & 3) << 1) ^ ((r & 1) << 2));
   }
 };
 
-template <typename P, int D, int BM>
-__global__ void __launch_bounds__(fa::threads<BM>())
-paged_fma_kernel(Args a, int row_tiles) {
-  extern __shared__ uint8_t smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int tile = blockIdx.z % row_tiles, s = blockIdx.z / row_tiles;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int row0 = tile * BM;
-  PagedSrc<P, D> src;
+// The bf16-q decode tile's streams (four warps, every fourth chunk of 16
+// keys each, a cp.async ring a warp whose slots take a chunk's K rows or its
+// V rows, so that an f32 pool's ring stays small) and its merge through
+// shared memory, with f32 q in split precision: q * scale_log2 (f32) split
+// once into three bf16 pieces as A fragments; S = the small products (q's
+// b1, b2 against K's pieces, K's b1, b2 against q's b0) summed in one
+// accumulator and q's b0 times K's b0 in another, added in f32; p (times
+// V's scale) split into three A fragments; P V of each n-tile summed from
+// zero a chunk (mma3 / mma6) and added to acc in f32.  HH = 1 (at most 8
+// rows: every decode of GQA groups up to 8, verify waves of k + 1 <= 8)
+// keeps no registers for rows 8..15.  What bounds it: the bytes of the
+// history, as the bf16-q tile; 3 (6) times its mma.sync products and the
+// split's instructions ride on the same loads.
+template <typename P, int D, int HH>
+__global__ void __launch_bounds__(DecF<P, D>::THREADS)
+paged_decode_f32_kernel(Args a) {
+  using C = DecF<P, D>;
+  constexpr int KC = C::KC, H = C::HALVES, NT = C::NT, KQ = C::KQ, R2 = 2 * HH;
+  extern __shared__ uint8_t smem_raw[];   // 16-byte aligned, as cp.async needs
+  uint8_t* smem = smem_raw;
+  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const Walk w = make_walk(a, b, s);
+  const int n_rows = a.rows;
+  int klo, khi;
+  block_range(a, w, 0, n_rows, klo, khi);
+  const int k0 = (klo / KC) * KC;
+  const int n_chunks = khi > klo ? (khi - k0 + KC - 1) / KC : 0;
+  const int my_n = n_chunks > warp ? (n_chunks - warp + C::WARPS - 1) / C::WARPS : 0;
+
+  const float* qp = static_cast<const float*>(a.q);
   const size_t pool = size_t(hk) * a.n_pages * a.page_size;   // tokens before this head
-  src.q = static_cast<const float*>(a.q);
-  src.o = static_cast<float*>(a.out);
-  src.k_pages = static_cast<const P*>(a.kp) + pool * D;
-  src.v_pages = static_cast<const P*>(a.vp) + pool * D;
-  src.k_scales = a.ks == nullptr ? nullptr : a.ks + pool;
-  src.v_scales = a.vs == nullptr ? nullptr : a.vs + pool;
-  src.a = a;
-  src.table = a.table + size_t(b) * a.pages_per_seq;
-  src.w = make_walk(a, b, s);
-  src.n_rows = min(BM, a.rows - row0);
-  src.kv_cap = max(src.w.seq_hi, 0);
-  src.row0 = row0;
-  src.b = b; src.hk = hk; src.s = s;
-  fa::attend<float, D, BM>(src, a.scale_log2, smem);
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * D * sizeof(P);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * D * sizeof(P);
+  const float* kspool = C::kQuant ? a.ks + pool : nullptr;
+  const float* vspool = C::kQuant ? a.vs + pool : nullptr;
+  const int* tab = a.table + size_t(b) * a.pages_per_seq;
+  uint8_t* mine = smem + warp * C::WARP_BYTES;
+
+  // the page slot of key (lane % KC) of chunk i, or -1 outside the range
+  auto slot_for = [&](int i) -> long long {
+    const int pos = k0 + (warp + C::WARPS * i) * KC + lane % KC;
+    return i < my_n && pos >= klo && pos < khi ? (long long)slot_of(a, tab, pos) : -1;
+  };
+  // half h (chunk h / 2's K rows when h is even, its V rows when odd) into
+  // slot h % H; my_slot: the page slot of key lane % KC of that chunk
+  auto load = [&](int h, long long my_slot) {
+    uint8_t* dst = mine + (h % H) * C::HALF;
+    const uint8_t* src = h & 1 ? vpool : kpool;
+    constexpr int CPR = D * int(sizeof(P)) / 16;   // 16-byte copies a row
+    for (int i = lane; i < KC * CPR; i += 32) {
+      const int r = i / CPR, c = i % CPR;
+      const long long sl = __shfl_sync(0xffffffffu, my_slot, r);
+      const bool ok = sl >= 0;
+      const size_t off = ok ? size_t(sl) * D * sizeof(P) + c * 16 : 0;
+      const int cu = C::kQuant ? c : C::unit(r, c);
+      hop::cp_async<16>(hop::smem_u32(dst + r * C::ROW + cu * 16), src + off, ok);
+    }
+    if constexpr (C::kQuant) {
+      if (lane < KC) {
+        float* scl = reinterpret_cast<float*>(dst + KC * C::ROW);
+        hop::cp_async<4>(hop::smem_u32(scl + lane),
+                         (h & 1 ? vspool : kspool) + (my_slot >= 0 ? size_t(my_slot) : 0),
+                         my_slot >= 0);
+      }
+    }
+  };
+  // halves go out in order, H - 1 ahead of the one in use; a chunk's page
+  // slots are read one chunk ahead of its K half
+  int issued = 0;
+  long long cur = -1, nxt = slot_for(0);
+  auto issue = [&]() {
+    const int c = issued / 2;
+    if (c < my_n) {
+      if (!(issued & 1)) {
+        cur = nxt;
+        nxt = slot_for(c + 1);
+      }
+      load(issued, cur);
+    }
+    hop::cp_async_commit();
+    ++issued;
+  };
+#pragma unroll
+  for (int h = 0; h < H - 1; ++h) issue();
+
+  // q's pieces: qf[i][ks][kh * HH + hh] = piece i of row g + 8 hh at d =
+  // kd(ks, t) + 2 kh + {0, 1}, q * scale_log2 in f32 first
+  uint32_t qf[3][D / 16][R2];
+  bool q_inf = false;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int hh = 0; hh < HH; ++hh) {
+      const int row = g + 8 * hh;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < n_rows) {
+        x = scale4_rn(*reinterpret_cast<const float4*>(qp + q_off(a, b, hk, row, D) + C::kd(ks, t)),
+                      a.scale_log2);
+        q_inf |= isinf(x.x) || isinf(x.y) || isinf(x.z) || isinf(x.w);
+      }
+      sp::split_pair(x.x, x.y, qf[0][ks][hh], qf[1][ks][hh], qf[2][ks][hh]);
+      sp::split_pair(x.z, x.w, qf[0][ks][HH + hh], qf[1][ks][HH + hh], qf[2][ks][HH + hh]);
+    }
+  // an f32 pool: q's b0 with its +-inf zeroed in the products with K's
+  // b1, b2 (warp-uniform: the warp's q holds one)
+  const bool q_nf = !C::kQuant && __any_sync(0xffffffffu, q_inf);
+  int rlo[HH], rhi[HH];
+#pragma unroll
+  for (int hh = 0; hh < HH; ++hh) {
+    const int R = g + 8 * hh;
+    if (R < n_rows) {
+      row_bounds(a, w, R, rlo[hh], rhi[hh]);
+      rlo[hh] = max(rlo[hh], w.lo);
+      rhi[hh] = min(rhi[hh], w.hi);
+    } else {
+      rlo[hh] = 0; rhi[hh] = 0;
+    }
+  }
+
+  float m[HH], l[HH];   // l: this thread's columns
+  float acc[NT][R2];
+#pragma unroll
+  for (int hh = 0; hh < HH; ++hh) { m[hh] = -INFINITY; l[hh] = 0.f; }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < R2; ++e) acc[j][e] = 0.f;
+
+  for (int i = 0; i < my_n; ++i) {
+    hop::cp_async_wait<H - 2>();
+    __syncwarp();   // K of chunk i has landed for every lane; slot (2i - 1) % H is free
+    issue();
+    const uint8_t* kt = mine + ((2 * i) % H) * C::HALF;
+
+    // S = Q K^T over 16 keys: two n-tiles of 8, K row nt * 8 + g; hi = q's
+    // b0 times K's b0, lo the smaller products
+    float hi[2][R2], lo[2][R2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < R2; ++e) hi[nt][e] = lo[nt][e] = 0.f;
+    if constexpr (C::kQuant) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        uint32_t kw[KQ / 4];
+        lds<KQ>(kw, kt + (nt * 8 + g) * C::ROW + t * KQ);
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t b0 = widen2<0>(kw[ks], P()), b1 = widen2<1>(kw[ks], P());
+          mma_hh<HH>(lo[nt], qf[2][ks], b0, b1);
+          mma_hh<HH>(lo[nt], qf[1][ks], b0, b1);
+          mma_hh<HH>(hi[nt], qf[0][ks], b0, b1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        // q's b0 in the products with K's b1, b2: its +-inf zeroed
+        uint32_t a0f[R2];
+#pragma unroll
+        for (int x = 0; x < R2; ++x) a0f[x] = q_nf ? finite_part(qf[0][ks][x]) : qf[0][ks][x];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int r = nt * 8 + g;
+          const float4 kv =
+              *reinterpret_cast<const float4*>(kt + r * C::ROW + C::unit(r, 4 * ks + t) * 16);
+          uint32_t bj[3][2], b0f[2];
+          split_b(kv.x, kv.y, kv.z, kv.w, bj, b0f);
+          mma_hh<HH>(lo[nt], qf[2][ks], b0f[0], b0f[1]);      // (2, 0)
+          mma_hh<HH>(lo[nt], a0f, bj[2][0], bj[2][1]);        // (0, 2)
+          mma_hh<HH>(lo[nt], qf[1][ks], bj[1][0], bj[1][1]);  // (1, 1)
+          mma_hh<HH>(lo[nt], qf[1][ks], b0f[0], b0f[1]);      // (1, 0)
+          mma_hh<HH>(lo[nt], a0f, bj[1][0], bj[1][1]);        // (0, 1)
+          mma_hh<HH>(hi[nt], qf[0][ks], bj[0][0], bj[0][1]);  // (0, 0)
+        }
+      }
+    }
+
+    // scores (x K scale), mask, online softmax: hi[nt][2 hh + e] is row
+    // g + 8 hh, key kc + 8 nt + 2 t + e
+    const int kc = k0 + (warp + C::WARPS * i) * KC;
+    const float* kscl = reinterpret_cast<const float*>(kt + KC * C::ROW);
+    float mx[HH];
+#pragma unroll
+    for (int hh = 0; hh < HH; ++hh) mx[hh] = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < HH; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = nt * 8 + 2 * t + e, pos = kc + key;
+          float x = __fadd_rn(lo[nt][2 * hh + e], hi[nt][2 * hh + e]);
+          if constexpr (C::kQuant) x = __fmul_rn(x, kscl[key]);
+          if (pos < rlo[hh] || pos >= rhi[hh]) x = masked(w, pos);
+          hi[nt][2 * hh + e] = x;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+    float m_use[HH];
+#pragma unroll
+    for (int hh = 0; hh < HH; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      m_use[hh] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[hh] - m_use[hh]);
+      m[hh] = m_new;
+      l[hh] *= alpha;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][2 * hh] *= alpha;
+        acc[j][2 * hh + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < HH; ++hh) {
+        const float p0 = exp2f(hi[nt][2 * hh] - m_use[hh]);
+        const float p1 = exp2f(hi[nt][2 * hh + 1] - m_use[hh]);
+        l[hh] += p0 + p1;
+        hi[nt][2 * hh] = p0;
+        hi[nt][2 * hh + 1] = p1;
+      }
+
+    hop::cp_async_wait<H - 2>();
+    __syncwarp();   // V of chunk i has landed for every lane; slot 2i % H is free
+    issue();
+    const uint8_t* vt = mine + ((2 * i + 1) % H) * C::HALF;
+    const float* vscl = reinterpret_cast<const float*>(vt + KC * C::ROW);
+
+    // P (times V's scale) in three pieces as the A fragment: keys 0-7 (kh
+    // 0), 8-15 (kh 1)
+    uint32_t pa[3][R2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < HH; ++hh) {
+        float p0 = hi[nt][2 * hh], p1 = hi[nt][2 * hh + 1];
+        if constexpr (C::kQuant) {
+          p0 = __fmul_rn(p0, vscl[nt * 8 + 2 * t]);
+          p1 = __fmul_rn(p1, vscl[nt * 8 + 2 * t + 1]);
+        }
+        sp::split_pair(p0, p1, pa[0][nt * HH + hh], pa[1][nt * HH + hh], pa[2][nt * HH + hh]);
+      }
+
+    // O += P V, each n-tile's product from zero
+    float pv[R2];
+    if constexpr (C::kQuant) {
+      // V rows 2t, 2t + 1, 2t + 8, 2t + 9 at columns [g NT, g NT + NT)
+      uint32_t vw[4][NT / 4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        lds<NT>(vw[q], vt + (2 * t + (q & 1) + 8 * (q >> 1)) * C::ROW + g * NT);
+#pragma unroll
+      for (int q = 0; q < NT / 4; ++q) {
+        const uint32_t lo01 = __byte_perm(vw[0][q], vw[1][q], 0x5140);
+        const uint32_t hi01 = __byte_perm(vw[0][q], vw[1][q], 0x7362);
+        const uint32_t lo89 = __byte_perm(vw[2][q], vw[3][q], 0x5140);
+        const uint32_t hi89 = __byte_perm(vw[2][q], vw[3][q], 0x7362);
+        const uint32_t bb[4][2] = {{widen2<0>(lo01, P()), widen2<0>(lo89, P())},
+                                   {widen2<1>(lo01, P()), widen2<1>(lo89, P())},
+                                   {widen2<0>(hi01, P()), widen2<0>(hi89, P())},
+                                   {widen2<1>(hi01, P()), widen2<1>(hi89, P())}};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mma3<HH>(pv, pa, bb[e][0], bb[e][1]);
+#pragma unroll
+          for (int x = 0; x < R2; ++x) acc[4 * q + e][x] += pv[x];
+        }
+      }
+    } else {
+      // per four n-tiles: V rows 2t, 2t + 1, 2t + 8, 2t + 9, 16 bytes at
+      // column 32 c + 4 g
+#pragma unroll
+      for (int c = 0; c < NT / 4; ++c) {
+        float4 vr[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int rr = 2 * t + (q & 1) + 8 * (q >> 1);
+          vr[q] = *reinterpret_cast<const float4*>(vt + rr * C::ROW + C::unit(rr, 8 * c + g) * 16);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t bj[3][2], b0f[2];
+          split_b(elem(vr[0], e), elem(vr[1], e), elem(vr[2], e), elem(vr[3], e), bj, b0f);
+          mma6<HH>(pv, pa, bj, b0f);
+#pragma unroll
+          for (int x = 0; x < R2; ++x) acc[4 * c + e][x] += pv[x];
+        }
+      }
+    }
+  }
+  hop::cp_async_wait<0>();
+
+  // merge the warps' states in shared memory (the rings are free), then
+  // write o (one split) or the split's partial
+#pragma unroll
+  for (int hh = 0; hh < HH; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);            // [WARPS][16][D]
+  float* mred = red + C::WARPS * 16 * D;                   // [WARPS][16]
+  float* lred = mred + C::WARPS * 16;
+#pragma unroll
+  for (int hh = 0; hh < HH; ++hh) {
+    const int r = g + 8 * hh;
+    if (t == 0) {
+      mred[warp * 16 + r] = m[hh];
+      lred[warp * 16 + r] = l[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        red[(warp * 16 + r) * D + C::dcol(j, 2 * t + e)] = acc[j][2 * hh + e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_rows * D; i += C::THREADS) {
+    const int r = i / D, c = i % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int v = 0; v < C::WARPS; ++v) M = fmaxf(M, mred[v * 16 + r]);
+    const float Mu = M == -INFINITY ? 0.f : M;
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int v = 0; v < C::WARPS; ++v) {
+      const float wt = exp2f(mred[v * 16 + r] - Mu);
+      L += wt * lred[v * 16 + r];
+      A += wt * red[(v * 16 + r) * D + c];
+    }
+    if (a.n_splits == 1) {
+      static_cast<float*>(a.out)[q_off(a, b, hk, r, D) + c] = A * (L == 0.f ? 1.f : 1.f / L);
+    } else {
+      float* pr = partial(a, b, hk, s, r, D);
+      pr[c] = A;
+      if (c == 0) { pr[D] = M; pr[D + 1] = L; }
+    }
+  }
+}
+
+// -- f32 q, rows > 16: the split-precision extend tile (wgmma) -----------------------
+
+template <typename P, int D>
+struct ExtF {
+  static constexpr bool kQuant = !std::is_same<P, float>::value;
+  static constexpr int BM = 128, BN = 64, THREADS = 256, NP = sp::NP;
+  static constexpr int KP = kQuant ? 1 : NP;        // bf16 planes of a K or V tile
+  static constexpr int SW = D >= 64 ? 128 : 64;     // bytes of a swizzled bf16 row
+  static constexpr int CPR = SW / 2;                // bf16 columns a region row holds
+  static constexpr int Q_PLANE = BM * D * 2, KV_PLANE = BN * D * 2;
+  static constexpr int ROW = D * int(sizeof(P));    // a staged key row
+  static constexpr int STAGE = BN * ROW;
+  // q's three planes, K's and V's planes, one staged K or V tile, the
+  // tile's K and V scales: 225.5 KB for an f32 pool at d 128
+  static constexpr size_t SMEM = 1024 + NP * size_t(Q_PLANE) + 2 * KP * size_t(KV_PLANE) +
+                                 STAGE + 2 * BN * sizeof(float);
+};
+
+// A staged tile (BN rows of D payload values) to the bf16 planes that
+// wgmma reads (hop::load_tile's swizzled K-major regions, the planes
+// KV_PLANE bytes apart): an 8-bit payload widened (exact), an f32 one
+// split into three pieces.  Eight values a work item.  Whether this
+// thread's values hold a +-inf (f32).
+template <typename P, int D>
+__device__ __forceinline__ bool stage_planes(uint8_t* dst, const uint8_t* stage) {
+  using C = ExtF<P, D>;
+  bool inf = false;
+  for (int i = threadIdx.x; i < C::BN * D / 8; i += C::THREADS) {
+    const int r = i / (D / 8), c8 = i % (D / 8) * 8;
+    const uint32_t off =
+        (c8 / C::CPR) * (C::BN * C::SW) + hop::swz<C::SW>(r * C::SW + (c8 % C::CPR) * 2);
+    if constexpr (C::kQuant) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(stage + r * C::ROW + c8);
+      *reinterpret_cast<uint4*>(dst + off) =
+          make_uint4(widen2<0>(raw.x, P()), widen2<1>(raw.x, P()), widen2<0>(raw.y, P()),
+                     widen2<1>(raw.y, P()));
+    } else {
+      const float4 x0 = *reinterpret_cast<const float4*>(stage + r * C::ROW + c8 * 4);
+      const float4 x1 = *reinterpret_cast<const float4*>(stage + r * C::ROW + c8 * 4 + 16);
+      inf |= isinf(x0.x) || isinf(x0.y) || isinf(x0.z) || isinf(x0.w) || isinf(x1.x) ||
+             isinf(x1.y) || isinf(x1.z) || isinf(x1.w);
+      uint4 p0, p1, p2;
+      sp::split_pair(x0.x, x0.y, p0.x, p1.x, p2.x);
+      sp::split_pair(x0.z, x0.w, p0.y, p1.y, p2.y);
+      sp::split_pair(x1.x, x1.y, p0.z, p1.z, p2.z);
+      sp::split_pair(x1.z, x1.w, p0.w, p1.w, p2.w);
+      *reinterpret_cast<uint4*>(dst + off) = p0;
+      *reinterpret_cast<uint4*>(dst + C::KV_PLANE + off) = p1;
+      *reinterpret_cast<uint4*>(dst + 2 * C::KV_PLANE + off) = p2;
+    }
+  }
+  return inf;
+}
+
+// One tensor's rows [kt, kt + BN) of the paged pool, as stored, into the
+// stage (keys outside [klo, khi) zero; one page-table read a tile when a
+// page holds whole tiles, one a row otherwise), and with it (scales: the
+// K tile) both tensors' scales of those keys.
+template <typename P, int D>
+__device__ __forceinline__ void load_stage(const Args& a, uint8_t* stage, float* scl,
+                                           const uint8_t* pool, const float* kspool,
+                                           const float* vspool, const int* tab, int kt, int klo,
+                                           int khi, bool scales) {
+  using C = ExtF<P, D>;
+  constexpr int CH = C::ROW / 16;
+  const bool whole = a.page_size % C::BN == 0;
+  const size_t tile_slot = whole ? slot_of(a, tab, kt) : 0;
+  for (int i = threadIdx.x; i < C::BN * CH; i += C::THREADS) {
+    const int r = i / CH, c = i % CH, pos = kt + r;
+    const bool ok = pos >= klo && pos < khi;
+    const size_t off = ok ? (whole ? tile_slot + r : slot_of(a, tab, pos)) * C::ROW + c * 16 : 0;
+    hop::cp_async<16>(hop::smem_u32(stage + r * C::ROW + c * 16), pool + off, ok);
+  }
+  if constexpr (C::kQuant) {
+    const int i = threadIdx.x, pos = kt + i % C::BN;
+    if (scales && i < 2 * C::BN) {
+      const bool ok = pos >= klo && pos < khi;
+      const size_t sl = ok ? slot_of(a, tab, pos) : 0;
+      hop::cp_async<4>(hop::smem_u32(scl + i), (i < C::BN ? kspool : vspool) + sl, ok);
+    }
+  }
+}
+
+// sc (64 rows x 64 keys) += the pairs [P0, P1) of split.cuh's kSafe (or
+// plain) order of q's planes (Q_PLANE bytes apart, regions BM * SW) times
+// K's (KV_PLANE apart, regions BN * SW), both K-major (sp::ss_pairs), with
+// q's b0 read at q0f in its products with K's b1 and b2 (q0f: q's b0
+// plane with its +-inf zeroed, or q itself).
+template <int D, bool kSafe, int P0, int P1>
+__device__ __forceinline__ void s_pairs(float (&sc)[32], uint32_t q, uint32_t q0f, uint32_t k) {
+  using C = ExtF<float, D>;
+  constexpr int SW = C::SW, CPR = C::CPR;
+#pragma unroll
+  for (int pr = P0; pr < P1; ++pr) {
+    const int i = sp::pair_a<kSafe>(pr), j = sp::pair_b<kSafe>(pr);
+    const uint32_t aa = i == 0 && j > 0 ? q0f : q + i * C::Q_PLANE, bb = k + j * C::KV_PLANE;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t region = ks * 16 / CPR, off = (ks * 16 % CPR) * 2;
+      hop::wgmma_ss<0>(sc, hop::desc<SW>(aa + region * C::BM * SW + off, 16, 8 * SW),
+                       hop::desc<SW>(bb + region * C::BN * SW + off, 16, 8 * SW), 1);
+    }
+  }
+}
+
+// The bf16 extend tile's walk (128 query rows of one (sequence, kv head)
+// and split, two consumer warpgroups of 64, the last row tiles first, the
+// block's pages of its rows' hull, masks only on tiles that cut a row's
+// interval, JAX's -1e30 for a visited key a row does not see) with
+// flash_fwd.cu's f32 split-precision products (flash_fwd_f32_kernel): q's
+// three bf16 planes made once a block in the prologue, S = Q K^T as
+// wgmmas of the piece pairs summed from zero a tile (sp::ss_pairs: six
+// over an f32 pool; q's b2, b1, b0 against a quantized pool's exact K),
+// P (p times V's scale) split in registers into the A operand of P V's
+// pairs (sp::rs_pairs), summed from zero a tile and added to acc in f32.
+// K and V tiles of 64 keys: the payload arrives as stored in one stage
+// (cp.async), and all threads widen or split it into bf16 planes in shared
+// memory; K(kt)'s planes are made while V(kt) loads behind the S products,
+// V(kt)'s while K(kt + 64) loads behind P V.  An f32 pool's planes at 128
+// keys and d 128 pass the 227 KB of a block (q's planes take 96 KB), and a
+// per-call plane workspace of the walk's pages would cost 6 more bytes an
+// element of HBM writes and reads: the split in shared memory reads each
+// f32 once, at 64-key tiles.  A tile holding a +-inf (f32: the threads' OR
+// at the barrier) takes the products that read its b0 raw first, then
+// sp::sanitize, then the rest (split.cuh's kSafe order); a +-inf in q (an
+// f32 pool) has its b0 plane copied with it zeroed, for each tile, into the
+// V planes' room (free while S runs), for the products with K's b1, b2.
+// What bounds it: the products, three (six) times the bf16 tile's.
+template <typename P, int D>
+__global__ void __launch_bounds__(ExtF<P, D>::THREADS, 1)
+paged_extend_f32_kernel(Args a, int row_tiles) {
+  using C = ExtF<P, D>;
+  constexpr int BN = C::BN, SW = C::SW, CPR = C::CPR, NP = C::NP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* kpl = qs + NP * C::Q_PLANE;              // K's planes
+  uint8_t* vpl = kpl + C::KP * C::KV_PLANE;          // V's planes
+  uint8_t* stage = vpl + C::KP * C::KV_PLANE;        // a K or V tile as stored
+  float* scl = reinterpret_cast<float*>(stage + C::STAGE);   // [ks | vs]
+
+  const int tile = row_tiles - 1 - blockIdx.z % row_tiles, s = blockIdx.z / row_tiles;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int row0 = tile * C::BM;
+  const int n_rows = min(C::BM, a.rows - row0);
+  const Walk w = make_walk(a, b, s);
+  int klo, khi;
+  block_range(a, w, row0, row0 + n_rows, klo, khi);
+  const int start = (klo / BN) * BN, end = khi;
+  // every row of the block sees the keys [all_lo, all_hi) of the split:
+  // tiles inside it need no mask
+  int all_lo, all_hi;
+  {
+    int jmin, jmax, lo_, hi_;
+    chunk_span(a, row0, row0 + n_rows, jmin, jmax);
+    row_bounds(a, w, jmin, lo_, all_hi);
+    row_bounds(a, w, jmax, all_lo, hi_);
+    all_lo = max(all_lo, w.lo);
+    all_hi = min(all_hi, w.hi);
+  }
+
+  const float* qp = static_cast<const float*>(a.q);
+  const size_t pool = size_t(hk) * a.n_pages * a.page_size;
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * C::ROW;
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * C::ROW;
+  const float* kspool = C::kQuant ? a.ks + pool : nullptr;
+  const float* vspool = C::kQuant ? a.vs + pool : nullptr;
+  const int* tab = a.table + size_t(b) * a.pages_per_seq;
+  auto load = [&](const uint8_t* src, int kt, bool scales) {
+    load_stage<P, D>(a, stage, scl, src, kspool, vspool, tab, kt, klo, khi, scales);
+  };
+  if (start < end) load(kpool, start, true);
+  hop::cp_async_commit();
+
+  // prologue: q * scale_log2 (f32) split into three swizzled K-major
+  // planes, 8 columns a work item
+  bool q_inf = false;
+  for (int i = threadIdx.x; i < C::BM * D / 8; i += C::THREADS) {
+    const int r = i / (D / 8), c = i % (D / 8) * 8;
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (r < n_rows) {
+      const float* src = qp + q_off(a, b, hk, row0 + r, D) + c;
+      x0 = scale4_rn(*reinterpret_cast<const float4*>(src), a.scale_log2);
+      x1 = scale4_rn(*reinterpret_cast<const float4*>(src + 4), a.scale_log2);
+      q_inf |= isinf(x0.x) || isinf(x0.y) || isinf(x0.z) || isinf(x0.w) || isinf(x1.x) ||
+               isinf(x1.y) || isinf(x1.z) || isinf(x1.w);
+    }
+    uint32_t pc[NP][4];
+    sp::split_pair(x0.x, x0.y, pc[0][0], pc[1][0], pc[2][0]);
+    sp::split_pair(x0.z, x0.w, pc[0][1], pc[1][1], pc[2][1]);
+    sp::split_pair(x1.x, x1.y, pc[0][2], pc[1][2], pc[2][2]);
+    sp::split_pair(x1.z, x1.w, pc[0][3], pc[1][3], pc[2][3]);
+    const uint32_t off = (c / CPR) * (C::BM * SW) + hop::swz<SW>(r * SW + (c % CPR) * 2);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<uint4*>(qs + p * C::Q_PLANE + off) =
+          make_uint4(pc[p][0], pc[p][1], pc[p][2], pc[p][3]);
+  }
+
+  const int wg = threadIdx.x / 128, lt = threadIdx.x % 128;
+  const int lane = lt % 32, quad = lane % 4;
+  const int rl = wg * 64 + (lt / 32) * 16 + lane / 4;   // local row of hh = 0 (+8: hh = 1)
+  const bool wg_live = wg * 64 < n_rows;
+  int lo[2], hi[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rl + 8 * hh;
+    if (r < n_rows) {
+      row_bounds(a, w, row0 + r, lo[hh], hi[hh]);
+      lo[hh] = max(lo[hh], w.lo);
+      hi[hh] = min(hi[hh], w.hi);
+    } else {
+      lo[hh] = hi[hh] = 0;
+    }
+  }
+
+  // an f32 pool: q holds a +-inf (the block's threads' OR)
+  const bool q_nf = !C::kQuant && __syncthreads_or(q_inf);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // l: this thread's columns
+  const uint32_t q_addr = hop::smem_u32(qs) + wg * 64 * SW;
+  const uint32_t k_addr = hop::smem_u32(kpl), v_addr = hop::smem_u32(vpl);
+  // q's b0 for the products with K's b1, b2: with its +-inf zeroed in the V
+  // planes' room (a copy of the plane, so the swizzle holds)
+  const uint32_t q0f_addr = q_nf ? v_addr + wg * 64 * SW : q_addr;
+  static_assert(C::Q_PLANE <= C::KP * C::KV_PLANE || C::kQuant, "q's b0 fits V's planes");
+  const float* ks_s = scl;
+  const float* vs_s = scl + BN;
+
+  for (int kt = start; kt < end; kt += BN) {
+    hop::cp_async_wait<0>();
+    __syncthreads();   // K(kt) and the tile's scales have landed
+    bool nf = stage_planes<P, D>(kpl, stage);
+    hop::fence_async_smem();
+    if constexpr (C::kQuant) __syncthreads();
+    else nf = __syncthreads_or(nf);   // K's planes are complete; the stage is free
+    load(vpool, kt, false);
+    hop::cp_async_commit();
+    if (q_nf) {   // rare: every tile, as V's planes overwrite it
+      for (int i = threadIdx.x; i < C::Q_PLANE / 16; i += C::THREADS) {
+        uint4 v = reinterpret_cast<const uint4*>(qs)[i];
+        v = make_uint4(finite_part(v.x), finite_part(v.y), finite_part(v.z), finite_part(v.w));
+        reinterpret_cast<uint4*>(vpl)[i] = v;
+      }
+      hop::fence_async_smem();
+      __syncthreads();
+    }
+
+    // S = Q K^T: 64 rows x 64 keys a warpgroup; sc[4j + 2hh + e] is row
+    // rl + 8hh, key kt + 8j + 2 quad + e
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    hop::fence_regs(sc);
+    if (wg_live) {
+      hop::wg_arrive();
+      if constexpr (C::kQuant) {
+#pragma unroll
+        for (int pc = NP - 1; pc >= 0; --pc)
+#pragma unroll
+          for (int ks = 0; ks < D / 16; ++ks) {
+            const uint32_t region = ks * 16 / CPR, off = (ks * 16 % CPR) * 2;
+            hop::wgmma_ss<0>(sc, hop::desc<SW>(q_addr + pc * C::Q_PLANE + region * C::BM * SW + off,
+                                              16, 8 * SW),
+                             hop::desc<SW>(k_addr + region * BN * SW + off, 16, 8 * SW), 1);
+          }
+      } else if (nf) {
+        s_pairs<D, true, 0, 4>(sc, q_addr, q0f_addr, k_addr);
+      } else if (q_nf) {
+        s_pairs<D, false, 0, 6>(sc, q_addr, q0f_addr, k_addr);
+      } else {
+        sp::ss_pairs<D, SW, false, 0, 6>(sc, q_addr, C::Q_PLANE, C::BM * SW, k_addr, C::KV_PLANE,
+                                         BN * SW);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    if (nf) {   // K holds a +-inf: b0 sanitized for the products with q's b1, b2
+      __syncthreads();
+      sp::sanitize<C::THREADS>(kpl, C::KV_PLANE);
+      hop::fence_async_smem();
+      __syncthreads();
+      if (wg_live) {
+        hop::wg_arrive();
+        s_pairs<D, true, 4, 6>(sc, q_addr, q0f_addr, k_addr);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+      }
+    }
+    hop::fence_regs(sc);
+
+    // scores (x K scale), masks, the online softmax, P (x V scale) in
+    // three pieces: pp[i][2j + hh] = row hh's keys 8j + 2 quad + {0, 1}
+    uint32_t pp[NP][16];
+    if (wg_live) {
+      const bool full = kt >= all_lo && kt + BN <= all_hi;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 8 * j + 2 * quad + e, pos = kt + key;
+            float x = sc[4 * j + 2 * hh + e];
+            if constexpr (C::kQuant) x = __fmul_rn(x, ks_s[key]);
+            if (!full && (pos < lo[hh] || pos >= hi[hh])) x = masked(w, pos);
+            sc[4 * j + 2 * hh + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[hh] - mu);
+        m[hh] = m_new;
+        l[hh] *= alpha;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          acc[4 * jj + 2 * hh] *= alpha;
+          acc[4 * jj + 2 * hh + 1] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          float p0 = exp2f(sc[4 * j + 2 * hh] - mu), p1 = exp2f(sc[4 * j + 2 * hh + 1] - mu);
+          l[hh] += p0 + p1;
+          if constexpr (C::kQuant) {
+            p0 = __fmul_rn(p0, vs_s[8 * j + 2 * quad]);
+            p1 = __fmul_rn(p1, vs_s[8 * j + 2 * quad + 1]);
+          }
+          sp::split_pair(p0, p1, pp[0][2 * j + hh], pp[1][2 * j + hh], pp[2][2 * j + hh]);
+        }
+      }
+    }
+
+    hop::cp_async_wait<0>();
+    __syncthreads();   // V(kt) has landed; the scales are read
+    nf = stage_planes<P, D>(vpl, stage);
+    hop::fence_async_smem();
+    if constexpr (C::kQuant) __syncthreads();
+    else nf = __syncthreads_or(nf);   // V's planes are complete; the stage is free
+    if (kt + BN < end) load(kpool, kt + BN, true);
+    hop::cp_async_commit();
+
+    // P V sums from zero, then into acc
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+    hop::fence_regs(pv);
+    if (wg_live) {
+      hop::wg_arrive();
+      if constexpr (C::kQuant) {
+#pragma unroll
+        for (int pc = NP - 1; pc >= 0; --pc)
+#pragma unroll
+          for (int kc = 0; kc < 4; ++kc) {
+            const uint32_t ak[4] = {pp[pc][4 * kc], pp[pc][4 * kc + 1], pp[pc][4 * kc + 2],
+                                    pp[pc][4 * kc + 3]};
+            hop::wgmma_rs<1>(pv, ak, hop::desc<SW>(v_addr + kc * 16 * SW, BN * SW, 8 * SW), 1);
+          }
+      } else if (nf) {
+        sp::rs_pairs<D, SW, true, 0, 4>(pv, pp, v_addr, C::KV_PLANE);
+      } else {
+        sp::rs_pairs<D, SW, false, 0, 6>(pv, pp, v_addr, C::KV_PLANE);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+    }
+    if (nf) {   // V holds a +-inf: b0 sanitized for the products with P's b1, b2
+      __syncthreads();
+      sp::sanitize<C::THREADS>(vpl, C::KV_PLANE);
+      hop::fence_async_smem();
+      __syncthreads();
+      if (wg_live) {
+        hop::wg_arrive();
+        sp::rs_pairs<D, SW, true, 4, 6>(pv, pp, v_addr, C::KV_PLANE);
+        hop::wg_commit();
+        hop::wg_wait<0>();
+      }
+    }
+    hop::fence_regs(pv);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] += pv[i];
+  }
+  hop::cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rl + 8 * hh;
+    if (r >= n_rows) continue;
+    if (a.n_splits > 1) {   // the split's partial, straight from the fragment
+      float* pr = partial(a, b, hk, s, row0 + r, D);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(pr + 8 * j + 2 * quad) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      if (quad == 0) { pr[D] = m[hh]; pr[D + 1] = l[hh]; }
+    } else {
+      const float inv = l[hh] == 0.f ? 1.f : 1.f / l[hh];
+      float* o = static_cast<float*>(a.out) + q_off(a, b, hk, row0 + r, D);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(o + 8 * j + 2 * quad) =
+            make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+    }
+  }
 }
 
 // -- the pages a row tile leaves out (C15) --------------------------------------------
@@ -1098,24 +1930,29 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename P, int D, int BM>
-cudaError_t launch_fma(const Args& a, cudaStream_t st) {
-  constexpr size_t smem = fa::smem_bytes<D, BM>();
-  auto kernel = paged_fma_kernel<P, D, BM>;
-  static cudaError_t opted = fa::allow_smem(kernel, smem);
+template <typename P, int D, int HH>
+cudaError_t launch_decode_f32(const Args& a, cudaStream_t st) {
+  using C = DecF<P, D>;
+  auto kernel = paged_decode_f32_kernel<P, D, HH>;
+  static cudaError_t opted = fa::allow_smem(kernel, C::SMEM);
   if (opted != cudaSuccess) return opted;
-  const int tiles = (a.rows + BM - 1) / BM;
-  kernel<<<dim3(a.h_kv, a.b, tiles * a.n_splits), fa::threads<BM>(), smem, st>>>(a, tiles);
+  kernel<<<dim3(a.n_splits, a.h_kv, a.b), C::THREADS, C::SMEM, st>>>(a);
   return cudaGetLastError();
 }
 
-// The f32 row tile: 4, 16 or 64 rows, so a decode block does not compute
-// 64 rows of which one is real (ops/paged_attention.py::split_plan agrees).
+// f32 q: the decode tile at rows <= 16 (its 8-row variant at rows <= 8),
+// else the extend tile; P float for an f32 pool
 template <typename P, int D>
 cudaError_t launch_f32(const Args& a, cudaStream_t st) {
-  if (a.rows <= 4) return launch_fma<P, D, 4>(a, st);
-  if (a.rows <= 16) return launch_fma<P, D, 16>(a, st);
-  return launch_fma<P, D, 64>(a, st);
+  if (a.rows <= 8) return launch_decode_f32<P, D, 1>(a, st);
+  if (a.rows <= 16) return launch_decode_f32<P, D, 2>(a, st);
+  using C = ExtF<P, D>;
+  auto kernel = paged_extend_f32_kernel<P, D>;
+  static cudaError_t opted = fa::allow_smem(kernel, C::SMEM);
+  if (opted != cudaSuccess) return opted;
+  const int tiles = (a.rows + C::BM - 1) / C::BM;
+  kernel<<<dim3(a.h_kv, a.b, tiles * a.n_splits), C::THREADS, C::SMEM, st>>>(a, tiles);
+  return cudaGetLastError();
 }
 
 template <typename T, typename P, int D>
@@ -1130,12 +1967,12 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The row tile launch() gives a block (bf16: the decode tile's 16 rows or
-// the extend tile's 128; f32: the FMA tile's 4, 16 or 64), as
-// ops/paged_attention.py::row_tile says.
-inline int row_tile(int dtype, int rows) {
-  if (dtype == 1) return rows <= 16 ? 16 : Ext<bf16, 32>::BM;
-  return rows <= 4 ? 4 : rows <= 16 ? 16 : 64;
+// The row tile launch() gives a block: the decode tiles' 16 rows or the
+// extend tiles' 128, either dtype, as ops/paged_attention.py::row_tile
+// says.
+inline int row_tile(int rows) {
+  static_assert(Ext<bf16, 32>::BM == 128 && ExtF<float, 32>::BM == 128, "one extend tile");
+  return rows <= 16 ? 16 : 128;
 }
 
 template <typename P>
@@ -1193,12 +2030,14 @@ template <class K> int attr_of(K kernel, int what, size_t smem) {
 template <typename P>
 int attr_d(int kind, int d, int what) {
   using Q = typename std::conditional<std::is_same<P, bf16>::value, float, P>::type;
-#define PAGED_ATTR(D)                                                                       \
-  if (d == D) {                                                                             \
-    if (kind == 0) return attr_of(paged_decode_kernel<P, D>, what, Dec<P, D>::SMEM);        \
-    if (kind == 1) return attr_of(paged_extend_kernel<P, D>, what, Ext<P, D>::SMEM);        \
-    if (kind == 2) return attr_of(paged_fma_kernel<Q, D, 16>, what, fa::smem_bytes<D, 16>()); \
-    if (kind == 3) return attr_of(paged_merge_kernel<bf16, D>, what, 0);                    \
+#define PAGED_ATTR(D)                                                                          \
+  if (d == D) {                                                                                \
+    if (kind == 0) return attr_of(paged_decode_kernel<P, D>, what, Dec<P, D>::SMEM);           \
+    if (kind == 1) return attr_of(paged_extend_kernel<P, D>, what, Ext<P, D>::SMEM);           \
+    if (kind == 2) return attr_of(paged_decode_f32_kernel<Q, D, 1>, what, DecF<Q, D>::SMEM);   \
+    if (kind == 3) return attr_of(paged_merge_kernel<bf16, D>, what, 0);                       \
+    if (kind == 4) return attr_of(paged_extend_f32_kernel<Q, D>, what, ExtF<Q, D>::SMEM);      \
+    if (kind == 5) return attr_of(paged_decode_f32_kernel<Q, D, 2>, what, DecF<Q, D>::SMEM);   \
   }
   PAGED_ATTR(32)
   PAGED_ATTR(64)
@@ -1207,28 +2046,13 @@ int attr_d(int kind, int d, int what) {
   return -int(cudaErrorInvalidValue);
 }
 
-}  // namespace
-
-// q (b, h_kv, rows, d) with rows = group * chunk in (group, chunk) order;
-// k_pages, v_pages (h_kv, n_pages, page_size, d); k_scales, v_scales
-// (h_kv, n_pages, page_size) f32 for a quantized pool, else null; lengths
-// (b,) int32 counting the chunk; page_indices (b, pages_per_seq) int32; out
-// like q.  ws: f32 (b, h_kv, n_splits, rows, d + 2) when n_splits > 1, else
-// unused; nf: fa_paged_nonfinite's marks of these pools for a wave wider
-// than one row tile (the poison pass then runs last), else null; split k
-// of a sequence takes its walk's pages [p0 + k *
-// split_pages, p0 + (k + 1) * split_pages).  window <= 0 means none;
-// scale_log2 = sm_scale * log2(e), rounded to q's dtype.  dtype codes: 0 =
-// float32, 1 = bfloat16 (q and out), 2 = int8, 3 = float8 e4m3 (page
-// payloads).  Launches the split kernel, then (n_splits > 1) the merge,
-// then (nf given) the poison pass.
-extern "C" int fa_paged_attention(const void* q, const void* k_pages, const void* v_pages,
-                                  const void* k_scales, const void* v_scales,
-                                  const void* lengths, const void* page_indices, void* out,
-                                  void* ws, const void* nf, int b, int h_kv, int rows, int chunk, int n_pages,
-                                  int page_size, int pages_per_seq, int d, int window,
-                                  int split_pages, int n_splits, float scale_log2, int dtype,
-                                  int page_dtype, void* stream) {
+// fa_paged_attention / fa_paged_attention_f32: the split kernel, then
+// (n_splits > 1) the merge, then (nf given) the poison pass.
+int paged_call(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+               const void* v_scales, const void* lengths, const void* page_indices, void* out,
+               void* ws, const void* nf, int b, int h_kv, int rows, int chunk, int n_pages,
+               int page_size, int pages_per_seq, int d, int window, int split_pages,
+               int n_splits, float scale_log2, int dtype, int page_dtype, void* stream) {
   if (b == 0 || h_kv == 0 || rows == 0) return 0;
   if (split_pages < 1 || n_splits < 1 || (n_splits > 1 && ws == nullptr))
     return int(cudaErrorInvalidValue);
@@ -1237,14 +2061,56 @@ extern "C" int fa_paged_attention(const void* q, const void* k_pages, const void
          static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
          static_cast<const int*>(page_indices), out, static_cast<float*>(ws), b, h_kv, rows,
          chunk, n_pages, page_size, pages_per_seq, window, split_pages, n_splits, scale_log2};
-  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   const cudaError_t err = dtype == 0 ? dispatch_pages<float>(page_dtype, dtype, d, a, st)
                                      : dispatch_pages<bf16>(page_dtype, dtype, d, a, st);
-  const int bm = row_tile(dtype, rows);
+  const int bm = row_tile(rows);
   if (err != cudaSuccess || nf == nullptr || rows <= bm) return int(err);
   const uint32_t* marks = static_cast<const uint32_t*>(nf);
   return int(dtype == 0 ? poison_d<float>(d, a, marks, bm, st)
                         : poison_d<bf16>(d, a, marks, bm, st));
+}
+
+}  // namespace
+
+// bf16 q: q (b, h_kv, rows, d) with rows = group * chunk in (group, chunk)
+// order; k_pages, v_pages (h_kv, n_pages, page_size, d); k_scales,
+// v_scales (h_kv, n_pages, page_size) f32 for a quantized pool, else null;
+// lengths (b,) int32 counting the chunk; page_indices (b, pages_per_seq)
+// int32; out like q.  ws: f32 (b, h_kv, n_splits, rows, d + 2) when
+// n_splits > 1, else unused; nf: fa_paged_nonfinite's marks of these pools
+// for a wave wider than one row tile (the poison pass then runs last), else
+// null; split k of a sequence takes its walk's pages [p0 + k *
+// split_pages, p0 + (k + 1) * split_pages).  window <= 0 means none;
+// scale_log2 = sm_scale * log2(e), rounded to q's dtype.  dtype codes: 0 =
+// float32, 1 = bfloat16 (q and out), 2 = int8, 3 = float8 e4m3 (page
+// payloads); dtype must be 1 here (f32 q: fa_paged_attention_f32).
+extern "C" int fa_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* k_scales, const void* v_scales,
+                                  const void* lengths, const void* page_indices, void* out,
+                                  void* ws, const void* nf, int b, int h_kv, int rows, int chunk, int n_pages,
+                                  int page_size, int pages_per_seq, int d, int window,
+                                  int split_pages, int n_splits, float scale_log2, int dtype,
+                                  int page_dtype, void* stream) {
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  return paged_call(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out, ws, nf,
+                    b, h_kv, rows, chunk, n_pages, page_size, pages_per_seq, d, window,
+                    split_pages, n_splits, scale_log2, dtype, page_dtype, stream);
+}
+
+// f32 q, arguments as fa_paged_attention's with dtype 0: the split-precision
+// tiles (paged_decode_f32_kernel at rows <= 16, paged_extend_f32_kernel
+// above) over an f32 (page_dtype 0), int8 or fp8 pool.
+extern "C" int fa_paged_attention_f32(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* k_scales, const void* v_scales,
+                                      const void* lengths, const void* page_indices, void* out,
+                                      void* ws, const void* nf, int b, int h_kv, int rows,
+                                      int chunk, int n_pages, int page_size, int pages_per_seq,
+                                      int d, int window, int split_pages, int n_splits,
+                                      float scale_log2, int dtype, int page_dtype, void* stream) {
+  if (dtype != 0) return int(cudaErrorInvalidValue);
+  return paged_call(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, out, ws, nf,
+                    b, h_kv, rows, chunk, n_pages, page_size, pages_per_seq, d, window,
+                    split_pages, n_splits, scale_log2, dtype, page_dtype, stream);
 }
 
 // The marks of C15's poison pass: nf (b, h_kv, pages_per_seq, d / 32 + 1)
@@ -1277,10 +2143,14 @@ extern "C" int fa_paged_nonfinite(const void* v_pages, const void* v_scales,
 }
 
 // A paged kernel's attribute, launching nothing: kind 0 the bf16 decode
-// tile, 1 the bf16 extend tile, 2 the f32 FMA tile (16 rows), 3 the merge;
-// what 0 registers a thread, 1 dynamic shared memory bytes, 2 local
-// (spill) bytes a thread.  Negative: minus a CUDA error.
+// tile, 1 the bf16 extend tile, 2 the f32 decode tile (8 rows), 3 the
+// merge, 4 the f32 extend tile, 5 the f32 decode tile (16 rows); kinds 0,
+// 1 and 3 over a pool of page_dtype 1 (bf16), 2 (int8) or 3 (fp8), kinds 2,
+// 4 and 5 over 0 or 1 (an f32 pool), 2 or 3; what 0 registers a thread, 1
+// dynamic shared memory bytes, 2 local (spill) bytes a thread.  Negative:
+// minus a CUDA error.
 extern "C" int fa_paged_kernel_attr(int kind, int d, int page_dtype, int what) {
+  if (page_dtype == 0 && (kind == 2 || kind >= 4)) return attr_d<bf16>(kind, d, what);
   if (page_dtype == 1) return attr_d<bf16>(kind, d, what);
   if (page_dtype == 2) return attr_d<int8_t>(kind, d, what);
   if (page_dtype == 3) return attr_d<__nv_fp8_e4m3>(kind, d, what);

@@ -1,4 +1,5 @@
-// Split precision for the f32 flash kernels (flash_fwd.cu, flash_bwd.cu):
+// Split precision for the f32 kernels (flash_fwd.cu, flash_bwd.cu,
+// kv8_flash.cu, wo_matmul.cu, paged_attention.cu):
 // an f32 operand is cut into three bf16 pieces and a product of two such
 // operands is the sum of the six bf16 x bf16 products of order <= 2, on
 // the wgmma tensor cores with f32 accumulators.
@@ -12,9 +13,12 @@
 // order 3 and 4, below 2^-23 of |a| |b|: the rounding of an f32 FMA chain.
 // A non-finite x keeps its value in b0 and zeros in b1 and b2.  The pieces
 // of the other operand multiply b0 then; a zero piece there (an exactly
-// representable value) would make 0 * inf = NaN where f32 gives +-inf, so
-// the forward zeros the non-finite entries of a B operand's b0 in shared
-// memory before its products with the A operand's b1 and b2 (sanitize).
+// representable value) would make 0 * inf = NaN where f32 gives +-inf.  A
+// NaN needs nothing (it stays NaN); for a +-inf the split pass raises a
+// flag, on which the flash kernels step aside for their CUDA-core twins
+// (C17), and the paged tiles (paged_attention.cu) zero the non-finite
+// entries of a b0 before its products with the other operand's b1 and b2
+// (sanitize, in shared memory or in registers).
 //
 // The pieces of a kernel's f32 inputs are made once a call by
 // split_kernel, one pass over each input (read 4 bytes, write 6 an

@@ -31,7 +31,9 @@ rounding at every shape: from ``F32_TC_MIN_KV`` keys on wgmma kernels in
 split precision (each f32 operand three bf16 pieces, six products a
 product: ``fa_flash_fwd_f32``, ``fa_flash_bwd_f32``, counted by
 ``_f32_kernel`` and ``_f32_bwd_kernel``), below it the CUDA-core kernels
-(``attn_core.cuh``'s tile, the FMA backward pair).  On CPU tensors the
+(``attn_core.cuh``'s tile, the FMA backward pair), which also compute a
+split-precision call whose inputs hold a +-inf (the split pass flags it on
+the device and the split kernels step aside; C17).  On CPU tensors the
 plain versions run (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
@@ -63,7 +65,7 @@ _bwd_kernel = _build.Kernel("fa_flash_bwd", [_build.P] * 11 + [_build.I] * 8
 # f32 on the tensor cores in split precision (csrc/split.cuh)
 _f32_kernel = _build.Kernel("fa_flash_fwd_f32", [_build.P] * 8
                             + [_build.I] * 8 + [_build.F])
-_f32_bwd_kernel = _build.Kernel("fa_flash_bwd_f32", [_build.P] * 11
+_f32_bwd_kernel = _build.Kernel("fa_flash_bwd_f32", [_build.P] * 12
                                 + [_build.I] * 8 + [_build.F, _build.F])
 
 HEAD_DIMS = (32, 64, 128)
@@ -441,11 +443,12 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     if code == 0 and n_kv >= F32_TC_MIN_KV:
         planes = torch.empty(6 * (q.numel() + k.numel()), dtype=torch.bfloat16,
                              device=q.device)
+        flags = torch.empty(1, dtype=torch.int32, device=q.device)
         _f32_bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), di.data_ptr(),
                         None if lens is None else lens.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        planes.data_ptr(), b, h, h_kv, n_q, n_kv, d,
+                        planes.data_ptr(), flags.data_ptr(), b, h, h_kv, n_q, n_kv, d,
                         int(causal), int(window or 0), float(sm_scale),
                         float(sm_scale * LOG2E))   # flash_fwd's q scale
         return dq, dk, dv

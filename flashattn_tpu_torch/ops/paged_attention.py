@@ -5,9 +5,10 @@ On CUDA tensors :func:`paged_attention` launches the hand-written kernels
 of ``csrc/paged_attention.cu``, which replace both TPU kernels
 (``_paged_dma_body``, the pipelined page walk, and ``_paged_kernel``, the
 page-slot grid): a split-K grid over each sequence's page walk (a
-``mma.sync`` decode tile for bf16 q at up to 16 rows per kv head, the bf16
-flash forward's ``wgmma`` tile for wider extend waves, the FMA tile for
-f32 q), whose splits a merge kernel combines; for a wave wider than one
+``mma.sync`` decode tile at up to 16 rows per kv head, the flash forward's
+``wgmma`` tile for wider extend waves; f32 q runs both in split precision
+on the tensor cores, through its own entry point and launch count,
+``_f32_kernel``), whose splits a merge kernel combines; for a wave wider than one
 row tile a marks pass (:func:`paged_nonfinite`) and a poison pass give each
 tile the effect of the walk's pages outside its own (C15).  On CPU tensors it runs
 :func:`paged_attention_plain`, the TPU kernels' function in PyTorch.
@@ -35,20 +36,28 @@ import torch
 from . import _build
 from ._utils import cdiv, check_no_grad, on_cuda, LOG2E
 
-_kernel = _build.Kernel("fa_paged_attention", [_build.P] * 10 + [_build.I] * 11
-                        + [_build.F, _build.I, _build.I])
+_ARGS = [_build.P] * 10 + [_build.I] * 11 + [_build.F, _build.I, _build.I]
+_kernel = _build.Kernel("fa_paged_attention", _ARGS)             # bf16 q
+_f32_kernel = _build.Kernel("fa_paged_attention_f32", _ARGS)     # f32 q
 _nf_kernel = _build.Kernel("fa_paged_nonfinite", [_build.P] * 5 + [_build.I] * 9)
 
 HEAD_DIMS = (32, 64, 128)
-# rows per kv head up to which bf16 q takes the mma.sync decode tile (one
-# m16 tile); wider waves take the 128-row wgmma tile
+# rows per kv head up to which q takes the mma.sync decode tile (one m16
+# tile), either dtype; wider waves take the 128-row wgmma tile
 DECODE_ROWS = 16
+EXTEND_ROWS = 128
 # the least keys a split walks, so that its partial (d + 2 floats a row)
 # stays small beside the K/V it reads
 MIN_SPLIT_KEYS = 512
 # a grid of row tiles under two waves of the card is split into about this
 # many waves of blocks
 WAVES = 4
+# f32 q's decode tile: three to six times the bf16 tile's products a key
+# and two blocks an SM, so splits from 256 keys (short histories fill the
+# card) and two waves of them (half the partials to merge); its extend tile
+# splits as the bf16 ones
+F32_DECODE_MIN_SPLIT_KEYS = 256
+F32_DECODE_WAVES = 2
 
 
 @functools.cache
@@ -56,12 +65,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def row_tile(rows: int, dtype: torch.dtype) -> int:
-    """Rows of one block's tile: the decode tile's 16 (bf16, rows <= 16),
-    the extend tile's 128 (bf16) or the FMA tile's 4, 16 or 64 (f32)."""
-    if dtype == torch.bfloat16:
-        return DECODE_ROWS if rows <= DECODE_ROWS else 128
-    return 4 if rows <= 4 else 16 if rows <= 16 else 64
+def row_tile(rows: int) -> int:
+    """Rows of one block's tile: the decode tile's 16 (rows <= 16) or the
+    extend tile's 128, for bf16 and f32 q alike."""
+    return DECODE_ROWS if rows <= DECODE_ROWS else EXTEND_ROWS
 
 
 def split_plan(b: int, h_kv: int, rows: int, chunk: int, page_size: int,
@@ -72,17 +79,21 @@ def split_plan(b: int, h_kv: int, rows: int, chunk: int, page_size: int,
     width of pages (fewer under a window).  Without ``split_pages``, a grid
     of row tiles that fills two waves of the card takes one split (no
     merge); a smaller one as many splits as bring it near ``WAVES`` waves,
-    each of at least ``MIN_SPLIT_KEYS`` keys."""
+    each of at least ``MIN_SPLIT_KEYS`` keys (f32 q's decode tile:
+    ``F32_DECODE_WAVES`` waves of at least ``F32_DECODE_MIN_SPLIT_KEYS``)."""
     walk = pages_per_seq
     if window is not None:
         walk = min(walk, cdiv(window + chunk - 1, page_size) + 1)
     walk = max(walk, 1)
     if split_pages is None:
-        blocks = b * h_kv * cdiv(rows, row_tile(rows, dtype))
+        blocks = b * h_kv * cdiv(rows, row_tile(rows))
         split_pages = walk
+        f32_decode = dtype == torch.float32 and rows <= DECODE_ROWS
+        min_keys = F32_DECODE_MIN_SPLIT_KEYS if f32_decode else MIN_SPLIT_KEYS
+        waves = F32_DECODE_WAVES if f32_decode else WAVES
         if blocks < 2 * sm_count:
-            split_pages = max(cdiv(MIN_SPLIT_KEYS, page_size),
-                              cdiv(walk, cdiv(WAVES * sm_count, blocks)))
+            split_pages = max(cdiv(min_keys, page_size),
+                              cdiv(walk, cdiv(waves * sm_count, blocks)))
     split_pages = max(1, min(int(split_pages), walk))
     return split_pages, cdiv(walk, split_pages)
 
@@ -240,14 +251,15 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     # a wave wider than one row tile: the marks of its pages for the poison
     # pass (C15)
     nf = None
-    if rows > row_tile(rows, q.dtype):
+    if rows > row_tile(rows):
         nf = paged_nonfinite(v_pages, lens, table, chunk, v_scales=scales[1],
                              window=window)
     # q * scale_log2 is rounded to q's dtype in the kernels, as JAX rounds
     # its weakly typed product: the scale itself is rounded first
     scale_log2 = float(torch.tensor(sm_scale * LOG2E, dtype=q.dtype))
     out = torch.empty_like(q)
-    _kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    kernel = _f32_kernel if q.dtype == torch.float32 else _kernel
+    kernel(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             *(None if t is None else t.data_ptr() for t in scales),
             lens.data_ptr(), table.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
@@ -257,17 +269,29 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     return out
 
 
+# fa_paged_kernel_attr's kinds: the bf16-q tiles and the merge, the f32-q
+# tiles
+_BF16_KINDS = {0: "decode (bf16 q)", 1: "extend (bf16 q)", 3: "merge"}
+_F32_KINDS = {2: "decode (f32 q, 8 rows)", 5: "decode (f32 q, 16 rows)",
+              4: "extend (f32 q)"}
+
+
 def kernel_attrs(d: int, page_dtype: torch.dtype) -> dict:
     """Registers a thread, dynamic shared memory and local (spill) bytes of
-    the paged kernels for head dim ``d`` and a pool of ``page_dtype``
-    (bf16, int8 or fp8), without launching: {kernel: (regs, smem, local)}."""
-    code = (1 if page_dtype == torch.bfloat16
-            else _build.payload_code(torch.empty(0, dtype=page_dtype)))
-    names = ("decode (bf16 q)", "extend (bf16 q)", "fma (f32 q, 16 rows)",
-             "merge")
+    the paged kernels for head dim ``d`` and a pool of ``page_dtype``,
+    without launching: {kernel: (regs, smem, local)}.  A bf16 pool: the
+    bf16-q tiles and the merge; an f32 pool: the f32-q tiles; int8 or fp8:
+    both."""
+    if page_dtype == torch.float32:
+        code, kinds = 0, _F32_KINDS
+    elif page_dtype == torch.bfloat16:
+        code, kinds = 1, _BF16_KINDS
+    else:
+        code = _build.payload_code(torch.empty(0, dtype=page_dtype))
+        kinds = {**_BF16_KINDS, **_F32_KINDS}
     return {name: tuple(_build.query("fa_paged_kernel_attr", [_build.I] * 4,
                                      kind, d, code, what) for what in range(3))
-            for kind, name in enumerate(names)}
+            for kind, name in kinds.items()}
 
 
 def paged_attention(

@@ -17,6 +17,8 @@ torch.tanh in the plain version) they keep the same positions and hold the
 values to the tolerance above.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -61,6 +63,23 @@ def _flash_launches():
 def _rel_err(a, b):
     """max |a - b| over max(1, max |b|): the scale of a sum over rows."""
     return _err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def _paged_launches():
+    """(bf16 q, f32 q) launches of the paged kernels: each q dtype has its
+    own entry point and count."""
+    return pa._kernel.launches, pa._f32_kernel.launches
+
+
+def _paged_one(dtype):
+    """The change of ``_paged_launches()`` one call with q of ``dtype``
+    makes: one launch on its own count, none on the other."""
+    return (0, 1) if dtype == torch.float32 else (1, 0)
+
+
+def _paged_delta(before):
+    now = _paged_launches()
+    return now[0] - before[0], now[1] - before[1]
 
 
 LN_SHAPES = [(1, 1024), (37, 100), (5, 3, 2049)]
@@ -225,9 +244,9 @@ def test_paged_kernel(dev, dtype, case):
     lens = torch.tensor([pps * page, chunk + page + 3][:b], device=dev)
     if b > 2:
         lens = torch.cat([lens, torch.tensor([pps * page + 5], device=dev)])
-    before = pa._kernel.launches
+    before = _paged_launches()
     out = pa.paged_attention(q, kp, vp, lens, table, window=window)
-    assert pa._kernel.launches == before + 1
+    assert _paged_delta(before) == _paged_one(dtype)
     ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window)
     assert _paged_err(out, ref) <= TOL[dtype]
 
@@ -310,9 +329,9 @@ def test_paged_kernel_splits(dev, case, dtype, pool, split, capsys):
                                       window=window, split_pages=split_pages,
                                       **kw)
 
-    before = pa._kernel.launches
+    before = _paged_launches()
     out = run()
-    assert pa._kernel.launches == before + 1
+    assert _paged_delta(before) == _paged_one(dtype)
     again = run()
     torch.cuda.synchronize()
     ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
@@ -324,6 +343,90 @@ def test_paged_kernel_splits(dev, case, dtype, pool, split, capsys):
         print(f"\n[paged] {case} {str(dtype)[6:]} {pool} split={split}: "
               f"err {err:.3e}, bit for bit {100 * same:.2f}%")
     assert err <= TOL[dtype]
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+def test_paged_f32_float64(dev, case, pool, capsys):
+    """The f32-q split-precision tiles against a float64 run of the plain
+    page walk (f32 pools widened) within 1e-5, where the plain f32 version
+    itself is off by its f32 dots' roundings (logged beside)."""
+    q, kp, vp, lens, table, kw, window = _paged_split_inputs(
+        case, torch.float32, pool, dev)
+    out = pa.paged_attention(q, kp, vp, lens, table, window=window, **kw)
+    wide = [t.double() if t.dtype == torch.float32 else t for t in (kp, vp)]
+    ref64 = pa.paged_attention_plain(q.double(), *wide, lens, table,
+                                     window=window, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
+    err, plain = _err(out, ref64), _err(ref, ref64)
+    with capsys.disabled():
+        print(f"\n[paged] {case} f32 q {pool}: vs float64 {err:.3e} "
+              f"(plain f32 {plain:.3e})")
+    assert err <= 1e-5
+
+
+# (where, value, slot): slot "live" = position 5 (every row of sequence 0
+# sees it), "masked" = position 101, past sequence 0's length 100 in the
+# last page its walk visits
+PAGED_NONFINITE = [(w, v, sl) for w in ("K", "V", "V scale")
+                   for v in (math.inf, -math.inf, math.nan)
+                   for sl in ("live", "masked")] + [
+    ("q", v, "live") for v in (math.inf, -math.inf, math.nan)]
+
+
+@pytest.mark.parametrize("rows", ["decode", "chunk40", "wave256"])
+@pytest.mark.parametrize("where,value,slot", PAGED_NONFINITE)
+def test_paged_f32_nonfinite(dev, where, value, slot, rows):
+    """f32 q with a +-inf or NaN in K or V (an f32 pool), in a V scale
+    (int8 and fp8 pools) or in q (an f32 and an int8 pool): the split tiles
+    give the plain page walk's NaN and inf positions exactly and its finite
+    values within 1e-4 (decode tile, the extend tile, and a wave of two
+    tiles with the poison pass).  The split's b0 keeps the inf and its
+    products with the other operand's b1, b2 read it zeroed, so 0 * inf
+    appears only where f32 makes it (C17)."""
+    chunk, hq, d = {"decode": (1, 4, 128), "chunk40": (40, 2, 64),
+                    "wave256": (256, 2, 32)}[rows]
+    b, hkv, page, pps = 2, 2, 16, 8 if rows != "wave256" else 24
+    g = torch.Generator(device=dev).manual_seed(22)
+    n_pages = b * pps + 1
+    table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
+    table = table.reshape(b, pps).int()
+    lens = torch.tensor([100, 60] if rows != "wave256" else [300, 256],
+                        device=dev)
+    q = torch.randn(b, chunk, hq, d, generator=g, device=dev)
+    pos = 5 if slot == "live" else int(lens[0]) + 1
+    pg, off = int(table[0, pos // page]), pos % page
+    pools = {"K": ["native"], "V": ["native"], "V scale": ["int8", "fp8"],
+             "q": ["native", "int8"]}[where]
+    for pool in pools:
+        kv = [torch.randn(hkv, n_pages, page, d, generator=g, device=dev)
+              for _ in range(2)]
+        kw = {}
+        q_ = q.clone()
+        if where == "q":
+            q_[0, 0, 1, 3] = value
+        if pool == "native":
+            kp, vp = kv
+            if where in ("K", "V"):
+                (kp if where == "K" else vp)[0, pg, off, 3] = value
+        else:
+            payload = torch.int8 if pool == "int8" else torch.float8_e4m3fn
+            kq, vq = (_quantize(t, payload) for t in kv)
+            kp, vp = kq.values, vq.values
+            kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+            if where == "V scale":
+                kw["v_scales"][0, pg, off] = value
+        before = _paged_launches()
+        out = pa.paged_attention(q_, kp, vp, lens, table, **kw)
+        assert _paged_delta(before) == (0, 1)
+        ref = pa.paged_attention_plain(q_, kp, vp, lens, table, **kw)
+        torch.cuda.synchronize()
+        for pick in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(pick(out), pick(ref)), pick.__name__
+        fin = ref.isfinite()
+        assert _err(out[fin], ref[fin]) <= TOL[torch.float32]
+        if not (where == "K" and slot == "masked"):
+            assert not bool(fin[0].all())
 
 
 def test_kernels_refuse_grad_and_bad_head_dim(dev):
@@ -650,9 +753,9 @@ def test_paged_kernel_quantized(dev, case, dtype, payload):
     if b > 2:
         lens = torch.cat([lens, torch.tensor([pps * page + 5], device=dev)])
     kw = dict(k_scales=kq.scales, v_scales=vq.scales, window=window)
-    before = pa._kernel.launches
+    before = _paged_launches()
     out = pa.paged_attention(q, kq.values, vq.values, lens, table, **kw)
-    assert pa._kernel.launches == before + 1
+    assert _paged_delta(before) == _paged_one(dtype)
     ref = pa.paged_attention_plain(q, kq.values, vq.values, lens, table,
                                    **kw)
     assert out.dtype == dtype and _paged_err(out, ref) <= TOL[dtype]
@@ -839,11 +942,11 @@ def test_quant_kernels_refuse_host_scales(dev):
     assert _kv8_counts() == before
     lens = torch.tensor([8, 5], device=dev)
     table = torch.tensor([[0], [1]], device=dev)
-    before = pa._kernel.launches
+    before = _paged_launches()
     with pytest.raises(ValueError):
         pa.paged_attention(q[:, :, 0], kq.values, kq.values, lens, table,
                            k_scales=host.scales, v_scales=host.scales)
-    assert pa._kernel.launches == before
+    assert _paged_launches() == before
     torch.cuda.synchronize()
 
 
@@ -1237,9 +1340,9 @@ def test_paged_verify_wave(dev, dtype, case):
     table = table.reshape(b, pps).int()
     q = _randn(g, b, k1, hq, d, dtype=dtype, dev=dev)
     lens = torch.tensor(bases, device=dev) + k1
-    before = pa._kernel.launches
+    before = _paged_launches()
     out = pa.paged_attention(q, kp, vp, lens, table)
-    assert pa._kernel.launches == before + 1
+    assert _paged_delta(before) == _paged_one(dtype)
     ref = pa.paged_attention_plain(q, kp, vp, lens, table)
     assert _paged_err(out, ref) <= TOL[dtype]
     # overwrite every position at or past each row's length
@@ -1285,7 +1388,7 @@ def test_rope_paged_paths_match_plain(dev):
     chunk = torch.randint(0, 64, (3, 3), generator=g)
     nxt = torch.randint(0, 64, (3, 1), generator=g)
     out = []
-    before = fa._kernel.launches, pa._kernel.launches
+    before = fa._kernel.launches, pa._f32_kernel.launches
     for model, d in ((card, dev), (host, torch.device("cpu"))):
         pools = model.init_page_pools(3 * pps + 1, page, device=d)
         t, ln = table.to(d), lens.to(d)
@@ -1297,7 +1400,7 @@ def test_rope_paged_paths_match_plain(dev):
                                                     ln + 3)
         out.append([x.cpu() for x in (pre, ext, dec)])
     assert fa._kernel.launches > before[0]          # the card's prefill
-    assert pa._kernel.launches >= before[1] + 4     # 2 layers x extend, decode
+    assert pa._f32_kernel.launches >= before[1] + 4   # 2 layers x extend, decode
     (pre, ext, dec), (pre_h, ext_h, dec_h) = out
     for r, n in enumerate(lens.tolist()[:2]):      # row 2 is idle
         assert _err(pre[r, :n], pre_h[r, :n]) <= 1e-4
@@ -1637,10 +1740,10 @@ def test_paged_kernel_c15_wide_wave(dev, wave, window, pool):
 @pytest.mark.parametrize("pool", POOLS)
 @pytest.mark.parametrize("window", [None, 256])
 def test_paged_kernel_c15_f32_q(dev, window, pool):
-    """f32 q at 128 rows: two of the FMA tile's 64-row tiles."""
+    """f32 q at 256 rows: two of the f32 extend tile's 128-row tiles."""
     g = torch.Generator(device=dev).manual_seed(16)
     q, kp, vp, lens, table, kw = c15_inputs(g, dev, torch.float32, pool,
-                                            128, 2, 2)
+                                            256, 2, 2)
     out = pa.paged_attention(q, kp, vp, lens, table, window=window, **kw)
     ref = pa.paged_attention_plain(q, kp, vp, lens, table, window=window, **kw)
     _c15_check(out, ref, torch.float32)
@@ -1886,6 +1989,7 @@ F32_CASES = {
     "op_graph_17x1000_d128": (2, 4, 2, 17, 1000, 128, False, None, None),
     "subrow_n1024_d128": (1, 4, 4, 1024, 1024, 128, True, None, None),
     "loop_n2048_d128": (2, 4, 4, 2048, 2048, 128, True, None, None),
+    "noncausal_n1024_d64": (2, 4, 2, 1024, 1024, 64, False, None, None),
     "grid_window256_n2048_d128": (1, 4, 4, 2048, 2048, 128, True, None, 256),
     "gqa16_4_n2048_d128": (1, 16, 4, 2048, 2048, 128, True, None, None),
     "varlen_len0_n1024_d128": (3, 2, 2, 1024, 1024, 128, True,
@@ -1953,6 +2057,67 @@ def test_flash_f32_split_kernels(dev, case, magnitude):
         assert _rel_err(a, b) <= F32_GRADE
     for a, b in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
         assert torch.equal(a, b)
+
+
+def _same_class_close(a, b, scale, what):
+    """NaN, +inf and -inf at the same places, the finite elements within
+    F32_GRADE * scale."""
+    for pick in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(pick(a), pick(b)), (what, pick.__name__)
+    fin = b.isfinite()
+    if bool(fin.any()):
+        assert _err(a[fin], b[fin]) <= F32_GRADE * scale, what
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("-inf")])
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("case", ["noncausal_n1024_d64", "cross_1000x2048_d128"])
+def test_flash_f32_split_inf_forward_backward(dev, case, where, value):
+    """The f32 split flash forward and backward (from F32_TC_MIN_KV keys)
+    with a +-inf in q, K, V or dO (element [0, 0, 5, 3]) against the
+    CUDA-core kernels (f32 arithmetic over the same 64-row, 64-key tiles)
+    and against the plain versions: the NaN and inf positions of o, lse,
+    dq, dk and dv equal, the finite elements within F32_GRADE (gradients
+    over max(1, max |ref|)).  A piece's 0 * inf gives NaN where f32 gives
+    +-inf (C17): a +-inf input takes the CUDA-core route.  Not causal: every query tile
+    meets every key tile, so the tiled walk and the plain versions' dense
+    products make their 0 * inf at the same places (a causal walk skips
+    tiles that the dense product multiplies by p = 0).  dv is held to the
+    plain version only where every lse is finite: the plain version zeroes
+    p on a row whose lse is not finite, where the kernels (as JAX's
+    backward kernels, p = exp2(s - lse)) give NaN (ROADMAP §C).  The
+    backward takes the forward's lse and di, as the autograd Function
+    does."""
+    q, k, v, do, lens, causal, window = _f32_inputs(case, dev)
+    {"q": q, "k": k, "v": v, "do": do}[where][0, 0, 5, 3] = value
+    sc = q.shape[-1] ** -0.5
+    kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
+
+    def run():
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        di = (o.float() * do.float()).sum(-1, keepdim=True)
+        return (o, lse, *fa.flash_bwd(q, k, v, lse, di, do, **kw)), di
+
+    before = fa._f32_kernel.launches, fa._f32_bwd_kernel.launches
+    got, di = run()
+    assert (fa._f32_kernel.launches, fa._f32_bwd_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    keep = fa.F32_TC_MIN_KV
+    fa.F32_TC_MIN_KV = 1 << 30   # the CUDA-core route on the same inputs
+    try:
+        core, _ = run()
+    finally:
+        fa.F32_TC_MIN_KV = keep
+    o, lse = got[:2]
+    plain = (*fa.flash_fwd_plain(q, k, v, causal, sc, lens, window),
+             *fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens, window))
+    for name, a, c, b in zip(("o", "lse", "dq", "dk", "dv"), got, core, plain):
+        fin = b[b.isfinite()]
+        scale = 1.0 if name in ("o", "lse") or fin.numel() == 0 else max(
+            1.0, float(fin.abs().max()))
+        _same_class_close(a, c, scale, f"{name} against the CUDA-core route")
+        if name != "dv" or bool(lse.isfinite().all()):
+            _same_class_close(a, b, scale, f"{name} against the plain version")
 
 
 @pytest.mark.parametrize("value", [float("inf"), float("nan")])

@@ -60,8 +60,10 @@ a process of its own that imports that root's package and this repo's
   page 128: decode over histories <= 2048 and <= 8192 with bf16, int8 and
   fp8 pools, chunk 64 and GQA group 4 over a bf16 pool at <= 2048 and an
   int8 pool at <= 8192, the 2048-row extend wave; B1 Hkv8 decode at 16384
-  positions), with the plain version (where the root has
-  ``paged_attention_plain``) and the bound beside;
+  positions), then f32 q (an f32 pool at <= 2048, int8 / fp8 at <= 8192,
+  B1 at 16384, chunk 64, GQA 4, window 256, the 2048-row wave), with the
+  plain version (where the root has ``paged_attention_plain``) and the
+  bound beside (f32 q: the split-precision bound);
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -470,7 +472,7 @@ def _softmax(torch, cs, dev):
             del x, dout, pre, out
 
 
-# (label, batch, q shape after the batch, chunk, q heads, histories, pool)
+# (label, q shape after the batch, chunk, q heads, histories, pool): bf16 q
 PAGED_SHAPES = [
     ("decode <= 2048", (8, 128), 1, 8, [2048, 1536, 1024, 517], "bf16"),
     ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "bf16"),
@@ -484,6 +486,20 @@ PAGED_SHAPES = [
     ("B1 decode 16384", (8, 128), 1, 8, [16384], "bf16"),
     ("B1 decode 16384", (8, 128), 1, 8, [16384], "int8"),
 ]
+# the f32-q lines (an f32 pool is in q's dtype), with a window
+PAGED_F32_SHAPES = [
+    ("decode <= 2048", (8, 128), 1, 8, [2048, 1536, 1024, 517], "f32", None),
+    ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "int8", None),
+    ("decode <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "fp8", None),
+    ("B1 decode 16384", (8, 128), 1, 8, [16384], "int8", None),
+    ("B1 decode 16384", (8, 128), 1, 8, [16384], "f32", None),
+    ("chunk 64 <= 8192", (64, 8, 128), 64, 8, [8192, 6144, 4096, 2053], "int8", None),
+    ("chunk 64 <= 8192", (64, 8, 128), 64, 8, [8192, 6144, 4096, 2053], "fp8", None),
+    ("GQA 4 <= 8192", (32, 128), 1, 32, [8192, 6144, 4096, 2053], "int8", None),
+    ("window 256 <= 8192", (8, 128), 1, 8, [8192, 6144, 4096, 2053], "int8", 256),
+    ("extend wave 2048", (2048, 8, 128), 2048, 8, [2048] * 4, "f32", None),
+    ("extend wave 2048", (2048, 8, 128), 2048, 8, [2048] * 4, "int8", None),
+]
 
 
 def _paged(torch, cs, dev):
@@ -492,32 +508,35 @@ def _paged(torch, cs, dev):
 
     plain = getattr(pa, "paged_attention_plain", None)
     g = torch.Generator(device=dev).manual_seed(0)
-    for label, q_shape, chunk, hq, lens, pool in PAGED_SHAPES:
+    lines = ([(*shape, None, torch.bfloat16) for shape in PAGED_SHAPES]
+             + [(*shape, torch.float32) for shape in PAGED_F32_SHAPES])
+    for label, q_shape, chunk, hq, lens, pool, window, dtype in lines:
         b = len(lens)
         pps = max(-(-n // 128) for n in lens)
         n_pages = b * pps + 1
         table = torch.randperm(n_pages, generator=g, device=dev)[:b * pps]
         table = table.reshape(b, pps).int()
         lens_t = torch.tensor(lens, device=dev)
-        q = torch.randn((b, *q_shape), generator=g, device=dev).to(torch.bfloat16)
+        q = torch.randn((b, *q_shape), generator=g, device=dev).to(dtype)
         kv = [torch.randn(8, n_pages, 128, 128, generator=g, device=dev)
               for _ in range(2)]
-        kw = {}
-        if pool == "bf16":
-            kp, vp = (t.to(torch.bfloat16) for t in kv)
+        kw = dict(window=window)
+        if pool in ("bf16", "f32"):
+            kp, vp = (t.to(dtype) for t in kv)
         else:
             quantize = qt.quantize_int8 if pool == "int8" else qt.quantize_fp8
             kq, vq = (quantize(t) for t in kv)
             kp, vp = kq.values, vq.values
-            kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+            kw.update(k_scales=kq.scales, v_scales=vq.scales)
         ms = cs.time_ms(lambda: pa.paged_attention(q, kp, vp, lens_t, table, **kw))
         plain_ms = (cs.time_ms(lambda: plain(q, kp, vp, lens_t, table, **kw))
                     if plain is not None else float("nan"))
-        bound = cs.bound_ms(*cs._paged_cost(q, chunk, hq, 8, lens_t,
-                                            quantized=pool != "bf16"),
-                            "bfloat16")[0]
-        print(f"[ab] paged {label} {pool} pool: ms {ms:.4f}, plain {plain_ms:.4f}, "
-              f"bound {bound:.4f}", flush=True)
+        cost = cs._paged_cost(q, chunk, hq, 8, lens_t, quantized=pool not in ("bf16", "f32"),
+                              window=window)
+        bound = cs.bound_ms(*cost[:2], "bfloat16")[0]
+        name = str(dtype).replace("torch.", "")
+        print(f"[ab] paged {name} q {label} {pool} pool: ms {ms:.4f}, plain "
+              f"{plain_ms:.4f}, bound {bound:.4f}", flush=True)
         del kv, kp, vp, kw
 
 

@@ -1,7 +1,7 @@
 """The f32 flash kernels on the card: split-precision tensor cores against the
 CUDA-core (FMA) kernels they replace above ``F32_TC_MIN_KV`` keys.
 
-    python3 tools/f32_flash_probe.py [--ptxas] [--check] [--time]
+    python3 tools/f32_flash_probe.py [--ptxas] [--check] [--time] [--diag] [--inf]
 
 * ``--ptxas``: compiles ``flash_fwd.cu`` and ``flash_bwd.cu`` with
   ``-Xptxas -v`` and prints the registers, spills and shared memory of
@@ -11,7 +11,10 @@ CUDA-core (FMA) kernels they replace above ``F32_TC_MIN_KV`` keys.
   each launch counted on the route's own counter;
 * ``--time``: device ms of the forward and backward of both routes, with
   SDPA's f32 call (and its backward) beside, from the MT model's 40 keys to
-  the train shape's 2048: the crossover behind ``F32_TC_MIN_KV``.
+  the train shape's 2048: the crossover behind ``F32_TC_MIN_KV``;
+* ``--inf``: both routes with a +-inf in q, K, V or dO against the plain
+  versions, the NaN / inf counts of o, lse, dq, dk and dv and where they
+  differ.
 
 The route is forced through ``F32_TC_MIN_KV`` (0: every shape on the tensor
 cores; a huge value: every shape on the FMA kernels).
@@ -20,6 +23,7 @@ cores; a huge value: every shape on the FMA kernels).
 from __future__ import annotations
 
 import argparse
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -180,12 +184,51 @@ def diag(torch, dev) -> None:
     fa.F32_TC_MIN_KV = keep_min
 
 
+def nonfinite(torch, dev) -> None:
+    """Both routes with a +-inf in q, K, V or dO (element [0, 0, 5, 3]) at
+    B2 H4 N2048 D128, not causal (every query tile meets every key tile, so
+    the kernels' tiled walk and the plain versions' dense products make
+    their 0 * inf at the same places): for o, lse, dq, dk and dv, the NaN /
+    +inf / -inf counts of the route and of the plain versions and the
+    elements whose class differs."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    keep = fa.F32_TC_MIN_KV
+    sc = 128 ** -0.5
+    for where in ("q", "k", "v", "do"):
+        for value in (math.inf, -math.inf):
+            g = torch.Generator(device=dev).manual_seed(12)
+            q, k, v, do = _inputs(torch, dev, g, 2, 4, 4, 2048, 2048, 128)
+            {"q": q, "k": k, "v": v, "do": do}[where][0, 0, 5, 3] = value
+            for route, min_kv in (("tc", 0), ("fma", 1 << 30)):
+                fa.F32_TC_MIN_KV = min_kv
+                o, lse = fa.flash_fwd(q, k, v, causal=False, sm_scale=sc)
+                di = (o.float() * do.float()).sum(-1, keepdim=True)
+                got = (o, lse, *fa.flash_bwd(q, k, v, lse, di, do, causal=False, sm_scale=sc))
+                want = (*fa.flash_fwd_plain(q, k, v, False, sc),
+                        *fa.flash_bwd_plain(q, k, v, lse, di, do, False, sc))
+                torch.cuda.synchronize()
+                parts = []
+                for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+                    cls = [(torch.isnan(t), torch.isposinf(t), torch.isneginf(t))
+                           for t in (a, b)]
+                    counts = "/".join(f"{int(x.sum())}:{int(y.sum())}"
+                                      for x, y in zip(*cls))
+                    differ = int(sum(((x != y).sum() for x, y in zip(*cls)), torch.tensor(0, device=dev)))
+                    fin = torch.isfinite(a) & torch.isfinite(b)
+                    err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+                    parts.append(f"{name} nan/+inf/-inf {counts} differ {differ} err {err:.2e}")
+                print(f"[inf] {where}={value} {route}: " + "; ".join(parts), flush=True)
+    fa.F32_TC_MIN_KV = keep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--diag", action="store_true")
+    ap.add_argument("--inf", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -206,6 +249,8 @@ def main() -> int:
         diag(torch, dev)
     if args.time:
         times(torch, dev)
+    if args.inf:
+        nonfinite(torch, dev)
     return 0
 
 
