@@ -24,11 +24,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and backward, tensor-core kernels, at head dims 32 / 64 / 128, n 517 /
    1000 / 3000, GQA 8/2 and 16/4, window 256, cross 1000 x 2048, a
    length-0 row, varlen; the loop schedule's forward and backward at B1 H2
-   N16384).  f32 flash from F32_TC_MIN_KV keys on runs the split-precision
-   tensor-core kernels, named flash_fwd_f32 / flash_bwd_f32 in the lines
-   and the kernels line (their main numbers: the train shape's f32 lines,
-   the loop schedule's function); below it the CUDA-core kernels, under
-   flash_fwd / flash_bwd.
+   N16384).  f32 flash runs on the tensor cores in split precision: from
+   F32_TC_MIN_KV keys on the wgmma kernels behind a split pass, named
+   flash_fwd_f32 / flash_bwd_f32 in the lines and the kernels line (their
+   main numbers: the train shape's f32 lines, the loop schedule's
+   function); below it the warp-level kernels, flash_fwd_f32_mma /
+   flash_bwd_f32_mma (their main numbers: the MT decoder's f32 lines),
+   also at the distill draft's B16 H2 128 x 128 d64; then a +-inf in q,
+   K, V or dO at 40 and 2048 keys (C17: the outputs' NaN / inf classes
+   equal the plain versions', and at 2048 keys the wgmma route's call is
+   the warp-level kernels' bit for bit).
    The bf16 flash forward (each schedule's function and the op graph) and
    the op graph's backward: at least 99% of the elements bit for bit, the
    rest within one bf16 ulp of their row's largest, lse within 1e-5; at
@@ -65,7 +70,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    step in f32 (no mixed-precision wrapper), where every attention takes
    the loop schedule's function: losses finite and falling, flash_fwd_f32,
    flash_bwd_f32, LayerNorm and dropout launched in every step and the
-   CUDA-core flash kernels in none; ms/step, the peak and a profiled step
+   bf16 and warp-level flash kernels in none; ms/step, the peak and a profiled step
    with the attention's share of the device time.
 7. train consistency: E1024 H8 M4096 L2 V16384, B2 x 1024, f32: one
    lm_loss backward on the card against the same on a CPU copy (the plain
@@ -337,11 +342,12 @@ QUANT_F32_GATE_NEW = 16
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
                  "dropout")
 # the same step in f32 (no mixed-precision wrapper): every attention takes
-# the loop schedule's function on the split-precision kernels, and the
-# CUDA-core f32 kernels none
+# the loop schedule's function on the wgmma split-precision kernels, and
+# the bf16 and warp-level (short-walk) flash kernels none
 TRAIN_F32_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd_f32",
                      "flash_bwd_f32", "dropout")
-TRAIN_F32_ABSENT = ("flash_fwd", "flash_bwd")
+TRAIN_F32_ABSENT = ("flash_fwd", "flash_bwd", "flash_fwd_f32_mma",
+                    "flash_bwd_f32_mma")
 # the same training step through attn_impl="fused_softmax": the softmax
 # kernels replace flash, which must not launch
 TRAIN_FUSED = dict(TRAIN, attn_impl="fused_softmax")
@@ -389,6 +395,8 @@ MT_LEN, MT_BATCH, MT_SPD, MT_STEPS = 40, 128, 8, 64
 MT_LR, MT_SAMPLES, MT_SEED = 0.002, 20000, 11111
 MT_GEN_BATCH = 32                     # the app's generation batch
 MT_CONSIST_BATCH = 32
+# the MT step's kernels in bf16-mixed; in f32 the flash pair's names take
+# the f32 route's suffix (_f32_suffix: at 40 keys the warp-level kernels)
 MT_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd", "flash_bwd",
               "dropout")
 MG_KERNELS = ("layernorm_fwd", "flash_fwd")
@@ -644,20 +652,36 @@ def _live_pairs(n_q, n_kv, causal, window, lens, b):
     return total
 
 
-def _f32_tc(q, k) -> bool:
-    """Whether an f32 flash call runs the split-precision tensor-core
-    kernels (``flash_fwd_f32``, ``flash_bwd_f32``)."""
+def _f32_suffix(n_kv: int) -> str:
+    """The kernels-line suffix of an f32 flash call over ``n_kv`` keys:
+    "_f32" on the wgmma split-precision kernels (``flash_fwd_f32``,
+    ``flash_bwd_f32``), "_f32_mma" on the warp-level ones; an older package
+    (tools/ab_chip_smoke.py's parent root) ran CUDA-core kernels below its
+    threshold, counted with bf16's ("")."""
     from flashattn_tpu_torch.ops import flash_attention as fa
 
     min_kv = getattr(fa, "F32_TC_MIN_KV", None)   # None: an older package
-    return (min_kv is not None and str(q.dtype) == "torch.float32"
-            and k.shape[2] >= min_kv)
+    if hasattr(fa, "f32_route"):
+        return "_f32" if fa.f32_route(n_kv) == "wgmma" else "_f32_mma"
+    return "_f32" if min_kv is not None and n_kv >= min_kv else ""
+
+
+def _suffixed(names, suffix):
+    """``names`` with the flash kernels' names given an f32 route's suffix."""
+    return tuple(n + suffix if n.startswith("flash_") else n for n in names)
+
+
+def _f32_tc(q, k) -> bool:
+    """Whether an f32 flash call runs on the tensor cores in split
+    precision (either route; an older package's CUDA-core kernels not)."""
+    return str(q.dtype) == "torch.float32" and _f32_suffix(k.shape[2]) != ""
 
 
 def _flash_name(kernel, q, k) -> str:
-    """The kernels-line name of a flash call's kernel: ``kernel`` + "_f32"
-    where the split-precision kernels run."""
-    return kernel + "_f32" if _f32_tc(q, k) else kernel
+    """The kernels-line name of a flash call's kernel: ``kernel`` plus the
+    f32 route's suffix (_f32_suffix)."""
+    return kernel + (_f32_suffix(k.shape[2]) if str(q.dtype) == "torch.float32"
+                     else "")
 
 
 def _flash_cost(q, k, causal, window, lens, backward=False):
@@ -1234,20 +1258,40 @@ def mt_kernel_phases(torch, dev, ph: Phases, randn):
             assert fa._schedule(q, k, causal, None, kv_lens is not None
                                 ).name == "op_graph"
             lib, args = _sdpa(torch, q, k, v, causal, None, kv_lens)
-            ph.check("flash_fwd", f"MT {label} B128 H8 D32", dtype,
+            # the f32 warp-level kernels' main numbers: the decoder's
+            main = dtype == torch.float32 and label.startswith("decoder")
+            ph.check(_flash_name("flash_fwd", q, k), f"MT {label} B128 H8 D32",
+                     dtype,
                      lambda: fa.flash_fwd(q, k, v, causal=causal,
                                           sm_scale=d ** -0.5,
                                           kv_lengths=kv_lens),
                      lambda: fa.flash_fwd_plain(q, k, v, causal, d ** -0.5,
                                                 kv_lens),
-                     _flash_cost(q, k, causal, None, kv_lens),
+                     _flash_cost(q, k, causal, None, kv_lens), main=main,
                      **_flash_gate(dtype, f"flash_fwd MT {label}"),
                      library=lambda: lib(*args))
             if bwd:
                 do = randn(b, h, n_q, d, dtype=dtype)
                 _flash_bwd_check(torch, ph, fa, f"MT {label} B128 H8 D32",
-                                 dtype, q, k, v, do, causal, None, kv_lens)
+                                 dtype, q, k, v, do, causal, None, kv_lens,
+                                 main=main)
             del q, k, v, lib, args
+
+    # the f32 distill draft's attention (DISTILL_BATCH x 2 heads of 64 over
+    # DISTILL_SEQ keys, causal), forward and backward
+    q, k, v, do = (randn(DISTILL_BATCH, 2, DISTILL_SEQ, 64, dtype=torch.float32)
+                   for _ in range(4))
+    lib, args = _sdpa(torch, q, k, v, True, None, None)
+    label = f"distill B{DISTILL_BATCH} H2 {DISTILL_SEQ}x{DISTILL_SEQ} causal D64"
+    ph.check(_flash_name("flash_fwd", q, k), label, torch.float32,
+             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=64 ** -0.5),
+             lambda: fa.flash_fwd_plain(q, k, v, True, 64 ** -0.5),
+             _flash_cost(q, k, True, None, None),
+             **_flash_gate(torch.float32, f"flash_fwd {label}"),
+             library=lambda: lib(*args))
+    _flash_bwd_check(torch, ph, fa, label, torch.float32, q, k, v, do, True,
+                     None, None)
+    del q, k, v, do, lib, args
 
     # the bf16 kernels at their tiles' edges: keys 1, 127, 129 and 1023
     # (one key tile, then the two-pass walk), rows 1, 17, 40 and 128, GQA
@@ -1281,6 +1325,94 @@ def mt_kernel_phases(torch, dev, ph: Phases, randn):
         _flash_bwd_check(torch, ph, fa, f"op graph {label}", bf, q, k, v, do,
                          causal, window, lens)
         del q, k, v, do, lib, args
+
+
+def f32_nonfinite_phases(torch, dev) -> None:
+    """C17 on the card: a +-inf in q, K, V or dO (element [0, 0, 5, 3])
+    of an f32 flash call, not causal (every row's walk reads every key, as
+    the plain versions' dense products do), at the MT model's 40 keys
+    (B128 H8 d32: the warp-level kernels directly) and at 2048 keys (B2 H4
+    d128: the wgmma route, whose split pass flags the inf; the warp-level
+    kernels launched behind it compute the call).  Gates: the NaN / +inf /
+    -inf positions of o, lse, dq, dk and dv equal the plain versions' (the
+    TPU kernels' explicit formulas for the backward, fa._reference_bwd; dv
+    only where every lse is finite: the plain version zeroes p on such a
+    row, the kernels give NaN, ROADMAP C), the finite elements within 1e-4
+    (gradients over max(1, max |ref|)); each call on its route's counter;
+    at 2048 keys every output bit for bit the warp-level kernels' own (the
+    route forced by the threshold, the backward given the same lse and di;
+    with dO's +-inf the backward's alone): the same kernels computed it."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa._f32_kernel, fa._f32_bwd_kernel, fa._f32_mma_kernel,
+                fa._f32_mma_bwd_kernel)
+    for label, (b, h, n, d) in (("40 keys B128 H8 D32", (128, 8, 40, 32)),
+                                ("2048 keys B2 H4 D128", (2, 4, 2048, 128))):
+        want_delta = [0, 0, 1, 1] if fa.f32_route(n) == "mma" else [1, 1, 0, 0]
+        worst, cases = 0.0, 0
+        for where in ("q", "k", "v", "do"):
+            for value in (math.inf, -math.inf):
+                g = torch.Generator(device=dev).manual_seed(SEED + 17)
+                q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=dev)
+                               for _ in range(4))
+                {"q": q, "k": k, "v": v, "do": do}[where][0, 0, 5, 3] = value
+                sc = d ** -0.5
+
+                def run(lse=None, di=None):
+                    o, lse_ = fa.flash_fwd(q, k, v, causal=False, sm_scale=sc)
+                    if lse is None:
+                        lse, di = lse_, (o * do).sum(-1, keepdim=True)
+                    return (o, lse_, *fa.flash_bwd(q, k, v, lse, di, do, causal=False,
+                                                   sm_scale=sc)), di
+
+                before = [c.launches for c in counters]
+                got, di = run()
+                delta = [c.launches - x for c, x in zip(counters, before)]
+                if delta != want_delta:
+                    raise AssertionError(f"f32 +-inf {label}: launches {delta}, "
+                                         f"want {want_delta}")
+                if fa.f32_route(n) == "wgmma":
+                    keep = fa.F32_TC_MIN_KV
+                    fa.F32_TC_MIN_KV = 1 << 30
+                    try:
+                        forced, _ = run(got[1], di)
+                    finally:
+                        fa.F32_TC_MIN_KV = keep
+                    # dO's +-inf reaches the backward alone
+                    same = ("o", "lse") * (where != "do") + ("dq", "dk", "dv")
+                    for name, a, c in zip(("o", "lse", "dq", "dk", "dv"), got, forced):
+                        if name in same and not torch.equal(a.view(torch.int32),
+                                                            c.view(torch.int32)):
+                            raise AssertionError(
+                                f"f32 +-inf {label} {where}={value}: {name} is not "
+                                f"the warp-level kernels' bit for bit")
+                lse = got[1]
+                plain = (*fa.flash_fwd_plain(q, k, v, False, sc),
+                         *fa._reference_bwd(q, k, v, lse, di, do, False, sc))
+                for name, a, c in zip(("o", "lse", "dq", "dk", "dv"), got, plain):
+                    if name == "dv" and not bool(lse.isfinite().all()):
+                        continue
+                    for pick in (torch.isnan, torch.isposinf, torch.isneginf):
+                        if not torch.equal(pick(a), pick(c)):
+                            raise AssertionError(
+                                f"f32 +-inf {label} {where}={value}: {name}'s "
+                                f"{pick.__name__} positions differ from the plain "
+                                f"version's ({int((pick(a) != pick(c)).sum())})")
+                    fin = c.isfinite()
+                    if bool(fin.any()):
+                        scale = 1.0 if name in ("o", "lse") else max(
+                            1.0, float(c[fin].abs().max()))
+                        worst = max(worst, _abs_err(a[fin], c[fin]) / scale)
+                cases += 1
+                del q, k, v, do, got, plain
+        log(f"[kernel] f32 flash +-inf {label} ({fa.f32_route(n)} route): "
+            f"{cases} cases (q, K, V, dO x +-inf), NaN / inf positions equal to "
+            f"the plain versions', finite elements within {worst:.3e} (gate 1e-4)"
+            + ("; every output the warp-level kernels' bit for bit"
+               if fa.f32_route(n) == "wgmma" else ""))
+        if not worst <= 1e-4:
+            raise AssertionError(f"f32 +-inf {label}: finite elements off by {worst}")
+    torch.cuda.empty_cache()
 
 
 def _quant_bits_err(got, want):
@@ -1833,6 +1965,7 @@ def kernel_phases(torch, dev) -> Phases:
     torch.cuda.empty_cache()
     mt_kernel_phases(torch, dev, ph, randn)
     torch.cuda.empty_cache()
+    f32_nonfinite_phases(torch, dev)
     return ph
 
 
@@ -1848,6 +1981,9 @@ def kernel_counters():
     # split-precision f32 kernels
     f32 = ({"flash_fwd_f32": fa._f32_kernel, "flash_bwd_f32": fa._f32_bwd_kernel}
            if hasattr(fa, "_f32_kernel") else {})
+    if hasattr(fa, "_f32_mma_kernel"):
+        f32.update(flash_fwd_f32_mma=fa._f32_mma_kernel,
+                   flash_bwd_f32_mma=fa._f32_mma_bwd_kernel)
     if hasattr(qt, "_wo_f32_kernel"):
         f32.update(wo_matmul_f32=qt._wo_f32_kernel, kv8_flash_f32=qt._kv8_f32_kernel)
     if hasattr(pa, "_f32_kernel"):
@@ -2894,9 +3030,9 @@ def distill_phase(torch, model_f32, dev) -> dict:
     opt = pt.Adam(1e-3)
     state = opt.init(draft)
     scan = pt.make_train_scan(opt, pt.make_distill_loss(), grad_clip=1.0)
-    # the f32 draft's attention: split precision from F32_TC_MIN_KV keys
-    draft_flash = (("flash_fwd_f32", "flash_bwd_f32")
-                   if DISTILL_SEQ >= fa.F32_TC_MIN_KV else ("flash_fwd", "flash_bwd"))
+    # the f32 draft's attention at DISTILL_SEQ keys (the warp-level kernels)
+    f32 = _f32_suffix(DISTILL_SEQ)
+    draft_flash = ("flash_fwd" + f32, "flash_bwd" + f32)
     with _Launches(TRAIN_KERNELS + draft_flash) as run:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3012,7 +3148,8 @@ def seq2seq_train_phase(torch, dev, power: str, data, mixed: bool = False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, times, n_tok = [], [], 0
-    with _Launches(MT_KERNELS) as run:
+    f32 = "" if mixed else _f32_suffix(MT_LEN)
+    with _Launches(_suffixed(MT_KERNELS, f32)) as run:
         for i in range(0, MT_STEPS, MT_SPD):
             t0 = time.perf_counter()
             model, state, gen, chunk, n = tr._dispatch_chunk(
@@ -3102,7 +3239,7 @@ def seq2seq_generate_phase(torch, dev, model, data) -> dict:
     src, lens = _mt_sources(torch, dev, data)
     bos, eos = tok.vocab["<eos_de>"], tok.vocab["<eos_en>"]
     model.eval()
-    with _Launches(MG_KERNELS) as run:
+    with _Launches(_suffixed(MG_KERNELS, _f32_suffix(MT_LEN))) as run:
         out = greedy_generate_seq2seq(model, src, lens, MT_LEN, bos, eos)
     with torch.inference_mode():
         tgt = torch.full((src.shape[0], 1), bos, device=dev)
@@ -3583,7 +3720,7 @@ def _pipeline_check(torch, dev, power: str) -> dict:
     # f32 at PIPE_SEQ keys: the split-precision flash kernels
     from flashattn_tpu_torch.ops import flash_attention as fa
 
-    f32 = "_f32" if PIPE_SEQ >= fa.F32_TC_MIN_KV else ""
+    f32 = _f32_suffix(PIPE_SEQ)
     counters = {n: k for n, k in kernel_counters().items()
                 if n in ("layernorm_fwd", "flash_fwd" + f32, "layernorm_bwd",
                          "flash_bwd" + f32)}
@@ -3687,6 +3824,20 @@ SOURCES = {
                        "flashattn_tpu/ops/flash_attention.py:874",
                        "flashattn_tpu/ops/flash_attention.py:1320",
                        "flashattn_tpu/ops/flash_attention.py:1416"]),
+    # the f32 function of every schedule below F32_TC_MIN_KV keys (where
+    # JAX runs its op graph) and of a +-inf call at any length: the grid
+    # kernels' first
+    "flash_fwd_f32_mma": ("flashattn_tpu_torch/csrc/flash_fwd.cu",
+                          ["flashattn_tpu/ops/flash_attention.py:79",
+                           "flashattn_tpu/ops/flash_attention.py:627",
+                           "flashattn_tpu/ops/flash_attention.py:551",
+                           "flashattn_tpu/ops/flash_attention.py:327"]),
+    "flash_bwd_f32_mma": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+                          ["flashattn_tpu/ops/flash_attention.py:1320",
+                           "flashattn_tpu/ops/flash_attention.py:1416",
+                           "flashattn_tpu/ops/flash_attention.py:874",
+                           "flashattn_tpu/ops/flash_attention.py:999",
+                           "flashattn_tpu/ops/flash_attention.py:1086"]),
     "paged_attention": ("flashattn_tpu_torch/csrc/paged_attention.cu",
                         ["flashattn_tpu/ops/paged_attention.py:119",
                          "flashattn_tpu/ops/paged_attention.py:34"]),

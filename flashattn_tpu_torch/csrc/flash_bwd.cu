@@ -75,11 +75,25 @@
 // tile's products, one S and P, the other dP and dS, and trade P and dS
 // through shared memory under named barriers, so that one's exponentials
 // and splits run beside the other's wgmmas.  The pair stays deterministic:
-// no atomics, no sum across blocks.  Below F32_TC_MIN_KV keys the
-// CUDA-core (FMA) kernels below stay, bound by FP32 instruction throughput
-// and shared-memory reads: a block owns 64 keys or 64 query rows and
-// stages its tiles as f32.
-//
+// no atomics, no sum across blocks.  Below F32_TC_MIN_KV keys (the MT
+// model's 40, the distill draft's 128) the warp-level pair runs, sized to
+// the rows as the bf16 op graph's Ob pair: flash_bwd_dkv_f32_mma_kernel
+// (key-major) and flash_bwd_dq_f32_mma_kernel (query-major), warps of 16
+// keys or rows on mma.sync m16n8k16, blocks of up to four warps, Q, K, V
+// and dO read once as f32 (no split pass in device memory) and split once
+// a tile into bf16 planes in shared memory; each score-shaped product is
+// six mma.sync products, S in the forward kernel's order (so that p is the
+// forward's bit for bit), P and dS split in registers.  Below
+// MMA_DS_MAX_KV keys (ops/flash_attention.py) the dK/dV kernel leaves dS in
+// a scratch (b h n_q n_kv floats) and the dQ kernel
+// (flash_bwd_dq_ds_f32_mma_kernel) reads it: five products a pair where
+// recomputing S and dP takes seven; longer walks (a +-inf call of the
+// wgmma route) recompute them.  A non-finite
+// b0 meets the other operand's lower pieces as its finite part, so these
+// kernels also compute every split-precision call whose inputs hold a
+// +-inf (C17): the split pass flags it, the wgmma kernels exit and the
+// warp-level pair, launched behind them, runs where the flag is set.
+
 // The op graph's backward in bf16 (op_graph = 1): with s = q . k sm_scale,
 // e = exp(s - m), l = sum e and p = e / l, autodiff (torch autograd's
 // order, which matches JAX's) gives per pair
@@ -95,7 +109,7 @@
 // (m, l, r) and dQ in one walk, from registers where one 64-key tile holds
 // the walk, else in three passes, and leaves (m, l, r) in ops; the dK/dV
 // kernel (key-major) reads them.  No sum crosses blocks.  The products are
-// bf16 x bf16 into f32 as the CUDA-core kernels computed them; ds is f32
+// bf16 x bf16 into f32, exact, summed in f32; ds is f32
 // and unrounded, so it enters dQ += dS K and dK += dS^T Q as three bf16
 // parts (hi, the remainder's hi, its remainder: 24 bits, an f32's), each
 // an mma.  Bound: nine score-shaped products a live pair (S and dP in both
@@ -104,311 +118,579 @@
 // exp and IEEE divisions; at the MT shapes the bytes and the two launches'
 // latency.
 
-#include "attn_core.cuh"
+#include "attn_util.cuh"
 #include "hopper.cuh"
 #include "split.cuh"
 
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BT = 64;                // rows of a query tile and of a key tile
-constexpr int RG = 16, CG = 16;       // thread grid over a 64 x 64 tile
-constexpr int NT = RG * CG;
-constexpr int TR = BT / RG;           // tile rows per thread
-constexpr int TC = BT / CG;           // tile columns per thread
-constexpr int PS = BT + 4;            // padded stride of a 64 x 64 tile
-
-template <int D> constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (4 * size_t(BT) * (D + 4) + 2 * size_t(BT) * PS + 3 * size_t(BT));
-}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Stage rows [row0, row0 + BT) of a (n, D) row-major matrix as f32 with
-// stride D + 4; rows at or past n read as 0.
-template <typename T, int D>
-__device__ void stage(float* dst, const T* src, int row0, int n) {
-  constexpr int DS = D + 4;
-  for (int i = threadIdx.x; i < BT * D / 4; i += NT) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n) v = fa::load4(src + size_t(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * DS + c) = v;
-  }
-}
+// -- f32: the warp-level split-precision kernels -------------------------------
 
-// acc[i][j] = sum_d a[rg + RG i][d] * b[cg + CG j][d] over two staged tiles.
 template <int D>
-__device__ __forceinline__ void dot_tile(const float* a, const float* b,
-                                         float (&acc)[TR][TC]) {
-  constexpr int DS = D + 4;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int dd = 0; dd < D; dd += 4) {
-    float4 av[TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (rg + RG * i) * DS + dd);
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const float4 bv = *reinterpret_cast<const float4*>(b + (cg + CG * j) * DS + dd);
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-        acc[i][j] += av[i].x * bv.x + av[i].y * bv.y + av[i].z * bv.z + av[i].w * bv.w;
-    }
+struct Mb {
+  // warps (of 16 rows or keys) a block: at d 128 the dQ kernel's resident
+  // Q and dO planes take the shared memory of two warps' rows only
+  static constexpr int DKV_WARPS = 4, DQ_WARPS = D == 128 ? 2 : 4;
+  // keys of a dQ kernel's tile and query rows of a dK/dV kernel's: the
+  // wider the head, the narrower the tile, so that S, dP and the gradients
+  // stay in registers (dK and dV take 128 a thread at d 128)
+  static constexpr int BN = D == 32 ? 48 : D == 64 ? 32 : 16;
+  static constexpr int BQ = D == 32 ? 64 : D == 64 ? 32 : 16;
+  static constexpr int ND = D / 8, NP = sp::NP;
+  static constexpr int ROW = D * 2 + 16, FROW = D * 4 + 16;
+  // the planes of two resident operands of `rows` rows and two streamed
+  // ones of `tile_rows`, and (a walk of more than one tile) the streamed
+  // ones staged as f32
+  static constexpr size_t smem(int rows, int tile_rows, bool staged) {
+    return size_t(NP) * (2 * rows + 2 * tile_rows) * ROW +
+           (staged ? size_t(2 * tile_rows) * FROW : 0);
   }
-}
+};
 
-// acc[i][e] += sum_t p[rg + RG i][t] * m[t][cg + CG e]: a 64 x 64 tile
-// (stride PS) times a staged (64, D) tile.
-template <int D>
-__device__ __forceinline__ void tile_times(const float* p, const float* m,
-                                           float (&acc)[TR][D / CG]) {
-  constexpr int DS = D + 4;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-#pragma unroll 4
-  for (int t = 0; t < BT; ++t) {
-    float pr[TR];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) pr[i] = p[(rg + RG * i) * PS + t];
-#pragma unroll
-    for (int e = 0; e < D / CG; ++e) {
-      const float mv = m[t * DS + cg + CG * e];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) acc[i][e] += pr[i] * mv;
-    }
-  }
-}
-
-// p and ds of one (row R, key c) pair from the row's statistics st (lse
-// log2(e), then di at st[BT]), in base 2: p = exp2(s sm_scale log2(e) -
-// lse2), ds = p (dp - di) sm_scale; p = 0 outside R's live interval.
-__device__ __forceinline__ void prob(float s, float dp, int R, int c, int n_q, int kv_len,
-                                     int causal, int window, float scale_log2, float sm_scale,
-                                     const float* st, float& p, float& ds) {
-  int lo, hi;
-  fa::dense_bounds(R, kv_len, causal, window, lo, hi);
-  const bool live = R < n_q && c >= lo && c < hi;
-  p = live ? exp2f(s * scale_log2 - st[0]) : 0.f;
-  ds = p * (dp - st[BT]) * sm_scale;
-}
-
-// Per-row statistics of a query tile into st (two arrays of BT): lse in
-// base 2 and di; 0 past n_q.
-__device__ __forceinline__ void stage_stats(float* st, const float* lse, const float* di,
-                                            int row0, int n_q) {
-  for (int i = threadIdx.x; i < BT; i += NT) {
-    const int R = row0 + i;
-    const bool in = R < n_q;
-    st[i] = in ? lse[R] * LOG2E : 0.f;
-    st[BT + i] = in ? di[R] : 0.f;
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* dst, const float (&acc)[TR][D / CG],
-                                           int row0, int n) {
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = row0 + rg + RG * i;
-    if (r >= n) continue;
-#pragma unroll
-    for (int e = 0; e < D / CG; ++e) fa::store1(dst + size_t(r) * D + cg + CG * e, acc[i][e]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     const int* __restrict__ kv_lengths, T* __restrict__ dk,
-                     T* __restrict__ dv, int h, int h_kv, int n_q, int n_kv,
-                     int causal, int window, float sm_scale, const int* __restrict__ gate) {
+// dQ in f32, query-major, the TPU kernels' formulas from (lse, di): a
+// block of W warps (W = min(4, cdiv(n_q, 16)); two at d 128) owns 16 W
+// query rows of one (batch, head), their Q (scaled by scale_log2, as the
+// forward's) and dO resident as bf16 planes, and walks the key tiles of 8
+// NJ keys (the forward's) its rows see (K and V staged as f32 by cp.async,
+// the next tile loading behind this one's products, and split once a tile
+// into planes).  Per tile a warp computes S (sp::tile_product, the
+// forward's S bit for bit: p = exp2(s - lse log2(e)) is the forward's
+// probability), dP = dO V^T, then dS = p (dP - di) sm_scale and dQ += dS K.
+template <int D, int NJ>
+__global__ void __launch_bounds__(Mb<D>::DQ_WARPS * 32)
+flash_bwd_dq_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ di,
+                            const int* __restrict__ kv_lengths, const int* __restrict__ gate,
+                            float* __restrict__ dq, int h, int h_kv, int n_q, int n_kv, int causal,
+                            int window, float sm_scale, float scale_log2) {
   if (gate != nullptr && *gate == 0) return;
-  constexpr int DS = D + 4, CPT = D / CG;
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + BT * DS;
-  float* q_s = v_s + BT * DS;
-  float* do_s = q_s + BT * DS;
-  float* p_s = do_s + BT * DS;
-  float* ds_s = p_s + BT * PS;
-  float* st_s = ds_s + BT * PS;
-
-  const int bk = blockIdx.x;                    // b * h_kv + kv head
-  const int b = bk / h_kv, hk = bk % h_kv;
-  const int group = h / h_kv;
-  const int kt = blockIdx.y * BT;
+  using C = Mb<D>;
+  constexpr int TK = 8 * NJ, ND = C::ND, NP = C::NP, FROW = C::FROW, ROW = C::ROW;
+  constexpr int tile_rows = TK;
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int bm = 16 * warps;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * bm;   // the longest walks first
+  const int n_rows = min(bm, n_q - row0);
+  const float* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const float* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  const float scale_log2 = sm_scale * LOG2E;
 
-  const size_t kv_off = size_t(bk) * n_kv * D;
-  stage<T, D>(k_s, k + kv_off, kt, n_kv);
-  stage<T, D>(v_s, v + kv_off, kt, n_kv);
+  int b_lo, b_hi, lo_, hi_;
+  fa::dense_bounds(row0, kv_len, causal, window, b_lo, hi_);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, lo_, b_hi);
+  const int start = b_hi > b_lo ? b_lo / TK * TK : 0, end = b_hi > b_lo ? b_hi : 0;
+  const int n_tiles = (end - start + TK - 1) / TK;
+  uint8_t* q_pl = mma_smem;
+  uint8_t* do_pl = q_pl + NP * bm * ROW;
+  uint8_t* k_pl = do_pl + NP * bm * ROW;
+  uint8_t* v_pl = k_pl + NP * tile_rows * ROW;
+  uint8_t* kv_f32 = v_pl + NP * tile_rows * ROW;   // a later K tile, then its V tile
+  const int q_plane = bm * ROW, kv_plane = tile_rows * ROW;
+  auto load_kv = [&](int i) {
+    const int kt = start + i * TK;
+    hop::load_rows_padded<D * 4>(kv_f32, kp + size_t(kt) * D, kp, n_kv - kt, TK);
+    hop::load_rows_padded<D * 4>(kv_f32 + TK * FROW, vp + size_t(kt) * D, vp, n_kv - kt, TK);
+  };
+  const size_t q_off = (size_t(bh) * n_q + row0) * D;
+  if (n_tiles > 1) load_kv(1);
+  hop::cp_async_commit();
+  {
+    const int kv_valid = n_tiles > 0 ? n_kv - start : 0;
+    const sp::RowsJob jobs[4] = {
+        {q + q_off, n_rows, bm, q_pl, q_plane, scale_log2},
+        {dout + q_off, n_rows, bm, do_pl, q_plane, 1.f},
+        {kp + size_t(start) * D, kv_valid, TK, k_pl, kv_plane, 1.f},
+        {vp + size_t(start) * D, kv_valid, TK, v_pl, kv_plane, 1.f}};
+    sp::split_rows_ldg<D>(jobs);
+  }
 
-  float dk_acc[TR][CPT], dv_acc[TR][CPT];
+  const int wr0 = 16 * warp;
+  const bool live_warp = wr0 < n_rows;
+  int lo[2], hi[2], w_lo = 0, w_hi = 0, all_lo = 0, all_hi = 0;
+  float lse2[2], di_r[2];
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr0 + g + 8 * hh;
+    lo[hh] = hi[hh] = 0;
+    lse2[hh] = di_r[hh] = 0.f;
+    if (r < n_rows) {
+      fa::dense_bounds(row0 + r, kv_len, causal, window, lo[hh], hi[hh]);
+      lse2[hh] = lse[size_t(bh) * n_q + row0 + r] * LOG2E;
+      di_r[hh] = di[size_t(bh) * n_q + row0 + r];
+    }
+  }
+  if (live_warp) {
+    fa::dense_bounds(row0 + wr0, kv_len, causal, window, w_lo, all_hi);
+    fa::dense_bounds(row0 + min(wr0 + 15, n_rows - 1), kv_len, causal, window, all_lo, w_hi);
+    if (w_hi <= w_lo) w_lo = w_hi = 0;
+  }
 
-  // Query rows that can see a key of this tile: R >= kt when causal,
-  // R < kt + BT - 1 + window with a window, none when the tile lies past
-  // the valid keys.  The exact mask is applied per pair below.
-  const int r_lo = causal ? kt : 0;
-  int r_hi = window > 0 ? min(n_q, kt + BT - 1 + window) : n_q;
-  if (kt >= kv_len) r_hi = 0;
-
-  for (int g = 0; g < group; ++g) {
-    const size_t bh = size_t(b) * h + hk * group + g;
-    const T* qh = q + bh * n_q * D;
-    const T* doh = dout + bh * n_q * D;
-    for (int qt = (r_lo / BT) * BT; qt < r_hi; qt += BT) {
-      __syncthreads();  // the previous tile's readers are done
-      stage<T, D>(q_s, qh, qt, n_q);
-      stage<T, D>(do_s, doh, qt, n_q);
-      stage_stats(st_s, lse + bh * n_q, di + bh * n_q, qt, n_q);
-      __syncthreads();
-
-      float s[TR][TC], dp[TR][TC];
-      dot_tile<D>(k_s, q_s, s);                 // s^T: keys x queries
-      dot_tile<D>(v_s, do_s, dp);               // dp^T
+  float acc[ND][4];
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  __syncthreads();   // the resident planes and tile 0's are written
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i > 0) {
+      hop::cp_async_wait<0>();
+      __syncthreads();   // tile i has landed; every warp is done with the last tile's planes
+      sp::split_rows<D>(k_pl, kv_plane, kv_f32, TK, 1.f);
+      sp::split_rows<D>(v_pl, kv_plane, kv_f32 + TK * FROW, TK, 1.f);
+      __syncthreads();   // the planes are written; the staged tile is free
+      if (i + 1 < n_tiles) load_kv(i + 1);
+      hop::cp_async_commit();
+    }
+    const int kt = start + i * TK;
+    if (!live_warp || kt >= w_hi || kt + TK <= w_lo) continue;   // the warp's rows see none
+    // s[j][2hh + e], dp[j][2hh + e]: row wr0 + g + 8hh, key kt + 8j + 2t + e
+    float s[NJ][4], dp[NJ][4];
+    sp::tile_product<D, NJ, false, true>(s, hop::smem_u32(q_pl), q_plane, wr0,
+                                         hop::smem_u32(k_pl), kv_plane, lane);
+    sp::tile_product<D, NJ, false, false>(dp, hop::smem_u32(do_pl), q_plane, wr0,
+                                          hop::smem_u32(v_pl), kv_plane, lane);
+    const bool full = kt >= all_lo && kt + TK <= all_hi;
 #pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          const int kr = rg + RG * i, qr = cg + CG * j;
-          float p, ds;
-          prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window, scale_log2,
-               sm_scale, st_s + qr, p, ds);
-          p_s[kr * PS + qr] = p;
-          ds_s[kr * PS + qr] = ds;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = kt + 8 * j + 2 * t + e;
+          const bool in = full || (c >= lo[hh] && c < hi[hh]);
+          const float p = in ? exp2f(s[j][2 * hh + e] - lse2[hh]) : 0.f;
+          dp[j][2 * hh + e] = p * (dp[j][2 * hh + e] - di_r[hh]) * sm_scale;
         }
-      __syncthreads();
-      tile_times<D>(p_s, do_s, dv_acc);         // dv += p^T do
-      tile_times<D>(ds_s, q_s, dk_acc);         // dk += ds^T q
+    sp::acc_product<D, NJ>(acc, dp, hop::smem_u32(k_pl), kv_plane, lane);   // dQ += dS K
+  }
+  hop::cp_async_wait<0>();
+  if (!live_warp) return;
+  const float one[2] = {1.f, 1.f};
+  sp::store_rows<D>(dq + q_off + size_t(wr0) * D, acc, one, n_rows - wr0, lane);
+}
+
+// dK and dV in f32, key-major: a block of W warps (W = min(4, cdiv(n_kv,
+// 16)); KS = 2: two warps a key slab, each taking half of every query
+// tile's rows, their sums added at the end) owns 16 W keys of one (batch,
+// kv head), their K and V resident as bf16 planes, and walks the query
+// tiles of 8 NJ rows (BQ, or the rows
+// rounded up to 16 where they are fewer; Q, dO, lse and di
+// staged by cp.async, Q and dO split once a tile into planes, Q scaled by
+// scale_log2 as the forward's) of every query head of its GQA group that
+// can see its keys.  Per tile a warp computes S^T = K Q^T (the forward's S
+// bit for bit, the pairs swapped) and dP^T = V dO^T, P^T and dS^T on the
+// fragment, then dV += P^T dO and dK += dS^T Q (scaled: dK takes the scale
+// back out at the end).  The group's heads sum in the same registers.  ds:
+// null, or dS (b, h, n_q, n_kv rounded up to 4) f32, where the kernel
+// leaves every pair's dS it computes for the dQ kernel.
+// At d 32 (the MT model's heads) a block of 128 threads is held to 168
+// registers, so that four blocks of the MT model's 96-thread launch share
+// an SM (three at the 177 it takes unbounded: a third slower on the H100).
+template <int D, int NJ, int KS>
+__global__ void __launch_bounds__(Mb<D>::DKV_WARPS * 32 * KS, D == 32 && KS == 1 ? 3 : 1)
+flash_bwd_dkv_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ di,
+                             const int* __restrict__ kv_lengths, const int* __restrict__ gate,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float* __restrict__ ds, int h, int h_kv, int n_q, int n_kv,
+                             int causal, int window, float sm_scale, float scale_log2) {
+  if (gate != nullptr && *gate == 0) return;
+  using C = Mb<D>;
+  constexpr int BQ = 8 * NJ, ND = C::ND, NP = C::NP, FROW = C::FROW, ROW = C::ROW;
+  constexpr int tile_rows = BQ;
+  constexpr int NH = NJ / KS, TH = 8 * NH;   // a warp's n-tiles and rows of a query tile
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  const int slabs = blockDim.x / 32 / KS, lane = threadIdx.x % 32;
+  // the warp's keys, and its rows of a query tile
+  const int warp = KS == 1 ? threadIdx.x / 32 : threadIdx.x / 32 % slabs;
+  const int half = KS == 1 ? 0 : threadIdx.x / 32 / slabs;
+  const int g = lane / 4, t = lane % 4;
+  const int bk = blockIdx.x, b = bk / h_kv, hk = bk % h_kv, group = h / h_kv;
+  const int nk = 16 * slabs;
+  const int k0 = blockIdx.y * nk;
+  const int n_keys = min(nk, n_kv - k0);
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+
+  // query rows that can see a key of the block: R >= k0 when causal,
+  // R < k0 + nk - 1 + window with a window, none past the valid keys
+  const int r_lo = causal ? k0 : 0;
+  int r_hi = window > 0 ? min(n_q, k0 + nk - 1 + window) : n_q;
+  if (k0 >= kv_len) r_hi = 0;
+  const int q_first = r_lo / BQ * BQ;
+  const int per_head = r_hi > q_first ? (r_hi - q_first + BQ - 1) / BQ : 0;
+  const int steps = group * per_head;
+
+  uint8_t* k_pl = mma_smem;
+  uint8_t* v_pl = k_pl + NP * nk * ROW;
+  uint8_t* q_pl = v_pl + NP * nk * ROW;
+  uint8_t* do_pl = q_pl + NP * tile_rows * ROW;
+  uint8_t* q_f32 = do_pl + NP * tile_rows * ROW;   // a later Q tile, then its dO tile
+  const int kv_plane = nk * ROW, q_plane = tile_rows * ROW;
+  // step i: query tile q_first + (i % per_head) BQ of the group's head i / per_head
+  auto head_of = [&](int i) { return size_t(b) * h + hk * group + i / per_head; };
+  auto row_of = [&](int i) { return q_first + i % per_head * BQ; };
+  auto load_step = [&](int i) {
+    const int qt = row_of(i);
+    const size_t bhq = head_of(i);
+    hop::load_rows_padded<D * 4>(q_f32, q + (bhq * n_q + qt) * D, q, n_q - qt, BQ);
+    hop::load_rows_padded<D * 4>(q_f32 + BQ * FROW, dout + (bhq * n_q + qt) * D, dout, n_q - qt,
+                                 BQ);
+  };
+  const size_t kv_off = size_t(bk) * n_kv * D;
+  if (steps > 1) load_step(1);
+  hop::cp_async_commit();
+  {
+    const size_t q0 = steps > 0 ? (head_of(0) * n_q + row_of(0)) * D : 0;
+    const int q_valid = steps > 0 ? n_q - row_of(0) : 0;
+    const sp::RowsJob jobs[4] = {
+        {k + kv_off + size_t(k0) * D, n_keys, nk, k_pl, kv_plane, 1.f},
+        {v + kv_off + size_t(k0) * D, n_keys, nk, v_pl, kv_plane, 1.f},
+        {q + q0, q_valid, BQ, q_pl, q_plane, scale_log2},
+        {dout + q0, q_valid, BQ, do_pl, q_plane, 1.f}};
+    sp::split_rows_ldg<D>(jobs);
+  }
+
+  const int wk0 = k0 + 16 * warp;   // the warp's first key
+  const bool live_warp = 16 * warp < n_keys;
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  __syncthreads();   // K's and V's planes and step 0's are written
+  for (int i = 0; i < steps; ++i) {
+    if (i > 0) {
+      hop::cp_async_wait<0>();
+      __syncthreads();   // step i has landed; every warp is done with the last tile's planes
+      sp::split_rows<D>(q_pl, q_plane, q_f32, BQ, scale_log2);
+      sp::split_rows<D>(do_pl, q_plane, q_f32 + BQ * FROW, BQ, 1.f);
+      __syncthreads();   // the planes are written; the staged tile is free
+      if (i + 1 < steps) load_step(i + 1);
+      hop::cp_async_commit();
+    }
+    const int qt = row_of(i) + half * TH;   // the warp's rows of the tile
+    // the warp's keys see none of its rows
+    const bool skip = (causal && wk0 > qt + TH - 1) || wk0 >= kv_len ||
+                      (window > 0 && wk0 + 15 <= qt - window);
+    if (!live_warp || skip) continue;
+    const float* lse_h = lse + head_of(i) * n_q, *di_h = di + head_of(i) * n_q;
+    // s[j][2hh + e], dp[j][2hh + e]: key wk0 + g + 8hh, row qt + 8j + 2t + e
+    const uint32_t q_rows = hop::smem_u32(q_pl) + half * TH * ROW;
+    const uint32_t do_rows = hop::smem_u32(do_pl) + half * TH * ROW;
+    float s[NH][4], dp[NH][4];
+    sp::tile_product<D, NH, true, true>(s, hop::smem_u32(k_pl), kv_plane, 16 * warp, q_rows,
+                                        q_plane, lane);
+    sp::tile_product<D, NH, false, false>(dp, hop::smem_u32(v_pl), kv_plane, 16 * warp, do_rows,
+                                          q_plane, lane);
+    const bool full = qt + TH <= n_q && wk0 + 16 <= kv_len && (!causal || wk0 + 15 <= qt) &&
+                      (window <= 0 || wk0 > qt + TH - 1 - window);
+#pragma unroll
+    for (int j = 0; j < NH; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int R = qt + 8 * j + 2 * t + e;
+        const bool row_in = R < n_q;
+        const float lse2 = row_in ? lse_h[R] * LOG2E : 0.f, di_r = row_in ? di_h[R] : 0.f;
+        int lo = 0, hi = 0;
+        if (!full) fa::dense_bounds(R, kv_len, causal, window, lo, hi);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int c = wk0 + g + 8 * hh;
+          const bool in = full || (R < n_q && c >= lo && c < hi);
+          const float p = in ? exp2f(s[j][2 * hh + e] - lse2) : 0.f;
+          s[j][2 * hh + e] = p;
+          dp[j][2 * hh + e] = p * (dp[j][2 * hh + e] - di_r) * sm_scale;
+        }
+      }
+    if (ds != nullptr) {   // dS for the dQ kernel (flash_bwd_dq_ds_f32_mma_kernel)
+      const int ld = (n_kv + 3) / 4 * 4;
+      float* dsh = ds + head_of(i) * n_q * ld;
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int R = qt + 8 * j + 2 * t + e, c = wk0 + g + 8 * hh;
+            if (R < n_q && c < n_kv) dsh[size_t(R) * ld + c] = dp[j][2 * hh + e];
+          }
+    }
+    sp::acc_product<D, NH>(dv_acc, s, do_rows, q_plane, lane);   // dV += P^T dO
+    sp::acc_product<D, NH>(dk_acc, dp, q_rows, q_plane, lane);   // dK += dS^T Q
+  }
+  hop::cp_async_wait<0>();
+  if constexpr (KS == 2) {
+    // the second half's sums through shared memory (the planes, free now),
+    // added to the first's
+    float* xch = reinterpret_cast<float*>(mma_smem) + (warp * 32 + lane) * (ND * 8);
+    __syncthreads();   // every warp is done with the planes
+    if (half == 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xch[4 * nd + e] = dk_acc[nd][e];
+          xch[4 * (ND + nd) + e] = dv_acc[nd][e];
+        }
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[nd][e] += xch[4 * nd + e];
+        dv_acc[nd][e] += xch[4 * (ND + nd) + e];
+      }
+  }
+  if (!live_warp) return;
+  // dK summed dS^T (q scale_log2): its reciprocal takes the scale back out
+  const float unscale[2] = {1.f / scale_log2, 1.f / scale_log2}, one[2] = {1.f, 1.f};
+  const size_t off = kv_off + size_t(wk0) * D;
+  sp::store_rows<D>(dk + off, dk_acc, unscale, n_keys - 16 * warp, lane);
+  sp::store_rows<D>(dv + off, dv_acc, one, n_keys - 16 * warp, lane);
+}
+
+// dQ = dS K in f32 from the dK/dV kernel's dS (a walk of fewer than
+// MMA_DS_MAX_KV keys): a block of W warps owns 16 W query rows of one
+// (batch, head) and walks the key tiles of 8 NJ keys its rows see (KS =
+// 2: two warps a row slab, each taking half of every tile's keys, their
+// sums added at the end), each tile's dS rows (zero outside a row's live
+// keys) and K straight into registers and split into planes; dQ += dS K,
+// the six products a chunk and n-tile summed from zero.  The forward's S
+// and dP are not computed again.
+template <int D, int NJ, int KS>
+__global__ void __launch_bounds__(4 * 32 * KS)
+flash_bwd_dq_ds_f32_mma_kernel(const float* __restrict__ ds, const float* __restrict__ k,
+                               const int* __restrict__ kv_lengths, float* __restrict__ dq, int h,
+                               int h_kv, int n_q, int n_kv, int causal, int window) {
+  constexpr int TK = 8 * NJ, ND = D / 8, NP = sp::NP, ROW = D * 2 + 16, SROW = TK * 2 + 16;
+  constexpr int NC = NJ / 2 / KS;   // a warp's 16-key chunks of a tile
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  const int slabs = blockDim.x / 32 / KS, lane = threadIdx.x % 32;
+  // the warp's rows, and its keys of a tile
+  const int warp = KS == 1 ? threadIdx.x / 32 : threadIdx.x / 32 % slabs;
+  const int half = KS == 1 ? 0 : threadIdx.x / 32 / slabs;
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int bm = 16 * slabs;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * bm;   // the longest walks first
+  const int n_rows = min(bm, n_q - row0);
+  const int ld = (n_kv + 3) / 4 * 4;
+  const float* dsp = ds + (size_t(bh) * n_q + row0) * ld;
+  const float* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
+  int b_lo, b_hi, lo_, hi_;
+  fa::dense_bounds(row0, kv_len, causal, window, b_lo, hi_);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, lo_, b_hi);
+  const int start = b_hi > b_lo ? b_lo / TK * TK : 0, end = b_hi > b_lo ? b_hi : 0;
+  uint8_t* k_pl = mma_smem;
+  uint8_t* s_pl = k_pl + NP * TK * ROW;
+  constexpr int k_plane = TK * ROW;
+  const int s_plane = bm * SROW;
+  const int wr0 = 16 * warp;
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int kt = start; kt < end; kt += TK) {
+    __syncthreads();   // every warp is done with the last tile's planes
+    const sp::RowsJob job[1] = {{kp + size_t(kt) * D, n_kv - kt, TK, k_pl, k_plane, 1.f}};
+    sp::split_rows_ldg<D>(job);
+    // dS rows [row0, row0 + bm) at keys [kt, kt + TK), zero off each row's
+    // live keys (the dK/dV kernel writes those alone)
+    for (int i = threadIdx.x; i < bm * TK / 4; i += blockDim.x) {
+      const int r = i / (TK / 4), c = kt + 4 * (i % (TK / 4));
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      int lo = 0, hi = 0;
+      if (r < n_rows) fa::dense_bounds(row0 + r, kv_len, causal, window, lo, hi);
+      if (c + 3 >= lo && c < hi) x = *reinterpret_cast<const float4*>(dsp + size_t(r) * ld + c);
+      float e4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < lo || c + e >= hi) e4[e] = 0.f;
+      uint2 w[NP];
+      sp::split_pair(e4[0], e4[1], w[0].x, w[1].x, w[2].x);
+      sp::split_pair(e4[2], e4[3], w[0].y, w[1].y, w[2].y);
+      uint8_t* dst = s_pl + r * SROW + 8 * (i % (TK / 4));
+#pragma unroll
+      for (int p = 0; p < NP; ++p) *reinterpret_cast<uint2*>(dst + p * s_plane) = w[p];
+    }
+    __syncthreads();   // the planes are written
+    if (wr0 >= n_rows) continue;
+#pragma unroll
+    for (int kc = half * NC; kc < (half + 1) * NC; ++kc) {
+      uint32_t a[NP][4], af[4];
+      sp::frags_a(a, af, hop::smem_u32(s_pl), s_plane, SROW, wr0, 16 * kc, lane);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bb[NP][4], bf[4];
+        sp::frags_b2t(bb, bf, hop::smem_u32(k_pl), k_plane, ROW, 16 * kc, 16 * n2, lane);
+        sp::mma6_add<ND>(acc, n2, a, af, bb, bf);
+      }
     }
   }
-  store_tile<T, D>(dk + kv_off, dk_acc, kt, n_kv);
-  store_tile<T, D>(dv + kv_off, dv_acc, kt, n_kv);
+  if constexpr (KS == 2) {
+    // the second half's sums through shared memory, added to the first's
+    float* xch = reinterpret_cast<float*>(mma_smem) + (warp * 32 + lane) * (ND * 4);
+    __syncthreads();   // every warp is done with the planes
+    if (half == 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[4 * nd + e] = acc[nd][e];
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] += xch[4 * nd + e];
+  }
+  if (wr0 >= n_rows) return;
+  const float one[2] = {1.f, 1.f};
+  sp::store_rows<D>(dq + (size_t(bh) * n_q + row0 + wr0) * D, acc, one, n_rows - wr0, lane);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ di,
-                    const int* __restrict__ kv_lengths, T* __restrict__ dq, int h,
-                    int h_kv, int n_q, int n_kv, int causal, int window,
-                    float sm_scale, const int* __restrict__ gate) {
-  if (gate != nullptr && *gate == 0) return;
-  constexpr int DS = D + 4, CPT = D / CG;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + BT * DS;
-  float* k_s = do_s + BT * DS;
-  float* v_s = k_s + BT * DS;
-  float* ds_s = v_s + BT * DS;
-  float* st_s = ds_s + BT * PS;
-
-  const int bh = blockIdx.x;                    // b * h + query head
-  const int b = bh / h, hq = bh % h;
-  const int hk = hq / (h / h_kv);
-  const int qt = blockIdx.y * BT;
-  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
-  const int rg = threadIdx.x / CG, cg = threadIdx.x % CG;
-  const float scale_log2 = sm_scale * LOG2E;
-
-  const size_t q_off = size_t(bh) * n_q * D;
-  const size_t kv_off = (size_t(b) * h_kv + hk) * n_kv * D;
-  stage<T, D>(q_s, q + q_off, qt, n_q);
-  stage<T, D>(do_s, dout + q_off, qt, n_q);
-  stage_stats(st_s, lse + size_t(bh) * n_q, di + size_t(bh) * n_q, qt, n_q);
-
-  // The walk covers the union of the tile rows' live intervals.
-  int walk_lo = 1 << 30, walk_hi = 0;
-  for (int r = 0; r < min(BT, n_q - qt); ++r) {
-    int lo, hi;
-    fa::dense_bounds(qt + r, kv_len, causal, window, lo, hi);
-    if (lo < hi) { walk_lo = min(walk_lo, lo); walk_hi = max(walk_hi, hi); }
-  }
-
-  float dq_acc[TR][CPT];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) dq_acc[i][e] = 0.f;
-
-  const int start = walk_hi > walk_lo ? (walk_lo / BT) * BT : 0;
-  for (int kt = start; kt < walk_hi; kt += BT) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(k_s, k + kv_off, kt, n_kv);
-    stage<T, D>(v_s, v + kv_off, kt, n_kv);
-    __syncthreads();
-
-    float s[TR][TC], dp[TR][TC];
-    dot_tile<D>(q_s, k_s, s);
-    dot_tile<D>(do_s, v_s, dp);
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int qr = rg + RG * i, kr = cg + CG * j;
-        float p, ds;
-        prob(s[i][j], dp[i][j], qt + qr, kt + kr, n_q, kv_len, causal, window, scale_log2,
-             sm_scale, st_s + qr, p, ds);
-        ds_s[qr * PS + kr] = ds;
-      }
-    __syncthreads();
-    tile_times<D>(ds_s, k_s, dq_acc);           // dq += ds k
-  }
-  store_tile<T, D>(dq + q_off, dq_acc, qt, n_q);
+template <int D, int NJ, int KS>
+cudaError_t launch_dq_ds_ks(const float* ds, const float* k, const int* lens, float* dq, int b,
+                            int h, int h_kv, int n_q, int n_kv, int causal, int window,
+                            cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_ds_f32_mma_kernel<D, NJ, KS>;
+  auto smem = [](int bm) {
+    return size_t(sp::NP) * (8 * NJ * (D * 2 + 16) + bm * (8 * NJ * 2 + 16));
+  };
+  static cudaError_t opted = fa::allow_smem(kernel, smem(64));
+  if (opted != cudaSuccess) return opted;
+  const int slabs = min(4, (n_q + 15) / 16);
+  dim3 grid(b * h, (n_q + 16 * slabs - 1) / (16 * slabs));
+  kernel<<<grid, 32 * slabs * KS, smem(16 * slabs), stream>>>(ds, k, lens, dq, h, h_kv, n_q,
+                                                              n_kv, causal, window);
+  return cudaGetLastError();
 }
 
-// The CUDA-core backward (f32): the dK/dV kernel, then the dQ kernel.
-// gate: null, or the split pass's flag, when they run only where it is set
-// (behind the split-precision kernels, C17).
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* lens, void* dq, void* dk,
-                   void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal, int window,
-                   float sm_scale, cudaStream_t stream, const int* gate = nullptr) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D>;
-  auto dq_kernel = flash_bwd_dq_kernel<T, D>;
+// KS = 2 (a tile's keys split between two warps of the same rows, their
+// sums added at the end) where the grid would not cover the 132 SMs and a
+// tile has 32 or 64 keys
+template <int D, int NJ>
+cudaError_t launch_dq_ds_nj(const float* ds, const float* k, const int* lens, float* dq, int b,
+                            int h, int h_kv, int n_q, int n_kv, int causal, int window,
+                            cudaStream_t stream) {
+  const int slabs = min(4, (n_q + 15) / 16);
+  if constexpr (NJ % 4 == 0) {
+    if (size_t(b) * h * ((n_q + 16 * slabs - 1) / (16 * slabs)) < 132)
+      return launch_dq_ds_ks<D, NJ, 2>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window,
+                                       stream);
+  }
+  return launch_dq_ds_ks<D, NJ, 1>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window,
+                                   stream);
+}
+
+// key tiles of the walk's keys rounded up to 16, at most 64
+template <int D>
+cudaError_t launch_dq_ds(const float* ds, const float* k, const int* lens, float* dq, int b, int h,
+                         int h_kv, int n_q, int n_kv, int causal, int window,
+                         cudaStream_t stream) {
+  switch (max(16, min(64, (n_kv + 15) / 16 * 16)) / 8) {
+    case 2: return launch_dq_ds_nj<D, 2>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window, stream);
+    case 4: return launch_dq_ds_nj<D, 4>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window, stream);
+    case 6: return launch_dq_ds_nj<D, 6>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window, stream);
+    default: return launch_dq_ds_nj<D, 8>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window, stream);
+  }
+}
+
+// The dK/dV kernel over query tiles of 8 NJQ rows, then the dQ kernel over
+// key tiles of 8 NJK keys.
+template <int D, int NJQ, int NJK>
+cudaError_t launch_f32_mma_nj(const float* q, const float* k, const float* v, const float* dout,
+                              const float* lse, const float* di, const int* lens, float* dq,
+                              float* dk, float* dv, float* ds, int b, int h, int h_kv, int n_q,
+                              int n_kv, int causal, int window, float sm_scale, float scale_log2,
+                              cudaStream_t stream, const int* gate) {
+  using C = Mb<D>;
+  // KS = 2 (each query tile's rows split between two warps of the same
+  // keys, their sums added at the end) where the grid would not cover the
+  // 132 SMs and a tile has 32 or 64 rows
+  const int slabs = min(C::DKV_WARPS, (n_kv + 15) / 16);
+  const bool split = NJQ % 4 == 0 && size_t(b) * h_kv * ((n_kv + 16 * slabs - 1) / (16 * slabs)) < 132;
+  auto dkv_kernel = split ? flash_bwd_dkv_f32_mma_kernel<D, NJQ, NJQ % 4 == 0 ? 2 : 1>
+                          : flash_bwd_dkv_f32_mma_kernel<D, NJQ, 1>;
+  auto dq_kernel = flash_bwd_dq_f32_mma_kernel<D, NJK>;
   static cudaError_t opted = [&] {
-    cudaError_t e = fa::allow_smem(dkv_kernel, smem);
-    return e != cudaSuccess ? e : fa::allow_smem(dq_kernel, smem);
+    const size_t dkv = C::smem(16 * C::DKV_WARPS, 8 * NJQ, true);
+    cudaError_t e = fa::allow_smem(flash_bwd_dkv_f32_mma_kernel<D, NJQ, 1>, dkv);
+    if (e == cudaSuccess)
+      e = fa::allow_smem(flash_bwd_dkv_f32_mma_kernel<D, NJQ, NJQ % 4 == 0 ? 2 : 1>, dkv);
+    return e != cudaSuccess
+               ? e
+               : fa::allow_smem(dq_kernel, C::smem(16 * C::DQ_WARPS, 8 * NJK, true));
   }();
   if (opted != cudaSuccess) return opted;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
   if (n_kv > 0) {
-    dim3 grid(b * h_kv, (n_kv + BT - 1) / BT);
-    dkv_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dk),
-                                           static_cast<T*>(dv), h, h_kv, n_q, n_kv, causal,
-                                           window, sm_scale, gate);
+    const int warps = slabs;
+    dim3 grid(b * h_kv, (n_kv + 16 * warps - 1) / (16 * warps));
+    // one query tile of one head (n_q <= 8 NJQ, no GQA) stages nothing
+    const bool staged = n_q > 8 * NJQ || h > h_kv;
+    dkv_kernel<<<grid, 32 * warps * (split ? 2 : 1), C::smem(16 * warps, 8 * NJQ, staged),
+                 stream>>>(
+        q, k, v, dout, lse, di, lens, gate, dk, dv, ds, h, h_kv, n_q, n_kv, causal, window,
+        sm_scale, scale_log2);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
+  if (n_q > 0 && ds != nullptr)
+    return launch_dq_ds<D>(ds, k, lens, dq, b, h, h_kv, n_q, n_kv, causal, window, stream);
   if (n_q > 0) {
-    dim3 grid(b * h, (n_q + BT - 1) / BT);
-    dq_kernel<<<grid, NT, smem, stream>>>(qt, kt, vt, dot, lse, di, lens, static_cast<T*>(dq), h,
-                                          h_kv, n_q, n_kv, causal, window, sm_scale, gate);
+    const int warps = min(C::DQ_WARPS, (n_q + 15) / 16);
+    dim3 grid(b * h, (n_q + 16 * warps - 1) / (16 * warps));
+    dq_kernel<<<grid, 32 * warps, C::smem(16 * warps, 8 * NJK, n_kv > 8 * NJK), stream>>>(
+        q, k, v, dout, lse, di, lens, gate, dq, h, h_kv, n_q, n_kv, causal, window, sm_scale,
+        scale_log2);
   }
   return cudaGetLastError();
+}
+
+// The tiles: the rows (keys) rounded up to 16 where they are fewer than BQ
+// (BN), else BQ (BN), as the forward's.  ds: null (the dQ kernel computes
+// S and dP again), or the dK/dV kernel's dS scratch (see there) for the
+// dQ kernel that reads it.  gate: null, or the split pass's flag, when the
+// kernels run only where it is set (behind the split-precision kernels,
+// C17).
+template <int D>
+cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* di, const int* lens, void* dq,
+                           void* dk, void* dv, float* ds, int b, int h, int h_kv, int n_q,
+                           int n_kv, int causal, int window, float sm_scale, float scale_log2,
+                           cudaStream_t stream, const int* gate = nullptr) {
+  constexpr int BQ = Mb<D>::BQ, BN = Mb<D>::BN;
+  const int nq = max(16, min(BQ, (n_q + 15) / 16 * 16)) / 8;
+  const int nk = max(16, min(BN, (n_kv + 15) / 16 * 16)) / 8;
+  const auto args = [&](auto launch) {
+    return launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(dout), lse, di, lens,
+                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), ds,
+                  b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, stream, gate);
+  };
+  // the instances: square tiles below BN (the MT model's 48, 2 x 16 ...),
+  // BQ / BN above
+#define FA_F32_MMA_BWD(NQ, NK)                                                               \
+  args(launch_f32_mma_nj<D, ((NQ) < BQ / 8 ? (NQ) : BQ / 8), ((NK) < BN / 8 ? (NK) : BN / 8)>)
+  const int n = max(nq, nk);
+  switch (n) {
+    case 2: return FA_F32_MMA_BWD(2, 2);
+    case 4: return FA_F32_MMA_BWD(4, 4);
+    case 6: return FA_F32_MMA_BWD(6, 6);
+    default: return FA_F32_MMA_BWD(8, 8);
+  }
+#undef FA_F32_MMA_BWD
 }
 
 // -- bf16: the tensor-core kernels ---------------------------------------------
@@ -1071,7 +1353,7 @@ flash_bwd_op_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ulp of the head's value, larger than one of the group's sum where the
 // heads cancel, so those sums follow the plain version's order instead:
 // P^T and dS^T go through shared memory and each head's dV and dK add up
-// row by row in f32 FMAs on CUDA cores, as the CUDA-core kernels did.
+// row by row in f32 FMAs on CUDA cores.
 template <int D, bool kSeq>
 __global__ void __launch_bounds__(Ob<D>::MAX_WARPS * 32)
 flash_bwd_op_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -1456,7 +1738,7 @@ flash_bwd_dkv_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          float* __restrict__ dk, float* __restrict__ dv, long long q_plane,
                          long long kv_plane, int h, int h_kv, int n_q, int n_kv, int causal,
                          int window, float sm_scale, float scale_log2) {
-  if (*nf != 0) return;   // a +-inf: the CUDA-core kernels compute the call
+  if (*nf != 0) return;   // a +-inf: the warp-level kernels compute the call
   using C = Sb<D>;
   constexpr int BT = C::ROWS, NP = C::NP;
   extern __shared__ uint8_t smem_raw[];
@@ -1587,7 +1869,7 @@ flash_bwd_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ dq, long long q_plane, long long kv_plane, int h,
                         int h_kv, int n_q, int n_kv, int causal, int window, float sm_scale,
                         float scale_log2) {
-  if (*nf != 0) return;   // a +-inf: the CUDA-core kernels compute the call
+  if (*nf != 0) return;   // a +-inf: the warp-level kernels compute the call
   using C = Sb<D>;
   constexpr int BN = C::ROWS, NP = C::NP;
   // dQ's columns a warpgroup holds: d 128 splits them, 64 each
@@ -1705,7 +1987,7 @@ flash_bwd_dq_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // Split q, dout, k and v into bf16 planes (in `planes`: 3 q_elems for q
 // and for dout, then 3 kv_elems for k and for v), then the dK/dV kernel,
-// then the dQ kernel, then the CUDA-core pair gated on the split pass's
+// then the dQ kernel, then the warp-level pair gated on the split pass's
 // +-inf flag nf (C17).
 template <int D>
 cudaError_t launch_f32_tc(const void* q, const void* k, const void* v, const void* dout,
@@ -1753,8 +2035,8 @@ cudaError_t launch_f32_tc(const void* q, const void* k, const void* v, const voi
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  return launch<float, D>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal,
-                          window, sm_scale, stream, nf);
+  return launch_f32_mma<D>(q, k, v, dout, lse, di, lens, dq, dk, dv, nullptr, b, h, h_kv, n_q,
+                           n_kv, causal, window, sm_scale, scale_log2, stream, nf);
 }
 
 cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const void* dout,
@@ -1770,14 +2052,15 @@ cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, 
   }
 }
 
-cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const void* dout,
-                         const float* lse, const float* di, const int* lens, void* dq, void* dk,
-                         void* dv, int b, int h, int h_kv, int n_q, int n_kv, int causal,
-                         int window, float sm_scale, cudaStream_t st) {
+cudaError_t dispatch_f32_mma(int d, const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse, const float* di, const int* lens,
+                             void* dq, void* dk, void* dv, float* ds, int b, int h, int h_kv,
+                             int n_q, int n_kv, int causal, int window, float sm_scale,
+                             float scale_log2, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<float, 32>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 64: return launch<float, 64>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
-    case 128: return launch<float, 128>(q, k, v, dout, lse, di, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, st);
+    case 32: return launch_f32_mma<32>(q, k, v, dout, lse, di, lens, dq, dk, dv, ds, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 64: return launch_f32_mma<64>(q, k, v, dout, lse, di, lens, dq, dk, dv, ds, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
+    case 128: return launch_f32_mma<128>(q, k, v, dout, lse, di, lens, dq, dk, dv, ds, b, h, h_kv, n_q, n_kv, causal, window, sm_scale, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1786,8 +2069,8 @@ cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, con
 
 // q, dout, dq (b, h, n_q, d); k, v, dk, dv (b, h_kv, n_kv, d); lse and di
 // (b, h, n_q) f32, lse in natural log.  kv_lengths (b,) int32 or null;
-// window <= 0 means none.  dtype codes: 0 = float32, 1 = bfloat16.
-// op_graph = 0: the TPU kernels' backward from (lse, di): the dK/dV
+// window <= 0 means none.  dtype: 1 = bfloat16 (f32 has its own entry
+// points below).  op_graph = 0: the TPU kernels' backward from (lse, di): the dK/dV
 // kernel, then the dQ kernel.  op_graph = 1 (bfloat16): autodiff of the op
 // graph; lse and di are unused, ops (b, h, n_q, 4) f32 is the scratch in
 // which the dQ kernel leaves each row's (m, l, r, 1 / l) for the dK/dV
@@ -1803,9 +2086,6 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
   const int* lens = static_cast<const int*>(kv_lengths);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  if (dtype == 0 && !op_graph)
-    return dispatch_f32(d, q, k, v, dout, l, dd, lens, dq, dk, dv, b, h, h_kv, n_q, n_kv,
-                        causal, window, sm_scale, st);
   if (dtype == 1 && op_graph)
     return dispatch_op(d, q, k, v, dout, static_cast<float*>(ops), lens, dq, dk, dv, b, h,
                        h_kv, n_q, n_kv, causal, window, sm_scale, st);
@@ -1815,11 +2095,30 @@ extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
   return int(cudaErrorInvalidValue);
 }
 
+// The f32 backward sized to the rows (the warp-level kernels): q, k, v,
+// dout, dq, dk, dv f32 as fa_flash_bwd's, the TPU kernels' backward from
+// (lse, di); scale_log2: the forward's (fa_flash_fwd_f32_mma's), folded
+// into q for S as there, so that S is the forward's bit for bit and p =
+// exp2(s - lse log2(e)) sums to 1 against the forward's lse.  ds: null, or
+// f32 scratch of b h n_q (n_kv rounded up to 4): the dK/dV kernel leaves
+// dS there and the dQ kernel reads it instead of computing S and dP again.
+extern "C" int fa_flash_bwd_f32_mma(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* di,
+                                    const void* kv_lengths, void* dq, void* dk, void* dv, void* ds,
+                                    int b, int h, int h_kv, int n_q, int n_kv, int d, int causal,
+                                    int window, float sm_scale, float scale_log2, void* stream) {
+  if (b == 0 || h == 0) return 0;
+  return dispatch_f32_mma(d, q, k, v, dout, static_cast<const float*>(lse),
+                          static_cast<const float*>(di), static_cast<const int*>(kv_lengths), dq,
+                          dk, dv, static_cast<float*>(ds), b, h, h_kv, n_q, n_kv, causal, window,
+                          sm_scale, scale_log2, static_cast<cudaStream_t>(stream));
+}
+
 // The f32 backward on the tensor cores in split precision (split.cuh):
-// arguments as fa_flash_bwd's f32 (op_graph 0), with planes: bf16 scratch
-// of 3 (2 q's elements + 2 k's elements), nf: an int of scratch (the split
-// pass's flag of a +-inf in q, dout, k or v, on which the split kernels
-// exit and the CUDA-core kernels run instead, C17), and scale_log2: the forward's
+// arguments as fa_flash_bwd_f32_mma's, with planes: bf16 scratch of 3 (2
+// q's elements + 2 k's elements), nf: an int of scratch (the split pass's
+// flag of a +-inf in q, dout, k or v, on which the split kernels exit and
+// the warp-level kernels run instead, C17), and scale_log2: the forward's
 // (fa_flash_fwd_f32's), folded into q before the split as there, so that
 // S is the forward's bit for bit and p = exp2(s - lse log2(e)) sums to 1
 // against the forward's lse (the tensor cores' truncation of S cancels).

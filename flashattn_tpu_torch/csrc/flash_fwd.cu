@@ -77,98 +77,311 @@
 
 // f32 (every schedule's function: in f32 they agree to f32 rounding, so
 // one online softmax serves them all) runs on the tensor cores in split
-// precision (split.cuh) from F32_TC_MIN_KV keys on (ops/flash_attention.py),
+// precision (split.cuh): each f32 operand three bf16 pieces, six bf16
+// products a product, 24 bits kept (single-pass TF32, 10 bits, would miss
+// the f32 gates).  From F32_TC_MIN_KV keys on (ops/flash_attention.py)
 // flash_fwd_f32_kernel: the f32 function of _fwd_loop_kernel (the f32
 // training route: 512-key blocks at d 128) and of the grid, subrow and op
-// graph schedules.  Single-pass TF32 (10 bits) would miss the f32 gates;
-// three bf16 pieces an operand and six bf16 wgmmas a product keep 24 bits
-// on the tensor cores.  What bounds it: the six products, 24 d flops a
-// live pair at 989 TF/s (the same least time as 3 d x 4 at TF32's 494.7),
-// the split pass beside (4 bytes read, 6 written an element of q, k, v);
-// the pieces triple the shared memory of a tile (6 bytes an element), so a
+// graph schedules.  What bounds it: the six products, 24 d flops a live
+// pair at 989 TF/s (the same least time as 3 d x 4 at TF32's 494.7), the
+// split pass beside (4 bytes read, 6 written an element of q, k, v); the
+// pieces triple the shared memory of a tile (6 bytes an element), so a
 // block keeps Q's 128 rows resident and one 64-key K tile and one V tile
 // (192 KB at d 128), the next K loading behind this tile's P V and the
-// next V behind the next S.  Below F32_TC_MIN_KV keys (the MT model's 40)
-// the CUDA-core kernel of attn_core.cuh (fa::attend) stays, faster there:
-// one launch, no split pass, blocks of 64 rows (PERF.md row 6).  A +-inf
-// among the pieces meets the other operand's zero pieces (0 * inf = NaN
-// where f32 gives +-inf, C17): the split pass flags one in q, k or v, the
-// split kernel's blocks then exit, and the CUDA-core kernel, launched
-// behind it and exiting unless the flag is set, computes the call in f32.
+// next V behind the next S.  Below F32_TC_MIN_KV keys (the MT model's 40,
+// the distill draft's 128) flash_fwd_f32_mma_kernel, sized to the rows as
+// the bf16 op graph's flash_fwd_op_kernel is: warps of 16 query rows on
+// mma.sync, blocks of cdiv(n_q, 16) warps up to four, one launch, no split
+// pass in device memory (Q, K and V read once as f32, each tile split once
+// into bf16 planes in shared memory).  There the
+// bound is the bytes (q, k, v, o: 6.3 us at the MT decoder's B128 H8 N40
+// d32) and a launch's latency; the wgmma tile's 128 rows, split pass and
+// two launches would waste most of their work.  A +-inf among the pieces
+// meets the other operand's zero pieces (0 * inf = NaN where f32 gives
+// +-inf, C17): the warp-level kernel zeroes a non-finite b0 in those
+// products (sp::finite_part); the split pass flags one in q, k or v, the
+// wgmma kernel's blocks then exit, and the warp-level kernel, launched
+// behind it and exiting unless the flag is set, computes the call.
 
-#include "attn_core.cuh"
+#include "attn_util.cuh"
 #include "hopper.cuh"
 #include "split.cuh"
 
 namespace {
 
-// -- f32: the CUDA-core tile ---------------------------------------------------
+// -- f32: the warp-level split-precision tile ------------------------------------
 
-template <typename T, int D>
-struct DenseSrc {
-  const T* q; const T* k; const T* v; T* o; float* lse;
-  int n_rows, kv_cap;
-  int row0;            // first query row of this tile
-  int kv_len;          // keys visible to every row (min of n_kv, length)
-  int causal, window;
-
-  __device__ float4 q4(int r, int c, float scale) const {
-    return fa::scale4(fa::load4(q + size_t(r) * D + c), scale);
-  }
-  __device__ float4 k4(int pos, int c) const { return fa::load4(k + size_t(pos) * D + c); }
-  __device__ float4 v4(int pos, int c) const { return fa::load4(v + size_t(pos) * D + c); }
-  __device__ T* o_row(int r) const { return o + size_t(r) * D; }
-  __device__ float* lse_row(int r) const { return lse + r; }
-  __device__ void bounds(int r, int& lo, int& hi) const {
-    fa::dense_bounds(row0 + r, kv_len, causal, window, lo, hi);
+template <int D>
+struct Mf {
+  static constexpr int MAX_WARPS = 4;               // warps (of 16 query rows) a block
+  static constexpr int BN = D == 128 ? 32 : 64;     // keys a tile
+  static constexpr int ROW = D * 2 + 16;            // bytes of a plane's padded bf16 row
+  static constexpr int FROW = D * 4 + 16;           // bytes of a staged f32 row
+  static constexpr int NP = sp::NP;
+  // Q's planes, K's and V's, and (a walk of more than one tile) a K and a
+  // V tile staged as f32
+  static constexpr size_t smem(int bm, int tile_rows, bool staged) {
+    return size_t(NP) * (bm + 2 * tile_rows) * ROW + (staged ? size_t(2 * tile_rows) * FROW : 0);
   }
 };
 
-// gate: null, or the split pass's flag, when the kernel runs only where it
-// is set (behind flash_fwd_f32_kernel)
-template <typename T, int D>
-__global__ void __launch_bounds__(fa::threads<64>())
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_lengths,
-                 T* __restrict__ o, float* __restrict__ lse, int h, int h_kv,
-                 int n_q, int n_kv, int causal, int window, float scale_log2,
-                 const int* __restrict__ gate) {
+// Every schedule's f32 function (they agree to f32 rounding) over a walk
+// of any length: one online softmax over key tiles of 8 NJ keys (NJ
+// n-tiles: the walk's keys rounded up to 16 where they are fewer than BN,
+// else BN) in base 2, q scaled by sm_scale * log2(e) in f32 before the
+// split, o = acc * (1 / l), lse = m ln 2 + ln l.  A block of W warps (W =
+// min(4, cdiv(n_q, 16)), so a short query side gets a short block) owns
+// 16 W query rows of one (batch, head), a warp 16 of them on mma.sync
+// m16n8k16; with KS = 2 (a grid too small for the card) two warps share
+// those rows, each taking half of every tile's keys, and merge their (m,
+// l, acc) at the end.  Q and the first K and V tile come in as f32 straight into
+// registers (sp::split_rows_ldg), every later tile by cp.async into a
+// staging buffer behind the last one's products (each byte read from
+// device memory once), and the block splits each once into three bf16
+// planes in shared memory (sp::split_rows), whose fragments every warp
+// reads by ldmatrix.  S = Q K^T is the six products a k16 step
+// (sp::tile_product: the small ones into one accumulator, b0 b0 into
+// another, added in f32), P = exp2(s - m) is split in registers into the A
+// operand of P V, whose six products a 16-key chunk and n-tile sum from
+// zero before the f32 add.  A warp takes every key tile its own rows see,
+// whole: a key it does not see scores -inf and its p = 0 still multiplies
+// V, so a NaN in V reaches the rows whose walk reads its tile.  A +-inf b0
+// meets the other operand's lower pieces as its finite part, so no 0 * inf
+// appears that the f32 product would not make.  gate: null, or the split
+// pass's flag, when the kernel runs behind flash_fwd_f32_kernel and
+// computes the call only where that pass found a +-inf (C17).
+template <int D, int NJ, int KS>
+__global__ void __launch_bounds__(Mf<D>::MAX_WARPS * 32 * KS)
+flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ kv_lengths,
+                         const int* __restrict__ gate, float* __restrict__ o,
+                         float* __restrict__ lse, int h, int h_kv, int n_q, int n_kv, int causal,
+                         int window, float scale_log2) {
   if (gate != nullptr && *gate == 0) return;
-  extern __shared__ float smem[];
-  const int bh = blockIdx.x;
-  const int b = bh / h, hq = bh % h;
-  const int hk = hq / (h / h_kv);
-  const int row0 = blockIdx.y * 64;
+  using C = Mf<D>;
+  constexpr int TK = 8 * NJ, ND = D / 8, ROW = C::ROW, FROW = C::FROW;
+  constexpr int NH = NJ / KS, TH = 8 * NH;   // a warp's n-tiles and keys of a tile
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  const int slabs = blockDim.x / 32 / KS, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's rows, and its part of a tile
+  const int slab = KS == 1 ? warp : warp % slabs, half = KS == 1 ? 0 : warp / slabs;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
+  const int bm = 16 * slabs;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * bm;   // the longest walks first
+  const int n_rows = min(bm, n_q - row0);
+  const float* qp = q + size_t(bh) * n_q * D;
+  const float* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const float* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
 
-  DenseSrc<T, D> src;
-  src.q = q + (size_t(bh) * n_q + row0) * D;
-  src.o = o + (size_t(bh) * n_q + row0) * D;
-  src.lse = lse + size_t(bh) * n_q + row0;
-  src.k = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  src.v = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  src.n_rows = min(64, n_q - row0);
-  src.kv_cap = n_kv;
-  src.row0 = row0;
-  src.kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
-  src.causal = causal;
-  src.window = window;
-  fa::attend<T, D, 64>(src, scale_log2, smem);
+  // the block's walk (both bounds of dense_bounds grow with the row)
+  int b_lo, b_hi, lo_, hi_;
+  fa::dense_bounds(row0, kv_len, causal, window, b_lo, hi_);
+  fa::dense_bounds(row0 + n_rows - 1, kv_len, causal, window, lo_, b_hi);
+  const int start = b_hi > b_lo ? b_lo / TK * TK : 0, end = b_hi > b_lo ? b_hi : 0;
+  const int n_tiles = (end - start + TK - 1) / TK;
+  uint8_t* q_pl = mma_smem;                  // Q's planes
+  uint8_t* k_pl = q_pl + C::NP * bm * ROW;   // K's planes, then V's
+  uint8_t* v_pl = k_pl + C::NP * TK * ROW;
+  uint8_t* kv_f32 = v_pl + C::NP * TK * ROW;   // a later K tile, then its V tile
+  constexpr int kv_plane = TK * ROW;
+  const int q_plane = bm * ROW;
+  auto load_kv = [&](int i) {
+    const int kt = start + i * TK;
+    hop::load_rows_padded<D * 4>(kv_f32, kp + size_t(kt) * D, kp, n_kv - kt, TK);
+    hop::load_rows_padded<D * 4>(kv_f32 + TK * FROW, vp + size_t(kt) * D, vp, n_kv - kt, TK);
+  };
+  if (n_tiles > 1) load_kv(1);
+  hop::cp_async_commit();
+  {
+    const sp::RowsJob jobs[3] = {
+        {qp + size_t(row0) * D, n_rows, bm, q_pl, q_plane, scale_log2},
+        {kp + size_t(start) * D, n_tiles > 0 ? n_kv - start : 0, TK, k_pl, kv_plane, 1.f},
+        {vp + size_t(start) * D, n_tiles > 0 ? n_kv - start : 0, TK, v_pl, kv_plane, 1.f}};
+    sp::split_rows_ldg<D>(jobs);
+  }
+
+  // this warp's rows, their intervals, its walk and the keys all its rows see
+  const int wr0 = 16 * slab;
+  const bool live_warp = wr0 < n_rows;
+  int lo[2], hi[2], w_lo = 0, w_hi = 0, all_lo = 0, all_hi = 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = wr0 + g + 8 * hh;
+    lo[hh] = hi[hh] = 0;
+    if (r < n_rows) fa::dense_bounds(row0 + r, kv_len, causal, window, lo[hh], hi[hh]);
+  }
+  if (live_warp) {
+    fa::dense_bounds(row0 + wr0, kv_len, causal, window, w_lo, all_hi);
+    fa::dense_bounds(row0 + min(wr0 + 15, n_rows - 1), kv_len, causal, window, all_lo, w_hi);
+    if (w_hi <= w_lo) w_lo = w_hi = 0;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};   // l: this thread's columns
+
+  __syncthreads();   // Q's planes and tile 0's are written
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i > 0) {
+      hop::cp_async_wait<0>();
+      __syncthreads();   // tile i has landed; every warp is done with the last tile's planes
+      sp::split_rows<D>(k_pl, kv_plane, kv_f32, TK, 1.f);
+      sp::split_rows<D>(v_pl, kv_plane, kv_f32 + TK * FROW, TK, 1.f);
+      __syncthreads();   // the planes are written; the staged tile is free
+      if (i + 1 < n_tiles) load_kv(i + 1);
+      hop::cp_async_commit();
+    }
+    const int kt = start + i * TK + half * TH;   // the warp's keys of the tile
+    if (!live_warp || kt >= w_hi || kt + TH <= w_lo) continue;   // the warp's rows see none
+
+    // S = Q K^T: sc[j][2hh + e] is row wr0 + g + 8hh, key kt + 8j + 2t + e
+    float sc[NH][4];
+    sp::tile_product<D, NH, false, true>(sc, hop::smem_u32(q_pl), q_plane, wr0,
+                                         hop::smem_u32(k_pl) + half * TH * ROW, kv_plane, lane);
+    const bool full = kt >= all_lo && kt + TH <= all_hi;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NH; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[j][2 * hh + e];
+          const int c = kt + 8 * j + 2 * t + e;
+          if (!full && (c < lo[hh] || c >= hi[hh])) x = -INFINITY;
+          mx[hh] = fmaxf(mx[hh], x);
+        }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m_new = fmaxf(m[hh], fa::row_max<4>(mx[hh]));
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[hh] - mu);
+      m[hh] = m_new;
+      l[hh] *= alpha;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        acc[nd][2 * hh] *= alpha;
+        acc[nd][2 * hh + 1] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(sc[j][2 * hh + e] - mu);
+          l[hh] += p;
+          sc[j][2 * hh + e] = p;
+        }
+    }
+    // O += P V: P's pieces the A operand, V's the B
+    sp::acc_product<D, NH>(acc, sc, hop::smem_u32(v_pl) + half * TH * ROW, kv_plane, lane);
+  }
+  hop::cp_async_wait<0>();
+  float lt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) lt[hh] = fa::row_sum<4>(l[hh]);
+  if constexpr (KS == 2) {
+    // the two halves of a tile meet: the second's (m, l, acc) through
+    // shared memory (the planes, free now), merged by the first
+    constexpr int X = ND * 4 + 4;
+    float* xch = reinterpret_cast<float*>(mma_smem) + (slab * 32 + lane) * X;
+    __syncthreads();   // every warp is done with the planes
+    if (half == 1) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xch[4 * nd + e] = acc[nd][e];
+      xch[ND * 4] = m[0], xch[ND * 4 + 1] = m[1], xch[ND * 4 + 2] = lt[0], xch[ND * 4 + 3] = lt[1];
+    }
+    __syncthreads();
+    if (half == 1) return;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mb = xch[ND * 4 + hh], m_new = fmaxf(m[hh], mb);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float fa_ = exp2f(m[hh] - mu), fb = exp2f(mb - mu);
+      lt[hh] = lt[hh] * fa_ + xch[ND * 4 + 2 + hh] * fb;
+      m[hh] = m_new;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc[nd][2 * hh + e] = acc[nd][2 * hh + e] * fa_ + xch[4 * nd + 2 * hh + e] * fb;
+    }
+  }
+  if (!live_warp) return;
+  // a row with no live key (l = 0) gives o = 0 and lse = -inf
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lt_ = lt[hh];
+    inv[hh] = lt_ == 0.f ? 0.f : 1.f / lt_;
+    if (t == 0 && wr0 + g + 8 * hh < n_rows)
+      lse[size_t(bh) * n_q + row0 + wr0 + g + 8 * hh] =
+          lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
+  }
+  sp::store_rows<D>(o + (size_t(bh) * n_q + row0 + wr0) * D, acc, inv, n_rows - wr0, lane);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lens,
-                   void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                   int causal, int window, float scale_log2, cudaStream_t stream,
-                   const int* gate = nullptr) {
-  constexpr size_t smem = fa::smem_bytes<D, 64>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  static cudaError_t opted = fa::allow_smem(kernel, smem);
+template <int D, int NJ, int KS>
+cudaError_t launch_f32_mma_ks(const void* q, const void* k, const void* v, const int* lens,
+                              void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
+                              int causal, int window, float scale_log2, cudaStream_t stream,
+                              const int* gate) {
+  using C = Mf<D>;
+  auto kernel = flash_fwd_f32_mma_kernel<D, NJ, KS>;
+  static cudaError_t opted = fa::allow_smem(kernel, C::smem(16 * C::MAX_WARPS, 8 * NJ, true));
   if (opted != cudaSuccess) return opted;
-  dim3 grid(b * h, (n_q + 63) / 64);
-  kernel<<<grid, fa::threads<64>(), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lens, static_cast<T*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2, gate);
+  const int slabs = min(C::MAX_WARPS, (n_q + 15) / 16);
+  dim3 grid(b * h, (n_q + 16 * slabs - 1) / (16 * slabs));
+  // a walk of one tile (n_kv <= 8 NJ) stages nothing
+  kernel<<<grid, 32 * slabs * KS, C::smem(16 * slabs, 8 * NJ, n_kv > 8 * NJ), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      lens, gate, static_cast<float*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2);
   return cudaGetLastError();
+}
+
+// KS = 2 (each tile's keys split between two warps of the same rows, their
+// results merged at the end) where the grid would not cover the 132 SMs
+// and a tile has 32 or 64 keys: the distill draft's B16 H2 128 rows take
+// 64 blocks, whose walks are then half as long a warp.
+template <int D, int NJ>
+cudaError_t launch_f32_mma_nj(const void* q, const void* k, const void* v, const int* lens,
+                              void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
+                              int causal, int window, float scale_log2, cudaStream_t stream,
+                              const int* gate) {
+  const int slabs = min(Mf<D>::MAX_WARPS, (n_q + 15) / 16);
+  if constexpr (NJ % 4 == 0) {
+    if (size_t(b) * h * ((n_q + 16 * slabs - 1) / (16 * slabs)) < 132)
+      return launch_f32_mma_ks<D, NJ, 2>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal,
+                                         window, scale_log2, stream, gate);
+  }
+  return launch_f32_mma_ks<D, NJ, 1>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal,
+                                     window, scale_log2, stream, gate);
+}
+
+// key tiles of the walk's keys rounded up to 16 (16 to 48) or BN.  gate:
+// as the kernel's
+template <int D>
+cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, const int* lens, void* o,
+                           float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                           int window, float scale_log2, cudaStream_t stream,
+                           const int* gate = nullptr) {
+  constexpr int BN = Mf<D>::BN;
+  const int tile = max(16, min(BN, (n_kv + 15) / 16 * 16));
+#define FA_F32_MMA(NJ)                                                                           \
+  launch_f32_mma_nj<D, (NJ) <= BN / 8 ? (NJ) : BN / 8>(q, k, v, lens, o, lse, b, h, h_kv, n_q,   \
+                                                       n_kv, causal, window, scale_log2, stream, \
+                                                       gate)
+  switch (tile / 8) {
+    case 2: return FA_F32_MMA(2);
+    case 4: return FA_F32_MMA(4);
+    case 6: return FA_F32_MMA(6);
+    default: return FA_F32_MMA(8);
+  }
+#undef FA_F32_MMA
 }
 
 // -- bf16: the tensor-core tile ----------------------------------------------------
@@ -767,10 +980,10 @@ struct Sp {
 // six wgmmas a k16 step (both K-major), P = exp2(s - m) is split in
 // registers into the A operand of P V's six (V MN-major), summed from zero
 // a tile and then added to acc in f32 (sp::pair_a).  A warpgroup
-// walks the key tiles its own rows see (those of the CUDA-core tile this
-// replaces, 64 rows and 64 keys a tile), so a NaN in V reaches the same
-// rows.  nf[0] set: q, k or v holds a +-inf, and the block exits (the
-// CUDA-core kernel behind it computes the call).
+// walks the key tiles its own rows see (64 rows and 64 keys a tile), so a
+// NaN in V reaches the rows whose walk reads it.  nf[0] set: q, k or v
+// holds a +-inf, and the block exits (flash_fwd_f32_mma_kernel, behind
+// it, computes the call).
 template <int D>
 __global__ void __launch_bounds__(Sp<D>::THREADS, 1)
 flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -944,9 +1157,9 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // Split q (scaled by scale_log2), k and v into bf16 planes (in `planes`:
-// 3 q_elems, then 3 kv_elems for k and for v), then the kernel, then the
-// CUDA-core kernel gated on the split pass's +-inf flag (C17).  nf: two
-// ints of scratch.
+// 3 q_elems, then 3 kv_elems for k and for v), then the kernel, then
+// flash_fwd_f32_mma_kernel gated on the split pass's +-inf flag (C17).
+// nf: two ints of scratch.
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
                        float* lse, void* planes, int* nf, int b, int h, int h_kv, int n_q,
@@ -975,8 +1188,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
                                                 window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch<float, D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window,
-                          scale_log2, stream, nf);
+  return launch_f32_mma<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window,
+                           scale_log2, stream, nf);
 }
 
 cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const int* lens,
@@ -991,13 +1204,13 @@ cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, 
   }
 }
 
-cudaError_t dispatch_f32(int d, const void* q, const void* k, const void* v, const int* lens,
-                         void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                         int causal, int window, float scale_log2, cudaStream_t st) {
+cudaError_t dispatch_f32_mma(int d, const void* q, const void* k, const void* v, const int* lens,
+                             void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
+                             int causal, int window, float scale_log2, cudaStream_t st) {
   switch (d) {
-    case 32: return launch<float, 32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 64: return launch<float, 64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 128: return launch<float, 128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 32: return launch_f32_mma<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 64: return launch_f32_mma<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+    case 128: return launch_f32_mma<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1025,34 +1238,39 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, co
 }  // namespace
 
 // q (b, h, n_q, d); k, v (b, h_kv, n_kv, d); o like q; lse (b, h, n_q) f32.
-// kv_lengths (b,) int32 or null; window <= 0 means none.
-// dtype codes: 0 = float32, 1 = bfloat16.  f32 runs the online softmax with
-// scale = sm_scale * log2(e) folded into q (mode and span unused).  bf16
-// modes: 0 the op graph (scale = sm_scale); 1 a running max per `span`
-// keys (8 to 1024, JAX's grid and loop key blocks) and 2 the whole row's
-// max (subrow), both on q pre-scaled by the caller (scale = 1).
+// kv_lengths (b,) int32 or null; window <= 0 means none.  bf16 (dtype
+// code 1; f32 has its own entry points below) modes: 0 the op graph (scale
+// = sm_scale); 1 a running max per `span` keys (8 to 1024, JAX's grid and
+// loop key blocks) and 2 the whole row's max (subrow), both on q
+// pre-scaled by the caller (scale = 1).
 extern "C" int fa_flash_fwd(const void* q, const void* k, const void* v,
                             const void* kv_lengths, void* o, void* lse, int b,
                             int h, int h_kv, int n_q, int n_kv, int d, int causal,
                             int window, float scale, int dtype, int mode, int span,
                             void* stream) {
   if (b == 0 || h == 0 || n_q == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(kv_lengths);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return dispatch_f32(d, q, k, v, lens, o, l, b, h, h_kv, n_q, n_kv, causal, window,
-                        scale, st);
-  if (dtype == 1)
-    return dispatch_bf16(d, q, k, v, lens, o, l, b, h, h_kv, n_q, n_kv, causal, window,
-                         scale, mode, span, st);
-  return int(cudaErrorInvalidValue);
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  return dispatch_bf16(d, q, k, v, static_cast<const int*>(kv_lengths), o,
+                       static_cast<float*>(lse), b, h, h_kv, n_q, n_kv, causal, window, scale,
+                       mode, span, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 forward sized to the rows (flash_fwd_f32_mma_kernel): q, k, v, o
+// f32 as fa_flash_fwd's; scale_log2 = sm_scale * log2(e), folded into q.
+extern "C" int fa_flash_fwd_f32_mma(const void* q, const void* k, const void* v,
+                                    const void* kv_lengths, void* o, void* lse, int b, int h,
+                                    int h_kv, int n_q, int n_kv, int d, int causal, int window,
+                                    float scale_log2, void* stream) {
+  if (b == 0 || h == 0 || n_q == 0) return 0;
+  return dispatch_f32_mma(d, q, k, v, static_cast<const int*>(kv_lengths), o,
+                          static_cast<float*>(lse), b, h, h_kv, n_q, n_kv, causal, window,
+                          scale_log2, static_cast<cudaStream_t>(stream));
 }
 
 // The f32 forward on the tensor cores in split precision (split.cuh): q, k,
-// v, o f32 as fa_flash_fwd; scale_log2 = sm_scale * log2(e), folded into q;
-// planes: bf16 scratch of 3 (q's elements + 2 k's elements); nf: two ints
-// of scratch.  One function for every schedule, as fa_flash_fwd's f32.
+// v, o f32 as fa_flash_fwd_f32_mma's; scale_log2 = sm_scale * log2(e),
+// folded into q; planes: bf16 scratch of 3 (q's elements + 2 k's
+// elements); nf: two ints of scratch.  The same function.
 extern "C" int fa_flash_fwd_f32(const void* q, const void* k, const void* v,
                                 const void* kv_lengths, void* o, void* lse, void* planes,
                                 void* nf, int b, int h, int h_kv, int n_q, int n_kv, int d,

@@ -74,9 +74,11 @@
 // the bf16 one) and PV's 3 products at 989 TF/s.  The fp8 route's widened
 // K and V share one bf16 tile (Q's planes take 96 KB at d 128).
 
+#include <cuda_fp8.h>
+
 #include <type_traits>
 
-#include "attn_core.cuh"
+#include "attn_util.cuh"
 #include "hopper.cuh"
 #include "split.cuh"
 

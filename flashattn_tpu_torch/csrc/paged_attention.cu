@@ -97,9 +97,11 @@
 // q keeps p in f32).
 
 #include <climits>
+#include <cuda_fp8.h>
+
 #include <type_traits>
 
-#include "attn_core.cuh"
+#include "attn_util.cuh"
 #include "hopper.cuh"
 #include "split.cuh"
 
@@ -854,19 +856,12 @@ paged_extend_kernel(Args a, int row_tiles) {
 // chunk's or tile's P V from zero, and those partial sums are added in f32.
 // A +-inf keeps its value in b0 with zeros in b1 and b2: over an f32 pool
 // both operands' b0 (K's or V's, and q's) are taken with their non-finite
-// values zeroed (finite_part, sp::sanitize) in their products with the
+// values zeroed (sp::finite_part, sp::sanitize) in their products with the
 // other operand's b1 and b2, where 0 * inf would make NaN where f32 gives
 // +-inf (C17); the b0 x b0 product keeps them, so a NaN or inf V row at
 // p = 0 still makes the output NaN (C8, C15).  A quantized pool's K and V
 // are exact (one piece), and P = p * vs is the only non-finite A operand
 // there: its products are with that one piece.
-
-// A bf16 pair with its non-finite halves zeroed (sp::sanitize in registers).
-__device__ __forceinline__ uint32_t finite_part(uint32_t w) {
-  if ((w & 0x7F80u) == 0x7F80u) w &= 0xFFFF0000u;
-  if ((w & 0x7F800000u) == 0x7F800000u) w &= 0x0000FFFFu;
-  return w;
-}
 
 // c += a b, one mma.sync m16n8k16 (hop::mma_16816's fragments) over this
 // lane's HH row halves: a[kh * HH + hh] is A's row g + 8 hh, columns 2t +
@@ -916,21 +911,14 @@ __device__ __forceinline__ void mma6(float (&c)[2 * HH], const uint32_t (&a)[3][
   mma_hh<HH>(c, a[0], bj[0][0], bj[0][1]);  // (0, 0)
 }
 
-__device__ __forceinline__ float4 scale4_rn(float4 v, float s) {
-  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s), __fmul_rn(v.w, s));
-}
-__device__ __forceinline__ float elem(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
 // Four f32 values (two bf16 pairs of a B fragment) as their pieces and b0
 // with its non-finite values zeroed.
 __device__ __forceinline__ void split_b(float x0, float x1, float x2, float x3,
                                         uint32_t (&bj)[3][2], uint32_t (&b0f)[2]) {
   sp::split_pair(x0, x1, bj[0][0], bj[1][0], bj[2][0]);
   sp::split_pair(x2, x3, bj[0][1], bj[1][1], bj[2][1]);
-  b0f[0] = finite_part(bj[0][0]);
-  b0f[1] = finite_part(bj[0][1]);
+  b0f[0] = sp::finite_part(bj[0][0]);
+  b0f[1] = sp::finite_part(bj[0][1]);
 }
 
 // -- f32 q, rows <= 16: the split-precision decode tile (mma.sync) ---------------------
@@ -1068,7 +1056,7 @@ paged_decode_f32_kernel(Args a) {
       const int row = g + 8 * hh;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (row < n_rows) {
-        x = scale4_rn(*reinterpret_cast<const float4*>(qp + q_off(a, b, hk, row, D) + C::kd(ks, t)),
+        x = sp::scale4_rn(*reinterpret_cast<const float4*>(qp + q_off(a, b, hk, row, D) + C::kd(ks, t)),
                       a.scale_log2);
         q_inf |= isinf(x.x) || isinf(x.y) || isinf(x.z) || isinf(x.w);
       }
@@ -1132,7 +1120,7 @@ paged_decode_f32_kernel(Args a) {
         // q's b0 in the products with K's b1, b2: its +-inf zeroed
         uint32_t a0f[R2];
 #pragma unroll
-        for (int x = 0; x < R2; ++x) a0f[x] = q_nf ? finite_part(qf[0][ks][x]) : qf[0][ks][x];
+        for (int x = 0; x < R2; ++x) a0f[x] = q_nf ? sp::finite_part(qf[0][ks][x]) : qf[0][ks][x];
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
           const int r = nt * 8 + g;
@@ -1257,7 +1245,7 @@ paged_decode_f32_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           uint32_t bj[3][2], b0f[2];
-          split_b(elem(vr[0], e), elem(vr[1], e), elem(vr[2], e), elem(vr[3], e), bj, b0f);
+          split_b(sp::elem4(vr[0], e), sp::elem4(vr[1], e), sp::elem4(vr[2], e), sp::elem4(vr[3], e), bj, b0f);
           mma6<HH>(pv, pa, bj, b0f);
 #pragma unroll
           for (int x = 0; x < R2; ++x) acc[4 * c + e][x] += pv[x];
@@ -1497,8 +1485,8 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
     if (r < n_rows) {
       const float* src = qp + q_off(a, b, hk, row0 + r, D) + c;
-      x0 = scale4_rn(*reinterpret_cast<const float4*>(src), a.scale_log2);
-      x1 = scale4_rn(*reinterpret_cast<const float4*>(src + 4), a.scale_log2);
+      x0 = sp::scale4_rn(*reinterpret_cast<const float4*>(src), a.scale_log2);
+      x1 = sp::scale4_rn(*reinterpret_cast<const float4*>(src + 4), a.scale_log2);
       q_inf |= isinf(x0.x) || isinf(x0.y) || isinf(x0.z) || isinf(x0.w) || isinf(x1.x) ||
                isinf(x1.y) || isinf(x1.z) || isinf(x1.w);
     }
@@ -1559,7 +1547,7 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
     if (q_nf) {   // rare: every tile, as V's planes overwrite it
       for (int i = threadIdx.x; i < C::Q_PLANE / 16; i += C::THREADS) {
         uint4 v = reinterpret_cast<const uint4*>(qs)[i];
-        v = make_uint4(finite_part(v.x), finite_part(v.y), finite_part(v.z), finite_part(v.w));
+        v = make_uint4(sp::finite_part(v.x), sp::finite_part(v.y), sp::finite_part(v.z), sp::finite_part(v.w));
         reinterpret_cast<uint4*>(vpl)[i] = v;
       }
       hop::fence_async_smem();

@@ -27,14 +27,20 @@ mma.sync kernel for the op graph) and ``csrc/flash_bwd.cu`` (a dK/dV and a
 dQ kernel: in bf16 wgmma kernels for the TPU kernels' backward and
 mma.sync kernels for the op graph's autodiff, its dQ kernel leaving the
 rows' statistics to the dK/dV kernel).  f32 has one function up to f32
-rounding at every shape: from ``F32_TC_MIN_KV`` keys on wgmma kernels in
-split precision (each f32 operand three bf16 pieces, six products a
-product: ``fa_flash_fwd_f32``, ``fa_flash_bwd_f32``, counted by
-``_f32_kernel`` and ``_f32_bwd_kernel``), below it the CUDA-core kernels
-(``attn_core.cuh``'s tile, the FMA backward pair), which also compute a
-split-precision call whose inputs hold a +-inf (the split pass flags it on
-the device and the split kernels step aside; C17).  On CPU tensors the
-plain versions run (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).
+rounding at every shape, on the tensor cores in split precision (each f32
+operand three bf16 pieces, six bf16 products a product; :func:`f32_route`
+picks the kernels by the number of keys): from ``F32_TC_MIN_KV`` keys on
+wgmma kernels behind a split pass (``fa_flash_fwd_f32``,
+``fa_flash_bwd_f32``, counted by ``_f32_kernel`` and ``_f32_bwd_kernel``),
+below it warp-level mma.sync kernels sized to the rows, which read the f32
+inputs once and split them in registers (``fa_flash_fwd_f32_mma``,
+``fa_flash_bwd_f32_mma``, counted by ``_f32_mma_kernel`` and
+``_f32_mma_bwd_kernel``).  The warp-level kernels also compute a wgmma
+call whose inputs hold a +-inf: the split pass flags it on the device,
+the wgmma kernels exit and the warp-level ones, launched behind them,
+run (C17; no host sync, the call's one count is the wgmma wrapper's).  On
+CPU tensors the plain versions run (:func:`flash_fwd_plain`,
+:func:`flash_bwd_plain`).
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
@@ -67,6 +73,11 @@ _f32_kernel = _build.Kernel("fa_flash_fwd_f32", [_build.P] * 8
                             + [_build.I] * 8 + [_build.F])
 _f32_bwd_kernel = _build.Kernel("fa_flash_bwd_f32", [_build.P] * 12
                                 + [_build.I] * 8 + [_build.F, _build.F])
+# f32 on warp-level tensor-core kernels sized to the rows (split precision)
+_f32_mma_kernel = _build.Kernel("fa_flash_fwd_f32_mma", [_build.P] * 6
+                                + [_build.I] * 8 + [_build.F])
+_f32_mma_bwd_kernel = _build.Kernel("fa_flash_bwd_f32_mma", [_build.P] * 11
+                                    + [_build.I] * 8 + [_build.F, _build.F])
 
 HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
@@ -79,12 +90,26 @@ _BLOCK = 1024
 _MIN_BLOCK = 8
 # the C interface's codes of the kernel modes
 _MODES = {"op_graph": 0, "grid": 1, "loop": 1, "subrow": 2}
-# f32 takes the split-precision tensor-core kernels from this many keys on;
-# shorter walks (the MT model's 40, the distill draft's 128) keep the
-# CUDA-core kernels, whose single launch and two blocks an SM win there
-# (tools/f32_flash_probe.py: the crossover lies between 128 and 256 keys;
-# PERF.md, rows 6 and 9)
+# f32 takes the wgmma split-precision kernels from this many keys on;
+# shorter walks (the MT model's 40, the distill draft's 128) take the
+# warp-level ones, whose single launch, no split pass and blocks sized to
+# the rows win there (tools/f32_flash_probe.py --time; PERF.md, rows 3-10')
 F32_TC_MIN_KV = 256
+
+
+# below this many keys the warp-level backward's dK/dV kernel leaves dS in
+# a scratch of b h n_q n_kv floats for its dQ kernel, which then computes
+# neither S nor dP again (from here on the scratch would outgrow the
+# inputs; the wgmma route's +-inf calls recompute at any length, C17)
+MMA_DS_MAX_KV = 256
+
+
+def f32_route(n_kv: int) -> str:
+    """The f32 kernels a CUDA call over ``n_kv`` keys launches: ``"wgmma"``
+    (the split pass and the wgmma kernels) from ``F32_TC_MIN_KV`` keys on,
+    else ``"mma"`` (the warp-level kernels).  A shape rule, never a device
+    test."""
+    return "wgmma" if n_kv >= F32_TC_MIN_KV else "mma"
 
 
 class Schedule(NamedTuple):
@@ -396,7 +421,13 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
     lens = _lengths(kv_lengths, b, q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, n_q, 1), device=q.device, dtype=torch.float32)
-    if code == 0 and n_kv >= F32_TC_MIN_KV:
+    if code == 0 and f32_route(n_kv) == "mma":
+        _f32_mma_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        None if lens is None else lens.data_ptr(), o.data_ptr(),
+                        lse.data_ptr(), b, h, h_kv, n_q, n_kv, d, int(causal),
+                        int(window or 0), scale)
+        return o, lse
+    if code == 0:
         planes = torch.empty(3 * (q.numel() + 2 * k.numel()),
                              dtype=torch.bfloat16, device=q.device)
         flags = torch.empty(2, dtype=torch.int32, device=q.device)
@@ -421,9 +452,10 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     statistics (lse and di unused; ``ops`` holds them between the two
     kernels), unless ``grid`` asks for the TPU backward kernels' function
     (:func:`_reference_bwd`) at every shape, as ring attention's pairs
-    take it (JAX calls ``_flash_bwd`` there directly).  One count covers
-    its launches (``_f32_bwd_kernel``'s for f32 from ``F32_TC_MIN_KV``
-    keys on, else ``_bwd_kernel``'s)."""
+    take it (JAX calls ``_flash_bwd`` there directly); f32 takes the
+    explicit formulas at every shape.  One count covers its launches
+    (``_bwd_kernel``'s in bf16; in f32 ``_f32_bwd_kernel``'s or
+    ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`)."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -440,7 +472,18 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     lse, di = (t.detach().float().contiguous() for t in (lse, di))
     lens = _lengths(kv_lengths, b, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if code == 0 and n_kv >= F32_TC_MIN_KV:
+    if code == 0 and f32_route(n_kv) == "mma":
+        ds = (torch.empty((b, h, n_q, (n_kv + 3) // 4 * 4), device=q.device,
+                          dtype=torch.float32) if n_kv < MMA_DS_MAX_KV else None)
+        _f32_mma_bwd_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                            None if lens is None else lens.data_ptr(),
+                            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            None if ds is None else ds.data_ptr(), b, h,
+                            h_kv, n_q, n_kv, d, int(causal), int(window or 0),
+                            float(sm_scale), float(sm_scale * LOG2E))
+        return dq, dk, dv
+    if code == 0:
         planes = torch.empty(6 * (q.numel() + k.numel()), dtype=torch.bfloat16,
                              device=q.device)
         flags = torch.empty(1, dtype=torch.int32, device=q.device)

@@ -54,10 +54,12 @@ def _err(a, b):
 
 def _flash_launches():
     """(forward, backward) launches of the flash kernels, either f32 route
-    (the split-precision kernels from fa.F32_TC_MIN_KV keys, the CUDA-core
-    ones below) counted with bf16's."""
-    return (fa._kernel.launches + fa._f32_kernel.launches,
-            fa._bwd_kernel.launches + fa._f32_bwd_kernel.launches)
+    (fa.f32_route: the wgmma split-precision kernels from fa.F32_TC_MIN_KV
+    keys, the warp-level ones below) counted with bf16's."""
+    return (fa._kernel.launches + fa._f32_kernel.launches
+            + fa._f32_mma_kernel.launches,
+            fa._bwd_kernel.launches + fa._f32_bwd_kernel.launches
+            + fa._f32_mma_bwd_kernel.launches)
 
 
 def _rel_err(a, b):
@@ -1388,7 +1390,7 @@ def test_rope_paged_paths_match_plain(dev):
     chunk = torch.randint(0, 64, (3, 3), generator=g)
     nxt = torch.randint(0, 64, (3, 1), generator=g)
     out = []
-    before = fa._kernel.launches, pa._f32_kernel.launches
+    before = _flash_launches()[0], pa._f32_kernel.launches
     for model, d in ((card, dev), (host, torch.device("cpu"))):
         pools = model.init_page_pools(3 * pps + 1, page, device=d)
         t, ln = table.to(d), lens.to(d)
@@ -1399,7 +1401,7 @@ def test_rope_paged_paths_match_plain(dev):
             dec, pools = model.forward_decode_paged(nxt.to(d), pools, t,
                                                     ln + 3)
         out.append([x.cpu() for x in (pre, ext, dec)])
-    assert fa._kernel.launches > before[0]          # the card's prefill
+    assert _flash_launches()[0] > before[0]          # the card's prefill
     assert pa._f32_kernel.launches >= before[1] + 4   # 2 layers x extend, decode
     (pre, ext, dec), (pre_h, ext_h, dec_h) = out
     for r, n in enumerate(lens.tolist()[:2]):      # row 2 is idle
@@ -1534,7 +1536,7 @@ def test_encoder_decoder_cuda_equals_cpu(dev):
     lens = torch.tensor([40, 1, 23, 9])
     labels = torch.randint(3, 500, (4, 37), generator=g)
     mask = (torch.rand(4, 37, generator=g) < 0.8).float()
-    before = {k: getattr(fa, k).launches for k in ("_kernel", "_bwd_kernel")}
+    before = _flash_launches()
     out = []
     for model in (card, host):
         d = next(model.parameters()).device
@@ -1547,8 +1549,8 @@ def test_encoder_decoder_cuda_equals_cpu(dev):
         grads = torch.autograd.grad(loss, params)
         out.append((logits.cpu(), float(loss.detach()),
                     {n: gr.cpu() for n, gr in zip(names, grads)}))
-    assert fa._kernel.launches > before["_kernel"]
-    assert fa._bwd_kernel.launches > before["_bwd_kernel"]
+    after = _flash_launches()
+    assert after[0] > before[0] and after[1] > before[1]
     (lc, l_c, g_c), (lh, l_h, g_h) = out
     assert _err(lc, lh) <= 1e-4
     assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
@@ -1974,14 +1976,15 @@ def test_dropout_kernel_at_offset(dev, dtype, offset):
     assert torch.equal(got.reshape(-1), full[offset:offset + x.numel()])
 
 
-# f32 on the split-precision tensor-core kernels (fa._f32_kernel,
-# fa._f32_bwd_kernel from fa.F32_TC_MIN_KV keys; the CUDA-core kernels
-# below) against the plain versions, at each schedule's shapes and on both
-# sides of the dispatcher's thresholds: the op graph at the MT model's 40
-# keys and at 255 / 256 keys, subrow at 1024, the loop at 2048, the grid
-# with a window, GQA 16q/4kv, varlen with a length-0 row, d 32 and 64,
-# cross 1000 x 2048 and ragged lengths.  (b, h, h_kv, n_q, n_kv, d, causal,
-# lengths, window)
+# f32 on the tensor cores in split precision, on the route fa.f32_route
+# names: the wgmma kernels (fa._f32_kernel, fa._f32_bwd_kernel) from
+# fa.F32_TC_MIN_KV keys, the warp-level ones (fa._f32_mma_kernel,
+# fa._f32_mma_bwd_kernel) below; against the plain versions, at each
+# schedule's shapes and on both sides of the dispatcher's thresholds: the
+# op graph at the MT model's 40 keys and at 255 / 256 keys, subrow at 1024,
+# the loop at 2048, the grid with a window, GQA 16q/4kv, varlen with a
+# length-0 row, d 32 and 64, cross 1000 x 2048 and ragged lengths.  (b, h,
+# h_kv, n_q, n_kv, d, causal, lengths, window)
 F32_CASES = {
     "op_graph_mt_40x40_d32": (16, 8, 8, 40, 40, 32, True, None, None),
     "op_graph_n255_d64": (2, 4, 4, 255, 255, 64, True, None, None),
@@ -2023,29 +2026,36 @@ def _f32_inputs(case, dev, magnitude=1.0):
     return q, k, v, do, lens, causal, window
 
 
+def _f32_counts():
+    return [c.launches for c in (fa._kernel, fa._bwd_kernel, fa._f32_kernel,
+                                 fa._f32_bwd_kernel, fa._f32_mma_kernel,
+                                 fa._f32_mma_bwd_kernel)]
+
+
+def _f32_route_delta(n_kv):
+    """The counts one forward and one backward add on fa.f32_route's route
+    (the order of _f32_counts)."""
+    return [0, 0, 1, 1, 0, 0] if fa.f32_route(n_kv) == "wgmma" else \
+        [0, 0, 0, 0, 1, 1]
+
+
 @pytest.mark.parametrize("magnitude", [1.0, 1e3])
 @pytest.mark.parametrize("case", list(F32_CASES))
 def test_flash_f32_split_kernels(dev, case, magnitude):
     """Forward and backward against flash_fwd_plain / flash_bwd_plain at
     F32_GRADE (o relative to max |ref| at magnitude 1e3: see _f32_inputs),
-    the launch on the route the dispatcher names: the split-precision
-    kernels from F32_TC_MIN_KV keys, the CUDA-core ones below; the
-    backward twice bit for bit."""
+    the launch on the route fa.f32_route names: the wgmma kernels from
+    F32_TC_MIN_KV keys, the warp-level ones below; the backward twice bit
+    for bit."""
     q, k, v, do, lens, causal, window = _f32_inputs(case, dev, magnitude)
     n_kv, sc = k.shape[2], q.shape[-1] ** -0.5
     kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
-    tc = n_kv >= fa.F32_TC_MIN_KV
-    fwd, bwd = ((fa._f32_kernel, fa._f32_bwd_kernel) if tc
-                else (fa._kernel, fa._bwd_kernel))
-    counts = [c.launches for c in (fa._kernel, fa._f32_kernel, fa._bwd_kernel,
-                                   fa._f32_bwd_kernel)]
+    counts = _f32_counts()
     o, lse = fa.flash_fwd(q, k, v, **kw)
     di = (o.float() * do.float()).sum(-1, keepdim=True)
     got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
-    delta = [c.launches - n for c, n in zip(
-        (fa._kernel, fa._f32_kernel, fa._bwd_kernel, fa._f32_bwd_kernel), counts)]
-    assert delta == ([0, 1, 0, 1] if tc else [1, 0, 1, 0])
-    assert (fwd.launches, bwd.launches) > (0, 0)
+    assert [a - b for a, b in zip(_f32_counts(), counts)] == \
+        _f32_route_delta(n_kv)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, lens, window)
     fin = lse_ref.isfinite()
     assert torch.equal(lse.isfinite(), fin)
@@ -2057,6 +2067,102 @@ def test_flash_f32_split_kernels(dev, case, magnitude):
         assert _rel_err(a, b) <= F32_GRADE
     for a, b in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
         assert torch.equal(a, b)
+
+
+# the warp-level kernels' shapes: keys 1 to the threshold (one 16-key
+# chunk, partial chunks, one and two 64-key tiles), rows 1 to 255 (one to
+# four warps, several row blocks), every head dim, GQA, a window, varlen
+# with a length-0 row, cross attention, causal and not.  (b, h, h_kv, n_q,
+# n_kv, d, causal, lengths, window)
+F32_MMA_CASES = {
+    "q1_kv1_d32": (4, 2, 2, 1, 1, 32, False, None, None),
+    "q16_kv17_causal_d64": (2, 4, 4, 16, 17, 64, True, None, None),
+    "q17_kv40_gqa4_2_d128": (2, 4, 2, 17, 40, 128, False, None, None),
+    "mt_decoder_40x40_causal_d32": (8, 8, 8, 40, 40, 32, True, None, None),
+    "mt_encoder_40x40_varlen_len0_d32": (4, 8, 8, 40, 40, 32, False,
+                                         [40, 0, 1, 23], None),
+    "mt_cross_31x40_d32": (4, 8, 8, 31, 40, 32, False, None, None),
+    "q65_kv63_d64": (2, 4, 4, 65, 63, 64, False, None, None),
+    "q40_kv64_gqa8_2_d32": (2, 8, 2, 40, 64, 32, False, None, None),
+    "q65_kv65_causal_d128": (2, 2, 2, 65, 65, 128, True, None, None),
+    "distill_128x128_causal_d64": (4, 2, 2, 128, 128, 64, True, None, None),
+    "q128_kv128_window6_d64": (2, 4, 4, 128, 128, 64, True, None, 6),
+    "q1_kv255_d128": (4, 4, 4, 1, 255, 128, False, None, None),
+    "q255_kv255_causal_varlen_d32": (3, 2, 2, 255, 255, 32, True,
+                                     [255, 0, 100], None),
+    "q40_below_threshold_d64": (2, 4, 4, 40, fa.F32_TC_MIN_KV - 1, 64, False,
+                                None, None),
+}
+
+
+def _f64_attention(q, k, v, do, causal, scale, lens=None, window=None):
+    """(o, lse, dq, dk, dv) in float64 of the function every f32 route
+    computes (GQA, masks, a row with no live key: o = 0, lse = -inf and no
+    gradient), dq, dk, dv by the explicit formulas from the float64 lse."""
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    kr, vr = (t.double() for t in fa.repeat_kv(k, v, h))
+    qd, dod = q.double(), do.double()
+    s = qd @ kr.transpose(-1, -2) * scale
+    keep = fa._keep_mask(n_q, n_kv, causal, window, lens, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, -math.inf)
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    p = torch.where(lse.isfinite(), torch.exp(s - lse), torch.zeros_like(s))
+    o = p @ vr
+    di = (o * dod).sum(-1, keepdim=True)
+    ds = p * (dod @ vr.transpose(-1, -2) - di) * scale
+    dq = ds @ kr
+    dk, dv = ds.transpose(-1, -2) @ qd, p.transpose(-1, -2) @ dod
+    if h != h_kv:
+        dk = dk.reshape(b, h_kv, h // h_kv, n_kv, d).sum(2)
+        dv = dv.reshape(b, h_kv, h // h_kv, n_kv, d).sum(2)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("case", list(F32_MMA_CASES))
+def test_flash_f32_mma_kernels(dev, case):
+    """The warp-level kernels (every f32 call below F32_TC_MIN_KV keys):
+    one launch each of fa._f32_mma_kernel and fa._f32_mma_bwd_kernel and
+    none of another flash kernel; o, lse and the gradients within TOL of
+    the plain versions and within F32_GRADE of float64 (o and lse absolute,
+    gradients over max(1, max |ref|), the backward given its own forward's
+    lse and di); the backward twice bit for bit; keys past a length get no
+    gradient."""
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = F32_MMA_CASES[case]
+    assert fa.f32_route(n_kv) == "mma"
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, do = (torch.randn(b, h, n_q, d, generator=g, device=dev) for _ in range(2))
+    k, v = (torch.randn(b, h_kv, n_kv, d, generator=g, device=dev) for _ in range(2))
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    sc = d ** -0.5
+    kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
+    counts = _f32_counts()
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    di = (o * do).sum(-1, keepdim=True)
+    got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
+    assert [a - c for a, c in zip(_f32_counts(), counts)] == [0, 0, 0, 0, 1, 1]
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, lens, window)
+    fin = lse_ref.isfinite()
+    assert torch.equal(lse.isfinite(), fin)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    assert _err(lse[fin], lse_ref[fin]) <= TOL[torch.float32]
+    want = fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens, window)
+    for a, c in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, c) <= TOL[torch.float32]
+    exact = _f64_attention(q, k, v, do, causal, sc, lens, window)
+    assert _err(o, exact[0]) <= F32_GRADE
+    assert _err(lse[fin], exact[1][fin]) <= F32_GRADE
+    for a, c in zip(got, exact[2:]):
+        assert _rel_err(a, c) <= F32_GRADE
+    for a, c in zip(got, fa.flash_bwd(q, k, v, lse, di, do, **kw)):
+        assert torch.equal(a, c)
+    if lens is not None:
+        for bi, n in enumerate(lens.tolist()):
+            assert (got[1][bi, :, n:] == 0).all() and (got[2][bi, :, n:] == 0).all()
+            if n == 0:
+                assert (o[bi] == 0).all() and (got[0][bi] == 0).all()
 
 
 def _same_class_close(a, b, scale, what):
@@ -2075,11 +2181,14 @@ def _same_class_close(a, b, scale, what):
 def test_flash_f32_split_inf_forward_backward(dev, case, where, value):
     """The f32 split flash forward and backward (from F32_TC_MIN_KV keys)
     with a +-inf in q, K, V or dO (element [0, 0, 5, 3]) against the
-    CUDA-core kernels (f32 arithmetic over the same 64-row, 64-key tiles)
-    and against the plain versions: the NaN and inf positions of o, lse,
-    dq, dk and dv equal, the finite elements within F32_GRADE (gradients
-    over max(1, max |ref|)).  A piece's 0 * inf gives NaN where f32 gives
-    +-inf (C17): a +-inf input takes the CUDA-core route.  Not causal: every query tile
+    warp-level kernels (forced by moving the threshold past n_kv) and
+    against the plain versions: the NaN and inf positions of o, lse, dq,
+    dk and dv equal, the finite elements within F32_GRADE (gradients over
+    max(1, max |ref|)).  A piece's 0 * inf gives NaN where f32 gives +-inf
+    (C17): a +-inf input takes the warp-level kernels behind the wgmma
+    ones, so the wgmma route's results equal the forced route's bit for
+    bit (the same kernels compute both; with dO's +-inf the backward's,
+    given the same lse and di).  Not causal: every query tile
     meets every key tile, so the tiled walk and the plain versions' dense
     products make their 0 * inf at the same places (a causal walk skips
     tiles that the dense product multiplies by p = 0).  dv is held to the
@@ -2093,31 +2202,76 @@ def test_flash_f32_split_inf_forward_backward(dev, case, where, value):
     sc = q.shape[-1] ** -0.5
     kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
 
-    def run():
-        o, lse = fa.flash_fwd(q, k, v, **kw)
-        di = (o.float() * do.float()).sum(-1, keepdim=True)
-        return (o, lse, *fa.flash_bwd(q, k, v, lse, di, do, **kw)), di
+    def run(lse=None, di=None):
+        """The forward, then the backward given (lse, di), by default the
+        forward's."""
+        o, lse_ = fa.flash_fwd(q, k, v, **kw)
+        if lse is None:
+            lse, di = lse_, (o.float() * do.float()).sum(-1, keepdim=True)
+        return (o, lse_, *fa.flash_bwd(q, k, v, lse, di, do, **kw)), lse, di
 
-    before = fa._f32_kernel.launches, fa._f32_bwd_kernel.launches
-    got, di = run()
-    assert (fa._f32_kernel.launches, fa._f32_bwd_kernel.launches) == (
-        before[0] + 1, before[1] + 1)
+    counts = _f32_counts()
+    got, lse, di = run()
+    assert [a - b for a, b in zip(_f32_counts(), counts)] == [0, 0, 1, 1, 0, 0]
     keep = fa.F32_TC_MIN_KV
-    fa.F32_TC_MIN_KV = 1 << 30   # the CUDA-core route on the same inputs
+    fa.F32_TC_MIN_KV = 1 << 30   # the warp-level route on the same inputs
     try:
-        core, _ = run()
+        counts = _f32_counts()
+        mma, _, _ = run(lse, di)
+        assert [a - b for a, b in zip(_f32_counts(), counts)] == \
+            [0, 0, 0, 0, 1, 1]
     finally:
         fa.F32_TC_MIN_KV = keep
-    o, lse = got[:2]
     plain = (*fa.flash_fwd_plain(q, k, v, causal, sc, lens, window),
              *fa.flash_bwd_plain(q, k, v, lse, di, do, causal, sc, lens, window))
-    for name, a, c, b in zip(("o", "lse", "dq", "dk", "dv"), got, core, plain):
+    # a +-inf in dO reaches the backward alone: the forward stays wgmma's
+    same = ("dq", "dk", "dv") if where == "do" else ("o", "lse", "dq", "dk", "dv")
+    for name, a, c, b in zip(("o", "lse", "dq", "dk", "dv"), got, mma, plain):
+        if name in same:
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32)), \
+                f"{name}: the wgmma route's +-inf call is not the warp-level kernels'"
         fin = b[b.isfinite()]
         scale = 1.0 if name in ("o", "lse") or fin.numel() == 0 else max(
             1.0, float(fin.abs().max()))
-        _same_class_close(a, c, scale, f"{name} against the CUDA-core route")
         if name != "dv" or bool(lse.isfinite().all()):
             _same_class_close(a, b, scale, f"{name} against the plain version")
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("-inf"), float("nan")])
+@pytest.mark.parametrize("where", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("case", ["mt_40x40_d32", "distill_128x128_d64"])
+def test_flash_f32_mma_nonfinite(dev, case, where, value):
+    """The warp-level kernels with a +-inf or a NaN in q, K, V or dO
+    (element [0, 0, 5, 3]), not causal (every row's walk reads every key,
+    as the op graph's dense products do): o's and lse's NaN and inf
+    positions equal flash_fwd_plain's, the gradients' equal those of the
+    TPU kernels' explicit formulas (fa._reference_bwd, which the kernels
+    compute; below 1024 keys flash_bwd_plain is autograd of the op graph,
+    equal to them to f32 rounding on finite inputs, whose inf - inf falls
+    elsewhere), the finite elements within F32_GRADE; dv only where every
+    lse is finite, as test_flash_f32_split_inf_forward_backward."""
+    b, h, n, d = {"mt_40x40_d32": (2, 4, 40, 32),
+                  "distill_128x128_d64": (2, 2, 128, 64)}[case]
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=dev)
+                   for _ in range(4))
+    {"q": q, "k": k, "v": v, "do": do}[where][0, 0, 5, 3] = value
+    sc = d ** -0.5
+    counts = _f32_counts()
+    o, lse = fa.flash_fwd(q, k, v, causal=False, sm_scale=sc)
+    di = (o * do).sum(-1, keepdim=True)
+    got = (o, lse, *fa.flash_bwd(q, k, v, lse, di, do, causal=False,
+                                 sm_scale=sc))
+    assert [a - c for a, c in zip(_f32_counts(), counts)] == [0, 0, 0, 0, 1, 1]
+    want = (*fa.flash_fwd_plain(q, k, v, False, sc),
+            *fa._reference_bwd(q, k, v, lse, di, do, False, sc))
+    for name, a, c in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        fin = c[c.isfinite()]
+        scale = 1.0 if name in ("o", "lse") or fin.numel() == 0 else max(
+            1.0, float(fin.abs().max()))
+        if name != "dv" or bool(lse.isfinite().all()):
+            _same_class_close(a, c, scale, f"{name} against the plain version")
+    assert not all(bool(t.isfinite().all()) for t in got)   # it reached them
 
 
 @pytest.mark.parametrize("value", [float("inf"), float("nan")])

@@ -20,10 +20,12 @@ a process of its own that imports that root's package and this repo's
   causal N512 (the op graph's autodiff), with SDPA's backward beside;
 * ``f32``: every f32 flash line of ``chip_smoke.py``'s kernel phases,
   forward and backward where it has one: the varlen prefill B4 H8 N2048
-  D128, the train shape B4 H16 N2048 D128 causal (the loop schedule), and
-  the MT model's B128 H8 D32 40-key shapes (encoder varlen, decoder
-  causal, cross varlen, generate 1 x 40), with SDPA's f32 call and its
-  backward beside;
+  D128, the train shape B4 H16 N2048 D128 causal (the loop schedule), the
+  MT model's B128 H8 D32 40-key shapes (encoder varlen, decoder causal,
+  cross varlen, generate 1 x 40) and the distill draft's B16 H2 128 x 128
+  D64 causal, each named by its route's kernels (chip_smoke's
+  ``_flash_name``), with SDPA's f32 call and its backward and the bound
+  beside;
 * ``opgraph``: the op graph (``flash_fwd`` mode 0 and ``flash_bwd``'s
   op-graph mode) at the MT model's attention shapes (B128 H8 D32 over 40
   keys: the encoder's varlen and the decoder's causal self-attention,
@@ -70,9 +72,9 @@ a process of its own that imports that root's package and this repo's
   profiled step);
 * ``train_fused``: the same with ``attn_impl="fused_softmax"``;
 * ``train_f32``: the same step in f32 (no mixed-precision wrapper);
-* ``mt_step``: chip_smoke's seq2seq_train phase in bf16-mixed with remat
-  (the MT model's 64 steps, ms/step, one profiled dispatch with the op
-  graph's device ms and share).
+* ``mt_step``: chip_smoke's seq2seq_train phase in f32, then in
+  bf16-mixed with remat (the MT model's 64 steps, ms/step, one profiled
+  dispatch with the attention's and the op graph's device ms and share).
 
 Each process's full output goes to ``<log-dir>/ab_<n>_<root>.log``
 (default ``workdir_ab/logs``, git-ignored); the summary lines (``[ab]``,
@@ -172,7 +174,8 @@ F32_SHAPES = [
     ("MT encoder B128 H8 40x40 D32 varlen", (128, 8, 40, 40, 32), "mt", False, True),
     ("MT decoder B128 H8 40x40 D32 causal", (128, 8, 40, 40, 32), None, True, True),
     ("MT cross B128 H8 40x40 D32 varlen", (128, 8, 40, 40, 32), "mt", False, True),
-    ("MT generate B128 H8 1x40 D32 varlen", (128, 8, 1, 40, 32), "mt", False, False)]
+    ("MT generate B128 H8 1x40 D32 varlen", (128, 8, 1, 40, 32), "mt", False, False),
+    ("distill B16 H2 128x128 D64 causal", (16, 2, 128, 128, 64), None, True, True)]
 
 
 def _f32(torch, cs, dev):
@@ -190,15 +193,19 @@ def _f32(torch, cs, dev):
         sc = d ** -0.5
         kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens)
         lib, args = cs._sdpa(torch, q, k, v, causal, None, lens)
-        line = (f"[ab] f32 flash {label}: fwd ms "
+        b_ms, b_by = cs.bound_ms(*cs._flash_cost(q, k, causal, None, lens), "float32")
+        line = (f"[ab] f32 flash {label} ({cs._flash_name('flash_fwd', q, k)}): fwd ms "
                 f"{cs.time_ms(lambda: fa.flash_fwd(q, k, v, **kw)):.4f}, SDPA "
-                f"{cs.time_ms(lambda: lib(*args)):.4f}")
+                f"{cs.time_ms(lambda: lib(*args)):.4f}, bound {b_ms:.4f} ({b_by})")
         if bwd:
             o, lse = fa.flash_fwd(q, k, v, **kw)
             di = (o.float() * do.float()).sum(-1, keepdim=True)
             ms = cs.time_ms(lambda: fa.flash_bwd(q, k, v, lse, di, do, **kw))
             lib_b = cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, lens))
-            line += f"; bwd ms {ms:.4f}, SDPA bwd {lib_b:.4f}"
+            b_ms, b_by = cs.bound_ms(*cs._flash_cost(q, k, causal, None, lens, True),
+                                     "float32")
+            line += (f"; bwd ms {ms:.4f}, SDPA bwd {lib_b:.4f}, bound {b_ms:.4f} "
+                     f"({b_by})")
         print(line, flush=True)
         del q, k, v, do
 
@@ -597,7 +604,9 @@ def child(root: str, phases: list[str]) -> None:
                        absent=cs.TRAIN_F32_ABSENT if split else (), mixed=False)
         torch.cuda.empty_cache()
     if "mt_step" in phases:
-        cs.seq2seq_train_phase(torch, dev, torch.cuda.get_device_name(0), cs.mt_data(),
+        data = cs.mt_data()
+        cs.seq2seq_train_phase(torch, dev, torch.cuda.get_device_name(0), data)
+        cs.seq2seq_train_phase(torch, dev, torch.cuda.get_device_name(0), data,
                                mixed=True, remat=True)
     if "serve_quant" in phases:
         res = cs.serve_quant_phase(torch, dev)
@@ -636,7 +645,8 @@ def main() -> int:
                                 stdout=f, stderr=subprocess.STDOUT).returncode
         for line in log.read_text().splitlines():
             if line.startswith(("[ab]", "[serve_quant]", "[train", "[seq2seq_train",
-                                "[profile] op graph", "[profile] by group")) \
+                                "[profile] op graph", "[profile] by group",
+                                "[profile] attention")) \
                     or "device busy" in line:
                 print(line, flush=True)
         if rc != 0:

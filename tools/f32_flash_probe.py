@@ -1,5 +1,7 @@
-"""The f32 flash kernels on the card: split-precision tensor cores against the
-CUDA-core (FMA) kernels they replace above ``F32_TC_MIN_KV`` keys.
+"""The f32 flash kernels on the card, both split-precision routes: the wgmma
+kernels behind a split pass (from ``F32_TC_MIN_KV`` keys) and the
+warp-level mma.sync kernels sized to the rows (below it, and behind the
+wgmma kernels where an input holds a +-inf).
 
     python3 tools/f32_flash_probe.py [--ptxas] [--check] [--time] [--diag] [--inf]
 
@@ -11,13 +13,15 @@ CUDA-core (FMA) kernels they replace above ``F32_TC_MIN_KV`` keys.
   each launch counted on the route's own counter;
 * ``--time``: device ms of the forward and backward of both routes, with
   SDPA's f32 call (and its backward) beside, from the MT model's 40 keys to
-  the train shape's 2048: the crossover behind ``F32_TC_MIN_KV``;
+  the train shape's 2048: the crossover behind ``F32_TC_MIN_KV``; the two
+  routes' calls alternate (wgmma, mma, mma, wgmma) and each time is the
+  mean of its pair;
 * ``--inf``: both routes with a +-inf in q, K, V or dO against the plain
   versions, the NaN / inf counts of o, lse, dq, dk and dv and where they
   differ.
 
-The route is forced through ``F32_TC_MIN_KV`` (0: every shape on the tensor
-cores; a huge value: every shape on the FMA kernels).
+The route is forced through ``F32_TC_MIN_KV`` (0: every shape on the wgmma
+kernels; a huge value: every shape on the warp-level kernels).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ CHECKS = [
 TIMES = [
     ("MT B128 H8 N40 D32 causal", (128, 8, 40, 32), True),
     ("B64 H8 N128 D32 causal", (64, 8, 128, 32), True),
+    ("distill B16 H2 N128 D64 causal", (16, 2, 128, 64), True),
     ("B32 H8 N256 D64 causal", (32, 8, 256, 64), True),
     ("B16 H16 N512 D128 causal", (16, 16, 512, 128), True),
     ("B4 H16 N1024 D128 causal", (4, 16, 1024, 128), True),
@@ -66,7 +71,7 @@ def ptxas() -> None:
         keep = False
         for line in (res.stdout + res.stderr).splitlines():
             if "Compiling entry function" in line:
-                keep = "f32_kernel" in line or "split_kernel" in line
+                keep = any(n in line for n in ("f32_kernel", "split_kernel", "f32_mma"))
             if keep:
                 print(f"[ptxas] {line.strip()}", flush=True)
         if res.returncode:
@@ -93,10 +98,10 @@ def check(torch, dev) -> None:
         sc = d ** -0.5
         kw = dict(causal=causal, sm_scale=sc, kv_lengths=lens, window=window)
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, sc, lens, window)
-        for route, min_kv in (("tensor cores", 0), ("FMA", 1 << 30)):
+        for route, min_kv in (("wgmma", 0), ("mma", 1 << 30)):
             fa.F32_TC_MIN_KV = min_kv
-            counts = [c.launches for c in (fa._kernel, fa._f32_kernel, fa._bwd_kernel,
-                                           fa._f32_bwd_kernel)]
+            counts = [c.launches for c in (fa._f32_mma_kernel, fa._f32_kernel,
+                                           fa._f32_mma_bwd_kernel, fa._f32_bwd_kernel)]
             o, lse = fa.flash_fwd(q, k, v, **kw)
             di = (o.float() * do.float()).sum(-1, keepdim=True)
             got = fa.flash_bwd(q, k, v, lse, di, do, **kw)
@@ -107,10 +112,11 @@ def check(torch, dev) -> None:
             e_lse = float((lse[fin] - lse_ref[fin]).abs().max())
             e_g = [float((a - w).abs().max()) for a, w in zip(got, want)]
             delta = [c.launches - n for c, n in zip(
-                (fa._kernel, fa._f32_kernel, fa._bwd_kernel, fa._f32_bwd_kernel), counts)]
+                (fa._f32_mma_kernel, fa._f32_kernel, fa._f32_mma_bwd_kernel,
+                 fa._f32_bwd_kernel), counts)]
             print(f"[check] {label} {route}: o {e_o:.3e} lse {e_lse:.3e} "
                   f"dq {e_g[0]:.3e} dk {e_g[1]:.3e} dv {e_g[2]:.3e}; launches "
-                  f"(fma fwd, tc fwd, fma bwd, tc bwd) {delta}; finite "
+                  f"(mma fwd, wgmma fwd, mma bwd, wgmma bwd) {delta}; finite "
                   f"{bool(torch.isfinite(o).all())} "
                   f"{all(bool(torch.isfinite(t).all()) for t in got)}", flush=True)
     fa.F32_TC_MIN_KV = keep
@@ -126,25 +132,31 @@ def times(torch, dev) -> None:
         q, k, v, do = _inputs(torch, dev, g, b, h, h, n, n, d)
         sc = d ** -0.5
         line = f"[time] {label}:"
-        for route, min_kv in (("tc", 0), ("fma", 1 << 30)):
-            fa.F32_TC_MIN_KV = min_kv
+        got = {"wgmma": [], "mma": []}
+        for route in ("wgmma", "mma", "mma", "wgmma"):
+            fa.F32_TC_MIN_KV = 0 if route == "wgmma" else 1 << 30
             o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc)
             di = (o.float() * do.float()).sum(-1, keepdim=True)
             fwd = cs.time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc))
             bwd = cs.time_ms(lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
                                                   sm_scale=sc))
-            line += f" {route} fwd {fwd:.4f} bwd {bwd:.4f};"
+            got[route].append((fwd, bwd))
+        for route, ((f1, b1), (f2, b2)) in got.items():
+            line += (f" {route} fwd {(f1 + f2) / 2:.4f} ({f1:.4f} {f2:.4f}) bwd "
+                     f"{(b1 + b2) / 2:.4f} ({b1:.4f} {b2:.4f});")
         lib, args = cs._sdpa(torch, q, k, v, causal, None, None)
         line += (f" SDPA fwd {cs.time_ms(lambda: lib(*args)):.4f} bwd "
                  f"{cs.time_ms(cs._sdpa_bwd(torch, q, k, v, do, causal, None, None)):.4f}")
-        b_f, _ = cs.bound_ms(*cs._flash_cost(q, k, causal, None, None), "float32")
-        line += f"; FMA bound fwd {b_f:.4f}"
+        for tag, bwd_ in (("fwd", False), ("bwd", True)):
+            b_ms, b_by = cs.bound_ms(*cs._flash_cost(q, k, causal, None, None, bwd_),
+                                     "float32")
+            line += f"; {tag} bound {b_ms:.4f} ({b_by})"
         print(line, flush=True)
         if label.startswith("train"):
             import ab_chip_smoke as ab
 
             fa.F32_TC_MIN_KV = 0
-            print(f"[time] {label} tc by kernel, fwd: " + ab._kernel_split(
+            print(f"[time] {label} wgmma by kernel, fwd: " + ab._kernel_split(
                 torch, lambda: fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc))
                 + "; bwd: " + ab._kernel_split(torch, lambda: fa.flash_bwd(
                     q, k, v, lse, di, do, causal=causal, sm_scale=sc)), flush=True)
@@ -167,7 +179,7 @@ def diag(torch, dev) -> None:
     o64, lse64, exact = o64[None], lse64[None], [t[None] for t in exact]
     di64 = (o64 * do.double()).sum(-1, keepdim=True)
     keep_min = fa.F32_TC_MIN_KV
-    for route, min_kv in (("tc", 0), ("fma", 1 << 30)):
+    for route, min_kv in (("wgmma", 0), ("mma", 1 << 30)):
         fa.F32_TC_MIN_KV = min_kv
         o, lse = fa.flash_fwd(q, k, v, causal=True, sm_scale=sc)
         di = (o.float() * do.float()).sum(-1, keepdim=True)
@@ -200,7 +212,7 @@ def nonfinite(torch, dev) -> None:
             g = torch.Generator(device=dev).manual_seed(12)
             q, k, v, do = _inputs(torch, dev, g, 2, 4, 4, 2048, 2048, 128)
             {"q": q, "k": k, "v": v, "do": do}[where][0, 0, 5, 3] = value
-            for route, min_kv in (("tc", 0), ("fma", 1 << 30)):
+            for route, min_kv in (("wgmma", 0), ("mma", 1 << 30)):
                 fa.F32_TC_MIN_KV = min_kv
                 o, lse = fa.flash_fwd(q, k, v, causal=False, sm_scale=sc)
                 di = (o.float() * do.float()).sum(-1, keepdim=True)
