@@ -32,8 +32,8 @@
 //     max m and sum l of exp(s - m), p = exp(s - m) / l normalised and then
 //     rounded to bf16, o = sum p v; lse = m + ln l.
 //
-// bf16 (head dim 32, 64 or 128), modes 1 and 2 and the op graph's longer
-// walks, runs a wgmma tensor-core kernel.  What bounds it on the H100 is the products (4 d flops per live
+// bf16, modes 1 and 2 and the op graph's longer walks, runs a wgmma
+// tensor-core kernel.  What bounds it on the H100 is the products (4 d flops per live
 // (row, key) pair at 989 TF/s, more where a max pass repeats Q K^T), the
 // softmax's exponentials behind them.  A block owns 128 query rows of one
 // (batch, head): two consumer warpgroups of 64 rows.  Q is loaded once into
@@ -74,6 +74,15 @@
 // (fa::div_rn, __fdiv_rn's bits).  The bound is the products; at the MT
 // shapes the bytes (q, k, v, o at B128 H8 N40 d32: 3.2 us) and a launch's
 // latency.
+
+// Head dims: any d <= 128 that is a multiple of 8.  Each kernel is compiled
+// at the tile widths D = 32, 64 and 128 and runs a call at the least one
+// that holds d (hop::tile_width); d is the row stride in device memory, the
+// tiles' columns d..D - 1 are zero-filled as they load (hop::cp_chunk) and
+// never stored.  The zero columns add exact zeros to every score and their
+// output columns are dropped, so the function is JAX's at d (its own
+// _pad128 pads d < 128 with zeros for the subrow and loop schedules the
+// same way), with no padded copy of q, k or v.
 
 // f32 (every schedule's function: in f32 they agree to f32 rounding, so
 // one online softmax serves them all) runs on the tensor cores in split
@@ -156,7 +165,7 @@ flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ v, const int* __restrict__ kv_lengths,
                          const int* __restrict__ gate, float* __restrict__ o,
                          float* __restrict__ lse, int h, int h_kv, int n_q, int n_kv, int causal,
-                         int window, float scale_log2) {
+                         int window, float scale_log2, int d) {
   if (gate != nullptr && *gate == 0) return;
   using C = Mf<D>;
   constexpr int TK = 8 * NJ, ND = D / 8, ROW = C::ROW, FROW = C::FROW;
@@ -170,9 +179,9 @@ flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int bm = 16 * slabs;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * bm;   // the longest walks first
   const int n_rows = min(bm, n_q - row0);
-  const float* qp = q + size_t(bh) * n_q * D;
-  const float* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  const float* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const float* qp = q + size_t(bh) * n_q * d;
+  const float* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
+  const float* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
 
   // the block's walk (both bounds of dense_bounds grow with the row)
@@ -189,17 +198,18 @@ flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int q_plane = bm * ROW;
   auto load_kv = [&](int i) {
     const int kt = start + i * TK;
-    hop::load_rows_padded<D * 4>(kv_f32, kp + size_t(kt) * D, kp, n_kv - kt, TK);
-    hop::load_rows_padded<D * 4>(kv_f32 + TK * FROW, vp + size_t(kt) * D, vp, n_kv - kt, TK);
+    hop::load_rows_padded<D * 4>(kv_f32, kp + size_t(kt) * d, kp, n_kv - kt, TK, d * 4);
+    hop::load_rows_padded<D * 4>(kv_f32 + TK * FROW, vp + size_t(kt) * d, vp, n_kv - kt, TK,
+                                 d * 4);
   };
   if (n_tiles > 1) load_kv(1);
   hop::cp_async_commit();
   {
     const sp::RowsJob jobs[3] = {
-        {qp + size_t(row0) * D, n_rows, bm, q_pl, q_plane, scale_log2},
-        {kp + size_t(start) * D, n_tiles > 0 ? n_kv - start : 0, TK, k_pl, kv_plane, 1.f},
-        {vp + size_t(start) * D, n_tiles > 0 ? n_kv - start : 0, TK, v_pl, kv_plane, 1.f}};
-    sp::split_rows_ldg<D>(jobs);
+        {qp + size_t(row0) * d, n_rows, bm, q_pl, q_plane, scale_log2},
+        {kp + size_t(start) * d, n_tiles > 0 ? n_kv - start : 0, TK, k_pl, kv_plane, 1.f},
+        {vp + size_t(start) * d, n_tiles > 0 ? n_kv - start : 0, TK, v_pl, kv_plane, 1.f}};
+    sp::split_rows_ldg<D>(jobs, d);
   }
 
   // this warp's rows, their intervals, its walk and the keys all its rows see
@@ -322,14 +332,14 @@ flash_fwd_f32_mma_kernel(const float* __restrict__ q, const float* __restrict__ 
       lse[size_t(bh) * n_q + row0 + wr0 + g + 8 * hh] =
           lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
   }
-  sp::store_rows<D>(o + (size_t(bh) * n_q + row0 + wr0) * D, acc, inv, n_rows - wr0, lane);
+  sp::store_rows<D>(o + (size_t(bh) * n_q + row0 + wr0) * d, acc, inv, n_rows - wr0, lane, d);
 }
 
 template <int D, int NJ, int KS>
 cudaError_t launch_f32_mma_ks(const void* q, const void* k, const void* v, const int* lens,
                               void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                              int causal, int window, float scale_log2, cudaStream_t stream,
-                              const int* gate) {
+                              int d, int causal, int window, float scale_log2,
+                              cudaStream_t stream, const int* gate) {
   using C = Mf<D>;
   auto kernel = flash_fwd_f32_mma_kernel<D, NJ, KS>;
   static cudaError_t opted = fa::allow_smem(kernel, C::smem(16 * C::MAX_WARPS, 8 * NJ, true));
@@ -339,7 +349,7 @@ cudaError_t launch_f32_mma_ks(const void* q, const void* k, const void* v, const
   // a walk of one tile (n_kv <= 8 NJ) stages nothing
   kernel<<<grid, 32 * slabs * KS, C::smem(16 * slabs, 8 * NJ, n_kv > 8 * NJ), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      lens, gate, static_cast<float*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2);
+      lens, gate, static_cast<float*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale_log2, d);
   return cudaGetLastError();
 }
 
@@ -350,15 +360,15 @@ cudaError_t launch_f32_mma_ks(const void* q, const void* k, const void* v, const
 template <int D, int NJ>
 cudaError_t launch_f32_mma_nj(const void* q, const void* k, const void* v, const int* lens,
                               void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
-                              int causal, int window, float scale_log2, cudaStream_t stream,
-                              const int* gate) {
+                              int d, int causal, int window, float scale_log2,
+                              cudaStream_t stream, const int* gate) {
   const int slabs = min(Mf<D>::MAX_WARPS, (n_q + 15) / 16);
   if constexpr (NJ % 4 == 0) {
     if (size_t(b) * h * ((n_q + 16 * slabs - 1) / (16 * slabs)) < 132)
-      return launch_f32_mma_ks<D, NJ, 2>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal,
+      return launch_f32_mma_ks<D, NJ, 2>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal,
                                          window, scale_log2, stream, gate);
   }
-  return launch_f32_mma_ks<D, NJ, 1>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal,
+  return launch_f32_mma_ks<D, NJ, 1>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal,
                                      window, scale_log2, stream, gate);
 }
 
@@ -366,15 +376,15 @@ cudaError_t launch_f32_mma_nj(const void* q, const void* k, const void* v, const
 // as the kernel's
 template <int D>
 cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, const int* lens, void* o,
-                           float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
-                           int window, float scale_log2, cudaStream_t stream,
+                           float* lse, int b, int h, int h_kv, int n_q, int n_kv, int d,
+                           int causal, int window, float scale_log2, cudaStream_t stream,
                            const int* gate = nullptr) {
   constexpr int BN = Mf<D>::BN;
   const int tile = max(16, min(BN, (n_kv + 15) / 16 * 16));
 #define FA_F32_MMA(NJ)                                                                           \
   launch_f32_mma_nj<D, (NJ) <= BN / 8 ? (NJ) : BN / 8>(q, k, v, lens, o, lse, b, h, h_kv, n_q,   \
-                                                       n_kv, causal, window, scale_log2, stream, \
-                                                       gate)
+                                                       n_kv, d, causal, window, scale_log2,      \
+                                                       stream, gate)
   switch (tile / 8) {
     case 2: return FA_F32_MMA(2);
     case 4: return FA_F32_MMA(4);
@@ -397,10 +407,11 @@ struct Tc {
   static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * size_t(KV_BYTES);
 };
 
+// rows of d values (at most D), zero-padded to D
 template <int D>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src, const bf16* base,
-                                          int rows_valid, int rows) {
-  hop::load_tile<D * 2, Tc<D>::SW, Tc<D>::THREADS>(dst, src, base, rows_valid, rows);
+                                          int rows_valid, int rows, int d) {
+  hop::load_tile<D * 2, Tc<D>::SW, Tc<D>::THREADS>(dst, src, base, rows_valid, rows, d * 2);
 }
 
 // The passes a key segment takes, in order: kMax (S only, each row's max
@@ -543,7 +554,7 @@ __global__ void __launch_bounds__(Tc<D>::THREADS, 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
                     bf16* __restrict__ o, float* __restrict__ lse, int h, int h_kv, int n_q,
-                    int n_kv, int causal, int window, float scale, int mode, int span) {
+                    int n_kv, int causal, int window, float scale, int mode, int span, int d) {
   using C = Tc<D>;
   constexpr int BN = C::BN, SW = C::SW, CPR = C::CPR;
   extern __shared__ uint8_t smem_raw[];
@@ -554,9 +565,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
   const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BM;
   const int n_rows = min(C::BM, n_q - row0);
-  const bf16* qp = q + size_t(bh) * n_q * D;
-  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* qp = q + size_t(bh) * n_q * d;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
 
   // Both bounds of dense_bounds grow with the row, so the block's walk is
@@ -585,13 +596,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   int kt = walk.start, pass = walk.first;
   bool more = walk.start < walk.end;
-  load_tile<D>(qs, qp + size_t(row0) * D, qp, n_rows, C::BM);
+  load_tile<D>(qs, qp + size_t(row0) * d, qp, n_rows, C::BM, d);
   if (more) {
-    load_tile<D>(kvs, kp + size_t(kt) * D, kp, n_kv - kt, BN);
+    load_tile<D>(kvs, kp + size_t(kt) * d, kp, n_kv - kt, BN, d);
     if (pass == kPv)
-      load_tile<D>(kvs + C::KV_BYTES, vp + size_t(kt) * D, vp, n_kv - kt, BN);
+      load_tile<D>(kvs + C::KV_BYTES, vp + size_t(kt) * d, vp, n_kv - kt, BN, d);
     else if (kt + BN < walk.seg_hi(kt))
-      load_tile<D>(kvs + C::KV_BYTES, kp + size_t(kt + BN) * D, kp, n_kv - kt - BN, BN);
+      load_tile<D>(kvs + C::KV_BYTES, kp + size_t(kt + BN) * d, kp, n_kv - kt - BN, BN, d);
   }
   hop::cp_async_commit();
 
@@ -616,11 +627,11 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // a kPv step: K and V of one tile; else K of two tiles
       uint8_t* nk = kvs + (buf ^ 1) * 2 * C::KV_BYTES;
       const int second = npass == kPv ? nkt : nkt + BN;
-      load_tile<D>(nk, kp + size_t(nkt) * D, kp, n_kv - nkt, BN);
+      load_tile<D>(nk, kp + size_t(nkt) * d, kp, n_kv - nkt, BN, d);
       if (npass == kPv)
-        load_tile<D>(nk + C::KV_BYTES, vp + size_t(nkt) * D, vp, n_kv - nkt, BN);
+        load_tile<D>(nk + C::KV_BYTES, vp + size_t(nkt) * d, vp, n_kv - nkt, BN, d);
       else if (second < walk.seg_hi(nkt))
-        load_tile<D>(nk + C::KV_BYTES, kp + size_t(second) * D, kp, n_kv - second, BN);
+        load_tile<D>(nk + C::KV_BYTES, kp + size_t(second) * d, kp, n_kv - second, BN, d);
     }
     hop::cp_async_commit();
     const uint32_t k_addr = hop::smem_u32(kvs + buf * 2 * C::KV_BYTES);
@@ -761,14 +772,15 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   for (int i = threadIdx.x; i < n_rows * (D / 8); i += C::THREADS) {
     const int r = i / (D / 8), c = i % (D / 8) * 8;
-    *reinterpret_cast<uint4*>(o + (size_t(bh) * n_q + row0 + r) * D + c) =
+    if (c >= d) continue;   // columns below d
+    *reinterpret_cast<uint4*>(o + (size_t(bh) * n_q + row0 + r) * d + c) =
         *reinterpret_cast<const uint4*>(kvs + r * OS + 2 * c);
   }
 }
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* lens, void* o,
-                      float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                      float* lse, int b, int h, int h_kv, int n_q, int n_kv, int d, int causal,
                       int window, float scale, int mode, int span, cudaStream_t stream) {
   auto kernel = mode == 0 ? flash_fwd_tc_kernel<D, true> : flash_fwd_tc_kernel<D, false>;
   static cudaError_t opted = [] {
@@ -782,7 +794,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* le
   dim3 grid(b * h, (n_q + Tc<D>::BM - 1) / Tc<D>::BM);
   kernel<<<grid, Tc<D>::THREADS, Tc<D>::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, mode, span);
+      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, d);
   return cudaGetLastError();
 }
 
@@ -812,7 +824,7 @@ __global__ void __launch_bounds__(Og<D>::MAX_WARPS * 32)
 flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
                     bf16* __restrict__ o, float* __restrict__ lse, int h, int h_kv, int n_q,
-                    int n_kv, int causal, int window, float scale, int tile_rows) {
+                    int n_kv, int causal, int window, float scale, int tile_rows, int d) {
   using C = Og<D>;
   constexpr int ROW = C::ROW, NJ = BN / 8;
   extern __shared__ __align__(16) uint8_t op_smem[];
@@ -822,9 +834,9 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bm = 16 * warps;
   const int row0 = blockIdx.y * bm;
   const int n_rows = min(bm, n_q - row0);
-  const bf16* qp = q + size_t(bh) * n_q * D;
-  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* qp = q + size_t(bh) * n_q * d;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
 
   // the block's walk: the keys its rows' causal bound reaches, past the
@@ -839,9 +851,9 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint8_t* ks = op_smem;
   uint8_t* vs = ks + tile_rows * ROW;
   uint8_t* qs = vs + tile_rows * ROW;
-  hop::load_rows_padded<D * 2>(qs, qp + size_t(row0) * D, qp, n_rows, bm);
-  hop::load_rows_padded<D * 2>(ks, kp, kp, n_kv, rows);
-  hop::load_rows_padded<D * 2>(vs, vp, vp, n_kv, rows);
+  hop::load_rows_padded<D * 2>(qs, qp + size_t(row0) * d, qp, n_rows, bm, d * 2);
+  hop::load_rows_padded<D * 2>(ks, kp, kp, n_kv, rows, d * 2);
+  hop::load_rows_padded<D * 2>(vs, vp, vp, n_kv, rows, d * 2);
   hop::cp_async_commit();
 
   // this warp's rows, their live keys, and the keys every one of them sees
@@ -916,11 +928,12 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hh = 0; hh < 2; ++hh) {
     const int r = wr0 + g + 8 * hh, row = row0 + r;
     if (r >= n_rows) continue;
-    bf16* orow = o + (size_t(bh) * n_q + row) * D;
+    bf16* orow = o + (size_t(bh) * n_q + row) * d;
 #pragma unroll
     for (int nd = 0; nd < C::ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
-          __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+      if (8 * nd < d)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
+            __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
     if (t == 0)
       lse[size_t(bh) * n_q + row] = lr[hh] == 0.f ? -INFINITY : m[hh] + logf(lr[hh]);
   }
@@ -928,7 +941,7 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D, int BN>
 cudaError_t launch_op_bn(const void* q, const void* k, const void* v, const int* lens, void* o,
-                         float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                         float* lse, int b, int h, int h_kv, int n_q, int n_kv, int d, int causal,
                          int window, float scale, cudaStream_t stream) {
   using C = Og<D>;
   auto kernel = flash_fwd_op_kernel<D, BN>;
@@ -941,21 +954,21 @@ cudaError_t launch_op_bn(const void* q, const void* k, const void* v, const int*
   dim3 grid(b * h, (n_q + 16 * warps - 1) / (16 * warps));
   kernel<<<grid, 32 * warps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, tile_rows);
+      lens, static_cast<bf16*>(o), lse, h, h_kv, n_q, n_kv, causal, window, scale, tile_rows, d);
   return cudaGetLastError();
 }
 
 // one key tile up to 128 keys; beyond, the wgmma kernel's two passes
 template <int D>
 cudaError_t launch_op(const void* q, const void* k, const void* v, const int* lens, void* o,
-                      float* lse, int b, int h, int h_kv, int n_q, int n_kv, int causal,
+                      float* lse, int b, int h, int h_kv, int n_q, int n_kv, int d, int causal,
                       int window, float scale, cudaStream_t st) {
   if (n_kv > 128)
-    return launch_tc<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, 0,
+    return launch_tc<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, 0,
                         0, st);
   if (n_kv <= 64)
-    return launch_op_bn<D, 64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
-  return launch_op_bn<D, 128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+    return launch_op_bn<D, 64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
+  return launch_op_bn<D, 128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
 }
 
 // -- f32: split precision on the tensor cores -----------------------------------
@@ -990,7 +1003,7 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ kv_lengths,
                      const int* __restrict__ nf, float* __restrict__ o, float* __restrict__ lse,
                      long long q_plane, long long kv_plane, int h, int h_kv, int n_q, int n_kv,
-                     int causal, int window) {
+                     int causal, int window, int d) {
   using C = Sp<D>;
   constexpr int BN = C::BN, SW = C::SW, NP = C::NP;
   extern __shared__ uint8_t smem_raw[];
@@ -1002,9 +1015,9 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x, b = bh / h, hq = bh % h, hk = hq / (h / h_kv);
   const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BM;   // the longest walks first
   const int n_rows = min(C::BM, n_q - row0);
-  const bf16* qp = q + size_t(bh) * n_q * D;
-  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
-  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * D;
+  const bf16* qp = q + size_t(bh) * n_q * d;
+  const bf16* kp = k + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
+  const bf16* vp = v + (size_t(b) * h_kv + hk) * size_t(n_kv) * d;
   const int kv_len = kv_lengths != nullptr ? min(n_kv, max(kv_lengths[b], 0)) : n_kv;
   if (nf[0] != 0) return;
 
@@ -1034,14 +1047,14 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto load_kv = [&](uint8_t* dst, const bf16* src, int kt) {
 #pragma unroll
     for (int p = 0; p < NP; ++p)
-      hop::load_tile<D * 2, SW, C::THREADS>(dst + p * C::KV_BYTES, src + p * kv_plane + size_t(kt) * D,
-                                             src, n_kv - kt, BN);
+      hop::load_tile<D * 2, SW, C::THREADS>(dst + p * C::KV_BYTES, src + p * kv_plane + size_t(kt) * d,
+                                             src, n_kv - kt, BN, d * 2);
   };
   if (start < end) {
 #pragma unroll
     for (int p = 0; p < NP; ++p)
-      hop::load_tile<D * 2, SW, C::THREADS>(qs + p * C::Q_BYTES, qp + p * q_plane + size_t(row0) * D,
-                                             qp, n_rows, C::BM);
+      hop::load_tile<D * 2, SW, C::THREADS>(qs + p * C::Q_BYTES, qp + p * q_plane + size_t(row0) * d,
+                                             qp, n_rows, C::BM, d * 2);
     load_kv(ks, kp, start);
   }
   hop::cp_async_commit();
@@ -1146,11 +1159,12 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float lt_ = quad_sum(l[hh]);
     if (row >= n_q) continue;
     const float inv = lt_ == 0.f ? 0.f : 1.f / lt_;
-    float* orow = o + (size_t(bh) * n_q + row) * D;
+    float* orow = o + (size_t(bh) * n_q + row) * d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) =
-          make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+      if (8 * j < d)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) =
+            make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
     if (quad == 0)
       lse[size_t(bh) * n_q + row] = lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
   }
@@ -1163,12 +1177,13 @@ flash_fwd_f32_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lens, void* o,
                        float* lse, void* planes, int* nf, int b, int h, int h_kv, int n_q,
-                       int n_kv, int causal, int window, float scale_log2, cudaStream_t stream) {
+                       int n_kv, int d, int causal, int window, float scale_log2,
+                       cudaStream_t stream) {
   using C = Sp<D>;
   auto kernel = flash_fwd_f32_kernel<D>;
   static cudaError_t opted = fa::allow_smem(kernel, C::SMEM);
   if (opted != cudaSuccess) return opted;
-  const long long q_elems = (long long)b * h * n_q * D, kv_elems = (long long)b * h_kv * n_kv * D;
+  const long long q_elems = (long long)b * h * n_q * d, kv_elems = (long long)b * h_kv * n_kv * d;
   bf16* qs = static_cast<bf16*>(planes);
   bf16* ks = qs + 3 * q_elems;
   bf16* vs = ks + 3 * kv_elems;
@@ -1185,21 +1200,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* l
   dim3 grid(b * h, (n_q + C::BM - 1) / C::BM);
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(qs, ks, vs, lens, nf, static_cast<float*>(o), lse,
                                                 q_elems, kv_elems, h, h_kv, n_q, n_kv, causal,
-                                                window);
+                                                window, d);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_f32_mma<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window,
+  return launch_f32_mma<D>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window,
                            scale_log2, stream, nf);
 }
 
+// Each kernel at the tile width of d (hop::tile_width), reading d itself.
 cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, const int* lens,
                             void* o, float* lse, void* planes, int* nf, int b, int h, int h_kv,
                             int n_q, int n_kv, int causal, int window, float scale_log2,
                             cudaStream_t st) {
-  switch (d) {
-    case 32: return launch_f32<32>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 64: return launch_f32<64>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 128: return launch_f32<128>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+  switch (hop::tile_width(d)) {
+    case 32: return launch_f32<32>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
+    case 64: return launch_f32<64>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
+    case 128: return launch_f32<128>(q, k, v, lens, o, lse, planes, nf, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1207,10 +1223,10 @@ cudaError_t dispatch_f32_tc(int d, const void* q, const void* k, const void* v, 
 cudaError_t dispatch_f32_mma(int d, const void* q, const void* k, const void* v, const int* lens,
                              void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
                              int causal, int window, float scale_log2, cudaStream_t st) {
-  switch (d) {
-    case 32: return launch_f32_mma<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 64: return launch_f32_mma<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
-    case 128: return launch_f32_mma<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale_log2, st);
+  switch (hop::tile_width(d)) {
+    case 32: return launch_f32_mma<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
+    case 64: return launch_f32_mma<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
+    case 128: return launch_f32_mma<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1220,17 +1236,17 @@ cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, co
                           int causal, int window, float scale, int mode, int span,
                           cudaStream_t st) {
   if (mode == 0) {
-    switch (d) {
-      case 32: return launch_op<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
-      case 64: return launch_op<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
-      case 128: return launch_op<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, st);
+    switch (hop::tile_width(d)) {
+      case 32: return launch_op<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
+      case 64: return launch_op<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
+      case 128: return launch_op<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
-  switch (d) {
-    case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
-    case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
-    case 128: return launch_tc<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, causal, window, scale, mode, span, st);
+  switch (hop::tile_width(d)) {
+    case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
+    case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
+    case 128: return launch_tc<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
     default: return cudaErrorInvalidValue;
   }
 }

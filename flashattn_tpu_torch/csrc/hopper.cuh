@@ -112,22 +112,61 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool pre
                  "n"(BYTES), "r"(n)
                  : "memory");
 }
-// Rows [0, rows) of a row-major matrix of ROW_BYTES-byte rows at src into a
-// tile of swizzled regions of SW-byte rows (region stride rows * SW bytes);
-// rows at or past rows_valid are zero (base: any valid address).  One
-// cp.async of 16 bytes a chunk, spread over THREADS threads.
-template <int ROW_BYTES, int SW, int THREADS>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const void* src, const void* base,
-                                          int rows_valid, int rows) {
+// Chunk c (16 bytes) of a source row of row_bytes bytes (row: its start)
+// into shared memory at dst, the bytes past the row's end zero; nothing is
+// read when ok is false (base: any valid address).  A row of a multiple of
+// 16 bytes takes one 16-byte copy; one of 8 mod 16 (an 8-bit row at a
+// head dim of 8 mod 16, whose rows are only 8-byte aligned) two of 8 bytes.
+// So a tile D values wide holds a head dim d < D zero-padded, as JAX's
+// _pad128 pads it, without a padded copy in device memory.  kFull: the row
+// fills the tile's width (d == D), every chunk exists: one plain copy.
+template <bool kFull = false>
+__device__ __forceinline__ void cp_chunk(uint32_t dst, const uint8_t* row, const void* base, int c,
+                                         int row_bytes, bool ok) {
+  const uint8_t* src = row + 16 * c;
+  if constexpr (kFull) {
+    cp_async<16>(dst, ok ? src : base, ok);
+    return;
+  }
+  const int n = ok ? row_bytes - 16 * c : 0;   // bytes of the chunk that exist
+  if (row_bytes % 16 == 0) {
+    cp_async<16>(dst, n > 0 ? src : base, n > 0);
+  } else {
+    cp_async<8>(dst, n > 0 ? src : base, n > 0);
+    cp_async<8>(dst + 8, n > 8 ? src + 8 : base, n > 8);
+  }
+}
+
+// load_tile's loop; kFull: src_row == ROW_BYTES, known at compile time.
+template <int ROW_BYTES, int SW, int THREADS, bool kFull>
+__device__ __forceinline__ void load_tile_rows(uint8_t* dst, const uint8_t* s, const void* base,
+                                               int rows_valid, int rows, int src_row) {
   constexpr int CHUNKS = ROW_BYTES / 16, REGION_CHUNKS = SW / 16;
-  const uint8_t* s = static_cast<const uint8_t*>(src);
+  const int stride = kFull ? ROW_BYTES : src_row;
   for (int i = threadIdx.x; i < rows * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = r < rows_valid;
     uint8_t* d = dst + (c / REGION_CHUNKS) * (rows * SW) +
                  swz<SW>(r * SW + (c % REGION_CHUNKS) * 16);
-    cp_async<16>(smem_u32(d), ok ? s + size_t(r) * ROW_BYTES + c * 16 : base, ok);
+    cp_chunk<kFull>(smem_u32(d), s + (ok ? size_t(r) * stride : 0), base, c, stride, ok);
   }
+}
+
+// Rows [0, rows) of a row-major matrix at src, src_row bytes a row (at
+// most ROW_BYTES, a multiple of 8), into a tile of ROW_BYTES-byte rows in
+// swizzled regions of SW-byte rows (region stride rows * SW bytes); rows at
+// or past rows_valid and the bytes past src_row are zero (base: any valid
+// address).  One chunk of 16 bytes (cp_chunk) at a time, spread over
+// THREADS threads; rows of the tile's full width take a loop of plain
+// copies.
+template <int ROW_BYTES, int SW, int THREADS>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const void* src, const void* base,
+                                          int rows_valid, int rows, int src_row = ROW_BYTES) {
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  if (src_row == ROW_BYTES)
+    load_tile_rows<ROW_BYTES, SW, THREADS, true>(dst, s, base, rows_valid, rows, src_row);
+  else
+    load_tile_rows<ROW_BYTES, SW, THREADS, false>(dst, s, base, rows_valid, rows, src_row);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -398,21 +437,43 @@ __device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t 
   }
 }
 
-// Rows [0, rows) of a row-major matrix of ROW_BYTES-byte rows at src into
-// shared memory rows of ROW_BYTES + 16 bytes (the padding of frag_a);
-// rows at or past rows_valid are zero (base: any valid address).  One
-// 16-byte cp.async a chunk, spread over the block's threads.
-template <int ROW_BYTES>
-__device__ __forceinline__ void load_rows_padded(uint8_t* dst, const void* src, const void* base,
-                                                 int rows_valid, int rows) {
+// load_rows_padded's loop; kFull: src_row == ROW_BYTES.
+template <int ROW_BYTES, bool kFull>
+__device__ __forceinline__ void load_rows_padded_rows(uint8_t* dst, const uint8_t* s,
+                                                      const void* base, int rows_valid, int rows,
+                                                      int src_row) {
   constexpr int CHUNKS = ROW_BYTES / 16;
-  const uint8_t* s = static_cast<const uint8_t*>(src);
+  const int stride = kFull ? ROW_BYTES : src_row;
   for (int i = threadIdx.x; i < rows * CHUNKS; i += blockDim.x) {
     const int r = i / CHUNKS, c = i % CHUNKS;
     const bool ok = r < rows_valid;
-    cp_async<16>(smem_u32(dst + r * (ROW_BYTES + 16) + c * 16),
-                 ok ? s + size_t(r) * ROW_BYTES + c * 16 : base, ok);
+    cp_chunk<kFull>(smem_u32(dst + r * (ROW_BYTES + 16) + c * 16),
+                    s + (ok ? size_t(r) * stride : 0), base, c, stride, ok);
   }
+}
+
+// Rows [0, rows) of a row-major matrix at src, src_row bytes a row (at
+// most ROW_BYTES, a multiple of 8), into shared memory rows of ROW_BYTES +
+// 16 bytes (the padding of frag_a); rows at or past rows_valid and the
+// bytes past src_row are zero (base: any valid address).  One chunk of 16
+// bytes (cp_chunk) at a time, spread over the block's threads.
+template <int ROW_BYTES>
+__device__ __forceinline__ void load_rows_padded(uint8_t* dst, const void* src, const void* base,
+                                                 int rows_valid, int rows,
+                                                 int src_row = ROW_BYTES) {
+  const uint8_t* s = static_cast<const uint8_t*>(src);
+  if (src_row == ROW_BYTES)
+    load_rows_padded_rows<ROW_BYTES, true>(dst, s, base, rows_valid, rows, src_row);
+  else
+    load_rows_padded_rows<ROW_BYTES, false>(dst, s, base, rows_valid, rows, src_row);
+}
+
+// The tile width of a head dim: the least of 32, 64 and 128 that holds d,
+// or 0 where no tile takes it (d not a multiple of 8, or above 128).  The
+// attention kernels are compiled for those three widths and read a head
+// dim d below the width zero-padded (cp_chunk).
+__host__ __device__ constexpr int tile_width(int d) {
+  return d < 8 || d % 8 != 0 || d > 128 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
 }  // namespace hop

@@ -34,7 +34,13 @@
 // The Python wrapper transcodes fp8 payloads to int8 at the subrow route
 // (requantize_fp8_to_int8), as the JAX dispatcher does.
 //
-// bf16 q (head dim 32, 64 or 128): kv8_flash_tc_kernel, on the structure of
+// Head dims: any d <= 128 that is a multiple of 8, at the tile width of d
+// (32, 64 or 128; hop::tile_width), d the row stride, the columns d..D - 1
+// of q's tile zero (so its int8 row scale is d's) and of K's and V's tiles
+// zero-filled as they load (hop::cp_chunk, 8-byte copies for rows of 8 mod
+// 16 bytes), never stored: JAX's function at d.
+//
+// bf16 q: kv8_flash_tc_kernel, on the structure of
 // the bf16 flash forward (flash_fwd.cu).  What bounds it on the H100 is its
 // two products (QK^T at the int8 peak for int8 payloads, PV at the bf16
 // one), more where a max pass repeats QK^T; the 1-byte K/V and their
@@ -92,6 +98,7 @@ struct Args {
   int h, h_kv, n_q, n_kv, causal;
   float scale_log2;
   int mode, span;   // bf16 q: the route (Mode) and its key block; f32 q: unused
+  int d;            // the head dim (at most the tile's D)
 };
 
 enum Mode { kGrid = 1, kSubrow = 2, kLoop = 3 };
@@ -370,10 +377,11 @@ kv8_flash_tc_kernel(Args a) {
   const int n_q = a.n_q, n_kv = a.n_kv;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BM;   // the longest walks first
   const int n_rows = min(C::BM, n_q - row0);
-  const T* qp = static_cast<const T*>(a.q) + (size_t(bh) * n_q + row0) * D;
+  const int d = a.d;
+  const T* qp = static_cast<const T*>(a.q) + (size_t(bh) * n_q + row0) * d;
   const size_t kv_head = (size_t(b) * a.h_kv + hk) * size_t(n_kv);
-  const uint8_t* kp = static_cast<const uint8_t*>(a.k) + kv_head * D;
-  const uint8_t* vp = static_cast<const uint8_t*>(a.v) + kv_head * D;
+  const uint8_t* kp = static_cast<const uint8_t*>(a.k) + kv_head * d;
+  const uint8_t* vp = static_cast<const uint8_t*>(a.v) + kv_head * d;
   const float* ksp = a.ks + kv_head;
   const float* vsp = a.vs + kv_head;
 
@@ -398,9 +406,10 @@ kv8_flash_tc_kernel(Args a) {
   // step (kt, pass) into buffer buf: K (and in a PV step V) and their scales
   auto load = [&](int kt, int buf, bool with_v) {
     uint8_t* st = stage + buf * 2 * C::STAGE;
-    hop::load_tile<D, SW8, C::THREADS>(st, kp + size_t(kt) * D, kp, n_kv - kt, BN);
+    hop::load_tile<D, SW8, C::THREADS>(st, kp + size_t(kt) * d, kp, n_kv - kt, BN, d);
     if (with_v)
-      hop::load_tile<D, SW8, C::THREADS>(st + C::STAGE, vp + size_t(kt) * D, vp, n_kv - kt, BN);
+      hop::load_tile<D, SW8, C::THREADS>(st + C::STAGE, vp + size_t(kt) * d, vp, n_kv - kt, BN,
+                                         d);
     const int i = threadIdx.x, pos = kt + i % BN;
     const bool ok = pos < n_kv;
     hop::cp_async<4>(hop::smem_u32(scl + buf * 2 * BN + i), ok ? (i < BN ? ksp : vsp) + pos : ksp,
@@ -422,12 +431,13 @@ kv8_flash_tc_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < PER; ++e) {
         const int c = lane * PER + e;
+        const bool live = r < n_rows && c < d;   // columns d..D - 1 zero
         if constexpr (C::kF32)
-          x[e] = r < n_rows ? __fmul_rn(qp[size_t(r) * D + c], a.scale_log2) : 0.f;
+          x[e] = live ? __fmul_rn(qp[size_t(r) * d + c], a.scale_log2) : 0.f;
         else
-          x[e] = r < n_rows ? __bfloat162float(__float2bfloat16(
-                                  __bfloat162float(qp[size_t(r) * D + c]) * a.scale_log2))
-                            : 0.f;
+          x[e] = live ? __bfloat162float(__float2bfloat16(
+                            __bfloat162float(qp[size_t(r) * d + c]) * a.scale_log2))
+                      : 0.f;
       }
       if constexpr (C::kInt8) {
         float amax = 0.f;
@@ -598,11 +608,12 @@ kv8_flash_tc_kernel(Args a) {
       const int row = row0 + rl + 8 * hh;
       if (row >= n_q) continue;
       const float inv = lt_ == 0.f ? 0.f : 1.f / lt_;
-      float* orow = o + (size_t(bh) * n_q + row) * D;
+      float* orow = o + (size_t(bh) * n_q + row) * d;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) =
-            make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+        if (8 * j < d)
+          *reinterpret_cast<float2*>(orow + 8 * j + 2 * quad) =
+              make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
       if (quad == 0)
         a.lse[size_t(bh) * n_q + row] = lt_ == 0.f ? -INFINITY : m[hh] * fa::LN2 + logf(lt_);
     }
@@ -611,7 +622,7 @@ kv8_flash_tc_kernel(Args a) {
     // whole rows
     constexpr int OS = D * 2 + 16;   // bytes of a staged row
     static_assert(C::BM * OS <= 4 * C::STAGE, "the staged tile fits in the staging ring");
-    bf16* o = static_cast<bf16*>(a.o) + (size_t(bh) * n_q + row0) * D;
+    bf16* o = static_cast<bf16*>(a.o) + (size_t(bh) * n_q + row0) * d;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const float lt_ = quad_sum(l[hh]);
@@ -637,7 +648,8 @@ kv8_flash_tc_kernel(Args a) {
     __syncthreads();
     for (int i = threadIdx.x; i < n_rows * (D / 8); i += C::THREADS) {
       const int r = i / (D / 8), c = i % (D / 8) * 8;
-      *reinterpret_cast<uint4*>(o + size_t(r) * D + c) =
+      if (c >= d) continue;   // columns below d
+      *reinterpret_cast<uint4*>(o + size_t(r) * d + c) =
           *reinterpret_cast<const uint4*>(stage + r * OS + 2 * c);
     }
   }
@@ -662,9 +674,10 @@ cudaError_t launch(const Args& a, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the kernel at the tile width of d (hop::tile_width), reading d itself
 template <typename T, typename P>
 cudaError_t dispatch_d(int d, const Args& a, int b, cudaStream_t st) {
-  switch (d) {
+  switch (hop::tile_width(d)) {
     case 32: return launch<T, P, 32>(a, b, st);
     case 64: return launch<T, P, 64>(a, b, st);
     case 128: return launch<T, P, 128>(a, b, st);
@@ -679,7 +692,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scales,
   if (b == 0 || h == 0 || n_q == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{q, k, v, static_cast<const float*>(k_scales), static_cast<const float*>(v_scales), o,
-         static_cast<float*>(lse), h, h_kv, n_q, n_kv, causal, scale_log2, mode, span};
+         static_cast<float*>(lse), h, h_kv, n_q, n_kv, causal, scale_log2, mode, span, d};
   if (payload == 2) return int(dispatch_d<T, int8_t>(d, a, b, st));
   if (payload == 3) return int(dispatch_d<T, __nv_fp8_e4m3>(d, a, b, st));
   return int(cudaErrorInvalidValue);

@@ -96,6 +96,14 @@
 // against another max now and then, about one bf16 ulp of p (bf16 q; f32
 // q keeps p in f32).
 
+// Head dims: any d <= 128 that is a multiple of 8.  Every tile is compiled
+// at the widths D = 32, 64 and 128 and a call runs at the least one that
+// holds d (hop::tile_width); d is the row stride of q, o and the pools
+// (Args::d), a staged row's columns d..D - 1 are zero-filled as it loads
+// (hop::cp_chunk: 8-byte copies for an 8-bit row of 8 mod 16 bytes), and
+// only columns below d are stored, the partials included (d + 2 floats a
+// row).  The marks take cdiv(d, 32) words of columns and the V scale's word.
+
 #include <climits>
 #include <cuda_fp8.h>
 
@@ -117,6 +125,7 @@ struct Args {
   int b, h_kv, rows, chunk, n_pages, page_size, pages_per_seq, window;
   int split_pages, n_splits;
   float scale_log2;
+  int d;   // the head dim: a stored row's values (at most the tile's D)
 };
 
 // A sequence's walk and the part of it one split takes, in key positions.
@@ -202,14 +211,14 @@ __device__ __forceinline__ size_t slot_of(const Args& a, const int* tab, int pos
 // Offset of query row r of (sequence b, kv head hk) in q and out, which
 // keep the caller's layout (b, chunk, h_kv * group, d): row r = g * chunk
 // + j is chunk token j of q head hk * group + g.
-__device__ __forceinline__ size_t q_off(const Args& a, int b, int hk, int r, int D) {
+__device__ __forceinline__ size_t q_off(const Args& a, int b, int hk, int r) {
   const int group = a.rows / a.chunk, g = r / a.chunk, j = r % a.chunk;
-  return ((size_t(b) * a.chunk + j) * (a.h_kv * group) + size_t(hk) * group + g) * D;
+  return ((size_t(b) * a.chunk + j) * (a.h_kv * group) + size_t(hk) * group + g) * a.d;
 }
 
-// The partial (acc[D], m, l) of row r of split s.
-__device__ __forceinline__ float* partial(const Args& a, int b, int hk, int s, int r, int D) {
-  return a.ws + ((size_t(b * a.h_kv + hk) * a.n_splits + s) * a.rows + r) * size_t(D + 2);
+// The partial (acc[d], m, l) of row r of split s.
+__device__ __forceinline__ float* partial(const Args& a, int b, int hk, int s, int r) {
+  return a.ws + ((size_t(b * a.h_kv + hk) * a.n_splits + s) * a.rows + r) * size_t(a.d + 2);
 }
 
 // -- bf16, rows <= 16: the split-K decode tile (mma.sync) ----------------------------
@@ -294,8 +303,8 @@ paged_decode_kernel(Args a) {
 
   const bf16* qp = static_cast<const bf16*>(a.q);
   const size_t pool = size_t(hk) * a.n_pages * a.page_size;   // tokens before this head
-  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * D * sizeof(P);
-  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * D * sizeof(P);
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * a.d * sizeof(P);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * a.d * sizeof(P);
   const float* kspool = C::kQuant ? a.ks + pool : nullptr;
   const float* vspool = C::kQuant ? a.vs + pool : nullptr;
   const int* tab = a.table + size_t(b) * a.pages_per_seq;
@@ -306,17 +315,28 @@ paged_decode_kernel(Args a) {
     const int pos = k0 + (warp + C::WARPS * i) * KC + lane % KC;
     return i < my_n && pos >= klo && pos < khi ? (long long)slot_of(a, tab, pos) : -1;
   };
-  auto load = [&](int st, long long my_slot) {
-    uint8_t* dst = mine + st * C::STAGE;
-    constexpr int CPR = D * int(sizeof(P)) / 16;   // 16-byte copies a row
+  // kFull (d == D): the stored row's bytes known at compile time
+  auto copy_rows = [&](uint8_t* dst, long long my_slot, auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    constexpr int CPR = D * int(sizeof(P)) / 16;   // 16-byte chunks a staged row
+    const int rb = kFull ? D * int(sizeof(P)) : a.d * int(sizeof(P));   // a stored row
     for (int i = lane; i < KC * CPR; i += 32) {
       const int r = i / CPR, c = i % CPR;
       const long long sl = __shfl_sync(0xffffffffu, my_slot, r);
       const bool ok = sl >= 0;
-      const size_t off = ok ? size_t(sl) * D * sizeof(P) + c * 16 : 0;
-      hop::cp_async<16>(hop::smem_u32(dst + r * C::ROW + c * 16), kpool + off, ok);
-      hop::cp_async<16>(hop::smem_u32(dst + (KC + r) * C::ROW + c * 16), vpool + off, ok);
+      const size_t off = ok ? size_t(sl) * rb : 0;
+      hop::cp_chunk<kFull>(hop::smem_u32(dst + r * C::ROW + c * 16), kpool + off, kpool, c, rb,
+                           ok);
+      hop::cp_chunk<kFull>(hop::smem_u32(dst + (KC + r) * C::ROW + c * 16), vpool + off, vpool,
+                           c, rb, ok);
     }
+  };
+  auto load = [&](int st, long long my_slot) {
+    uint8_t* dst = mine + st * C::STAGE;
+    if (a.d == D)
+      copy_rows(dst, my_slot, std::true_type());
+    else
+      copy_rows(dst, my_slot, std::false_type());
     if constexpr (C::kQuant) {
       float* scl = reinterpret_cast<float*>(dst + 2 * KC * C::ROW);
 #pragma unroll
@@ -339,14 +359,14 @@ paged_decode_kernel(Args a) {
   // bf16 already, so the product is exact before its one rounding);
   // qf[ks][i] holds row g + 8 (i & 1), d = t KQ + 4 ks + 2 (i >> 1) + {0, 1}
   uint32_t qf[D / 16][4];
-  const bf16* qrow[2] = {qp + q_off(a, b, hk, g, D), qp + q_off(a, b, hk, g + 8, D)};
+  const bf16* qrow[2] = {qp + q_off(a, b, hk, g), qp + q_off(a, b, hk, g + 8)};
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = g + 8 * (i & 1), col = t * KQ + 4 * ks + 2 * (i >> 1);
       float x0 = 0.f, x1 = 0.f;
-      if (row < n_rows) {
+      if (row < n_rows && col < a.d) {
         const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(qrow[i & 1] + col);
         x0 = __bfloat162float(__float2bfloat16(__low2float(v) * a.scale_log2));
         x1 = __bfloat162float(__float2bfloat16(__high2float(v) * a.scale_log2));
@@ -515,6 +535,7 @@ paged_decode_kernel(Args a) {
   __syncthreads();
   for (int i = threadIdx.x; i < n_rows * D; i += C::THREADS) {
     const int r = i / D, c = i % D;
+    if (c >= a.d) continue;   // columns below d
     float M = -INFINITY;
 #pragma unroll
     for (int v = 0; v < C::WARPS; ++v) M = fmaxf(M, mred[v * 16 + r]);
@@ -527,12 +548,12 @@ paged_decode_kernel(Args a) {
       A += wt * red[(v * 16 + r) * D + c];
     }
     if (a.n_splits == 1) {
-      static_cast<bf16*>(a.out)[q_off(a, b, hk, r, D) + c] =
+      static_cast<bf16*>(a.out)[q_off(a, b, hk, r) + c] =
           __float2bfloat16(A * (L == 0.f ? 1.f : 1.f / L));
     } else {
-      float* pr = partial(a, b, hk, s, r, D);
+      float* pr = partial(a, b, hk, s, r);
       pr[c] = A;
-      if (c == 0) { pr[D] = M; pr[D + 1] = L; }
+      if (c == 0) { pr[a.d] = M; pr[a.d + 1] = L; }
     }
   }
 }
@@ -557,24 +578,33 @@ struct Ext {
 // pool); keys outside [klo, khi) are zero.  A page of a multiple of BN
 // keys holds the whole tile (kt is a multiple of BN): one page-table read;
 // otherwise one a row.
-template <typename P, int D>
-__device__ __forceinline__ void load_kv(const Args& a, uint8_t* kdst, uint8_t* vdst,
-                                        const uint8_t* kpool, const uint8_t* vpool,
-                                        const int* tab, int kt, int klo, int khi) {
+template <typename P, int D, bool kFull>
+__device__ __forceinline__ void load_kv_rows(const Args& a, uint8_t* kdst, uint8_t* vdst,
+                                             const uint8_t* kpool, const uint8_t* vpool,
+                                             const int* tab, int kt, int klo, int khi) {
   using C = Ext<P, D>;
   constexpr int ROW = D * int(sizeof(P)), SWZ = C::kQuant ? C::SW8 : C::SW;
   constexpr int CH = ROW / 16, RC = SWZ / 16;
+  const int rb = kFull ? ROW : a.d * int(sizeof(P));   // bytes of a stored row
   const bool whole = a.page_size % C::BN == 0;
   const size_t tile_slot = whole ? slot_of(a, tab, kt) : 0;
   for (int i = threadIdx.x; i < C::BN * CH; i += C::THREADS) {
     const int r = i / CH, c = i % CH, pos = kt + r;
     const bool ok = pos >= klo && pos < khi;
-    const size_t off =
-        ok ? (whole ? tile_slot + r : slot_of(a, tab, pos)) * ROW + c * 16 : 0;
+    const size_t off = ok ? (whole ? tile_slot + r : slot_of(a, tab, pos)) * rb : 0;
     const uint32_t d = (c / RC) * (C::BN * SWZ) + hop::swz<SWZ>(r * SWZ + (c % RC) * 16);
-    hop::cp_async<16>(hop::smem_u32(kdst + d), kpool + off, ok);
-    hop::cp_async<16>(hop::smem_u32(vdst + d), vpool + off, ok);
+    hop::cp_chunk<kFull>(hop::smem_u32(kdst + d), kpool + off, kpool, c, rb, ok);
+    hop::cp_chunk<kFull>(hop::smem_u32(vdst + d), vpool + off, vpool, c, rb, ok);
   }
+}
+template <typename P, int D>
+__device__ __forceinline__ void load_kv(const Args& a, uint8_t* kdst, uint8_t* vdst,
+                                        const uint8_t* kpool, const uint8_t* vpool,
+                                        const int* tab, int kt, int klo, int khi) {
+  if (a.d == D)
+    load_kv_rows<P, D, true>(a, kdst, vdst, kpool, vpool, tab, kt, klo, khi);
+  else
+    load_kv_rows<P, D, false>(a, kdst, vdst, kpool, vpool, tab, kt, klo, khi);
 }
 
 // A staged payload tile (rows of D bytes, swizzled by D) to the bf16 tile
@@ -638,8 +668,8 @@ paged_extend_kernel(Args a, int row_tiles) {
 
   const bf16* qp = static_cast<const bf16*>(a.q);
   const size_t pool = size_t(hk) * a.n_pages * a.page_size;
-  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * D * sizeof(P);
-  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * D * sizeof(P);
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * a.d * sizeof(P);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * a.d * sizeof(P);
   const float* kspool = C::kQuant ? a.ks + pool : nullptr;
   const float* vspool = C::kQuant ? a.vs + pool : nullptr;
   const int* tab = a.table + size_t(b) * a.pages_per_seq;
@@ -663,8 +693,8 @@ paged_extend_kernel(Args a, int row_tiles) {
   for (int i = threadIdx.x; i < C::BM * D / 8; i += C::THREADS) {
     const int r = i / (D / 8), c = i % (D / 8) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r < n_rows) {
-      v = *reinterpret_cast<const uint4*>(qp + q_off(a, b, hk, row0 + r, D) + c);
+    if (r < n_rows && c < a.d) {
+      v = *reinterpret_cast<const uint4*>(qp + q_off(a, b, hk, row0 + r) + c);
       __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -810,12 +840,13 @@ paged_extend_kernel(Args a, int row_tiles) {
     for (int hh = 0; hh < 2; ++hh) {
       const int r = rl + 8 * hh;
       if (r >= n_rows) continue;
-      float* pr = partial(a, b, hk, s, row0 + r, D);
+      float* pr = partial(a, b, hk, s, row0 + r);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(pr + 8 * j + 2 * quad) =
-            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-      if (quad == 0) { pr[D] = m[hh]; pr[D + 1] = l[hh]; }
+        if (8 * j < a.d)
+          *reinterpret_cast<float2*>(pr + 8 * j + 2 * quad) =
+              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      if (quad == 0) { pr[a.d] = m[hh]; pr[a.d + 1] = l[hh]; }
     }
     return;
   }
@@ -838,7 +869,8 @@ paged_extend_kernel(Args a, int row_tiles) {
   bf16* o = static_cast<bf16*>(a.out);
   for (int i = threadIdx.x; i < n_rows * (D / 8); i += C::THREADS) {
     const int r = i / (D / 8), c = i % (D / 8) * 8;
-    *reinterpret_cast<uint4*>(o + q_off(a, b, hk, row0 + r, D) + c) =
+    if (c >= a.d) continue;   // columns below d
+    *reinterpret_cast<uint4*>(o + q_off(a, b, hk, row0 + r) + c) =
         *reinterpret_cast<const uint4*>(os + r * OS + 2 * c);
   }
 }
@@ -991,8 +1023,8 @@ paged_decode_f32_kernel(Args a) {
 
   const float* qp = static_cast<const float*>(a.q);
   const size_t pool = size_t(hk) * a.n_pages * a.page_size;   // tokens before this head
-  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * D * sizeof(P);
-  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * D * sizeof(P);
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * a.d * sizeof(P);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * a.d * sizeof(P);
   const float* kspool = C::kQuant ? a.ks + pool : nullptr;
   const float* vspool = C::kQuant ? a.vs + pool : nullptr;
   const int* tab = a.table + size_t(b) * a.pages_per_seq;
@@ -1005,18 +1037,27 @@ paged_decode_f32_kernel(Args a) {
   };
   // half h (chunk h / 2's K rows when h is even, its V rows when odd) into
   // slot h % H; my_slot: the page slot of key lane % KC of that chunk
-  auto load = [&](int h, long long my_slot) {
-    uint8_t* dst = mine + (h % H) * C::HALF;
-    const uint8_t* src = h & 1 ? vpool : kpool;
-    constexpr int CPR = D * int(sizeof(P)) / 16;   // 16-byte copies a row
+  // kFull (d == D): the stored row's bytes known at compile time
+  auto copy_rows = [&](uint8_t* dst, const uint8_t* src, long long my_slot, auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    constexpr int CPR = D * int(sizeof(P)) / 16;   // 16-byte chunks a staged row
+    const int rb = kFull ? D * int(sizeof(P)) : a.d * int(sizeof(P));   // a stored row
     for (int i = lane; i < KC * CPR; i += 32) {
       const int r = i / CPR, c = i % CPR;
       const long long sl = __shfl_sync(0xffffffffu, my_slot, r);
       const bool ok = sl >= 0;
-      const size_t off = ok ? size_t(sl) * D * sizeof(P) + c * 16 : 0;
+      const size_t off = ok ? size_t(sl) * rb : 0;
       const int cu = C::kQuant ? c : C::unit(r, c);
-      hop::cp_async<16>(hop::smem_u32(dst + r * C::ROW + cu * 16), src + off, ok);
+      hop::cp_chunk<kFull>(hop::smem_u32(dst + r * C::ROW + cu * 16), src + off, src, c, rb, ok);
     }
+  };
+  auto load = [&](int h, long long my_slot) {
+    uint8_t* dst = mine + (h % H) * C::HALF;
+    const uint8_t* src = h & 1 ? vpool : kpool;
+    if (a.d == D)
+      copy_rows(dst, src, my_slot, std::true_type());
+    else
+      copy_rows(dst, src, my_slot, std::false_type());
     if constexpr (C::kQuant) {
       if (lane < KC) {
         float* scl = reinterpret_cast<float*>(dst + KC * C::ROW);
@@ -1055,8 +1096,8 @@ paged_decode_f32_kernel(Args a) {
     for (int hh = 0; hh < HH; ++hh) {
       const int row = g + 8 * hh;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < n_rows) {
-        x = sp::scale4_rn(*reinterpret_cast<const float4*>(qp + q_off(a, b, hk, row, D) + C::kd(ks, t)),
+      if (row < n_rows && C::kd(ks, t) < a.d) {
+        x = sp::scale4_rn(*reinterpret_cast<const float4*>(qp + q_off(a, b, hk, row) + C::kd(ks, t)),
                       a.scale_log2);
         q_inf |= isinf(x.x) || isinf(x.y) || isinf(x.z) || isinf(x.w);
       }
@@ -1282,6 +1323,7 @@ paged_decode_f32_kernel(Args a) {
   __syncthreads();
   for (int i = threadIdx.x; i < n_rows * D; i += C::THREADS) {
     const int r = i / D, c = i % D;
+    if (c >= a.d) continue;   // columns below d
     float M = -INFINITY;
 #pragma unroll
     for (int v = 0; v < C::WARPS; ++v) M = fmaxf(M, mred[v * 16 + r]);
@@ -1294,11 +1336,11 @@ paged_decode_f32_kernel(Args a) {
       A += wt * red[(v * 16 + r) * D + c];
     }
     if (a.n_splits == 1) {
-      static_cast<float*>(a.out)[q_off(a, b, hk, r, D) + c] = A * (L == 0.f ? 1.f : 1.f / L);
+      static_cast<float*>(a.out)[q_off(a, b, hk, r) + c] = A * (L == 0.f ? 1.f : 1.f / L);
     } else {
-      float* pr = partial(a, b, hk, s, r, D);
+      float* pr = partial(a, b, hk, s, r);
       pr[c] = A;
-      if (c == 0) { pr[D] = M; pr[D + 1] = L; }
+      if (c == 0) { pr[a.d] = M; pr[a.d + 1] = L; }
     }
   }
 }
@@ -1370,12 +1412,22 @@ __device__ __forceinline__ void load_stage(const Args& a, uint8_t* stage, float*
   constexpr int CH = C::ROW / 16;
   const bool whole = a.page_size % C::BN == 0;
   const size_t tile_slot = whole ? slot_of(a, tab, kt) : 0;
-  for (int i = threadIdx.x; i < C::BN * CH; i += C::THREADS) {
-    const int r = i / CH, c = i % CH, pos = kt + r;
-    const bool ok = pos >= klo && pos < khi;
-    const size_t off = ok ? (whole ? tile_slot + r : slot_of(a, tab, pos)) * C::ROW + c * 16 : 0;
-    hop::cp_async<16>(hop::smem_u32(stage + r * C::ROW + c * 16), pool + off, ok);
-  }
+  // kFull (d == D): the stored row's bytes known at compile time
+  auto copy_rows = [&](auto full) {
+    constexpr bool kFull = decltype(full)::value;
+    const int rb = kFull ? C::ROW : a.d * int(sizeof(P));   // bytes of a stored row
+    for (int i = threadIdx.x; i < C::BN * CH; i += C::THREADS) {
+      const int r = i / CH, c = i % CH, pos = kt + r;
+      const bool ok = pos >= klo && pos < khi;
+      const size_t off = ok ? (whole ? tile_slot + r : slot_of(a, tab, pos)) * rb : 0;
+      hop::cp_chunk<kFull>(hop::smem_u32(stage + r * C::ROW + c * 16), pool + off, pool, c, rb,
+                           ok);
+    }
+  };
+  if (a.d == D)
+    copy_rows(std::true_type());
+  else
+    copy_rows(std::false_type());
   if constexpr (C::kQuant) {
     const int i = threadIdx.x, pos = kt + i % C::BN;
     if (scales && i < 2 * C::BN) {
@@ -1466,8 +1518,8 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
 
   const float* qp = static_cast<const float*>(a.q);
   const size_t pool = size_t(hk) * a.n_pages * a.page_size;
-  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * C::ROW;
-  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * C::ROW;
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.kp) + pool * a.d * sizeof(P);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.vp) + pool * a.d * sizeof(P);
   const float* kspool = C::kQuant ? a.ks + pool : nullptr;
   const float* vspool = C::kQuant ? a.vs + pool : nullptr;
   const int* tab = a.table + size_t(b) * a.pages_per_seq;
@@ -1483,8 +1535,8 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
   for (int i = threadIdx.x; i < C::BM * D / 8; i += C::THREADS) {
     const int r = i / (D / 8), c = i % (D / 8) * 8;
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-    if (r < n_rows) {
-      const float* src = qp + q_off(a, b, hk, row0 + r, D) + c;
+    if (r < n_rows && c < a.d) {
+      const float* src = qp + q_off(a, b, hk, row0 + r) + c;
       x0 = sp::scale4_rn(*reinterpret_cast<const float4*>(src), a.scale_log2);
       x1 = sp::scale4_rn(*reinterpret_cast<const float4*>(src + 4), a.scale_log2);
       q_inf |= isinf(x0.x) || isinf(x0.y) || isinf(x0.z) || isinf(x0.w) || isinf(x1.x) ||
@@ -1702,19 +1754,21 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
     const int r = rl + 8 * hh;
     if (r >= n_rows) continue;
     if (a.n_splits > 1) {   // the split's partial, straight from the fragment
-      float* pr = partial(a, b, hk, s, row0 + r, D);
+      float* pr = partial(a, b, hk, s, row0 + r);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(pr + 8 * j + 2 * quad) =
-            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-      if (quad == 0) { pr[D] = m[hh]; pr[D + 1] = l[hh]; }
+        if (8 * j < a.d)
+          *reinterpret_cast<float2*>(pr + 8 * j + 2 * quad) =
+              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      if (quad == 0) { pr[a.d] = m[hh]; pr[a.d + 1] = l[hh]; }
     } else {
       const float inv = l[hh] == 0.f ? 1.f : 1.f / l[hh];
-      float* o = static_cast<float*>(a.out) + q_off(a, b, hk, row0 + r, D);
+      float* o = static_cast<float*>(a.out) + q_off(a, b, hk, row0 + r);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(o + 8 * j + 2 * quad) =
-            make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+        if (8 * j < a.d)
+          *reinterpret_cast<float2*>(o + 8 * j + 2 * quad) =
+              make_float2(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
     }
   }
 }
@@ -1732,44 +1786,69 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
 // restore JAX's function, launched only for such a wave:
 //   paged_nonfinite_kernel, before the split kernel: one block of 128
 //     threads a (page slot of the walk, kv head, sequence) marks the
-//     columns whose V holds a non-finite value (bit c % 32 of word c / 32)
-//     and a non-finite V scale (bit 0 of word D / 32), 16-byte loads, each
-//     thread always on the same 16 bytes of a row.  Bound by the bytes of
-//     V over the walk (an int8 pool: its scales alone; an int8 payload is
-//     always finite).
+//     columns whose V holds a non-finite value (bit c % 32 of word c / 32,
+//     cdiv(d, 32) words) and a non-finite V scale (bit 0 of the word after
+//     them), 16-byte loads (8 bytes for an 8-bit row of 8 mod 16 bytes).
+//     Bound by the bytes of V over the walk (an int8 pool: its scales
+//     alone; an int8 payload is always finite).
 //   paged_poison_kernel, after the split kernel and the merge: one block a
 //     (kv head, sequence, row tile) ORs the marks of the walk's pages
 //     outside the tile's hull and writes NaN into those columns of the
 //     tile's rows (nothing when no mark is set: it reads the marks only).
 
-template <int D> __host__ __device__ constexpr int nf_words() { return D / 32 + 1; }
+// Words of a page's marks: cdiv(d, 32) of columns, then the V scale's.
+__host__ __device__ constexpr int nf_words(int d) { return (d + 31) / 32 + 1; }
+constexpr int NF_MAX_WORDS = nf_words(128);
 
-// Bit e: element e of 16 bytes of payload P is not finite (never for int8).
-template <typename P>
-__device__ __forceinline__ uint32_t nonfinite_bits(const uint4& v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+// Bit e: element e of the NW words w of payload P is not finite (never for
+// int8).
+template <typename P, int NW>
+__device__ __forceinline__ uint32_t nonfinite_bits(const uint32_t (&w)[NW]) {
   uint32_t bits = 0;
   if constexpr (std::is_same<P, float>::value) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) bits |= uint32_t((w[e] & 0x7F800000u) == 0x7F800000u) << e;
+    for (int e = 0; e < NW; ++e) bits |= uint32_t((w[e] & 0x7F800000u) == 0x7F800000u) << e;
   } else if constexpr (std::is_same<P, bf16>::value) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
+    for (int e = 0; e < 2 * NW; ++e)
       bits |= uint32_t(((w[e / 2] >> (16 * (e % 2))) & 0x7F80u) == 0x7F80u) << e;
   } else if constexpr (std::is_same<P, __nv_fp8_e4m3>::value) {
 #pragma unroll
-    for (int e = 0; e < 16; ++e)
+    for (int e = 0; e < 4 * NW; ++e)
       bits |= uint32_t(((w[e / 4] >> (8 * (e % 4))) & 0x7Fu) == 0x7Fu) << e;
   }
   return bits;
 }
 
-template <typename P, int D>
+// The marks of one unit of U bytes (16, or 8 where a row is 8 mod 16
+// bytes) of V rows [r0, page) in steps of `step` rows, ORed into words.
+template <typename P, int U>
+__device__ __forceinline__ void mark_unit(uint32_t* words, const uint8_t* vp, int row_bytes,
+                                          int r0, int step, int page, int c) {
+  constexpr int NW = U / 4, EPU = U / int(sizeof(P));   // words and elements a unit
+  uint32_t bits = 0;
+#pragma unroll 4
+  for (int r = r0; r < page; r += step) {
+    uint32_t w[NW];
+    if constexpr (U == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(vp + size_t(r) * row_bytes + c * U);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(vp + size_t(r) * row_bytes + c * U);
+      w[0] = v.x, w[1] = v.y;
+    }
+    bits |= nonfinite_bits<P, NW>(w);
+  }
+  if (bits) atomicOr(&words[c * EPU / 32], bits << (c * EPU % 32));
+}
+
+// The columns of a row are a.d values of P, at most 128: up to 32 units
+// of 16 (or 8) bytes, so the 128 threads keep to one unit each, a quarter
+// (or more) of the page's rows apiece.
+template <typename P>
 __global__ void __launch_bounds__(128) paged_nonfinite_kernel(Args a, uint32_t* nf) {
-  constexpr int W = nf_words<D>(), EPC = 16 / int(sizeof(P)), CH = D / EPC;
-  constexpr int ROW = D * int(sizeof(P));
-  static_assert(128 % CH == 0, "a thread keeps to one 16 bytes of a row");
-  __shared__ uint32_t words[W];
+  const int W = nf_words(a.d), row_bytes = a.d * int(sizeof(P));
+  __shared__ uint32_t words[NF_MAX_WORDS];
   const int i = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   if (threadIdx.x < W) words[threadIdx.x] = 0;
   __syncthreads();
@@ -1779,13 +1858,18 @@ __global__ void __launch_bounds__(128) paged_nonfinite_kernel(Args a, uint32_t* 
     const int pid = min(max(a.table[size_t(b) * a.pages_per_seq + i], 0), a.n_pages - 1);
     const size_t first = (size_t(hk) * a.n_pages + pid) * page;   // the page's first slot
     if constexpr (!std::is_same<P, int8_t>::value) {
-      const int c = threadIdx.x % CH;
-      const uint8_t* vp = static_cast<const uint8_t*>(a.vp) + first * ROW + c * 16;
-      uint32_t bits = 0;
-#pragma unroll 4
-      for (int r = threadIdx.x / CH; r < page; r += 128 / CH)
-        bits |= nonfinite_bits<P>(*reinterpret_cast<const uint4*>(vp + size_t(r) * ROW));
-      if (bits) atomicOr(&words[c * EPC / 32], bits << (c * EPC % 32));
+      const uint8_t* vp = static_cast<const uint8_t*>(a.vp) + first * row_bytes;
+      if (row_bytes % 16 == 0) {
+        const int units = row_bytes / 16, lanes = 128 / units * units;
+        if (threadIdx.x < lanes)
+          mark_unit<P, 16>(words, vp, row_bytes, threadIdx.x / units, lanes / units, page,
+                           threadIdx.x % units);
+      } else {
+        const int units = row_bytes / 8, lanes = 128 / units * units;
+        if (threadIdx.x < lanes)
+          mark_unit<P, 8>(words, vp, row_bytes, threadIdx.x / units, lanes / units, page,
+                          threadIdx.x % units);
+      }
     }
     if (a.vs != nullptr)
       for (int r = threadIdx.x; r < page; r += 128)
@@ -1796,11 +1880,11 @@ __global__ void __launch_bounds__(128) paged_nonfinite_kernel(Args a, uint32_t* 
     nf[((size_t(b) * a.h_kv + hk) * a.pages_per_seq + i) * W + threadIdx.x] = words[threadIdx.x];
 }
 
-template <typename T, int D>
+template <typename T>
 __global__ void __launch_bounds__(128) paged_poison_kernel(Args a, const uint32_t* nf,
                                                             int bm) {
-  constexpr int W = nf_words<D>();
-  __shared__ uint32_t words[W];
+  const int W = nf_words(a.d), d = a.d;
+  __shared__ uint32_t words[NF_MAX_WORDS];
   const int hk = blockIdx.x, b = blockIdx.y, r0 = blockIdx.z * bm;
   const int r1 = min(r0 + bm, a.rows);
   if (threadIdx.x < W) words[threadIdx.x] = 0;
@@ -1813,30 +1897,30 @@ __global__ void __launch_bounds__(128) paged_poison_kernel(Args a, const uint32_
   block_range(whole, w, r0, r1, lo, hi);   // the tile's pages, as its blocks read them
   const int p0 = w.lo / a.page_size, n = w.hi / a.page_size;
   const int c0 = lo < hi ? lo / a.page_size : p0, c1 = lo < hi ? hi / a.page_size : p0;
-  uint32_t acc[W];
+  uint32_t acc[NF_MAX_WORDS];
 #pragma unroll
-  for (int k = 0; k < W; ++k) acc[k] = 0;
+  for (int k = 0; k < NF_MAX_WORDS; ++k) acc[k] = 0;
   const uint32_t* marks = nf + (size_t(b) * a.h_kv + hk) * a.pages_per_seq * W;
   for (int i = p0 + threadIdx.x; i < n; i += 128)
     if (i < c0 || i >= c1)
 #pragma unroll
-      for (int k = 0; k < W; ++k) acc[k] |= marks[size_t(i) * W + k];
+      for (int k = 0; k < NF_MAX_WORDS; ++k)
+        if (k < W) acc[k] |= marks[size_t(i) * W + k];
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
+  for (int k = 0; k < NF_MAX_WORDS; ++k) {
     acc[k] = __reduce_or_sync(0xffffffffu, acc[k]);
     if (threadIdx.x % 32 == 0 && acc[k]) atomicOr(&words[k], acc[k]);
   }
   __syncthreads();
   uint32_t any = 0;
-#pragma unroll
   for (int k = 0; k < W; ++k) any |= words[k];
   if (!any) return;
   const bool all = words[W - 1] & 1u;
   T* o = static_cast<T*>(a.out);
-  for (int e = threadIdx.x; e < (r1 - r0) * D; e += 128) {
-    const int r = r0 + e / D, c = e % D;
+  for (int e = threadIdx.x; e < (r1 - r0) * d; e += 128) {
+    const int r = r0 + e / d, c = e % d;
     if (all || (words[c / 32] >> (c % 32) & 1u))
-      fa::store1(o + q_off(a, b, hk, r, D) + c, __int_as_float(0x7fc00000));
+      fa::store1(o + q_off(a, b, hk, r) + c, __int_as_float(0x7fc00000));
   }
 }
 
@@ -1845,17 +1929,18 @@ __global__ void __launch_bounds__(128) paged_poison_kernel(Args a, const uint32_
 // One block of four warps per output row: M = max_s m_s, then o = sum_s
 // 2^(m_s - M) acc_s over sum_s 2^(m_s - M) l_s (o = 0 where l is 0).  Warp
 // v sums the splits s = v mod 4 in order, eight loads in flight, the
-// weights passed by shuffles; the four sums add in a fixed order.
+// weights passed by shuffles; the four sums add in a fixed order.  Lane
+// columns lane + 32 e, those below d (D the tile width).
 template <typename T, int D>
 __global__ void __launch_bounds__(128) paged_merge_kernel(Args a) {
   __shared__ float red[4][D + 1];
   __shared__ float mx[4];
-  const int row = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32, d = a.d;
   const int r = row % a.rows, bh = row / a.rows;
-  const float* p0 = a.ws + (size_t(bh) * a.n_splits * a.rows + r) * (D + 2);
-  const size_t step = size_t(a.rows) * (D + 2);
+  const float* p0 = a.ws + (size_t(bh) * a.n_splits * a.rows + r) * (d + 2);
+  const size_t step = size_t(a.rows) * (d + 2);
   float M = -INFINITY;
-  for (int s = threadIdx.x; s < a.n_splits; s += 128) M = fmaxf(M, p0[s * step + D]);
+  for (int s = threadIdx.x; s < a.n_splits; s += 128) M = fmaxf(M, p0[s * step + d]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
   if (lane == 0) mx[warp] = M;
@@ -1870,15 +1955,16 @@ __global__ void __launch_bounds__(128) paged_merge_kernel(Args a) {
     float wt = 0.f;
     if (lane < n) {
       const float* pr = p0 + (s0 + 4 * lane) * step;
-      wt = exp2f(pr[D] - Mu);
-      L += wt * pr[D + 1];
+      wt = exp2f(pr[d] - Mu);
+      L += wt * pr[d + 1];
     }
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       const float wj = __shfl_sync(0xffffffffu, wt, j);
       const float* pr = p0 + (s0 + 4 * j) * step;
 #pragma unroll
-      for (int e = 0; e < D / 32; ++e) acc[e] += wj * pr[lane + 32 * e];
+      for (int e = 0; e < D / 32; ++e)
+        if (lane + 32 * e < d) acc[e] += wj * pr[lane + 32 * e];
     }
   }
 #pragma unroll
@@ -1890,11 +1976,11 @@ __global__ void __launch_bounds__(128) paged_merge_kernel(Args a) {
   if (warp > 0) return;
   L = ((red[0][D] + red[1][D]) + red[2][D]) + red[3][D];
   const float inv = L == 0.f ? 1.f : 1.f / L;
-  T* o = static_cast<T*>(a.out) + q_off(a, bh / a.h_kv, bh % a.h_kv, r, D);
+  T* o = static_cast<T*>(a.out) + q_off(a, bh / a.h_kv, bh % a.h_kv, r);
 #pragma unroll
   for (int e = 0; e < D / 32; ++e) {
     const int c = lane + 32 * e;
-    fa::store1(o + c, (((red[0][c] + red[1][c]) + red[2][c]) + red[3][c]) * inv);
+    if (c < d) fa::store1(o + c, (((red[0][c] + red[1][c]) + red[2][c]) + red[3][c]) * inv);
   }
 }
 
@@ -1964,32 +2050,22 @@ inline int row_tile(int rows) {
 }
 
 template <typename P>
-cudaError_t nonfinite_d(int d, const Args& a, uint32_t* nf, cudaStream_t st) {
-  const dim3 grid(a.pages_per_seq, a.h_kv, a.b);
-  switch (d) {
-    case 32: paged_nonfinite_kernel<P, 32><<<grid, 128, 0, st>>>(a, nf); break;
-    case 64: paged_nonfinite_kernel<P, 64><<<grid, 128, 0, st>>>(a, nf); break;
-    case 128: paged_nonfinite_kernel<P, 128><<<grid, 128, 0, st>>>(a, nf); break;
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t nonfinite(const Args& a, uint32_t* nf, cudaStream_t st) {
+  if (hop::tile_width(a.d) == 0) return cudaErrorInvalidValue;
+  paged_nonfinite_kernel<P><<<dim3(a.pages_per_seq, a.h_kv, a.b), 128, 0, st>>>(a, nf);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t poison_d(int d, const Args& a, const uint32_t* nf, int bm, cudaStream_t st) {
-  const dim3 grid(a.h_kv, a.b, (a.rows + bm - 1) / bm);
-  switch (d) {
-    case 32: paged_poison_kernel<T, 32><<<grid, 128, 0, st>>>(a, nf, bm); break;
-    case 64: paged_poison_kernel<T, 64><<<grid, 128, 0, st>>>(a, nf, bm); break;
-    case 128: paged_poison_kernel<T, 128><<<grid, 128, 0, st>>>(a, nf, bm); break;
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t poison(const Args& a, const uint32_t* nf, int bm, cudaStream_t st) {
+  paged_poison_kernel<T><<<dim3(a.h_kv, a.b, (a.rows + bm - 1) / bm), 128, 0, st>>>(a, nf, bm);
   return cudaGetLastError();
 }
 
+// the kernels at the tile width of d (hop::tile_width), reading d itself
 template <typename T, typename P>
 cudaError_t dispatch_d(int d, const Args& a, cudaStream_t st) {
-  switch (d) {
+  switch (hop::tile_width(d)) {
     case 32: return launch<T, P, 32>(a, st);
     case 64: return launch<T, P, 64>(a, st);
     case 128: return launch<T, P, 128>(a, st);
@@ -2019,7 +2095,7 @@ template <typename P>
 int attr_d(int kind, int d, int what) {
   using Q = typename std::conditional<std::is_same<P, bf16>::value, float, P>::type;
 #define PAGED_ATTR(D)                                                                          \
-  if (d == D) {                                                                                \
+  if (hop::tile_width(d) == D) {                                                               \
     if (kind == 0) return attr_of(paged_decode_kernel<P, D>, what, Dec<P, D>::SMEM);           \
     if (kind == 1) return attr_of(paged_extend_kernel<P, D>, what, Ext<P, D>::SMEM);           \
     if (kind == 2) return attr_of(paged_decode_f32_kernel<Q, D, 1>, what, DecF<Q, D>::SMEM);   \
@@ -2048,14 +2124,13 @@ int paged_call(const void* q, const void* k_pages, const void* v_pages, const vo
   Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
          static_cast<const float*>(v_scales), static_cast<const int*>(lengths),
          static_cast<const int*>(page_indices), out, static_cast<float*>(ws), b, h_kv, rows,
-         chunk, n_pages, page_size, pages_per_seq, window, split_pages, n_splits, scale_log2};
+         chunk, n_pages, page_size, pages_per_seq, window, split_pages, n_splits, scale_log2, d};
   const cudaError_t err = dtype == 0 ? dispatch_pages<float>(page_dtype, dtype, d, a, st)
                                      : dispatch_pages<bf16>(page_dtype, dtype, d, a, st);
   const int bm = row_tile(rows);
   if (err != cudaSuccess || nf == nullptr || rows <= bm) return int(err);
   const uint32_t* marks = static_cast<const uint32_t*>(nf);
-  return int(dtype == 0 ? poison_d<float>(d, a, marks, bm, st)
-                        : poison_d<bf16>(d, a, marks, bm, st));
+  return int(dtype == 0 ? poison<float>(a, marks, bm, st) : poison<bf16>(a, marks, bm, st));
 }
 
 }  // namespace
@@ -2101,11 +2176,11 @@ extern "C" int fa_paged_attention_f32(const void* q, const void* k_pages, const 
                     split_pages, n_splits, scale_log2, dtype, page_dtype, stream);
 }
 
-// The marks of C15's poison pass: nf (b, h_kv, pages_per_seq, d / 32 + 1)
-// uint32, for page slot i of sequence b's walk (zero outside it) bit c % 32
-// of word c / 32 set where column c of the page's V (h_kv, n_pages,
-// page_size, d) holds a non-finite value, and bit 0 of word d / 32 where a
-// V scale (h_kv, n_pages, page_size) is not finite (v_scales null: a pool
+// The marks of C15's poison pass: nf (b, h_kv, pages_per_seq, cdiv(d, 32) +
+// 1) uint32, for page slot i of sequence b's walk (zero outside it) bit
+// c % 32 of word c / 32 set where column c of the page's V (h_kv, n_pages,
+// page_size, d) holds a non-finite value, and bit 0 of word cdiv(d, 32)
+// where a V scale (h_kv, n_pages, page_size) is not finite (v_scales null: a pool
 // in q's dtype).  lengths, page_indices, chunk and window as for
 // fa_paged_attention.  page_dtype: 0 float32, 1 bfloat16, 2 int8, 3 float8
 // e4m3.
@@ -2119,13 +2194,13 @@ extern "C" int fa_paged_nonfinite(const void* v_pages, const void* v_scales,
   Args a{nullptr, nullptr, v_pages, nullptr, static_cast<const float*>(v_scales),
          static_cast<const int*>(lengths), static_cast<const int*>(page_indices), nullptr,
          nullptr, b, h_kv, 0, chunk, n_pages, page_size, pages_per_seq, window,
-         pages_per_seq, 1, 0.f};
+         pages_per_seq, 1, 0.f, d};
   uint32_t* marks = static_cast<uint32_t*>(nf);
   switch (page_dtype) {
-    case 0: return int(nonfinite_d<float>(d, a, marks, st));
-    case 1: return int(nonfinite_d<bf16>(d, a, marks, st));
-    case 2: return int(nonfinite_d<int8_t>(d, a, marks, st));
-    case 3: return int(nonfinite_d<__nv_fp8_e4m3>(d, a, marks, st));
+    case 0: return int(nonfinite<float>(a, marks, st));
+    case 1: return int(nonfinite<bf16>(a, marks, st));
+    case 2: return int(nonfinite<int8_t>(a, marks, st));
+    case 3: return int(nonfinite<__nv_fp8_e4m3>(a, marks, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

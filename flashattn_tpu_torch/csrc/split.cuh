@@ -276,8 +276,8 @@ __device__ __forceinline__ void split_rows(uint8_t* planes, int plane, const uin
 }
 
 // One of a block's direct loads into planes (split_rows_ldg): rows [0,
-// rows) of a row-major (., D) f32 matrix at src, rows at or past
-// rows_valid zero, into NP planes of padded bf16 rows (`plane` bytes
+// rows) of a row-major (., d) f32 matrix at src, rows at or past
+// rows_valid and columns d..D - 1 zero, into NP planes of padded bf16 rows (`plane` bytes
 // apart), each value times `scale` in f32 first.
 struct RowsJob {
   const float* src;
@@ -287,13 +287,11 @@ struct RowsJob {
   float scale;
 };
 
-// The jobs' rows loaded straight into registers and split into their
-// planes by the block's threads: four 16-byte loads a thread of every job
-// in flight together, then their splits (split_rows' layout).  For the
-// operands a block reads once at its start (no staging in shared memory).
-template <int D, int NJOB>
-__device__ __forceinline__ void split_rows_ldg(const RowsJob (&jobs)[NJOB]) {
+// split_rows_ldg's body; kFull: d == D, known at compile time.
+template <int D, int NJOB, bool kFull>
+__device__ __forceinline__ void split_rows_ldg_d(const RowsJob (&jobs)[NJOB], int d_) {
   constexpr int U = D / 4, K = 4;
+  const int d = kFull ? D : d_;
   int most = 0;
 #pragma unroll
   for (int j = 0; j < NJOB; ++j) most = max(most, jobs[j].rows * U);
@@ -305,8 +303,8 @@ __device__ __forceinline__ void split_rows_ldg(const RowsJob (&jobs)[NJOB]) {
       for (int k = 0; k < K; ++k) {
         const int i = base + k * blockDim.x, r = i / U;
         x[j][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < jobs[j].rows * U && r < jobs[j].rows_valid)
-          x[j][k] = *reinterpret_cast<const float4*>(jobs[j].src + size_t(r) * D + 4 * (i % U));
+        if (i < jobs[j].rows * U && r < jobs[j].rows_valid && (kFull || 4 * (i % U) < d))
+          x[j][k] = *reinterpret_cast<const float4*>(jobs[j].src + size_t(r) * d + 4 * (i % U));
       }
 #pragma unroll
     for (int j = 0; j < NJOB; ++j)
@@ -324,6 +322,19 @@ __device__ __forceinline__ void split_rows_ldg(const RowsJob (&jobs)[NJOB]) {
         for (int p = 0; p < NP; ++p) *reinterpret_cast<uint2*>(dst + p * jobs[j].plane) = w[p];
       }
   }
+}
+
+// The jobs' rows loaded straight into registers and split into their
+// planes by the block's threads: four 16-byte loads a thread of every job
+// in flight together, then their splits (split_rows' layout).  For the
+// operands a block reads once at its start (no staging in shared memory).
+// d: the rows' head dim (a multiple of 8, at most D).
+template <int D, int NJOB>
+__device__ __forceinline__ void split_rows_ldg(const RowsJob (&jobs)[NJOB], int d = D) {
+  if (d == D)
+    split_rows_ldg_d<D, NJOB, true>(jobs, d);
+  else
+    split_rows_ldg_d<D, NJOB, false>(jobs, d);
 }
 
 // The pieces of an A fragment (hop::frag_a of each plane at `planes`,
@@ -476,10 +487,11 @@ __device__ __forceinline__ void acc_product(float (&acc)[D / 8][4], const float 
 }
 
 // Rows [0, n) of a warp's 16-row product acc[nd][2hh + e] (row g + 8hh,
-// column 8 nd + 2t + e) times mul[hh] to dst (rows D floats apart).
+// column 8 nd + 2t + e) times mul[hh] to dst: its columns below d (a
+// multiple of 8, at most D), rows d floats apart.
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4],
-                                           const float (&mul)[2], int n, int lane) {
+                                           const float (&mul)[2], int n, int lane, int d = D) {
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -487,8 +499,9 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8]
     if (r >= n) continue;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<float2*>(dst + size_t(r) * D + 8 * nd + 2 * t) =
-          make_float2(acc[nd][2 * hh] * mul[hh], acc[nd][2 * hh + 1] * mul[hh]);
+      if (8 * nd < d)
+        *reinterpret_cast<float2*>(dst + size_t(r) * d + 8 * nd + 2 * t) =
+            make_float2(acc[nd][2 * hh] * mul[hh], acc[nd][2 * hh + 1] * mul[hh]);
   }
 }
 

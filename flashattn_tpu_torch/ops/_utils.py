@@ -32,6 +32,23 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(c * (x + k * x**3)))
 
 
+# The head dims the forward and inference attention kernels take: every
+# multiple of 8 up to 128, each run at the least tile width of 32, 64 and
+# 128 that holds it, zero-padded as it loads (csrc/hopper.cuh::tile_width).
+MAX_HEAD_DIM = 128
+
+
+def check_head_dim(d: int, what: str) -> None:
+    """Raise ``ValueError`` for a head dim no kernel takes: above
+    ``MAX_HEAD_DIM`` (ROADMAP.md §B2) or not a multiple of 8 (§B3)."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} head_dim must be at most {MAX_HEAD_DIM}, "
+                         f"got {d}: head dims above 128 are ROADMAP.md §B2")
+    if d < 8 or d % 8:
+        raise ValueError(f"{what} head_dim must be a multiple of 8, got {d}: "
+                         f"other head dims are ROADMAP.md §B3")
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

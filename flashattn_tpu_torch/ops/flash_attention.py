@@ -42,6 +42,12 @@ run (C17; no host sync, the call's one count is the wgmma wrapper's).  On
 CPU tensors the plain versions run (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`).
 
+Head dims: the forward kernels take every multiple of 8 up to 128 (at the
+least tile width of 32, 64 and 128 that holds d, zero-padded as they load,
+as JAX's ``_pad128`` pads d for its subrow and loop schedules), the
+backward kernels ``BWD_HEAD_DIMS``; a CUDA backward at another head dim
+raises ``NotImplementedError`` (ROADMAP.md §B1), never the plain version.
+
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
 di = rowsum(o * do) in plain torch, as the JAX package does, then the three
@@ -61,8 +67,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, largest_divisor_block,
-                     on_cuda)
+from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, check_head_dim,
+                     largest_divisor_block, on_cuda)
 
 _kernel = _build.Kernel("fa_flash_fwd", [_build.P] * 6 + [_build.I] * 8 + [
     _build.F, _build.I, _build.I, _build.I])
@@ -79,7 +85,9 @@ _f32_mma_kernel = _build.Kernel("fa_flash_fwd_f32_mma", [_build.P] * 6
 _f32_mma_bwd_kernel = _build.Kernel("fa_flash_bwd_f32_mma", [_build.P] * 11
                                     + [_build.I] * 8 + [_build.F, _build.F])
 
-HEAD_DIMS = (32, 64, 128)
+# the head dims the backward kernels take (the forward takes every multiple
+# of 8 up to 128: _utils.check_head_dim)
+BWD_HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
 
 # The JAX dispatcher's constants: below MIN_KERNEL_KV_LEN keys XLA's op
@@ -377,12 +385,17 @@ def flash_bwd_plain(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
                           window)
 
 
-def _check_kernel_args(q, k, v):
+def _check_kernel_args(q, k, v, backward=False):
+    """Shapes and dtypes the kernels take.  The forward takes every head dim
+    ``check_head_dim`` allows; the backward those of ``BWD_HEAD_DIMS``, and
+    any other raises ``NotImplementedError`` (never a plain fallback)."""
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel head_dim must be one of {HEAD_DIMS}, "
-                         f"got {d}")
+    check_head_dim(d, "flash kernel")
+    if backward and d not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward kernels take head dims {BWD_HEAD_DIMS}, got "
+            f"{d}: the backward at other head dims is ROADMAP.md §B1")
     if k.shape != (b, h_kv, n_kv, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -455,8 +468,9 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     take it (JAX calls ``_flash_bwd`` there directly); f32 takes the
     explicit formulas at every shape.  One count covers its launches
     (``_bwd_kernel``'s in bf16; in f32 ``_f32_bwd_kernel``'s or
-    ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`)."""
-    _check_kernel_args(q, k, v)
+    ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`).  Head dims:
+    ``BWD_HEAD_DIMS``."""
+    _check_kernel_args(q, k, v, backward=True)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     if do.shape != q.shape or lse.shape != (b, h, n_q, 1) \

@@ -34,14 +34,13 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._utils import cdiv, check_no_grad, on_cuda, LOG2E
+from ._utils import cdiv, check_head_dim, check_no_grad, on_cuda, LOG2E
 
 _ARGS = [_build.P] * 10 + [_build.I] * 11 + [_build.F, _build.I, _build.I]
 _kernel = _build.Kernel("fa_paged_attention", _ARGS)             # bf16 q
 _f32_kernel = _build.Kernel("fa_paged_attention_f32", _ARGS)     # f32 q
 _nf_kernel = _build.Kernel("fa_paged_nonfinite", [_build.P] * 5 + [_build.I] * 9)
 
-HEAD_DIMS = (32, 64, 128)
 # rows per kv head up to which q takes the mma.sync decode tile (one m16
 # tile), either dtype; wider waves take the 128-row wgmma tile
 DECODE_ROWS = 16
@@ -115,10 +114,10 @@ def _walk(lengths, chunk, page_size, pages_per_seq, window):
 def paged_nonfinite(v_pages, lengths, page_indices, chunk: int, *,
                     v_scales=None, window: Optional[int] = None) -> torch.Tensor:
     """The marks of the pages a row tile leaves out (C15): an int32 tensor
-    (B, n_kv_heads, pages_per_seq, d // 32 + 1) of bit words; for page slot
-    i of sequence b's walk (zero outside it) bit c % 32 of word c // 32 is
-    set where column c of the page's V holds a non-finite value, and bit 0
-    of the last word where a V scale of the page is not finite.
+    (B, n_kv_heads, pages_per_seq, cdiv(d, 32) + 1) of bit words; for page
+    slot i of sequence b's walk (zero outside it) bit c % 32 of word c // 32
+    is set where column c of the page's V holds a non-finite value, and bit
+    0 of the last word where a V scale of the page is not finite.
 
     JAX's page walk takes every row of a wave at each page it visits, so
     such a value makes columns of every row NaN (a masked key's p is 0, and
@@ -131,9 +130,7 @@ def paged_nonfinite(v_pages, lengths, page_indices, chunk: int, *,
                                      v_scales=v_scales, window=window)
     check_no_grad(v_pages)
     h_kv, n_pages, page_size, d = v_pages.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged kernel head_dim must be one of {HEAD_DIMS}, "
-                         f"got {d}")
+    check_head_dim(d, "paged kernel")
     if (v_scales is None) == (v_pages.dtype in _build.PAYLOAD_DTYPES):
         raise TypeError(f"{v_pages.dtype} pages with v_scales "
                         f"{'absent' if v_scales is None else 'given'}")
@@ -144,7 +141,7 @@ def paged_nonfinite(v_pages, lengths, page_indices, chunk: int, *,
     lens = lengths.to(device=v_pages.device, dtype=torch.int32).contiguous()
     table = page_indices.to(device=v_pages.device, dtype=torch.int32).contiguous()
     b, pps = table.shape
-    out = torch.empty((b, h_kv, pps, d // 32 + 1), dtype=torch.int32,
+    out = torch.empty((b, h_kv, pps, cdiv(d, 32) + 1), dtype=torch.int32,
                       device=v_pages.device)
     _nf_kernel(v_pages.data_ptr(), None if vs is None else vs.data_ptr(),
                lens.data_ptr(), table.data_ptr(), out.data_ptr(), b, h_kv,
@@ -162,9 +159,12 @@ def paged_nonfinite_plain(v_pages, lengths, page_indices, chunk: int, *,
     first, n = _walk(lengths.to(dev).long(), chunk, page_size, pps, window)
     slot = torch.arange(pps, device=dev)
     walked = (first[:, None] <= slot) & (slot < n[:, None])        # (B, pps)
-    # (H, B, pps, d): a column of the page holds a non-finite V value
+    # (H, B, pps, d): a column of the page holds a non-finite V value;
+    # cdiv(d, 32) words of columns, the last one's bits past d clear
     bad = torch.isfinite(v_pages[:, table].float()).logical_not().any(dim=3)
-    words = (bad.reshape(h_kv, b, pps, d // 32, 32).long()
+    n_words = cdiv(d, 32)
+    bad = torch.nn.functional.pad(bad, (0, 32 * n_words - d))
+    words = (bad.reshape(h_kv, b, pps, n_words, 32).long()
              << torch.arange(32, device=dev)).sum(-1)
     scale = torch.zeros((h_kv, b, pps), dtype=torch.long, device=dev)
     if v_scales is not None:
@@ -219,9 +219,7 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     b, chunk, n_q_heads, d = q.shape
     h_kv, n_pages, page_size = k_pages.shape[:3]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged kernel head_dim must be one of {HEAD_DIMS}, "
-                         f"got {d}")
+    check_head_dim(d, "paged kernel")
     if n_q_heads % h_kv:
         raise ValueError(f"q heads ({n_q_heads}) must be a multiple of kv "
                          f"heads ({h_kv})")

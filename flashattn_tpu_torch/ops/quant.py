@@ -42,8 +42,8 @@ import torch
 
 from . import _build
 from . import flash_attention as _fa
-from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, check_no_grad,
-                     largest_divisor_block, on_cuda)
+from ._utils import (DEFAULT_MASK_VALUE, LN2, LOG2E, check_head_dim,
+                     check_no_grad, largest_divisor_block, on_cuda)
 from .dropout import philox_bits
 
 _wo_kernel = _build.Kernel("fa_wo_matmul", [_build.P] * 4 + [_build.I] * 4)
@@ -57,7 +57,6 @@ _kv8_f32_kernel = _build.Kernel("fa_kv8_flash_f32", [_build.P] * 7
 _sq_kernel = _build.Kernel("fa_stochastic_quant", [_build.P] * 3
                            + [_build.I, _build.I, _build.U64, _build.I])
 
-HEAD_DIMS = (32, 64, 128)
 FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
 
 
@@ -388,9 +387,7 @@ def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
     check_no_grad(q)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.values.shape[1], k.values.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"kv8 flash kernel head_dim must be one of "
-                         f"{HEAD_DIMS}, got {d}")
+    check_head_dim(d, "kv8 flash kernel")
     route = _kv8_route(causal, n_q, n_kv, d)
     _check_tileable(route, n_q, n_kv)
     code, payload = _build.dtype_code(q), _build.payload_code(k.values)

@@ -172,6 +172,24 @@ FLASH_CASES = {
     "grid_span64_n1088_d64": (1, 2, 2, 1088, 1088, 64, True, None, None),
     "grid_span8_n1032_varlen_d128": (2, 2, 2, 1032, 1032, 128, True,
                                      [1032, 700], None),
+    # head dims other than 32, 64 and 128 (the tiles of 32, 64 and 128
+    # columns, zero-padded as they load): each kernel and mode above
+    "op_graph_nq7_causal_d16": (1, 4, 2, 7, 100, 16, True, None, None),
+    "op_graph_nq1_nkv40_d112": (2, 2, 1, 1, 40, 112, False, None, None),
+    "cross_noncausal_d24": (2, 2, 1, 37, 150, 24, False, None, None),
+    "varlen_window_d48": (2, 4, 4, 200, 200, 48, True, [200, 77], 33),
+    "causal_n517_d80": (1, 2, 2, 517, 517, 80, True, None, None),
+    "gqa8_2_varlen_len0_d96": (2, 8, 2, 600, 600, 96, True, [600, 0], None),
+    "subrow_pad_n1024_d96": (1, 2, 2, 1024, 1024, 96, True, None, None),
+    "subrow_pad_n1536_d112": (1, 2, 2, 1536, 1536, 112, True, None, None),
+    "subrow_varlen_n1024_d80": (2, 2, 2, 1024, 1024, 80, True, [1024, 515],
+                                None),
+    "grid_noncausal_n2048_d120": (1, 2, 2, 2048, 2048, 120, False, None,
+                                  None),
+    "grid_window256_n2048_d24": (1, 2, 1, 2048, 2048, 24, True, None, 256),
+    "grid_span8_n1032_varlen_d96": (2, 2, 2, 1032, 1032, 96, True,
+                                    [1032, 700], None),
+    "cross_1000x2048_d80": (1, 2, 2, 1000, 2048, 80, False, None, None),
 }
 
 
@@ -226,6 +244,15 @@ PAGED_CASES = {
     "gqa4_chunk3_page8_d64": (2, 8, 2, 64, 3, 8, 6, None),
     "chunk40_page16_d128": (2, 2, 2, 128, 40, 16, 5, None),
     "chunk5_window_page8_d128": (2, 4, 2, 128, 5, 8, 6, 11),
+    # head dims other than 32, 64 and 128: the decode and extend tiles at
+    # their tile widths, 8-bit rows of 8 mod 16 bytes (d 24, 120)
+    "decode_page4_d16": (3, 4, 4, 16, 1, 4, 9, None),
+    "gqa4_chunk3_page8_d24": (2, 8, 2, 24, 3, 8, 6, None),
+    "decode_gqa8_page16_d48": (2, 8, 1, 48, 1, 16, 6, None),
+    "chunk40_page16_d80": (2, 2, 2, 80, 40, 16, 5, None),
+    "chunk5_window_page8_d96": (2, 4, 2, 96, 5, 8, 6, 11),
+    "chunk40_page8_gqa2_d112": (2, 4, 2, 112, 40, 8, 9, None),
+    "chunk40_page16_d120": (2, 2, 2, 120, 40, 16, 5, None),
 }
 
 
@@ -278,6 +305,13 @@ PAGED_SPLIT_CASES = {
                                           [952, 2300, 1000], 256),
     "wave2048_page128_d128": (2, 2, 2, 128, 2048, 128, 32, [2048, 4096],
                               None),
+    # head dims other than 32, 64 and 128: the merge's columns past d, a
+    # wave of three row tiles (marks and poison) at d 24
+    "decode_gqa4_page16_d96": (3, 8, 2, 96, 1, 16, 512, [1, 17, 8192],
+                               None),
+    "chunk64_page128_d80": (2, 2, 2, 80, 64, 128, 32, [64, 4000], None),
+    "wave300_window256_page16_d24": (2, 2, 2, 24, 300, 16, 40, [300, 640],
+                                     256),
 }
 POOLS = ["native", "int8", "fp8"]
 
@@ -433,7 +467,10 @@ def test_paged_f32_nonfinite(dev, where, value, slot, rows):
 
 def test_kernels_refuse_grad_and_bad_head_dim(dev):
     """Paged attention is inference-only and refuses inputs that require
-    grad; flash refuses a head dim it has no kernel for."""
+    grad.  The flash forward computes at d 48 (any multiple of 8 up to
+    128), its backward there raises NotImplementedError (the backward
+    kernels take d 32, 64 and 128: ROADMAP.md §B1) and never falls back to
+    the plain version; d 136 and d 20 raise ValueError (§B2, §B3)."""
     q = torch.randn(2, 4, 64, device=dev, requires_grad=True)
     pages = torch.randn(4, 3, 8, 64, device=dev)
     table = torch.arange(2, device=dev, dtype=torch.int32).reshape(2, 1)
@@ -441,8 +478,18 @@ def test_kernels_refuse_grad_and_bad_head_dim(dev):
         pa.paged_attention(q, pages, pages, torch.tensor([5, 8], device=dev),
                            table)
     x = torch.randn(1, 2, 8, 48, device=dev)
-    with pytest.raises(ValueError):
-        fa.flash_attention(x, x, x, True)
+    o = fa.flash_attention(x, x, x, True)
+    assert _err(o, fa.flash_fwd_plain(x, x, x, True, 48 ** -0.5)[0]) \
+        <= TOL[torch.float32]
+    xg = x.clone().requires_grad_()
+    before = _flash_launches()[1]
+    with pytest.raises(NotImplementedError, match="B1"):
+        fa.flash_attention(xg, xg, xg, True).sum().backward()
+    assert _flash_launches()[1] == before
+    for d, item in ((136, "B2"), (20, "B3")):
+        y = torch.randn(1, 2, 8, d, device=dev)
+        with pytest.raises(ValueError, match=item):
+            fa.flash_attention(y, y, y, True)
 
 
 def _ln_bwd_inputs(shape, dtype, dev, offset=None):
@@ -777,6 +824,15 @@ KV8_CASES = {
     "cross_1000x2048_d128": (1, 2, 2, 1000, 2048, 128, False),
     "cross_70x1001_d64": (2, 4, 2, 70, 1001, 64, False),
     "cross_1001x1000_d32": (1, 2, 1, 1001, 1000, 32, False),
+    # head dims other than 32, 64 and 128 (8-bit rows of 8 mod 16 bytes at
+    # d 24 and 120)
+    "ragged_causal_d16": (2, 4, 4, 100, 100, 16, True),
+    "cross_noncausal_d24": (2, 2, 1, 37, 150, 24, False),
+    "causal_gqa2_n1001_d48": (1, 4, 2, 1001, 1001, 48, True),
+    "cross_1000x2048_d80": (1, 2, 2, 1000, 2048, 80, False),
+    "causal_n1000_d96": (1, 2, 2, 1000, 1000, 96, True),
+    "gqa_causal_d112": (1, 8, 2, 130, 130, 112, True),
+    "cross_70x1001_d120": (2, 4, 2, 70, 1001, 120, False),
 }
 
 
@@ -830,6 +886,9 @@ C16_KV8_CASES = {
     "grid_causal_576_d32": (1, 4, 2, 576, 576, 32, True, "grid"),
     "grid_causal_1000_d128": (1, 2, 2, 1000, 1000, 128, True, "grid"),
     "grid_384x1000_d64": (1, 2, 2, 384, 1000, 64, False, "grid"),
+    "grid_causal_1088_d96": (1, 2, 2, 1088, 1088, 96, True, "grid"),
+    "grid_200x3000_d80": (1, 2, 1, 200, 3000, 80, False, "grid"),
+    "grid_384x1000_d24": (1, 2, 2, 384, 1000, 24, False, "grid"),
 }
 
 
@@ -1703,7 +1762,7 @@ def c15_inputs(g, dev, dtype, pool, chunk, hq, hkv, d=128, page=128):
                          (5, -(-n // page) * page + 5)):
             if pool != "int8" and pos // page < pps:
                 p, s = at(bi, pos)
-                vp[:, p, s, col + 8 * bi] = float("nan")
+                vp[:, p, s, (col + 8 * bi) % d] = float("nan")
     if pool != "native":
         for pos in (10, lens[2] - 3):
             p, s = at(2, pos)
@@ -1767,6 +1826,40 @@ def test_paged_nonfinite_kernel(dev, window, pool):
                                         window=window)
         assert torch.equal(got, want)
         assert bool(want.any())
+
+
+# the head dims other than 32, 64 and 128 that the forward and inference
+# kernels take (multiples of 8 up to 128)
+HEAD_DIMS_NEW = [16, 24, 48, 80, 96, 112, 120]
+
+
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+def test_paged_marks_poison_head_dims(dev, d, pool):
+    """C18 on the card: the marks kernel bit for bit against its plain
+    version at cdiv(d, 32) + 1 words, and a 256-row bf16 wave (two extend
+    tiles, the poison pass) with a NaN in V's column d - 1 at sequence 1's
+    last key, which only the second row tile's pages hold: the first
+    tile's rows get it from the marks' bit d - 1, not from the scale word
+    after it."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, kp, vp, lens, table, kw = c15_inputs(g, dev, torch.bfloat16, pool,
+                                            256, 2, 2, d=d, page=16)
+    last = int(lens[1]) - 1
+    if pool != "int8":
+        vp[:, table[1, last // 16], last % 16, d - 1] = float("nan")
+    vs = kw.get("v_scales")
+    got = pa.paged_nonfinite(vp, lens, table, 256, v_scales=vs)
+    want = pa.paged_nonfinite_plain(vp, lens, table, 256, v_scales=vs)
+    assert got.shape == (3, 2, table.shape[1], -(-d // 32) + 1)
+    assert torch.equal(got, want)
+    out = pa.paged_attention(q, kp, vp, lens, table, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, lens, table, **kw)
+    _c15_check(out, ref, torch.bfloat16)
+    if pool != "int8":
+        word = int(want[1, 0, last // 16, (d - 1) // 32])
+        assert (word >> ((d - 1) % 32)) & 1
+        assert ref[1, :, :, d - 1].isnan().all()
 
 
 # -- parallelism (A7): the ring's pairs, a one-rank NCCL group -----------------

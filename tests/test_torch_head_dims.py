@@ -1,0 +1,327 @@
+"""Head dims other than 32, 64 and 128: the port against the JAX package.
+
+JAX runs attention at any head dim (its ``_pad128`` zero-pads d 16..120 to
+128 for the subrow and loop schedules); the port's forward and inference
+kernels take every multiple of 8 up to 128, at tile widths of 32, 64 and
+128 zero-padded as they load.  On the CPU the port runs its plain versions,
+so these tests hold the function at d 16, 24, 80 and 96 to JAX's through
+the public entry points, with the same numpy-seeded inputs on both sides
+and JAX's Pallas kernels in interpret mode:
+
+* ``flash_attention`` / ``flash_attention_varlen`` /
+  ``flash_attention_with_lse`` in bf16 and f32 below 1024 keys (XLA's op
+  graph) and at 1024 (causal: ``_pad128``'s subrow; not causal: the grid);
+* ``paged_attention`` over bf16, int8 and fp8 pools (JAX's page-slot grid,
+  ``_paged_kernel``, below d 128);
+* ``flash_attention_kv_int8`` (the grid route below d 128);
+* the plain version of the paged marks (C18: cdiv(d, 32) words of columns
+  and the V scale's word after them);
+* a DecoderLM with heads of 96 served by ``ContinuousBatchingEngine``
+  against JAX's engine on the same weights.
+
+Tolerances are those of the parity tests at d 32, 64 and 128: bf16 at least
+99.5% of the elements bit for bit and the rest within one bf16 ulp of the
+row's largest (tests/test_torch_faults.py's ``_row_ulp_match``), lse 1e-5;
+f32 1e-5 (both sides f32, sums in another order); the kv8 route's gates of
+``test_kv8_flash_bf16_matches_jax_route``; the engine's logits 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flashattn_tpu as ft
+import flashattn_tpu_torch as pt
+from flashattn_tpu.ops import flash_attention as jfa
+from flashattn_tpu.ops import paged_attention as jpa
+from flashattn_tpu.ops import quant as jq
+from flashattn_tpu.serving import ContinuousBatchingEngine as JaxEngine
+from flashattn_tpu_torch.ops import paged_attention as tpa
+from flashattn_tpu_torch.ops import quant as tq
+
+torch.set_num_threads(1)
+
+HEAD_DIMS = [16, 24, 80, 96]
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+PAYLOADS = {"int8": (jq.quantize_int8, torch.int8),
+            "fp8": (jq.quantize_fp8, torch.float8_e4m3fn)}
+
+
+def _pair(a, name):
+    td, jd = DTYPES[name]
+    return torch.from_numpy(a).to(td), jnp.asarray(a).astype(jd)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _row_ulp_match(got, want, share=0.995):
+    """At least ``share`` of the elements bit for bit and every other one
+    within one bf16 ulp of its row's largest magnitude (2^-7 of it)."""
+    g, w = _f32(got), _f32(want)
+    assert g.shape == w.shape
+    frac = float((g != w).mean())
+    assert frac <= 1 - share, frac
+    row = np.abs(w).max(-1, keepdims=True)
+    assert np.all(np.abs(g - w) <= row * 2.0 ** -7), np.abs(g - w).max()
+
+
+def _check(got, want, name):
+    if name == "bfloat16":
+        _row_ulp_match(got, want)
+    else:
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
+
+
+# (b, h, h_kv, n, causal, lengths): below 1024 keys XLA's op graph (GQA; a
+# length of 0 in varlen); at 1024 causal JAX's _pad128 subrow (and its
+# varlen twin), not causal its grid
+FLASH_CASES = {
+    "op_graph_gqa_causal_n200": (1, 4, 2, 200, True, None),
+    "op_graph_varlen_n130": (2, 2, 2, 130, True, [130, 0]),
+    "pad128_subrow_n1024": (1, 1, 1, 1024, True, None),
+    "pad128_subrow_varlen_n1024": (2, 1, 1, 1024, True, [1024, 515]),
+    "grid_noncausal_n1024": (1, 1, 1, 1024, False, None),
+}
+# every head dim in both dtypes below and at 1024 keys; the varlen and
+# grid functions at two head dims a dtype (JAX's interpret runs cost ~1 s
+# a call)
+FLASH_PARAMS = (
+    [(d, c, n) for c in ("op_graph_gqa_causal_n200", "pad128_subrow_n1024")
+     for d in HEAD_DIMS for n in DTYPES]
+    + [(80, "op_graph_varlen_n130", "bfloat16"),
+       (16, "op_graph_varlen_n130", "float32"),
+       (96, "pad128_subrow_varlen_n1024", "bfloat16"),
+       (24, "pad128_subrow_varlen_n1024", "float32"),
+       (24, "grid_noncausal_n1024", "bfloat16"),
+       (80, "grid_noncausal_n1024", "float32")])
+
+
+@pytest.mark.parametrize("d, case, name", FLASH_PARAMS)
+def test_flash_head_dims_match_jax(d, case, name):
+    b, h, h_kv, n, causal, lengths = FLASH_CASES[case]
+    rng = np.random.default_rng(1000 + d)
+    q = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h_kv, n, d)).astype(np.float32)
+            for _ in range(2))
+    (qt, qj), (kt, kj), (vt, vj) = (_pair(a, name) for a in (q, k, v))
+    if lengths is not None:
+        lens = np.asarray(lengths, np.int32)
+        got = pt.flash_attention_varlen(qt, kt, vt, torch.from_numpy(lens),
+                                        causal)
+        want = jfa.flash_attention_varlen(qj, kj, vj, jnp.asarray(lens),
+                                          causal)
+        assert got.shape == (b, h, n, d)
+        _check(got, want, name)
+        return
+    got = pt.flash_attention_with_lse(qt, kt, vt, causal)
+    want = jfa.flash_attention_with_lse(qj, kj, vj, causal)
+    _check(got[0], want[0], name)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=1e-5, rtol=0)
+    _check(pt.flash_attention(qt, kt, vt, causal), want[0], name)
+
+
+def _paged_inputs(seed, d, chunk, page, hq, hkv, pool):
+    """bf16 q and pools (bf16, or int8 / fp8 payloads with their scales)
+    for both packages: five sequences of three pages (a full table, a
+    mid-page length, the chunk itself, 0, a padding length past the
+    table)."""
+    rng = np.random.default_rng(seed)
+    b, pps, n_pages = 5, 3, 16
+    shape = (b, chunk, hq, d) if chunk > 1 else (b, hq, d)
+    q = rng.standard_normal(shape).astype(np.float32)
+    kp, vp = (rng.standard_normal((hkv, n_pages, page, d)).astype(np.float32)
+              for _ in range(2))
+    table = rng.permutation(n_pages)[:b * pps].reshape(b, pps).astype(np.int32)
+    lens = np.asarray([page * pps, page + chunk + 1, chunk, 0,
+                       page * pps + 3], np.int32)
+    qt, qj = _pair(q, "bfloat16")
+    rest_t = [torch.from_numpy(a) for a in (lens, table)]
+    rest_j = [jnp.asarray(a) for a in (lens, table)]
+    if pool == "bf16":
+        (kt, kj), (vt, vj) = _pair(kp, "bfloat16"), _pair(vp, "bfloat16")
+        return (qt, kt, vt, *rest_t), {}, (qj, kj, vj, *rest_j), {}
+    quantize, tdt = PAYLOADS[pool]
+    kq, vq = quantize(jnp.asarray(kp), -1), quantize(jnp.asarray(vp), -1)
+
+    def values(t):
+        return torch.from_numpy(np.array(t.values.astype(jnp.float32))).to(tdt)
+
+    def scales(t):
+        return torch.from_numpy(np.array(t.scales))
+
+    return ((qt, values(kq), values(vq), *rest_t),
+            dict(k_scales=scales(kq), v_scales=scales(vq)),
+            (qj, kq.values, vq.values, *rest_j),
+            dict(k_scales=kq.scales, v_scales=vq.scales))
+
+
+# (chunk, page, window, hq, hkv): decode with GQA 2, a chunk of 4 with a
+# window and GQA 4
+PAGED_CASES = {"decode_gqa2": (1, 4, None, 4, 2),
+               "chunk4_window6_gqa4": (4, 4, 6, 8, 2)}
+
+
+@pytest.mark.parametrize("d, case, pool", [
+    (d, c, p) for d in HEAD_DIMS
+    for c, p in (("decode_gqa2", "bf16"), ("chunk4_window6_gqa4", "int8"),
+                 ("chunk4_window6_gqa4" if d % 16 else "decode_gqa2", "fp8"))])
+def test_paged_head_dims_match_jax(d, case, pool):
+    chunk, page, window, hq, hkv = PAGED_CASES[case]
+    args_t, kw_t, args_j, kw_j = _paged_inputs(30 + d, d, chunk, page, hq,
+                                               hkv, pool)
+    got = pt.paged_attention(*args_t, window=window, **kw_t)
+    want = jpa.paged_attention(*args_j, window=window, **kw_j)
+    assert got.dtype == torch.bfloat16 and got.shape[-1] == d
+    _row_ulp_match(got, want)
+
+
+def _kv8_inputs(d, payload, name):
+    rng = np.random.default_rng(40 + d)
+    q = rng.standard_normal((1, 2, 256, d)).astype(np.float32)
+    k, v = (jnp.asarray(rng.standard_normal((1, 1, 256, d)).astype(np.float32))
+            for _ in range(2))
+    quantize, tdt = PAYLOADS[payload]
+    kq, vq = quantize(k, -1), quantize(v, -1)
+
+    def port(t):
+        vals = torch.from_numpy(np.array(t.values.astype(jnp.float32))).to(tdt)
+        return tq.QuantizedTensor(vals, torch.from_numpy(np.array(t.scales)))
+
+    qt, qj = _pair(q, name)
+    return (qt, port(kq), port(vq)), (qj, kq, vq)
+
+
+@pytest.mark.parametrize("d, payload, name", [
+    (16, "int8", "bfloat16"), (24, "fp8", "bfloat16"), (80, "int8", "bfloat16"),
+    (96, "fp8", "bfloat16"), (24, "int8", "float32"), (96, "fp8", "float32")])
+def test_kv8_head_dims_match_jax(d, payload, name):
+    """Causal GQA 2 at 256 keys, JAX's grid route (``_kv8_fwd_kernel``) at
+    every head dim below 128.  bf16: o 99% bit for bit and the rest within
+    one ulp of the row's largest, lse 1e-5 (XLA_QSCALE_LSE_GAP, 2e-3, on
+    the rows whose int8 q scale XLA:CPU computes by a reciprocal, as in
+    tests/test_torch_faults.py); f32: 1e-4."""
+    port, ref = _kv8_inputs(d, payload, name)
+    assert tq._kv8_route(True, 256, 256, d).name == "grid"
+    got = pt.flash_attention_kv_int8(*port, True)
+    want = jq.flash_attention_kv_int8(*ref, True)
+    if name == "float32":
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                       rtol=0)
+        return
+    q = port[0]
+    qp = (q * tq._prescale(q, d ** -0.5)).float()
+    am = qp.abs().amax(-1)
+    odd = ((am / torch.full_like(am, 127.0))
+           != (am * torch.tensor(1 / 127.0))).numpy()
+    if payload == "fp8":
+        odd[:] = False
+    g, w = _f32(got[0]), _f32(want[0])
+    assert float((g != w)[~odd].mean()) <= 0.01
+    row = np.abs(w).max(-1, keepdims=True)
+    assert np.all(np.abs(g - w) <= row * 2.0 ** -7)
+    lse_err = np.abs(got[1].numpy() - np.asarray(want[1]))[..., 0]
+    assert lse_err[~odd].max() <= 1e-5
+    assert lse_err.max() <= 2e-3
+
+
+def _marks_brute(vp, lens, table, chunk, vs=None):
+    """The marks as numpy loops: per (sequence, head, page slot of the
+    walk) the columns of V that hold a non-finite value, bit c % 32 of word
+    c // 32, and the V scale's flag in word cdiv(d, 32)."""
+    h_kv, n_pages, page, d = vp.shape
+    b, pps = table.shape
+    words = -(-d // 32) + 1
+    out = np.zeros((b, h_kv, pps, words), np.int64)
+    v = vp.float().numpy()
+    for bi in range(b):
+        n = min(-(-max(int(lens[bi]), 0) // page), pps)
+        for hk in range(h_kv):
+            for i in range(n):
+                p = int(table[bi, i])
+                bad = ~np.isfinite(v[hk, p]).all(axis=0)
+                for c in np.flatnonzero(bad):
+                    out[bi, hk, i, c // 32] |= 1 << (c % 32)
+                if vs is not None and not np.isfinite(vs[hk, p].numpy()).all():
+                    out[bi, hk, i, words - 1] |= 1
+    return np.where(out >= 2 ** 31, out - 2 ** 32, out).astype(np.int32)
+
+
+@pytest.mark.parametrize("pool", ["bf16", "fp8"])
+@pytest.mark.parametrize("d", [24, 80])
+def test_paged_nonfinite_plain_head_dims(d, pool):
+    """C18: at d 24 and 80 the marks hold cdiv(d, 32) words of columns and
+    the V scale's flag in the word after them (the parent reshaped d into
+    d // 32 words and raised).  A NaN in column d - 1, one in column 0 and
+    (fp8) a NaN V scale, each on its own page of the walk."""
+    rng = np.random.default_rng(50 + d)
+    h_kv, n_pages, page, b, pps = 2, 9, 4, 2, 4
+    v = torch.from_numpy(rng.standard_normal((h_kv, n_pages, page, d))
+                         .astype(np.float32))
+    table = torch.from_numpy(rng.permutation(n_pages)[:b * pps]
+                             .reshape(b, pps).astype(np.int32))
+    lens = torch.tensor([13, 6], dtype=torch.int32)
+    vs = None
+    if pool == "bf16":
+        vp = v.to(torch.bfloat16)
+    else:
+        q8 = tq.quantize_fp8(v)
+        vp, vs = q8.values.clone(), q8.scales.clone()
+        vs[0, table[0, 3], 1] = float("nan")
+    vp[1, table[0, 1], 2, d - 1] = float("nan")
+    vp[0, table[1, 0], 0, 0] = float("nan" if pool == "fp8" else "inf")
+    got = tpa.paged_nonfinite(vp, lens, table, 1, v_scales=vs)
+    words = -(-d // 32) + 1
+    assert got.shape == (b, h_kv, pps, words) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  _marks_brute(vp, lens, table, 1, vs))
+    col = (int(got[0, 1, 1, (d - 1) // 32]) >> ((d - 1) % 32)) & 1
+    assert col == 1 and int(got[0, 1, 1, -1]) == 0
+    if pool == "fp8":
+        assert int(got[0, 0, 3, -1]) == 1
+
+
+@pytest.fixture(scope="module")
+def d96_models():
+    """A DecoderLM with heads of 96 (E192 H2 L2) in both packages, the
+    port's loaded with JAX's weights."""
+    jm = ft.DecoderLM(64, 192, 2, 128, p_dropout=0.0, n_layer=2,
+                      key=jax.random.PRNGKey(3)).eval()
+    tm = pt.DecoderLM(64, 192, 2, 128, p_dropout=0.0, n_layer=2,
+                      device="cpu").eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    return jm, tm
+
+
+def _serve(engine_cls, model, prompts, max_new, **kw):
+    eng = engine_cls(model, **kw)
+    reqs = [eng.submit(p, max_new) for p in prompts]
+    eng.run()
+    assert all(r.done and not r.truncated for r in reqs)
+    assert eng.pool.n_free == eng.pool.total      # every page returned
+    return reqs
+
+
+def test_engine_d96_matches_jax_engine(d96_models):
+    """Heads of 96 through the engines' prefill, chunked prefill (prompts
+    past ``prefill_chunk``) and decode: identical greedy tokens and every
+    consumed position's logits within 1e-4."""
+    jm, tm = d96_models
+    rng = np.random.default_rng(60)
+    prompts = [list(rng.integers(1, 64, size=n)) for n in (5, 19, 11)]
+    kw = dict(max_batch=2, page_size=8, pages_per_seq=6, prefill_chunk=8,
+              collect_logits=True)
+    want = _serve(JaxEngine, jm, prompts, 4, **kw)
+    got = _serve(pt.ContinuousBatchingEngine, tm, prompts, 4, **kw)
+    for g, w in zip(got, want):
+        assert g.generated == w.generated
+        np.testing.assert_allclose(np.stack(g.logits), np.stack(w.logits),
+                                   atol=1e-4, rtol=1e-4)

@@ -1,6 +1,6 @@
 """Compare checkouts of the port on one card, alternately, in one run.
 
-    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,f32,opgraph,kv8,ln,drop,bias,sq,softmax,paged,serve_quant,train,train_fused,train_f32,mt_step] ROOT_A ROOT_B ...
+    python3 tools/ab_chip_smoke.py [--phases wo,flash,share,bwd,f32,opgraph,kv8,ln,drop,bias,sq,softmax,paged,headdim,serve_quant,train,train_fused,train_f32,mt_step] ROOT_A ROOT_B ...
 
 Each ROOT is a directory holding a ``flashattn_tpu_torch/`` package (a
 ``git archive`` of another commit, say).  The roots are built one after the
@@ -66,6 +66,11 @@ a process of its own that imports that root's package and this repo's
   B1 at 16384, chunk 64, GQA 4, window 256, the 2048-row wave), with the
   plain version (where the root has ``paged_attention_plain``) and the
   bound beside (f32 q: the split-precision bound);
+* ``headdim``: the forward and inference kernels at serve_d96's shapes
+  (B4, 32 heads) at head dims 64, 80, 96, 112 and 128: the bf16 flash
+  forward's subrow and grid, the f32 flash forward, paged decode and
+  chunk 64 over a bf16 pool, int8 ``kv8_flash``, with the bound at the
+  real d; a root whose kernels refuse a head dim prints "refused";
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -547,6 +552,70 @@ def _paged(torch, cs, dev):
         del kv, kp, vp, kw
 
 
+# head dims either side of the 64- and 128-column tiles
+HEAD_DIMS = (64, 80, 96, 112, 128)
+
+
+def _headdim(torch, cs, dev):
+    """The forward and inference kernels at serve_d96's shapes (B4, 32
+    heads, histories <= 2048) over HEAD_DIMS: the bf16 flash forward's
+    subrow (the batched prefill) and grid, the f32 flash forward, paged
+    decode and chunk 64 over a bf16 pool, kv8_flash int8; device ms beside
+    the bound at the real d.  A root whose kernels refuse a head dim prints
+    "refused"."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+    from flashattn_tpu_torch.ops import paged_attention as pa
+    from flashattn_tpu_torch.ops import quant as qt
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
+    n_pages, pps = 4 * 16 + 1, 16
+    table = torch.randperm(n_pages, generator=g, device=dev)[:4 * pps]
+    table = table.reshape(4, pps).int()
+    for d in HEAD_DIMS:
+        def randn(*shape, dtype=bf):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        sc = d ** -0.5
+        q, k, v = (randn(4, 32, 2048, d) for _ in range(3))
+        q1, k1, v1 = (t[:1].contiguous() for t in (q, k, v))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        kp, vp = (randn(32, n_pages, 128, d) for _ in range(2))
+        qd, qc = randn(4, 32, d), randn(4, 64, 32, d)
+        k8, v8 = (qt.quantize_int8(t.float()) for t in (k, v))
+        lines = [
+            ("flash_fwd subrow B4 H32 N2048 varlen", "bfloat16",
+             lambda: fa.flash_fwd(q, k, v, causal=True, sm_scale=sc, kv_lengths=lens),
+             cs._flash_cost(q, k, True, None, lens)),
+            ("flash_fwd grid B1 H32 N2048 non-causal", "bfloat16",
+             lambda: fa.flash_fwd(q1, k1, v1, causal=False, sm_scale=sc),
+             cs._flash_cost(q1, k1, False, None, None)),
+            ("flash_fwd_f32 B4 H32 N2048 varlen", "float32",
+             lambda: fa.flash_fwd(qf, kf, vf, causal=True, sm_scale=sc, kv_lengths=lens),
+             cs._flash_cost(qf, kf, True, None, lens)),
+            ("paged decode B4 Hkv32 bf16 pool", "bfloat16",
+             lambda: pa.paged_attention(qd, kp, vp, lens, table),
+             cs._paged_cost(qd, 1, 32, 32, lens)),
+            ("paged chunk 64 B4 Hkv32 bf16 pool", "bfloat16",
+             lambda: pa.paged_attention(qc, kp, vp, lens, table),
+             cs._paged_cost(qc, 64, 32, 32, lens)),
+            ("kv8_flash int8 B4 H32 N2048 causal", "bfloat16",
+             lambda: qt.flash_attention_kv_int8(q, k8, v8, True, sc),
+             cs._kv8_cost(q, k8.values, True))]
+        for label, name, fn, cost in lines:
+            b_ms, b_by = cs.bound_ms(*cost[:2], name)
+            try:
+                ms = cs.time_ms(fn)
+            except (ValueError, RuntimeError) as e:
+                print(f"[ab] headdim d{d} {label}: refused ({str(e)[:60]})", flush=True)
+                continue
+            print(f"[ab] headdim d{d} {label}: ms {ms:.4f}, bound {b_ms:.4g} "
+                  f"({b_by}), share {b_ms / ms:.3f}", flush=True)
+        del q, k, v, q1, k1, v1, qf, kf, vf, kp, vp, k8, v8
+        torch.cuda.empty_cache()
+
+
 def child(root: str, phases: list[str]) -> None:
     sys.path.insert(0, root)
     import torch
@@ -588,6 +657,8 @@ def child(root: str, phases: list[str]) -> None:
         _softmax(torch, cs, dev)
     if "paged" in phases:
         _paged(torch, cs, dev)
+    if "headdim" in phases:
+        _headdim(torch, cs, dev)
     if "train" in phases:
         cs.train_phase(torch, dev, torch.cuda.get_device_name(0))
         torch.cuda.empty_cache()
