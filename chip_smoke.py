@@ -277,10 +277,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    pipeline_apply(megatron_layer_fn) on one-rank axes; the ring of 4 run
    in one process at B4 H16 N2048 bf16 against the unsharded flash
    forward and backward at the bf16 gate.
-27. head dims (last of phase 3's kernels): the forward and inference
-   kernels at heads of 80 and 96, between their tile widths (the
-   128-column tiles zero-padded as they load): the flash forward in bf16
-   in each mode and f32 on both routes, paged decode, chunk 64 and a split
+27. head dims (last of phase 3's kernels): the attention kernels at heads
+   of 80 and 96, between their tile widths (the 128-column tiles
+   zero-padded as they load): the flash forward in bf16 in each mode and
+   f32 on both routes, the flash backward (bf16 subrow B4 H32 N2048, the
+   grid with GQA, the varlen subrow with a length of 0, the op graph at
+   N512 and at the MT model's N40; f32 split at B4 H32 N2048, warp-level
+   at N40 and N200), paged decode, chunk 64 and a split
    a page over every pool with bf16 and f32 q, kv8_flash bf16 and f32, the
    marks at d 80 with a NaN in V's last column; each under the gate of its
    d-128 line, timed as kernel / plain / library / bound with the bound at
@@ -293,6 +296,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    request finishes, no page leaks, flash_fwd, paged_attention and
    paged_nonfinite launched), with the plain versions made to raise
    throughout; prompt tok/s, TTFT and decode tok/s logged.
+29. train_d96 (after train): TRAIN_D96, PHI3_D96's widths (E3072, 32 heads
+   of 96, M8192, vocab 32064, RoPE) at 2048 positions and p_dropout 0.1,
+   depth 4, through phase 6's step (B8 x 2048, bf16 over f32 masters,
+   Adam, clip 1.0, 2 warm-up and 5 timed steps): losses finite and
+   falling, TRAIN_KERNELS launched in every step, the plain versions made
+   to raise throughout (the _pad128 subrow forward and the bf16 wgmma
+   backward pair at d 96); ms/step, tokens/s, model TFLOP/s and the peak
+   logged, and one profiled step.  Then d96-consistency (after
+   loop-consistency): phase 7's gates on CONSIST_D96 (E192, 2 heads of 96,
+   L2, RoPE) at B2 x 1024 (the f32 split pair on _pad128's subrow
+   schedule) and B2 x 128 (the warp-level trio with its dS scratch).
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -338,6 +352,22 @@ PHI3_D96 = dict(n_vocab=32064, n_embd=3072, n_head=32, n_positions=4096,
                 rope_theta=10000.0, p_dropout=0.0, attn_impl="flash")
 # the head dims of the kernel lines beside 32, 64 and 128
 HEAD_DIM_LINES = (80, 96)
+# train_d96: PHI3_D96's widths trained at TRAIN's batch (B8 x 2048), bf16
+# over f32 masters, Adam, clip 1.0.  Positions cut from 4096 to the 2048
+# the step runs; depth 4 of Phi-3-mini's 32, as serve_d96's.  Dropout 0.1
+# as TRAIN's (Phi-3 trains at 0.0), so that the dropout kernel stays on the
+# path.  ~549 M parameters: embeddings and lm head 2 x 98.5 M, 4 x 88.1 M
+# in the layers.  Its attention (causal, 2048 keys, d 96) is JAX's _pad128
+# subrow forward and the bf16 wgmma backward pair at d 96.
+TRAIN_D96 = dict(PHI3_D96, n_positions=2048, p_dropout=0.1)
+# the f32 card-vs-CPU backward at heads of 96: E192, 2 heads of 96, L2,
+# RoPE; at B2 x 1024 (the f32 split pair on _pad128's subrow schedule) and
+# B2 x 128 (the warp-level trio with its dS scratch)
+CONSIST_D96 = dict(n_vocab=16384, n_embd=192, n_head=2, n_positions=1024,
+                   n_layer=2, middle_dim=768, pos_encoding="rope",
+                   rope_theta=10000.0, attn_impl="flash")
+# (length, the kernel counter of the only f32 backward route it launches)
+CONSIST_D96_SEQS = ((1024, "flash_bwd_f32"), (128, "flash_bwd_f32_mma"))
 # the training configuration of kernel_bench/bench_train_mfu.py:59, with
 # DecoderLM's default dropout so that the dropout kernel is on the path
 TRAIN = dict(n_vocab=16384, n_embd=2048, n_head=16, n_positions=2048,
@@ -596,13 +626,75 @@ def _row_ulp_share(got, want):
     return float((g == w).float().mean()), float(ratio.max()), float(d.max())
 
 
-def _row_ulp_err(got, want, share=0.99, lse_tol=1e-5, label="", ulps=1):
+# the most batch rows whose float64 gradients one witnessed check computes;
+# more rows with an element over the gate fail it
+WITNESS_ROWS = 8
+
+
+def _f64_attn_grads(torch, fa, q, k, v, do, causal, scale, lens, window, b):
+    """(dq, dk, dv) of batch row ``b`` in float64: autograd of softmax(q k^T
+    scale) v over the call's own inputs, with its mask (causal, window,
+    lengths; a row with no live key outputs 0) and GQA groups."""
+    qb, kb, vb = (t[b:b + 1].double().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        kr, vr = fa.repeat_kv(kb, vb, q.shape[1])
+        s = qb @ kr.transpose(-1, -2) * scale
+        keep = fa._keep_mask(q.shape[2], k.shape[2], causal, window,
+                             None if lens is None else lens[b:b + 1], q.device)
+        if keep is not None:
+            s = s.masked_fill(~keep, -math.inf)
+        m = s.detach().amax(-1, keepdim=True)
+        e = torch.exp(s - torch.where(m.isfinite(), m, torch.zeros_like(m)))
+        l = e.sum(-1, keepdim=True)
+        o = (e / torch.where(l == 0, torch.ones_like(l), l)) @ vr
+        grads = torch.autograd.grad(o, (qb, kb, vb), do[b:b + 1].double())
+    return tuple(x[0] for x in grads)
+
+
+def _witnessed_ulp(g, w, exact, i, ulps, label):
+    """The row-ulp ratio (``_row_ulp_share``'s) of gradient ``i`` after a
+    float64 witness: an element over ``ulps`` ulps of its row's largest is
+    exempt when the kernel's error against ``exact(b)[i]``, the float64
+    gradient of its batch row, is at most the plain version's plus one bf16
+    ulp (2^-7) of the float64 row's largest magnitude.  Every other element
+    keeps its ratio; over WITNESS_ROWS batch rows none is exempt."""
+    import torch
+
+    g, w = g.float(), w.float()
+    d = (g - w).abs()
+    ratio = torch.where(d == 0, torch.zeros_like(d),
+                        d / (w.abs().amax(-1, keepdim=True) * 2.0 ** -7))
+    over = (ratio > ulps).nonzero()
+    rows = over[:, 0].unique().tolist()
+    if len(rows) > WITNESS_ROWS:
+        return float(ratio.max())
+    n_ok = 0
+    for b in rows:
+        x = exact(b)[i]
+        idx = tuple(over[over[:, 0] == b][:, 1:].T)
+        ulp64 = (x.abs().amax(-1, keepdim=True) * 2.0 ** -7).expand_as(x)
+        ok = ((g[b].double() - x).abs()[idx]
+              <= (w[b].double() - x).abs()[idx] + ulp64[idx])
+        n_ok += int(ok.sum())
+        rb = ratio[b]
+        rb[idx] = torch.where(ok, torch.zeros_like(rb[idx]), rb[idx])
+    log(f"[kernel] {label} gradient {i}: {over.shape[0]} elements over {ulps} "
+        f"ulp of their row's largest, in batch rows {rows}; {n_ok} of them "
+        f"no further from float64 than the plain version (+ one ulp of the "
+        f"float64 row)")
+    return float(ratio.max())
+
+
+def _row_ulp_err(got, want, share=0.99, lse_tol=1e-5, label="", ulps=1,
+                 exact=None):
     """For bf16 results that round where the plain version rounds (the flash
     forward's schedule functions and the op graph, its backward): (max abs
     err, gated), gated <= 1 when at least ``share`` of the elements are bit
     for bit, every other one within one bf16 ulp of its row's largest
     magnitude, and lse (for an (o, lse) pair) within ``lse_tol``.  Over a
-    tuple of gradients, the worst of them.  Logs the shares."""
+    tuple of gradients, the worst of them; with ``exact`` (batch row ->
+    its float64 gradients) an element over the ulp gate passes only where
+    the float64 witness does (:func:`_witnessed_ulp`).  Logs the shares."""
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     lse_gated = 0.0
     if isinstance(got, tuple) and len(got) == 2 and got[1].dtype != got[0].dtype:
@@ -613,8 +705,10 @@ def _row_ulp_err(got, want, share=0.99, lse_tol=1e-5, label="", ulps=1):
         lse_gated = _abs_err(lse[fin], lse_ref[fin]) / lse_tol
         pairs = [(o, o_ref)]
     err, gated, shares = 0.0, lse_gated, []
-    for g, w in pairs:
+    for i, (g, w) in enumerate(pairs):
         sh, ulp, e = _row_ulp_share(g, w)
+        if ulp > ulps and exact is not None:
+            ulp = _witnessed_ulp(g, w, exact, i, ulps, label)
         shares.append(sh)
         err = max(err, e)
         gated = max(gated, ulp / ulps, (1.0 - sh) / (1.0 - share))
@@ -1245,6 +1339,12 @@ def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
     o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc,
                           kv_lengths=lens, window=window)
     di = (o.float() * do.float()).sum(-1, keepdim=True)
+
+    @functools.cache
+    def exact(b):
+        return _f64_attn_grads(torch, fa, q, k, v, do, causal, sc, lens,
+                               window, b)
+
     ph.check(_flash_name("flash_bwd", q, k), label, dtype,
              lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal,
                                   sm_scale=sc, kv_lengths=lens, window=window),
@@ -1253,7 +1353,7 @@ def _flash_bwd_check(torch, ph, fa, label, dtype, q, k, v, do, causal, window,
              _flash_cost(q, k, causal, window, lens, backward=True),
              main=main, **(
                  dict(compare=lambda a, b: _row_ulp_err(
-                     a, b, label=f"flash_bwd {label}"), tol=1.0)
+                     a, b, label=f"flash_bwd {label}", exact=exact), tol=1.0)
                  if dtype == torch.bfloat16 and fa._schedule(
                      q, k, causal, window, lens is not None).name == "op_graph"
                  else dict(compare=_grad_err)),
@@ -1974,13 +2074,16 @@ def dropout_bias_kernel_phases(torch, dev, ph: Phases, randn):
 
 
 def head_dim_kernel_phases(torch, dev, ph: Phases) -> None:
-    """The forward and inference kernels at head dims between their tile
-    widths (HEAD_DIM_LINES, heads of 80 and 96: the 128-column tiles
-    zero-padded as they load) at serve_d96's shapes, each against its plain
-    version under the gate of its d-128 line, the bound counted at the real
-    d (so the padding's waste shows): the flash forward in bf16 in each
-    mode (the _pad128 subrow of the batched prefill and of a dense causal
-    forward, the grid, the op graph's two kernels) and f32 on both routes;
+    """The attention kernels at head dims between their tile widths
+    (HEAD_DIM_LINES, heads of 80 and 96: the 128-column tiles zero-padded
+    as they load) at serve_d96's and train_d96's shapes, each against its
+    plain version under the gate of its d-128 line, the bound counted at
+    the real d (so the padding's waste shows): the flash forward in bf16 in
+    each mode (the _pad128 subrow of the batched prefill and of a dense
+    causal forward, the grid, the op graph's two kernels) and f32 on both
+    routes; the flash backward in bf16 (the subrow, the grid with GQA, the
+    varlen subrow with a length of 0, the op graph at 512 and 40 keys) and
+    f32 (the split pair at 2048 keys, the warp-level kernels at 40 and 200);
     paged decode (B4, 32 kv heads, histories <= 2048) and a chunk of 64
     over bf16, int8 and fp8 pools with bf16 q and over f32, int8 and fp8
     pools with f32 q; the decode a split a page (the merge); the marks at
@@ -2003,6 +2106,7 @@ def head_dim_kernel_phases(torch, dev, ph: Phases) -> None:
         return (qt.quantize_int8 if payload == torch.int8 else qt.quantize_fp8)(t)
 
     lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
+    lens0 = torch.tensor([2048, 0, 1024, 517], device=dev)
     for d in HEAD_DIM_LINES:
         sc = d ** -0.5
         # flash: (label, B, H, N_q, N_kv, causal, lengths); H 32 as serve_d96
@@ -2027,6 +2131,30 @@ def head_dim_kernel_phases(torch, dev, ph: Phases) -> None:
                          library=lambda: lib(*args))
                 del q, k, v
                 torch.cuda.empty_cache()
+
+        # the flash backward: (label, dtype, B, H, H_kv, N, causal, lengths):
+        # the bf16 subrow (train_d96's shape), the grid with GQA, the varlen
+        # subrow with a length of 0, the op graph at 512 keys and at the MT
+        # model's 40; f32 the split pair at 2048 keys and the warp-level trio
+        # at 40 and 200
+        for label, dtype, b, h, h_kv, n, causal, ln_ in (
+                ("B4 H32 N2048 causal", bf, 4, 32, 32, 2048, True, None),
+                ("grid B1 H32/8 N2048 non-causal GQA", bf, 1, 32, 8, 2048, False,
+                 None),
+                ("B4 H32 N2048 causal varlen len 0", bf, 4, 32, 32, 2048, True,
+                 lens0),
+                ("op graph B4 H32 N512 causal", bf, 4, 32, 32, 512, True, None),
+                ("op graph B128 H8 N40 causal", bf, 128, 8, 8, 40, True, None),
+                ("B4 H32 N2048 causal", f32, 4, 32, 32, 2048, True, None),
+                ("B128 H8 N40 causal", f32, 128, 8, 8, 40, True, None),
+                ("B16 H8 N200 causal", f32, 16, 8, 8, 200, True, None)):
+            q, do = (randn(b, h, n, d, dtype=dtype) for _ in range(2))
+            k, v = (randn(b, h_kv, n, d, dtype=dtype) for _ in range(2))
+            sched = fa._schedule(q, k, causal, None, ln_ is not None).name
+            _flash_bwd_check(torch, ph, fa, f"{label} D{d} ({sched})", dtype, q,
+                             k, v, do, causal, None, ln_)
+            del q, k, v, do
+            torch.cuda.empty_cache()
 
         # paged: B4, 32 kv heads, page 128, the histories above
         n_pages, pps = 4 * 16 + 1, 16
@@ -2284,21 +2412,24 @@ def consistency_phase(torch, model, dev, label: str = "consistency",
 
 
 class _NoPlain:
-    """Makes the plain versions of the serving path's kernels (flash,
-    paged attention and its marks, LayerNorm) raise while it is entered:
-    a run on the card must launch the kernels, never fall back."""
+    """Makes the plain versions of the serving and training paths' kernels
+    (flash forward and backward, paged attention and its marks, LayerNorm
+    forward and backward, dropout) raise while it is entered: a run on the
+    card must launch the kernels, never fall back."""
 
     def __init__(self):
+        from flashattn_tpu_torch.ops import dropout as dr
         from flashattn_tpu_torch.ops import flash_attention as fa
         from flashattn_tpu_torch.ops import layernorm as ln
         from flashattn_tpu_torch.ops import paged_attention as pa
 
         self.names = [(fa, n) for n in ("flash_fwd_plain", "flash_bwd_plain",
                                         "_reference_fwd_with_lse",
-                                        "_kernel_fwd_plain")]
+                                        "_kernel_fwd_plain", "_reference_bwd",
+                                        "_op_graph_bwd")]
         self.names += [(pa, "paged_attention_plain"), (pa, "paged_nonfinite_plain"),
                        (ln, "_layernorm_fwd_reference"),
-                       (ln, "layernorm_bwd_reference")]
+                       (ln, "layernorm_bwd_reference"), (dr, "dropout_reference")]
         self.saved = []
 
     def __enter__(self):
@@ -2858,9 +2989,9 @@ def train_phase(torch, dev, power: str, cfg=TRAIN, name: str = "train",
     launches = {n: sum(s[n] for s in per_step) for n in counters}
     extras = {k: cfg[k] for k in ("pos_encoding", "n_experts", "moe_top_k")
               if k in cfg}
-    log(f"[{name}] {power} {'bf16-mixed' if mixed else 'f32'} E2048 M8192 L4 "
-        f"H16x128 V16384 B8 S2048 "
-        f"p0.1 attn_impl={cfg['attn_impl']} {extras} "
+    log(f"[{name}] {power} {'bf16-mixed' if mixed else 'f32'} {_widths(cfg)} "
+        f"M{cfg['middle_dim']} V{cfg['n_vocab']} B{TRAIN_BATCH} S{TRAIN_SEQ} "
+        f"p{cfg['p_dropout']} attn_impl={cfg['attn_impl']} {extras} "
         f"{type(opt).__name__}, {n_params / 1e6:.1f} M params: "
         f"losses {[round(x, 4) for x in losses]}")
     log(f"[{name}] step ms {[round(t * 1e3, 1) for t in times]}; median of "
@@ -4075,7 +4206,7 @@ SOURCES = {
                        "flashattn_tpu/ops/flash_attention.py:79",
                        "flashattn_tpu/ops/flash_attention.py:551",
                        "flashattn_tpu/ops/flash_attention.py:627"]),
-    "flash_bwd_f32": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_f32": ("flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
                       ["flashattn_tpu/ops/flash_attention.py:999",
                        "flashattn_tpu/ops/flash_attention.py:1086",
                        "flashattn_tpu/ops/flash_attention.py:874",
@@ -4089,7 +4220,7 @@ SOURCES = {
                            "flashattn_tpu/ops/flash_attention.py:627",
                            "flashattn_tpu/ops/flash_attention.py:551",
                            "flashattn_tpu/ops/flash_attention.py:327"]),
-    "flash_bwd_f32_mma": ("flashattn_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_f32_mma": ("flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
                           ["flashattn_tpu/ops/flash_attention.py:1320",
                            "flashattn_tpu/ops/flash_attention.py:1416",
                            "flashattn_tpu/ops/flash_attention.py:874",
@@ -4214,6 +4345,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(torch, dev, power)
     torch.cuda.empty_cache()
+    with _NoPlain():
+        train_d96 = train_phase(torch, dev, power, TRAIN_D96, "train_d96")
+    torch.cuda.empty_cache()
     train_f32 = train_phase(torch, dev, power, name="train_f32",
                             kernels=TRAIN_F32_KERNELS, absent=TRAIN_F32_ABSENT,
                             mixed=False)
@@ -4222,6 +4356,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_consistency_phase(torch, dev, CONSIST_LOOP, "loop-consistency",
                             batch=1, seq=2048)
+    torch.cuda.empty_cache()
+    for seq, route in CONSIST_D96_SEQS:
+        routes = ("flash_bwd_f32", "flash_bwd_f32_mma")
+        with _Launches(routes) as run:
+            train_consistency_phase(torch, dev, CONSIST_D96, "d96-consistency",
+                                    seq=seq)
+        log(f"[d96-consistency] S{seq} launches {run.counts}")
+        if not (run.counts[route] > 0 and all(
+                run.counts[r] == 0 for r in routes if r != route)):
+            raise AssertionError(f"d96-consistency S{seq}: the backward took "
+                                 f"{run.counts}, not {route} alone")
     torch.cuda.empty_cache()
     train_fused = train_phase(torch, dev, power, TRAIN_FUSED,
                               "train_fused_softmax", FUSED_KERNELS,
@@ -4264,8 +4409,8 @@ def main() -> int:
         f"{ {n: c / MT_STEPS for n, c in s2s['launches'].items()} }; "
         f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")
 
-    runs = (train, train_f32, train_fused, serve, serve_features, generate, distill,
-            serve_rope, serve_d96, train_moe, train_adafactor, s2s, s2s_mixed,
+    runs = (train, train_d96, train_f32, train_fused, serve, serve_features,
+            generate, distill, serve_rope, serve_d96, train_moe, train_adafactor, s2s, s2s_mixed,
             s2s_gen, *parallel)
     kernels = []
     for name, (src, tpu) in SOURCES.items():

@@ -1,5 +1,5 @@
 // Helpers shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// kv8_flash.cu, paged_attention.cu): the dense masks' key intervals, row
+// flash_bwd_f32.cu, kv8_flash.cu, paged_attention.cu): the dense masks' key intervals, row
 // reductions over lanes, a correctly rounded division by a shared divisor,
 // a store of f32 or bf16, and the opt-in to more than 48 KB of dynamic
 // shared memory.
@@ -15,6 +15,7 @@
 namespace fa {
 
 constexpr float LN2 = 0.6931471805599453f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
@@ -61,6 +62,14 @@ template <class K> inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(bytes));
+}
+
+// allow_smem for each kernel given (the instances of one kernel template),
+// stopping at the first error.
+template <class... K> inline cudaError_t allow_smem_all(size_t bytes, K... kernels) {
+  cudaError_t e = cudaSuccess;
+  ((e = e != cudaSuccess ? e : allow_smem(kernels, bytes)), ...);
+  return e;
 }
 
 }  // namespace fa

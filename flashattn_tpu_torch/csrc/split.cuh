@@ -1,4 +1,4 @@
-// Split precision for the f32 kernels (flash_fwd.cu, flash_bwd.cu,
+// Split precision for the f32 kernels (flash_fwd.cu, flash_bwd_f32.cu,
 // kv8_flash.cu, wo_matmul.cu, paged_attention.cu):
 // an f32 operand is cut into three bf16 pieces and a product of two such
 // operands is the sum of the six bf16 x bf16 products of order <= 2, on
@@ -231,7 +231,7 @@ __device__ __forceinline__ uint32_t finite_part(uint32_t w) {
 
 // -- warp-level split products (mma.sync) ------------------------------------
 //
-// The f32 flash kernels sized to the rows (flash_fwd.cu, flash_bwd.cu) run
+// The f32 flash kernels sized to the rows (flash_fwd.cu, flash_bwd_f32.cu) run
 // mma.sync m16n8k16 on tiles of 16 rows a warp.  They stage their f32
 // inputs as stored (cp.async, no split pass in device memory), and the
 // block splits each staged tile once into three bf16 planes of padded rows

@@ -27,7 +27,8 @@ mma.sync kernel for the op graph) and ``csrc/flash_bwd.cu`` (a dK/dV and a
 dQ kernel: in bf16 wgmma kernels for the TPU kernels' backward and
 mma.sync kernels for the op graph's autodiff, its dQ kernel leaving the
 rows' statistics to the dK/dV kernel).  f32 has one function up to f32
-rounding at every shape, on the tensor cores in split precision (each f32
+rounding at every shape, on the tensor cores in split precision
+(``csrc/flash_bwd_f32.cu`` for its backward; each f32
 operand three bf16 pieces, six bf16 products a product; :func:`f32_route`
 picks the kernels by the number of keys): from ``F32_TC_MIN_KV`` keys on
 wgmma kernels behind a split pass (``fa_flash_fwd_f32``,
@@ -42,11 +43,11 @@ run (C17; no host sync, the call's one count is the wgmma wrapper's).  On
 CPU tensors the plain versions run (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`).
 
-Head dims: the forward kernels take every multiple of 8 up to 128 (at the
-least tile width of 32, 64 and 128 that holds d, zero-padded as they load,
-as JAX's ``_pad128`` pads d for its subrow and loop schedules), the
-backward kernels ``BWD_HEAD_DIMS``; a CUDA backward at another head dim
-raises ``NotImplementedError`` (ROADMAP.md §B1), never the plain version.
+Head dims: the forward and backward kernels take every multiple of 8 up
+to 128 (at the least tile width of 32, 64 and 128 that holds d,
+zero-padded as they load, as JAX's ``_pad128`` pads d for its subrow and
+loop schedules, forward and backward); ``check_head_dim`` refuses any
+other with ``ValueError``, never the plain version.
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
@@ -85,9 +86,6 @@ _f32_mma_kernel = _build.Kernel("fa_flash_fwd_f32_mma", [_build.P] * 6
 _f32_mma_bwd_kernel = _build.Kernel("fa_flash_bwd_f32_mma", [_build.P] * 11
                                     + [_build.I] * 8 + [_build.F, _build.F])
 
-# the head dims the backward kernels take (the forward takes every multiple
-# of 8 up to 128: _utils.check_head_dim)
-BWD_HEAD_DIMS = (32, 64, 128)
 _IMPLS = ("auto", "reference")
 
 # The JAX dispatcher's constants: below MIN_KERNEL_KV_LEN keys XLA's op
@@ -385,17 +383,13 @@ def flash_bwd_plain(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
                           window)
 
 
-def _check_kernel_args(q, k, v, backward=False):
-    """Shapes and dtypes the kernels take.  The forward takes every head dim
-    ``check_head_dim`` allows; the backward those of ``BWD_HEAD_DIMS``, and
-    any other raises ``NotImplementedError`` (never a plain fallback)."""
+def _check_kernel_args(q, k, v):
+    """Shapes and dtypes the kernels take, forward and backward: every head
+    dim ``check_head_dim`` allows (any other raises, never a plain
+    fallback)."""
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     check_head_dim(d, "flash kernel")
-    if backward and d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward kernels take head dims {BWD_HEAD_DIMS}, got "
-            f"{d}: the backward at other head dims is ROADMAP.md §B1")
     if k.shape != (b, h_kv, n_kv, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -468,9 +462,10 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     take it (JAX calls ``_flash_bwd`` there directly); f32 takes the
     explicit formulas at every shape.  One count covers its launches
     (``_bwd_kernel``'s in bf16; in f32 ``_f32_bwd_kernel``'s or
-    ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`).  Head dims:
-    ``BWD_HEAD_DIMS``."""
-    _check_kernel_args(q, k, v, backward=True)
+    ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`).  Head dims: every
+    multiple of 8 up to 128, each kernel at the least tile width that holds
+    d, d the rows' stride (no padded copy)."""
+    _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     if do.shape != q.shape or lse.shape != (b, h, n_q, 1) \

@@ -467,29 +467,38 @@ def test_paged_f32_nonfinite(dev, where, value, slot, rows):
 
 def test_kernels_refuse_grad_and_bad_head_dim(dev):
     """Paged attention is inference-only and refuses inputs that require
-    grad.  The flash forward computes at d 48 (any multiple of 8 up to
-    128), its backward there raises NotImplementedError (the backward
-    kernels take d 32, 64 and 128: ROADMAP.md §B1) and never falls back to
-    the plain version; d 136 and d 20 raise ValueError (§B2, §B3)."""
+    grad.  The flash forward and backward compute at d 48 (any multiple of
+    8 up to 128): the backward launches the flash backward kernels once and
+    matches flash_bwd_plain.  d 136 and d 20 raise ValueError (§B2, §B3),
+    in the forward and in the backward, and launch nothing."""
     q = torch.randn(2, 4, 64, device=dev, requires_grad=True)
     pages = torch.randn(4, 3, 8, 64, device=dev)
     table = torch.arange(2, device=dev, dtype=torch.int32).reshape(2, 1)
     with pytest.raises(NotImplementedError):
         pa.paged_attention(q, pages, pages, torch.tensor([5, 8], device=dev),
                            table)
-    x = torch.randn(1, 2, 8, 48, device=dev)
-    o = fa.flash_attention(x, x, x, True)
-    assert _err(o, fa.flash_fwd_plain(x, x, x, True, 48 ** -0.5)[0]) \
-        <= TOL[torch.float32]
-    xg = x.clone().requires_grad_()
+    x, k, v, do = (torch.randn(1, 2, 8, 48, device=dev) for _ in range(4))
+    sc = 48 ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_plain(x, k, v, True, sc)
+    o = fa.flash_attention(x, k, v, True)
+    assert _err(o, o_ref) <= TOL[torch.float32]
+    ts = [t.clone().requires_grad_() for t in (x, k, v)]
     before = _flash_launches()[1]
-    with pytest.raises(NotImplementedError, match="B1"):
-        fa.flash_attention(xg, xg, xg, True).sum().backward()
-    assert _flash_launches()[1] == before
+    got = torch.autograd.grad(fa.flash_attention(*ts, True), ts, do)
+    assert _flash_launches()[1] == before + 1
+    di = (o_ref * do).sum(-1, keepdim=True)
+    want = fa.flash_bwd_plain(x, k, v, lse_ref, di, do, True, sc)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL[torch.float32]
     for d, item in ((136, "B2"), (20, "B3")):
         y = torch.randn(1, 2, 8, d, device=dev)
+        lse = torch.zeros(1, 2, 8, 1, device=dev)
+        fwd, bwd = _flash_launches()
         with pytest.raises(ValueError, match=item):
             fa.flash_attention(y, y, y, True)
+        with pytest.raises(ValueError, match=item):
+            fa.flash_bwd(y, y, y, lse, lse, y, causal=True, sm_scale=d ** -0.5)
+        assert _flash_launches() == (fwd, bwd)
 
 
 def _ln_bwd_inputs(shape, dtype, dev, offset=None):
@@ -582,6 +591,24 @@ FLASH_BWD_CASES = {
     # the kernel schedules' backward at 1024+ keys: subrow, grid blocks of 8
     "subrow_n1024_d128": (1, 2, 2, 1024, 1024, 128, True, None, None),
     "grid_span8_n1032_gqa_d64": (1, 4, 2, 1032, 1032, 64, True, None, None),
+    # head dims other than 32, 64 and 128 (the tiles of 32, 64 and 128
+    # columns, zero-padded as they load): each schedule's backward above
+    "op_graph_nq7_gqa4_len0_d16": (2, 8, 2, 7, 200, 16, True, [200, 0], None),
+    "cross_noncausal_d24": (2, 2, 1, 37, 150, 24, False, None, None),
+    "varlen_window_d48": (2, 4, 4, 200, 200, 48, True, [200, 77], 33),
+    "n1000_d80": (1, 4, 4, 1000, 1000, 80, True, None, None),
+    "gqa4_n1001_d96": (1, 8, 2, 1001, 1001, 96, True, None, None),
+    "n70_d112": (2, 2, 2, 70, 70, 112, True, None, None),
+    "window_n1001_d120": (1, 2, 2, 1001, 1001, 120, True, None, 100),
+    "subrow_pad_n1024_d96": (1, 2, 2, 1024, 1024, 96, True, None, None),
+    "subrow_pad_gqa_n2048_d80": (1, 4, 2, 2048, 2048, 80, True, None, None),
+    "subrow_varlen_len0_n1024_d48": (3, 2, 2, 1024, 1024, 48, True,
+                                     [1024, 515, 0], None),
+    "len0_gqa4_n1032_d112": (3, 4, 1, 1032, 1032, 112, True, [1032, 0, 517],
+                             None),
+    "grid_window256_n2048_d24": (1, 2, 1, 2048, 2048, 24, True, None, 256),
+    "cross_1000x2048_d120": (1, 2, 2, 1000, 2048, 120, False, None, None),
+    "grid_noncausal_n1032_d16": (1, 2, 2, 1032, 1032, 16, False, None, None),
 }
 
 
@@ -1866,7 +1893,12 @@ def test_paged_marks_poison_head_dims(dev, d, pool):
 # (B, H, N, d, causal): the ring's pair shapes below the kernels' 1024 keys
 GRID_BWD_CASES = {"n16": (2, 4, 16, 64, True), "n100": (1, 2, 100, 128, False),
                   "n512": (2, 4, 512, 128, True), "n512nc": (1, 4, 512, 64, False),
-                  "n70x300": (1, 2, 70, 32, False)}
+                  "n70x300": (1, 2, 70, 32, False),
+                  # head dims other than 32, 64 and 128
+                  "n16_d16": (2, 4, 16, 16, True), "n100_d24": (1, 2, 100, 24, False),
+                  "n512nc_d48": (1, 4, 512, 48, False), "n512_d80": (2, 4, 512, 80, True),
+                  "n512_d96": (2, 4, 512, 96, True), "n100_d112": (1, 2, 100, 112, True),
+                  "n70x300_d120": (1, 2, 70, 120, False)}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1877,7 +1909,7 @@ def test_flash_bwd_grid_mode_at_op_graph_shapes(dev, dtype, case):
     take the op graph: against fa._reference_bwd within TOL, the same bits
     every run."""
     b, h, n, d, causal = GRID_BWD_CASES[case]
-    n_kv = 300 if case == "n70x300" else n
+    n_kv = 300 if case.startswith("n70x300") else n
     g = torch.Generator(device=dev).manual_seed(9)
     q, do = (_randn(g, b, h, n, d, dtype=dtype, dev=dev) for _ in range(2))
     k, v = (_randn(g, b, h, n_kv, d, dtype=dtype, dev=dev) for _ in range(2))
@@ -2096,6 +2128,17 @@ F32_CASES = {
     "ragged_70x3001_varlen_d64": (2, 4, 2, 70, 3001, 64, False, [3001, 1111],
                                   None),
     "ragged_causal_n1001_d128": (1, 2, 2, 1001, 1001, 128, True, None, None),
+    # head dims other than 32, 64 and 128, zero-padded to the tile's width
+    "d16_n1536_causal": (1, 4, 4, 1536, 1536, 16, True, None, None),
+    "ragged_70x3001_varlen_d24": (2, 4, 2, 70, 3001, 24, False, [3001, 1111],
+                                  None),
+    "grid_window256_n2048_d48": (1, 4, 4, 2048, 2048, 48, True, None, 256),
+    "varlen_len0_n1024_d80": (3, 2, 2, 1024, 1024, 80, True, [1024, 0, 515],
+                              None),
+    "subrow_pad_n1024_d96": (1, 4, 4, 1024, 1024, 96, True, None, None),
+    "noncausal_gqa_n1024_d96": (2, 4, 2, 1024, 1024, 96, False, None, None),
+    "ragged_causal_n1001_d112": (1, 2, 2, 1001, 1001, 112, True, None, None),
+    "cross_1000x2048_d120": (1, 4, 4, 1000, 2048, 120, False, None, None),
 }
 # f32-grade: the split keeps 24 bits of each operand and drops products
 # below 2^-23 of their terms; the CUDA-core kernels read ~2e-6 at these
@@ -2185,6 +2228,17 @@ F32_MMA_CASES = {
                                      [255, 0, 100], None),
     "q40_below_threshold_d64": (2, 4, 4, 40, fa.F32_TC_MIN_KV - 1, 64, False,
                                 None, None),
+    # head dims other than 32, 64 and 128, zero-padded to the tile's width
+    "q1_kv1_d16": (4, 2, 2, 1, 1, 16, False, None, None),
+    "q17_kv40_gqa4_2_d24": (2, 4, 2, 17, 40, 24, False, None, None),
+    "q65_kv63_d48": (2, 4, 4, 65, 63, 48, False, None, None),
+    "mt_encoder_40x40_varlen_len0_d80": (4, 8, 8, 40, 40, 80, False,
+                                         [40, 0, 1, 23], None),
+    "q128_kv128_window6_d96": (2, 4, 4, 128, 128, 96, True, None, 6),
+    "q200_kv200_causal_varlen_d96": (3, 2, 2, 200, 200, 96, True,
+                                     [200, 0, 100], None),
+    "q65_kv65_causal_d112": (2, 2, 2, 65, 65, 112, True, None, None),
+    "q1_kv255_d120": (4, 4, 4, 1, 255, 120, False, None, None),
 }
 
 
@@ -2270,7 +2324,8 @@ def _same_class_close(a, b, scale, what):
 
 @pytest.mark.parametrize("value", [float("inf"), float("-inf")])
 @pytest.mark.parametrize("where", ["q", "k", "v", "do"])
-@pytest.mark.parametrize("case", ["noncausal_n1024_d64", "cross_1000x2048_d128"])
+@pytest.mark.parametrize("case", ["noncausal_n1024_d64", "cross_1000x2048_d128",
+                                  "noncausal_gqa_n1024_d96"])
 def test_flash_f32_split_inf_forward_backward(dev, case, where, value):
     """The f32 split flash forward and backward (from F32_TC_MIN_KV keys)
     with a +-inf in q, K, V or dO (element [0, 0, 5, 3]) against the

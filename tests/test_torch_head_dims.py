@@ -1,16 +1,23 @@
 """Head dims other than 32, 64 and 128: the port against the JAX package.
 
 JAX runs attention at any head dim (its ``_pad128`` zero-pads d 16..120 to
-128 for the subrow and loop schedules); the port's forward and inference
-kernels take every multiple of 8 up to 128, at tile widths of 32, 64 and
-128 zero-padded as they load.  On the CPU the port runs its plain versions,
-so these tests hold the function at d 16, 24, 80 and 96 to JAX's through
-the public entry points, with the same numpy-seeded inputs on both sides
-and JAX's Pallas kernels in interpret mode:
+128 for the subrow and loop schedules, forward and backward); the port's
+kernels, forward, backward and inference, take every multiple of 8 up to
+128, at tile widths of 32, 64 and 128 zero-padded as they load.  On the CPU
+the port runs its plain versions, so these tests hold the function at d
+16, 24, 80 and 96 to JAX's through the public entry points, with the same
+numpy-seeded inputs on both sides and JAX's Pallas kernels in interpret
+mode:
 
 * ``flash_attention`` / ``flash_attention_varlen`` /
   ``flash_attention_with_lse`` in bf16 and f32 below 1024 keys (XLA's op
   graph) and at 1024 (causal: ``_pad128``'s subrow; not causal: the grid);
+* their gradients (``jax.vjp`` against torch autograd) at the same
+  schedules: the op graph's autodiff below 1024 keys, the Pallas backward
+  kernels from 1024 (``_pad128``'s subrow backward, its varlen twin, the
+  grid backward);
+* one ``make_train_step`` of a DecoderLM with heads of 96 (RoPE) against
+  JAX's on the same weights;
 * ``paged_attention`` over bf16, int8 and fp8 pools (JAX's page-slot grid,
   ``_paged_kernel``, below d 128);
 * ``flash_attention_kv_int8`` (the grid route below d 128);
@@ -22,8 +29,15 @@ and JAX's Pallas kernels in interpret mode:
 Tolerances are those of the parity tests at d 32, 64 and 128: bf16 at least
 99.5% of the elements bit for bit and the rest within one bf16 ulp of the
 row's largest (tests/test_torch_faults.py's ``_row_ulp_match``), lse 1e-5;
-f32 1e-5 (both sides f32, sums in another order); the kv8 route's gates of
-``test_kv8_flash_bf16_matches_jax_route``; the engine's logits 1e-4.
+the bf16 gradients of the kernel schedules each element within one bf16
+ulp of its row's largest, at most 2% of dq and of dk differing (the gate
+of tests/test_torch_faults.py's ``_check_bwd``) and at most 0.5% of dv
+(``_check_bwd`` holds dv bit for bit given JAX's lse and di; here each
+package's own forward gives them, which moves a rounding of p now and
+then: 0.14%, 0.15% and 0.44% of dv differ in the three bf16 cases); f32
+1e-5 (both sides f32, sums in another order); the kv8 route's gates of
+``test_kv8_flash_bf16_matches_jax_route``; the engine's logits 1e-4; the
+train steps' losses and parameters 1e-5 (tests/test_torch_training.py's).
 """
 
 import jax
@@ -37,7 +51,9 @@ import flashattn_tpu_torch as pt
 from flashattn_tpu.ops import flash_attention as jfa
 from flashattn_tpu.ops import paged_attention as jpa
 from flashattn_tpu.ops import quant as jq
+from flashattn_tpu import optim as jopt
 from flashattn_tpu.serving import ContinuousBatchingEngine as JaxEngine
+from flashattn_tpu.training import trainer as jtr
 from flashattn_tpu_torch.ops import paged_attention as tpa
 from flashattn_tpu_torch.ops import quant as tq
 
@@ -72,9 +88,9 @@ def _row_ulp_match(got, want, share=0.995):
     assert np.all(np.abs(g - w) <= row * 2.0 ** -7), np.abs(g - w).max()
 
 
-def _check(got, want, name):
+def _check(got, want, name, share=0.995):
     if name == "bfloat16":
-        _row_ulp_match(got, want)
+        _row_ulp_match(got, want, share)
     else:
         np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-5, rtol=0)
 
@@ -126,6 +142,65 @@ def test_flash_head_dims_match_jax(d, case, name):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                atol=1e-5, rtol=0)
     _check(pt.flash_attention(qt, kt, vt, causal), want[0], name)
+
+
+# the gradients: every head dim in both dtypes below 1024 keys, and each
+# Pallas backward schedule at two head dims a dtype
+GRAD_PARAMS = (
+    [(d, "op_graph_gqa_causal_n200", n) for d in HEAD_DIMS for n in DTYPES]
+    + [(96, "pad128_subrow_n1024", "bfloat16"),
+       (16, "pad128_subrow_n1024", "float32"),
+       (16, "pad128_subrow_varlen_n1024", "bfloat16"),
+       (80, "pad128_subrow_varlen_n1024", "float32"),
+       (24, "grid_noncausal_n1024", "bfloat16"),
+       (96, "grid_noncausal_n1024", "float32")])
+
+
+@pytest.mark.parametrize("d, case, name", GRAD_PARAMS)
+def test_flash_grad_head_dims_match_jax(d, case, name):
+    """dq, dk and dv of the public functions: ``jax.vjp`` against torch
+    autograd on the same inputs and cotangent.  Below 1024 keys both
+    differentiate the op graph (bf16 by ``_row_ulp_match``); from 1024 JAX
+    runs its Pallas backward at d padded to 128 (``_pad128``) or the grid
+    backward, the port the TPU kernels' formulas at d (bf16: at most 2% of
+    dq and of dk and 0.5% of dv differ, each element within one ulp of its
+    row's largest)."""
+    b, h, h_kv, n, causal, lengths = FLASH_CASES[case]
+    rng = np.random.default_rng(2000 + d)
+    q, do = (rng.standard_normal((b, h, n, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, h_kv, n, d)).astype(np.float32)
+            for _ in range(2))
+    (qt, qj), (kt, kj), (vt, vj), (dot, doj) = (_pair(a, name)
+                                                for a in (q, k, v, do))
+    if lengths is None:
+        def jf(*a):
+            return jfa.flash_attention(*a, causal)
+
+        def tf(*a):
+            return pt.flash_attention(*a, causal)
+    else:
+        lens = np.asarray(lengths, np.int32)
+
+        def jf(*a):
+            return jfa.flash_attention_varlen(*a, jnp.asarray(lens), causal)
+
+        def tf(*a):
+            return pt.flash_attention_varlen(*a, torch.from_numpy(lens),
+                                             causal)
+    _, vjp = jax.vjp(jf, qj, kj, vj)
+    ts = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    got = torch.autograd.grad(tf(*ts), ts, dot)
+    shares = ((0.995,) * 3 if n < jfa.MIN_KERNEL_KV_LEN
+              else (0.98, 0.98, 0.995))
+    for g, w, t, share in zip(got, vjp(doj), (qt, kt, vt), shares):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _check(g, w, name, share)
+    if lengths is not None:
+        # keys past a row's length get no gradient
+        for bi, n_b in enumerate(lengths):
+            assert (got[1][bi, :, n_b:] == 0).all()
+            assert (got[2][bi, :, n_b:] == 0).all()
 
 
 def _paged_inputs(seed, d, chunk, page, hq, hkv, pool):
@@ -325,3 +400,36 @@ def test_engine_d96_matches_jax_engine(d96_models):
         assert g.generated == w.generated
         np.testing.assert_allclose(np.stack(g.logits), np.stack(w.logits),
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_d96_matches_jax():
+    """Three Adam steps (lr 1e-3, grad_clip 1.0, dropout off) of a DecoderLM
+    with heads of 96 (E192 H2 L2, RoPE) from the same weights in both
+    packages: the loss and every parameter after each step within 1e-5.
+    Sixteen positions: the attention's op graph and its autodiff on both
+    sides."""
+    args = (64, 192, 2, 128)
+    kw = dict(p_dropout=0.0, n_layer=2, middle_dim=384, pos_encoding="rope")
+    jm = ft.DecoderLM(*args, key=jax.random.PRNGKey(5), **kw)
+    tm = pt.DecoderLM(*args, device="cpu", **kw)
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    j_opt, t_opt = jopt.Adam(lr=1e-3), pt.Adam(lr=1e-3)
+    j_step = jtr.make_train_step(j_opt, grad_clip=1.0, donate=False)
+    t_step = pt.make_train_step(t_opt, grad_clip=1.0)
+    j_state, t_state = j_opt.init(jm), t_opt.init(tm)
+    for i in range(3):
+        rng = np.random.default_rng(70 + i)
+        tok = rng.integers(0, 64, (2, 16)).astype(np.int32)
+        tgt = np.roll(tok, -1, axis=1)
+        msk = (rng.random((2, 16)) < 0.8).astype(np.float32)
+        jm, j_state, j_loss = j_step(jm, j_state,
+                                     *map(jnp.asarray, (tok, tgt, msk)), None)
+        tm, t_state, t_loss = t_step(tm, t_state,
+                                     *map(torch.from_numpy, (tok, tgt, msk)))
+        np.testing.assert_allclose(float(t_loss), float(j_loss), atol=1e-5,
+                                   rtol=1e-5)
+        t_params = dict(tm.named_parameters())
+        for name, want in jm.named_parameters():
+            np.testing.assert_allclose(t_params[name].detach().numpy(),
+                                       np.asarray(want), atol=1e-5, rtol=1e-5,
+                                       err_msg=f"step {i}: {name}")

@@ -66,11 +66,14 @@ a process of its own that imports that root's package and this repo's
   B1 at 16384, chunk 64, GQA 4, window 256, the 2048-row wave), with the
   plain version (where the root has ``paged_attention_plain``) and the
   bound beside (f32 q: the split-precision bound);
-* ``headdim``: the forward and inference kernels at serve_d96's shapes
-  (B4, 32 heads) at head dims 64, 80, 96, 112 and 128: the bf16 flash
-  forward's subrow and grid, the f32 flash forward, paged decode and
-  chunk 64 over a bf16 pool, int8 ``kv8_flash``, with the bound at the
-  real d; a root whose kernels refuse a head dim prints "refused";
+* ``headdim``: the attention kernels at serve_d96's and train_d96's
+  shapes (B4, 32 heads) at head dims 32, 64, 80, 96, 112 and 128: the
+  bf16 flash forward's subrow and grid, the f32 flash forward, paged
+  decode and chunk 64 over a bf16 pool, int8 ``kv8_flash``, and the flash
+  backward (bf16 subrow B4 H32 N2048 causal, the grid B1 H32/8 GQA
+  non-causal, the op graph B4 H32 N512 causal; f32 split B4 H32 N2048
+  causal), with the bound at the real d; a root whose kernels refuse a
+  head dim prints "refused";
 * ``serve_quant``: chip_smoke's serve_quant phase (three variants, prompt
   and decode throughput, one profiled decode dispatch each);
 * ``train``: chip_smoke's flash train phase (step time, peak memory, one
@@ -553,16 +556,29 @@ def _paged(torch, cs, dev):
 
 
 # head dims either side of the 64- and 128-column tiles
-HEAD_DIMS = (64, 80, 96, 112, 128)
+HEAD_DIMS = (32, 64, 80, 96, 112, 128)
+
+
+def _bwd_line(torch, cs, fa, label, q, k, v, causal):
+    """(label, dtype name, fn, cost) of a flash_bwd call given its
+    forward's lse and di (computed here, outside the timing)."""
+    sc = q.shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc)
+    do = torch.randn_like(q)
+    di = (o.float() * do.float()).sum(-1, keepdim=True)
+    return (label, str(q.dtype).replace("torch.", ""),
+            lambda: fa.flash_bwd(q, k, v, lse, di, do, causal=causal, sm_scale=sc),
+            cs._flash_cost(q, k, causal, None, None, backward=True))
 
 
 def _headdim(torch, cs, dev):
-    """The forward and inference kernels at serve_d96's shapes (B4, 32
+    """The attention kernels at serve_d96's and train_d96's shapes (B4, 32
     heads, histories <= 2048) over HEAD_DIMS: the bf16 flash forward's
     subrow (the batched prefill) and grid, the f32 flash forward, paged
-    decode and chunk 64 over a bf16 pool, kv8_flash int8; device ms beside
-    the bound at the real d.  A root whose kernels refuse a head dim prints
-    "refused"."""
+    decode and chunk 64 over a bf16 pool, kv8_flash int8, and the flash
+    backward (bf16 subrow, grid with GQA, op graph; f32 split); device ms
+    beside the bound at the real d.  A root whose kernels refuse a head dim
+    prints "refused"."""
     from flashattn_tpu_torch.ops import flash_attention as fa
     from flashattn_tpu_torch.ops import paged_attention as pa
     from flashattn_tpu_torch.ops import quant as qt
@@ -603,16 +619,28 @@ def _headdim(torch, cs, dev):
             ("kv8_flash int8 B4 H32 N2048 causal", "bfloat16",
              lambda: qt.flash_attention_kv_int8(q, k8, v8, True, sc),
              cs._kv8_cost(q, k8.values, True))]
+        kg, vg = (t[:, :8].contiguous() for t in (k1, v1))   # GQA 32q/8kv
+        qo, ko, vo = (t[:, :, :512].contiguous() for t in (q, k, v))
+        lines += [
+            _bwd_line(torch, cs, fa, "flash_bwd subrow B4 H32 N2048 causal",
+                      q, k, v, True),
+            _bwd_line(torch, cs, fa, "flash_bwd grid B1 H32/8 N2048 non-causal",
+                      q1, kg, vg, False),
+            _bwd_line(torch, cs, fa, "flash_bwd op graph B4 H32 N512 causal",
+                      qo, ko, vo, True),
+            _bwd_line(torch, cs, fa, "flash_bwd_f32 B4 H32 N2048 causal",
+                      qf, kf, vf, True)]
         for label, name, fn, cost in lines:
             b_ms, b_by = cs.bound_ms(*cost[:2], name)
             try:
                 ms = cs.time_ms(fn)
-            except (ValueError, RuntimeError) as e:
+            except (ValueError, RuntimeError, NotImplementedError) as e:
                 print(f"[ab] headdim d{d} {label}: refused ({str(e)[:60]})", flush=True)
                 continue
             print(f"[ab] headdim d{d} {label}: ms {ms:.4f}, bound {b_ms:.4g} "
                   f"({b_by}), share {b_ms / ms:.3f}", flush=True)
-        del q, k, v, q1, k1, v1, qf, kf, vf, kp, vp, k8, v8
+        del q, k, v, q1, k1, v1, qf, kf, vf, kp, vp, k8, v8, kg, vg, qo, ko, vo
+        del lines
         torch.cuda.empty_cache()
 
 

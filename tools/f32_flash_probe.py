@@ -5,7 +5,7 @@ wgmma kernels where an input holds a +-inf).
 
     python3 tools/f32_flash_probe.py [--ptxas] [--check] [--time] [--diag] [--inf]
 
-* ``--ptxas``: compiles ``flash_fwd.cu`` and ``flash_bwd.cu`` with
+* ``--ptxas``: compiles ``flash_fwd.cu`` and ``flash_bwd_f32.cu`` with
   ``-Xptxas -v`` and prints the registers, spills and shared memory of
   their f32 kernels;
 * ``--check``: the forward and backward of both routes against their plain
@@ -63,7 +63,7 @@ def ptxas() -> None:
 
     csrc = REPO / "flashattn_tpu_torch" / "csrc"
     failed = []
-    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+    for src in ("flash_fwd.cu", "flash_bwd_f32.cu"):
         res = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc),
              "-c", str(csrc / src), "-o", "/dev/null"],
