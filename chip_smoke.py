@@ -307,6 +307,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    loop-consistency): phase 7's gates on CONSIST_D96 (E192, 2 heads of 96,
    L2, RoPE) at B2 x 1024 (the f32 split pair on _pad128's subrow
    schedule) and B2 x 128 (the warp-level trio with its dS scratch).
+30. wide head dims (after phase 27): the bf16 flash forward's and the
+   bf16-q paged kernels' 256-column tiles at heads of 160 and 256 and
+   serve_d256's shapes (8 q heads, one kv head): the flash grid B4 N2048
+   varlen, the op graph at N1000 and N128, paged decode, chunk 64 and a
+   2048-row wave over every pool, a split a page, the marks with a NaN in
+   column d - 1; each under its d-128 line's gate, the bound at the real d
+   (wide_head_dim_kernel_phases).
+31. serve_d256 (after serve_d96): GEMMA_D256, Gemma-2B's widths (E2048, 8
+   heads of 256 and one kv head, M16384, vocab 256000, RoPE, 18 layers,
+   uncut) in the repo's block: the f32 engine raises ROADMAP.md §B2b's
+   ValueError before any launch (an expected outcome, checked); in bf16,
+   with the plain versions made to raise, the engine's logits against the
+   bf16 dense forward over phase 5's traffic (max |diff| / max |dense| <
+   0.08, argmax agreement >= 0.8), serve's traffic (every request
+   finishes, no page leaks, flash_fwd, paged_attention and paged_nonfinite
+   launched at d 256), one profiled decode dispatch; prompt tok/s, TTFT
+   and decode tok/s logged beside the card's name and power limit.
 
 Prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.
@@ -352,6 +369,21 @@ PHI3_D96 = dict(n_vocab=32064, n_embd=3072, n_head=32, n_positions=4096,
                 rope_theta=10000.0, p_dropout=0.0, attn_impl="flash")
 # the head dims of the kernel lines beside 32, 64 and 128
 HEAD_DIM_LINES = (80, 96)
+# Gemma-2B's published widths (google/gemma-2b, config.json: hidden 2048,
+# 8 heads with head_dim 256 and one kv head (multi-query), intermediate
+# 16384, vocab 256000, 8192 positions, rope theta 10000, 18 layers) in the
+# repo's DecoderLM block, which keeps its LayerNorm, GELU FFN and untied
+# lm head where Gemma has RMSNorm, GeGLU and scaled tied embeddings.  Full
+# depth, 2.43 B parameters (embeddings and lm head 2 x 524.3 M, 18 x 76.6 M
+# in the layers): 4.9 GB in bf16.  Weights random from SEED.  Heads of 256:
+# the bf16 flash forward's and the bf16-q paged tiles of 256 columns.
+GEMMA_D256 = dict(n_vocab=256000, n_embd=2048, n_head=8, n_kv_head=1,
+                  n_positions=8192, n_layer=18, middle_dim=16384,
+                  pos_encoding="rope", rope_theta=10000.0, p_dropout=0.0,
+                  attn_impl="flash")
+# the head dims of the 256-column tiles' kernel lines: a tile zero-padded
+# from 160, and full
+WIDE_HEAD_DIM_LINES = (160, 256)
 # train_d96: PHI3_D96's widths trained at TRAIN's batch (B8 x 2048), bf16
 # over f32 masters, Adam, clip 1.0.  Positions cut from 4096 to the 2048
 # the step runs; depth 4 of Phi-3-mini's 32, as serve_d96's.  Dropout 0.1
@@ -2239,6 +2271,110 @@ def head_dim_kernel_phases(torch, dev, ph: Phases) -> None:
              compare=_bit_err)
 
 
+def wide_head_dim_kernel_phases(torch, dev, ph: Phases) -> None:
+    """The bf16 forward's and bf16-q paged attention's 256-column tiles at
+    WIDE_HEAD_DIM_LINES (d 160: zero-padded to 256; d 256: full) at
+    serve_d256's shapes (GEMMA_D256: 8 q heads, one kv head), each against
+    its plain version under the gate of its d-128 line, the bound counted
+    at the real d: the flash forward's grid (B4 N2048 causal varlen, the
+    batched prefill), the op graph's wgmma walk (B1 N1000) and its
+    warp-level kernel (B16 N128), SDPA in bf16 beside each; paged decode
+    (B4, group 8, histories <= 8192, page 128) over bf16, int8 and fp8
+    pools, a chunk of 64, a 2048-row extend wave (chunk 256 x 8 q heads:
+    the marks and the poison pass) and the decode a split a page (the
+    merge); the marks with a NaN in column d - 1.  Inputs from a generator
+    of their own, so the other phases keep theirs."""
+    from flashattn_tpu_torch.ops import flash_attention as fa
+    from flashattn_tpu_torch.ops import paged_attention as pa
+    from flashattn_tpu_torch.ops import quant as qt
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf = torch.bfloat16
+    payloads = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    lens = torch.tensor([2048, 1536, 1024, 517], device=dev)
+    hist = torch.tensor([8192, 4096, 2048, 517], device=dev)
+    n_pages, pps = 4 * 64 + 1, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in WIDE_HEAD_DIM_LINES:
+        sc = d ** -0.5
+        # flash: (label, B, H, H_kv, N_q, N_kv, causal, lengths)
+        for label, b, h, h_kv, n_q, n_kv, causal, ln_ in (
+                ("B4 H8/1 N2048 causal varlen", 4, 8, 1, 2048, 2048, True, lens),
+                ("op graph B1 H8/1 N1000 causal", 1, 8, 1, 1000, 1000, True, None),
+                ("op graph B16 H8/1 N128 causal", 16, 8, 1, 128, 128, True, None)):
+            q = randn(b, h, n_q, d, dtype=bf)
+            k, v = (randn(b, h_kv, n_kv, d, dtype=bf) for _ in range(2))
+            sched = fa._schedule(q, k, causal, None, ln_ is not None).name
+            lib, args = _sdpa(torch, q, k, v, causal, None, ln_)
+            ph.check("flash_fwd", f"{label} D{d} ({sched})", bf,
+                     lambda: fa.flash_fwd(q, k, v, causal=causal, sm_scale=sc,
+                                          kv_lengths=ln_),
+                     lambda: fa.flash_fwd_plain(q, k, v, causal, sc, ln_),
+                     _flash_cost(q, k, causal, None, ln_),
+                     **_flash_gate(bf, f"flash_fwd {label} D{d}"),
+                     library=lambda: lib(*args))
+            del q, k, v, args
+            torch.cuda.empty_cache()
+
+        # paged: B4, one kv head and 8 q heads, page 128, histories <= 8192
+        table = torch.randperm(n_pages, generator=g, device=dev)[:4 * pps]
+        table = table.reshape(4, pps).int()
+        for pname in ("bf16", "int8", "fp8"):
+            kv = [randn(1, n_pages, 128, d) for _ in range(2)]
+            kw = {}
+            if pname == "bf16":
+                kp, vp = (t.to(bf) for t in kv)
+            else:
+                quant = qt.quantize_int8 if pname == "int8" else qt.quantize_fp8
+                kq, vq = (quant(t) for t in kv)
+                kp, vp = kq.values, vq.values
+                kw = dict(k_scales=kq.scales, v_scales=vq.scales)
+            del kv
+            for label, q_, chunk in (
+                    ("decode", randn(4, 8, d, dtype=bf), 1),
+                    ("chunk 64", randn(4, 64, 8, d, dtype=bf), 64),
+                    ("extend wave 2048 rows (chunk 256)",
+                     randn(4, 256, 8, d, dtype=bf), 256)):
+                ph.check("paged_attention",
+                         f"{label} B4 H8/1 d{d} page128 {pname} pool", bf,
+                         lambda: pa.paged_attention(q_, kp, vp, hist, table, **kw),
+                         lambda: pa.paged_attention_plain(q_, kp, vp, hist, table,
+                                                          **kw),
+                         _paged_cost(q_, chunk, 8, 1, hist,
+                                     quantized=pname != "bf16"),
+                         compare=_rel_err)
+            if pname == "bf16":
+                # a split a page: 64 splits a sequence, merged
+                qm = randn(4, 1, 8, d, dtype=bf)
+                plan = pa.split_plan(4, 1, 8, 1, 128, pps, bf, None, sms, 1)
+                ph.check("paged_attention",
+                         f"decode B4 H8/1 d{d} a split a page ({plan[1]} splits)",
+                         bf,
+                         lambda: pa.paged_attention_fwd(qm, kp, vp, hist, table,
+                                                        sm_scale=sc, split_pages=1),
+                         lambda: pa.paged_attention_plain(qm, kp, vp, hist, table),
+                         _paged_cost(qm, 1, 8, 1, hist), compare=_rel_err)
+            del kp, vp, kw
+            torch.cuda.empty_cache()
+
+        # the marks at the wave's shape, a NaN in V's last column
+        vp = randn(1, n_pages, 128, d, dtype=bf)
+        vp[:, table[0, 3], 7, d - 1] = math.nan
+        words = -(-d // 32) + 1
+        walked = sum(-(-int(n) // 128) for n in hist.tolist())
+        ph.check("paged_nonfinite", f"marks, 2048-row wave B4 H8/1 d{d}", bf,
+                 lambda: pa.paged_nonfinite(vp, hist, table, 256),
+                 lambda: pa.paged_nonfinite_plain(vp, hist, table, 256),
+                 (walked * 128 * d * 2 + 4 * pps * words * 4, 0),
+                 compare=_bit_err)
+        del vp
+        torch.cuda.empty_cache()
+
+
 def kernel_phases(torch, dev) -> Phases:
     ph = Phases()
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -2262,6 +2398,8 @@ def kernel_phases(torch, dev) -> Phases:
     f32_nonfinite_phases(torch, dev)
     torch.cuda.empty_cache()
     head_dim_kernel_phases(torch, dev, ph)
+    torch.cuda.empty_cache()
+    wide_head_dim_kernel_phases(torch, dev, ph)
     torch.cuda.empty_cache()
     return ph
 
@@ -2378,33 +2516,49 @@ def serve_phase(torch, model, dev, label: str = "serve", cfg=MODEL) -> dict:
     return out
 
 
-def consistency_phase(torch, model, dev, label: str = "consistency",
-                      cfg=MODEL) -> float:
-    """``model`` (f32, of configuration ``cfg``): engine logits along a
-    batched and a chunked prefill and their decodes against the dense
-    forward, within 1e-3."""
+def _engine_vs_dense(torch, model, dev, cfg, dtype=None):
+    """The consistency traffic through ``model``'s engine (in ``dtype``;
+    None: the model's): a 500-token prompt (batched prefill) with 100 new
+    tokens and a 600-token one (chunked prefill) with 8, every position's
+    logits against one dense forward of the trajectory.  Returns (max abs
+    err, max abs err over max |dense|, the least argmax agreement, the
+    positions)."""
     import numpy as np
 
     from flashattn_tpu_torch import ContinuousBatchingEngine
 
     rng = np.random.default_rng(SEED + 1)
+    kw = {} if dtype is None else dict(dtype=dtype)
     eng = ContinuousBatchingEngine(model, max_batch=1, page_size=128,
                                    pages_per_seq=8, prefill_chunk=512,
-                                   collect_logits=True)
+                                   collect_logits=True, **kw)
     # 500-token prompt: batched prefill; 600-token prompt: chunked prefill
     reqs = [eng.submit(rng.integers(0, cfg["n_vocab"], 500).tolist(), 100),
             eng.submit(rng.integers(0, cfg["n_vocab"], 600).tolist(), 8)]
     eng.run()
-    err = 0.0
+    assert eng.pool.n_free == eng.pool.total, "pages leaked"
+    err, rel, agree = 0.0, 0.0, 1.0
     with torch.inference_mode():
         for r in reqs:
             traj = r.prompt + r.generated[:-1]
             dense = model(torch.tensor([traj], device=dev))[0].float().cpu()
             got = torch.from_numpy(np.stack(r.logits))
             assert got.shape == dense.shape, (got.shape, dense.shape)
-            err = max(err, float((got - dense).abs().max()))
-    log(f"[{label}] f32 engine vs dense forward over "
-        f"{[len(r.prompt) + len(r.generated) - 1 for r in reqs]} positions: "
+            e = float((got - dense).abs().max())
+            err, rel = max(err, e), max(rel, e / float(dense.abs().max()))
+            agree = min(agree, float((got.argmax(-1) == dense.argmax(-1))
+                                     .float().mean()))
+            del dense, got
+    return err, rel, agree, [len(r.prompt) + len(r.generated) - 1 for r in reqs]
+
+
+def consistency_phase(torch, model, dev, label: str = "consistency",
+                      cfg=MODEL) -> float:
+    """``model`` (f32, of configuration ``cfg``): engine logits along a
+    batched and a chunked prefill and their decodes against the dense
+    forward, within 1e-3."""
+    err, _, _, positions = _engine_vs_dense(torch, model, dev, cfg)
+    log(f"[{label}] f32 engine vs dense forward over {positions} positions: "
         f"max_abs_err={err:.3e}")
     if not err <= 1e-3:
         raise AssertionError(f"engine logits differ from dense by {err}")
@@ -2486,6 +2640,78 @@ def serve_d96_phase(torch, dev) -> dict:
     del bf_model
     out["launches"] = {n: out["launches"].get(n, 0) + run.counts[n]
                        for n in run.counts}
+    return out
+
+
+def serve_d256_phase(torch, dev, power: str) -> dict:
+    """The GEMMA_D256 model (8 heads of 256, one kv head).  In f32 the engine
+    raises ROADMAP.md §B2b's ValueError before any launch (the f32 kernels
+    stop at d 128): an expected outcome, checked.  Then in bf16, under
+    _NoPlain: the engine's logits against the bf16 dense forward over
+    consistency_phase's traffic (max |diff| / max |dense| < 0.08, argmax
+    agreement >= 0.8: the bound of a served model against its dense forward,
+    JAX's tests/test_serving.py), serve's traffic (batched prefill: the grid
+    at d 256 over 2048, 1536 and 1024 keys, the op graph's wgmma walk at 517;
+    the 3000-token prompt: the grid, then the extend tile with the marks and
+    the poison pass; decode: the decode tile and the merge), and one decode
+    dispatch profiled."""
+    import numpy as np
+
+    from flashattn_tpu_torch import ContinuousBatchingEngine, DecoderLM
+
+    t0 = time.perf_counter()
+    model = DecoderLM(**GEMMA_D256, device=dev,
+                      generator=torch.Generator().manual_seed(SEED)).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve_d256] {_widths(GEMMA_D256)} 1 kv head, "
+        f"{n_params / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    f32_kernels = ("flash_fwd_f32", "flash_fwd_f32_mma", "paged_attention_f32")
+    with _Launches(f32_kernels) as run:
+        eng = ContinuousBatchingEngine(model, **ENGINE)
+        eng.submit(list(range(1, 301)), 4)
+        try:
+            eng.run()
+        except ValueError as e:
+            if "§B2b" not in str(e):
+                raise
+            log(f"[serve_d256] f32 engine refused, as expected: {e}")
+        else:
+            raise AssertionError("the f32 engine ran at d 256: ROADMAP.md "
+                                 "§B2b's ValueError was expected")
+        del eng
+    if any(run.counts.values()):
+        raise AssertionError(f"serve_d256 f32: launches {run.counts}")
+    model = model.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    with _NoPlain():
+        with _Launches(SERVE_KERNELS) as cons:
+            err, rel, agree, positions = _engine_vs_dense(
+                torch, model, dev, GEMMA_D256, torch.bfloat16)
+        log(f"[serve_d256] {power} bf16 engine vs bf16 dense forward over "
+            f"{positions} positions: max_abs_err={err:.3e}, max rel err "
+            f"{rel:.3e} (< 0.08), argmax agreement {agree:.4f} (>= 0.8), "
+            f"launches {cons.counts}")
+        if not (rel < 0.08 and agree >= 0.8):
+            raise AssertionError(f"serve_d256: rel {rel}, agreement {agree}")
+        out = serve_phase(torch, model, dev, "serve_d256", GEMMA_D256)
+        eng = ContinuousBatchingEngine(model, dtype=torch.bfloat16, **ENGINE)
+        rng = np.random.default_rng(SEED + 3)
+        for n in PROMPTS[:4]:
+            eng.submit(rng.integers(0, GEMMA_D256["n_vocab"], n).tolist(),
+                       NEW_TOKENS)
+        eng.step()
+        eng.step()
+        profile_step(torch, eng.step, "serve_d256 decode dispatch "
+                     f"(B4, {ENGINE['steps_per_dispatch']} steps)")
+        del eng
+    del model
+    log(f"[serve_d256] {power} {_widths(GEMMA_D256)} bf16: prompt "
+        f"{out['prompt_tok_s']:.1f} tok/s, TTFT ms by request "
+        f"{[round(t, 1) for t in out['ttft_ms']]}, decode "
+        f"{out['decode_tok_s']:.1f} tok/s")
+    out["launches"] = {n: out["launches"][n] + cons.counts[n]
+                       for n in out["launches"]}
     return out
 
 
@@ -4329,6 +4555,8 @@ def main() -> int:
 
     serve_d96 = serve_d96_phase(torch, dev)
     torch.cuda.empty_cache()
+    serve_d256 = serve_d256_phase(torch, dev, power)
+    torch.cuda.empty_cache()
     model = DecoderLM(**MODEL, generator=torch.Generator().manual_seed(SEED),
                       device=dev).eval()
     serve = serve_phase(torch, copy.deepcopy(model).to(torch.bfloat16), dev)
@@ -4410,7 +4638,7 @@ def main() -> int:
         f"in one greedy_generate_seq2seq call (MG): {s2s_gen['launches']}")
 
     runs = (train, train_d96, train_f32, train_fused, serve, serve_features,
-            generate, distill, serve_rope, serve_d96, train_moe, train_adafactor, s2s, s2s_mixed,
+            generate, distill, serve_rope, serve_d96, serve_d256, train_moe, train_adafactor, s2s, s2s_mixed,
             s2s_gen, *parallel)
     kernels = []
     for name, (src, tpu) in SOURCES.items():

@@ -75,14 +75,21 @@
 // shapes the bytes (q, k, v, o at B128 H8 N40 d32: 3.2 us) and a launch's
 // latency.
 
-// Head dims: any d <= 128 that is a multiple of 8.  Each kernel is compiled
-// at the tile widths D = 32, 64 and 128 and runs a call at the least one
-// that holds d (hop::tile_width); d is the row stride in device memory, the
-// tiles' columns d..D - 1 are zero-filled as they load (hop::cp_chunk) and
-// never stored.  The zero columns add exact zeros to every score and their
+// Head dims: any multiple of 8 up to 256 in bf16, up to 128 in f32.  Each
+// kernel is compiled at the tile widths D = 32, 64 and 128 (the bf16
+// kernels also at 256) and runs a call at the least one that holds d
+// (hop::tile_width); d is the row stride in device memory, the tiles'
+// columns d..D - 1 are zero-filled as they load (hop::cp_chunk) and never
+// stored.  The zero columns add exact zeros to every score and their
 // output columns are dropped, so the function is JAX's at d (its own
 // _pad128 pads d < 128 with zeros for the subrow and loop schedules the
-// same way), with no padded copy of q, k or v.
+// same way), with no padded copy of q, k or v.  At D 256 (d 136..256:
+// JAX's grid from 1024 keys, its op graph below; never the subrow or loop
+// schedule, which need d 128) shared memory and registers set the tiles:
+// the wgmma tile takes K and V tiles of 64 keys (Q's 64 KB and a ring of
+// four 32 KB tiles, 193 KB) and sums a tile's P V from zero 64 columns at
+// a time (pv_add); the op graph's warp-level tile makes O in two column
+// halves of 128 after one Q K^T (Og::HALF_ND).
 
 // f32 (every schedule's function: in f32 they agree to f32 rounding, so
 // one online softmax serves them all) runs on the tensor cores in split
@@ -398,9 +405,11 @@ cudaError_t launch_f32_mma(const void* q, const void* k, const void* v, const in
 
 using bf16 = __nv_bfloat16;
 
+// D 256: K and V tiles of 64 keys, so that Q and the four tiles of the
+// ring (193 KB) fit the 227 KB of shared memory a block
 template <int D>
 struct Tc {
-  static constexpr int BM = 128, BN = 128, THREADS = 256;
+  static constexpr int BM = 128, BN = D > 128 ? 64 : 128, THREADS = 256;
   static constexpr int SW = D >= 64 ? 128 : 64;   // bytes of a swizzled row
   static constexpr int CPR = SW / 2;              // bf16 columns a region row holds
   static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
@@ -459,28 +468,36 @@ __device__ __forceinline__ float quad_sum(float v) {
 // product sums from zero in its own registers and is then added to acc,
 // as the TPU kernels and the plain versions add each block's PV to the
 // rescaled accumulator, so the long f32 chain over the row has one add a
-// tile, not one a 16-key chunk.
+// tile, not one a 16-key chunk.  D 256 sums 64 columns (one swizzled
+// region of V) at a time, 32 registers beside acc's 128 where a whole
+// tile's would take 128; a column's sum is the same products in the same
+// order either way, so each column rounds as one n256 product would.
 template <int D>
 __device__ __forceinline__ void pv_add(float (&acc)[D / 2], const uint32_t (&p)[Tc<D>::BN / 4],
                                        uint32_t v_addr, int j0, int j1) {
   constexpr int BN = Tc<D>::BN, SW = Tc<D>::SW;
-  float pv[D / 2];
+  constexpr int CW = D > 128 ? 64 : D, CR = CW / 2;   // columns and registers of a chunk
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
-  hop::fence_regs(pv);
-  hop::wg_arrive();
+  for (int c = 0; c < D / CW; ++c) {
+    float pv[CR];
 #pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc) {
-    if (2 * kc + 1 < j0 || 2 * kc >= j1) continue;
-    const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3]};
-    hop::wgmma_rs<1>(pv, a, hop::desc<SW>(v_addr + kc * 16 * SW, BN * SW, 8 * SW), 1);
+    for (int i = 0; i < CR; ++i) pv[i] = 0.f;
+    hop::fence_regs(pv);
+    hop::wg_arrive();
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      if (2 * kc + 1 < j0 || 2 * kc >= j1) continue;
+      const uint32_t a[4] = {p[4 * kc], p[4 * kc + 1], p[4 * kc + 2], p[4 * kc + 3]};
+      hop::wgmma_rs<1>(pv, a, hop::desc<SW>(v_addr + c * BN * SW + kc * 16 * SW, BN * SW, 8 * SW),
+                       1);
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(pv);
+    hop::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < CR; ++i) acc[c * CR + i] += pv[i];
   }
-  hop::wg_commit();
-  hop::wg_wait<0>();
-  hop::fence_regs(pv);
-  hop::fence_regs(acc);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] += pv[i];
 }
 
 // The TPU kernels' online-softmax step on one S tile (scores in base 2):
@@ -791,6 +808,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* le
   if (mode == 1 && (span < 8 || span % 8 != 0 || (span > Tc<D>::BN && span % Tc<D>::BN != 0) ||
                     (span < Tc<D>::BN && Tc<D>::BN % span != 0)))
     return cudaErrorInvalidValue;
+  // the subrow schedule needs d 128 (JAX's _subrow_ok, _pad128_ok): never above
+  if (D > 128 && mode == 2) return cudaErrorInvalidValue;
   dim3 grid(b * h, (n_q + Tc<D>::BM - 1) / Tc<D>::BM);
   kernel<<<grid, Tc<D>::THREADS, Tc<D>::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -805,6 +824,9 @@ struct Og {
   static constexpr int ROW = D * 2 + 16;   // bytes of a padded row
   static constexpr int ND = D / 8;         // 8-column n-tiles of O
   static constexpr int MAX_WARPS = 4;
+  // D 256: O in two column halves of 128, one after the other, so that
+  // O's registers (64 a half, 128 whole) and S's (64 at 128 keys) fit
+  static constexpr int HALF_ND = 16;
 };
 
 // The op graph's function over a walk of at most one tile of BN (64 or
@@ -872,6 +894,9 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < C::ND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, lr[2] = {0.f, 0.f};   // the row's max and sum
+  // D > 128: P rounded to bf16 as the A fragments of every 16-key chunk,
+  // for both column halves of O (zero where the walk has no key)
+  uint32_t pw[D > 128 ? NJ / 2 : 1][4] = {};
 
   hop::cp_async_wait<0>();
   __syncthreads();
@@ -916,12 +941,44 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 2; ++e)
           sc[j][2 * hh + e] = lr[hh] > 0.f ? fa::div_rn(sc[j][2 * hh + e], lr[hh], rl) : 0.f;
     }
+    if constexpr (D > 128) {
 #pragma unroll
-    for (int kc = 0; kc < NJ / 2; ++kc) {
-      if (16 * kc >= rows) continue;
-      uint32_t pa[1][4];
-      hop::acc_to_a(pa[0], sc[2 * kc], sc[2 * kc + 1]);
-      hop::mma_rows<D, 1>(acc, pa, hop::smem_u32(vs), ROW, 16 * kc, lane);
+      for (int kc = 0; kc < NJ / 2; ++kc) hop::acc_to_a(pw[kc], sc[2 * kc], sc[2 * kc + 1]);
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < NJ / 2; ++kc) {
+        if (16 * kc >= rows) continue;
+        uint32_t pa[1][4];
+        hop::acc_to_a(pa[0], sc[2 * kc], sc[2 * kc + 1]);
+        hop::mma_rows<D, 1>(acc, pa, hop::smem_u32(vs), ROW, 16 * kc, lane);
+      }
+    }
+  }
+  if constexpr (D > 128) {
+    // O = P V a column half at a time, each half stored as it completes
+#pragma unroll
+    for (int half = 0; half < C::ND / C::HALF_ND; ++half) {
+      const int c0 = 8 * C::HALF_ND * half;   // the half's first column
+      float oh[C::HALF_ND][4];
+#pragma unroll
+      for (int i = 0; i < C::HALF_ND; ++i) oh[i][0] = oh[i][1] = oh[i][2] = oh[i][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < NJ / 2; ++kc) {
+        if (16 * kc >= rows) continue;
+        const uint32_t pa[1][4] = {{pw[kc][0], pw[kc][1], pw[kc][2], pw[kc][3]}};
+        hop::mma_rows<8 * C::HALF_ND, 1>(oh, pa, hop::smem_u32(vs) + 2 * c0, ROW, 16 * kc, lane);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wr0 + g + 8 * hh;
+        if (r >= n_rows) continue;
+        bf16* orow = o + (size_t(bh) * n_q + row0 + r) * d + c0;
+#pragma unroll
+        for (int nd = 0; nd < C::HALF_ND; ++nd)
+          if (c0 + 8 * nd < d)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
+                __floats2bfloat162_rn(oh[nd][2 * hh], oh[nd][2 * hh + 1]);
+      }
     }
   }
 #pragma unroll
@@ -929,11 +986,13 @@ flash_fwd_op_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = wr0 + g + 8 * hh, row = row0 + r;
     if (r >= n_rows) continue;
     bf16* orow = o + (size_t(bh) * n_q + row) * d;
+    if constexpr (D <= 128) {
 #pragma unroll
-    for (int nd = 0; nd < C::ND; ++nd)
-      if (8 * nd < d)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
-            __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+      for (int nd = 0; nd < C::ND; ++nd)
+        if (8 * nd < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd + 2 * t) =
+              __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+    }
     if (t == 0)
       lse[size_t(bh) * n_q + row] = lr[hh] == 0.f ? -INFINITY : m[hh] + logf(lr[hh]);
   }
@@ -1231,22 +1290,26 @@ cudaError_t dispatch_f32_mma(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// bf16: the tiles of 32 to 256 columns (the f32 kernels and the backward
+// keep 128 as their widest)
 cudaError_t dispatch_bf16(int d, const void* q, const void* k, const void* v, const int* lens,
                           void* o, float* lse, int b, int h, int h_kv, int n_q, int n_kv,
                           int causal, int window, float scale, int mode, int span,
                           cudaStream_t st) {
   if (mode == 0) {
-    switch (hop::tile_width(d)) {
+    switch (hop::tile_width(d, 256)) {
       case 32: return launch_op<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
       case 64: return launch_op<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
       case 128: return launch_op<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
+      case 256: return launch_op<256>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, st);
       default: return cudaErrorInvalidValue;
     }
   }
-  switch (hop::tile_width(d)) {
+  switch (hop::tile_width(d, 256)) {
     case 32: return launch_tc<32>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
     case 64: return launch_tc<64>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
     case 128: return launch_tc<128>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
+    case 256: return launch_tc<256>(q, k, v, lens, o, lse, b, h, h_kv, n_q, n_kv, d, causal, window, scale, mode, span, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -96,13 +96,19 @@
 // against another max now and then, about one bf16 ulp of p (bf16 q; f32
 // q keeps p in f32).
 
-// Head dims: any d <= 128 that is a multiple of 8.  Every tile is compiled
-// at the widths D = 32, 64 and 128 and a call runs at the least one that
-// holds d (hop::tile_width); d is the row stride of q, o and the pools
-// (Args::d), a staged row's columns d..D - 1 are zero-filled as it loads
-// (hop::cp_chunk: 8-byte copies for an 8-bit row of 8 mod 16 bytes), and
-// only columns below d are stored, the partials included (d + 2 floats a
-// row).  The marks take cdiv(d, 32) words of columns and the V scale's word.
+// Head dims: any multiple of 8 up to 256 with bf16 q, up to 128 with f32
+// q.  Every tile is compiled at the widths D = 32, 64 and 128 (bf16 q's
+// decode and extend tiles and the bf16 merge also at 256) and a call runs
+// at the least one that holds d (hop::tile_width); d is the row stride of
+// q, o and the pools (Args::d), a staged row's columns d..D - 1 are
+// zero-filled as it loads (hop::cp_chunk: 8-byte copies for an 8-bit row
+// of 8 mod 16 bytes), and only columns below d are stored, the partials
+// included (d + 2 floats a row).  At D 256 the decode tile keeps Q's
+// fragments in shared memory (Dec::kQSmem) and reads K and a quantized V
+// 16 bytes at a time, so that acc's 128 registers fit; the extend tile
+// takes 64-key K and V tiles (Ext::BN), as the flash forward's does, and
+// adds each 16-key chunk's P V to acc by one m64n256k16 wgmma.  The marks
+// take cdiv(d, 32) words of columns and the V scale's word.
 
 #include <climits>
 #include <cuda_fp8.h>
@@ -236,7 +242,14 @@ struct Dec {
   static constexpr int STAGE = 2 * KC * ROW + (kQuant ? 2 * KC * 4 : 0);
   static constexpr int WARP_BYTES = STAGES * STAGE;
   static constexpr int MERGE = (WARPS * 16 * D + 2 * WARPS * 16) * 4;
-  static constexpr size_t SMEM = size_t(WARPS * WARP_BYTES > MERGE ? WARPS * WARP_BYTES : MERGE);
+  // D 256: Q's fragments in shared memory after the rings (16 bytes a lane
+  // and k-step, 8 KB), read each chunk, where registers would hold them
+  // (64 a thread) beside acc's 128
+  static constexpr bool kQSmem = D > 128;
+  static constexpr int QF_BYTES = kQSmem ? (D / 16) * 32 * 16 : 0;
+  static constexpr size_t SMEM = size_t(WARPS * WARP_BYTES + QF_BYTES > MERGE
+                                            ? WARPS * WARP_BYTES + QF_BYTES
+                                            : MERGE);
   // d of accumulator column n of n-tile nd: bf16 V is read by ldmatrix in
   // its own layout; a quantized V is converted from bytes, each lane group
   // g reading the NT contiguous columns [g NT, g NT + NT) it accumulates
@@ -358,21 +371,32 @@ paged_decode_kernel(Args a) {
   // Q fragments, prescaled: q * scale_log2 rounded to bf16 (scale_log2 is
   // bf16 already, so the product is exact before its one rounding);
   // qf[ks][i] holds row g + 8 (i & 1), d = t KQ + 4 ks + 2 (i >> 1) + {0, 1}
-  uint32_t qf[D / 16][4];
+  // (kQSmem: word i of lane's 16 bytes of k-step ks in qsm, each warp
+  // writing every fourth k-step)
+  uint32_t qf[C::kQSmem ? 1 : D / 16][4];
+  uint32_t* qsm = reinterpret_cast<uint32_t*>(smem + C::WARPS * C::WARP_BYTES);
   const bf16* qrow[2] = {qp + q_off(a, b, hk, g), qp + q_off(a, b, hk, g + 8)};
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = g + 8 * (i & 1), col = t * KQ + 4 * ks + 2 * (i >> 1);
-      float x0 = 0.f, x1 = 0.f;
-      if (row < n_rows && col < a.d) {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(qrow[i & 1] + col);
-        x0 = __bfloat162float(__float2bfloat16(__low2float(v) * a.scale_log2));
-        x1 = __bfloat162float(__float2bfloat16(__high2float(v) * a.scale_log2));
-      }
-      qf[ks][i] = hop::pack_bf16(x0, x1);
+  auto q_word = [&](int ks, int i) {
+    const int row = g + 8 * (i & 1), col = t * KQ + 4 * ks + 2 * (i >> 1);
+    float x0 = 0.f, x1 = 0.f;
+    if (row < n_rows && col < a.d) {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(qrow[i & 1] + col);
+      x0 = __bfloat162float(__float2bfloat16(__low2float(v) * a.scale_log2));
+      x1 = __bfloat162float(__float2bfloat16(__high2float(v) * a.scale_log2));
     }
+    return hop::pack_bf16(x0, x1);
+  };
+  if constexpr (C::kQSmem) {
+    for (int ks = warp; ks < D / 16; ks += C::WARPS)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qsm[(ks * 32 + lane) * 4 + i] = q_word(ks, i);
+    __syncthreads();   // every warp reads every k-step
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[ks][i] = q_word(ks, i);
+  }
   int rlo[2], rhi[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -405,22 +429,54 @@ paged_decode_kernel(Args a) {
 
     // S = Q K^T over 16 keys: two n-tiles of 8, K row nt * 8 + g
     float sc[2][4];
+    if constexpr (C::kQSmem) {
+      // 16 bytes of each K row at a time (KS16 k-steps), Q's fragment of a
+      // k-step read once for both n-tiles
+      constexpr int KS16 = 16 / (4 * int(sizeof(P)));
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      uint32_t kw[KBYTES / 4];
-      lds<KBYTES>(kw, kt + (nt * 8 + g) * C::ROW + t * KBYTES);
+      for (int nt = 0; nt < 2; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t b0, b1;
-        if constexpr (C::kQuant) {
-          b0 = widen2<0>(kw[ks], P());
-          b1 = widen2<1>(kw[ks], P());
-        } else {
-          b0 = kw[2 * ks];
-          b1 = kw[2 * ks + 1];
+      for (int c = 0; c < KBYTES / 16; ++c) {
+        uint32_t kw[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          lds<16>(kw[nt], kt + (nt * 8 + g) * C::ROW + t * KBYTES + 16 * c);
+#pragma unroll
+        for (int u = 0; u < KS16; ++u) {
+          uint32_t qv[4];
+          lds<16>(qv, reinterpret_cast<const uint8_t*>(qsm + ((c * KS16 + u) * 32 + lane) * 4));
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            uint32_t b0, b1;
+            if constexpr (C::kQuant) {
+              b0 = widen2<0>(kw[nt][u], P());
+              b1 = widen2<1>(kw[nt][u], P());
+            } else {
+              b0 = kw[nt][2 * u];
+              b1 = kw[nt][2 * u + 1];
+            }
+            hop::mma_16816(sc[nt], qv, b0, b1);
+          }
         }
-        hop::mma_16816(sc[nt], qf[ks], b0, b1);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+        uint32_t kw[KBYTES / 4];
+        lds<KBYTES>(kw, kt + (nt * 8 + g) * C::ROW + t * KBYTES);
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          uint32_t b0, b1;
+          if constexpr (C::kQuant) {
+            b0 = widen2<0>(kw[ks], P());
+            b1 = widen2<1>(kw[ks], P());
+          } else {
+            b0 = kw[2 * ks];
+            b1 = kw[2 * ks + 1];
+          }
+          hop::mma_16816(sc[nt], qf[ks], b0, b1);
+        }
       }
     }
 
@@ -473,7 +529,29 @@ paged_decode_kernel(Args a) {
       }
 
     // O += P V
-    if constexpr (C::kQuant) {
+    if constexpr (C::kQuant && D > 128) {
+      // as below, 16 bytes of each of the four V rows (four words of
+      // n-tiles) at a time
+#pragma unroll
+      for (int c = 0; c < VBYTES / 16; ++c) {
+        uint32_t vw[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          lds<16>(vw[q], vt + (2 * t + (q & 1) + 8 * (q >> 1)) * C::ROW + g * VBYTES + 16 * c);
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int q = 4 * c + qq;
+          const uint32_t lo01 = __byte_perm(vw[0][qq], vw[1][qq], 0x5140);
+          const uint32_t hi01 = __byte_perm(vw[0][qq], vw[1][qq], 0x7362);
+          const uint32_t lo89 = __byte_perm(vw[2][qq], vw[3][qq], 0x5140);
+          const uint32_t hi89 = __byte_perm(vw[2][qq], vw[3][qq], 0x7362);
+          hop::mma_16816(acc[4 * q], pa, widen2<0>(lo01, P()), widen2<0>(lo89, P()));
+          hop::mma_16816(acc[4 * q + 1], pa, widen2<1>(lo01, P()), widen2<1>(lo89, P()));
+          hop::mma_16816(acc[4 * q + 2], pa, widen2<0>(hi01, P()), widen2<0>(hi89, P()));
+          hop::mma_16816(acc[4 * q + 3], pa, widen2<1>(hi01, P()), widen2<1>(hi89, P()));
+        }
+      }
+    } else if constexpr (C::kQuant) {
       // V rows 2t, 2t + 1, 2t + 8, 2t + 9 at columns [g NT, g NT + NT)
       uint32_t vw[4][VBYTES / 4];
 #pragma unroll
@@ -560,10 +638,12 @@ paged_decode_kernel(Args a) {
 
 // -- bf16, rows > 16: the paged wgmma extend tile ------------------------------------
 
+// D 256: K and V tiles of 64 keys (the flash forward's Tc), so that Q,
+// the ring and a quantized pool's widened tiles fit (194 KB)
 template <typename P, int D>
 struct Ext {
   static constexpr bool kQuant = !std::is_same<P, bf16>::value;
-  static constexpr int BM = 128, BN = 128, THREADS = 256;
+  static constexpr int BM = 128, BN = D > 128 ? 64 : 128, THREADS = 256;
   static constexpr int SW = D >= 64 ? 128 : 64;   // bytes of a swizzled bf16 row
   static constexpr int CPR = SW / 2;              // bf16 columns a region row holds
   static constexpr int SW8 = D;                   // a staged payload row: D bytes
@@ -681,8 +761,9 @@ paged_extend_kernel(Args a, int row_tiles) {
       const int i = threadIdx.x, pos = kt + i % BN;
       const bool ok = pos >= klo && pos < khi;
       const size_t sl = ok ? slot_of(a, tab, pos) : 0;
-      hop::cp_async<4>(hop::smem_u32(scl + buf * 2 * BN + i), (i < BN ? kspool : vspool) + sl,
-                       ok);
+      if (2 * BN >= C::THREADS || i < 2 * BN)   // a K and a V scale a key
+        hop::cp_async<4>(hop::smem_u32(scl + buf * 2 * BN + i), (i < BN ? kspool : vspool) + sl,
+                         ok);
     }
   };
   if (start < end) load(start, 0);
@@ -746,7 +827,7 @@ paged_extend_kernel(Args a, int row_tiles) {
       v_addr = hop::smem_u32(v16);
     }
 
-    // S = Q K^T: 64 rows x 128 keys a warpgroup, contracted over D; the
+    // S = Q K^T: 64 rows x BN keys a warpgroup, contracted over D; the
     // next tile's copies (their page-table reads first) are issued while
     // it runs
     float sc[BN / 2];
@@ -854,8 +935,13 @@ paged_extend_kernel(Args a, int row_tiles) {
   // 16 bytes) and stored in whole rows
   __syncthreads();   // both warpgroups' last wgmmas are done with the tiles
   constexpr int OS = D * 2 + 16;
-  static_assert(C::BM * OS <= (C::kQuant ? 2 * C::TILE16 : 4 * C::STAGE), "staged o fits");
-  uint8_t* os = C::kQuant ? k16 : ring;
+  // in the ring, or in a quantized pool's widened tiles (D 256: in the
+  // ring and those tiles, which follow it)
+  constexpr bool kInRing = !C::kQuant || D > 128;
+  static_assert(C::BM * OS <= (kInRing ? 4 * C::STAGE + (C::kQuant ? 2 * C::TILE16 : 0)
+                                       : 2 * C::TILE16),
+                "staged o fits");
+  uint8_t* os = kInRing ? ring : k16;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = rl + 8 * hh;
@@ -1798,7 +1884,7 @@ paged_extend_f32_kernel(Args a, int row_tiles) {
 
 // Words of a page's marks: cdiv(d, 32) of columns, then the V scale's.
 __host__ __device__ constexpr int nf_words(int d) { return (d + 31) / 32 + 1; }
-constexpr int NF_MAX_WORDS = nf_words(128);
+constexpr int NF_MAX_WORDS = nf_words(256);
 
 // Bit e: element e of the NW words w of payload P is not finite (never for
 // int8).
@@ -1842,9 +1928,9 @@ __device__ __forceinline__ void mark_unit(uint32_t* words, const uint8_t* vp, in
   if (bits) atomicOr(&words[c * EPU / 32], bits << (c * EPU % 32));
 }
 
-// The columns of a row are a.d values of P, at most 128: up to 32 units
-// of 16 (or 8) bytes, so the 128 threads keep to one unit each, a quarter
-// (or more) of the page's rows apiece.
+// The columns of a row are a.d values of P, at most 256 (f32: 128): up to
+// 32 units of 16 (or 8) bytes, so the 128 threads keep to one unit each, a
+// quarter (or more) of the page's rows apiece.
 template <typename P>
 __global__ void __launch_bounds__(128) paged_nonfinite_kernel(Args a, uint32_t* nf) {
   const int W = nf_words(a.d), row_bytes = a.d * int(sizeof(P));
@@ -2051,7 +2137,8 @@ inline int row_tile(int rows) {
 
 template <typename P>
 cudaError_t nonfinite(const Args& a, uint32_t* nf, cudaStream_t st) {
-  if (hop::tile_width(a.d) == 0) return cudaErrorInvalidValue;
+  if (hop::tile_width(a.d, std::is_same<P, float>::value ? 128 : 256) == 0)
+    return cudaErrorInvalidValue;
   paged_nonfinite_kernel<P><<<dim3(a.pages_per_seq, a.h_kv, a.b), 128, 0, st>>>(a, nf);
   return cudaGetLastError();
 }
@@ -2062,13 +2149,18 @@ cudaError_t poison(const Args& a, const uint32_t* nf, int bm, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the kernels at the tile width of d (hop::tile_width), reading d itself
+// the kernels at the tile width of d (hop::tile_width), reading d itself;
+// bf16 q up to 256 columns, f32 q up to 128
 template <typename T, typename P>
 cudaError_t dispatch_d(int d, const Args& a, cudaStream_t st) {
-  switch (hop::tile_width(d)) {
+  constexpr bool kWide = std::is_same<T, bf16>::value;
+  switch (hop::tile_width(d, kWide ? 256 : 128)) {
     case 32: return launch<T, P, 32>(a, st);
     case 64: return launch<T, P, 64>(a, st);
     case 128: return launch<T, P, 128>(a, st);
+    case 256:
+      if constexpr (kWide) return launch<T, P, 256>(a, st);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -32,21 +32,40 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(c * (x + k * x**3)))
 
 
-# The head dims the forward and inference attention kernels take: every
-# multiple of 8 up to 128, each run at the least tile width of 32, 64 and
-# 128 that holds it, zero-padded as it loads (csrc/hopper.cuh::tile_width).
-MAX_HEAD_DIM = 128
+# The head dims each family of attention kernels takes on the card: every
+# multiple of 8 up to the family's limit, run at the least tile width of 32,
+# 64, 128 (and 256 where the family has that tile) that holds it,
+# zero-padded as it loads (csrc/hopper.cuh::tile_width).  A family below
+# 256 names the ROADMAP.md item that widens it.  The plain versions (CPU
+# tensors) take any head dim.
+MAX_HEAD_DIM = 256
+HEAD_DIM_LIMITS = {
+    "flash_fwd_bf16": (256, None),   # fa_flash_fwd: modes 0 and 1
+    "paged_bf16": (256, None),       # bf16 q: decode, extend, merge, marks
+    "flash_fwd_f32": (128, "§B2b"),  # both f32 routes
+    "paged_f32": (128, "§B2b"),      # f32 q, and the marks of an f32 pool
+    "kv8_flash": (128, "§B2b"),      # bf16 and f32
+    "flash_bwd": (128, "§B2c"),      # the nine backward kernels
+}
 
 
-def check_head_dim(d: int, what: str) -> None:
-    """Raise ``ValueError`` for a head dim no kernel takes: above
-    ``MAX_HEAD_DIM`` (ROADMAP.md §B2) or not a multiple of 8 (§B3)."""
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{what} head_dim must be at most {MAX_HEAD_DIM}, "
-                         f"got {d}: head dims above 128 are ROADMAP.md §B2")
+def check_head_dim(d: int, what: str, family: str) -> None:
+    """Raise ``ValueError`` for a head dim the kernel family ``family``
+    (a key of ``HEAD_DIM_LIMITS``) does not take: not a multiple of 8
+    (ROADMAP.md §B3), above 256 (no tile), or above the family's limit (the
+    ROADMAP.md item that widens it).  A rule of shape and dtype: the callers
+    check it on CUDA tensors before any launch."""
+    limit, item = HEAD_DIM_LIMITS[family]
     if d < 8 or d % 8:
         raise ValueError(f"{what} head_dim must be a multiple of 8, got {d}: "
                          f"other head dims are ROADMAP.md §B3")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what} head_dim must be at most {MAX_HEAD_DIM}, "
+                         f"got {d}: no kernel tile is wider (ROADMAP.md §B)")
+    if d > limit:
+        raise ValueError(f"{what} head_dim must be at most {limit}, got {d}: "
+                         f"head dims in ({limit}, {MAX_HEAD_DIM}] here are "
+                         f"ROADMAP.md {item}")
 
 
 def cdiv(a: int, b: int) -> int:

@@ -43,11 +43,13 @@ run (C17; no host sync, the call's one count is the wgmma wrapper's).  On
 CPU tensors the plain versions run (:func:`flash_fwd_plain`,
 :func:`flash_bwd_plain`).
 
-Head dims: the forward and backward kernels take every multiple of 8 up
-to 128 (at the least tile width of 32, 64 and 128 that holds d,
-zero-padded as they load, as JAX's ``_pad128`` pads d for its subrow and
-loop schedules, forward and backward); ``check_head_dim`` refuses any
-other with ``ValueError``, never the plain version.
+Head dims: the bf16 forward kernels take every multiple of 8 up to 256,
+the f32 forward and every backward kernel up to 128 (at the least tile
+width of 32, 64, 128 or, bf16 forward, 256 that holds d, zero-padded as
+they load, as JAX's ``_pad128`` pads d for its subrow and loop schedules,
+forward and backward); ``check_head_dim`` refuses any other on CUDA
+tensors with ``ValueError`` naming the ROADMAP.md item (§B2b for the f32
+forward, §B2c for the backward), never the plain version.
 
 The three entry points share one ``autograd.Function`` (:class:`_Flash`):
 its forward saves (q, k, v, o, lse) and its backward computes
@@ -383,13 +385,16 @@ def flash_bwd_plain(q, k, v, lse, di, do, causal, scale, kv_lengths=None,
                           window)
 
 
-def _check_kernel_args(q, k, v):
+def _check_kernel_args(q, k, v, backward=False):
     """Shapes and dtypes the kernels take, forward and backward: every head
-    dim ``check_head_dim`` allows (any other raises, never a plain
-    fallback)."""
+    dim ``check_head_dim`` allows the family (the bf16 or f32 forward, the
+    backward; any other raises, never a plain fallback)."""
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
-    check_head_dim(d, "flash kernel")
+    family = ("flash_bwd" if backward else "flash_fwd_bf16"
+              if q.dtype == torch.bfloat16 else "flash_fwd_f32")
+    check_head_dim(d, "flash backward kernel" if backward else "flash kernel",
+                   family)
     if k.shape != (b, h_kv, n_kv, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -411,7 +416,8 @@ def flash_fwd(q, k, v, *, causal, sm_scale, kv_lengths=None, window=None):
     function of the shape's schedule (:func:`_schedule`).  In
     bf16 the kernel schedules take q pre-scaled by sm_scale * log2(e) in
     bf16, as JAX prescales it outside its kernels; the op graph's mode
-    scales the f32 scores."""
+    scales the f32 scores.  Head dims: bf16 up to 256, f32 up to 128
+    (above, ``ValueError`` naming ROADMAP.md §B2b)."""
     _check_kernel_args(q, k, v)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
@@ -463,9 +469,10 @@ def flash_bwd(q, k, v, lse, di, do, *, causal, sm_scale, kv_lengths=None,
     explicit formulas at every shape.  One count covers its launches
     (``_bwd_kernel``'s in bf16; in f32 ``_f32_bwd_kernel``'s or
     ``_f32_mma_bwd_kernel``'s, by :func:`f32_route`).  Head dims: every
-    multiple of 8 up to 128, each kernel at the least tile width that holds
-    d, d the rows' stride (no padded copy)."""
-    _check_kernel_args(q, k, v)
+    multiple of 8 up to 128 (above, ``ValueError`` naming ROADMAP.md
+    §B2c), each kernel at the least tile width that holds d, d the rows'
+    stride (no padded copy)."""
+    _check_kernel_args(q, k, v, backward=True)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.shape[1], k.shape[2]
     if do.shape != q.shape or lse.shape != (b, h, n_q, 1) \

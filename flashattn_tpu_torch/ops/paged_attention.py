@@ -130,7 +130,8 @@ def paged_nonfinite(v_pages, lengths, page_indices, chunk: int, *,
                                      v_scales=v_scales, window=window)
     check_no_grad(v_pages)
     h_kv, n_pages, page_size, d = v_pages.shape
-    check_head_dim(d, "paged kernel")
+    check_head_dim(d, "paged marks kernel",
+                   "paged_f32" if v_pages.dtype == torch.float32 else "paged_bf16")
     if (v_scales is None) == (v_pages.dtype in _build.PAYLOAD_DTYPES):
         raise TypeError(f"{v_pages.dtype} pages with v_scales "
                         f"{'absent' if v_scales is None else 'given'}")
@@ -214,12 +215,14 @@ def paged_attention_fwd(q, k_pages, v_pages, lengths, page_indices, *,
     """Kernel launch: q (B, chunk, Hq, d), returns the same shape; the
     kernels read q and write o in this layout (a kv head's rows in (group,
     chunk) order).  ``split_pages`` overrides :func:`split_plan`'s pages a
-    split (1: as many splits as pages)."""
+    split (1: as many splits as pages).  Head dims: bf16 q up to 256, f32 q
+    up to 128 (above, ``ValueError`` naming ROADMAP.md §B2b)."""
     check_no_grad(q, k_pages, v_pages)
     _check_pools(q, k_pages, v_pages, k_scales, v_scales)
     b, chunk, n_q_heads, d = q.shape
     h_kv, n_pages, page_size = k_pages.shape[:3]
-    check_head_dim(d, "paged kernel")
+    check_head_dim(d, "paged kernel",
+                   "paged_f32" if q.dtype == torch.float32 else "paged_bf16")
     if n_q_heads % h_kv:
         raise ValueError(f"q heads ({n_q_heads}) must be a multiple of kv "
                          f"heads ({h_kv})")

@@ -387,7 +387,7 @@ def kv8_flash_fwd(q, k: QuantizedTensor, v: QuantizedTensor, *, causal: bool,
     check_no_grad(q)
     b, h, n_q, d = q.shape
     h_kv, n_kv = k.values.shape[1], k.values.shape[2]
-    check_head_dim(d, "kv8 flash kernel")
+    check_head_dim(d, "kv8 flash kernel", "kv8_flash")
     route = _kv8_route(causal, n_q, n_kv, d)
     _check_tileable(route, n_q, n_kv)
     code, payload = _build.dtype_code(q), _build.payload_code(k.values)

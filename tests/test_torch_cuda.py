@@ -237,6 +237,71 @@ def test_flash_kernel(dev, dtype, case):
                                             else TOL[dtype])
 
 
+# head dims above 128, bf16 only (the forward's 256-column tiles; f32 is
+# ROADMAP.md §B2b): (b, h, h_kv, n_q, n_kv, d, causal, lengths, window).  The
+# op graph's warp-level kernel (<= 128 keys) and its wgmma walk (129..1023
+# keys); from 1024 keys the grid (JAX's schedule at d > 128) with key
+# blocks of 1024, 512, 64 (the 64-key tile's width), 32 and 8 (updates
+# inside a tile); MQA and GQA, lengths of 0, a window of 256
+FLASH_WIDE_CASES = {
+    "op_nq7_mqa_d136": (1, 4, 1, 7, 100, 136, True, None, None),
+    "op_nq1_nkv40_mqa_d256": (2, 8, 1, 1, 40, 256, False, None, None),
+    "op_n128_varlen_len0_mqa_d160": (3, 4, 1, 128, 128, 160, True,
+                                     [128, 50, 0], None),
+    "op_n517_mqa_d256": (1, 8, 1, 517, 517, 256, True, None, None),
+    "op_n1000_varlen_len0_gqa_d160": (2, 8, 2, 1000, 1000, 160, True,
+                                      [1000, 0], None),
+    "op_window256_varlen_n700_d256": (2, 2, 2, 700, 700, 256, True,
+                                      [700, 300], 256),
+    "grid_n2048_mqa_varlen_len0_d256": (4, 8, 1, 2048, 2048, 256, True,
+                                        [2048, 1536, 0, 517], None),
+    "grid_noncausal_n1024_d136": (1, 2, 2, 1024, 1024, 136, False, None,
+                                  None),
+    "grid_window256_n2048_d256": (1, 2, 1, 2048, 2048, 256, True, None, 256),
+    "grid_span512_1000x2560_d160": (1, 2, 2, 1000, 2560, 160, False, None,
+                                    None),
+    "grid_span64_n1088_d256": (1, 2, 2, 1088, 1088, 256, True, None, None),
+    "grid_span32_n1056_mqa_d256": (1, 4, 1, 1056, 1056, 256, True, None,
+                                   None),
+    "grid_span8_n1032_varlen_d160": (2, 2, 2, 1032, 1032, 160, True,
+                                     [1032, 700], None),
+    "cross_1000x2048_d256": (1, 2, 2, 1000, 2048, 256, False, None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_WIDE_CASES))
+def test_flash_kernel_wide_head_dims(dev, case):
+    """bf16 at d 136, 160 and 256 against the plain version of the shape's
+    schedule under the gate of the d-128 lines (:func:`_bf16_match`, lse
+    1e-5), one launch; f32 at the same shape raises ``ValueError`` naming
+    §B2b and the backward one naming §B2c, launching nothing."""
+    b, h, h_kv, n_q, n_kv, d, causal, lengths, window = FLASH_WIDE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = _randn(g, b, h, n_q, d, dtype=torch.bfloat16, dev=dev)
+    k = _randn(g, b, h_kv, n_kv, d, dtype=torch.bfloat16, dev=dev)
+    v = _randn(g, b, h_kv, n_kv, d, dtype=torch.bfloat16, dev=dev)
+    lens = None if lengths is None else torch.tensor(lengths, device=dev)
+    assert fa._schedule(q, k, causal, window, lens is not None).name in (
+        "op_graph", "grid")
+    before = _flash_launches()
+    o, lse = fa._flash_fwd_entry(q, k, v, causal, None, "auto", window, lens)
+    assert _flash_launches() == (before[0] + 1, before[1])
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, d ** -0.5, lens,
+                                        window)
+    _bf16_match(o, o_ref)
+    fin = lse_ref.isfinite()
+    assert torch.equal(lse.isfinite(), fin)
+    assert _err(lse[fin], lse_ref[fin]) <= 1e-5
+    before = _flash_launches()
+    with pytest.raises(ValueError, match="B2b"):
+        fa._flash_fwd_entry(q.float(), k.float(), v.float(), causal, None,
+                            "auto", window, lens)
+    with pytest.raises(ValueError, match="B2c"):
+        fa.flash_bwd(q, k, v, lse, lse, q, causal=causal, sm_scale=d ** -0.5,
+                     kv_lengths=lens, window=window)
+    assert _flash_launches() == before
+
+
 # (b, hq, hkv, d, chunk, page, pps, window): small ragged shapes (pages
 # smaller than a tile, a chunk of 40 rows)
 PAGED_CASES = {
@@ -325,8 +390,8 @@ def _paged_err(got, want):
     return err
 
 
-def _paged_split_inputs(case, dtype, pool, dev):
-    b, hq, hkv, d, chunk, page, pps, lens, window = PAGED_SPLIT_CASES[case]
+def _paged_split_inputs(case, dtype, pool, dev, cases=PAGED_SPLIT_CASES):
+    b, hq, hkv, d, chunk, page, pps, lens, window = cases[case]
     g = torch.Generator(device=dev).manual_seed(11)
     n_pages = b * pps + 1
     if pool == "native":
@@ -355,8 +420,12 @@ def test_paged_kernel_splits(dev, case, dtype, pool, split, capsys):
     planned split count, one split (the block writes o itself) and one
     split per page; two calls equal bit for bit.  Logs the share of
     elements equal to the plain version's bit for bit."""
-    q, kp, vp, lens, table, kw, window = _paged_split_inputs(case, dtype,
-                                                            pool, dev)
+    _paged_split_check(_paged_split_inputs(case, dtype, pool, dev), case,
+                       dtype, pool, split, capsys)
+
+
+def _paged_split_check(inputs, case, dtype, pool, split, capsys):
+    q, kp, vp, lens, table, kw, window = inputs
     split_pages = {"auto": None, "one": table.shape[1], "max": 1}[split]
 
     def run():
@@ -379,6 +448,51 @@ def test_paged_kernel_splits(dev, case, dtype, pool, split, capsys):
         print(f"\n[paged] {case} {str(dtype)[6:]} {pool} split={split}: "
               f"err {err:.3e}, bit for bit {100 * same:.2f}%")
     assert err <= TOL[dtype]
+
+
+# bf16 q at head dims above 128 (the decode and extend tiles' 256 columns,
+# the bf16 merge; f32 q is ROADMAP.md §B2b), as PAGED_SPLIT_CASES: MQA with
+# 8 q heads (a Gemma-2B decode: 8 rows a kv head), GQA 4, lengths 0 to
+# 8192, pages of 16, 100 and 128, chunks 1, 4, 64, 300 (three row tiles:
+# the marks and the poison pass) and 2048, window 256
+PAGED_WIDE_CASES = {
+    "decode_mqa8_page16_d256": (4, 8, 1, 256, 1, 16, 512,
+                                [0, 1, 17, 8192], None),
+    "decode_gqa4_page128_d160": (3, 8, 2, 160, 1, 128, 64,
+                                 [127, 129, 8192], None),
+    "decode_window256_page16_d136": (3, 4, 4, 136, 1, 16, 512,
+                                     [8192, 300, 1], 256),
+    "chunk4_mqa8_page100_d256": (3, 8, 1, 256, 4, 100, 82, [0, 101, 8192],
+                                 None),
+    "chunk64_mqa_page128_d256": (2, 8, 1, 256, 64, 128, 64, [64, 8192],
+                                 None),
+    "chunk64_window256_page128_d160": (2, 2, 2, 160, 64, 128, 32, [129, 4000],
+                                       256),
+    "wave300_window256_page16_d136": (2, 2, 2, 136, 300, 16, 40, [300, 640],
+                                      256),
+    "wave2048_page128_d256": (2, 1, 1, 256, 2048, 128, 32, [2048, 4096],
+                              None),
+}
+
+
+@pytest.mark.parametrize("split", ["auto", "one", "max"])
+@pytest.mark.parametrize("pool", POOLS)
+@pytest.mark.parametrize("case", list(PAGED_WIDE_CASES))
+def test_paged_kernel_wide_head_dims(dev, case, pool, split, capsys):
+    """bf16 q at d 136, 160 and 256 under test_paged_kernel_splits' gates
+    (the planned splits, one split, a split a page; two calls bit for bit);
+    f32 q over the same pool raises ``ValueError`` naming §B2b and
+    launches nothing."""
+    inputs = _paged_split_inputs(case, torch.bfloat16, pool, dev,
+                                 PAGED_WIDE_CASES)
+    _paged_split_check(inputs, case, torch.bfloat16, pool, split, capsys)
+    q, kp, vp, lens, table, kw, window = inputs
+    if pool == "native":
+        kp, vp = kp.float(), vp.float()
+    before = _paged_launches()
+    with pytest.raises(ValueError, match="B2b"):
+        pa.paged_attention(q.float(), kp, vp, lens, table, window=window, **kw)
+    assert _paged_launches() == before
 
 
 @pytest.mark.parametrize("pool", POOLS)
@@ -499,6 +613,53 @@ def test_kernels_refuse_grad_and_bad_head_dim(dev):
         with pytest.raises(ValueError, match=item):
             fa.flash_bwd(y, y, y, lse, lse, y, causal=True, sm_scale=d ** -0.5)
         assert _flash_launches() == (fwd, bwd)
+
+
+def test_wide_head_dims_refused_outside_b2a(dev):
+    """At d 256 the kernels without a 256-column tile raise ``ValueError``
+    naming their ROADMAP.md item before any launch: the f32 flash forward on
+    both routes (40 and 300 keys) and f32-q paged attention (§B2b),
+    ``kv8_flash`` in bf16 and f32 over int8 and fp8 payloads (§B2b), the
+    marks over an f32 pool (§B2b), and the flash backward reached through
+    autograd of the bf16 forward, which itself runs (§B2c)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    d = 256
+    counts = [fa._kernel, fa._f32_kernel, fa._f32_mma_kernel, fa._bwd_kernel,
+              fa._f32_bwd_kernel, fa._f32_mma_bwd_kernel, pa._kernel,
+              pa._f32_kernel, pa._nf_kernel, qt._kv8_kernel,
+              qt._kv8_f32_kernel]
+
+    def launches():
+        return [k.launches for k in counts]
+
+    before = launches()
+    for n in (40, 300):
+        x = _randn(g, 1, 2, n, d, dtype=torch.float32, dev=dev)
+        with pytest.raises(ValueError, match="B2b"):
+            fa.flash_attention(x, x, x, True)
+    pages = _randn(g, 1, 5, 16, d, dtype=torch.float32, dev=dev)
+    table = torch.arange(4, device=dev, dtype=torch.int32).reshape(2, 2)
+    lens = torch.tensor([20, 31], device=dev)
+    with pytest.raises(ValueError, match="B2b"):
+        pa.paged_attention(_randn(g, 2, 4, d, dtype=torch.float32, dev=dev),
+                           pages, pages, lens, table)
+    with pytest.raises(ValueError, match="B2b"):
+        pa.paged_nonfinite(pages, lens, table, 1)
+    for payload in PAYLOADS:
+        k8, v8 = (_quantize(_randn(g, 1, 1, 256, d, dtype=torch.float32,
+                                   dev=dev), payload) for _ in range(2))
+        for dtype in DTYPES:
+            q = _randn(g, 1, 2, 256, d, dtype=dtype, dev=dev)
+            with pytest.raises(ValueError, match="B2b"):
+                qt.flash_attention_kv_int8(q, k8, v8, True)
+    assert launches() == before
+    q, k, v = (_randn(g, 1, 8, 600, d, dtype=torch.bfloat16,
+                      dev=dev).requires_grad_() for _ in range(3))
+    o = fa.flash_attention(q, k, v, True)
+    assert fa._kernel.launches == before[0] + 1
+    with pytest.raises(ValueError, match="B2c"):
+        o.float().sum().backward()
+    assert launches()[1:] == before[1:]
 
 
 def _ln_bwd_inputs(shape, dtype, dev, offset=None):
@@ -1856,12 +2017,14 @@ def test_paged_nonfinite_kernel(dev, window, pool):
 
 
 # the head dims other than 32, 64 and 128 that the forward and inference
-# kernels take (multiples of 8 up to 128)
+# kernels take (multiples of 8 up to 128), and those of bf16 q's 256-column
+# tiles (136 to 256: the marks at five to eight words of columns)
 HEAD_DIMS_NEW = [16, 24, 48, 80, 96, 112, 120]
+HEAD_DIMS_WIDE = [136, 160, 256]
 
 
 @pytest.mark.parametrize("pool", POOLS)
-@pytest.mark.parametrize("d", HEAD_DIMS_NEW)
+@pytest.mark.parametrize("d", HEAD_DIMS_NEW + HEAD_DIMS_WIDE)
 def test_paged_marks_poison_head_dims(dev, d, pool):
     """C18 on the card: the marks kernel bit for bit against its plain
     version at cdiv(d, 32) + 1 words, and a 256-row bf16 wave (two extend

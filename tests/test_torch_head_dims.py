@@ -1,13 +1,15 @@
 """Head dims other than 32, 64 and 128: the port against the JAX package.
 
 JAX runs attention at any head dim (its ``_pad128`` zero-pads d 16..120 to
-128 for the subrow and loop schedules, forward and backward); the port's
-kernels, forward, backward and inference, take every multiple of 8 up to
-128, at tile widths of 32, 64 and 128 zero-padded as they load.  On the CPU
-the port runs its plain versions, so these tests hold the function at d
-16, 24, 80 and 96 to JAX's through the public entry points, with the same
-numpy-seeded inputs on both sides and JAX's Pallas kernels in interpret
-mode:
+128 for the subrow and loop schedules, forward and backward; above 128 it
+runs the grid from 1024 keys and the op graph below); the port's kernels,
+forward, backward and inference, take every multiple of 8 up to 128, and
+its bf16 forward and bf16-q paged kernels up to 256, at tile widths of 32,
+64, 128 (and 256) zero-padded as they load.  On the CPU the port runs its
+plain versions, so these tests hold the function at d 16, 24, 80 and 96,
+and at 160 and 256 (``WIDE_HEAD_DIMS``), to JAX's through the public entry
+points, with the same numpy-seeded inputs on both sides and JAX's Pallas
+kernels in interpret mode:
 
 * ``flash_attention`` / ``flash_attention_varlen`` /
   ``flash_attention_with_lse`` in bf16 and f32 below 1024 keys (XLA's op
@@ -24,7 +26,15 @@ mode:
 * the plain version of the paged marks (C18: cdiv(d, 32) words of columns
   and the V scale's word after them);
 * a DecoderLM with heads of 96 served by ``ContinuousBatchingEngine``
-  against JAX's engine on the same weights.
+  against JAX's engine on the same weights;
+* at d 160 and 256: the flash forward (the op graph at 200 keys with MQA,
+  the grid at 1024 keys varlen and not causal), paged attention with bf16
+  and f32 q over every pool (a decode, a chunk of 64, and a decode at
+  pages of 128, JAX's pipelined page walk), the marks' plain version, and
+  a DecoderLM with two heads of 256 and one kv head (RoPE) through both
+  engines;
+* the head-dim rule of each kernel family
+  (``flashattn_tpu_torch.ops._utils.check_head_dim``).
 
 Tolerances are those of the parity tests at d 32, 64 and 128: bf16 at least
 99.5% of the elements bit for bit and the rest within one bf16 ulp of the
@@ -60,6 +70,8 @@ from flashattn_tpu_torch.ops import quant as tq
 torch.set_num_threads(1)
 
 HEAD_DIMS = [16, 24, 80, 96]
+# the head dims of the bf16 forward's and bf16-q paged tiles of 256 columns
+WIDE_HEAD_DIMS = [160, 256]
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 PAYLOADS = {"int8": (jq.quantize_int8, torch.int8),
@@ -104,6 +116,10 @@ FLASH_CASES = {
     "pad128_subrow_n1024": (1, 1, 1, 1024, True, None),
     "pad128_subrow_varlen_n1024": (2, 1, 1, 1024, True, [1024, 515]),
     "grid_noncausal_n1024": (1, 1, 1, 1024, False, None),
+    # above d 128: the op graph with MQA (4 q heads, one kv head), and JAX's
+    # grid at 1024 keys for a causal varlen batch (no subrow schedule there)
+    "op_graph_mqa_causal_n200": (1, 4, 1, 200, True, None),
+    "grid_varlen_n1024": (2, 1, 1, 1024, True, [1024, 515]),
 }
 # every head dim in both dtypes below and at 1024 keys; the varlen and
 # grid functions at two head dims a dtype (JAX's interpret runs cost ~1 s
@@ -116,7 +132,13 @@ FLASH_PARAMS = (
        (96, "pad128_subrow_varlen_n1024", "bfloat16"),
        (24, "pad128_subrow_varlen_n1024", "float32"),
        (24, "grid_noncausal_n1024", "bfloat16"),
-       (80, "grid_noncausal_n1024", "float32")])
+       (80, "grid_noncausal_n1024", "float32")]
+    + [(d, "op_graph_mqa_causal_n200", n) for d in WIDE_HEAD_DIMS
+       for n in DTYPES]
+    + [(160, "grid_varlen_n1024", "bfloat16"),
+       (256, "grid_varlen_n1024", "float32"),
+       (256, "grid_noncausal_n1024", "bfloat16"),
+       (160, "grid_noncausal_n1024", "float32")])
 
 
 @pytest.mark.parametrize("d, case, name", FLASH_PARAMS)
@@ -203,11 +225,11 @@ def test_flash_grad_head_dims_match_jax(d, case, name):
             assert (got[2][bi, :, n_b:] == 0).all()
 
 
-def _paged_inputs(seed, d, chunk, page, hq, hkv, pool):
-    """bf16 q and pools (bf16, or int8 / fp8 payloads with their scales)
-    for both packages: five sequences of three pages (a full table, a
-    mid-page length, the chunk itself, 0, a padding length past the
-    table)."""
+def _paged_inputs(seed, d, chunk, page, hq, hkv, pool, name="bfloat16"):
+    """q in ``name`` (bf16 or f32) and pools (in q's dtype for ``pool``
+    "bf16", or int8 / fp8 payloads with their scales) for both packages:
+    five sequences of three pages (a full table, a mid-page length, the
+    chunk itself, 0, a padding length past the table)."""
     rng = np.random.default_rng(seed)
     b, pps, n_pages = 5, 3, 16
     shape = (b, chunk, hq, d) if chunk > 1 else (b, hq, d)
@@ -217,11 +239,11 @@ def _paged_inputs(seed, d, chunk, page, hq, hkv, pool):
     table = rng.permutation(n_pages)[:b * pps].reshape(b, pps).astype(np.int32)
     lens = np.asarray([page * pps, page + chunk + 1, chunk, 0,
                        page * pps + 3], np.int32)
-    qt, qj = _pair(q, "bfloat16")
+    qt, qj = _pair(q, name)
     rest_t = [torch.from_numpy(a) for a in (lens, table)]
     rest_j = [jnp.asarray(a) for a in (lens, table)]
     if pool == "bf16":
-        (kt, kj), (vt, vj) = _pair(kp, "bfloat16"), _pair(vp, "bfloat16")
+        (kt, kj), (vt, vj) = _pair(kp, name), _pair(vp, name)
         return (qt, kt, vt, *rest_t), {}, (qj, kj, vj, *rest_j), {}
     quantize, tdt = PAYLOADS[pool]
     kq, vq = quantize(jnp.asarray(kp), -1), quantize(jnp.asarray(vp), -1)
@@ -256,6 +278,32 @@ def test_paged_head_dims_match_jax(d, case, pool):
     want = jpa.paged_attention(*args_j, window=window, **kw_j)
     assert got.dtype == torch.bfloat16 and got.shape[-1] == d
     _row_ulp_match(got, want)
+
+
+# (chunk, page, window, hq, hkv) above d 128: a decode with MQA (4 q heads,
+# one kv head), a chunk of 64 (two q heads, one kv head), and a decode at
+# pages of 128 (JAX's pipelined page walk for the quantized pools too)
+WIDE_PAGED_CASES = {"decode_mqa4": (1, 4, None, 4, 1),
+                    "chunk64_mqa2": (64, 16, None, 2, 1),
+                    "decode_page128_gqa2": (1, 128, None, 4, 2)}
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("d, case", [
+    (160, "decode_mqa4"), (256, "decode_mqa4"), (160, "chunk64_mqa2"),
+    (256, "chunk64_mqa2"), (256, "decode_page128_gqa2")])
+def test_paged_wide_head_dims_match_jax(d, case, pool, name):
+    """bf16 and f32 q (pool "bf16": a pool in q's dtype) at d 160 and 256,
+    under the gates of the d-80/96 cases: bf16 by ``_row_ulp_match``, f32
+    within 1e-5."""
+    chunk, page, window, hq, hkv = WIDE_PAGED_CASES[case]
+    args_t, kw_t, args_j, kw_j = _paged_inputs(80 + d + chunk, d, chunk,
+                                               page, hq, hkv, pool, name)
+    got = pt.paged_attention(*args_t, window=window, **kw_t)
+    want = jpa.paged_attention(*args_j, window=window, **kw_j)
+    assert got.dtype == DTYPES[name][0] and got.shape[-1] == d
+    _check(got, want, name)
 
 
 def _kv8_inputs(d, payload, name):
@@ -331,11 +379,11 @@ def _marks_brute(vp, lens, table, chunk, vs=None):
 
 
 @pytest.mark.parametrize("pool", ["bf16", "fp8"])
-@pytest.mark.parametrize("d", [24, 80])
+@pytest.mark.parametrize("d", [24, 80] + WIDE_HEAD_DIMS)
 def test_paged_nonfinite_plain_head_dims(d, pool):
-    """C18: at d 24 and 80 the marks hold cdiv(d, 32) words of columns and
-    the V scale's flag in the word after them (the parent reshaped d into
-    d // 32 words and raised).  A NaN in column d - 1, one in column 0 and
+    """C18: at d 24, 80, 160 and 256 the marks hold cdiv(d, 32) words of
+    columns and the V scale's flag in the word after them (the parent
+    reshaped d into d // 32 words and raised).  A NaN in column d - 1, one in column 0 and
     (fp8) a NaN V scale, each on its own page of the walk."""
     rng = np.random.default_rng(50 + d)
     h_kv, n_pages, page, b, pps = 2, 9, 4, 2, 4
@@ -433,3 +481,63 @@ def test_train_step_d96_matches_jax():
             np.testing.assert_allclose(t_params[name].detach().numpy(),
                                        np.asarray(want), atol=1e-5, rtol=1e-5,
                                        err_msg=f"step {i}: {name}")
+
+
+@pytest.fixture(scope="module")
+def d256_models():
+    """A DecoderLM with two heads of 256 and one kv head (E512 L2, RoPE) in
+    both packages, the port's loaded with JAX's weights."""
+    kw = dict(p_dropout=0.0, n_layer=2, n_kv_head=1, pos_encoding="rope")
+    jm = ft.DecoderLM(64, 512, 2, 128, key=jax.random.PRNGKey(7), **kw).eval()
+    tm = pt.DecoderLM(64, 512, 2, 128, device="cpu", **kw).eval()
+    pt.load_jax_params(tm, {n: np.asarray(a) for n, a in jm.named_parameters()})
+    return jm, tm
+
+
+def test_engine_d256_matches_jax_engine(d256_models):
+    """Heads of 256 with MQA through the engines' prefill, chunked prefill
+    and decode, as ``test_engine_d96_matches_jax_engine``: identical greedy
+    tokens and every consumed position's logits within 1e-4."""
+    jm, tm = d256_models
+    rng = np.random.default_rng(61)
+    prompts = [list(rng.integers(1, 64, size=n)) for n in (5, 19, 11)]
+    kw = dict(max_batch=2, page_size=8, pages_per_seq=6, prefill_chunk=8,
+              collect_logits=True)
+    want = _serve(JaxEngine, jm, prompts, 4, **kw)
+    got = _serve(pt.ContinuousBatchingEngine, tm, prompts, 4, **kw)
+    for g, w in zip(got, want):
+        assert g.generated == w.generated
+        np.testing.assert_allclose(np.stack(g.logits), np.stack(w.logits),
+                                   atol=1e-4, rtol=1e-4)
+
+
+# (family, head dim, the ROADMAP.md item its ValueError names, or None
+# where the family takes the head dim)
+HEAD_DIM_RULE = [
+    ("flash_fwd_bf16", 136, None), ("flash_fwd_bf16", 256, None),
+    ("paged_bf16", 160, None), ("paged_bf16", 256, None),
+    ("flash_fwd_f32", 128, None), ("flash_fwd_f32", 136, "§B2b"),
+    ("flash_fwd_f32", 256, "§B2b"), ("paged_f32", 256, "§B2b"),
+    ("kv8_flash", 128, None), ("kv8_flash", 160, "§B2b"),
+    ("flash_bwd", 128, None), ("flash_bwd", 136, "§B2c"),
+    ("flash_bwd", 256, "§B2c"), ("flash_fwd_bf16", 264, "§B)"),
+    ("paged_bf16", 250, "§B3"), ("flash_bwd", 20, "§B3")]
+
+
+@pytest.mark.parametrize("family, d, item", HEAD_DIM_RULE)
+def test_head_dim_rule(family, d, item):
+    """Step 1's rule, a shape and dtype rule that never looks at a device:
+    the bf16 flash forward and bf16-q paged attention (with the marks) take
+    every multiple of 8 up to 256; the f32 forward, f32-q paged attention
+    and ``kv8_flash`` stop at 128 (§B2b), the flash backward at 128 (§B2c);
+    above 256 and off the multiples of 8 nothing takes it."""
+    from flashattn_tpu_torch.ops import _utils
+
+    assert _utils.HEAD_DIM_LIMITS[family][0] == (256 if family in (
+        "flash_fwd_bf16", "paged_bf16") else 128)
+    if item is None:
+        _utils.check_head_dim(d, "kernel", family)
+        return
+    with pytest.raises(ValueError) as err:
+        _utils.check_head_dim(d, "kernel", family)
+    assert item in str(err.value)

@@ -16,8 +16,6 @@ spills, and where the f32 weight-only matmul's time goes.
 from __future__ import annotations
 
 import argparse
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -28,26 +26,10 @@ WO_PREFILL = [(32768, 1024, 1024), (32768, 1024, 1000), (32768, 256, 1024)]
 
 
 def ptxas() -> None:
-    from flashattn_tpu_torch.ops import _build
+    from ptxas_report import report
 
-    csrc = REPO / "flashattn_tpu_torch" / "csrc"
-    for src in ("kv8_flash.cu", "wo_matmul.cu"):
-        res = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc),
-             "-c", str(csrc / src), "-o", "/dev/null"],
-            capture_output=True, text=True)
-        name = ""
-        for line in (res.stdout + res.stderr).splitlines():
-            if "Compiling entry function" in line:
-                mangled = line.split("'")[1]
-                hit = re.search(r"\d((?:kv8|wo|split)\w*)", mangled)
-                name = hit.group(1) if hit else mangled
-            elif "registers" in line or "spill" in line:
-                print(f"[ptxas] {src} {name[:60]}: {line.split(':', 1)[-1].strip()}",
-                      flush=True)
-        if res.returncode:
-            print(res.stderr[-6000:], flush=True)
-            raise SystemExit(f"nvcc failed on {src}")
+    if report(["kv8_flash.cu", "wo_matmul.cu"], None):
+        raise SystemExit("nvcc failed")
 
 
 def split() -> None:
